@@ -1,0 +1,96 @@
+"""The device block codec's surface: LZTB containers in and out.
+
+Port of ``lzma_tpu/ops/api.py`` (``encode_blocks``, ``decode_blocks``) and
+the carry-over helper ``from_numpy``.  Blocks are batched across lanes;
+on a CUDA device the range encoder and the decoder run as the CUDA
+kernels of ``cuda_serializer`` and ``cuda_ring``, on the CPU as their
+plain PyTorch versions.  The container format is ``lzma_tpu``'s own
+(``lzma_tpu/parallel/blocks.py``), so either package decodes the other's.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from lzma_tpu.core.rangecoder import CorruptStreamError
+from lzma_tpu.format.properties import LzmaParams
+from lzma_tpu.parallel import blocks as blk
+
+from .cuda_ring import decode_batch_cuda
+from .device_encoder import encode_batch
+
+
+def from_numpy(*arrays, device="cuda"):
+    """Tensors on `device` from numpy arrays, e.g. the JAX package's
+    outputs (tokens, (ctx, bit) streams, padded comp buffers) passed
+    through ``np.asarray``, so any stage of the port can be fed the
+    reference stage's exact output.  The arrays are copied (the JAX
+    package's are read-only).  Returns a tuple of tensors."""
+    return tuple(torch.from_numpy(np.array(a, copy=True, order="C")).to(device)
+                 for a in arrays)
+
+
+def encode_blocks(
+    data: bytes,
+    params: LzmaParams | None = None,
+    block_size: int = 1 << 18,
+    preset_len: int = 0,
+    dictionary: bytes = b"",
+    parse: str = "lazy",
+    device="cuda",
+) -> bytes:
+    """Lane-parallel block encode to an LZTB v1 container
+    (api.encode_blocks).  The shared-preset (v2, `preset_len`) and
+    stored-dictionary (v3, `dictionary`) forms and parse="optimal" are
+    not ported yet and raise NotImplementedError."""
+    params = (params or LzmaParams()).validated_for_encode()
+    if params.write_eos:
+        raise ValueError("block container uses known sizes; EOS not supported")
+    if parse != "lazy":
+        raise NotImplementedError(f"parse={parse!r}: only the lazy parse is ported")
+    preset_len = blk.validated_preset_len(preset_len, block_size, len(data))
+    dictionary = blk.validated_dictionary(dictionary, preset_len)
+    if len(data) <= block_size:
+        preset_len = 0  # single block: the reference drops the preset too
+    if not data:
+        dictionary = b""
+    if preset_len or dictionary:
+        raise NotImplementedError("preset and dictionary encoding are not ported")
+    blocks = blk.split_blocks(data, block_size)
+    streams = encode_batch(blocks, params, device=device) if blocks else []
+    return blk.build_container(params, block_size, len(data), streams)
+
+
+def decode_blocks(blob, device="cuda") -> bytes:
+    """Lane-parallel block decode of an LZTB container, versions 1-3
+    (api.decode_blocks with use_pallas=True)."""
+    frame = blk.parse_container(blob)
+    n = len(frame.comp_sizes)
+    if n == 0:
+        return b""
+    offsets, sizes = frame.stream_extents(len(blob))
+    streams = [bytes(blob[offsets[i] : offsets[i + 1]]) for i in range(n)]
+
+    def dec(s, o, preset=b""):
+        return decode_batch_cuda(s, frame.params, o, preset=preset,
+                                 device=device)
+
+    if frame.dict_len:
+        # LZTB v3: decode the stored dictionary on one lane, then all
+        # blocks in parallel against it
+        (dictionary,) = dec([bytes(blob[frame.payload_offset : frame.blocks_offset])],
+                            [frame.dict_len])
+        parts = dec(streams, sizes, preset=dictionary)
+    elif frame.preset_len:
+        # LZTB v2: block 0 decodes plain and is the preset source
+        head = dec(streams[:1], sizes[:1])
+        preset = head[0][: frame.preset_len]
+        rest = dec(streams[1:], sizes[1:], preset=preset) if n > 1 else []
+        parts = head + rest
+    else:
+        parts = dec(streams, sizes)
+    out = b"".join(parts)
+    if len(out) != frame.total_size:
+        raise CorruptStreamError("decoded size mismatch")
+    return out

@@ -1,0 +1,532 @@
+"""Lane-parallel LZMA encoder in PyTorch: parse, classify, lower, serialize.
+
+Port of the lazy, no-preset route of ``lzma_tpu/ops/device_encoder.py``.
+Once the token stream is fixed, the (context, bit) sequence fed to the
+range coder is fully determined, so the encoder splits into
+
+  A. tokenization                     (ops/device_matcher.tokenize)
+  B. token classification scan        (classify_tokens: state machine and
+                                       rep-distance MTF per token)
+  C. bit lowering                     (lower_tokens: every token's
+                                       (ctx, bit) pairs from closed forms,
+                                       scattered into a flat stream)
+  D. range-coder serialization        (serialize, the plain version of
+                                       the CUDA kernel in cuda_serializer)
+
+``encode_batch`` runs D through ``cuda_serializer.serialize_checked``:
+the kernel for CUDA tensors, the plain ``serialize`` for CPU tensors.
+The coder's uint32 ``low``/``range`` ride in int64 masked to 32 bits.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from lzma_tpu.core.layout import LITERAL_CODER_SIZE, POS_SLOT_TREE_SIZE, ProbLayout
+from lzma_tpu.format.properties import LzmaParams
+
+from .device_decoder import (_next_lit, _next_longrep, _next_match,
+                             _next_shortrep, _wrap_i32, pad_rows)
+from .device_matcher import _bit_length, tokenize
+
+K_LIT = 0
+K_MATCH = 1
+K_REP = 2
+
+#: sort-neighbor candidate tiers per position (device_encoder default)
+DEFAULT_NUM_CANDIDATES = 4
+
+MAXB = 50          # bits-with-context per token, upper bound
+CTX_DIRECT = -1    # sentinel ctx: equiprobable direct bit
+#: wire-distance sentinel of the end-of-stream marker token
+EOS_DIST = -2
+
+_M32 = 0xFFFFFFFF
+_w = torch.where
+
+
+def clamp_fb(fast_bytes: int) -> int:
+    """Validate fast bytes against the reference's 5..273 range
+    (device_encoder.clamp_fb)."""
+    fb = int(fast_bytes)
+    if not 5 <= fb <= 273:
+        raise ValueError(f"fast_bytes must be in 5..273, got {fb}")
+    return fb
+
+
+# ---------------------------------------------------------------- phase B
+# Scan cases: 0 fresh match, 1..4 rep0..rep3, 5 literal, 6 invalid token
+# (the carry holds).  _REP_PERM[case] picks the new reps from
+# [dist, r0, r1, r2, r3]; _state_table()[case, short, state] is the next
+# state (short = len < 2, the shortRep transition of a rep).
+_REP_PERM = [[0, 1, 2, 3], [1, 2, 3, 4], [2, 1, 3, 4], [3, 1, 2, 4],
+             [4, 1, 2, 3], [1, 2, 3, 4], [1, 2, 3, 4]]
+
+
+def _state_table(device):
+    s = torch.arange(12)
+    rows = []
+    for case in range(7):
+        for short in range(2):
+            if case == 6:
+                rows.append(s)
+            elif case == 5:
+                rows.append(_next_lit(s))
+            elif case == 0:
+                rows.append(_next_match(s))
+            else:
+                rows.append(_next_shortrep(s) if short else _next_longrep(s))
+    return torch.cat(rows).to(device)
+
+
+def classify_tokens(data, t_pos, t_len, t_dist, t_valid):
+    """LZMA state machine and rep MTF over the token stream
+    (device_encoder.classify_tokens).
+
+    data: (N, max_n) uint8; token arrays (N, T).  Returns per-token int64
+    tensors: kind, rep_idx, state_before, match_mode, match_byte,
+    prev_byte, lit_byte.  The reference's lax.scan becomes a loop over
+    the tokens up to the last valid one; past it the carry holds, so the
+    tail is filled in one vectorized step.
+    """
+    N, T = t_pos.shape
+    device = data.device
+    max_n = data.shape[1]
+    d8 = data.long()
+    t_pos = t_pos.long()
+    t_dist = t_dist.long()
+    valid = t_valid.bool()
+    # EOS_DIST is a MATCH (the end marker), not a literal
+    is_lit = (t_dist < 0) & (t_dist != EOS_DIST)
+    prev_byte = _w(t_pos > 0, d8.gather(1, torch.clamp(t_pos - 1, min=0)), 0)
+    lit_byte = d8.gather(1, torch.clamp(t_pos, max=max_n - 1))
+
+    table = _state_table(device)
+    perm = torch.tensor(_REP_PERM, dtype=torch.int64, device=device)
+    weights = torch.tensor([4, 3, 2, 1], dtype=torch.int64, device=device)
+    # per-token operands as contiguous rows, one per scan step
+    dist_r = t_dist.T.contiguous()
+    lit_r = is_lit.T.contiguous()
+    valid_r = valid.T.contiguous()
+    short_r = ((t_len < 2).long() * 12).T.contiguous()
+    case_r = torch.empty((T, N), dtype=torch.int64, device=device)
+    state_r = torch.empty((T, N), dtype=torch.int64, device=device)
+    r0_r = torch.empty((T, N), dtype=torch.int64, device=device)
+
+    state = torch.zeros((N,), dtype=torch.int64, device=device)
+    reps = torch.zeros((N, 4), dtype=torch.int64, device=device)
+    any_valid = torch.nonzero(valid.any(dim=0))
+    n_loop = int(any_valid.max()) + 1 if any_valid.numel() else 0
+
+    def case_of(reps_, dist_, lit_):
+        # first matching rep (r0 priority) -> case 1..4, none -> 0
+        m = ((reps_ == dist_[..., None]) * weights).amax(dim=-1)
+        return _w(lit_, 5, _w(m > 0, 5 - m, 0))
+
+    for i in range(n_loop):
+        dist = dist_r[i]
+        state_r[i] = state
+        r0_r[i] = reps[:, 0]
+        case = case_of(reps, dist, lit_r[i])
+        case_r[i] = case
+        ucase = _w(valid_r[i], case, 6)
+        reps = torch.cat([dist[:, None], reps], dim=1).gather(1, perm[ucase])
+        state = table[ucase * 24 + short_r[i] + state]
+    if n_loop < T:
+        state_r[n_loop:] = state
+        r0_r[n_loop:] = reps[:, 0]
+        case_r[n_loop:] = case_of(reps[None], dist_r[n_loop:], lit_r[n_loop:])
+
+    case = case_r.T
+    state_b = state_r.T
+    is_rep = (case >= 1) & (case <= 4)
+    kind = _w(is_lit, K_LIT, _w(is_rep, K_REP, K_MATCH))
+    rep_idx = _w(is_rep, case - 1, 3)
+    match_mode = ((state_b >= 7) & is_lit).long()
+    match_byte = d8.gather(1, torch.clamp(t_pos - r0_r.T - 1, 0, max_n - 1))
+    return kind, rep_idx, state_b, match_mode, match_byte, prev_byte, lit_byte
+
+
+# ---------------------------------------------------------------- phase C
+def _bitrev_low(v, k_vec, width):
+    """Reverse the low k bits of v (k <= width), elementwise."""
+    out = torch.zeros_like(v)
+    for j in range(width):
+        bit = (v >> j) & 1
+        shift = torch.clamp(k_vec - 1 - j, min=0)
+        out = out | _w(j < k_vec, bit << shift, 0)
+    return out
+
+
+def lower_tokens(data, meta, t_pos, t_len, t_dist, t_valid, lc, lp, pb,
+                 max_bits):
+    """Expand tokens into (ctx, bit) pairs scattered into flat per-lane
+    streams (device_encoder.lower_tokens, no preset).  Returns ctx
+    (N, max_bits) int32, bit (N, max_bits) int32, total (N,) int64.
+
+    Where the reference silently drops bits that do not fit (a long
+    token past the compacted buffer, a bit past max_bits), this raises:
+    valid inputs never reach either."""
+    layout = ProbLayout(lc, lp, pb, pos_bits=pb)
+    kind, rep_idx, state, match_mode, match_byte, prev_byte, lit_byte = meta
+    N, T = t_pos.shape
+    device = t_pos.device
+    t_pos = t_pos.long()
+    t_len = t_len.long()
+    t_dist = t_dist.long()
+    coded_pos = t_pos
+    pos_state = coded_pos & ((1 << pb) - 1)
+    valid = t_valid.bool()
+
+    is_lit = kind == K_LIT
+    is_match = kind == K_MATCH
+    is_rep = kind == K_REP
+
+    # ---- per-token geometry ----
+    l_sym = torch.clamp(t_len - 2, min=0)
+    dlen = _w(l_sym < 8, 4, _w(l_sym < 16, 5, 10))
+    rbits = _w(rep_idx < 2, 2, 3)
+    srep = is_rep & (t_len < 2)
+
+    # the EOS marker's wire distance is 0xFFFFFFFF == int32 -1: slot 63;
+    # base_val and reduced wrap in int32 exactly as in the reference
+    is_eos = t_dist == EOS_DIST
+    dist = _w(is_eos, -1, torch.clamp(t_dist, min=0))
+    nb = _bit_length(_w(is_eos, _M32, torch.clamp(dist, min=1))) - 1
+    slot = _w(dist < 4, dist,
+              (nb << 1) | ((dist >> torch.clamp(nb - 1, min=0)) & 1))
+    slot = _w(is_eos, 63, slot)
+    footer = torch.clamp((slot >> 1) - 1, min=0)
+    base_val = _wrap_i32((2 | (slot & 1)) << footer)
+    reduced = _wrap_i32(dist - base_val)
+    spec = is_match & (slot >= 4) & (slot < 14)
+    huge = is_match & (slot >= 14)
+    tail_bits = _w(spec | huge, footer, 0)   # direct + align == footer
+
+    repsel_s = 2
+    len_s = _w(is_rep, 2 + rbits, 2)
+    slot_s = len_s + dlen
+    tail_s = slot_s + 6
+
+    nbits = _w(is_lit, 9, _w(is_rep, len_s + dlen, tail_s + tail_bits))
+    nbits = _w(srep, 4, nbits)
+    nbits = _w(valid, nbits, 0)
+
+    base_off = torch.cumsum(nbits, dim=1) - nbits
+    total = nbits.sum(dim=1)
+
+    L = layout
+    im_ctx = L.is_match + (state << L.pos_bits) + pos_state
+    lit_sub = L.literal + (
+        ((coded_pos & ((1 << lp) - 1)) << lc) + (prev_byte >> (8 - lc))
+    ) * LITERAL_CODER_SIZE
+    len_base = _w(is_rep, L.rep_len_coder, L.len_coder)
+    lps = torch.clamp(t_len - 2, max=3)
+    slot_tree = L.pos_slot + lps * POS_SLOT_TREE_SIZE
+    x = lit_byte ^ match_byte
+
+    band = _w(l_sym < 8, 0, _w(l_sym < 16, 1, 2))
+    band_bits = _w(band == 2, 8, 3)
+    band_v = _w(band == 0, l_sym, _w(band == 1, l_sym - 8, l_sym - 16))
+    band_tree = _w(
+        band == 0, len_base + L.len_low + (pos_state << 3),
+        _w(band == 1, len_base + L.len_mid + (pos_state << 3),
+           len_base + L.len_high))
+    choice_bits = _w(band == 0, 1, 2)
+
+    F_full = dict(
+        nbits=nbits, base_off=base_off, is_lit=is_lit, is_rep=is_rep,
+        is_match=is_match, srep=srep, im_ctx=im_ctx, lit_sub=lit_sub,
+        lit_byte=lit_byte, match_byte=match_byte, x=x,
+        match_mode=match_mode, state=state, pos_state=pos_state,
+        rep_idx=rep_idx, rbits=rbits, len_s=len_s, dlen=dlen, band=band,
+        band_v=band_v, band_bits=band_bits, band_tree=band_tree,
+        choice_bits=choice_bits, len_base=len_base, slot=slot,
+        slot_tree=slot_tree, slot_s=slot_s, tail_s=tail_s, spec=spec,
+        huge=huge, footer=footer, reduced=reduced, base_val=base_val,
+    )
+
+    def emit_slot(F, cls, t, short_side, ctx_out):
+        """Scatter bit-slot t of every class-selected token.
+        short_side: literal and shortRep tokens (slots 0..8); otherwise
+        len >= 2 matches and reps (the literal section never fires)."""
+        in_tok = (t < F["nbits"]) & cls
+        width = in_tok.shape[1]
+        ctx_t = torch.zeros((N, width), dtype=torch.int64, device=device)
+        bit_t = torch.zeros((N, width), dtype=torch.int64, device=device)
+        lit = F["is_lit"] if short_side else torch.zeros_like(in_tok)
+
+        # -- slot 0: is_match bit --
+        sel = in_tok & (t == 0)
+        ctx_t = _w(sel, F["im_ctx"], ctx_t)
+        bit_t = _w(sel, _w(lit, 0, 1), bit_t)
+
+        if short_side:
+            # -- literal bits (k = t-1 in 0..7) --
+            k = min(max(t - 1, 0), 7)
+            sel = in_tok & lit & (t >= 1)
+            m = (1 << k) | (F["lit_byte"] >> (8 - k))
+            b = (F["lit_byte"] >> (7 - k)) & 1
+            prefix_eq = (F["x"] >> (8 - k)) == 0
+            mbit = (F["match_byte"] >> (7 - k)) & 1
+            use_matched = (F["match_mode"] > 0) & prefix_eq
+            c = F["lit_sub"] + _w(use_matched, ((1 + mbit) << 8) + m, m)
+            ctx_t = _w(sel, c, ctx_t)
+            bit_t = _w(sel, b, bit_t)
+
+        # -- is_rep bit (match/rep slot 1) --
+        sel = in_tok & ~lit & (t == 1)
+        ctx_t = _w(sel, L.is_rep + F["state"], ctx_t)
+        bit_t = _w(sel, F["is_rep"].long(), bit_t)
+
+        # -- rep selector bits: r0 -> [g0=0, rep0long=1]; r1 -> [1,0];
+        #    r2 -> [1,1,0]; r3 -> [1,1,1] --
+        kk = t - repsel_s
+        sel = in_tok & F["is_rep"] & (kk >= 0) & (kk < F["rbits"])
+        c1 = _w(F["rep_idx"] == 0,
+                L.is_rep0_long + (F["state"] << L.pos_bits) + F["pos_state"],
+                L.is_rep_g1 + F["state"])
+        b1v = _w(F["rep_idx"] == 0, _w(F["srep"], 0, 1),
+                 _w(F["rep_idx"] == 1, 0, 1))
+        if kk == 0:
+            c = L.is_rep_g0 + F["state"]
+            b = _w(F["rep_idx"] == 0, 0, 1)
+        elif kk == 1:
+            c, b = c1, b1v
+        else:
+            c = L.is_rep_g2 + F["state"]
+            b = _w(F["rep_idx"] == 2, 0, 1)
+        ctx_t = _w(sel, c, ctx_t)
+        bit_t = _w(sel, b, bit_t)
+
+        if not short_side:
+            # -- length bits (match + rep) --
+            kk = t - F["len_s"]
+            sel_len = in_tok & (kk >= 0) & (kk < F["dlen"])
+            sel = sel_len & (kk == 0)
+            ctx_t = _w(sel, F["len_base"] + L.len_choice, ctx_t)
+            bit_t = _w(sel, _w(F["band"] == 0, 0, 1), bit_t)
+            sel = sel_len & (kk == 1) & (F["band"] > 0)
+            ctx_t = _w(sel, F["len_base"] + L.len_choice2, ctx_t)
+            bit_t = _w(sel, _w(F["band"] == 1, 0, 1), bit_t)
+            #   band tree (MSB-first): after j bits m = (1<<j) | (v >> (nb-j))
+            j = torch.clamp(kk - F["choice_bits"], 0, 8)
+            sel = sel_len & (kk - F["choice_bits"] >= 0)
+            m = (1 << j) | (F["band_v"] >> torch.clamp(F["band_bits"] - j, 0, 31))
+            b = (F["band_v"] >> torch.clamp(F["band_bits"] - 1 - j, 0, 31)) & 1
+            ctx_t = _w(sel, F["band_tree"] + m, ctx_t)
+            bit_t = _w(sel, b, bit_t)
+
+            # -- pos_slot tree (match only), 6 bits MSB-first --
+            j_raw = t - F["slot_s"]
+            j = torch.clamp(j_raw, 0, 5)
+            sel = in_tok & F["is_match"] & (j_raw >= 0) & (j_raw < 6)
+            m = (1 << j) | (F["slot"] >> (6 - j))
+            b = (F["slot"] >> (5 - j)) & 1
+            ctx_t = _w(sel, F["slot_tree"] + m, ctx_t)
+            bit_t = _w(sel, b, bit_t)
+
+            # -- distance tail --
+            j_raw = t - F["tail_s"]
+            #   spec_pos reverse tree: footer (<=5) bits LSB-first
+            j = torch.clamp(j_raw, 0, 4)
+            sel = in_tok & F["spec"] & (j_raw >= 0) & (j_raw < F["footer"])
+            m_rev = (1 << j) | _bitrev_low(F["reduced"], j, 5)
+            b = (F["reduced"] >> j) & 1
+            ctx_t = _w(sel, L.spec_pos + F["base_val"] - F["slot"] - 1 + m_rev,
+                       ctx_t)
+            bit_t = _w(sel, b, bit_t)
+            #   huge: direct bits MSB-first then 4-bit align rev tree
+            nd = F["footer"] - 4
+            sel = in_tok & F["huge"] & (j_raw >= 0) & (j_raw < nd)
+            b = (F["reduced"] >> torch.clamp(F["footer"] - 1 - j_raw, 0, 31)) & 1
+            ctx_t = _w(sel, CTX_DIRECT, ctx_t)
+            bit_t = _w(sel, b, bit_t)
+            ja = torch.clamp(j_raw - nd, 0, 3)
+            sel = in_tok & F["huge"] & (j_raw - nd >= 0) & (j_raw - nd < 4)
+            align_v = F["reduced"] & 15
+            m_rev = (1 << ja) | _bitrev_low(align_v, ja, 4)
+            b = (align_v >> ja) & 1
+            ctx_t = _w(sel, L.align + m_rev, ctx_t)
+            bit_t = _w(sel, b, bit_t)
+
+        # one packed scatter into the flat stream; column max_bits is the
+        # sink of the slots no token emits
+        dest = _w(in_tok, F["base_off"] + t, max_bits)
+        packed = _w(in_tok, ctx_t * 2 + bit_t, 0).to(torch.int32)
+        return ctx_out.scatter_(1, dest, packed)
+
+    if bool((total > max_bits).any()):
+        raise ValueError(f"token bits exceed the {max_bits}-entry stream")
+    # packed plane: ctx * 2 + bit, initialized to the direct-bit ctx
+    ctx_out = torch.full((N, max_bits + 1), CTX_DIRECT * 2, dtype=torch.int32,
+                         device=device)
+
+    short_cls = valid & (is_lit | srep)
+    for t in range(9):
+        ctx_out = emit_slot(F_full, short_cls, t, True, ctx_out)
+
+    # LONG tokens (len >= 2, so at most T/2 + 1 per lane) compacted to a
+    # half-width buffer; column Tc is the sink of the others
+    Tc = T // 2 + 2
+    long_cls = valid & ~(is_lit | srep)
+    lidx = torch.cumsum(long_cls.long(), dim=1) - 1
+    if bool((long_cls & (lidx >= Tc)).any()):
+        raise ValueError("long tokens overflow the compacted lowering buffer")
+    ltgt = _w(long_cls, lidx, Tc)
+
+    def comp(a):
+        out = torch.zeros((N, Tc + 1), dtype=a.dtype, device=device)
+        return out.scatter_(1, ltgt, a)[:, :Tc]
+
+    LONG_FIELDS = ("nbits", "base_off", "im_ctx", "is_rep", "is_match",
+                   "state", "pos_state", "rep_idx", "srep", "rbits", "len_s",
+                   "dlen", "band", "band_v", "band_bits", "band_tree",
+                   "choice_bits", "len_base", "slot", "slot_tree",
+                   "slot_s", "tail_s", "spec", "huge", "footer",
+                   "reduced", "base_val")
+    F_long = {kk: comp(F_full[kk]) for kk in LONG_FIELDS}
+    long_c = comp(long_cls)
+    maxb = min(int(_w(long_cls, nbits, 0).max()) if T else 0, MAXB)
+    for t in range(maxb):
+        ctx_out = emit_slot(F_long, long_c, t, False, ctx_out)
+    ctx_out = ctx_out[:, :max_bits]
+    return ctx_out >> 1, ctx_out & 1, total.to(torch.int32)
+
+
+# ---------------------------------------------------------------- phase D
+#: iterations between the any-lane-unfinished checks; a finished lane's
+#: step changes nothing, so the extra steps are harmless
+_CHECK_EVERY = 32
+
+
+def serialize(ctx, bits, totals, arena_size: int, max_out: int):
+    """Range-code the per-lane (ctx, bit) streams (device_encoder.serialize).
+    One op per iteration per lane: adaptive bit, direct bit, drain-filler
+    byte, or flush step.  The plain PyTorch version of
+    ``cuda_serializer.serialize_cuda``.  Returns (out (N, max_out) uint8,
+    out_pos (N,) int32); out_pos can pass max_out, whose last byte then
+    takes the overflow writes as in the reference."""
+    N, B = ctx.shape
+    device = ctx.device
+    lanes = torch.arange(N, device=device)
+    totals = totals.long()
+
+    probs = torch.full((N, arena_size + 1), 1024, dtype=torch.int64,
+                       device=device)                # column arena_size: sink
+    out = torch.zeros((N, max_out + 1), dtype=torch.int64, device=device)
+
+    def z(v=0):
+        return torch.full((N,), v, dtype=torch.int64, device=device)
+
+    low, carry, rng, cache = z(), z(), z(_M32), z()
+    pending, drain, drain_byte = z(), z(), z()
+    bit_pos, out_pos, flush_i = z(), z(), z()
+
+    it = 0
+    while True:
+        if it % _CHECK_EVERY == 0:
+            unfinished = (bit_pos < totals) | (drain > 0) | (flush_i < 5)
+            if not bool(unfinished.any()):
+                break
+        it += 1
+        draining = drain > 0
+        has_bits = bit_pos < totals
+        flushing = ~draining & ~has_bits & (flush_i < 5)
+        coding = ~draining & has_bits
+
+        bp = torch.clamp(bit_pos, max=B - 1)
+        cx = ctx[lanes, bp].long()
+        bt = bits[lanes, bp].long()
+        adaptive = coding & (cx >= 0)
+        direct = coding & (cx == CTX_DIRECT)
+
+        # adaptive bit
+        safe_cx = _w(adaptive, cx, arena_size)
+        prob = probs[lanes, safe_cx]
+        bound = (rng >> 11) * prob
+        low_add_a = _w(bt == 1, bound, 0)
+        rng_a = _w(bt == 0, bound, rng - bound)
+        probs[lanes, safe_cx] = _w(bt == 0, prob + ((2048 - prob) >> 5),
+                                   prob - (prob >> 5))
+
+        # direct bit
+        rng_d = rng >> 1
+        low_add_d = _w(bt == 1, rng_d, 0)
+
+        rng1 = _w(adaptive, rng_a, _w(direct, rng_d, rng))
+        low_add = _w(adaptive, low_add_a, _w(direct, low_add_d, 0))
+        wide = low + low_add
+        new_low = wide & _M32
+        new_carry = carry | (wide >> 32)
+
+        # renormalize / flush -> shiftLow
+        shift_bit = coding & (rng1 < (1 << 24))
+        need_shift = shift_bit | flushing
+        rng = _w(shift_bit, rng1 << 8, rng1)
+
+        fire = need_shift & ((new_carry == 1) | (new_low < 0xFF000000))
+        stall = need_shift & ~fire
+        emit_byte = (cache + new_carry) & 0xFF
+        filler = (0xFF + new_carry) & 0xFF
+
+        # one write per iteration: a drain filler or the fired cache byte
+        wpos = torch.clamp(out_pos, max=max_out - 1)
+        wi = _w(draining | fire, wpos, max_out)
+        out[lanes, wi] = _w(draining, drain_byte, emit_byte)
+
+        out_pos = out_pos + (draining | fire).long()
+        drain = _w(draining, drain - 1, _w(fire, pending, drain))
+        drain_byte = _w(fire, filler, drain_byte)
+        pending = _w(fire, 0, _w(stall, pending + 1, pending))
+        cache = _w(fire, new_low >> 24, cache)
+        low = _w(need_shift, (new_low & 0xFFFFFF) << 8, new_low)
+        carry = _w(need_shift, 0, new_carry)
+        bit_pos = bit_pos + coding.long()
+        flush_i = flush_i + flushing.long()
+
+    return out[:, :max_out].to(torch.uint8), out_pos.to(torch.int32)
+
+
+# ------------------------------------------------------------------ API
+def _lower_lanes(data, lens, dict_size, lc, lp, pb, fb, num_candidates):
+    """Phases A-C for a lane batch, lazy parse, no preset
+    (device_encoder._lower_lanes).  Returns (ctx, bits, totals, max_out)."""
+    max_n = data.shape[1]
+    t_pos, t_len, t_dist, t_valid, _ = tokenize(data, lens, dict_size, fb,
+                                                num_candidates)
+    meta = classify_tokens(data, t_pos, t_len, t_dist, t_valid)
+    max_bits = 10 * max_n + 128
+    ctx, bits, totals = lower_tokens(data, meta, t_pos, t_len, t_dist,
+                                     t_valid, lc, lp, pb, max_bits)
+    return ctx, bits, totals, max_n + max_n // 4 + 128
+
+
+def encode_batch(blocks, params: LzmaParams, fb=None,
+                 num_candidates: int = DEFAULT_NUM_CANDIDATES,
+                 parse: str = "lazy", device="cuda"):
+    """Encode independent blocks lane-parallel (device_encoder.encode_batch,
+    lazy parse, no preset).  The range coder is the CUDA kernel for a
+    CUDA `device` and the plain ``serialize`` for the CPU.  Returns a
+    list of raw LZMA streams."""
+    from .cuda_serializer import serialize_checked
+
+    if not blocks:
+        return []
+    if parse != "lazy":
+        raise NotImplementedError(f"parse={parse!r}: only the lazy parse is ported")
+    params = params.validated_for_encode()
+    fb = clamp_fb(fb if fb is not None else params.fast_bytes)
+    data_t, lens_t = pad_rows(blocks, device)  # pow2 bucket, as the reference
+    # the match window never reaches past the bucket: this bound changes
+    # the distances searched, hence the bytes, exactly as in the reference
+    dict_j = min(params.dict_size, data_t.shape[1])
+    ctx, bits, totals, max_out = _lower_lanes(
+        data_t, lens_t, dict_j, params.lc, params.lp, params.pb, fb,
+        num_candidates)
+    layout = ProbLayout(params.lc, params.lp, params.pb, pos_bits=params.pb)
+    out, out_lens = serialize_checked(ctx, bits, totals, layout.size,
+                                      int(max_out))
+    out = out.cpu().numpy()
+    out_lens = out_lens.cpu().numpy()
+    return [out[i, : out_lens[i]].tobytes() for i in range(len(blocks))]

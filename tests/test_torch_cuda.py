@@ -1,0 +1,162 @@
+"""The CUDA kernels against their plain versions, on the card.
+
+Every test takes the `card` fixture, which skips when PyTorch sees no
+CUDA device (the decision is made at run time, never at import).  Run on
+a machine with an NVIDIA H100 and the CUDA toolkit:
+
+    python -m pytest tests/test_torch_cuda.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from lzma_tpu.bench.datagen import generate_bench_data
+from lzma_tpu.codec.encoder import encode_stream
+from lzma_tpu.core.layout import ProbLayout
+from lzma_tpu.core.rangecoder import CorruptStreamError
+from lzma_tpu.format.properties import LzmaParams
+from lzma_tpu_torch.ops import api, cuda_ring, cuda_serializer
+from lzma_tpu_torch.ops.device_decoder import _decode_fsm, pad_rows
+from lzma_tpu_torch.ops.device_encoder import _lower_lanes, serialize
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def _blocks(n, size, seed):
+    rng = np.random.default_rng(seed)
+    bench = generate_bench_data(n * size)
+    out = [bench[i * size:(i + 1) * size] for i in range(n)]
+    out[-1] = out[-1][: size // 2] + rng.integers(0, 256, size // 4,
+                                                  dtype=np.uint8).tobytes()
+    return out
+
+
+def _lowered(blocks, params, dev):
+    d, n = pad_rows(blocks, dev)
+    return _lower_lanes(d, n, min(params.dict_size, d.shape[1]), params.lc,
+                        params.lp, params.pb, params.fast_bytes, 4)
+
+
+# (8, 4, 2): the largest arena, 3,147,574 probabilities a lane
+@pytest.mark.parametrize("lc,lp,pb", [(3, 0, 2), (0, 0, 0), (1, 2, 1), (8, 4, 2)])
+def test_serializer_kernel_matches_plain(card, lc, lp, pb):
+    params = LzmaParams(lc=lc, lp=lp, pb=pb, dict_size=1 << 12)
+    arena = ProbLayout(lc, lp, pb, pos_bits=pb).size
+    ctx, bits, totals, max_out = _lowered(_blocks(4, 1024, lc), params, card)
+    out, lens, consumed = cuda_serializer.serialize_cuda(ctx, bits, totals,
+                                                         arena, int(max_out))
+    p_out, p_lens = serialize(ctx, bits, totals, arena, int(max_out))
+    torch.cuda.synchronize()
+    assert torch.equal(consumed, totals)
+    assert torch.equal(lens, p_lens)
+    assert torch.equal(out, p_out)
+
+
+def test_decoder_kernel_matches_plain_with_and_without_preset(card):
+    params = LzmaParams(dict_size=1 << 12)
+    blocks = _blocks(4, 1024, 7)
+    streams = [encode_stream(b, params, mode="greedy") for b in blocks]
+    comp, lens = pad_rows(streams, card)
+    sizes = torch.tensor([len(b) for b in blocks], dtype=torch.int32, device=card)
+    args = (comp, lens, sizes, params.dict_size, 3, 0, 2, 1024)
+    k, p = cuda_ring.decode_cuda(*args), _decode_fsm(*args)
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+    assert bool(k[1].all())
+
+    preset = blocks[0][:512]
+    streams = [encode_stream(b, params, preset=preset, mode="greedy")
+               for b in blocks[1:]]
+    comp, lens = pad_rows(streams, card)
+    sizes = torch.tensor([len(b) + 512 for b in blocks[1:]], dtype=torch.int32,
+                         device=card)
+    pre = torch.frombuffer(bytearray(preset), dtype=torch.uint8).to(card)
+    args = (comp, lens, sizes, params.dict_size, 3, 0, 2, 2048)
+    k = cuda_ring.decode_cuda(*args, preset=pre)
+    p = _decode_fsm(*args, preset=pre)
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+    for i, b in enumerate(blocks[1:]):
+        assert k[0][i, 512:512 + len(b)].cpu().numpy().tobytes() == b
+
+
+def test_decoder_kernel_matches_plain_at_the_largest_arena(card):
+    params = LzmaParams(lc=8, lp=4, pb=2, dict_size=1 << 12)
+    blocks = _blocks(2, 1024, 8)
+    streams = [encode_stream(b, params, mode="greedy") for b in blocks]
+    comp, lens = pad_rows(streams, card)
+    sizes = torch.tensor([len(b) for b in blocks], dtype=torch.int32, device=card)
+    args = (comp, lens, sizes, params.dict_size, 8, 4, 2, 1024)
+    k, p = cuda_ring.decode_cuda(*args), _decode_fsm(*args)
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+    assert bool(k[1].all())
+    for i, b in enumerate(blocks):
+        assert k[0][i, :len(b)].cpu().numpy().tobytes() == b
+
+
+def test_decoder_kernel_fails_corrupt_lanes_like_plain(card):
+    params = LzmaParams(dict_size=1 << 12)
+    payload = generate_bench_data(700)
+    good = encode_stream(payload, params, mode="greedy")
+    bad = bytearray(good)
+    bad[len(good) // 2] ^= 0x5A
+    # truncations at many points: some lanes overrun on a literal's last
+    # bit, where the FSM still emits the byte before failing
+    cuts = [good[:k] for k in range(40, len(good) - 20, (len(good) - 60) // 24)]
+    streams = [bytes(bad)] + cuts + [good, good]
+    sizes = [700] * (1 + len(cuts)) + [750, 650]
+    comp, lens = pad_rows(streams, card)
+    for dict_size in (1 << 12, 16):
+        args = (comp, lens, torch.tensor(sizes, dtype=torch.int32, device=card),
+                dict_size, 3, 0, 2, 1024)
+        k_out, k_ok, k_pos = cuda_ring.decode_cuda(*args)
+        p_out, p_ok, p_pos = _decode_fsm(*args)
+        assert torch.equal(k_ok, p_ok) and torch.equal(k_pos, p_pos)
+        assert torch.equal(k_out, p_out)
+        assert not bool(k_ok[:1 + len(cuts)].any())
+    with pytest.raises(CorruptStreamError):
+        cuda_ring.decode_batch_cuda([bytes(bad)], params, [700], device=card)
+
+
+def test_eos_lane_on_the_card(card):
+    params = LzmaParams(dict_size=1 << 12, write_eos=True)
+    payload = generate_bench_data(900)
+    stream = encode_stream(payload, params, mode="greedy")
+    assert cuda_ring.decode_batch_cuda([stream], params, [-4096],
+                                       device=card) == [payload]
+    with pytest.raises(CorruptStreamError):
+        cuda_ring.decode_batch_cuda([stream], params, [-600], device=card)
+
+
+def test_block_codec_runs_both_kernels(card):
+    data = generate_bench_data(20000)
+    params = LzmaParams(dict_size=1 << 14)
+    enc0, dec0 = cuda_serializer.LAUNCHES, cuda_ring.LAUNCHES
+    blob = api.encode_blocks(data, params, block_size=4096, device=card)
+    assert blob == api.encode_blocks(data, params, block_size=4096, device="cpu")
+    assert api.decode_blocks(blob, device=card) == data
+    assert cuda_serializer.LAUNCHES > enc0 and cuda_ring.LAUNCHES > dec0
+
+
+def test_wrappers_reject_bad_dtype_and_device(card):
+    ctx = torch.zeros((2, 8), dtype=torch.int32, device=card)
+    totals = torch.zeros((2,), dtype=torch.int32, device=card)
+    with pytest.raises(TypeError):
+        cuda_serializer.serialize_cuda(ctx.long(), ctx, totals, 16, 32)
+    with pytest.raises(ValueError):
+        cuda_serializer.serialize_cuda(ctx, ctx, totals.cpu(), 16, 32)
+    comp = torch.zeros((2, 16), dtype=torch.uint8, device=card)
+    lens = torch.full((2,), 16, dtype=torch.int32, device=card)
+    with pytest.raises(TypeError):
+        cuda_ring.decode_cuda(comp.int(), lens, lens, 1 << 12, 3, 0, 2, 64)
+    with pytest.raises(ValueError):
+        cuda_ring.decode_cuda(comp, lens.cpu(), lens, 1 << 12, 3, 0, 2, 64)

@@ -10,10 +10,11 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
   2. build the CUDA kernels from lzma_tpu_torch/csrc (nvcc), timed
   3. each kernel against its plain PyTorch version on the card, 8 lanes
      x 2 KB: range encoder bytes and lengths, decoder out/ok/out_pos on
-     the encoder's streams and on one preset-primed batch
+     the encoder's streams and on one preset-primed batch made by the
+     port's own encoder
   4. the card against the JAX reference: the 8-lane container of
-     generate_bench_data(64 KiB) must hash to PIN_SHA256 (pinned from
-     lzma_tpu.ops.api.encode_blocks by tests/test_torch_api.py)
+     generate_bench_data(64 KiB) must hash to PIN_SHA256, which
+     tests/test_torch_api.py pins to the JAX package's encode_blocks
   5. the main path at 8 MiB (text corpus + bench data, LzmaParams()
      defaults, 256 KiB blocks = 32 lanes): encode_blocks, decode_blocks,
      round trip, every block decoded by the stdlib lzma module, both
@@ -23,7 +24,7 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      plain versions finish: K2 codes the first CMP_BITS pairs of each
      lane, K1 decodes each lane up to the first token boundary at or past
      CMP_OUT bytes), both timed on those same inputs
-  7. no module of jax, and none of lzma_tpu's JAX modules, was loaded
+  7. no module of jax, jaxlib or lzma_tpu was loaded
 The last two lines are the kernels' JSON record and the result JSON.
 """
 
@@ -36,7 +37,7 @@ import subprocess
 import sys
 import time
 
-#: SHA-256 of lzma_tpu.ops.api.encode_blocks(generate_bench_data(1 << 16),
+#: SHA-256 of the JAX package's ops.api.encode_blocks(generate_bench_data(1 << 16),
 #: LzmaParams(dict_size=1 << 16), block_size=1 << 13, parse="lazy")
 PIN_SHA256 = "22e991f02066cf506d4759d0e7e574af4996ebccc0e4c0685c0be76e657db644"
 PIN_INPUT = dict(size=1 << 16, dict_size=1 << 16, block_size=1 << 13)
@@ -52,8 +53,8 @@ def log(msg):
 
 
 def pin_input():
-    from lzma_tpu.bench.datagen import generate_bench_data
-    from lzma_tpu.format.properties import LzmaParams
+    from lzma_tpu_torch.bench.datagen import generate_bench_data
+    from lzma_tpu_torch.format.properties import LzmaParams
 
     return (generate_bench_data(PIN_INPUT["size"]),
             LzmaParams(dict_size=PIN_INPUT["dict_size"]), PIN_INPUT["block_size"])
@@ -62,8 +63,8 @@ def pin_input():
 def lane_blocks(n_lanes, size, seed):
     """Mixed lanes: bench data, text, and a short incompressible tail."""
     import numpy as np
-    from lzma_tpu.bench.corpus import text_part
-    from lzma_tpu.bench.datagen import generate_bench_data
+    from lzma_tpu_torch.bench.corpus import text_part
+    from lzma_tpu_torch.bench.datagen import generate_bench_data
 
     rng = np.random.default_rng(seed)
     bench = generate_bench_data(n_lanes * size)
@@ -178,9 +179,9 @@ def main():
     log(f"device: {kind} x{torch.cuda.device_count()}  torch {torch.__version__}"
         f"  cuda {torch.version.cuda}")
 
-    from lzma_tpu.core.layout import ProbLayout
-    from lzma_tpu.format.properties import LzmaParams
-    from lzma_tpu.parallel import blocks as blk
+    from lzma_tpu_torch.core.layout import ProbLayout
+    from lzma_tpu_torch.format.properties import LzmaParams
+    from lzma_tpu_torch.parallel import blocks as blk
     from lzma_tpu_torch.ops import api, cuda_ring, cuda_serializer
     from lzma_tpu_torch.ops.device_decoder import pad_rows
     from lzma_tpu_torch.runtime import build
@@ -210,12 +211,12 @@ def main():
             raise AssertionError(f"lane {i} does not round-trip")
     log(f"[K1 vs plain] {CMP_LANES}x{CMP_BYTES}: out/ok/out_pos equal, round trip")
 
-    from lzma_tpu.codec.encoder import encode_stream
+    # a preset-primed batch, encoded by the port's own encoder on the card
+    from lzma_tpu_torch.ops.device_encoder import encode_batch
 
     preset = blocks[3][:1024]
     p_blocks = [b[:1024] for b in blocks[:4]]
-    p_streams = [encode_stream(b, params, optimal=False, preset=preset)
-                 for b in p_blocks]
+    p_streams = encode_batch(p_blocks, params, preset=preset, device=dev)
     comp, comp_lens = pad_rows(p_streams, dev)
     plen = len(preset)
     sizes = torch.tensor([len(b) + plen for b in p_blocks], dtype=torch.int32,
@@ -227,7 +228,8 @@ def main():
     for i, b in enumerate(p_blocks):
         if d_out[i, plen:plen + len(b)].cpu().numpy().tobytes() != b:
             raise AssertionError(f"preset lane {i} does not round-trip")
-    log("[K1 vs plain] preset-primed batch: equal, round trip")
+    log("[K1 vs plain] preset-primed batch from the port's encoder: equal, "
+        "round trip")
 
     # ---- 4. the pinned container (card vs the JAX reference) ----
     data, pparams, pblock = pin_input()
@@ -241,8 +243,8 @@ def main():
         "reference; round trip ok")
 
     # ---- 5. the main path at 8 MiB ----
-    from lzma_tpu.bench.corpus import text_part
-    from lzma_tpu.bench.datagen import generate_bench_data
+    from lzma_tpu_torch.bench.corpus import text_part
+    from lzma_tpu_torch.bench.datagen import generate_bench_data
 
     data = text_part() + generate_bench_data(5 << 20)
     params = LzmaParams()
@@ -345,13 +347,13 @@ def main():
         f"({CMP_BITS} pairs a lane); ring_decode kernel {k1_ms:.3f} ms vs plain "
         f"{k1_plain:.1f} ms ({min(cuts)}..{max(cuts)} B a lane); equal")
 
-    # ---- 7. nothing of JAX was loaded ----
-    jax_mods = sorted(m for m in sys.modules
-                      if m.split(".")[0] in ("jax", "jaxlib")
-                      or m.startswith("lzma_tpu.ops"))
-    if jax_mods:
-        raise AssertionError(f"JAX modules loaded: {jax_mods[:8]}")
-    log("[imports] no jax module and no lzma_tpu.ops module loaded")
+    # ---- 7. nothing of JAX or of the JAX package was loaded ----
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib")
+                 or m == "lzma_tpu" or m.startswith("lzma_tpu."))
+    if bad:
+        raise AssertionError(f"JAX or lzma_tpu modules loaded: {bad[:8]}")
+    log("[imports] no jax, jaxlib, lzma_tpu or lzma_tpu.* module loaded")
 
     kernels = [
         {"name": "rc_serialize", "route": "cuda",

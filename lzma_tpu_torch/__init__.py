@@ -1,10 +1,11 @@
 """lzma_tpu_torch — the device block codec of ``lzma_tpu`` in PyTorch and CUDA.
 
 A second package beside the JAX one.  It imports ``torch`` and never
-``jax``; the jax-free parts of ``lzma_tpu`` (``core``, ``format``,
-``parallel.blocks``, ``bench``) are imported, not copied, so both
-packages share one container format, one probability layout and one set
-of parameters.
+``jax``, and nothing of ``lzma_tpu``: what it needs of that package's
+jax-free modules it keeps as its own copies under the same names
+(``core``, ``format``, ``parallel.blocks``, ``bench``), held equal to the
+originals by the tests, so both packages write and read the same
+containers.
 
 - ``ops``      the lane-parallel codec: lazy tokenizer, classify + bit
                lowering, range encoder and decoder (plain PyTorch

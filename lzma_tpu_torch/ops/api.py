@@ -4,8 +4,9 @@ Port of ``lzma_tpu/ops/api.py`` (``encode_blocks``, ``decode_blocks``) and
 the carry-over helper ``from_numpy``.  Blocks are batched across lanes;
 on a CUDA device the range encoder and the decoder run as the CUDA
 kernels of ``cuda_serializer`` and ``cuda_ring``, on the CPU as their
-plain PyTorch versions.  The container format is ``lzma_tpu``'s own
-(``lzma_tpu/parallel/blocks.py``), so either package decodes the other's.
+plain PyTorch versions.  The container format is ``lzma_tpu``'s (the
+port's copy is ``parallel/blocks.py``), so either package decodes the
+other's.
 """
 
 from __future__ import annotations
@@ -13,10 +14,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from lzma_tpu.core.rangecoder import CorruptStreamError
-from lzma_tpu.format.properties import LzmaParams
-from lzma_tpu.parallel import blocks as blk
-
+from ..core.rangecoder import CorruptStreamError
+from ..format.properties import LzmaParams
+from ..parallel import blocks as blk
 from .cuda_ring import decode_batch_cuda
 from .device_encoder import encode_batch
 
@@ -40,10 +40,11 @@ def encode_blocks(
     parse: str = "lazy",
     device="cuda",
 ) -> bytes:
-    """Lane-parallel block encode to an LZTB v1 container
-    (api.encode_blocks).  The shared-preset (v2, `preset_len`) and
-    stored-dictionary (v3, `dictionary`) forms and parse="optimal" are
-    not ported yet and raise NotImplementedError."""
+    """Lane-parallel block encode to an LZTB container (api.encode_blocks).
+    `preset_len > 0` writes LZTB v2 (block 0 plain, every other lane
+    primed with block 0's prefix); `dictionary` writes LZTB v3 (the
+    dictionary stored as its own stream, priming every lane).
+    parse="optimal" is not ported yet and raises NotImplementedError."""
     params = (params or LzmaParams()).validated_for_encode()
     if params.write_eos:
         raise ValueError("block container uses known sizes; EOS not supported")
@@ -55,11 +56,22 @@ def encode_blocks(
         preset_len = 0  # single block: the reference drops the preset too
     if not data:
         dictionary = b""
-    if preset_len or dictionary:
-        raise NotImplementedError("preset and dictionary encoding are not ported")
     blocks = blk.split_blocks(data, block_size)
-    streams = encode_batch(blocks, params, device=device) if blocks else []
-    return blk.build_container(params, block_size, len(data), streams)
+
+    def enc(bs, **kw):
+        return encode_batch(bs, params, device=device, **kw)
+
+    dict_stream = b""
+    if dictionary:
+        streams = enc(blocks, preset=dictionary)
+        (dict_stream,) = enc([dictionary])
+    elif preset_len:
+        streams = enc(blocks[:1])
+        streams += enc(blocks[1:], preset=data[:preset_len])
+    else:
+        streams = enc(blocks) if blocks else []
+    return blk.build_container(params, block_size, len(data), streams,
+                               preset_len, dict_stream, len(dictionary))
 
 
 def decode_blocks(blob, device="cuda") -> bytes:

@@ -17,9 +17,8 @@ from dataclasses import fields
 
 import torch
 
-from lzma_tpu.core.layout import ProbLayout
-from lzma_tpu.format.properties import LzmaParams
-
+from ..core.layout import ProbLayout
+from ..format.properties import LzmaParams
 from ..runtime import build
 from .device_decoder import _decode_fsm, decode_lanes
 

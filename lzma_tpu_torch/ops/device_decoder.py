@@ -18,15 +18,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from lzma_tpu.core.constants import (
+from ..core.constants import (
     NEXT_STATE_LITERAL,
     NEXT_STATE_LONGREP,
     NEXT_STATE_MATCH,
     NEXT_STATE_SHORTREP,
 )
-from lzma_tpu.core.layout import LITERAL_CODER_SIZE, POS_SLOT_TREE_SIZE, ProbLayout
-from lzma_tpu.core.rangecoder import CorruptStreamError
-from lzma_tpu.format.properties import LzmaParams
+from ..core.layout import LITERAL_CODER_SIZE, POS_SLOT_TREE_SIZE, ProbLayout
+from ..core.rangecoder import CorruptStreamError
+from ..format.properties import LzmaParams
 
 
 class CapExceededError(CorruptStreamError):

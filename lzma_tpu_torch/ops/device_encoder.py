@@ -1,6 +1,7 @@
 """Lane-parallel LZMA encoder in PyTorch: parse, classify, lower, serialize.
 
-Port of the lazy, no-preset route of ``lzma_tpu/ops/device_encoder.py``.
+Port of the lazy route of ``lzma_tpu/ops/device_encoder.py`` (without the
+EOS marker).
 Once the token stream is fixed, the (context, bit) sequence fed to the
 range coder is fully determined, so the encoder splits into
 
@@ -15,6 +16,8 @@ range coder is fully determined, so the encoder splits into
 
 ``encode_batch`` runs D through ``cuda_serializer.serialize_checked``:
 the kernel for CUDA tensors, the plain ``serialize`` for CPU tensors.
+A preset (a dictionary shared by every lane) primes each lane's window:
+it is searched as match history and never coded.
 The coder's uint32 ``low``/``range`` ride in int64 masked to 32 bits.
 """
 
@@ -22,8 +25,8 @@ from __future__ import annotations
 
 import torch
 
-from lzma_tpu.core.layout import LITERAL_CODER_SIZE, POS_SLOT_TREE_SIZE, ProbLayout
-from lzma_tpu.format.properties import LzmaParams
+from ..core.layout import LITERAL_CODER_SIZE, POS_SLOT_TREE_SIZE, ProbLayout
+from ..format.properties import LzmaParams
 
 from .device_decoder import (_next_lit, _next_longrep, _next_match,
                              _next_shortrep, _wrap_i32, pad_rows)
@@ -159,10 +162,12 @@ def _bitrev_low(v, k_vec, width):
 
 
 def lower_tokens(data, meta, t_pos, t_len, t_dist, t_valid, lc, lp, pb,
-                 max_bits):
+                 max_bits, pos_base: int = 0):
     """Expand tokens into (ctx, bit) pairs scattered into flat per-lane
-    streams (device_encoder.lower_tokens, no preset).  Returns ctx
-    (N, max_bits) int32, bit (N, max_bits) int32, total (N,) int64.
+    streams (device_encoder.lower_tokens).  `pos_base` is the preset
+    length when the window is primed: token positions are absolute and
+    coded positions start at pos_base.  Returns ctx (N, max_bits) int32,
+    bit (N, max_bits) int32, total (N,) int32.
 
     Where the reference silently drops bits that do not fit (a long
     token past the compacted buffer, a bit past max_bits), this raises:
@@ -174,7 +179,7 @@ def lower_tokens(data, meta, t_pos, t_len, t_dist, t_valid, lc, lp, pb,
     t_pos = t_pos.long()
     t_len = t_len.long()
     t_dist = t_dist.long()
-    coded_pos = t_pos
+    coded_pos = t_pos - pos_base
     pos_state = coded_pos & ((1 << pb) - 1)
     valid = t_valid.bool()
 
@@ -489,41 +494,56 @@ def serialize(ctx, bits, totals, arena_size: int, max_out: int):
 
 
 # ------------------------------------------------------------------ API
-def _lower_lanes(data, lens, dict_size, lc, lp, pb, fb, num_candidates):
-    """Phases A-C for a lane batch, lazy parse, no preset
-    (device_encoder._lower_lanes).  Returns (ctx, bits, totals, max_out)."""
-    max_n = data.shape[1]
+def _lower_lanes(data, lens, dict_size, lc, lp, pb, fb, num_candidates,
+                 preset=None):
+    """Phases A-C for a lane batch, lazy parse (device_encoder._lower_lanes
+    without the EOS marker).  `preset` ((P,) uint8 tensor or None) primes
+    every lane's window.  Returns (ctx, bits, totals, max_out)."""
+    N, max_n = data.shape
+    plen = 0 if preset is None else int(preset.shape[0])
+    if plen:
+        data = torch.cat([preset.to(data.dtype).expand(N, plen), data], dim=1)
+        lens = lens + plen
     t_pos, t_len, t_dist, t_valid, _ = tokenize(data, lens, dict_size, fb,
-                                                num_candidates)
+                                                num_candidates, start=plen)
     meta = classify_tokens(data, t_pos, t_len, t_dist, t_valid)
     max_bits = 10 * max_n + 128
     ctx, bits, totals = lower_tokens(data, meta, t_pos, t_len, t_dist,
-                                     t_valid, lc, lp, pb, max_bits)
+                                     t_valid, lc, lp, pb, max_bits,
+                                     pos_base=plen)
     return ctx, bits, totals, max_n + max_n // 4 + 128
 
 
 def encode_batch(blocks, params: LzmaParams, fb=None,
                  num_candidates: int = DEFAULT_NUM_CANDIDATES,
+                 preset: bytes = b"", write_eos: bool = False,
                  parse: str = "lazy", device="cuda"):
     """Encode independent blocks lane-parallel (device_encoder.encode_batch,
-    lazy parse, no preset).  The range coder is the CUDA kernel for a
-    CUDA `device` and the plain ``serialize`` for the CPU.  Returns a
-    list of raw LZMA streams."""
+    lazy parse).  `preset` primes every lane's window with one shared
+    dictionary (LZTB v2/v3 blocks).  The range coder is the CUDA kernel
+    for a CUDA `device` and the plain ``serialize`` for the CPU.  The EOS
+    marker (`write_eos`) and parse="optimal" are not ported yet and raise
+    NotImplementedError.  Returns a list of raw LZMA streams."""
     from .cuda_serializer import serialize_checked
 
     if not blocks:
         return []
     if parse != "lazy":
         raise NotImplementedError(f"parse={parse!r}: only the lazy parse is ported")
+    if write_eos:
+        raise NotImplementedError("the end-of-stream marker is not ported")
     params = params.validated_for_encode()
     fb = clamp_fb(fb if fb is not None else params.fast_bytes)
     data_t, lens_t = pad_rows(blocks, device)  # pow2 bucket, as the reference
-    # the match window never reaches past the bucket: this bound changes
-    # the distances searched, hence the bytes, exactly as in the reference
-    dict_j = min(params.dict_size, data_t.shape[1])
+    # the match window never reaches past the bucket (and the preset):
+    # this bound changes the distances searched, hence the bytes, exactly
+    # as in the reference
+    dict_j = min(params.dict_size, data_t.shape[1] + len(preset))
+    preset_t = (torch.frombuffer(bytearray(preset), dtype=torch.uint8).to(device)
+                if preset else None)
     ctx, bits, totals, max_out = _lower_lanes(
         data_t, lens_t, dict_j, params.lc, params.lp, params.pb, fb,
-        num_candidates)
+        num_candidates, preset=preset_t)
     layout = ProbLayout(params.lc, params.lp, params.pb, pos_bits=params.pb)
     out, out_lens = serialize_checked(ctx, bits, totals, layout.size,
                                       int(max_out))

@@ -7,6 +7,7 @@ The pin test ties chip_smoke.py's card run to the JAX reference through
 one SHA-256.  (lzma_tpu's v2/v3 containers: test_torch_containers.py.)
 """
 
+import dataclasses
 import hashlib
 import os
 import subprocess
@@ -55,6 +56,8 @@ def test_smoke_pin_is_the_jax_container():
     finally:
         sys.path.remove(ROOT)
     data, params, block = chip_smoke.pin_input()
+    # the port's own parameter class, carried over to the JAX package's
+    params = LzmaParams(**dataclasses.asdict(params))
     blob = japi.encode_blocks(data, params, block_size=block, parse="lazy")
     assert len(data) // block == 8
     assert hashlib.sha256(blob).hexdigest() == chip_smoke.PIN_SHA256
@@ -64,13 +67,13 @@ def test_not_ported_options_raise():
     data = generate_bench_data(3000)
     with pytest.raises(NotImplementedError):
         tapi.encode_blocks(data, block_size=1024, parse="optimal", device="cpu")
-    with pytest.raises(NotImplementedError):
-        tapi.encode_blocks(data, block_size=1024, preset_len=100, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tapi.encode_blocks(data, block_size=1024, dictionary=b"xyz" * 50,
-                           device="cpu")
     with pytest.raises(ValueError):
         tapi.encode_blocks(data, LzmaParams(write_eos=True), device="cpu")
+    # what PR-by-PR porting has since added: the preset-primed containers
+    for kw in (dict(preset_len=100), dict(dictionary=b"xyz" * 50)):
+        blob = tapi.encode_blocks(data, block_size=1024, device="cpu", **kw)
+        assert tapi.decode_blocks(blob, device="cpu") == data
+        assert lzma_tpu.decompress(blob) == data
 
 
 def test_from_numpy_carries_arrays_over():
@@ -84,13 +87,23 @@ def test_from_numpy_carries_arrays_over():
 
 
 def test_port_imports_no_jax():
+    """Importing every module of the port and running a CPU encode and
+    decode loads nothing of JAX and nothing of the JAX package
+    (lzma_tpu_torch starts with lzma_tpu, hence the exact test)."""
     code = (
-        "import sys; sys.path.insert(0, sys.argv[1]);"
-        "import lzma_tpu_torch.ops.api, lzma_tpu_torch.ops.cuda_ring,"
-        " lzma_tpu_torch.ops.cuda_serializer, lzma_tpu_torch.runtime.build;"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'));"
+        "import sys, pkgutil, importlib; sys.path.insert(0, sys.argv[1]);"
+        "import lzma_tpu_torch as P;"
+        "[importlib.import_module(m.name) for m in"
+        " pkgutil.walk_packages(P.__path__, 'lzma_tpu_torch.')];"
+        "from lzma_tpu_torch.ops import api;"
+        "from lzma_tpu_torch.bench.datagen import generate_bench_data as g;"
+        "d = g(3000);"
+        "api.decode_blocks(api.encode_blocks(d, block_size=1024, device='cpu'),"
+        " device='cpu') == d or sys.exit('round trip');"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
+        " ('jax', 'jaxlib') or m == 'lzma_tpu' or m.startswith('lzma_tpu.'));"
         "assert not bad, bad"
     )
     # -I: no PYTHONPATH or site hooks that might import jax on their own
     subprocess.run([sys.executable, "-I", "-c", code, ROOT], check=True,
-                   timeout=120)
+                   timeout=300)

@@ -10,9 +10,9 @@ import pytest
 jax = pytest.importorskip("jax")
 
 from lzma_tpu.bench.datagen import generate_bench_data  # noqa: E402
-from lzma_tpu.core.rangecoder import CorruptStreamError  # noqa: E402
 from lzma_tpu.format.properties import LzmaParams  # noqa: E402
 from lzma_tpu.ops import api as japi  # noqa: E402
+from lzma_tpu_torch.core.rangecoder import CorruptStreamError  # noqa: E402
 from lzma_tpu_torch.ops import api as tapi  # noqa: E402
 
 

@@ -11,11 +11,13 @@ import numpy as np
 import pytest
 import torch
 
-from lzma_tpu.bench.datagen import generate_bench_data
 from lzma_tpu.codec.encoder import encode_stream
-from lzma_tpu.core.layout import ProbLayout
-from lzma_tpu.core.rangecoder import CorruptStreamError
+# the scalar oracle takes lzma_tpu's parameter class; the port reads the
+# same fields from either
 from lzma_tpu.format.properties import LzmaParams
+from lzma_tpu_torch.bench.datagen import generate_bench_data
+from lzma_tpu_torch.core.layout import ProbLayout
+from lzma_tpu_torch.core.rangecoder import CorruptStreamError
 from lzma_tpu_torch.ops import api, cuda_ring, cuda_serializer
 from lzma_tpu_torch.ops.device_decoder import _decode_fsm, pad_rows
 from lzma_tpu_torch.ops.device_encoder import _lower_lanes, serialize

@@ -15,10 +15,10 @@ import torch  # noqa: E402
 
 from lzma_tpu.bench.datagen import generate_bench_data  # noqa: E402
 from lzma_tpu.codec.encoder import encode_stream  # noqa: E402
-from lzma_tpu.core.rangecoder import CorruptStreamError  # noqa: E402
 from lzma_tpu.format.properties import LzmaParams  # noqa: E402
 from lzma_tpu.ops import device_decoder as jdd  # noqa: E402
 from lzma_tpu.ops.pallas_ring import decode_pallas_ring  # noqa: E402
+from lzma_tpu_torch.core.rangecoder import CorruptStreamError  # noqa: E402
 from lzma_tpu_torch.ops import cuda_ring  # noqa: E402
 from lzma_tpu_torch.ops import device_decoder as tdd  # noqa: E402
 

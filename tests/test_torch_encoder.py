@@ -156,6 +156,14 @@ def test_encode_batch_matches_jax_pallas_route():
 def test_encoder_rejects_what_is_not_ported():
     with pytest.raises(NotImplementedError):
         tde.encode_batch([b"abc"], LzmaParams(), parse="optimal", device="cpu")
+    with pytest.raises(NotImplementedError):
+        tde.encode_batch([b"abc" * 9], LzmaParams(write_eos=True),
+                         write_eos=True, device="cpu")
+    # preset priming is ported now
+    blocks = [generate_bench_data(700), b"abcabcabd" * 20]
+    preset = b"abcab" * 30
+    assert tde.encode_batch(blocks, LzmaParams(), preset=preset, device="cpu") == \
+        jde.encode_batch(blocks, LzmaParams(), use_pallas=True, preset=preset)
     with pytest.raises(ValueError):
         tde.clamp_fb(4)
     data, lens = _data(2, 256, seed=2)

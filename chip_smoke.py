@@ -5,27 +5,39 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero; no phase is caught and skipped):
-  1. the card's name and power limit (nvidia-smi); no CUDA device fails
-  2. build the CUDA kernels from lzma_tpu_torch/csrc (nvcc), timed
-  3. each kernel against its plain PyTorch version on the card, 8 lanes
-     x 2 KB: range encoder bytes and lengths, decoder out/ok/out_pos on
-     the encoder's streams and on one preset-primed batch made by the
-     port's own encoder
-  4. the card against the JAX reference: the 8-lane container of
-     generate_bench_data(64 KiB) must hash to PIN_SHA256, which
-     tests/test_torch_api.py pins to the JAX package's encode_blocks
-  5. the main path at 8 MiB (text corpus + bench data, LzmaParams()
-     defaults, 256 KiB blocks = 32 lanes): encode_blocks, decode_blocks,
-     round trip, every block decoded by the stdlib lzma module, both
-     kernels' launch counts > 0; MB/s, ratio, peak device memory
-  6. each kernel against its plain version at the main path's shapes
-     (its own 32 x 256 KiB tensors, the work cut so that the per-bit
-     plain versions finish: K2 codes the first CMP_BITS pairs of each
-     lane, K1 decodes each lane up to the first token boundary at or past
-     CMP_OUT bytes), both timed on those same inputs
-  7. no module of jax, jaxlib or lzma_tpu was loaded
-The last two lines are the kernels' JSON record and the result JSON.
+Phases (any failure exits non-zero; no phase is caught and skipped; each
+prints its seconds):
+  1. no CUDA device fails; the card's name and power limit (nvidia-smi)
+  2. build the CUDA kernels from lzma_tpu_torch/csrc (one nvcc a source,
+     all started together)
+  3. each kernel against its plain PyTorch version on the card at small
+     shapes: the range encoder (K2) and the decoder (K1) on 8 lanes x
+     2 KiB, K1 on a preset-primed batch made by the port's own encoder,
+     the DP scan (K3) on the first round's inputs of 8 lanes x 2 KiB
+  4. the card against the JAX reference: the 8-lane containers of
+     generate_bench_data(64 KiB) must hash to PIN_SHA256 (lazy) and
+     PIN_OPT_SHA256 (optimal), which tests/test_torch_api.py pins to the
+     JAX package's ops.api.encode_blocks; both round-trip
+  5. the bench's device round trip (bench.py:297-328): 512 KiB of bench
+     data, 16 KiB blocks, dict 16 KiB, fb 32, parse="optimal": ratio
+     2.256, 232,363 bytes hashing to PIN_BENCH_SHA256, round trip, every
+     block decoded by the stdlib lzma module
+  6. the lazy path at 8 MiB (text corpus + bench data, LzmaParams()
+     defaults, 256 KiB blocks = 32 lanes): encode, decode, round trip,
+     stdlib lzma, K1 and K2 launched
+  7. the main path: the same 8 MiB with parse="optimal": encode, decode,
+     round trip, stdlib lzma, smaller than the lazy container; K3
+     launched at least twice, K2 and K1 at least once; MB/s, ratio, peak
+     device memory, the encode's stage breakdown, and each whole-lane
+     kernel stage beside its bound
+  8. each kernel against its plain version at the main path's shapes
+     (its own 32 x 256 KiB tensors, the work cut so that the plain
+     versions finish: K3 scans the first CMP_POS positions, K2 codes the
+     first CMP_BITS pairs, K1 decodes each lane up to the first token
+     boundary at or past CMP_OUT bytes), all timed on those inputs
+  9. no module of jax, jaxlib or lzma_tpu was loaded
+The last three lines are the card, the kernels' JSON record and the
+result JSON.
 """
 
 from __future__ import annotations
@@ -37,15 +49,32 @@ import subprocess
 import sys
 import time
 
-#: SHA-256 of the JAX package's ops.api.encode_blocks(generate_bench_data(1 << 16),
-#: LzmaParams(dict_size=1 << 16), block_size=1 << 13, parse="lazy")
+#: SHA-256 of lzma_tpu.ops.api.encode_blocks(generate_bench_data(1 << 16),
+#: LzmaParams(dict_size=1 << 16), block_size=1 << 13, parse=...)
 PIN_SHA256 = "22e991f02066cf506d4759d0e7e574af4996ebccc0e4c0685c0be76e657db644"
+PIN_OPT_SHA256 = "268f63d4212d1f38797f28c09adf4c3d108896be71ac3d551ed240de317cc956"
 PIN_INPUT = dict(size=1 << 16, dict_size=1 << 16, block_size=1 << 13)
+
+#: the bench's device round trip (bench.py:297-328) and what the JAX
+#: reference gives there: BENCH_r05.json device_ratio, container bytes,
+#: and the container's SHA-256 (pinned by tests/test_torch_api.py)
+BENCH_INPUT = dict(size=1 << 19, dict_size=1 << 14, fast_bytes=32,
+                   block_size=1 << 14)
+BENCH_RATIO = 2.256
+BENCH_BYTES = 232_363
+PIN_BENCH_SHA256 = "d1d072795dfa96bfe5cdd3c8d71c4d7fadf1557a05b07a9f1f8166e659f3644c"
 
 MAIN_BLOCK = 1 << 18
 CMP_LANES, CMP_BYTES = 8, 2048       # kernel vs plain comparison shape
+CMP_POS = 2048                       # K3's positions per lane at the main shapes
 CMP_BITS = 1 << 15                   # K2's work per lane at the main shapes
-CMP_OUT = 4096                       # K1's work per lane at the main shapes
+CMP_OUT = 2048                       # K1's work per lane at the main shapes
+
+#: the card's peaks (NVIDIA H100 SXM data sheet, 700 W): HBM bytes/s, and
+#: the float32 rate outside the tensor cores, used for the int32
+#: compares, adds and selects these kernels do
+HBM_BYTES_PER_S = 3.35e12
+SCALAR_OPS_PER_S = 67e12
 
 
 def log(msg):
@@ -58,6 +87,18 @@ def pin_input():
 
     return (generate_bench_data(PIN_INPUT["size"]),
             LzmaParams(dict_size=PIN_INPUT["dict_size"]), PIN_INPUT["block_size"])
+
+
+def bench_input():
+    """bench.py takes generate_bench_data(8 << 20)[: 1 << 19]; the
+    generator is sequential, so that prefix is generate_bench_data(1 << 19)."""
+    from lzma_tpu_torch.bench.datagen import generate_bench_data
+    from lzma_tpu_torch.format.properties import LzmaParams
+
+    b = BENCH_INPUT
+    return (generate_bench_data(b["size"]),
+            LzmaParams(dict_size=b["dict_size"], fast_bytes=b["fast_bytes"]),
+            b["block_size"])
 
 
 def lane_blocks(n_lanes, size, seed):
@@ -82,7 +123,7 @@ def lane_blocks(n_lanes, size, seed):
 
 
 def lowered(blocks, params, device):
-    """Phases A-C of the encoder on `device`: (ctx, bits, totals, max_out)."""
+    """Phases A-C of the lazy encoder on `device`: (ctx, bits, totals, max_out)."""
     from lzma_tpu_torch.ops.device_decoder import pad_rows
     from lzma_tpu_torch.ops.device_encoder import DEFAULT_NUM_CANDIDATES, _lower_lanes
 
@@ -90,6 +131,25 @@ def lowered(blocks, params, device):
     return _lower_lanes(data, lens, min(params.dict_size, data.shape[1]),
                         params.lc, params.lp, params.pb, params.fast_bytes,
                         DEFAULT_NUM_CANDIDATES)
+
+
+def dp_round_inputs(blocks, params, device):
+    """The first DP round's inputs of the optimal parse for `blocks`
+    (search, seed, classify, lower, model on `device`): (packed, tables,
+    lens)."""
+    from lzma_tpu_torch.ops.device_decoder import pad_rows
+    from lzma_tpu_torch.ops.device_parser import (DEFAULT_M_DP, DP_M_CAP,
+                                                  DP_M_CAP_ORDER, DP_TIERS,
+                                                  _lists_and_seed, _round_inputs)
+
+    data, lens = pad_rows(blocks, device)
+    fb = params.fast_bytes
+    ld, dd, tokens, suffix = _lists_and_seed(
+        data, lens, min(params.dict_size, data.shape[1]), fb, DEFAULT_M_DP,
+        DP_TIERS, DP_M_CAP, DP_M_CAP_ORDER)
+    packed, tables = _round_inputs(data, lens, tokens, ld, dd, suffix,
+                                   params.lc, params.lp, params.pb, fb)
+    return packed, tables, lens
 
 
 def event_ms(fn, reps):
@@ -116,6 +176,14 @@ def wall_ms(fn):
     fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t) * 1e3
+
+
+def bound(n_bytes, n_ops):
+    """(bound_ms, bound_by): the larger of the bytes over the HBM rate and
+    the operations over the scalar rate."""
+    b_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    o_ms = n_ops / SCALAR_OPS_PER_S * 1e3
+    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
 
 
 def check_serializer(ctx, bits, totals, arena, max_out):
@@ -164,35 +232,131 @@ def check_decoder(comp, comp_lens, sizes, params, max_out, preset=None):
     return err, k_out, plain_ms
 
 
+def check_parser(packed, tables, lens, fb, pb):
+    """K3 against dp_parse_band on the same card tensors (tolerance zero).
+    Returns (max |diff| over from and choice, plain version's ms)."""
+    import torch
+    from lzma_tpu_torch.ops.cuda_parser import dp_parse_cuda
+    from lzma_tpu_torch.ops.device_parser import dp_parse_band
+
+    k_from, k_choice = dp_parse_cuda(packed, tables, lens, fb, pb)
+    box = {}
+    plain_ms = wall_ms(lambda: box.update(
+        p=dp_parse_band(packed, tables, lens, fb, pb)))
+    p_from, p_choice = box["p"]
+    err = max(int((k_from - p_from).abs().max()),
+              int((k_choice - p_choice).abs().max()))
+    if err:
+        raise AssertionError(f"DP kernel differs from the plain version by {err}")
+    return err, plain_ms
+
+
+def dp_work(packed, lens):
+    """(bytes, operations) the scan needs on these inputs: every packed row
+    read once and (from, choice) written once; per live position ~60
+    operations to finalize the node and ~6 per relaxed edge, the edges
+    being the lengths 2..min(ld, lens - i) of each valid pair and
+    2..min(replen, lens - i) of the rep0 source."""
+    import torch
+
+    L, N, C = packed.shape
+    M = (C - 5) // 6
+    pos = torch.arange(N, device=packed.device)
+    rem = torch.clamp(lens.long()[:, None] - pos, min=0)
+    ld = torch.minimum(packed[:, :, :M].long(), rem[:, :, None])
+    pairs = torch.where((ld >= 2) & (packed[:, :, M:2 * M] >= 0), ld - 1, 0)
+    rl = torch.minimum(packed[:, :, 6 * M + 3].long(), rem)
+    edges = int(pairs.sum()) + int(torch.where(rl >= 2, rl - 1, 0).sum())
+    live = int((rem > 0).sum())
+    n_bytes = packed.numel() * 4 + lens.numel() * 4 + 2 * L * (N + 1) * 4
+    return n_bytes, 60 * live + 6 * edges
+
+
+def stdlib_reads_every_block(blob, data, params):
+    from lzma_tpu_torch.parallel import blocks as blk
+
+    frame = blk.parse_container(blob)
+    offsets, bsizes = frame.stream_extents(len(blob))
+    for i in range(len(bsizes)):
+        alone = (params.encode_props() + bsizes[i].to_bytes(8, "little")
+                 + blob[offsets[i]:offsets[i + 1]])
+        part = data[i * frame.block_size:i * frame.block_size + bsizes[i]]
+        if lzma.decompress(alone, format=lzma.FORMAT_ALONE) != part:
+            raise AssertionError(f"stdlib lzma disagrees on block {i}")
+    return offsets, bsizes
+
+
+def drive(api, data, params, parse, dev, probe=None):
+    """One encode and decode of `data` in MAIN_BLOCK lanes through the
+    entry points, every kernel's launch count set to 0 just before; it
+    must round-trip and the stdlib lzma module must read every block.
+    Returns (container, encode s, decode s, launches, peak device bytes,
+    the container's (offsets, block sizes))."""
+    import torch
+    from lzma_tpu_torch.ops import cuda_parser, cuda_ring, cuda_serializer
+
+    counted = {"dp_parse": cuda_parser, "rc_serialize": cuda_serializer,
+               "ring_decode": cuda_ring}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in counted.values():
+        mod.LAUNCHES = 0
+    t = time.perf_counter()
+    blob = api.encode_blocks(data, params, block_size=MAIN_BLOCK, parse=parse,
+                             device=dev, probe=probe)
+    torch.cuda.synchronize()
+    t_enc = time.perf_counter() - t
+    t = time.perf_counter()
+    back = api.decode_blocks(blob, device=dev)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t
+    launches = {k: mod.LAUNCHES for k, mod in counted.items()}
+    peak = torch.cuda.max_memory_allocated()
+    if back != data:
+        raise AssertionError(f"8 MiB {parse} round trip differs")
+    extents = stdlib_reads_every_block(blob, data, params)
+    return blob, t_enc, t_dec, launches, peak, extents
+
+
 def main():
+    t_start = time.perf_counter()
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     card = smi.splitlines()[0]
     log(card)
-    import torch
-
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: no CUDA device")
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     log(f"device: {kind} x{torch.cuda.device_count()}  torch {torch.__version__}"
         f"  cuda {torch.version.cuda}")
 
+    from lzma_tpu_torch.bench.corpus import text_part
+    from lzma_tpu_torch.bench.datagen import generate_bench_data
     from lzma_tpu_torch.core.layout import ProbLayout
     from lzma_tpu_torch.format.properties import LzmaParams
-    from lzma_tpu_torch.parallel import blocks as blk
-    from lzma_tpu_torch.ops import api, cuda_ring, cuda_serializer
+    from lzma_tpu_torch.ops import api, cuda_parser, cuda_ring, cuda_serializer
     from lzma_tpu_torch.ops.device_decoder import pad_rows
+    from lzma_tpu_torch.ops.device_encoder import encode_batch
     from lzma_tpu_torch.runtime import build
 
+    phase_t = [time.perf_counter()]
+
+    def done(name):
+        now = time.perf_counter()
+        log(f"[{name}] phase {now - phase_t[0]:.1f} s")
+        phase_t[0] = now
+
     # ---- 2. build ----
-    t = time.perf_counter()
     lib = build.build(verbose=True)
     build.load()
-    log(f"[build] {lib} in {time.perf_counter() - t:.1f} s")
+    log(f"[build] {lib}")
+    done("build")
 
-    # ---- 3. kernels vs plain versions, 8 lanes x 2 KB ----
+    # ---- 3. kernels vs plain versions, small shapes ----
     params = LzmaParams()
     arena = ProbLayout(params.lc, params.lp, params.pb, pos_bits=params.pb).size
     blocks = lane_blocks(CMP_LANES, CMP_BYTES, seed=1)
@@ -212,8 +376,6 @@ def main():
     log(f"[K1 vs plain] {CMP_LANES}x{CMP_BYTES}: out/ok/out_pos equal, round trip")
 
     # a preset-primed batch, encoded by the port's own encoder on the card
-    from lzma_tpu_torch.ops.device_encoder import encode_batch
-
     preset = blocks[3][:1024]
     p_blocks = [b[:1024] for b in blocks[:4]]
     p_streams = encode_batch(p_blocks, params, preset=preset, device=dev)
@@ -231,108 +393,145 @@ def main():
     log("[K1 vs plain] preset-primed batch from the port's encoder: equal, "
         "round trip")
 
-    # ---- 4. the pinned container (card vs the JAX reference) ----
+    packed, tables, lens = dp_round_inputs(blocks, params, dev)
+    k3_err, _ = check_parser(packed, tables, lens.to(torch.int32),
+                             params.fast_bytes, params.pb)
+    log(f"[K3 vs plain] {CMP_LANES}x{CMP_BYTES}, fb {params.fast_bytes}: "
+        "from and choice equal")
+    done("small shapes")
+
+    # ---- 4. the pinned containers (card vs the JAX reference) ----
     data, pparams, pblock = pin_input()
-    blob = api.encode_blocks(data, pparams, block_size=pblock, device=dev)
-    digest = hashlib.sha256(blob).hexdigest()
-    if digest != PIN_SHA256:
-        raise AssertionError(f"pinned container hash {digest} != {PIN_SHA256}")
-    if api.decode_blocks(blob, device=dev) != data:
-        raise AssertionError("pinned container does not round-trip")
-    log(f"[pin] {len(data) // pblock} lanes: sha256 {digest} matches the JAX "
-        "reference; round trip ok")
+    for parse, pin in (("lazy", PIN_SHA256), ("optimal", PIN_OPT_SHA256)):
+        blob = api.encode_blocks(data, pparams, block_size=pblock, parse=parse,
+                                 device=dev)
+        digest = hashlib.sha256(blob).hexdigest()
+        if digest != pin:
+            raise AssertionError(f"{parse} container hash {digest} != {pin}")
+        if api.decode_blocks(blob, device=dev) != data:
+            raise AssertionError(f"{parse} pinned container does not round-trip")
+        log(f"[pin] {parse}, {len(data) // pblock} lanes: sha256 {digest} "
+            "matches the JAX reference; round trip ok")
+    done("pins")
 
-    # ---- 5. the main path at 8 MiB ----
-    from lzma_tpu_torch.bench.corpus import text_part
-    from lzma_tpu_torch.bench.datagen import generate_bench_data
-
-    data = text_part() + generate_bench_data(5 << 20)
-    params = LzmaParams()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    cuda_serializer.LAUNCHES = 0
-    cuda_ring.LAUNCHES = 0
+    # ---- 5. the bench's device round trip ----
+    data, bparams, bblock = bench_input()
     t = time.perf_counter()
-    blob = api.encode_blocks(data, params, block_size=MAIN_BLOCK, device=dev)
-    torch.cuda.synchronize()
+    blob = api.encode_blocks(data, bparams, block_size=bblock, parse="optimal",
+                             device=dev)
     t_enc = time.perf_counter() - t
     t = time.perf_counter()
     back = api.decode_blocks(blob, device=dev)
-    torch.cuda.synchronize()
     t_dec = time.perf_counter() - t
-    launches = {"rc_serialize": cuda_serializer.LAUNCHES,
-                "ring_decode": cuda_ring.LAUNCHES}
-    peak = torch.cuda.max_memory_allocated()
+    ratio = len(data) / len(blob)
+    digest = hashlib.sha256(blob).hexdigest()
     if back != data:
-        raise AssertionError("8 MiB round trip differs")
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel did not run on the main path: {launches}")
-    frame = blk.parse_container(blob)
-    offsets, bsizes = frame.stream_extents(len(blob))
-    for i in range(len(bsizes)):
-        alone = (params.encode_props() + bsizes[i].to_bytes(8, "little")
-                 + blob[offsets[i]:offsets[i + 1]])
-        part = data[i * MAIN_BLOCK:i * MAIN_BLOCK + bsizes[i]]
-        if lzma.decompress(alone, format=lzma.FORMAT_ALONE) != part:
-            raise AssertionError(f"stdlib lzma disagrees on block {i}")
+        raise AssertionError("bench config does not round-trip")
+    if len(blob) != BENCH_BYTES or round(ratio, 3) != BENCH_RATIO:
+        raise AssertionError(f"bench config: {len(blob)} B, ratio {ratio:.4f}; "
+                             f"the reference gives {BENCH_BYTES} B, {BENCH_RATIO}")
+    if digest != PIN_BENCH_SHA256:
+        raise AssertionError(f"bench container hash {digest} != {PIN_BENCH_SHA256}")
+    stdlib_reads_every_block(blob, data, bparams)
+    log(f"[bench] {len(data)} B in {len(data) // bblock} lanes of {bblock} B, "
+        f"optimal: {len(blob)} B, ratio {ratio:.3f} (JAX reference "
+        f"{BENCH_RATIO}), sha256 matches; encode {t_enc:.3f} s, decode "
+        f"{t_dec:.3f} s on {card}; every block decodes with the stdlib lzma module")
+    done("bench config")
+
+    # ---- 6. the lazy path at 8 MiB ----
+    data = text_part() + generate_bench_data(5 << 20)
+    params = LzmaParams()
     mb = len(data) / 1e6
-    log(f"[main] {len(data)} B in {len(bsizes)} lanes of {MAIN_BLOCK} B on "
-        f"{card}: encode {t_enc:.3f} s = {mb / t_enc:.3f} MB/s, decode "
+    lazy_blob, t_enc, t_dec, launches, peak, _ = drive(api, data, params,
+                                                       "lazy", dev)
+    if launches["rc_serialize"] < 1 or launches["ring_decode"] < 1:
+        raise AssertionError(f"a kernel did not run on the lazy path: {launches}")
+    log(f"[lazy] {len(data)} B in {len(data) // MAIN_BLOCK} lanes of {MAIN_BLOCK} B "
+        f"on {card}: encode {t_enc:.3f} s = {mb / t_enc:.3f} MB/s, decode "
+        f"{t_dec:.3f} s = {mb / t_dec:.3f} MB/s, ratio "
+        f"{len(lazy_blob) / len(data):.4f}, peak device memory "
+        f"{peak / 2**20:.1f} MiB, launches {launches}; every block decodes "
+        "with the stdlib lzma module")
+    done("lazy 8 MiB")
+
+    # ---- 7. the main path: 8 MiB, optimal parse ----
+    probe = {"dp_cut": CMP_POS}
+    blob, t_enc, t_dec, launches, peak, (offsets, bsizes) = drive(
+        api, data, params, "optimal", dev, probe)
+    if launches["dp_parse"] < 2 or launches["rc_serialize"] < 1 \
+            or launches["ring_decode"] < 1:
+        raise AssertionError(f"a kernel did not run on the main path: {launches}")
+    if len(blob) >= len(lazy_blob):
+        raise AssertionError(f"optimal container {len(blob)} B is not smaller "
+                             f"than the lazy one, {len(lazy_blob)} B")
+    log(f"[main] optimal, {len(data)} B in {len(bsizes)} lanes of {MAIN_BLOCK} B "
+        f"on {card}: encode {t_enc:.3f} s = {mb / t_enc:.3f} MB/s, decode "
         f"{t_dec:.3f} s = {mb / t_dec:.3f} MB/s, round trip "
-        f"{mb / (t_enc + t_dec):.3f} MB/s, ratio {len(blob) / len(data):.4f}, "
-        f"peak device memory {peak / 2**20:.1f} MiB, launches {launches}; "
-        "every block decodes with the stdlib lzma module")
+        f"{mb / (t_enc + t_dec):.3f} MB/s, ratio {len(blob) / len(data):.4f} "
+        f"(lazy {len(lazy_blob) / len(data):.4f}), peak device memory "
+        f"{peak / 2**20:.1f} MiB, launches {launches}; every block decodes "
+        "with the stdlib lzma module")
+    secs = probe["seconds"]
+    t_pos, t_len, t_valid, ctx, bits, totals = probe["lowered"]
+    log(f"[stages] optimal encode, max tokens/lane {int(t_valid.sum(1).max())}, "
+        f"max coded bits/lane {int(totals.max())}: "
+        + ", ".join(f"{k} {sum(v) * 1e3:.1f} ms"
+                    + (f" ({len(v)} calls: "
+                       + " + ".join(f"{x * 1e3:.1f}" for x in v) + ")"
+                       if len(v) > 1 else "")
+                    for k, v in secs.items())
+        + f"; decode {t_dec * 1e3:.1f} ms")
+    # the whole-lane kernel stages beside their bounds at the main path's
+    # full shapes; K3's by bytes only (phase 8 counts its edges on a cut)
+    L, N = t_pos.shape
+    C = probe["dp_inputs"][0].shape[2]
+    n_bits = int(totals.sum())
+    n_comp = offsets[-1] - offsets[0]
+    whole = {
+        "dp_parse": (secs["dp_parse"][-1],
+                     bound(L * N * C * 4 + L * 4 + 2 * L * (N + 1) * 4, 0)),
+        "rc_serialize": (secs["rc_serialize"][-1],
+                         bound(8 * n_bits + n_comp, 10 * n_bits)),
+        "decode (K1 and its host work)": (t_dec, bound(sum(bsizes) + n_comp, 0)),
+    }
+    log(f"[whole lanes] {L} x {N} on {card}: " + "; ".join(
+        f"{k} {s * 1e3:.1f} ms a call, bound {b[0]:.4f} ms by {b[1]}"
+        for k, (s, b) in whole.items()))
+    done("main path")
 
-    # encode stage breakdown at the main path's shape (one more pass)
-    from lzma_tpu_torch.ops.device_encoder import (DEFAULT_NUM_CANDIDATES,
-                                                   classify_tokens, lower_tokens)
-    from lzma_tpu_torch.ops.device_matcher import tokenize
-
-    mblocks = blk.split_blocks(data, MAIN_BLOCK)
-    d_t, l_t = pad_rows(mblocks, dev)
-    stage = {}
-    box = {}
-    stage["tokenize"] = wall_ms(lambda: box.update(
-        tok=tokenize(d_t, l_t, min(params.dict_size, MAIN_BLOCK),
-                     params.fast_bytes, DEFAULT_NUM_CANDIDATES)))
-    tp, tl, td, tv, ntok = box["tok"]
-    stage["classify"] = wall_ms(lambda: box.update(
-        meta=classify_tokens(d_t, tp, tl, td, tv)))
-    stage["lower"] = wall_ms(lambda: box.update(low=lower_tokens(
-        d_t, box["meta"], tp, tl, td, tv, params.lc, params.lp, params.pb,
-        10 * MAIN_BLOCK + 128)))
-    ctx, bits, totals = box["low"]
-    arena = ProbLayout(params.lc, params.lp, params.pb, pos_bits=params.pb).size
-    mo_main = MAIN_BLOCK + MAIN_BLOCK // 4 + 128
-    stage["rc_serialize kernel"] = event_ms(
-        lambda: cuda_serializer.serialize_cuda(ctx, bits, totals, arena, mo_main), 3)
-    streams = [blob[offsets[i]:offsets[i + 1]] for i in range(len(bsizes))]
-    comp, comp_lens = pad_rows(streams, dev)
-    msizes = torch.tensor(bsizes, dtype=torch.int32, device=dev)
-    stage["ring_decode kernel"] = event_ms(
-        lambda: cuda_ring.decode_cuda(comp, comp_lens, msizes, params.dict_size,
-                                      params.lc, params.lp, params.pb,
-                                      MAIN_BLOCK), 3)
-    log(f"[stages] {len(mblocks)}x{MAIN_BLOCK}, max tokens/lane "
-        f"{int(ntok.max())}, max coded bits/lane {int(totals.max())}: "
-        + ", ".join(f"{k} {v:.1f} ms" for k, v in stage.items()))
-
-    # ---- 6. kernels vs plain versions at the main path's shapes ----
-    # K2: the main path's own (ctx, bit) tensors, each lane cut to its
+    # ---- 8. kernels vs plain versions at the main path's shapes ----
+    # K3: the last DP round's own inputs, each lane cut to CMP_POS positions
+    packed, tables, lens = probe["dp_inputs"]
+    lens = torch.clamp(lens, max=CMP_POS).contiguous()
+    k3_ms = event_ms(lambda: cuda_parser.dp_parse_cuda(
+        packed, tables, lens, params.fast_bytes, params.pb), 5)
+    err, k3_plain = check_parser(packed, tables, lens, params.fast_bytes,
+                                 params.pb)
+    k3_err = max(k3_err, err)
+    k3_bound = bound(*dp_work(packed, lens))
+    # K2: the final lowering's (ctx, bit) streams, each lane cut to its
     # first CMP_BITS pairs
+    mo_main = MAIN_BLOCK + MAIN_BLOCK // 4 + 128
     cut_totals = torch.clamp(totals, max=CMP_BITS)
     k2_ms = event_ms(lambda: cuda_serializer.serialize_cuda(
         ctx, bits, cut_totals, arena, mo_main), 20)
-    err, _, _, k2_plain = check_serializer(ctx, bits, cut_totals, arena, mo_main)
+    err, _, k2_lens, k2_plain = check_serializer(ctx, bits, cut_totals, arena,
+                                                 mo_main)
     k2_err = max(k2_err, err)
+    n_bits = int(cut_totals.sum())
+    k2_bound = bound(8 * n_bits + int(k2_lens.sum()), 10 * n_bits)
     # K1: the main container's streams, each lane decoded up to the end of
     # its first token that reaches CMP_OUT bytes, a size the stream stops
     # at cleanly
-    ends = tp + tl
-    past = tv & (ends >= CMP_OUT)
+    streams = [blob[offsets[i]:offsets[i + 1]] for i in range(len(bsizes))]
+    comp, comp_lens = pad_rows(streams, dev)
+    ends = t_pos + t_len
+    past = t_valid & (ends >= CMP_OUT)
     first = past.int().argmax(dim=1, keepdim=True)
+    full = torch.tensor(bsizes, device=dev)
     cut_sizes = torch.where(past.any(dim=1), ends.gather(1, first)[:, 0],
-                            l_t.long()).to(torch.int32)
+                            full).to(torch.int32)
     dargs = (comp, comp_lens, cut_sizes, params.dict_size, params.lc,
              params.lp, params.pb, MAIN_BLOCK)
     k1_ms = event_ms(lambda: cuda_ring.decode_cuda(*dargs), 20)
@@ -340,33 +539,50 @@ def main():
     k1_err = max(k1_err, err)
     cuts = cut_sizes.tolist()
     for i, n in enumerate(cuts):
-        if d_out[i, :n].cpu().numpy().tobytes() != mblocks[i][:n]:
+        if d_out[i, :n].cpu().numpy().tobytes() != data[i * MAIN_BLOCK:i * MAIN_BLOCK + n]:
             raise AssertionError(f"lane {i} decodes wrong up to byte {n}")
-    log(f"[times] main path's shapes ({len(mblocks)} lanes x {MAIN_BLOCK} B) on "
-        f"{card}: rc_serialize kernel {k2_ms:.3f} ms vs plain {k2_plain:.1f} ms "
-        f"({CMP_BITS} pairs a lane); ring_decode kernel {k1_ms:.3f} ms vs plain "
-        f"{k1_plain:.1f} ms ({min(cuts)}..{max(cuts)} B a lane); equal")
+    # bytes: the output written and each lane's stream in proportion to the
+    # share of the block decoded; the decoded decisions are not counted
+    k1_bytes = sum(cuts) + sum(len(s) * n / sz for s, n, sz in
+                               zip(streams, cuts, bsizes))
+    k1_bound = bound(k1_bytes, 0)
+    log(f"[times] main path's shapes ({len(bsizes)} lanes x {MAIN_BLOCK} B) on "
+        f"{card}: dp_parse kernel {k3_ms:.3f} ms vs plain {k3_plain:.1f} ms "
+        f"({CMP_POS} positions a lane), bound {k3_bound[0]:.4f} ms by "
+        f"{k3_bound[1]}; rc_serialize kernel {k2_ms:.3f} ms vs plain "
+        f"{k2_plain:.1f} ms ({CMP_BITS} pairs a lane), bound {k2_bound[0]:.4f} "
+        f"ms by {k2_bound[1]}; ring_decode kernel {k1_ms:.3f} ms vs plain "
+        f"{k1_plain:.1f} ms ({min(cuts)}..{max(cuts)} B a lane), bound "
+        f"{k1_bound[0]:.4f} ms by {k1_bound[1]}; all equal")
+    done("main shapes")
 
-    # ---- 7. nothing of JAX or of the JAX package was loaded ----
+    # ---- 9. nothing of JAX or of the JAX package was loaded ----
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib")
                  or m == "lzma_tpu" or m.startswith("lzma_tpu."))
     if bad:
         raise AssertionError(f"JAX or lzma_tpu modules loaded: {bad[:8]}")
     log("[imports] no jax, jaxlib, lzma_tpu or lzma_tpu.* module loaded")
+    log(f"[total] {time.perf_counter() - t_start:.1f} s")
+
+    def record(name, source, replaces, n, err, ms, plain, bnd):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": n, "max_abs_err": err,
+                "ms": ms, "plain_ms": plain, "bound_ms": bnd[0],
+                "bound_by": bnd[1], "library_ms": None}
 
     kernels = [
-        {"name": "rc_serialize", "route": "cuda",
-         "source": "lzma_tpu_torch/csrc/rc_serializer.cu",
-         "replaces": "lzma_tpu/ops/pallas_serializer.py:58",
-         "launches": launches["rc_serialize"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain},
-        {"name": "ring_decode", "route": "cuda",
-         "source": "lzma_tpu_torch/csrc/ring_decoder.cu",
-         "replaces": "lzma_tpu/ops/pallas_ring.py:89",
-         "launches": launches["ring_decode"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain},
+        record("dp_parse", "lzma_tpu_torch/csrc/dp_parse.cu",
+               "lzma_tpu/ops/device_parser.py:804", launches["dp_parse"],
+               k3_err, k3_ms, k3_plain, k3_bound),
+        record("rc_serialize", "lzma_tpu_torch/csrc/rc_serializer.cu",
+               "lzma_tpu/ops/pallas_serializer.py:58", launches["rc_serialize"],
+               k2_err, k2_ms, k2_plain, k2_bound),
+        record("ring_decode", "lzma_tpu_torch/csrc/ring_decoder.cu",
+               "lzma_tpu/ops/pallas_ring.py:89", launches["ring_decode"],
+               k1_err, k1_ms, k1_plain, k1_bound),
     ]
+    print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -7,10 +7,10 @@ jax-free modules it keeps as its own copies under the same names
 originals by the tests, so both packages write and read the same
 containers.
 
-- ``ops``      the lane-parallel codec: lazy tokenizer, classify + bit
-               lowering, range encoder and decoder (plain PyTorch
-               versions beside the CUDA kernels that replace the TPU's
-               Pallas kernels)
+- ``ops``      the lane-parallel codec: lazy and optimal-parse tokenizers,
+               classify + bit lowering, range encoder and decoder (plain
+               PyTorch versions beside the CUDA kernels that replace the
+               TPU's Pallas kernels)
 - ``runtime``  builds ``csrc/*.cu`` with ``nvcc`` and loads it with ctypes
 - ``csrc``     the hand-written Hopper (sm_90a) kernels
 """

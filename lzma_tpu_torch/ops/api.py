@@ -2,11 +2,11 @@
 
 Port of ``lzma_tpu/ops/api.py`` (``encode_blocks``, ``decode_blocks``) and
 the carry-over helper ``from_numpy``.  Blocks are batched across lanes;
-on a CUDA device the range encoder and the decoder run as the CUDA
-kernels of ``cuda_serializer`` and ``cuda_ring``, on the CPU as their
-plain PyTorch versions.  The container format is ``lzma_tpu``'s (the
-port's copy is ``parallel/blocks.py``), so either package decodes the
-other's.
+on a CUDA device the optimal parse's DP scan, the range encoder and the
+decoder run as the CUDA kernels of ``cuda_parser``, ``cuda_serializer``
+and ``cuda_ring``, on the CPU as their plain PyTorch versions.  The
+container format is ``lzma_tpu``'s (the port's copy is
+``parallel/blocks.py``), so either package decodes the other's.
 """
 
 from __future__ import annotations
@@ -39,17 +39,17 @@ def encode_blocks(
     dictionary: bytes = b"",
     parse: str = "lazy",
     device="cuda",
+    probe=None,
 ) -> bytes:
     """Lane-parallel block encode to an LZTB container (api.encode_blocks).
     `preset_len > 0` writes LZTB v2 (block 0 plain, every other lane
     primed with block 0's prefix); `dictionary` writes LZTB v3 (the
     dictionary stored as its own stream, priming every lane).
-    parse="optimal" is not ported yet and raises NotImplementedError."""
+    parse="optimal" tokenizes with the optimal-parse DP; preset-primed
+    lanes keep the lazy parse.  `probe`: see encode_batch."""
     params = (params or LzmaParams()).validated_for_encode()
     if params.write_eos:
         raise ValueError("block container uses known sizes; EOS not supported")
-    if parse != "lazy":
-        raise NotImplementedError(f"parse={parse!r}: only the lazy parse is ported")
     preset_len = blk.validated_preset_len(preset_len, block_size, len(data))
     dictionary = blk.validated_dictionary(dictionary, preset_len)
     if len(data) <= block_size:
@@ -59,17 +59,17 @@ def encode_blocks(
     blocks = blk.split_blocks(data, block_size)
 
     def enc(bs, **kw):
-        return encode_batch(bs, params, device=device, **kw)
+        return encode_batch(bs, params, device=device, probe=probe, **kw)
 
     dict_stream = b""
     if dictionary:
         streams = enc(blocks, preset=dictionary)
-        (dict_stream,) = enc([dictionary])
+        (dict_stream,) = enc([dictionary], parse=parse)
     elif preset_len:
-        streams = enc(blocks[:1])
+        streams = enc(blocks[:1], parse=parse)
         streams += enc(blocks[1:], preset=data[:preset_len])
     else:
-        streams = enc(blocks) if blocks else []
+        streams = enc(blocks, parse=parse) if blocks else []
     return blk.build_container(params, block_size, len(data), streams,
                                preset_len, dict_stream, len(dictionary))
 

@@ -1,11 +1,12 @@
 """Lane-parallel LZMA encoder in PyTorch: parse, classify, lower, serialize.
 
-Port of the lazy route of ``lzma_tpu/ops/device_encoder.py`` (without the
-EOS marker).
+Port of ``lzma_tpu/ops/device_encoder.py`` (everything but the EOS marker).
 Once the token stream is fixed, the (context, bit) sequence fed to the
 range coder is fully determined, so the encoder splits into
 
-  A. tokenization                     (ops/device_matcher.tokenize)
+  A. tokenization                     (ops/device_matcher.tokenize, the
+                                       lazy parse, or
+                                       ops/device_parser.tokenize_optimal)
   B. token classification scan        (classify_tokens: state machine and
                                        rep-distance MTF per token)
   C. bit lowering                     (lower_tokens: every token's
@@ -17,11 +18,15 @@ range coder is fully determined, so the encoder splits into
 ``encode_batch`` runs D through ``cuda_serializer.serialize_checked``:
 the kernel for CUDA tensors, the plain ``serialize`` for CPU tensors.
 A preset (a dictionary shared by every lane) primes each lane's window:
-it is searched as match history and never coded.
+it is searched as match history and never coded, and preset-primed
+lanes keep the lazy parse, as in the reference.
 The coder's uint32 ``low``/``range`` ride in int64 masked to 32 bits.
 """
 
 from __future__ import annotations
+
+import contextlib
+import time
 
 import torch
 
@@ -494,42 +499,81 @@ def serialize(ctx, bits, totals, arena_size: int, max_out: int):
 
 
 # ------------------------------------------------------------------ API
+@contextlib.contextmanager
+def stage(probe, name: str, device):
+    """Time one encode stage into ``probe["seconds"][name]`` (a list, one
+    entry a call), synchronizing `device` on both sides; does nothing
+    when `probe` is None."""
+    if probe is None:
+        yield
+        return
+    sync = torch.cuda.synchronize if torch.device(device).type == "cuda" else None
+    if sync:
+        sync(device)
+    t = time.perf_counter()
+    yield
+    if sync:
+        sync(device)
+    probe.setdefault("seconds", {}).setdefault(name, []).append(
+        time.perf_counter() - t)
+
+
 def _lower_lanes(data, lens, dict_size, lc, lp, pb, fb, num_candidates,
-                 preset=None):
-    """Phases A-C for a lane batch, lazy parse (device_encoder._lower_lanes
-    without the EOS marker).  `preset` ((P,) uint8 tensor or None) primes
-    every lane's window.  Returns (ctx, bits, totals, max_out)."""
+                 preset=None, parse: str = "lazy", probe=None):
+    """Phases A-C for a lane batch (device_encoder._lower_lanes without
+    the EOS marker).  `preset` ((P,) uint8 tensor or None) primes every
+    lane's window; preset-primed lanes keep the lazy parse.
+    parse="optimal" tokenizes with device_parser.tokenize_optimal.
+    Returns (ctx, bits, totals, max_out)."""
     N, max_n = data.shape
+    device = data.device
     plen = 0 if preset is None else int(preset.shape[0])
     if plen:
         data = torch.cat([preset.to(data.dtype).expand(N, plen), data], dim=1)
         lens = lens + plen
-    t_pos, t_len, t_dist, t_valid, _ = tokenize(data, lens, dict_size, fb,
-                                                num_candidates, start=plen)
-    meta = classify_tokens(data, t_pos, t_len, t_dist, t_valid)
+    if parse.startswith("optimal") and plen == 0:
+        from .device_parser import DP_TIERS, tokenize_optimal
+
+        if parse != "optimal":
+            raise NotImplementedError(
+                f"parse={parse!r}: only the default list seed is ported")
+        tok = tokenize_optimal(data, lens, dict_size, lc=lc, lp=lp, pb=pb,
+                               fb=fb, tiers_key=DP_TIERS, n_iter=2,
+                               probe=probe)
+    else:
+        with stage(probe, "tokenize", device):
+            tok = tokenize(data, lens, dict_size, fb, num_candidates,
+                           start=plen)
+    t_pos, t_len, t_dist, t_valid, _ = tok
+    with stage(probe, "classify", device):
+        meta = classify_tokens(data, t_pos, t_len, t_dist, t_valid)
     max_bits = 10 * max_n + 128
-    ctx, bits, totals = lower_tokens(data, meta, t_pos, t_len, t_dist,
-                                     t_valid, lc, lp, pb, max_bits,
-                                     pos_base=plen)
+    with stage(probe, "lower", device):
+        ctx, bits, totals = lower_tokens(data, meta, t_pos, t_len, t_dist,
+                                         t_valid, lc, lp, pb, max_bits,
+                                         pos_base=plen)
+    if probe is not None:
+        probe["lowered"] = (t_pos, t_len, t_valid, ctx, bits, totals)
     return ctx, bits, totals, max_n + max_n // 4 + 128
 
 
 def encode_batch(blocks, params: LzmaParams, fb=None,
                  num_candidates: int = DEFAULT_NUM_CANDIDATES,
                  preset: bytes = b"", write_eos: bool = False,
-                 parse: str = "lazy", device="cuda"):
-    """Encode independent blocks lane-parallel (device_encoder.encode_batch,
-    lazy parse).  `preset` primes every lane's window with one shared
-    dictionary (LZTB v2/v3 blocks).  The range coder is the CUDA kernel
-    for a CUDA `device` and the plain ``serialize`` for the CPU.  The EOS
-    marker (`write_eos`) and parse="optimal" are not ported yet and raise
+                 parse: str = "lazy", device="cuda", probe=None):
+    """Encode independent blocks lane-parallel (device_encoder.encode_batch).
+    `preset` primes every lane's window with one shared dictionary (LZTB
+    v2/v3 blocks).  The range coder is the CUDA kernel for a CUDA
+    `device` and the plain ``serialize`` for the CPU.  `probe`, a dict,
+    receives each stage's seconds under "seconds" (the device is
+    synchronized around each stage), the last DP round's inputs under
+    "dp_inputs" and the final tokens and (ctx, bit) streams under
+    "lowered".  The EOS marker (`write_eos`) is not ported yet and raises
     NotImplementedError.  Returns a list of raw LZMA streams."""
     from .cuda_serializer import serialize_checked
 
     if not blocks:
         return []
-    if parse != "lazy":
-        raise NotImplementedError(f"parse={parse!r}: only the lazy parse is ported")
     if write_eos:
         raise NotImplementedError("the end-of-stream marker is not ported")
     params = params.validated_for_encode()
@@ -543,10 +587,11 @@ def encode_batch(blocks, params: LzmaParams, fb=None,
                 if preset else None)
     ctx, bits, totals, max_out = _lower_lanes(
         data_t, lens_t, dict_j, params.lc, params.lp, params.pb, fb,
-        num_candidates, preset=preset_t)
+        num_candidates, preset=preset_t, parse=parse, probe=probe)
     layout = ProbLayout(params.lc, params.lp, params.pb, pos_bits=params.pb)
-    out, out_lens = serialize_checked(ctx, bits, totals, layout.size,
-                                      int(max_out))
+    with stage(probe, "rc_serialize", device):
+        out, out_lens = serialize_checked(ctx, bits, totals, layout.size,
+                                          int(max_out))
     out = out.cpu().numpy()
     out_lens = out_lens.cpu().numpy()
     return [out[i, : out_lens[i]].tobytes() for i in range(len(blocks))]

@@ -1,9 +1,11 @@
 """Parallel match finding and the lazy parse, in PyTorch.
 
-Port of the lazy route of ``lzma_tpu/ops/device_matcher.py``: 4-byte hash
+Port of the RMQ routes of ``lzma_tpu/ops/device_matcher.py``: 4-byte hash
 sort-neighbor candidates, exact match lengths from suffix-rank LCP range
 minimum queries (prefix doubling to the 273-byte depth), the pointwise
-lazy decision, pointer-doubling path marking and prefix-sum compaction.
+lazy decision, pointer-doubling path marking and prefix-sum compaction;
+and, for the optimal parse, the multi-tier candidate lists
+(``_rmq_search``) and the rep0 match lengths (``rep_match_lens_rmq``).
 
 The JAX functions run on one lane under ``jax.vmap``; here the lane axis
 is written out: every tensor is (N, max_n, ...) and rolls, sorts,
@@ -209,13 +211,16 @@ def _suffix_rank_lcp(data, n, pos, max_n: int, depth: int):
     return rank, torch.stack(T, dim=1)
 
 
-def _lcp_query(rank, T, q, max_n: int):
-    """Exact LCP(suffix p, suffix q) for p = every position, q (N, max_n,
-    K) candidates (device_matcher._lcp_query with rp = rank): two sparse
-    table gathers per pair.  Invalid q (< 0) yields 0."""
+def _lcp_query(rank, T, q, max_n: int, p=None):
+    """Exact LCP(suffix p, suffix q) up to the sort depth
+    (device_matcher._lcp_query): two sparse-table gathers per pair.  q
+    (N, max_n, K) candidates; p (the same shape) or None for p = every
+    position (the reference's rp = rank).  Invalid q (< 0) yields 0."""
     N, levels, _ = T.shape
-    K = q.shape[2]
-    rp = rank[:, :, None]
+    if p is None:
+        rp = rank[:, :, None]
+    else:
+        rp = rank.gather(1, torch.clamp(p, 0, max_n - 1).reshape(N, -1)).reshape(p.shape)
     rq = rank.gather(1, torch.clamp(q, 0, max_n - 1).reshape(N, -1)).reshape(q.shape)
     a = torch.minimum(rp, rq) + 1
     bb = torch.maximum(rp, rq)
@@ -226,7 +231,7 @@ def _lcp_query(rank, T, q, max_n: int):
     v2 = flat.gather(1, (k * max_n + torch.clamp(a + (torch.ones_like(k) << k) - 1,
                                                 max=max_n - 1))
                      .reshape(N, -1))
-    lcp = torch.minimum(v1, v2).reshape(N, max_n, K).long()
+    lcp = torch.minimum(v1, v2).reshape(q.shape).long()
     return torch.where((q >= 0) & (w >= 1), lcp, 0)
 
 
@@ -246,16 +251,7 @@ def find_best_matches_rmq(data, n, dict_size: int, fb: int,
     rank, T = _suffix_rank_lcp(data, n, pos, max_n, MATCH_MAX)
 
     h = _hash4(data.long(), pos, n)
-    # lexsort((pos, h)): a stable sort of h keeps position order in ties
-    order = torch.sort(h, dim=1, stable=True).indices
-    sorted_h = h.gather(1, order)
-    cands = []
-    for k in range(1, num_candidates + 1):
-        prev = torch.roll(order, k, dims=1)
-        same = (torch.roll(sorted_h, k, dims=1) == sorted_h) & (pos >= k)
-        cand_sorted = torch.where(same, prev, -1)
-        cands.append(_scatter_rows(order, cand_sorted, -1))
-    cand = torch.stack(cands, dim=2)                  # (N, max_n, K)
+    cand = torch.stack(_neighbor_candidates(h, pos, num_candidates), dim=2)
 
     p3 = pos[None, :, None]
     in_window = (cand >= 0) & (p3 - cand <= dict_size) & (cand < p3)
@@ -273,6 +269,163 @@ def find_best_matches_rmq(data, n, dict_size: int, fb: int,
     best_len = torch.where(chosen, lf, 0).amax(dim=2)
     best_len = torch.where(best_sel >= MIN_MATCH, best_len, 0)
     return best_len, torch.clamp(best_dist, min=0)
+
+
+def _neighbor_candidates(h, pos, k: int):
+    """The k nearest previous positions with the same hash, ranks 1..k
+    (device_matcher._neighbor_candidates): one stable sort groups equal
+    hashes, and rank j's candidate is the sort neighbour j back.  h (N,
+    max_n).  Returns a list of k (N, max_n) tensors, -1 = none."""
+    # lexsort((pos, h)): a stable sort of h keeps position order in ties
+    order = torch.sort(h, dim=1, stable=True).indices
+    sorted_h = h.gather(1, order)
+    cands = []
+    for j in range(1, k + 1):
+        prev = torch.roll(order, j, dims=1)
+        same = (torch.roll(sorted_h, j, dims=1) == sorted_h) & (pos >= j)
+        cands.append(_scatter_rows(order, torch.where(same, prev, -1), -1))
+    return cands
+
+
+def _mul32(h, m: int):
+    """(h * m) mod 2**32 for h < 2**32 held in int64, without passing
+    2**63 (a 32x32-bit product would)."""
+    lo = (h & 0xFFFF) * m
+    hi = (((h >> 16) * m) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def _tier_candidates(data, n, pos, k4, k8, k2=1, k3=1, k6=0, k16=0, k32=0):
+    """The multi-tier candidate build (device_matcher._tier_candidates):
+    exact 2/3-byte values and 4/6/8/16/32-byte multiplicative hashes,
+    each tier's k nearest previous occurrences.  data (N, max_n) uint8,
+    n (N,).  Returns cand (N, max_n, M), M the sum of the tiers' k;
+    -1 = no candidate."""
+    d = data.long()
+    nroll = 32 if k32 else (16 if k16 else 8)
+    b = [torch.roll(d, -i, dims=1) for i in range(nroll)]
+    uniq = 0x80000000 ^ pos
+    n2 = n[:, None]
+
+    def mark(h, span):
+        return torch.where(pos + span - 1 < n2, h, uniq)
+
+    h2 = mark(b[0] | (b[1] << 8), 2)
+    h3 = mark(b[0] | (b[1] << 8) | (b[2] << 16), 3)
+    h4 = mark(((b[0] * _HASH_MULS[0]) ^ (b[1] * _HASH_MULS[1])
+               ^ (b[2] * _HASH_MULS[2]) ^ (b[3] * _HASH_MULS[3])) & _M32, 4)
+
+    def extend(h, lo, hi):
+        for i in range(lo, hi):
+            h = _mul32(h, _HASH_MULS[0]) ^ ((b[i] * _HASH_MULS[1]) & _M32)
+        return mark(h, hi)
+
+    cands = (_neighbor_candidates(h2, pos, k2)
+             + _neighbor_candidates(h3, pos, k3)
+             + _neighbor_candidates(h4, pos, k4))
+    if k6:
+        cands += _neighbor_candidates(extend(h4, 4, 6), pos, k6)
+    h8 = extend(h4, 4, 8)
+    cands += _neighbor_candidates(h8, pos, k8)
+    h16 = extend(h8, 8, 16) if (k16 or k32) else None
+    if k16:
+        cands += _neighbor_candidates(h16, pos, k16)
+    if k32:
+        cands += _neighbor_candidates(extend(h16, 16, 32), pos, k32)
+    return torch.stack(cands, dim=2)
+
+
+def _rmq_search(data, n, dict_size: int, fb: int, k4=4, k8=2, k2=1, k3=1,
+                k6=0, k16=0, k32=0, m_cap: int = 0, m_cap_order: str = "near"):
+    """Ascending (len, dist) candidate lists per position, every lane at
+    once (device_matcher._rmq_search): tier candidates, deduplicated
+    across tiers and optionally capped to m_cap ("rr": round-robin tier
+    priority, every tier's rank-1 candidate first; "near": the m_cap
+    nearest), exact lengths from the fb-deep suffix table, then the merge
+    that keeps strictly increasing lengths at ascending distance.
+    data (N, max_n) uint8, n (N,).  Returns (lens (N, max_n, M), dists
+    (N, max_n, M), counts (N, max_n), rank, T); the suffix rank and min
+    table come back for the rep0 length queries."""
+    N, max_n = data.shape
+    device = data.device
+    pos = torch.arange(max_n, dtype=torch.int64, device=device)
+    n = n.long()
+    rank, T = _suffix_rank_lcp(data, n, pos, max_n, fb)
+    cand = _tier_candidates(data, n, pos, k4, k8, k2, k3, k6, k16, k32)
+    big = 1 << 30
+
+    if m_cap_order == "rr" and 0 < m_cap < cand.shape[2]:
+        sizes = [k2, k3, k4, k6, k8, k16, k32]
+        offs = [sum(sizes[:i]) for i in range(len(sizes))]
+        perm = [base + r for r in range(max(sizes))
+                for sz, base in zip(sizes, offs) if r < sz]
+        cp = cand[:, :, perm]
+        dup = [torch.zeros_like(cp[:, :, 0], dtype=torch.bool)]
+        for j in range(1, cp.shape[2]):
+            eqa = (cp[:, :, j:j + 1] == cp[:, :, :j]).any(dim=2)
+            dup.append(eqa & (cp[:, :, j] >= 0))
+        cp = torch.where(torch.stack(dup, dim=2), -1, cp)
+        # pack survivors by priority, truncate, then nearest first
+        prio = torch.arange(cp.shape[2], device=device)
+        pk = torch.where(cp >= 0, prio, big)
+        ordp = torch.sort(pk, dim=2, stable=True).indices[:, :, :m_cap]
+        cp = cp.gather(2, ordp)
+        key = torch.sort(torch.where(cp >= 0, -cp, big), dim=2).values
+        cand = torch.where(key >= big, -1, -key)
+    else:
+        cs = torch.sort(cand, dim=2).values
+        dup = torch.cat([torch.zeros_like(cs[:, :, :1], dtype=torch.bool),
+                         cs[:, :, 1:] == cs[:, :, :-1]], dim=2)
+        cs = torch.where(dup, -1, cs)
+        key = torch.sort(torch.where(cs >= 0, -cs, big), dim=2).values
+        cand = torch.where(key >= big, -1, -key)
+        if 0 < m_cap < cand.shape[2]:
+            cand = cand[:, :, :m_cap]
+    M = cand.shape[2]
+
+    p3 = pos[None, :, None]
+    in_window = (cand >= 0) & (p3 - cand <= dict_size) & (cand < p3)
+    length = _lcp_query(rank, T, cand, max_n)
+    length = torch.minimum(length, torch.clamp(n[:, None] - pos, min=0)[:, :, None])
+    dist = torch.where(in_window, p3 - cand - 1, big)
+    length = torch.where(in_window, length, 0)
+
+    # merge: columns are nearest first; keep strictly increasing lengths
+    runmax = torch.zeros_like(length[:, :, 0])
+    keeps = []
+    for j in range(M):
+        sl = length[:, :, j]
+        keeps.append((sl >= MIN_MATCH) & (sl > runmax) & (dist[:, :, j] < big))
+        runmax = torch.maximum(runmax, sl)
+    keep = torch.stack(keeps, dim=2)
+    tgt = torch.where(keep, torch.cumsum(keep.long(), dim=2) - 1, M)
+
+    def put(values):
+        out = torch.zeros((N, max_n, M + 1), dtype=torch.int64, device=device)
+        return out.scatter_(2, tgt, values)[:, :, :M]
+
+    return put(length), put(dist), keep.long().sum(dim=2), rank, T
+
+
+def find_match_lists_rmq(data, n, dict_size: int, fb: int, k4=4, k8=2,
+                         k2=1, k3=1, k6=0, k16=0, k32=0, m_cap: int = 0,
+                         m_cap_order: str = "near"):
+    """(lens, dists, counts) of _rmq_search
+    (device_matcher.find_match_lists_rmq)."""
+    return _rmq_search(data, n, dict_size, fb, k4, k8, k2, k3, k6, k16, k32,
+                       m_cap, m_cap_order)[:3]
+
+
+def rep_match_lens_rmq(rank, T, r0pos, n, fb: int):
+    """LCP of each position with its rep0 source data[pos - r0pos - 1]
+    through the suffix table (device_matcher.rep_match_lens_rmq), capped
+    at the table depth (fb) and at n - pos; a source before the block
+    yields 0.  rank (N, max_n), r0pos (N, max_n), n (N,)."""
+    max_n = rank.shape[1]
+    pos = torch.arange(max_n, dtype=torch.int64, device=rank.device)
+    src = (pos - r0pos.long() - 1)[:, :, None]
+    lcp = _lcp_query(rank, T, src, max_n, p=pos.expand_as(r0pos)[:, :, None])
+    return torch.minimum(lcp[:, :, 0], torch.clamp(n.long()[:, None] - pos, min=0))
 
 
 def greedy_path(best_len, best_dist, n, max_n: int, start: int = 0,

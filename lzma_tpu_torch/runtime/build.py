@@ -1,11 +1,12 @@
 """Build the CUDA kernels into a shared library and load it with ctypes.
 
 Counterpart of ``lzma_tpu/runtime/build.py`` (which builds the C++ host
-runtime).  At first use, ``csrc/*.cu`` is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, under
-``lzma_tpu_torch/_build/``, named by the SHA-256 of the sources and flags:
-an edited source builds anew, an unchanged one loads the cached library.
-A missing ``nvcc`` raises; there is no fallback.
+runtime).  At first use, each ``csrc/*.cu`` is compiled by its own ``nvcc`` for
+Hopper (``sm_90a``), all at once, and the objects are linked into one
+shared library with a plain C interface, under ``lzma_tpu_torch/_build/``,
+named by the SHA-256 of the sources and flags: an edited source builds
+anew, an unchanged one loads the cached library.  A missing ``nvcc``
+raises; there is no fallback.
 
 Usage: python -m lzma_tpu_torch.runtime.build [--verbose]
 """
@@ -28,7 +29,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 _LOCK = threading.Lock()
@@ -72,28 +73,39 @@ def library_path() -> str:
 
 
 def build(verbose: bool = False) -> str:
-    """Compile csrc/*.cu unless the library for these sources exists.
-    Returns the library path.  `verbose` adds ptxas register/spill
-    reports and prints nvcc's output."""
+    """Compile csrc/*.cu unless the library for these sources exists: one
+    nvcc per source, started together, then one link.  Returns the
+    library path.  `verbose` adds ptxas register/spill reports and
+    prints nvcc's output."""
     lib = library_path()
     if os.path.exists(lib) and not verbose:
         return lib
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc(), *NVCC_FLAGS, *(["-Xptxas=-v"] if verbose else []),
-           "-o", tmp, *sources()]
+    work = tempfile.mkdtemp(dir=BUILD_DIR)
     try:
-        result = subprocess.run(cmd, capture_output=True, text=True)
+        jobs = []
+        for src in sources():
+            obj = os.path.join(work, os.path.basename(src) + ".o")
+            cmd = [nvcc(), *NVCC_FLAGS, *(["-Xptxas=-v"] if verbose else []),
+                   "-c", "-o", obj, src]
+            jobs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        logs = [(src, *p.communicate()) for src, _, p in jobs]
+        for (src, out, err), (_, _, p) in zip(logs, jobs):
+            if verbose:
+                print(f"{os.path.basename(src)}:\n{out}{err}", file=sys.stderr)
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src} ({p.returncode}):\n{err}")
+        tmp = os.path.join(work, "lib.so")
+        result = subprocess.run([nvcc(), "-shared", "-o", tmp,
+                                 *(obj for _, obj, _ in jobs)],
+                                capture_output=True, text=True)
         if result.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({result.returncode}):\n{result.stderr}")
-        if verbose:
-            print(result.stdout + result.stderr, file=sys.stderr)
+            raise RuntimeError(f"nvcc link failed ({result.returncode}):\n"
+                               f"{result.stderr}")
         os.replace(tmp, lib)  # atomic: a concurrent build never sees a torn file
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        shutil.rmtree(work, ignore_errors=True)
     return lib
 
 

@@ -3,8 +3,9 @@
 encode_blocks must write byte-identical LZTB containers to
 lzma_tpu.ops.api.encode_blocks(..., use_pallas=True, parse="lazy");
 decode_blocks must read them back, and lzma_tpu must read the port's.
-The pin test ties chip_smoke.py's card run to the JAX reference through
-one SHA-256.  (lzma_tpu's v2/v3 containers: test_torch_containers.py.)
+The pin tests tie chip_smoke.py's card run to the JAX reference through
+SHA-256s of its containers.  (lzma_tpu's v2/v3 containers:
+test_torch_containers.py; the optimal parse: test_torch_optimal.py.)
 """
 
 import dataclasses
@@ -25,6 +26,7 @@ from lzma_tpu.bench.datagen import generate_bench_data  # noqa: E402
 from lzma_tpu.format.properties import LzmaParams  # noqa: E402
 from lzma_tpu.ops import api as japi  # noqa: E402
 from lzma_tpu_torch.ops import api as tapi  # noqa: E402
+from lzma_tpu_torch.ops.device_encoder import encode_batch as tencode_batch  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -47,30 +49,63 @@ def test_encode_blocks_matches_jax_and_round_trips(name):
     assert lzma_tpu.decompress(got) == data
 
 
-def test_smoke_pin_is_the_jax_container():
-    """chip_smoke.py compares the card's container with PIN_SHA256; this
-    holds the pin to the JAX reference (JAX is absent on the card)."""
+def _smoke():
     sys.path.insert(0, ROOT)
     try:
         import chip_smoke
     finally:
         sys.path.remove(ROOT)
-    data, params, block = chip_smoke.pin_input()
-    # the port's own parameter class, carried over to the JAX package's
-    params = LzmaParams(**dataclasses.asdict(params))
-    blob = japi.encode_blocks(data, params, block_size=block, parse="lazy")
+    return chip_smoke
+
+
+def _jax_params(params):
+    return LzmaParams(**dataclasses.asdict(params))
+
+
+@pytest.mark.parametrize("parse", ["lazy", "optimal"])
+def test_smoke_pin_is_the_jax_container(parse):
+    """chip_smoke.py compares the card's containers with PIN_SHA256 and
+    PIN_OPT_SHA256; this holds the pins to the JAX reference (JAX is
+    absent on the card)."""
+    smoke = _smoke()
+    data, params, block = smoke.pin_input()
+    blob = japi.encode_blocks(data, _jax_params(params), block_size=block,
+                              parse=parse)
     assert len(data) // block == 8
-    assert hashlib.sha256(blob).hexdigest() == chip_smoke.PIN_SHA256
+    pin = smoke.PIN_SHA256 if parse == "lazy" else smoke.PIN_OPT_SHA256
+    assert hashlib.sha256(blob).hexdigest() == pin
+
+
+def test_smoke_bench_pin_is_the_jax_container():
+    """The bench's device round trip (bench.py:297-328) through the JAX
+    reference: BENCH_r05.json's device_ratio, the container's size and
+    PIN_BENCH_SHA256, which chip_smoke.py holds the card to."""
+    smoke = _smoke()
+    # bench.py slices a longer stream; the generator is sequential
+    assert generate_bench_data(1 << 16)[: 1 << 13] == generate_bench_data(1 << 13)
+    data, params, block = smoke.bench_input()
+    blob = japi.encode_blocks(data, _jax_params(params), block_size=block,
+                              parse="optimal")
+    assert len(data) // block == 32
+    assert len(blob) == smoke.BENCH_BYTES
+    assert round(len(data) / len(blob), 3) == smoke.BENCH_RATIO == 2.256
+    assert hashlib.sha256(blob).hexdigest() == smoke.PIN_BENCH_SHA256
 
 
 def test_not_ported_options_raise():
     data = generate_bench_data(3000)
     with pytest.raises(NotImplementedError):
-        tapi.encode_blocks(data, block_size=1024, parse="optimal", device="cpu")
+        tapi.encode_blocks(data, block_size=1024, parse="optimal:lazy",
+                           device="cpu")
+    with pytest.raises(NotImplementedError):
+        tencode_batch([data[:500]], LzmaParams(write_eos=True), parse="optimal",
+                      write_eos=True, device="cpu")
     with pytest.raises(ValueError):
         tapi.encode_blocks(data, LzmaParams(write_eos=True), device="cpu")
-    # what PR-by-PR porting has since added: the preset-primed containers
-    for kw in (dict(preset_len=100), dict(dictionary=b"xyz" * 50)):
+    # what PR-by-PR porting has since added: the optimal parse and the
+    # preset-primed containers
+    for kw in (dict(parse="optimal"), dict(preset_len=100),
+               dict(dictionary=b"xyz" * 50)):
         blob = tapi.encode_blocks(data, block_size=1024, device="cpu", **kw)
         assert tapi.decode_blocks(blob, device="cpu") == data
         assert lzma_tpu.decompress(blob) == data
@@ -87,9 +122,9 @@ def test_from_numpy_carries_arrays_over():
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port and running a CPU encode and
-    decode loads nothing of JAX and nothing of the JAX package
-    (lzma_tpu_torch starts with lzma_tpu, hence the exact test)."""
+    """Importing every module of the port and running a CPU encode (lazy
+    and optimal) and decode loads nothing of JAX and nothing of the JAX
+    package (lzma_tpu_torch starts with lzma_tpu, hence the exact test)."""
     code = (
         "import sys, pkgutil, importlib; sys.path.insert(0, sys.argv[1]);"
         "import lzma_tpu_torch as P;"
@@ -98,8 +133,9 @@ def test_port_imports_no_jax():
         "from lzma_tpu_torch.ops import api;"
         "from lzma_tpu_torch.bench.datagen import generate_bench_data as g;"
         "d = g(3000);"
-        "api.decode_blocks(api.encode_blocks(d, block_size=1024, device='cpu'),"
-        " device='cpu') == d or sys.exit('round trip');"
+        "[api.decode_blocks(api.encode_blocks(d, block_size=1024, parse=p,"
+        " device='cpu'), device='cpu') == d or sys.exit(p)"
+        " for p in ('lazy', 'optimal')];"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib') or m == 'lzma_tpu' or m.startswith('lzma_tpu.'));"
         "assert not bad, bad"

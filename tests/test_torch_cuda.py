@@ -18,9 +18,11 @@ from lzma_tpu.format.properties import LzmaParams
 from lzma_tpu_torch.bench.datagen import generate_bench_data
 from lzma_tpu_torch.core.layout import ProbLayout
 from lzma_tpu_torch.core.rangecoder import CorruptStreamError
-from lzma_tpu_torch.ops import api, cuda_ring, cuda_serializer
+from lzma_tpu_torch.ops import api, cuda_parser, cuda_ring, cuda_serializer
 from lzma_tpu_torch.ops.device_decoder import _decode_fsm, pad_rows
 from lzma_tpu_torch.ops.device_encoder import _lower_lanes, serialize
+from lzma_tpu_torch.ops.device_parser import (DP_TIERS, _lists_and_seed,
+                                              _round_inputs, dp_parse_band)
 
 pytestmark = pytest.mark.cuda
 
@@ -162,3 +164,54 @@ def test_wrappers_reject_bad_dtype_and_device(card):
         cuda_ring.decode_cuda(comp.int(), lens, lens, 1 << 12, 3, 0, 2, 64)
     with pytest.raises(ValueError):
         cuda_ring.decode_cuda(comp, lens.cpu(), lens, 1 << 12, 3, 0, 2, 64)
+
+
+def _dp_inputs(blocks, fb, pb, dev, lc=3, lp=0):
+    """The first round's DP inputs for `blocks`, built on `dev`."""
+    data, lens = pad_rows(blocks, dev)
+    ld, dd, tokens, suffix = _lists_and_seed(data, lens, data.shape[1], fb, 4,
+                                             DP_TIERS, 12, "rr")
+    packed, tables = _round_inputs(data, lens, tokens, ld, dd, suffix, lc, lp,
+                                   pb, fb)
+    return packed, tables, lens
+
+
+@pytest.mark.parametrize("fb", [5, 32, 273])
+@pytest.mark.parametrize("pb", [0, 4])
+def test_dp_parse_kernel_matches_plain(card, fb, pb):
+    blocks = _blocks(4, 512, fb + pb)
+    blocks[1] = blocks[1][:300]           # ragged lanes
+    packed, tables, lens = _dp_inputs(blocks, fb, pb, card)
+    before = cuda_parser.LAUNCHES
+    k_from, k_choice = cuda_parser.dp_parse_cuda(packed, tables, lens, fb, pb)
+    p_from, p_choice = dp_parse_band(packed, tables, lens, fb, pb)
+    torch.cuda.synchronize()
+    assert cuda_parser.LAUNCHES == before + 1
+    assert torch.equal(k_from, p_from)
+    assert torch.equal(k_choice, p_choice)
+    if fb == 32:
+        k = cuda_parser.dp_parse_cuda(packed, tables, lens, fb, pb, True)
+        p = dp_parse_band(packed, tables, lens, fb, pb, True)
+        assert all(torch.equal(a, b) for a, b in zip(k, p))
+
+
+def test_dp_parse_wrapper_rejects_bad_dtype_and_device(card):
+    packed, tables, lens = _dp_inputs(_blocks(2, 256, 1), 32, 2, card)
+    with pytest.raises(TypeError):
+        cuda_parser.dp_parse_cuda(packed.long(), tables, lens, 32, 2)
+    with pytest.raises(ValueError):
+        cuda_parser.dp_parse_cuda(packed, tables, lens.cpu(), 32, 2)
+    with pytest.raises(ValueError):
+        cuda_parser.dp_parse_cuda(packed, tables, lens, 32, 3)  # table size
+
+
+def test_optimal_encode_on_the_card_equals_the_cpu(card):
+    data = generate_bench_data(20000)
+    params = LzmaParams(dict_size=1 << 14)
+    dp0, enc0 = cuda_parser.LAUNCHES, cuda_serializer.LAUNCHES
+    blob = api.encode_blocks(data, params, block_size=4096, parse="optimal",
+                             device=card)
+    assert cuda_parser.LAUNCHES >= dp0 + 2 and cuda_serializer.LAUNCHES > enc0
+    assert blob == api.encode_blocks(data, params, block_size=4096,
+                                     parse="optimal", device="cpu")
+    assert api.decode_blocks(blob, device=card) == data

@@ -155,15 +155,16 @@ def test_encode_batch_matches_jax_pallas_route():
 
 def test_encoder_rejects_what_is_not_ported():
     with pytest.raises(NotImplementedError):
-        tde.encode_batch([b"abc"], LzmaParams(), parse="optimal", device="cpu")
+        tde.encode_batch([b"abc"], LzmaParams(), parse="optimal:lists2",
+                         device="cpu")
     with pytest.raises(NotImplementedError):
         tde.encode_batch([b"abc" * 9], LzmaParams(write_eos=True),
-                         write_eos=True, device="cpu")
-    # preset priming is ported now
+                         parse="optimal", write_eos=True, device="cpu")
+    # the optimal parse and preset priming are ported now
     blocks = [generate_bench_data(700), b"abcabcabd" * 20]
-    preset = b"abcab" * 30
-    assert tde.encode_batch(blocks, LzmaParams(), preset=preset, device="cpu") == \
-        jde.encode_batch(blocks, LzmaParams(), use_pallas=True, preset=preset)
+    for kw in (dict(parse="optimal"), dict(preset=b"abcab" * 30)):
+        assert tde.encode_batch(blocks, LzmaParams(), device="cpu", **kw) == \
+            jde.encode_batch(blocks, LzmaParams(), use_pallas=True, **kw)
     with pytest.raises(ValueError):
         tde.clamp_fb(4)
     data, lens = _data(2, 256, seed=2)

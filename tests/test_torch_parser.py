@@ -1,6 +1,12 @@
-"""The port's own copies of lzma_tpu's jax-free modules, held to the
-originals on the CPU: layout, constants, prices, parameters, the LZTB
-container and the bench data must agree exactly."""
+"""lzma_tpu_torch's optimal parse against lzma_tpu's, on the CPU.
+
+Each stage of the optimal-parse pipeline (candidate lists, seed, price
+model, the DP scan's plain version, extraction) is fed the same numpy
+inputs as its counterpart in lzma_tpu.ops; the codec is integer-only, so
+every array must be exactly equal (tolerance zero).  The port's own
+copies of lzma_tpu's jax-free modules are held to the originals here
+too.  (The whole tokenizer and the containers: test_torch_optimal.py.)
+"""
 
 import io
 
@@ -8,6 +14,8 @@ import numpy as np
 import pytest
 
 jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
 
 from lzma_tpu.bench.corpus import text_part as j_text_part  # noqa: E402
 from lzma_tpu.bench.datagen import generate_bench_data as j_gen  # noqa: E402
@@ -15,6 +23,9 @@ from lzma_tpu.core import constants as jc  # noqa: E402
 from lzma_tpu.core import prices as jprices  # noqa: E402
 from lzma_tpu.core.layout import ProbLayout as JLayout  # noqa: E402
 from lzma_tpu.format import properties as jprops  # noqa: E402
+from lzma_tpu.ops import device_encoder as jde  # noqa: E402
+from lzma_tpu.ops import device_matcher as jm  # noqa: E402
+from lzma_tpu.ops import device_parser as jp  # noqa: E402
 from lzma_tpu.parallel import blocks as jblk  # noqa: E402
 from lzma_tpu_torch.bench.corpus import text_part  # noqa: E402
 from lzma_tpu_torch.bench.datagen import generate_bench_data  # noqa: E402
@@ -22,10 +33,74 @@ from lzma_tpu_torch.core import constants as tc  # noqa: E402
 from lzma_tpu_torch.core import prices as tprices  # noqa: E402
 from lzma_tpu_torch.core.layout import ProbLayout  # noqa: E402
 from lzma_tpu_torch.format import properties as tprops  # noqa: E402
+from lzma_tpu_torch.ops import device_matcher as tm  # noqa: E402
+from lzma_tpu_torch.ops import device_parser as tp  # noqa: E402
 from lzma_tpu_torch.parallel import blocks as tblk  # noqa: E402
 
+TIERS = dict(jp.DP_TIERS)
+
+
+def T(a):
+    """A numpy (or JAX) array as a CPU tensor, copied."""
+    return torch.from_numpy(np.array(a, copy=True))
+
+
 def eq(got, ref, msg=""):
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(ref), err_msg=msg)
+    got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    np.testing.assert_array_equal(got, np.asarray(ref), err_msg=msg)
+
+
+def _lanes(n, seed, short=None):
+    """Bench data, text, bench data with an incompressible tail, text
+    repeats; `short` cuts lane 2's length."""
+    rng = np.random.default_rng(seed)
+    bench = np.frombuffer(generate_bench_data(2 * n), np.uint8)
+    text = np.frombuffer(text_part()[seed * n:(seed + 2) * n], np.uint8)
+    mixed = bench[n:].copy()
+    mixed[n // 2:] = rng.integers(0, 256, n - n // 2)
+    rows = [bench[:n], text[:n], mixed, np.tile(text[: n // 8], 8)]
+    lens = np.full(4, n, np.int32)
+    if short is not None:
+        lens[2] = short
+    return np.stack(rows), lens
+
+
+def _jax_pipeline(data, lens, fb, lc=3, lp=0, pb=2):
+    """The first round of jax tokenize_optimal's pipeline, as numpy."""
+    N = data.shape[1]
+    dj, lj = jnp.asarray(data), jnp.asarray(lens)
+    cl, cd, counts, rank, Tt = jax.jit(jax.vmap(
+        lambda d, n: jm._rmq_search(d, n, N, fb, m_cap=jp.DP_M_CAP,
+                                    m_cap_order="rr", **TIERS)))(dj, lj)
+    ld, dd = jp._select_dp_pairs(cl, cd, counts, jp.DEFAULT_M_DP)
+    tp_, tl, td, tv, _ = jax.vmap(
+        lambda c, e, k, n, d: jp._seed_from_lists(c, e, k, n, data=d,
+                                                  ext_from=fb, min_len=4)
+    )(cl, cd, counts, lj, dj)
+    meta = jde.classify_tokens(dj, tp_, tl, td, tv)
+    ctx, bits, totals = jde.lower_tokens(dj, meta, tp_, tl, td, tv, lc, lp, pb,
+                                         10 * N + 128)
+    layout = JLayout(lc, lp, pb, pos_bits=pb)
+    probs = jp.empirical_probs(ctx, bits, totals, layout.size)
+    r0pos = jp.rep0_trace(tp_, td, tv, N)
+    replen = jax.vmap(lambda r, t, rp, n: jm.rep_match_lens_rmq(r, t, rp, n, fb)
+                      )(rank, Tt, r0pos, lj)
+    model = jp.build_price_model(dj, probs, lc, lp, pb, fb, r0pos=r0pos)
+    frm, choice = jp.dp_parse_band(dj, lj, ld, dd, model, fb, pb, False,
+                                   r0pos=r0pos, replen=replen)
+    toks = jp.extract_tokens(frm, choice, lj)
+    out = dict(cl=cl, cd=cd, counts=counts, rank=rank, T=Tt, ld=ld, dd=dd,
+               seed=(tp_, tl, td, tv), ctx=ctx, bits=bits, totals=totals,
+               probs=probs, r0pos=r0pos, replen=replen, model=model,
+               frm=frm, choice=choice, toks=toks)
+    return jax.tree_util.tree_map(np.asarray, out)
+
+
+@pytest.fixture(scope="module")
+def case():
+    """4 lanes x 2 KiB (one ragged), fb 32, lc3 lp0 pb2, through JAX."""
+    data, lens = _lanes(2048, seed=1, short=1500)
+    return data, lens, _jax_pipeline(data, lens, 32)
 
 
 # ------------------------------------------------------- vendored copies
@@ -89,3 +164,185 @@ def test_vendored_bench_data_matches():
     for n in (0, 1, 1000, 70000):
         assert generate_bench_data(n) == j_gen(n)
     assert text_part() == j_text_part()
+
+
+# ------------------------------------------------------- search
+@pytest.mark.parametrize("fb,m_cap,order", [(32, 12, "rr"), (273, 12, "rr"),
+                                            (32, 0, "near")])
+def test_rmq_search_matches_jax(fb, m_cap, order):
+    data, lens = _lanes(1024, seed=fb, short=700)
+    kw = TIERS if order == "rr" else dict(k4=4, k8=2)
+    ref = jax.jit(jax.vmap(lambda d, n: jm._rmq_search(
+        d, n, 1000, fb, m_cap=m_cap, m_cap_order=order, **kw)))(
+        jnp.asarray(data), jnp.asarray(lens))
+    got = tm._rmq_search(T(data), T(lens), 1000, fb, m_cap=m_cap,
+                         m_cap_order=order, **kw)
+    for name, g, r in zip(("lens", "dists", "counts", "rank", "T"), got, ref):
+        eq(g, r, name)
+    lists = tm.find_match_lists_rmq(T(data), T(lens), 1000, fb, m_cap=m_cap,
+                                    m_cap_order=order, **kw)
+    for g, r in zip(lists, got):
+        assert torch.equal(g, r)
+
+
+def test_rmq_search_tiny_block_and_short_lanes():
+    rng = np.random.default_rng(5)
+    data = np.stack([np.zeros(256, np.uint8), np.full(256, 7, np.uint8),
+                     rng.integers(0, 3, 256).astype(np.uint8)])
+    lens = np.array([3, 255, 200], np.int32)
+    ref = jax.vmap(lambda d, n: jm._rmq_search(d, n, 256, 32, m_cap=12,
+                                               m_cap_order="rr", **TIERS))(
+        jnp.asarray(data), jnp.asarray(lens))
+    got = tm._rmq_search(T(data), T(lens), 256, 32, m_cap=12, m_cap_order="rr",
+                         **TIERS)
+    for g, r in zip(got, ref):
+        eq(g, r)
+
+
+def test_lcp_query_general_p(case):
+    data, lens, ref = case
+    rng = np.random.default_rng(3)
+    p = rng.integers(-3, data.shape[1] + 3, (4, 2048, 2)).astype(np.int32)
+    q = rng.integers(-3, data.shape[1], (4, 2048, 2)).astype(np.int32)
+    want = jax.vmap(lambda r, t, a, b: jm._lcp_query(r, t, a, b, 2048))(
+        ref["rank"], ref["T"], p, q)
+    eq(tm._lcp_query(T(ref["rank"]).long(), T(ref["T"]), T(q).long(), 2048,
+                     p=T(p).long()), want)
+
+
+def test_rep_match_lens_matches_jax(case):
+    data, lens, ref = case
+    r0 = np.stack([np.full(2048, 7), np.arange(2048) % 97,
+                   np.full(2048, 5000), ref["r0pos"][3]]).astype(np.int32)
+    want = jax.vmap(lambda r, t, rp, n: jm.rep_match_lens_rmq(r, t, rp, n, 32))(
+        ref["rank"], ref["T"], r0, jnp.asarray(lens))
+    eq(tm.rep_match_lens_rmq(T(ref["rank"]).long(), T(ref["T"]), T(r0), T(lens),
+                             32), want)
+    eq(tm.rep_match_lens_rmq(T(ref["rank"]).long(), T(ref["T"]), T(ref["r0pos"]),
+                             T(lens), 32), ref["replen"])
+
+
+def test_select_pairs_and_seed_match_jax(case):
+    data, lens, ref = case
+    cl, cd, counts = T(ref["cl"]).long(), T(ref["cd"]).long(), T(ref["counts"]).long()
+    ld, dd = tp._select_dp_pairs(cl, cd, counts, 4)
+    eq(ld, ref["ld"], "ld")
+    eq(dd, ref["dd"], "dd")
+    wide = tp._select_dp_pairs(cl[:, :, :3], cd[:, :, :3], counts, 4)
+    want = jp._select_dp_pairs(ref["cl"][:, :, :3], ref["cd"][:, :, :3],
+                               ref["counts"], 4)
+    for g, r in zip(wide, want):
+        eq(g, r)
+    seed = tp._seed_from_lists(cl, cd, counts, T(lens), min_len=4)
+    for g, r in zip(seed, ref["seed"]):
+        eq(g, r, "seed")
+
+
+# ------------------------------------------------------- price model
+@pytest.mark.parametrize("lc,lp,pb", [(3, 0, 2), (0, 0, 0), (1, 2, 1)])
+def test_empirical_probs_and_price_model_match_jax(lc, lp, pb):
+    rng = np.random.default_rng(lc * 9 + lp * 3 + pb)
+    S = JLayout(lc, lp, pb, pos_bits=pb).size
+    L, B = 3, 600_000
+    ctx = rng.integers(-1, S, (L, B)).astype(np.int32)
+    ctx[0, :550_000] = 5            # one slot past the int32 numerator's range
+    bits = rng.integers(0, 2, (L, B)).astype(np.int32)
+    bits[0, :550_000] = 0
+    totals = np.array([B, 1000, 0], np.int32)
+    probs = jp.empirical_probs(jnp.asarray(ctx), jnp.asarray(bits),
+                               jnp.asarray(totals), S)
+    eq(tp.empirical_probs(T(ctx), T(bits), T(totals), S), probs)
+
+    data, lens = _lanes(512, seed=lc + 2 * pb)
+    probs = rng.integers(32, 2017, (4, S)).astype(np.int32)
+    r0pos = rng.integers(0, 300, (4, 512)).astype(np.int32)
+    for r0 in (r0pos, None):
+        want = jp.build_price_model(jnp.asarray(data), jnp.asarray(probs), lc,
+                                    lp, pb, 32, r0pos=None if r0 is None
+                                    else jnp.asarray(r0))
+        got = tp.build_price_model(T(data), T(probs), lc, lp, pb, 32,
+                                   r0pos=None if r0 is None else T(r0))
+        assert sorted(got) == sorted(want)
+        for name in want:
+            eq(got[name], want[name], name)
+
+
+def test_pair_dist_cost_matches_jax(case):
+    data, lens, ref = case
+    rng = np.random.default_rng(4)
+    dd = ref["dd"].copy()
+    dd[0, :64] = rng.integers(100, 1 << 30, (64, 4))   # far distances too
+    valid = (ref["ld"] >= 2) & (dd >= 0)
+    model = {k: T(v) for k, v in ref["model"].items()}
+    eq(tp._pair_dist_cost(model, T(dd), T(valid)),
+       jp._pair_dist_cost(ref["model"], jnp.asarray(dd), jnp.asarray(valid)))
+
+
+def test_rep0_trace_matches_jax(case):
+    data, lens, ref = case
+    tp_, tl, td, tv = ref["seed"]
+    eq(tp.rep0_trace(T(tp_), T(td), T(tv), 2048), ref["r0pos"])
+    rng = np.random.default_rng(6)
+    td2 = np.where(rng.random(td.shape) < 0.3, -1, td)
+    eq(tp.rep0_trace(T(tp_), T(td2), T(tv), 2048),
+       jp.rep0_trace(jnp.asarray(tp_), jnp.asarray(td2), jnp.asarray(tv), 2048))
+
+
+# ------------------------------------------------------- DP scan
+def test_model_and_dp_round_match_jax(case):
+    """The port's whole first round (classify, lower, probabilities,
+    trace, model, packing, plain scan) from the JAX seed tokens."""
+    data, lens, ref = case
+    packed, tables = tp._round_inputs(
+        T(data), T(lens), tuple(T(a) for a in ref["seed"]), T(ref["ld"]),
+        T(ref["dd"]), (T(ref["rank"]).long(), T(ref["T"])), 3, 0, 2, 32)
+    frm, choice = tp.dp_parse_band(packed, tables, T(lens), 32, 2)
+    eq(frm, ref["frm"], "from")
+    eq(choice, ref["choice"], "choice")
+    toks = tp.extract_tokens(frm, choice, T(lens))
+    for name, g, r in zip(("t_pos", "t_len", "t_dist", "t_valid", "ntok"),
+                          toks, ref["toks"]):
+        eq(g, r, name)
+
+
+@pytest.mark.parametrize("fb", [5, 32])
+def test_dp_parse_band_matches_jax_band_and_pallas(fb):
+    data, lens = _lanes(256, seed=fb, short=180)
+    ref = _jax_pipeline(data, lens, fb)
+    model = {k: jnp.asarray(v) for k, v in ref["model"].items()}
+    args = (jnp.asarray(data), jnp.asarray(lens), jnp.asarray(ref["ld"]),
+            jnp.asarray(ref["dd"]), model, fb, 2, False)
+    kw = dict(r0pos=jnp.asarray(ref["r0pos"]), replen=jnp.asarray(ref["replen"]))
+    pallas = jp.dp_parse_pallas(*args, **kw, interpret=True)
+    packed, tables = tp.dp_inputs(T(data), T(ref["ld"]), T(ref["dd"]),
+                                  {k: T(v) for k, v in ref["model"].items()},
+                                  fb, T(ref["r0pos"]), T(ref["replen"]))
+    got = tp.dp_parse_band(packed, tables, T(lens), fb, 2)
+    for g, b, p in zip(got, (ref["frm"], ref["choice"]), pallas):
+        eq(g, b)
+        eq(g, p)
+    if fb != 5:
+        return
+    # full-length-only edges, and no rep0 trace at all
+    want = jp.dp_parse_band(*args[:-1], True, **kw)
+    got = tp.dp_parse_band(packed, tables, T(lens), fb, 2, full_len_only=True)
+    for g, r in zip(got, want):
+        eq(g, r)
+    want = jp.dp_parse_band(*args)
+    packed, tables = tp.dp_inputs(T(data), T(ref["ld"]), T(ref["dd"]),
+                                  {k: T(v) for k, v in ref["model"].items()}, fb)
+    for g, r in zip(tp.dp_parse_band(packed, tables, T(lens), fb, 2), want):
+        eq(g, r)
+
+
+def test_extract_tokens_matches_jax(case):
+    data, lens, ref = case
+    rng = np.random.default_rng(8)
+    lens2 = lens.copy()
+    lens2[0] = 1000                      # a path from an inner node
+    choice = np.where(rng.random(ref["choice"].shape) < 0.5, ref["choice"], 7)
+    want = jp.extract_tokens(jnp.asarray(ref["frm"]), jnp.asarray(choice),
+                             jnp.asarray(lens2))
+    got = tp.extract_tokens(T(ref["frm"]), T(choice), T(lens2))
+    for g, r in zip(got, want):
+        eq(g, r)

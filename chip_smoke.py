@@ -28,8 +28,10 @@ prints its seconds):
   7. the main path: the same 8 MiB with parse="optimal": encode, decode,
      round trip, stdlib lzma, smaller than the lazy container; K3
      launched at least twice, K2 and K1 at least once; MB/s, ratio, peak
-     device memory, the encode's stage breakdown, and each whole-lane
-     kernel stage beside its bound
+     device memory; then the same encode again inside probing(), which
+     must give the same container: its stage breakdown (the device
+     synchronized around each stage), its whole-lane kernel stages
+     beside their bounds, and the inputs phase 8 cuts
   8. each kernel against its plain version at the main path's shapes
      (its own 32 x 256 KiB tensors, the work cut so that the plain
      versions finish: K3 scans the first CMP_POS positions, K2 codes the
@@ -138,15 +140,12 @@ def dp_round_inputs(blocks, params, device):
     (search, seed, classify, lower, model on `device`): (packed, tables,
     lens)."""
     from lzma_tpu_torch.ops.device_decoder import pad_rows
-    from lzma_tpu_torch.ops.device_parser import (DEFAULT_M_DP, DP_M_CAP,
-                                                  DP_M_CAP_ORDER, DP_TIERS,
-                                                  _lists_and_seed, _round_inputs)
+    from lzma_tpu_torch.ops.device_parser import _lists_and_seed, _round_inputs
 
     data, lens = pad_rows(blocks, device)
     fb = params.fast_bytes
     ld, dd, tokens, suffix = _lists_and_seed(
-        data, lens, min(params.dict_size, data.shape[1]), fb, DEFAULT_M_DP,
-        DP_TIERS, DP_M_CAP, DP_M_CAP_ORDER)
+        data, lens, min(params.dict_size, data.shape[1]), fb)
     packed, tables = _round_inputs(data, lens, tokens, ld, dd, suffix,
                                    params.lc, params.lp, params.pb, fb)
     return packed, tables, lens
@@ -286,7 +285,7 @@ def stdlib_reads_every_block(blob, data, params):
     return offsets, bsizes
 
 
-def drive(api, data, params, parse, dev, probe=None):
+def drive(api, data, params, parse, dev):
     """One encode and decode of `data` in MAIN_BLOCK lanes through the
     entry points, every kernel's launch count set to 0 just before; it
     must round-trip and the stdlib lzma module must read every block.
@@ -303,7 +302,7 @@ def drive(api, data, params, parse, dev, probe=None):
         mod.LAUNCHES = 0
     t = time.perf_counter()
     blob = api.encode_blocks(data, params, block_size=MAIN_BLOCK, parse=parse,
-                             device=dev, probe=probe)
+                             device=dev)
     torch.cuda.synchronize()
     t_enc = time.perf_counter() - t
     t = time.perf_counter()
@@ -340,7 +339,7 @@ def main():
     from lzma_tpu_torch.format.properties import LzmaParams
     from lzma_tpu_torch.ops import api, cuda_parser, cuda_ring, cuda_serializer
     from lzma_tpu_torch.ops.device_decoder import pad_rows
-    from lzma_tpu_torch.ops.device_encoder import encode_batch
+    from lzma_tpu_torch.ops.device_encoder import encode_batch, probing
     from lzma_tpu_torch.runtime import build
 
     phase_t = [time.perf_counter()]
@@ -456,9 +455,8 @@ def main():
     done("lazy 8 MiB")
 
     # ---- 7. the main path: 8 MiB, optimal parse ----
-    probe = {"dp_cut": CMP_POS}
     blob, t_enc, t_dec, launches, peak, (offsets, bsizes) = drive(
-        api, data, params, "optimal", dev, probe)
+        api, data, params, "optimal", dev)
     if launches["dp_parse"] < 2 or launches["rc_serialize"] < 1 \
             or launches["ring_decode"] < 1:
         raise AssertionError(f"a kernel did not run on the main path: {launches}")
@@ -472,9 +470,20 @@ def main():
         f"(lazy {len(lazy_blob) / len(data):.4f}), peak device memory "
         f"{peak / 2**20:.1f} MiB, launches {launches}; every block decodes "
         "with the stdlib lzma module")
+    # the same encode inside probing(): the stage breakdown and the
+    # tensors phase 8 cuts (its launches are not the main path's)
+    with probing() as probe:
+        t = time.perf_counter()
+        again = api.encode_blocks(data, params, block_size=MAIN_BLOCK,
+                                  parse="optimal", device=dev)
+        torch.cuda.synchronize()
+        t_probed = time.perf_counter() - t
+    if again != blob:
+        raise AssertionError("the probed optimal encode wrote another container")
     secs = probe["seconds"]
     t_pos, t_len, t_valid, ctx, bits, totals = probe["lowered"]
-    log(f"[stages] optimal encode, max tokens/lane {int(t_valid.sum(1).max())}, "
+    log(f"[stages] probed optimal encode {t_probed:.3f} s (unprobed "
+        f"{t_enc:.3f} s), max tokens/lane {int(t_valid.sum(1).max())}, "
         f"max coded bits/lane {int(totals.max())}: "
         + ", ".join(f"{k} {sum(v) * 1e3:.1f} ms"
                     + (f" ({len(v)} calls: "
@@ -502,7 +511,8 @@ def main():
 
     # ---- 8. kernels vs plain versions at the main path's shapes ----
     # K3: the last DP round's own inputs, each lane cut to CMP_POS positions
-    packed, tables, lens = probe["dp_inputs"]
+    packed, tables, lens = probe.pop("dp_inputs")
+    packed = packed[:, :CMP_POS].contiguous()
     lens = torch.clamp(lens, max=CMP_POS).contiguous()
     k3_ms = event_ms(lambda: cuda_parser.dp_parse_cuda(
         packed, tables, lens, params.fast_bytes, params.pb), 5)

@@ -52,8 +52,7 @@ __global__ void dp_parse_kernel(const int* __restrict__ packed,
                                 const int* __restrict__ lens,
                                 int* __restrict__ out_from,
                                 int* __restrict__ out_choice, int n_pos,
-                                int C, int M, int fb, int pb, int tab_size,
-                                int full_len_only) {
+                                int C, int M, int fb, int pb, int tab_size) {
   extern __shared__ int smem[];
   const int lane = blockIdx.x;
   const int tid = threadIdx.x;
@@ -203,7 +202,6 @@ __global__ void dp_parse_kernel(const int* __restrict__ packed,
         const int ldc = min(row[m], rem);
         const int dd = row[M + m];
         if (ldc < 2 || dd < 0 || l > ldc) continue;
-        if (full_len_only && l != ldc) continue;
         int rix = -1;
         for (int r = 3; r >= 0; --r) {
           if (dd == reps[r]) rix = r;  // first equal index wins
@@ -249,8 +247,7 @@ __global__ void dp_parse_kernel(const int* __restrict__ packed,
 extern "C" int lzt_dp_parse(const int* packed, const int* tables,
                             const int* lens, int* out_from, int* out_choice,
                             int n_lanes, int n_pos, int C, int M, int fb,
-                            int pb, int tab_size, int full_len_only,
-                            void* stream) {
+                            int pb, int tab_size, void* stream) {
   const int threads = ((fb - 1 + 31) / 32) * 32;
   const size_t smem = sizeof(int) * (static_cast<size_t>(tab_size) +
                                      4 * (fb + 1) + 5 * fb + 2 * C + 16);
@@ -262,7 +259,7 @@ extern "C" int lzt_dp_parse(const int* packed, const int* tables,
     dp_parse_kernel<<<n_lanes, threads, smem,
                       static_cast<cudaStream_t>(stream)>>>(
         packed, tables, lens, out_from, out_choice, n_pos, C, M, fb, pb,
-        tab_size, full_len_only);
+        tab_size);
   }
   return static_cast<int>(cudaGetLastError());
 }

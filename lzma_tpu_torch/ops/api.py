@@ -39,14 +39,13 @@ def encode_blocks(
     dictionary: bytes = b"",
     parse: str = "lazy",
     device="cuda",
-    probe=None,
 ) -> bytes:
     """Lane-parallel block encode to an LZTB container (api.encode_blocks).
     `preset_len > 0` writes LZTB v2 (block 0 plain, every other lane
     primed with block 0's prefix); `dictionary` writes LZTB v3 (the
     dictionary stored as its own stream, priming every lane).
     parse="optimal" tokenizes with the optimal-parse DP; preset-primed
-    lanes keep the lazy parse.  `probe`: see encode_batch."""
+    lanes keep the lazy parse."""
     params = (params or LzmaParams()).validated_for_encode()
     if params.write_eos:
         raise ValueError("block container uses known sizes; EOS not supported")
@@ -59,7 +58,7 @@ def encode_blocks(
     blocks = blk.split_blocks(data, block_size)
 
     def enc(bs, **kw):
-        return encode_batch(bs, params, device=device, probe=probe, **kw)
+        return encode_batch(bs, params, device=device, **kw)
 
     dict_stream = b""
     if dictionary:

@@ -24,7 +24,7 @@ LAUNCHES = 0
 @functools.cache
 def _kernel():
     fn = build.load().lzt_dp_parse
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -47,14 +47,13 @@ def _check(packed, tables, lens, fb, pb):
             raise ValueError(f"{name} must be contiguous")
 
 
-def dp_parse_cuda(packed, tables, lens, fb: int, pb: int,
-                  full_len_only: bool = False):
+def dp_parse_cuda(packed, tables, lens, fb: int, pb: int):
     """The scan over positions, one lane per block.  packed (L, N, 6M+5),
     tables (L, T), lens (L,), all int32 (``device_parser.dp_inputs``).
     Returns (from, choice), each (L, N + 1) int32."""
     global LAUNCHES
     if packed.device.type == "cpu":
-        return dp_parse_band(packed, tables, lens, fb, pb, full_len_only)
+        return dp_parse_band(packed, tables, lens, fb, pb)
     if packed.device.type != "cuda":
         raise ValueError(f"dp_parse_cuda takes CPU or CUDA tensors, got {packed.device}")
     _check(packed, tables, lens, fb, pb)
@@ -66,7 +65,7 @@ def dp_parse_cuda(packed, tables, lens, fb: int, pb: int,
     with torch.cuda.device(dev):
         err = fn(packed.data_ptr(), tables.data_ptr(), lens.data_ptr(),
                  out_from.data_ptr(), out_choice.data_ptr(), L, N, C,
-                 (C - 5) // 6, fb, pb, tables.shape[1], int(full_len_only),
+                 (C - 5) // 6, fb, pb, tables.shape[1],
                  torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"dp_parse launch failed: CUDA error {err}")

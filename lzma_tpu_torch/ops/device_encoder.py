@@ -499,12 +499,36 @@ def serialize(ctx, bits, totals, arena_size: int, max_out: int):
 
 
 # ------------------------------------------------------------------ API
+_PROBE = None
+
+
 @contextlib.contextmanager
-def stage(probe, name: str, device):
-    """Time one encode stage into ``probe["seconds"][name]`` (a list, one
-    entry a call), synchronizing `device` on both sides; does nothing
-    when `probe` is None."""
-    if probe is None:
+def probing():
+    """Record what the encodes inside the block do, into the dict it
+    yields: each stage's seconds under "seconds" (a list a stage, one
+    entry a call; the device is synchronized around each stage), the
+    last DP round's inputs under "dp_inputs" and the final tokens and
+    (ctx, bit) streams under "lowered", all held by reference.  For
+    diagnostics; an encode outside such a block records nothing."""
+    global _PROBE
+    outer, _PROBE = _PROBE, {}
+    try:
+        yield _PROBE
+    finally:
+        _PROBE = outer
+
+
+def keep(name: str, value):
+    """Hand `value` to the enclosing probing() block under `name`."""
+    if _PROBE is not None:
+        _PROBE[name] = value
+
+
+@contextlib.contextmanager
+def stage(name: str, device):
+    """Time one encode stage into the probing() block's seconds,
+    synchronizing `device` on both sides; nothing outside such a block."""
+    if _PROBE is None:
         yield
         return
     sync = torch.cuda.synchronize if torch.device(device).type == "cuda" else None
@@ -514,12 +538,12 @@ def stage(probe, name: str, device):
     yield
     if sync:
         sync(device)
-    probe.setdefault("seconds", {}).setdefault(name, []).append(
+    _PROBE.setdefault("seconds", {}).setdefault(name, []).append(
         time.perf_counter() - t)
 
 
 def _lower_lanes(data, lens, dict_size, lc, lp, pb, fb, num_candidates,
-                 preset=None, parse: str = "lazy", probe=None):
+                 preset=None, parse: str = "lazy"):
     """Phases A-C for a lane batch (device_encoder._lower_lanes without
     the EOS marker).  `preset` ((P,) uint8 tensor or None) primes every
     lane's window; preset-primed lanes keep the lazy parse.
@@ -532,44 +556,39 @@ def _lower_lanes(data, lens, dict_size, lc, lp, pb, fb, num_candidates,
         data = torch.cat([preset.to(data.dtype).expand(N, plen), data], dim=1)
         lens = lens + plen
     if parse.startswith("optimal") and plen == 0:
-        from .device_parser import DP_TIERS, tokenize_optimal
+        from .device_parser import tokenize_optimal
 
         if parse != "optimal":
             raise NotImplementedError(
                 f"parse={parse!r}: only the default list seed is ported")
         tok = tokenize_optimal(data, lens, dict_size, lc=lc, lp=lp, pb=pb,
-                               fb=fb, tiers_key=DP_TIERS, n_iter=2,
-                               probe=probe)
+                               fb=fb)
     else:
-        with stage(probe, "tokenize", device):
+        with stage("tokenize", device):
             tok = tokenize(data, lens, dict_size, fb, num_candidates,
                            start=plen)
     t_pos, t_len, t_dist, t_valid, _ = tok
-    with stage(probe, "classify", device):
+    with stage("classify", device):
         meta = classify_tokens(data, t_pos, t_len, t_dist, t_valid)
     max_bits = 10 * max_n + 128
-    with stage(probe, "lower", device):
+    with stage("lower", device):
         ctx, bits, totals = lower_tokens(data, meta, t_pos, t_len, t_dist,
                                          t_valid, lc, lp, pb, max_bits,
                                          pos_base=plen)
-    if probe is not None:
-        probe["lowered"] = (t_pos, t_len, t_valid, ctx, bits, totals)
+    keep("lowered", (t_pos, t_len, t_valid, ctx, bits, totals))
     return ctx, bits, totals, max_n + max_n // 4 + 128
 
 
 def encode_batch(blocks, params: LzmaParams, fb=None,
                  num_candidates: int = DEFAULT_NUM_CANDIDATES,
                  preset: bytes = b"", write_eos: bool = False,
-                 parse: str = "lazy", device="cuda", probe=None):
+                 parse: str = "lazy", device="cuda"):
     """Encode independent blocks lane-parallel (device_encoder.encode_batch).
     `preset` primes every lane's window with one shared dictionary (LZTB
     v2/v3 blocks).  The range coder is the CUDA kernel for a CUDA
-    `device` and the plain ``serialize`` for the CPU.  `probe`, a dict,
-    receives each stage's seconds under "seconds" (the device is
-    synchronized around each stage), the last DP round's inputs under
-    "dp_inputs" and the final tokens and (ctx, bit) streams under
-    "lowered".  The EOS marker (`write_eos`) is not ported yet and raises
-    NotImplementedError.  Returns a list of raw LZMA streams."""
+    `device` and the plain ``serialize`` for the CPU (``probing`` records
+    the stages).  The EOS marker (`write_eos`) is not ported yet and
+    raises NotImplementedError.  Returns a list of raw LZMA streams."""
     from .cuda_serializer import serialize_checked
 
     if not blocks:
@@ -587,9 +606,9 @@ def encode_batch(blocks, params: LzmaParams, fb=None,
                 if preset else None)
     ctx, bits, totals, max_out = _lower_lanes(
         data_t, lens_t, dict_j, params.lc, params.lp, params.pb, fb,
-        num_candidates, preset=preset_t, parse=parse, probe=probe)
+        num_candidates, preset=preset_t, parse=parse)
     layout = ProbLayout(params.lc, params.lp, params.pb, pos_bits=params.pb)
-    with stage(probe, "rc_serialize", device):
+    with stage("rc_serialize", device):
         out, out_lens = serialize_checked(ctx, bits, totals, layout.size,
                                           int(max_out))
     out = out.cpu().numpy()

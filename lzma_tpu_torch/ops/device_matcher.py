@@ -27,6 +27,14 @@ MATCH_MAX = 273  # kMatchMaxLen (Base.java:85)
 _M32 = 0xFFFFFFFF
 _HASH_MULS = (2654435761, 2246822519, 3266489917, 668265263)
 
+#: the optimal parse's search tiers: (bytes hashed, nearest previous
+#: occurrences kept), 29 candidates a position before the cap
+#: (device_parser.DP_TIERS, with k2 and k3 at _rmq_search's default 1)
+DP_TIERS = ((2, 1), (3, 1), (4, 12), (6, 4), (8, 6), (16, 3), (32, 2))
+#: unique candidates a position kept before the LCP queries
+#: (device_parser.DP_M_CAP, with DP_M_CAP_ORDER "rr")
+DP_M_CAP = 12
+
 
 def _take(best_len, best_dist):
     """Worth-taking heuristic (device_matcher._take): longer matches
@@ -295,92 +303,72 @@ def _mul32(h, m: int):
     return (lo + hi) & _M32
 
 
-def _tier_candidates(data, n, pos, k4, k8, k2=1, k3=1, k6=0, k16=0, k32=0):
-    """The multi-tier candidate build (device_matcher._tier_candidates):
-    exact 2/3-byte values and 4/6/8/16/32-byte multiplicative hashes,
-    each tier's k nearest previous occurrences.  data (N, max_n) uint8,
-    n (N,).  Returns cand (N, max_n, M), M the sum of the tiers' k;
-    -1 = no candidate."""
+def _tier_candidates(data, n, pos):
+    """The multi-tier candidate build (device_matcher._tier_candidates)
+    over DP_TIERS: exact 2/3-byte values and 4/6/8/16/32-byte
+    multiplicative hashes, each tier's k nearest previous occurrences.
+    data (N, max_n) uint8, n (N,).  Returns cand (N, max_n, 29), tier by
+    tier; -1 = no candidate."""
     d = data.long()
-    nroll = 32 if k32 else (16 if k16 else 8)
-    b = [torch.roll(d, -i, dims=1) for i in range(nroll)]
+    b = [torch.roll(d, -i, dims=1) for i in range(32)]
     uniq = 0x80000000 ^ pos
     n2 = n[:, None]
 
     def mark(h, span):
         return torch.where(pos + span - 1 < n2, h, uniq)
 
-    h2 = mark(b[0] | (b[1] << 8), 2)
-    h3 = mark(b[0] | (b[1] << 8) | (b[2] << 16), 3)
-    h4 = mark(((b[0] * _HASH_MULS[0]) ^ (b[1] * _HASH_MULS[1])
-               ^ (b[2] * _HASH_MULS[2]) ^ (b[3] * _HASH_MULS[3])) & _M32, 4)
-
     def extend(h, lo, hi):
         for i in range(lo, hi):
             h = _mul32(h, _HASH_MULS[0]) ^ ((b[i] * _HASH_MULS[1]) & _M32)
         return mark(h, hi)
 
-    cands = (_neighbor_candidates(h2, pos, k2)
-             + _neighbor_candidates(h3, pos, k3)
-             + _neighbor_candidates(h4, pos, k4))
-    if k6:
-        cands += _neighbor_candidates(extend(h4, 4, 6), pos, k6)
-    h8 = extend(h4, 4, 8)
-    cands += _neighbor_candidates(h8, pos, k8)
-    h16 = extend(h8, 8, 16) if (k16 or k32) else None
-    if k16:
-        cands += _neighbor_candidates(h16, pos, k16)
-    if k32:
-        cands += _neighbor_candidates(extend(h16, 16, 32), pos, k32)
-    return torch.stack(cands, dim=2)
+    h = {2: mark(b[0] | (b[1] << 8), 2),
+         3: mark(b[0] | (b[1] << 8) | (b[2] << 16), 3),
+         4: mark(((b[0] * _HASH_MULS[0]) ^ (b[1] * _HASH_MULS[1])
+                  ^ (b[2] * _HASH_MULS[2]) ^ (b[3] * _HASH_MULS[3])) & _M32, 4)}
+    h[6] = extend(h[4], 4, 6)
+    h[8] = extend(h[4], 4, 8)
+    h[16] = extend(h[8], 8, 16)
+    h[32] = extend(h[16], 16, 32)
+    return torch.stack([c for span, k in DP_TIERS
+                        for c in _neighbor_candidates(h[span], pos, k)], dim=2)
 
 
-def _rmq_search(data, n, dict_size: int, fb: int, k4=4, k8=2, k2=1, k3=1,
-                k6=0, k16=0, k32=0, m_cap: int = 0, m_cap_order: str = "near"):
+def _rmq_search(data, n, dict_size: int, fb: int):
     """Ascending (len, dist) candidate lists per position, every lane at
-    once (device_matcher._rmq_search): tier candidates, deduplicated
-    across tiers and optionally capped to m_cap ("rr": round-robin tier
-    priority, every tier's rank-1 candidate first; "near": the m_cap
-    nearest), exact lengths from the fb-deep suffix table, then the merge
-    that keeps strictly increasing lengths at ascending distance.
-    data (N, max_n) uint8, n (N,).  Returns (lens (N, max_n, M), dists
-    (N, max_n, M), counts (N, max_n), rank, T); the suffix rank and min
-    table come back for the rep0 length queries."""
+    once (device_matcher._rmq_search at DP_TIERS, m_cap DP_M_CAP,
+    m_cap_order "rr"): tier candidates, deduplicated across tiers and
+    capped to DP_M_CAP by round-robin tier priority (every tier's rank-1
+    candidate first), exact lengths from the fb-deep suffix table, then
+    the merge that keeps strictly increasing lengths at ascending
+    distance.  data (N, max_n) uint8, n (N,).  Returns (lens (N, max_n,
+    M), dists (N, max_n, M), counts (N, max_n), rank, T); the suffix rank
+    and min table come back for the rep0 length queries."""
     N, max_n = data.shape
     device = data.device
     pos = torch.arange(max_n, dtype=torch.int64, device=device)
     n = n.long()
     rank, T = _suffix_rank_lcp(data, n, pos, max_n, fb)
-    cand = _tier_candidates(data, n, pos, k4, k8, k2, k3, k6, k16, k32)
+    cand = _tier_candidates(data, n, pos)
     big = 1 << 30
 
-    if m_cap_order == "rr" and 0 < m_cap < cand.shape[2]:
-        sizes = [k2, k3, k4, k6, k8, k16, k32]
-        offs = [sum(sizes[:i]) for i in range(len(sizes))]
-        perm = [base + r for r in range(max(sizes))
-                for sz, base in zip(sizes, offs) if r < sz]
-        cp = cand[:, :, perm]
-        dup = [torch.zeros_like(cp[:, :, 0], dtype=torch.bool)]
-        for j in range(1, cp.shape[2]):
-            eqa = (cp[:, :, j:j + 1] == cp[:, :, :j]).any(dim=2)
-            dup.append(eqa & (cp[:, :, j] >= 0))
-        cp = torch.where(torch.stack(dup, dim=2), -1, cp)
-        # pack survivors by priority, truncate, then nearest first
-        prio = torch.arange(cp.shape[2], device=device)
-        pk = torch.where(cp >= 0, prio, big)
-        ordp = torch.sort(pk, dim=2, stable=True).indices[:, :, :m_cap]
-        cp = cp.gather(2, ordp)
-        key = torch.sort(torch.where(cp >= 0, -cp, big), dim=2).values
-        cand = torch.where(key >= big, -1, -key)
-    else:
-        cs = torch.sort(cand, dim=2).values
-        dup = torch.cat([torch.zeros_like(cs[:, :, :1], dtype=torch.bool),
-                         cs[:, :, 1:] == cs[:, :, :-1]], dim=2)
-        cs = torch.where(dup, -1, cs)
-        key = torch.sort(torch.where(cs >= 0, -cs, big), dim=2).values
-        cand = torch.where(key >= big, -1, -key)
-        if 0 < m_cap < cand.shape[2]:
-            cand = cand[:, :, :m_cap]
+    sizes = [k for _, k in DP_TIERS]
+    offs = [sum(sizes[:i]) for i in range(len(sizes))]
+    perm = [base + r for r in range(max(sizes))
+            for sz, base in zip(sizes, offs) if r < sz]
+    cp = cand[:, :, perm]
+    dup = [torch.zeros_like(cp[:, :, 0], dtype=torch.bool)]
+    for j in range(1, cp.shape[2]):
+        eqa = (cp[:, :, j:j + 1] == cp[:, :, :j]).any(dim=2)
+        dup.append(eqa & (cp[:, :, j] >= 0))
+    cp = torch.where(torch.stack(dup, dim=2), -1, cp)
+    # pack survivors by priority, truncate, then nearest first
+    prio = torch.arange(cp.shape[2], device=device)
+    pk = torch.where(cp >= 0, prio, big)
+    ordp = torch.sort(pk, dim=2, stable=True).indices[:, :, :DP_M_CAP]
+    cp = cp.gather(2, ordp)
+    key = torch.sort(torch.where(cp >= 0, -cp, big), dim=2).values
+    cand = torch.where(key >= big, -1, -key)
     M = cand.shape[2]
 
     p3 = pos[None, :, None]
@@ -405,15 +393,6 @@ def _rmq_search(data, n, dict_size: int, fb: int, k4=4, k8=2, k2=1, k3=1,
         return out.scatter_(2, tgt, values)[:, :, :M]
 
     return put(length), put(dist), keep.long().sum(dim=2), rank, T
-
-
-def find_match_lists_rmq(data, n, dict_size: int, fb: int, k4=4, k8=2,
-                         k2=1, k3=1, k6=0, k16=0, k32=0, m_cap: int = 0,
-                         m_cap_order: str = "near"):
-    """(lens, dists, counts) of _rmq_search
-    (device_matcher.find_match_lists_rmq)."""
-    return _rmq_search(data, n, dict_size, fb, k4, k8, k2, k3, k6, k16, k32,
-                       m_cap, m_cap_order)[:3]
 
 
 def rep_match_lens_rmq(rank, T, r0pos, n, fb: int):

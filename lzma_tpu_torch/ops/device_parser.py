@@ -3,7 +3,7 @@
 Port of the ``parse="optimal"`` route of ``lzma_tpu/ops/device_parser.py``:
 
   search   tier candidate lists with exact RMQ lengths
-           (device_matcher._rmq_search), the first m_dp ascending pairs
+           (device_matcher._rmq_search), the first M_DP ascending pairs
            per position kept for the DP (_select_dp_pairs)
   seed     a lazy parse over the lists' longest entries (_seed_from_lists)
   model    the block's own (ctx, bit) statistics (classify + lower of the
@@ -15,10 +15,13 @@ Port of the ``parse="optimal"`` route of ``lzma_tpu/ops/device_parser.py``:
   extract  the backward path by pointer doubling + compaction
            (extract_tokens)
 
-Model, DP and extract run ``n_iter`` times, each round pricing against
-the previous round's tokens.  Lanes are the leading axis of every tensor;
-values the reference keeps in int32 ride in int64 here (prices never come
-near 2**31, and INF + any price stays below it, as in the reference).
+Model, DP and extract run N_ITER times, each round pricing against the
+previous round's tokens.  The route's settings are fixed as the JAX
+package's encoder passes them (seed "lists", n_iter 2, m_dp 4, the DP
+tiers and cap of device_matcher, full_len_only False).  Lanes are the
+leading axis of every tensor; values the reference keeps in int32 ride
+in int64 here (prices never come near 2**31, and INF + any price stays
+below it, as in the reference).
 """
 
 from __future__ import annotations
@@ -28,19 +31,17 @@ import torch
 from ..core.layout import LITERAL_CODER_SIZE, POS_SLOT_TREE_SIZE, ProbLayout
 from ..core.prices import BIT_MODEL_TOTAL, PRICE_TABLE
 from .device_decoder import _next_lit, _next_longrep, _next_match, _wrap_i32
-from .device_encoder import classify_tokens, lower_tokens, stage
-from .device_matcher import (MIN_MATCH, _bit_length, _compact, _rmq_search,
-                             greedy_path, rep_match_lens_rmq)
+from .device_encoder import classify_tokens, keep, lower_tokens, stage
+from .device_matcher import (_bit_length, _compact, _rmq_search, greedy_path,
+                             rep_match_lens_rmq)
 
 INF = 0x0FFFFFFF
-#: candidate pairs fed to the DP per position
-DEFAULT_M_DP = 4
-#: unique candidates per position kept before the LCP queries, by
-#: round-robin tier priority (device_parser.DP_M_CAP, DP_M_CAP_ORDER)
-DP_M_CAP = 12
-DP_M_CAP_ORDER = "rr"
-#: the deep tier ladder of the DP pipeline (device_parser.DP_TIERS)
-DP_TIERS = (("k4", 12), ("k6", 4), ("k8", 6), ("k16", 3), ("k32", 2))
+#: candidate pairs fed to the DP per position (device_parser.DEFAULT_M_DP)
+M_DP = 4
+#: rounds of model + DP + extract (the n_iter device_encoder passes)
+N_ITER = 2
+#: the seed keeps list entries this long and longer
+SEED_MIN_LEN = 4
 #: additive-smoothing pseudo-count of the empirical model
 EMP_ALPHA = 16
 
@@ -53,9 +54,9 @@ _w = torch.where
 
 
 # ------------------------------------------------------------- model
-def empirical_probs(ctx, bits, totals, arena_size: int, alpha: int = EMP_ALPHA):
+def empirical_probs(ctx, bits, totals, arena_size: int):
     """Per-slot probabilities from a lowered (ctx, bit) stream
-    (device_parser.empirical_probs): counts by scatter-add, `alpha`
+    (device_parser.empirical_probs): counts by scatter-add, EMP_ALPHA
     pseudo-counts toward 1/2, clamped to the coder's reachable band;
     unseen slots keep 1024.  ctx, bits (L, B); totals (L,).  Returns
     (L, arena_size) int64.  The numerator wraps in int32 as in the
@@ -68,8 +69,9 @@ def empirical_probs(ctx, bits, totals, arena_size: int, alpha: int = EMP_ALPHA):
     n = zeros.scatter_add(1, cix, valid.long())[:, :arena_size]
     n1 = zeros.scatter_add(1, cix, _w(valid, bits.long(), 0))[:, :arena_size]
     n0 = n - n1
-    num = _wrap_i32(BIT_MODEL_TOTAL * (2 * n0 + alpha))
-    p = _w(n > 0, torch.div(num, 2 * n + 2 * alpha, rounding_mode="floor"), 1024)
+    num = _wrap_i32(BIT_MODEL_TOTAL * (2 * n0 + EMP_ALPHA))
+    p = _w(n > 0, torch.div(num, 2 * n + 2 * EMP_ALPHA, rounding_mode="floor"),
+           1024)
     return torch.clamp(p, 32, 2016)
 
 
@@ -146,11 +148,11 @@ def matched_lit_cost(data, probs_ep, r0pos, layout, lc: int, lp: int):
     return cost
 
 
-def build_price_model(data, probs, lc: int, lp: int, pb: int, fb: int,
-                      r0pos=None):
+def build_price_model(data, probs, lc: int, lp: int, pb: int, r0pos):
     """Every DP price table from per-lane empirical probabilities
-    (device_parser.build_price_model).  data (L, N) uint8, probs (L, S),
-    r0pos (L, N) or None (then literals price in normal mode only).
+    (device_parser.build_price_model with r0pos given).  data (L, N)
+    uint8, probs (L, S), r0pos (L, N), the rep0 trace that prices the
+    matched-mode literals.
     Returns a dict of int64 tensors: lit_cost, mlit_cost (L, N);
     lt_match, lt_rep (L, n_ps, 272); ps_price (L, 4, 64); dfull
     (L, 4, 128); align_price (L, 16); im0, im1, r0l0, r0l1 (L, 12, n_ps);
@@ -236,8 +238,7 @@ def build_price_model(data, probs, lc: int, lp: int, pb: int, fb: int,
     rep_sel = torch.stack([g00, g01 + g10, g01 + g11 + g20, g01 + g11 + g21],
                           dim=1)
 
-    mlit_cost = (matched_lit_cost(data, (EP0, EP1), r0pos, layout, lc, lp)
-                 if r0pos is not None else lit_cost)
+    mlit_cost = matched_lit_cost(data, (EP0, EP1), r0pos, layout, lc, lp)
     return dict(
         lit_cost=lit_cost, mlit_cost=mlit_cost, lt_match=lt_match,
         lt_rep=lt_rep, ps_price=ps_price, dfull=dfull,
@@ -316,7 +317,7 @@ def table_size(pb: int, fb: int) -> int:
     return 2 * n_ps * (fb - 1) + 4 * n_ps * 12 + 72
 
 
-def dp_inputs(data, ld, dd, model, fb: int, r0pos=None, replen=None):
+def dp_inputs(data, ld, dd, model, fb: int, r0pos, replen):
     """The scan's inputs (device_parser._pack_inputs, lanes first).
     Returns (packed (L, N, C) int32, tables (L, T) int32), C = 6M + 5: a
     position's row holds ld (M), dd (M), the distance prices (M x 4,
@@ -325,25 +326,19 @@ def dp_inputs(data, ld, dd, model, fb: int, r0pos=None, replen=None):
     L, N = data.shape
     M = ld.shape[2]
     dcost = _pair_dist_cost(model, dd, (ld >= 2) & (dd >= 0))
-    if r0pos is not None:
-        pos = torch.arange(N, dtype=torch.int64, device=data.device)
-        src = pos - r0pos.long() - 1
-        sbyte = data.gather(1, torch.clamp(src, 0, N - 1))
-        sr_eq = ((data == sbyte) & (src >= 0)).long()
-        r0p, rlp = r0pos.long(), replen.long()
-    else:
-        sr_eq = r0p = rlp = torch.zeros((L, N), dtype=torch.int64,
-                                        device=data.device)
+    pos = torch.arange(N, dtype=torch.int64, device=data.device)
+    src = pos - r0pos.long() - 1
+    sbyte = data.gather(1, torch.clamp(src, 0, N - 1))
+    sr_eq = ((data == sbyte) & (src >= 0)).long()
     packed = torch.cat([
         ld.long(), dd.long(), dcost.reshape(L, N, 4 * M),
         model["lit_cost"][:, :, None], model["mlit_cost"][:, :, None],
-        r0p[:, :, None], rlp[:, :, None], sr_eq[:, :, None],
+        r0pos.long()[:, :, None], replen.long()[:, :, None], sr_eq[:, :, None],
     ], dim=2).to(torch.int32)
     return packed, _dp_tables(model, fb)
 
 
-def dp_parse_band(packed, tables, lens, fb: int, pb: int,
-                  full_len_only: bool = False):
+def dp_parse_band(packed, tables, lens, fb: int, pb: int):
     """The optimal-parse scan (device_parser.dp_parse_band) over the
     packed inputs of ``dp_inputs``; the plain PyTorch version of the CUDA
     kernel (``cuda_parser.dp_parse_cuda``, K3 ``dp_parse_pallas`` on the
@@ -447,8 +442,6 @@ def dp_parse_band(packed, tables, lens, fb: int, pb: int,
         cost = _w(any_eq[..., None], rb[..., None] + ltr_i[:, None, :],
                   mbase[:, None, None] + dc_i[:, :, lps] + ltm_i[:, None, :])
         lm = lvec <= ld_c[..., None]
-        if full_len_only:
-            lm = lm & (lvec == ld_c[..., None])
         cost = _w(lm & pv[..., None], cost, INF)                  # (L, M, W)
         kind_t = _w(any_eq, rix, RK_MATCH)
         best, bdist, bkind = full((L, W), INF), full((L, W), 0), full((L, W), RK_MATCH)
@@ -517,119 +510,95 @@ def extract_tokens(from_, choice, lens):
 
 
 # ------------------------------------------------------------- pipeline
-def _select_dp_pairs(cl, cd, counts, m_dp: int):
-    """The first m_dp ascending pairs per position, always keeping the
-    longest list entry in slot m_dp-1 (device_parser._select_dp_pairs).
-    Returns (ld, dd) (L, N, m_dp); an empty slot has dd = -1."""
-    M = cl.shape[2]
-    if M <= m_dp:
-        pad = (0, m_dp - M)
-        return (torch.nn.functional.pad(cl, pad),
-                torch.nn.functional.pad(_w(cl >= 2, cd, -1), pad, value=-1))
+def _select_dp_pairs(cl, cd, counts):
+    """The first M_DP ascending pairs per position, always keeping the
+    longest list entry in slot M_DP-1 (device_parser._select_dp_pairs;
+    the lists are DP_M_CAP > M_DP wide).  Returns (ld, dd) (L, N, M_DP);
+    an empty slot has dd = -1."""
     last = torch.clamp(counts - 1, min=0)[:, :, None]
-    ld = cl[:, :, :m_dp].clone()
-    dd = _w(cl[:, :, :m_dp] >= 2, cd[:, :, :m_dp], -1)
-    deeper = counts > m_dp
+    ld = cl[:, :, :M_DP].clone()
+    dd = _w(cl[:, :, :M_DP] >= 2, cd[:, :, :M_DP], -1)
+    deeper = counts > M_DP
     ld[:, :, -1] = _w(deeper, cl.gather(2, last)[:, :, 0], ld[:, :, -1])
     dd[:, :, -1] = _w(deeper, cd.gather(2, last)[:, :, 0], dd[:, :, -1])
     return ld, dd
 
 
-def _seed_from_lists(cl, cd, counts, n, min_len: int = 0, lazy: bool = True):
+def _seed_from_lists(cl, cd, counts, n):
     """The statistics seed from the candidate lists, no second search
-    (device_parser._seed_from_lists without the extension past the list
-    depth): the last (longest) pair of each list, kept at min_len and
-    above, through the lazy parse path and compaction."""
+    (device_parser._seed_from_lists with min_len SEED_MIN_LEN and no
+    extension past the list depth): the last (longest) pair of each
+    list, kept at SEED_MIN_LEN and above, through the lazy parse path and
+    compaction."""
     max_n = cl.shape[1]
     last = torch.clamp(counts - 1, min=0)[:, :, None]
     bl = cl.gather(2, last)[:, :, 0]
     bd = cd.gather(2, last)[:, :, 0]
-    has = (counts > 0) & (bl >= MIN_MATCH)
-    if min_len > MIN_MATCH:
-        has = has & (bl >= min_len)
+    has = (counts > 0) & (bl >= SEED_MIN_LEN)
     bl = _w(has, bl, 0)
     bd = _w(has, bd, 0)
-    on_path = greedy_path(bl, bd, n, max_n, 0, lazy)
-    return _compact(bl, bd, on_path, n, lazy)
+    on_path = greedy_path(bl, bd, n, max_n, 0, True)
+    return _compact(bl, bd, on_path, n, True)
 
 
-def _lists_and_seed(data, lens, dict_size: int, fb: int, m_dp: int,
-                    tiers_key, m_cap_search: int, m_cap_order: str,
-                    probe=None):
+def _lists_and_seed(data, lens, dict_size: int, fb: int):
     """The search and seed stages of tokenize_optimal: the (ld, dd) DP
     pairs, the seed tokens (t_pos, t_len, t_dist, t_valid) and the
     suffix (rank, T) kept for the rep0 length queries."""
-    with stage(probe, "search", data.device):
-        cl, cd, counts, s_rank, s_T = _rmq_search(
-            data, lens, dict_size, fb, m_cap=m_cap_search,
-            m_cap_order=m_cap_order, **dict(tiers_key))
-        ld, dd = _select_dp_pairs(cl, cd, counts, m_dp)
-    with stage(probe, "seed", data.device):
-        tok = _seed_from_lists(cl, cd, counts, lens, min_len=4)
+    with stage("search", data.device):
+        cl, cd, counts, s_rank, s_T = _rmq_search(data, lens, dict_size, fb)
+        ld, dd = _select_dp_pairs(cl, cd, counts)
+    with stage("seed", data.device):
+        tok = _seed_from_lists(cl, cd, counts, lens)
     return ld, dd, tok[:4], (s_rank, s_T)
 
 
 def _round_inputs(data, lens, tokens, ld, dd, suffix, lc: int, lp: int,
-                  pb: int, fb: int, probe=None):
+                  pb: int, fb: int):
     """One round's DP inputs from the current tokens: classify + lower
     -> empirical probabilities; the rep0 trace and its match lengths;
     the price model -> dp_inputs.  Returns (packed, tables)."""
     N = data.shape[1]
     device = data.device
     tp, tl, td, tv = tokens
-    with stage(probe, "classify", device):
+    with stage("classify", device):
         meta = classify_tokens(data, tp, tl, td, tv)
-    with stage(probe, "lower", device):
+    with stage("lower", device):
         ctx, bits, totals = lower_tokens(data, meta, tp, tl, td, tv, lc, lp,
                                          pb, 10 * N + 128)
     del meta
-    with stage(probe, "model", device):
+    with stage("model", device):
         layout = ProbLayout(lc, lp, pb, pos_bits=pb)
         probs = empirical_probs(ctx, bits, totals, layout.size)
         del ctx, bits
         r0pos = rep0_trace(tp, td, tv, N)
         replen = rep_match_lens_rmq(*suffix, r0pos, lens, fb)
-        model = build_price_model(data, probs, lc, lp, pb, fb, r0pos=r0pos)
+        model = build_price_model(data, probs, lc, lp, pb, r0pos)
         return dp_inputs(data, ld, dd, model, fb, r0pos, replen)
 
 
 def tokenize_optimal(data, lens, dict_size: int, *, lc: int, lp: int, pb: int,
-                     fb: int, m_dp: int = DEFAULT_M_DP,
-                     full_len_only: bool = False,
-                     tiers_key=(("k4", 4), ("k8", 2)), n_iter: int = 1,
-                     seed: str = "lists", m_cap_search: int = DP_M_CAP,
-                     m_cap_order: str = DP_M_CAP_ORDER, probe=None):
+                     fb: int):
     """Candidate lists -> empirical prices -> DP -> tokens for N blocks
-    (device_parser.tokenize_optimal with band=True; on a CUDA device the
-    scan is the CUDA kernel).  data (L, N) uint8, lens (L,).  Returns
-    (t_pos, t_len, t_dist, t_valid, ntok) with the contract of
-    device_matcher.tokenize.  `probe` (a dict) receives each stage's
-    seconds and the last round's DP inputs, cut to the first
-    probe["dp_cut"] positions when that key is set (see encode_batch).
-    Only the "lists" seed is ported."""
+    (device_parser.tokenize_optimal with band=True, as device_encoder
+    calls it: the lists seed, n_iter 2, m_dp 4, DP_TIERS, cap 12 "rr";
+    on a CUDA device the scan is the CUDA kernel).  data (L, N) uint8,
+    lens (L,).  Returns (t_pos, t_len, t_dist, t_valid, ntok) with the
+    contract of device_matcher.tokenize."""
     from .cuda_parser import dp_parse_cuda
 
-    if seed != "lists":
-        raise NotImplementedError(f"seed={seed!r}: only the lists seed is ported")
     N = data.shape[1]
     device = data.device
     lens32 = lens.to(torch.int32)
-    ld, dd, tokens, suffix = _lists_and_seed(
-        data, lens, dict_size, fb, m_dp, tiers_key, m_cap_search, m_cap_order,
-        probe)
-    for _ in range(max(1, n_iter)):
+    ld, dd, tokens, suffix = _lists_and_seed(data, lens, dict_size, fb)
+    for _ in range(N_ITER):
         packed, tables = _round_inputs(data, lens, tokens, ld, dd, suffix,
-                                       lc, lp, pb, fb, probe)
-        if probe is not None:
-            # the first probe["dp_cut"] positions, so that holding them
-            # costs no memory the encode would not use anyway
-            cut = probe.get("dp_cut", N)
-            probe["dp_inputs"] = (packed[:, :cut].clone(), tables, lens32)
-        with stage(probe, "dp_parse", device):
-            from_, choice = dp_parse_cuda(packed, tables, lens32, fb, pb,
-                                          full_len_only)
+                                       lc, lp, pb, fb)
+        keep("dp_inputs", (packed, tables, lens32))
+        with stage("dp_parse", device):
+            from_, choice = dp_parse_cuda(packed, tables, lens32, fb, pb)
         del packed, tables
-        with stage(probe, "extract", device):
+        with stage("extract", device):
             tp, tl, td, tv, ntok = extract_tokens(from_, choice, lens)
             tokens = (tp[:, :N], tl[:, :N], td[:, :N], tv[:, :N])
     return (*tokens, ntok)

@@ -102,7 +102,7 @@ def test_not_ported_options_raise():
                       write_eos=True, device="cpu")
     with pytest.raises(ValueError):
         tapi.encode_blocks(data, LzmaParams(write_eos=True), device="cpu")
-    # what PR-by-PR porting has since added: the optimal parse and the
+    # what the port has since added: the optimal parse and the
     # preset-primed containers
     for kw in (dict(parse="optimal"), dict(preset_len=100),
                dict(dictionary=b"xyz" * 50)):

@@ -50,19 +50,22 @@ def _lanes(n, seed, short):
 # ------------------------------------------------------- pipeline
 def test_tokenize_optimal_matches_jax():
     data, lens = _lanes(2048, seed=2, short=1800)
-    kw = dict(lc=3, lp=0, pb=2, fb=32, tiers_key=jp.DP_TIERS, n_iter=2)
+    kw = dict(lc=3, lp=0, pb=2, fb=32)
+    # the settings the JAX package's encoder passes (device_encoder.py:579)
     want = jp.tokenize_optimal(jnp.asarray(data), jnp.asarray(lens),
-                               jnp.int32(2048), **kw)
-    probe = {}
-    got = tp.tokenize_optimal(T(data), T(lens), 2048, probe=probe, **kw)
+                               jnp.int32(2048), tiers_key=jp.DP_TIERS,
+                               n_iter=2, **kw)
+    with tde.probing() as probe:
+        got = tp.tokenize_optimal(T(data), T(lens), 2048, **kw)
     for name, g, r in zip(("t_pos", "t_len", "t_dist", "t_valid", "ntok"),
                           got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(r), err_msg=name)
     secs = probe["seconds"]
     assert len(secs["dp_parse"]) == 2 and len(secs["classify"]) == 2
     assert probe["dp_inputs"][0].shape == (4, 2048, 29)
-    with pytest.raises(NotImplementedError):
-        tp.tokenize_optimal(T(data), T(lens), 2048, seed="lazy", **kw)
+    # outside the block nothing is recorded
+    tp.tokenize_optimal(T(data[:1, :256]), T(lens[:1] // 8), 256, **kw)
+    assert len(probe["seconds"]["dp_parse"]) == 2
 
 
 OPT_CASES = {

@@ -167,22 +167,22 @@ def test_vendored_bench_data_matches():
 
 
 # ------------------------------------------------------- search
-@pytest.mark.parametrize("fb,m_cap,order", [(32, 12, "rr"), (273, 12, "rr"),
-                                            (32, 0, "near")])
-def test_rmq_search_matches_jax(fb, m_cap, order):
-    data, lens = _lanes(1024, seed=fb, short=700)
-    kw = TIERS if order == "rr" else dict(k4=4, k8=2)
+@pytest.mark.parametrize("fb,short", [(32, 700), (273, 700), (5, 1)],
+                         ids=["32-12-rr", "273-12-rr", "5-12-rr"])
+def test_rmq_search_matches_jax(fb, short):
+    """The search at the optimal route's statics: the port's fixed tiers
+    and cap are the JAX package's DP_TIERS (k2 and k3 at their default
+    1), DP_M_CAP and "rr"."""
+    assert dict((f"k{span}", k) for span, k in tm.DP_TIERS) == \
+        dict(k2=1, k3=1, **TIERS)
+    assert (tm.DP_M_CAP, "rr") == (jp.DP_M_CAP, jp.DP_M_CAP_ORDER)
+    data, lens = _lanes(1024, seed=fb, short=short)
     ref = jax.jit(jax.vmap(lambda d, n: jm._rmq_search(
-        d, n, 1000, fb, m_cap=m_cap, m_cap_order=order, **kw)))(
+        d, n, 1000, fb, m_cap=jp.DP_M_CAP, m_cap_order="rr", **TIERS)))(
         jnp.asarray(data), jnp.asarray(lens))
-    got = tm._rmq_search(T(data), T(lens), 1000, fb, m_cap=m_cap,
-                         m_cap_order=order, **kw)
+    got = tm._rmq_search(T(data), T(lens), 1000, fb)
     for name, g, r in zip(("lens", "dists", "counts", "rank", "T"), got, ref):
         eq(g, r, name)
-    lists = tm.find_match_lists_rmq(T(data), T(lens), 1000, fb, m_cap=m_cap,
-                                    m_cap_order=order, **kw)
-    for g, r in zip(lists, got):
-        assert torch.equal(g, r)
 
 
 def test_rmq_search_tiny_block_and_short_lanes():
@@ -193,8 +193,7 @@ def test_rmq_search_tiny_block_and_short_lanes():
     ref = jax.vmap(lambda d, n: jm._rmq_search(d, n, 256, 32, m_cap=12,
                                                m_cap_order="rr", **TIERS))(
         jnp.asarray(data), jnp.asarray(lens))
-    got = tm._rmq_search(T(data), T(lens), 256, 32, m_cap=12, m_cap_order="rr",
-                         **TIERS)
+    got = tm._rmq_search(T(data), T(lens), 256, 32)
     for g, r in zip(got, ref):
         eq(g, r)
 
@@ -225,15 +224,11 @@ def test_rep_match_lens_matches_jax(case):
 def test_select_pairs_and_seed_match_jax(case):
     data, lens, ref = case
     cl, cd, counts = T(ref["cl"]).long(), T(ref["cd"]).long(), T(ref["counts"]).long()
-    ld, dd = tp._select_dp_pairs(cl, cd, counts, 4)
+    assert tp.M_DP == jp.DEFAULT_M_DP
+    ld, dd = tp._select_dp_pairs(cl, cd, counts)
     eq(ld, ref["ld"], "ld")
     eq(dd, ref["dd"], "dd")
-    wide = tp._select_dp_pairs(cl[:, :, :3], cd[:, :, :3], counts, 4)
-    want = jp._select_dp_pairs(ref["cl"][:, :, :3], ref["cd"][:, :, :3],
-                               ref["counts"], 4)
-    for g, r in zip(wide, want):
-        eq(g, r)
-    seed = tp._seed_from_lists(cl, cd, counts, T(lens), min_len=4)
+    seed = tp._seed_from_lists(cl, cd, counts, T(lens))
     for g, r in zip(seed, ref["seed"]):
         eq(g, r, "seed")
 
@@ -241,6 +236,7 @@ def test_select_pairs_and_seed_match_jax(case):
 # ------------------------------------------------------- price model
 @pytest.mark.parametrize("lc,lp,pb", [(3, 0, 2), (0, 0, 0), (1, 2, 1)])
 def test_empirical_probs_and_price_model_match_jax(lc, lp, pb):
+    assert tp.EMP_ALPHA == jp.EMP_ALPHA
     rng = np.random.default_rng(lc * 9 + lp * 3 + pb)
     S = JLayout(lc, lp, pb, pos_bits=pb).size
     L, B = 3, 600_000
@@ -256,15 +252,12 @@ def test_empirical_probs_and_price_model_match_jax(lc, lp, pb):
     data, lens = _lanes(512, seed=lc + 2 * pb)
     probs = rng.integers(32, 2017, (4, S)).astype(np.int32)
     r0pos = rng.integers(0, 300, (4, 512)).astype(np.int32)
-    for r0 in (r0pos, None):
-        want = jp.build_price_model(jnp.asarray(data), jnp.asarray(probs), lc,
-                                    lp, pb, 32, r0pos=None if r0 is None
-                                    else jnp.asarray(r0))
-        got = tp.build_price_model(T(data), T(probs), lc, lp, pb, 32,
-                                   r0pos=None if r0 is None else T(r0))
-        assert sorted(got) == sorted(want)
-        for name in want:
-            eq(got[name], want[name], name)
+    want = jp.build_price_model(jnp.asarray(data), jnp.asarray(probs), lc, lp,
+                                pb, 32, r0pos=jnp.asarray(r0pos))
+    got = tp.build_price_model(T(data), T(probs), lc, lp, pb, T(r0pos))
+    assert sorted(got) == sorted(want)
+    for name in want:
+        eq(got[name], want[name], name)
 
 
 def test_pair_dist_cost_matches_jax(case):
@@ -321,18 +314,6 @@ def test_dp_parse_band_matches_jax_band_and_pallas(fb):
     for g, b, p in zip(got, (ref["frm"], ref["choice"]), pallas):
         eq(g, b)
         eq(g, p)
-    if fb != 5:
-        return
-    # full-length-only edges, and no rep0 trace at all
-    want = jp.dp_parse_band(*args[:-1], True, **kw)
-    got = tp.dp_parse_band(packed, tables, T(lens), fb, 2, full_len_only=True)
-    for g, r in zip(got, want):
-        eq(g, r)
-    want = jp.dp_parse_band(*args)
-    packed, tables = tp.dp_inputs(T(data), T(ref["ld"]), T(ref["dd"]),
-                                  {k: T(v) for k, v in ref["model"].items()}, fb)
-    for g, r in zip(tp.dp_parse_band(packed, tables, T(lens), fb, 2), want):
-        eq(g, r)
 
 
 def test_extract_tokens_matches_jax(case):

@@ -11,9 +11,10 @@ prints its seconds):
   2. build the CUDA kernels from lzma_tpu_torch/csrc (one nvcc a source,
      all started together)
   3. each kernel against its plain PyTorch version on the card at small
-     shapes: the range encoder (K2) and the decoder (K1) on 8 lanes x
-     2 KiB, K1 on a preset-primed batch made by the port's own encoder,
-     the DP scan (K3) on the first round's inputs of 8 lanes x 2 KiB
+     shapes: the range encoder (K2) and both decoders (K1, K5) on 8 lanes
+     x 2 KiB, K1 and K5 on a preset-primed batch made by the port's own
+     encoder, both DP scans (K3, K4) on the first round's inputs of 8
+     lanes x 2 KiB
   4. the card against the JAX reference: the 8-lane containers of
      generate_bench_data(64 KiB) must hash to PIN_SHA256 (lazy) and
      PIN_OPT_SHA256 (optimal), which tests/test_torch_api.py pins to the
@@ -31,13 +32,29 @@ prints its seconds):
      device memory; then the same encode again inside probing(), which
      must give the same container: its stage breakdown (the device
      synchronized around each stage), its whole-lane kernel stages
-     beside their bounds, and the inputs phase 8 cuts
-  8. each kernel against its plain version at the main path's shapes
+     beside their bounds (K3's by bytes and operations), and the inputs
+     phases 8 and 9 take
+  8. the K4 path: tokenize_optimal(scan="band2") on phase 5's 32 x 16 KiB
+     gives the tokens of the default scan, K4 launched (its count); K4 on
+     the main path's whole last DP round (32 x 262,144 positions) gives
+     K3's planes; both timed there
+  9. each kernel against its plain version at the main path's shapes
      (its own 32 x 256 KiB tensors, the work cut so that the plain
-     versions finish: K3 scans the first CMP_POS positions, K2 codes the
-     first CMP_BITS pairs, K1 decodes each lane up to the first token
-     boundary at or past CMP_OUT bytes), all timed on those inputs
-  9. no module of jax, jaxlib or lzma_tpu was loaded
+     versions finish: K3 and K4 scan the first CMP_POS positions, K2
+     codes the first CMP_BITS pairs, K1 decodes each lane up to the first
+     token boundary at or past CMP_OUT bytes), all timed on those inputs
+ 10. the K5 path: phase 5's 32 streams through decode_batch_resident
+     equal the input and K1 (K5 launched, its count); K1's champion shape
+     (128 x 16 KiB, lc0, dict 4 KiB, fb 8) through K5 and K1, both timed,
+     and K5 against its plain version on those streams cut at
+     CMP_OUT_K5 bytes; a 256 KiB main-path lane raises ValueError
+ 11. the kernel matrix (tools/chip_check.py:59-111): five shapes and
+     lc/lp/pb, preset and dictionary cases through encode_blocks /
+     decode_blocks, lazy and optimal, the stdlib reading each block it
+     can (lc + lp <= 4, no preset); K5 and K1 on 16 x 16 KiB at dict
+     4 KiB, on a preset-primed batch and on EOS lanes from the stdlib's
+     FORMAT_ALONE (caps past the end decode, caps at half raise)
+ 12. no module of jax, jaxlib or lzma_tpu was loaded
 The last three lines are the card, the kernels' JSON record and the
 result JSON.
 """
@@ -71,6 +88,19 @@ CMP_LANES, CMP_BYTES = 8, 2048       # kernel vs plain comparison shape
 CMP_POS = 2048                       # K3's positions per lane at the main shapes
 CMP_BITS = 1 << 15                   # K2's work per lane at the main shapes
 CMP_OUT = 2048                       # K1's work per lane at the main shapes
+
+CMP_OUT_K5 = 512                     # K5's work per lane against plain
+#: K1's champion shape (bench.py:344-390), which K5 serves too
+CH_LANES, CH_BLOCK, CH_DICT = 128, 1 << 14, 1 << 12
+#: tools/chip_check.py:61-67: (total, block, lc, lp, pb, preset_len,
+#: dictionary length)
+MATRIX = [
+    (3 * 4096 + 123, 4096, 3, 0, 2, 0, 0),
+    (5 * 8192, 8192, 0, 2, 0, 2048, 0),
+    (7 * 2048, 2048, 4, 1, 1, 0, 512),
+    (1 * 1024 + 17, 1024, 3, 0, 2, 0, 0),
+    (12 * 4096, 4096, 3, 0, 2, 0, 1024),
+]
 
 #: the card's peaks (NVIDIA H100 SXM data sheet, 700 W): HBM bytes/s, and
 #: the float32 rate outside the tensor cores, used for the int32
@@ -207,47 +237,52 @@ def check_serializer(ctx, bits, totals, arena, max_out):
     return err, k_out, k_lens, plain_ms
 
 
-def check_decoder(comp, comp_lens, sizes, params, max_out, preset=None):
-    """K1 against _decode_fsm on the same card tensors (tolerance zero);
-    every lane must decode.  Returns (max |diff|, kernel out, plain
-    version's ms)."""
+def check_decoder(comp, comp_lens, sizes, params, max_out, preset=None,
+                  resident=True):
+    """K1 and, where `resident`, K5 against _decode_fsm on the same card
+    tensors (tolerance zero); every lane must decode.  Returns (max
+    |diff|, K1's out, plain version's ms)."""
     import torch
+    from lzma_tpu_torch.ops.cuda_decoder import decode_resident
     from lzma_tpu_torch.ops.cuda_ring import decode_cuda
     from lzma_tpu_torch.ops.device_decoder import _decode_fsm
 
     args = (comp, comp_lens, sizes, params.dict_size, params.lc, params.lp,
             params.pb, max_out)
-    k_out, k_ok, k_pos = decode_cuda(*args, preset=preset)
     box = {}
     plain_ms = wall_ms(lambda: box.update(p=_decode_fsm(*args, preset=preset)))
     p_out, p_ok, p_pos = box["p"]
-    if not bool(k_ok.all()) or not torch.equal(k_ok, p_ok):
-        raise AssertionError(f"decoder ok flags: kernel {k_ok}, plain {p_ok}")
-    if not torch.equal(k_pos, p_pos):
-        raise AssertionError(f"decoder out_pos: kernel {k_pos}, plain {p_pos}")
-    err = int((k_out.int() - p_out.int()).abs().max())
-    if err:
-        raise AssertionError("decoder bytes differ from the plain version")
-    return err, k_out, plain_ms
+    kernels = [("ring_decode", decode_cuda)]
+    if resident:
+        kernels.append(("block_decode", decode_resident))
+    outs = []
+    for name, fn in kernels:
+        k_out, k_ok, k_pos = fn(*args, preset=preset)
+        if not bool(k_ok.all()) or not torch.equal(k_ok, p_ok):
+            raise AssertionError(f"{name} ok flags: kernel {k_ok}, plain {p_ok}")
+        if not torch.equal(k_pos, p_pos):
+            raise AssertionError(f"{name} out_pos: kernel {k_pos}, plain {p_pos}")
+        if int((k_out.int() - p_out.int()).abs().max()):
+            raise AssertionError(f"{name} bytes differ from the plain version")
+        outs.append(k_out)
+    return 0, outs[0], plain_ms
 
 
-def check_parser(packed, tables, lens, fb, pb):
-    """K3 against dp_parse_band on the same card tensors (tolerance zero).
-    Returns (max |diff| over from and choice, plain version's ms)."""
-    import torch
-    from lzma_tpu_torch.ops.cuda_parser import dp_parse_cuda
+def check_scans(packed, tables, lens, fb, pb):
+    """K3 and K4 against dp_parse_band on the same card tensors (tolerance
+    zero).  Returns (max |diff| over from and choice, plain version's ms)."""
+    from lzma_tpu_torch.ops.cuda_parser import dp_parse2_cuda, dp_parse_cuda
     from lzma_tpu_torch.ops.device_parser import dp_parse_band
 
-    k_from, k_choice = dp_parse_cuda(packed, tables, lens, fb, pb)
     box = {}
     plain_ms = wall_ms(lambda: box.update(
         p=dp_parse_band(packed, tables, lens, fb, pb)))
-    p_from, p_choice = box["p"]
-    err = max(int((k_from - p_from).abs().max()),
-              int((k_choice - p_choice).abs().max()))
-    if err:
-        raise AssertionError(f"DP kernel differs from the plain version by {err}")
-    return err, plain_ms
+    for name, fn in (("dp_parse", dp_parse_cuda), ("dp_parse2", dp_parse2_cuda)):
+        err = max(int((k - p).abs().max()) for k, p in
+                  zip(fn(packed, tables, lens, fb, pb), box["p"]))
+        if err:
+            raise AssertionError(f"{name} differs from the plain version by {err}")
+    return 0, plain_ms
 
 
 def dp_work(packed, lens):
@@ -269,6 +304,41 @@ def dp_work(packed, lens):
     live = int((rem > 0).sum())
     n_bytes = packed.numel() * 4 + lens.numel() * 4 + 2 * L * (N + 1) * 4
     return n_bytes, 60 * live + 6 * edges
+
+
+def token_cut(t_pos, t_len, t_valid, at, sizes):
+    """Each lane's end of its first token that reaches `at` bytes (the
+    whole block where none does): sizes a stream stops at cleanly.
+    Returns (L,) int32 on the tokens' device."""
+    import torch
+
+    ends = t_pos + t_len
+    past = t_valid & (ends >= at)
+    first = past.int().argmax(dim=1, keepdim=True)
+    full = torch.tensor(sizes, device=t_pos.device)
+    return torch.where(past.any(dim=1), ends.gather(1, first)[:, 0],
+                       full).to(torch.int32)
+
+
+def decode_bytes(streams, cuts, sizes):
+    """Bytes a decode to `cuts` must move: the output written and each
+    lane's stream in proportion to the share of its block decoded (the
+    decoded decisions are not counted)."""
+    return sum(cuts) + sum(len(s) * n / sz for s, n, sz in
+                           zip(streams, cuts, sizes))
+
+
+def corpus(n, seed=11):
+    """tools/chip_check.py's corpus: n bytes of 40 random words."""
+    import random
+
+    rng = random.Random(seed)
+    words = [bytes(rng.randrange(256) for _ in range(rng.randrange(5, 25)))
+             for _ in range(40)]
+    b = bytearray()
+    while len(b) < n:
+        b += words[rng.randrange(40)]
+    return bytes(b[:n])
 
 
 def stdlib_reads_every_block(blob, data, params):
@@ -336,10 +406,13 @@ def main():
     from lzma_tpu_torch.bench.corpus import text_part
     from lzma_tpu_torch.bench.datagen import generate_bench_data
     from lzma_tpu_torch.core.layout import ProbLayout
-    from lzma_tpu_torch.format.properties import LzmaParams
-    from lzma_tpu_torch.ops import api, cuda_parser, cuda_ring, cuda_serializer
-    from lzma_tpu_torch.ops.device_decoder import pad_rows
+    from lzma_tpu_torch.format.properties import LzmaParams, decode_props
+    from lzma_tpu_torch.ops import (api, cuda_decoder, cuda_parser, cuda_ring,
+                                    cuda_serializer)
+    from lzma_tpu_torch.ops.device_decoder import CapExceededError, pad_rows
     from lzma_tpu_torch.ops.device_encoder import encode_batch, probing
+    from lzma_tpu_torch.ops.device_parser import tokenize_optimal
+    from lzma_tpu_torch.parallel import blocks as blk
     from lzma_tpu_torch.runtime import build
 
     phase_t = [time.perf_counter()]
@@ -372,7 +445,8 @@ def main():
     for i, b in enumerate(blocks):
         if d_out[i, :len(b)].cpu().numpy().tobytes() != b:
             raise AssertionError(f"lane {i} does not round-trip")
-    log(f"[K1 vs plain] {CMP_LANES}x{CMP_BYTES}: out/ok/out_pos equal, round trip")
+    log(f"[K1, K5 vs plain] {CMP_LANES}x{CMP_BYTES}: out/ok/out_pos equal, "
+        "round trip")
 
     # a preset-primed batch, encoded by the port's own encoder on the card
     preset = blocks[3][:1024]
@@ -389,13 +463,13 @@ def main():
     for i, b in enumerate(p_blocks):
         if d_out[i, plen:plen + len(b)].cpu().numpy().tobytes() != b:
             raise AssertionError(f"preset lane {i} does not round-trip")
-    log("[K1 vs plain] preset-primed batch from the port's encoder: equal, "
-        "round trip")
+    log("[K1, K5 vs plain] preset-primed batch from the port's encoder: "
+        "equal, round trip")
 
     packed, tables, lens = dp_round_inputs(blocks, params, dev)
-    k3_err, _ = check_parser(packed, tables, lens.to(torch.int32),
-                             params.fast_bytes, params.pb)
-    log(f"[K3 vs plain] {CMP_LANES}x{CMP_BYTES}, fb {params.fast_bytes}: "
+    k3_err, _ = check_scans(packed, tables, lens.to(torch.int32),
+                            params.fast_bytes, params.pb)
+    log(f"[K3, K4 vs plain] {CMP_LANES}x{CMP_BYTES}, fb {params.fast_bytes}: "
         "from and choice equal")
     done("small shapes")
 
@@ -436,6 +510,7 @@ def main():
         f"optimal: {len(blob)} B, ratio {ratio:.3f} (JAX reference "
         f"{BENCH_RATIO}), sha256 matches; encode {t_enc:.3f} s, decode "
         f"{t_dec:.3f} s on {card}; every block decodes with the stdlib lzma module")
+    bench = (data, bparams, bblock, blob)
     done("bench config")
 
     # ---- 6. the lazy path at 8 MiB ----
@@ -492,14 +567,16 @@ def main():
                     for k, v in secs.items())
         + f"; decode {t_dec * 1e3:.1f} ms")
     # the whole-lane kernel stages beside their bounds at the main path's
-    # full shapes; K3's by bytes only (phase 8 counts its edges on a cut)
+    # full shapes (K3's work counted on the last round's inputs)
     L, N = t_pos.shape
-    C = probe["dp_inputs"][0].shape[2]
+    dp_whole = dp_work(probe["dp_inputs"][0], probe["dp_inputs"][2])
+    log(f"[K3 work] whole lanes, {L} x {N} positions, C = "
+        f"{probe['dp_inputs'][0].shape[2]}: {dp_whole[0]} B read and written, "
+        f"{dp_whole[1]} operations")
     n_bits = int(totals.sum())
     n_comp = offsets[-1] - offsets[0]
     whole = {
-        "dp_parse": (secs["dp_parse"][-1],
-                     bound(L * N * C * 4 + L * 4 + 2 * L * (N + 1) * 4, 0)),
+        "dp_parse": (secs["dp_parse"][-1], bound(*dp_whole)),
         "rc_serialize": (secs["rc_serialize"][-1],
                          bound(8 * n_bits + n_comp, 10 * n_bits)),
         "decode (K1 and its host work)": (t_dec, bound(sum(bsizes) + n_comp, 0)),
@@ -509,15 +586,61 @@ def main():
         for k, (s, b) in whole.items()))
     done("main path")
 
-    # ---- 8. kernels vs plain versions at the main path's shapes ----
-    # K3: the last DP round's own inputs, each lane cut to CMP_POS positions
-    packed, tables, lens = probe.pop("dp_inputs")
-    packed = packed[:, :CMP_POS].contiguous()
+    # ---- 8. the K4 path at full width ----
+    b_data, b_params, b_block, b_blob = bench
+    b_blocks = [b_data[i:i + b_block] for i in range(0, len(b_data), b_block)]
+    bd, bl = pad_rows(b_blocks, dev)
+    tok_kw = dict(lc=b_params.lc, lp=b_params.lp, pb=b_params.pb,
+                  fb=b_params.fast_bytes)
+    dict_b = min(b_params.dict_size, bd.shape[1])   # as encode_batch passes it
+    t = time.perf_counter()
+    want = tokenize_optimal(bd, bl, dict_b, **tok_kw)
+    torch.cuda.synchronize()
+    t_band = time.perf_counter() - t
+    cuda_parser.LAUNCHES2 = 0
+    t = time.perf_counter()
+    got = tokenize_optimal(bd, bl, dict_b, scan="band2", **tok_kw)
+    torch.cuda.synchronize()
+    t_band2 = time.perf_counter() - t
+    k4_launches = cuda_parser.LAUNCHES2
+    if k4_launches < 2:
+        raise AssertionError(f"K4 ran {k4_launches} times in tokenize_optimal")
+    for name, g, w in zip(("t_pos", "t_len", "t_dist", "t_valid", "ntok"),
+                          got, want):
+        if not torch.equal(g, w):
+            raise AssertionError(f"scan='band2' {name} differs from scan='band'")
+    log(f"[K4 path] bench config, {len(b_blocks)} lanes of {b_block} B: "
+        f"tokenize_optimal(scan='band2') = scan='band' token for token "
+        f"(max {int(want[4].max())} tokens a lane); {t_band2:.3f} s against "
+        f"{t_band:.3f} s; K4 launched {k4_launches} times")
+    # K4 on the main path's own whole-lane DP inputs, against K3
+    packed, tables, lens = probe["dp_inputs"]
+    fb, pb = params.fast_bytes, params.pb
+    k3_planes = cuda_parser.dp_parse_cuda(packed, tables, lens, fb, pb)
+    k4_planes = cuda_parser.dp_parse2_cuda(packed, tables, lens, fb, pb)
+    if not all(torch.equal(a, b) for a, b in zip(k3_planes, k4_planes)):
+        raise AssertionError("K4's whole-lane planes differ from K3's")
+    del k3_planes, k4_planes
+    k3_whole = event_ms(lambda: cuda_parser.dp_parse_cuda(
+        packed, tables, lens, fb, pb), 2)
+    k4_whole = event_ms(lambda: cuda_parser.dp_parse2_cuda(
+        packed, tables, lens, fb, pb), 2)
+    whole_bound = bound(*dp_whole)
+    log(f"[K4 whole lanes] main path's last DP round, {L} x {N} on {card}: "
+        f"K4 planes = K3 planes; K4 {k4_whole:.3f} ms, K3 {k3_whole:.3f} ms a "
+        f"call (CUDA events), bound {whole_bound[0]:.4f} ms by {whole_bound[1]}")
+    done("K4 path")
+
+    # ---- 9. kernels vs plain versions at the main path's shapes ----
+    # K3 and K4: the last DP round's own inputs, each lane cut to CMP_POS
+    # positions
+    packed = probe.pop("dp_inputs")[0][:, :CMP_POS].contiguous()
     lens = torch.clamp(lens, max=CMP_POS).contiguous()
     k3_ms = event_ms(lambda: cuda_parser.dp_parse_cuda(
-        packed, tables, lens, params.fast_bytes, params.pb), 5)
-    err, k3_plain = check_parser(packed, tables, lens, params.fast_bytes,
-                                 params.pb)
+        packed, tables, lens, fb, pb), 5)
+    k4_ms = event_ms(lambda: cuda_parser.dp_parse2_cuda(
+        packed, tables, lens, fb, pb), 5)
+    err, k3_plain = check_scans(packed, tables, lens, fb, pb)
     k3_err = max(k3_err, err)
     k3_bound = bound(*dp_work(packed, lens))
     # K2: the final lowering's (ctx, bit) streams, each lane cut to its
@@ -533,40 +656,157 @@ def main():
     k2_bound = bound(8 * n_bits + int(k2_lens.sum()), 10 * n_bits)
     # K1: the main container's streams, each lane decoded up to the end of
     # its first token that reaches CMP_OUT bytes, a size the stream stops
-    # at cleanly
+    # at cleanly (K5's window cannot hold these lanes: phase 10)
     streams = [blob[offsets[i]:offsets[i + 1]] for i in range(len(bsizes))]
     comp, comp_lens = pad_rows(streams, dev)
-    ends = t_pos + t_len
-    past = t_valid & (ends >= CMP_OUT)
-    first = past.int().argmax(dim=1, keepdim=True)
-    full = torch.tensor(bsizes, device=dev)
-    cut_sizes = torch.where(past.any(dim=1), ends.gather(1, first)[:, 0],
-                            full).to(torch.int32)
-    dargs = (comp, comp_lens, cut_sizes, params.dict_size, params.lc,
+    cuts = token_cut(t_pos, t_len, t_valid, CMP_OUT, bsizes)
+    dargs = (comp, comp_lens, cuts, params.dict_size, params.lc,
              params.lp, params.pb, MAIN_BLOCK)
     k1_ms = event_ms(lambda: cuda_ring.decode_cuda(*dargs), 20)
-    err, d_out, k1_plain = check_decoder(*dargs[:3], params, MAIN_BLOCK)
+    err, d_out, k1_plain = check_decoder(*dargs[:3], params, MAIN_BLOCK,
+                                         resident=False)
     k1_err = max(k1_err, err)
-    cuts = cut_sizes.tolist()
+    cuts = cuts.tolist()
     for i, n in enumerate(cuts):
         if d_out[i, :n].cpu().numpy().tobytes() != data[i * MAIN_BLOCK:i * MAIN_BLOCK + n]:
             raise AssertionError(f"lane {i} decodes wrong up to byte {n}")
-    # bytes: the output written and each lane's stream in proportion to the
-    # share of the block decoded; the decoded decisions are not counted
-    k1_bytes = sum(cuts) + sum(len(s) * n / sz for s, n, sz in
-                               zip(streams, cuts, bsizes))
-    k1_bound = bound(k1_bytes, 0)
+    k1_bound = bound(decode_bytes(streams, cuts, bsizes), 0)
     log(f"[times] main path's shapes ({len(bsizes)} lanes x {MAIN_BLOCK} B) on "
-        f"{card}: dp_parse kernel {k3_ms:.3f} ms vs plain {k3_plain:.1f} ms "
-        f"({CMP_POS} positions a lane), bound {k3_bound[0]:.4f} ms by "
-        f"{k3_bound[1]}; rc_serialize kernel {k2_ms:.3f} ms vs plain "
-        f"{k2_plain:.1f} ms ({CMP_BITS} pairs a lane), bound {k2_bound[0]:.4f} "
-        f"ms by {k2_bound[1]}; ring_decode kernel {k1_ms:.3f} ms vs plain "
-        f"{k1_plain:.1f} ms ({min(cuts)}..{max(cuts)} B a lane), bound "
-        f"{k1_bound[0]:.4f} ms by {k1_bound[1]}; all equal")
+        f"{card}: dp_parse kernel {k3_ms:.3f} ms, dp_parse2 kernel "
+        f"{k4_ms:.3f} ms vs plain {k3_plain:.1f} ms ({CMP_POS} positions a "
+        f"lane), bound {k3_bound[0]:.4f} ms by {k3_bound[1]}; rc_serialize "
+        f"kernel {k2_ms:.3f} ms vs plain {k2_plain:.1f} ms ({CMP_BITS} pairs a "
+        f"lane), bound {k2_bound[0]:.4f} ms by {k2_bound[1]}; ring_decode "
+        f"kernel {k1_ms:.3f} ms vs plain {k1_plain:.1f} ms "
+        f"({min(cuts)}..{max(cuts)} B a lane), bound {k1_bound[0]:.4f} ms by "
+        f"{k1_bound[1]}; all equal")
     done("main shapes")
 
-    # ---- 9. nothing of JAX or of the JAX package was loaded ----
+    # ---- 10. the K5 path at the widest shapes it serves ----
+    frame = blk.parse_container(b_blob)
+    b_offs, b_sizes = frame.stream_extents(len(b_blob))
+    b_streams = [b_blob[b_offs[i]:b_offs[i + 1]] for i in range(len(b_sizes))]
+    cuda_decoder.LAUNCHES = 0
+    t = time.perf_counter()
+    res = cuda_decoder.decode_batch_resident(b_streams, frame.params, b_sizes,
+                                             device=dev)
+    t_res = time.perf_counter() - t
+    k5_launches = cuda_decoder.LAUNCHES
+    ring = cuda_ring.decode_batch_cuda(b_streams, frame.params, b_sizes,
+                                       device=dev)
+    if k5_launches < 1 or res != b_blocks or ring != res:
+        raise AssertionError("the bench config's streams through K5 differ "
+                             f"from the input or from K1 ({k5_launches} launches)")
+    log(f"[K5 path] bench config's {len(b_streams)} streams through "
+        f"decode_batch_resident: equal to the input blocks and to K1; "
+        f"{t_res:.3f} s, K5 launched {k5_launches} times")
+    # K1's champion shape (bench.py:344-390): 128 lanes x 16 KiB, lc0,
+    # dict 4 KiB, fb 8
+    ch_params = LzmaParams(lc=0, dict_size=CH_DICT, fast_bytes=8)
+    ch_data = generate_bench_data(CH_LANES * CH_BLOCK)
+    ch_blocks = [ch_data[i:i + CH_BLOCK] for i in range(0, len(ch_data), CH_BLOCK)]
+    with probing() as ch_probe:
+        ch_streams = encode_batch(ch_blocks, ch_params, device=dev)
+    comp, comp_lens = pad_rows(ch_streams, dev)
+    full = torch.full((CH_LANES,), CH_BLOCK, dtype=torch.int32, device=dev)
+    chargs = (comp, comp_lens, full, CH_DICT, 0, 0, ch_params.pb, CH_BLOCK)
+    k5_res, k1_res = cuda_decoder.decode_resident(*chargs), cuda_ring.decode_cuda(*chargs)
+    want_out = torch.frombuffer(bytearray(ch_data), dtype=torch.uint8).to(dev)
+    if not (bool(k5_res[1].all()) and all(torch.equal(a, b) for a, b in zip(k5_res, k1_res))
+            and torch.equal(k5_res[0].reshape(-1), want_out)):
+        raise AssertionError("the champion shape through K5 differs from K1 "
+                             "or from the input")
+    k5_whole = event_ms(lambda: cuda_decoder.decode_resident(*chargs), 3)
+    k1_champ = event_ms(lambda: cuda_ring.decode_cuda(*chargs), 3)
+    ch_bound = bound(decode_bytes(ch_streams, [CH_BLOCK] * CH_LANES,
+                                  [CH_BLOCK] * CH_LANES), 0)
+    # K5 against its plain version on the same streams, each lane cut at
+    # its first token boundary at or past CMP_OUT_K5 bytes
+    ct_pos, ct_len, ct_valid = ch_probe["lowered"][:3]
+    ch_cuts = token_cut(ct_pos, ct_len, ct_valid, CMP_OUT_K5,
+                        [CH_BLOCK] * CH_LANES)
+    cargs = (comp, comp_lens, ch_cuts, CH_DICT, 0, 0, ch_params.pb, CH_BLOCK)
+    k5_ms = event_ms(lambda: cuda_decoder.decode_resident(*cargs), 20)
+    k5_err, _, k5_plain = check_decoder(*cargs[:3], ch_params, CH_BLOCK)
+    ch_cuts = ch_cuts.tolist()
+    k5_bound = bound(decode_bytes(ch_streams, ch_cuts, [CH_BLOCK] * CH_LANES), 0)
+    # one lane of the main path (256 KiB) is over the envelope
+    before = cuda_decoder.LAUNCHES
+    try:
+        cuda_decoder.decode_batch_resident(streams[:1], params, bsizes[:1],
+                                           device=dev)
+    except ValueError as e:
+        if type(e) is not ValueError or cuda_decoder.LAUNCHES != before:
+            raise
+        over = str(e)
+    else:
+        raise AssertionError("a 256 KiB lane did not raise in K5's wrapper")
+    log(f"[K5 champion] {CH_LANES} x {CH_BLOCK} B, lc0, dict {CH_DICT}, fb 8 on "
+        f"{card}: K5 = K1 = input; whole lanes K5 {k5_whole:.3f} ms, K1 "
+        f"{k1_champ:.3f} ms (CUDA events), bound {ch_bound[0]:.4f} ms by "
+        f"{ch_bound[1]} for both; cut to {min(ch_cuts)}..{max(ch_cuts)} B a lane: "
+        f"K5 {k5_ms:.3f} ms vs plain {k5_plain:.1f} ms, bound "
+        f"{k5_bound[0]:.5f} ms by {k5_bound[1]}, K1 and K5 equal to plain; "
+        f"a main-path lane raises: {over}")
+    done("K5 path")
+
+    # ---- 11. the kernel matrix (tools/chip_check.py:59-111 on the card) ----
+    for total, bs, lc, lp, pb_, ps, dl in MATRIX:
+        m_data = corpus(total)
+        m_params = LzmaParams(lc=lc, lp=lp, pb=pb_, dict_size=1 << 14,
+                              fast_bytes=16)
+        kw = {}
+        if ps:
+            kw["preset_len"] = ps
+        if dl:
+            kw["dictionary"] = corpus(dl, seed=dl)
+        for parse in ("lazy", "optimal"):
+            m_blob = api.encode_blocks(m_data, m_params, block_size=bs,
+                                       parse=parse, device=dev, **kw)
+            if api.decode_blocks(m_blob, device=dev) != m_data:
+                raise AssertionError(f"matrix {total} {bs} lc{lc}lp{lp}pb{pb_} "
+                                     f"{parse} does not round-trip")
+            stdlib = lc + lp <= 4 and not ps and not dl
+            if stdlib:
+                stdlib_reads_every_block(m_blob, m_data, m_params)
+        log(f"[matrix] {total} B in {bs} B blocks, lc{lc} lp{lp} pb{pb_}, "
+            f"preset {ps}, dictionary {dl}: lazy and optimal round-trip"
+            + ("; the stdlib reads every block" if stdlib else ""))
+    decoders = (("K5", cuda_decoder.decode_batch_resident),
+                ("K1", cuda_ring.decode_batch_cuda))
+    pr = LzmaParams(dict_size=1 << 12, fast_bytes=16)
+    payloads = [corpus(16000 + 13 * i, seed=50 + i) for i in range(16)]
+    sizes = [len(x) for x in payloads]
+    pre = corpus(2048, seed=99)
+    filt = [{"id": lzma.FILTER_LZMA1, "preset": 6, "dict_size": 1 << 16}]
+    alone = [lzma.compress(x, format=lzma.FORMAT_ALONE, filters=filt)
+             for x in payloads[:8]]
+    eparams = decode_props(alone[0][:5])
+    batches = [
+        ("16 x 16 KiB, dict 4 KiB", encode_batch(payloads, pr, device=dev), pr,
+         sizes, b"", payloads),
+        ("preset-primed 8 x 16 KiB", encode_batch(payloads[:8], pr, preset=pre,
+                                                 device=dev), pr, sizes[:8],
+         pre, payloads[:8]),
+        ("EOS lanes from the stdlib, caps past the end", [a[13:] for a in alone],
+         eparams, [-(n + 4096) for n in sizes[:8]], b"", payloads[:8]),
+    ]
+    for what, m_streams, m_params, m_sizes, m_pre, m_want in batches:
+        for name, fn in decoders:
+            if fn(m_streams, m_params, m_sizes, preset=m_pre, device=dev) != m_want:
+                raise AssertionError(f"matrix: {name} on {what} differs")
+        log(f"[matrix] {what}: K5 and K1 give the input")
+    for name, fn in decoders:
+        try:
+            fn(batches[2][1], eparams, [-(n // 2) for n in sizes[:8]], device=dev)
+        except CapExceededError:
+            continue
+        raise AssertionError(f"matrix: {name} let an EOS lane past its cap")
+    log("[matrix] EOS lanes with caps at half their size: K5 and K1 raise "
+        "CapExceededError")
+    done("matrix")
+
+    # ---- 12. nothing of JAX or of the JAX package was loaded ----
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib")
                  or m == "lzma_tpu" or m.startswith("lzma_tpu."))
@@ -585,12 +825,18 @@ def main():
         record("dp_parse", "lzma_tpu_torch/csrc/dp_parse.cu",
                "lzma_tpu/ops/device_parser.py:804", launches["dp_parse"],
                k3_err, k3_ms, k3_plain, k3_bound),
+        record("dp_parse2", "lzma_tpu_torch/csrc/dp_parse2.cu",
+               "lzma_tpu/ops/device_parser.py:1128", k4_launches, k3_err,
+               k4_ms, k3_plain, k3_bound),
         record("rc_serialize", "lzma_tpu_torch/csrc/rc_serializer.cu",
                "lzma_tpu/ops/pallas_serializer.py:58", launches["rc_serialize"],
                k2_err, k2_ms, k2_plain, k2_bound),
         record("ring_decode", "lzma_tpu_torch/csrc/ring_decoder.cu",
                "lzma_tpu/ops/pallas_ring.py:89", launches["ring_decode"],
                k1_err, k1_ms, k1_plain, k1_bound),
+        record("block_decode", "lzma_tpu_torch/csrc/block_decoder.cu",
+               "lzma_tpu/ops/pallas_decoder.py:80", k5_launches, k5_err, k5_ms,
+               k5_plain, k5_bound),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

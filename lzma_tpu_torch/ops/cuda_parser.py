@@ -1,10 +1,13 @@
-"""The optimal-parse DP scan as a CUDA kernel (``csrc/dp_parse.cu``).
+"""The optimal-parse DP scan as CUDA kernels (``csrc/dp_parse.cu``,
+``csrc/dp_parse2.cu``).
 
-Counterpart of K3, ``lzma_tpu/ops/device_parser.py`` ``dp_parse_pallas``:
-``dp_parse_cuda`` takes the packed inputs of ``device_parser.dp_inputs``
-and returns the same (from, choice) planes.  A CUDA tensor launches the
-kernel (or the wrapper raises); a CPU tensor takes the plain version,
-``device_parser.dp_parse_band``.
+Counterparts of K3 and K4, ``lzma_tpu/ops/device_parser.py``
+``dp_parse_pallas`` and ``dp_parse_pallas2``: ``dp_parse_cuda`` (K3, a
+finalize step and a history band) and ``dp_parse2_cuda`` (K4, node state
+carried in the band) take the packed inputs of ``device_parser.dp_inputs``
+and return the same (from, choice) planes.  A CUDA tensor launches the
+kernel (or the wrapper raises); a CPU tensor takes the plain version of
+both, ``device_parser.dp_parse_band``.
 """
 
 from __future__ import annotations
@@ -19,11 +22,13 @@ from .device_parser import dp_parse_band, table_size
 
 #: kernel launches made through dp_parse_cuda since the count was last set
 LAUNCHES = 0
+#: the same for dp_parse2_cuda
+LAUNCHES2 = 0
 
 
 @functools.cache
-def _kernel():
-    fn = build.load().lzt_dp_parse
+def _kernel(name: str):
+    fn = getattr(build.load(), name)
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -47,27 +52,43 @@ def _check(packed, tables, lens, fb, pb):
             raise ValueError(f"{name} must be contiguous")
 
 
-def dp_parse_cuda(packed, tables, lens, fb: int, pb: int):
-    """The scan over positions, one lane per block.  packed (L, N, 6M+5),
-    tables (L, T), lens (L,), all int32 (``device_parser.dp_inputs``).
-    Returns (from, choice), each (L, N + 1) int32."""
-    global LAUNCHES
-    if packed.device.type == "cpu":
-        return dp_parse_band(packed, tables, lens, fb, pb)
+def _launch(name: str, packed, tables, lens, fb: int, pb: int):
     if packed.device.type != "cuda":
-        raise ValueError(f"dp_parse_cuda takes CPU or CUDA tensors, got {packed.device}")
+        raise ValueError(f"{name} takes CPU or CUDA tensors, got {packed.device}")
     _check(packed, tables, lens, fb, pb)
     L, N, C = packed.shape
     dev = packed.device
     out_from = torch.empty((L, N + 1), dtype=torch.int32, device=dev)
     out_choice = torch.empty((L, N + 1), dtype=torch.int32, device=dev)
-    fn = _kernel()
+    fn = _kernel(f"lzt_{name}")
     with torch.cuda.device(dev):
         err = fn(packed.data_ptr(), tables.data_ptr(), lens.data_ptr(),
                  out_from.data_ptr(), out_choice.data_ptr(), L, N, C,
                  (C - 5) // 6, fb, pb, tables.shape[1],
                  torch.cuda.current_stream(dev).cuda_stream)
     if err:
-        raise RuntimeError(f"dp_parse launch failed: CUDA error {err}")
-    LAUNCHES += 1
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     return out_from, out_choice
+
+
+def dp_parse_cuda(packed, tables, lens, fb: int, pb: int):
+    """The scan over positions, one lane per block (K3).  packed (L, N,
+    6M+5), tables (L, T), lens (L,), all int32 (``device_parser.dp_inputs``).
+    Returns (from, choice), each (L, N + 1) int32."""
+    global LAUNCHES
+    if packed.device.type == "cpu":
+        return dp_parse_band(packed, tables, lens, fb, pb)
+    out = _launch("dp_parse", packed, tables, lens, fb, pb)
+    LAUNCHES += 1
+    return out
+
+
+def dp_parse2_cuda(packed, tables, lens, fb: int, pb: int):
+    """The same scan with each node's state and reps carried in the band
+    (K4): the same arguments and results as ``dp_parse_cuda``."""
+    global LAUNCHES2
+    if packed.device.type == "cpu":
+        return dp_parse_band(packed, tables, lens, fb, pb)
+    out = _launch("dp_parse2", packed, tables, lens, fb, pb)
+    LAUNCHES2 += 1
+    return out

@@ -10,8 +10,10 @@ Port of the ``parse="optimal"`` route of ``lzma_tpu/ops/device_parser.py``:
            current token stream) -> empirical probabilities -> every price
            table the DP needs (build_price_model, _pair_dist_cost), the
            rep0-by-position trace and its match lengths
-  DP       the scan over positions (dp_parse_band, the plain version of
-           the CUDA kernel in cuda_parser; K3, dp_parse_pallas, on the TPU)
+  DP       the scan over positions: K3 or K4, the CUDA kernels in
+           cuda_parser (dp_parse_pallas and dp_parse_pallas2 on the TPU),
+           whose plain version is dp_parse_band, or the naive plane scan
+           dp_parse
   extract  the backward path by pointer doubling + compaction
            (extract_tokens)
 
@@ -338,34 +340,176 @@ def dp_inputs(data, ld, dd, model, fb: int, r0pos, replen):
     return packed, _dp_tables(model, fb)
 
 
+def _node(st_prev, r_prev, k_i, c_i):
+    """Node i's state and rep set (L,), (L, 4) from its best predecessor's
+    and the kind and distance of the edge that reached it: a literal or
+    shortRep keeps the reps, rep k moves reps[k] to the front, a match
+    pushes its distance (Encoder.java:969-973, 1001-1003)."""
+    is_rep_e = (k_i >= 0) & (k_i < 4)
+    is_m_e = k_i == RK_MATCH
+    st_i = _w(k_i == RK_LIT, _next_lit(st_prev),
+              _w(k_i == RK_SHORTREP, _w(st_prev < 7, 9, 11),
+                 _w(is_rep_e, _next_longrep(st_prev), _next_match(st_prev))))
+    kk = torch.clamp(k_i, 0, 3)
+    picked = r_prev.gather(1, kk[:, None])[:, 0]
+    r_i = torch.stack([
+        _w(is_rep_e, picked, _w(is_m_e, c_i, r_prev[:, 0])),
+        _w((is_rep_e & (kk >= 1)) | is_m_e, r_prev[:, 0], r_prev[:, 1]),
+        _w((is_rep_e & (kk >= 2)) | is_m_e, r_prev[:, 1], r_prev[:, 2]),
+        _w((is_rep_e & (kk >= 3)) | is_m_e, r_prev[:, 2], r_prev[:, 3]),
+    ], dim=1)
+    return st_i, r_i
+
+
+def _edges(row, tabs, ps: int, p_i, st_i, r_i, live, rem, rl, lvec, lps):
+    """The edges out of node i, the step both scans share.  row (L, C) is
+    position i's packed row, tabs the _split_tables views; rem = lens - i
+    (at least 0) caps the pair lengths, `rl` is the rep0 source's length.
+    Returns (cand1, use_sr): the literal/shortRep edge's price to i+1 and
+    whether shortRep (strictly cheaper) won, and (best, bdist, bkind), each
+    (L, W): per length 2..fb the first cheapest source over the M pairs
+    (rep-priced when the distance is in node i's rep set, the first equal
+    rep index wins), then the rep0 source, with a strict `<`; INF where
+    none."""
+    ltm, ltr, im0, im1, r0l0, r0l1, ir0, ir1, rep_sel = tabs
+    L, C = row.shape
+    M = (C - 5) // 6
+    W = lvec.shape[0]
+    lanes = torch.arange(L, device=row.device)
+    ld_i, dd_i = row[:, :M], row[:, M:2 * M]
+    dc_i = row[:, 2 * M:6 * M].reshape(L, M, 4)
+    lit_i, mlit_i, r0p_i, _, sr_eq_i = row[:, 6 * M:6 * M + 5].unbind(1)
+    f_im0, f_im1 = im0[lanes, ps, st_i], im1[lanes, ps, st_i]
+    f_r0l0, f_r0l1 = r0l0[lanes, ps, st_i], r0l1[lanes, ps, st_i]
+    f_ir0, f_ir1 = ir0[lanes, st_i], ir1[lanes, st_i]
+    f_sel = rep_sel[lanes, :, st_i]                               # (L, 4)
+
+    cand_l = p_i + f_im0 + _w(st_i >= 7, mlit_i, lit_i)
+    sr_ok = (sr_eq_i > 0) & (r_i[:, 0] == r0p_i)
+    cand_sr = _w(sr_ok, p_i + f_im1 + f_ir1 + f_sel[:, 0] + f_r0l0, INF)
+    use_sr = cand_sr < cand_l
+    cand1 = torch.minimum(cand_l, cand_sr)
+
+    ld_c = torch.minimum(ld_i, rem[:, None])
+    pv = (ld_c >= 2) & (dd_i >= 0) & live[:, None]
+    eq = dd_i[:, :, None] == r_i[:, None, :]                      # (L, M, 4)
+    any_eq = eq.any(dim=2)
+    rix = _w(eq[..., 0], 0, _w(eq[..., 1], 1, _w(eq[..., 2], 2, 3)))
+    rep_base = (p_i + f_im1 + f_ir1)[:, None] + f_sel
+    rep_base[:, 0] += f_r0l1
+    rb = rep_base.gather(1, rix)                                  # (L, M)
+    mbase = p_i + f_im1 + f_ir0
+    ltm_i, ltr_i = ltm[:, ps], ltr[:, ps]                         # (L, W)
+    cost = _w(any_eq[..., None], rb[..., None] + ltr_i[:, None, :],
+              mbase[:, None, None] + dc_i[:, :, lps] + ltm_i[:, None, :])
+    lm = lvec <= ld_c[..., None]
+    cost = _w(lm & pv[..., None], cost, INF)                      # (L, M, W)
+    kind_t = _w(any_eq, rix, RK_MATCH)
+
+    def full(v):
+        return torch.full((L, W), v, dtype=torch.int64, device=row.device)
+
+    best, bdist, bkind = full(INF), full(0), full(RK_MATCH)
+    for m in range(M):
+        better = cost[:, m] < best
+        best = _w(better, cost[:, m], best)
+        bdist = _w(better, dd_i[:, m, None], bdist)
+        bkind = _w(better, kind_t[:, m, None], bkind)
+    rep0_ok = live & (r_i[:, 0] == r0p_i) & (rl >= 2)
+    cost0 = _w(rep0_ok[:, None] & (lvec <= rl[:, None]),
+               rep_base[:, :1] + ltr_i, INF)
+    better = cost0 < best
+    best = _w(better, cost0, best)
+    bdist = _w(better, r0p_i[:, None], bdist)
+    bkind = _w(better, 0, bkind)
+    return cand1, use_sr, best, bdist, bkind
+
+
+def _scan_setup(packed, tables, lens, fb: int, pb: int):
+    """What both scans read: packed and tables in int64, the table views,
+    lens, and the lengths 2..fb with their len-to-pos-state index."""
+    device = packed.device
+    tabs = _split_tables(tables.long(), 1 << pb, fb - 1)
+    lvec = torch.arange(2, fb + 1, dtype=torch.int64, device=device)
+    return packed.long(), tabs, lens.long(), lvec, torch.clamp(lvec - 2, max=3)
+
+
+def dp_parse(packed, tables, lens, fb: int, pb: int):
+    """The naive plane scan (device_parser.dp_parse) over the packed
+    inputs of ``dp_inputs`` (not JAX's argument list: the test builds
+    these from the same numpy arrays JAX's takes).  Plain PyTorch on any
+    device; no encode route takes it (``tokenize_optimal(scan="naive")``).
+
+    Every node keeps price, from (absolute), choice, kind, state and reps
+    in full (L, N + fb + 1) planes; step i finalizes node i's state and
+    reps from its best predecessor's plane entries and relaxes its edges
+    into the window i+1..i+fb.  The rep0 source's length is the packed
+    replen as it is, not capped at lens - i (the band scans cap it; the
+    candidate trace already stops there).  Returns (price, from, choice,
+    rkind), each (L, N + fb + 1) int32."""
+    L, N, C = packed.shape
+    NP = N + fb + 1
+    W = fb - 1
+    device = packed.device
+    x, tabs, lens, lvec, lps = _scan_setup(packed, tables, lens, fb, pb)
+    lanes = torch.arange(L, device=device)
+
+    def full(shape, v):
+        return torch.full(shape, v, dtype=torch.int64, device=device)
+
+    price, from_, choice, rkind = (full((L, NP), INF), full((L, NP), 0),
+                                   full((L, NP), -1), full((L, NP), RK_LIT))
+    price[:, 0] = 0
+    state, reps = full((L, NP), 0), full((L, NP, 4), 0)
+    for i in range(N):
+        row = x[:, i]
+        p_i, f_i = price[:, i], from_[:, i]
+        st_i, r_i = _node(state[lanes, f_i], reps[lanes, f_i], rkind[:, i],
+                          choice[:, i])
+        if i == 0:
+            st_i, r_i = torch.zeros_like(st_i), torch.zeros_like(r_i)
+        state[:, i] = st_i
+        reps[:, i] = r_i
+        live = i < lens
+        cand1, use_sr, best, bdist, bkind = _edges(
+            row, tabs, i & ((1 << pb) - 1), p_i, st_i, r_i, live,
+            torch.clamp(lens - i, min=0), row[:, C - 2], lvec, lps)
+
+        imp = live & (cand1 < price[:, i + 1])
+        price[:, i + 1] = _w(imp, cand1, price[:, i + 1])
+        from_[:, i + 1] = _w(imp, i, from_[:, i + 1])
+        choice[:, i + 1] = _w(imp, _w(use_sr, r_i[:, 0], -1), choice[:, i + 1])
+        rkind[:, i + 1] = _w(imp, _w(use_sr, RK_SHORTREP, RK_LIT),
+                             rkind[:, i + 1])
+        win = slice(i + 2, i + 2 + W)
+        impw = best < price[:, win]
+        price[:, win] = _w(impw, best, price[:, win])
+        from_[:, win] = _w(impw, i, from_[:, win])
+        choice[:, win] = _w(impw, torch.clamp(bdist, min=0), choice[:, win])
+        rkind[:, win] = _w(impw, bkind, rkind[:, win])
+    return tuple(a.to(torch.int32) for a in (price, from_, choice, rkind))
+
+
 def dp_parse_band(packed, tables, lens, fb: int, pb: int):
     """The optimal-parse scan (device_parser.dp_parse_band) over the
-    packed inputs of ``dp_inputs``; the plain PyTorch version of the CUDA
-    kernel (``cuda_parser.dp_parse_cuda``, K3 ``dp_parse_pallas`` on the
-    TPU).  One step per position, all lanes at once.
+    packed inputs of ``dp_inputs``; the plain PyTorch version of both
+    CUDA scans (``cuda_parser.dp_parse_cuda`` and ``dp_parse2_cuda``, K3
+    ``dp_parse_pallas`` and K4 ``dp_parse_pallas2`` on the TPU).  One step
+    per position, all lanes at once.
 
     The future band (price, from offset, choice, kind of nodes i..i+fb)
     and the history band (state and reps of nodes i-1..i-fb) are ring
     buffers indexed by node mod B (B = fb + 1) and mod H (H = fb), as in
-    the kernel.  Each step finalizes node i from its best predecessor,
-    relaxes the literal/shortRep edge to i+1 and, for lengths 2..fb, the
-    M candidate pairs (rep-priced when the distance is in node i's rep
-    set, first rep index wins) and then the rep0 source; the strict `<`
-    keeps the first source at equal price.  Returns (from, choice), each
-    (L, N + 1) int32: node j's best predecessor and its distance (-1 for
-    a literal)."""
+    K3.  Each step finalizes node i from its best predecessor, relaxes
+    the literal/shortRep edge to i+1 and, for lengths 2..fb, the M
+    candidate pairs and then the rep0 source (``_edges``).  Returns
+    (from, choice), each (L, N + 1) int32: node j's best predecessor and
+    its distance (-1 for a literal)."""
     L, N, C = packed.shape
-    M = (C - 5) // 6
-    W, B, H = fb - 1, fb + 1, fb
-    n_ps = 1 << pb
+    B, H = fb + 1, fb
     device = packed.device
-    x = packed.long()
-    ltm, ltr, im0, im1, r0l0, r0l1, ir0, ir1, rep_sel = _split_tables(
-        tables.long(), n_ps, W)
-    lens = lens.long()
+    x, tabs, lens, lvec, lps = _scan_setup(packed, tables, lens, fb, pb)
     lanes = torch.arange(L, device=device)
-    lvec = torch.arange(2, fb + 1, dtype=torch.int64, device=device)
-    lps = torch.clamp(lvec - 2, max=3)
 
     def full(shape, v):
         return torch.full(shape, v, dtype=torch.int64, device=device)
@@ -377,50 +521,26 @@ def dp_parse_band(packed, tables, lens, fb: int, pb: int):
     out_from, out_choice = full((L, N + 1), 0), full((L, N + 1), 0)
 
     for i in range(N):
-        row = x[:, i]
-        ld_i, dd_i = row[:, :M], row[:, M:2 * M]
-        dc_i = row[:, 2 * M:6 * M].reshape(L, M, 4)
-        lit_i, mlit_i, r0p_i, rl_i, sr_eq_i = row[:, 6 * M:6 * M + 5].unbind(1)
-        ps = i & (n_ps - 1)
         s0 = i % B
 
         # --- finalize node i from its predecessor (history band) ---
         p_i, d_i, c_i, k_i = bp[:, s0], bf[:, s0], bc[:, s0], bk[:, s0]
         hs = (i - 1 - torch.clamp(d_i - 1, 0, H - 1)) % H
-        st_prev = hst[lanes, hs]
-        r_prev = hrp[lanes, hs]
-        is_rep_e = (k_i >= 0) & (k_i < 4)
-        is_m_e = k_i == RK_MATCH
-        st_i = _w(k_i == RK_LIT, _next_lit(st_prev),
-                  _w(k_i == RK_SHORTREP, _w(st_prev < 7, 9, 11),
-                     _w(is_rep_e, _next_longrep(st_prev), _next_match(st_prev))))
-        kk = torch.clamp(k_i, 0, 3)
-        picked = r_prev.gather(1, kk[:, None])[:, 0]
-        r_i = torch.stack([
-            _w(is_rep_e, picked, _w(is_m_e, c_i, r_prev[:, 0])),
-            _w((is_rep_e & (kk >= 1)) | is_m_e, r_prev[:, 0], r_prev[:, 1]),
-            _w((is_rep_e & (kk >= 2)) | is_m_e, r_prev[:, 1], r_prev[:, 2]),
-            _w((is_rep_e & (kk >= 3)) | is_m_e, r_prev[:, 2], r_prev[:, 3]),
-        ], dim=1)
+        st_i, r_i = _node(hst[lanes, hs], hrp[lanes, hs], k_i, c_i)
         if i == 0:
-            st_i = torch.zeros_like(st_i)
-            r_i = torch.zeros_like(r_i)
+            st_i, r_i = torch.zeros_like(st_i), torch.zeros_like(r_i)
         out_from[:, i] = i - d_i
         out_choice[:, i] = c_i
 
         live = i < lens
-        f_im0, f_im1 = im0[lanes, ps, st_i], im1[lanes, ps, st_i]
-        f_r0l0, f_r0l1 = r0l0[lanes, ps, st_i], r0l1[lanes, ps, st_i]
-        f_ir0, f_ir1 = ir0[lanes, st_i], ir1[lanes, st_i]
-        f_sel = rep_sel[lanes, :, st_i]                           # (L, 4)
+        rem = torch.clamp(lens - i, min=0)
+        row = x[:, i]
+        cand1, use_sr, best, bdist, bkind = _edges(
+            row, tabs, i & ((1 << pb) - 1), p_i, st_i, r_i, live, rem,
+            torch.minimum(row[:, C - 2], rem), lvec, lps)
 
         # --- literal / shortRep edge -> node i+1 ---
         s1 = (i + 1) % B
-        cand_l = p_i + f_im0 + _w(st_i >= 7, mlit_i, lit_i)
-        sr_ok = (sr_eq_i > 0) & (r_i[:, 0] == r0p_i)
-        cand_sr = _w(sr_ok, p_i + f_im1 + f_ir1 + f_sel[:, 0] + f_r0l0, INF)
-        use_sr = cand_sr < cand_l
-        cand1 = torch.minimum(cand_l, cand_sr)
         imp = live & (cand1 < bp[:, s1])
         bp[:, s1] = _w(imp, cand1, bp[:, s1])
         bf[:, s1] = _w(imp, 1, bf[:, s1])
@@ -428,37 +548,6 @@ def dp_parse_band(packed, tables, lens, fb: int, pb: int):
         bk[:, s1] = _w(imp, _w(use_sr, RK_SHORTREP, RK_LIT), bk[:, s1])
 
         # --- match / rep relax over lengths 2..fb -> nodes i+2..i+fb ---
-        rem = torch.clamp(lens - i, min=0)
-        ld_c = torch.minimum(ld_i, rem[:, None])
-        pv = (ld_c >= 2) & (dd_i >= 0) & live[:, None]
-        eq = dd_i[:, :, None] == r_i[:, None, :]                  # (L, M, 4)
-        any_eq = eq.any(dim=2)
-        rix = _w(eq[..., 0], 0, _w(eq[..., 1], 1, _w(eq[..., 2], 2, 3)))
-        rep_base = (p_i + f_im1 + f_ir1)[:, None] + f_sel
-        rep_base[:, 0] += f_r0l1
-        rb = rep_base.gather(1, rix)                              # (L, M)
-        mbase = p_i + f_im1 + f_ir0
-        ltm_i, ltr_i = ltm[:, ps], ltr[:, ps]                     # (L, W)
-        cost = _w(any_eq[..., None], rb[..., None] + ltr_i[:, None, :],
-                  mbase[:, None, None] + dc_i[:, :, lps] + ltm_i[:, None, :])
-        lm = lvec <= ld_c[..., None]
-        cost = _w(lm & pv[..., None], cost, INF)                  # (L, M, W)
-        kind_t = _w(any_eq, rix, RK_MATCH)
-        best, bdist, bkind = full((L, W), INF), full((L, W), 0), full((L, W), RK_MATCH)
-        for m in range(M):
-            better = cost[:, m] < best
-            best = _w(better, cost[:, m], best)
-            bdist = _w(better, dd_i[:, m, None], bdist)
-            bkind = _w(better, kind_t[:, m, None], bkind)
-        rl_c = torch.minimum(rl_i, rem)
-        rep0_ok = live & (r_i[:, 0] == r0p_i) & (rl_c >= 2)
-        cost0 = _w(rep0_ok[:, None] & (lvec <= rl_c[:, None]),
-                   rep_base[:, :1] + ltr_i, INF)
-        better = cost0 < best
-        best = _w(better, cost0, best)
-        bdist = _w(better, r0p_i[:, None], bdist)
-        bkind = _w(better, 0, bkind)
-
         cols = (i + lvec) % B
         impw = best < bp[:, cols]
         bp[:, cols] = _w(impw, best, bp[:, cols])
@@ -577,16 +666,25 @@ def _round_inputs(data, lens, tokens, ld, dd, suffix, lc: int, lp: int,
         return dp_inputs(data, ld, dd, model, fb, r0pos, replen)
 
 
-def tokenize_optimal(data, lens, dict_size: int, *, lc: int, lp: int, pb: int,
-                     fb: int):
-    """Candidate lists -> empirical prices -> DP -> tokens for N blocks
-    (device_parser.tokenize_optimal with band=True, as device_encoder
-    calls it: the lists seed, n_iter 2, m_dp 4, DP_TIERS, cap 12 "rr";
-    on a CUDA device the scan is the CUDA kernel).  data (L, N) uint8,
-    lens (L,).  Returns (t_pos, t_len, t_dist, t_valid, ntok) with the
-    contract of device_matcher.tokenize."""
-    from .cuda_parser import dp_parse_cuda
+#: tokenize_optimal's scans: JAX's band=True, "pallas2" and False
+SCANS = ("band", "band2", "naive")
 
+
+def tokenize_optimal(data, lens, dict_size: int, *, lc: int, lp: int, pb: int,
+                     fb: int, scan: str = "band"):
+    """Candidate lists -> empirical prices -> DP -> tokens for N blocks
+    (device_parser.tokenize_optimal as device_encoder calls it: the lists
+    seed, n_iter 2, m_dp 4, DP_TIERS, cap 12 "rr").  `scan` picks the DP:
+    "band" is K3 (``dp_parse_cuda``) and "band2" K4 (``dp_parse2_cuda``),
+    each ``dp_parse_band`` on the CPU; "naive" is the plane scan
+    ``dp_parse`` on any device.  All three give the same tokens; the
+    encode route takes "band".  data (L, N) uint8, lens (L,).  Returns
+    (t_pos, t_len, t_dist, t_valid, ntok) with the contract of
+    device_matcher.tokenize."""
+    from .cuda_parser import dp_parse2_cuda, dp_parse_cuda
+
+    if scan not in SCANS:
+        raise ValueError(f"scan must be one of {SCANS}, got {scan!r}")
     N = data.shape[1]
     device = data.device
     lens32 = lens.to(torch.int32)
@@ -596,7 +694,11 @@ def tokenize_optimal(data, lens, dict_size: int, *, lc: int, lp: int, pb: int,
                                        lc, lp, pb, fb)
         keep("dp_inputs", (packed, tables, lens32))
         with stage("dp_parse", device):
-            from_, choice = dp_parse_cuda(packed, tables, lens32, fb, pb)
+            if scan == "naive":
+                _, from_, choice, _ = dp_parse(packed, tables, lens32, fb, pb)
+            else:
+                scan_fn = dp_parse2_cuda if scan == "band2" else dp_parse_cuda
+                from_, choice = scan_fn(packed, tables, lens32, fb, pb)
         del packed, tables
         with stage("extract", device):
             tp, tl, td, tv, ntok = extract_tokens(from_, choice, lens)

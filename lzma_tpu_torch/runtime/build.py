@@ -73,15 +73,19 @@ def library_path() -> str:
 
 
 def build(verbose: bool = False) -> str:
-    """Compile csrc/*.cu unless the library for these sources exists: one
-    nvcc per source, started together, then one link.  Returns the
-    library path.  `verbose` adds ptxas register/spill reports and
-    prints nvcc's output."""
+    """Compile csrc/*.cu unless the library for these sources exists.
+    Returns the library path.  `verbose` adds ptxas register/spill
+    reports and prints nvcc's output."""
     lib = library_path()
-    if os.path.exists(lib) and not verbose:
-        return lib
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    work = tempfile.mkdtemp(dir=BUILD_DIR)
+    if not os.path.exists(lib) or verbose:
+        compile_to(lib, verbose)
+    return lib
+
+
+def compile_to(lib: str, verbose: bool = False) -> None:
+    """One nvcc per source, started together, then one link into `lib`."""
+    os.makedirs(os.path.dirname(lib), exist_ok=True)
+    work = tempfile.mkdtemp(dir=os.path.dirname(lib))
     try:
         jobs = []
         for src in sources():
@@ -106,7 +110,6 @@ def build(verbose: bool = False) -> str:
         os.replace(tmp, lib)  # atomic: a concurrent build never sees a torn file
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    return lib
 
 
 def load() -> ctypes.CDLL:

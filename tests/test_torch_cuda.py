@@ -18,9 +18,11 @@ from lzma_tpu.format.properties import LzmaParams
 from lzma_tpu_torch.bench.datagen import generate_bench_data
 from lzma_tpu_torch.core.layout import ProbLayout
 from lzma_tpu_torch.core.rangecoder import CorruptStreamError
-from lzma_tpu_torch.ops import api, cuda_parser, cuda_ring, cuda_serializer
+from lzma_tpu_torch.ops import (api, cuda_decoder, cuda_parser, cuda_ring,
+                                cuda_serializer)
 from lzma_tpu_torch.ops.device_decoder import _decode_fsm, pad_rows
 from lzma_tpu_torch.ops.device_encoder import _lower_lanes, serialize
+from lzma_tpu_torch.ops.device_decoder import CapExceededError
 from lzma_tpu_torch.ops.device_parser import (_lists_and_seed, _round_inputs,
                                               dp_parse_band)
 
@@ -190,14 +192,34 @@ def test_dp_parse_kernel_matches_plain(card, fb, pb):
     assert torch.equal(k_choice, p_choice)
 
 
-def test_dp_parse_wrapper_rejects_bad_dtype_and_device(card):
+@pytest.mark.parametrize("fb", [5, 32, 273])
+@pytest.mark.parametrize("pb", [0, 4])
+def test_dp_parse2_kernel_matches_plain_and_k3(card, fb, pb):
+    blocks = _blocks(4, 512, fb + pb + 1)
+    blocks[2] = blocks[2][:200]           # ragged lanes
+    packed, tables, lens = _dp_inputs(blocks, fb, pb, card)
+    before, k3_before = cuda_parser.LAUNCHES2, cuda_parser.LAUNCHES
+    k_from, k_choice = cuda_parser.dp_parse2_cuda(packed, tables, lens, fb, pb)
+    p_from, p_choice = dp_parse_band(packed, tables, lens, fb, pb)
+    torch.cuda.synchronize()
+    assert cuda_parser.LAUNCHES2 == before + 1
+    assert cuda_parser.LAUNCHES == k3_before
+    assert torch.equal(k_from, p_from)
+    assert torch.equal(k_choice, p_choice)
+    assert all(torch.equal(a, b) for a, b in zip(
+        cuda_parser.dp_parse_cuda(packed, tables, lens, fb, pb), (k_from, k_choice)))
+
+
+@pytest.mark.parametrize("scan_fn", ["dp_parse_cuda", "dp_parse2_cuda"])
+def test_dp_parse_wrapper_rejects_bad_dtype_and_device(card, scan_fn):
+    fn = getattr(cuda_parser, scan_fn)
     packed, tables, lens = _dp_inputs(_blocks(2, 256, 1), 32, 2, card)
     with pytest.raises(TypeError):
-        cuda_parser.dp_parse_cuda(packed.long(), tables, lens, 32, 2)
+        fn(packed.long(), tables, lens, 32, 2)
     with pytest.raises(ValueError):
-        cuda_parser.dp_parse_cuda(packed, tables, lens.cpu(), 32, 2)
+        fn(packed, tables, lens.cpu(), 32, 2)
     with pytest.raises(ValueError):
-        cuda_parser.dp_parse_cuda(packed, tables, lens, 32, 3)  # table size
+        fn(packed, tables, lens, 32, 3)  # table size
 
 
 def test_optimal_encode_on_the_card_equals_the_cpu(card):
@@ -210,3 +232,96 @@ def test_optimal_encode_on_the_card_equals_the_cpu(card):
     assert blob == api.encode_blocks(data, params, block_size=4096,
                                      parse="optimal", device="cpu")
     assert api.decode_blocks(blob, device=card) == data
+
+
+# ------------------------------------------------- K5, the resident decoder
+def test_resident_decoder_matches_plain_with_and_without_preset(card):
+    params = LzmaParams(dict_size=1 << 12)
+    blocks = _blocks(4, 1024, 9)
+    streams = [encode_stream(b, params, mode="greedy") for b in blocks]
+    comp, lens = pad_rows(streams, card)
+    sizes = torch.tensor([len(b) for b in blocks], dtype=torch.int32, device=card)
+    args = (comp, lens, sizes, params.dict_size, 3, 0, 2, 1024)
+    before = cuda_decoder.LAUNCHES
+    k = cuda_decoder.decode_resident(*args)
+    assert cuda_decoder.LAUNCHES == before + 1
+    for a, b, c in zip(k, _decode_fsm(*args), cuda_ring.decode_cuda(*args)):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert bool(k[1].all())
+
+    preset = blocks[0][:512]
+    streams = [encode_stream(b, params, preset=preset, mode="greedy")
+               for b in blocks[1:]]
+    comp, lens = pad_rows(streams, card)
+    sizes = torch.tensor([len(b) + 512 for b in blocks[1:]], dtype=torch.int32,
+                         device=card)
+    pre = torch.frombuffer(bytearray(preset), dtype=torch.uint8).to(card)
+    args = (comp, lens, sizes, params.dict_size, 3, 0, 2, 2048)
+    k = cuda_decoder.decode_resident(*args, preset=pre)
+    for a, b in zip(k, _decode_fsm(*args, preset=pre)):
+        assert torch.equal(a, b)
+    assert cuda_decoder.decode_batch_resident(
+        streams, params, [len(b) for b in blocks[1:]], preset=preset,
+        device=card) == blocks[1:]
+
+
+def test_resident_decoder_fails_corrupt_lanes_like_plain(card):
+    params = LzmaParams(dict_size=1 << 12)
+    payload = generate_bench_data(700)
+    good = encode_stream(payload, params, mode="greedy")
+    bad = bytearray(good)
+    bad[len(good) // 2] ^= 0x5A
+    cuts = [good[:k] for k in range(40, len(good) - 20, (len(good) - 60) // 24)]
+    streams = [bytes(bad)] + cuts + [good, good]
+    sizes = [700] * (1 + len(cuts)) + [750, 650]
+    comp, lens = pad_rows(streams, card)
+    for dict_size in (1 << 12, 16):
+        args = (comp, lens, torch.tensor(sizes, dtype=torch.int32, device=card),
+                dict_size, 3, 0, 2, 1024)
+        k = cuda_decoder.decode_resident(*args)
+        for a, b in zip(k, _decode_fsm(*args)):
+            assert torch.equal(a, b)
+        assert not bool(k[1][:1 + len(cuts)].any())
+    with pytest.raises(CorruptStreamError):
+        cuda_decoder.decode_batch_resident([bytes(bad)], params, [700],
+                                           device=card)
+
+
+def test_resident_decoder_eos_lanes_and_cap(card):
+    params = LzmaParams(dict_size=1 << 12, write_eos=True)
+    payload = generate_bench_data(900)
+    stream = encode_stream(payload, params, mode="greedy")
+    comp, lens = pad_rows([stream, stream], card)
+    sizes = torch.tensor([-4096, -600], dtype=torch.int32, device=card)
+    args = (comp, lens, sizes, params.dict_size, 3, 0, 2, 4096)
+    k = cuda_decoder.decode_resident(*args)
+    for a, b in zip(k, _decode_fsm(*args)):
+        assert torch.equal(a, b)
+    assert k[1].tolist() == [True, False]
+    assert cuda_decoder.decode_batch_resident([stream], params, [-4096],
+                                              device=card) == [payload]
+    with pytest.raises(CapExceededError):
+        cuda_decoder.decode_batch_resident([stream], params, [-600],
+                                           device=card)
+
+
+def test_resident_decoder_raises_over_its_envelope(card):
+    params = LzmaParams(dict_size=1 << 12)
+    stream = encode_stream(b"x" * 1000, params, mode="greedy")
+    before = cuda_decoder.LAUNCHES
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_decoder.decode_batch_resident([stream], params, [1000],
+                                           max_out=1 << 18, device=card)
+    big = LzmaParams(lc=8, lp=4, pb=2, dict_size=1 << 12)
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_decoder.decode_batch_resident([stream], big, [1000], device=card)
+    assert cuda_decoder.LAUNCHES == before
+
+
+def test_resident_wrapper_rejects_bad_dtype_and_device(card):
+    comp = torch.zeros((2, 16), dtype=torch.uint8, device=card)
+    lens = torch.full((2,), 16, dtype=torch.int32, device=card)
+    with pytest.raises(TypeError):
+        cuda_decoder.decode_resident(comp.int(), lens, lens, 1 << 12, 3, 0, 2, 64)
+    with pytest.raises(ValueError):
+        cuda_decoder.decode_resident(comp, lens.cpu(), lens, 1 << 12, 3, 0, 2, 64)

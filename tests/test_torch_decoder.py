@@ -1,8 +1,9 @@
 """lzma_tpu_torch's plain decoder FSM against lzma_tpu's, on the CPU.
 
-The port's ``_decode_fsm`` (the plain version of the CUDA ring decoder)
-is held to the JAX ring kernel in interpret mode and to the JAX FSM on
-the same numpy inputs.  The codec is integer-only: out, ok and the final
+The port's ``_decode_fsm`` (the plain version of both CUDA decoders) is
+held to the JAX ring kernel in interpret mode and to the JAX FSM on the
+same numpy inputs, and ``decode_batch_resident`` (K5's entry point) to
+the JAX ``decode_batch_pallas`` with ``fallback=False``.  The codec is integer-only: out, ok and the final
 output position must be exactly equal, on valid and on corrupt streams.
 """
 
@@ -17,9 +18,11 @@ from lzma_tpu.bench.datagen import generate_bench_data  # noqa: E402
 from lzma_tpu.codec.encoder import encode_stream  # noqa: E402
 from lzma_tpu.format.properties import LzmaParams  # noqa: E402
 from lzma_tpu.ops import device_decoder as jdd  # noqa: E402
+from lzma_tpu.ops.pallas_decoder import decode_batch_pallas  # noqa: E402
 from lzma_tpu.ops.pallas_ring import decode_pallas_ring  # noqa: E402
+from lzma_tpu_torch.core.layout import ProbLayout  # noqa: E402
 from lzma_tpu_torch.core.rangecoder import CorruptStreamError  # noqa: E402
-from lzma_tpu_torch.ops import cuda_ring  # noqa: E402
+from lzma_tpu_torch.ops import cuda_decoder, cuda_ring  # noqa: E402
 from lzma_tpu_torch.ops import device_decoder as tdd  # noqa: E402
 
 
@@ -183,3 +186,94 @@ def test_cuda_wrappers_take_the_plain_version_on_cpu():
     assert cuda_ring.decode_batch_cuda(
         streams, params, [len(p) for p in payloads], device="cpu") == payloads
     assert cuda_ring.LAUNCHES == before  # no kernel launch for CPU tensors
+
+
+# ------------------------------------------------- K5's entry point
+def _resident_vs_pallas(streams, params, sizes, preset=b""):
+    got = cuda_decoder.decode_batch_resident(streams, params, sizes,
+                                             preset=preset, device="cpu")
+    want = decode_batch_pallas(streams, params, sizes, fallback=False,
+                               preset=preset)
+    assert got == want
+    return got
+
+
+def _mixed_payloads(rng):
+    word = rng.integers(0, 256, 17, dtype=np.uint8).tobytes()
+    return [b"a" * 400, (word * 40)[:500],
+            rng.integers(0, 256, 300, dtype=np.uint8).tobytes(),
+            (b"the quick brown fox " * 30)[:450]]
+
+
+def test_resident_decode_matches_pallas_on_oracle_and_liblzma_streams():
+    import lzma as pylzma
+
+    params = LzmaParams(dict_size=1 << 16, fast_bytes=32)
+    payloads = _mixed_payloads(np.random.default_rng(11))
+    streams = [encode_stream(p, params) for p in payloads]
+    assert _resident_vs_pallas(streams, params, [len(p) for p in payloads]) \
+        == payloads
+    params = LzmaParams(lc=3, lp=0, pb=2, dict_size=1 << 16)
+    filt = [{"id": pylzma.FILTER_LZMA1, "preset": 6, "dict_size": 1 << 16}]
+    payloads = [b"hello resident " * 40, bytes(range(256)) * 3]
+    streams = [pylzma.compress(p, format=pylzma.FORMAT_ALONE, filters=filt)[13:]
+               for p in payloads]
+    # the known sizes stop these before liblzma's end marker
+    assert _resident_vs_pallas(streams, params, [len(p) for p in payloads]) \
+        == payloads
+
+
+@pytest.mark.parametrize("lc,lp,pb", [(0, 2, 0), (1, 1, 1)])
+def test_resident_decode_param_combos_match_pallas(lc, lp, pb):
+    rng = np.random.default_rng(7 + lc * 9 + lp * 3 + pb)
+    params = LzmaParams(lc=lc, lp=lp, pb=pb, dict_size=1 << 14, fast_bytes=16)
+    payload = (rng.integers(0, 256, 23, dtype=np.uint8).tobytes() * 30)[:600]
+    stream = encode_stream(payload, params)
+    assert _resident_vs_pallas([stream], params, [len(payload)]) == [payload]
+
+
+def test_resident_decode_corrupt_lane_raises_like_pallas():
+    params = LzmaParams(dict_size=1 << 14)
+    payload = np.random.default_rng(3).integers(0, 256, 300, dtype=np.uint8).tobytes()
+    stream = bytearray(encode_stream(payload, params))
+    stream[len(stream) // 2] ^= 0xFF
+    with pytest.raises(ValueError):   # CorruptStreamError is a ValueError
+        decode_batch_pallas([bytes(stream)], params, [len(payload)],
+                            fallback=False)
+    with pytest.raises(CorruptStreamError):
+        cuda_decoder.decode_batch_resident([bytes(stream)], params,
+                                           [len(payload)], device="cpu")
+
+
+def test_resident_decode_zero_block_and_preset_batch():
+    params = LzmaParams(dict_size=1 << 13, fast_bytes=64)
+    payload = b"\x00" * 8192
+    assert _resident_vs_pallas([encode_stream(payload, params)], params,
+                               [len(payload)]) == [payload]
+    rng = np.random.default_rng(23)
+    params = LzmaParams(dict_size=1 << 14, fast_bytes=16)
+    word = rng.integers(0, 256, 13, dtype=np.uint8).tobytes()
+    payloads = [(word * 50)[: 200 + 17 * i] for i in range(4)]
+    preset = (word * 10)[:100]
+    streams = [encode_stream(p, params, preset=preset) for p in payloads]
+    assert _resident_vs_pallas(streams, params, [len(p) for p in payloads],
+                               preset=preset) == payloads
+
+
+def test_resident_envelope_arithmetic():
+    """What a lane needs: max_in + max_out + 2 x arena bytes, each part
+    rounded up to 16 as the kernel lays them out."""
+    lc3 = ProbLayout(3, 0, 2, pos_bits=2).size
+    assert (ProbLayout(0, 0, 2, pos_bits=2).size, lc3) == (1942, 7318)
+    assert cuda_decoder.resident_layout(16, 16, 8) == (16, 32, 48)
+    assert cuda_decoder.resident_layout(17, 1, 1) == (16, 32, 64)
+    # the bench512K config's 16 KiB blocks: about 40 KB a lane
+    win, inp, need = cuda_decoder.resident_layout(1 << 13, 1 << 14, lc3)
+    assert (win, inp, need) == (14640, 31024, 39216)
+    # the main path's 256 KiB blocks and the lc8/lp4 arena do not fit a
+    # block's 227 KB (232,448 B on the H100)
+    assert cuda_decoder.resident_layout(1 << 17, 1 << 18, lc3)[2] > 232_448
+    big = ProbLayout(8, 4, 2, pos_bits=2).size
+    assert big == 3_146_902          # 6,293,804 B, rounded up to 6,293,808
+    assert cuda_decoder.resident_layout(16, 16, big) == (6_293_808, 6_293_824,
+                                                         6_293_840)

@@ -68,6 +68,27 @@ def test_tokenize_optimal_matches_jax():
     assert len(probe["seconds"]["dp_parse"]) == 2
 
 
+@pytest.mark.parametrize("scan,band", [("band", True), ("band2", "pallas2_interpret"),
+                                       ("naive", False)])
+def test_tokenize_optimal_scans_match_jax(scan, band):
+    """Each scan of the port against its JAX counterpart (band=True,
+    "pallas2" in interpret mode, False), token for token, as
+    test_device_parser.py holds the JAX scans to each other.  On the CPU
+    "band2" runs K4's plain version."""
+    data, lens = _lanes(512, seed=4, short=300)
+    data, lens = data[:3], lens[:3]
+    kw = dict(lc=3, lp=0, pb=2, fb=16)
+    want = jp.tokenize_optimal(jnp.asarray(data), jnp.asarray(lens),
+                               jnp.int32(512), tiers_key=jp.DP_TIERS,
+                               n_iter=2, band=band, **kw)
+    got = tp.tokenize_optimal(T(data), T(lens), 512, scan=scan, **kw)
+    for name, g, r in zip(("t_pos", "t_len", "t_dist", "t_valid", "ntok"),
+                          got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r), err_msg=name)
+    with pytest.raises(ValueError):
+        tp.tokenize_optimal(T(data), T(lens), 512, scan="pallas", **kw)
+
+
 OPT_CASES = {
     "bench-3-lanes": (3, 5000, dict(dict_size=1 << 12), 2048),
     "text-lc0-pb0-fb16": (4, 6000, dict(lc=0, lp=0, pb=0, dict_size=1 << 13,

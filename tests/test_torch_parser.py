@@ -8,6 +8,7 @@ copies of lzma_tpu's jax-free modules are held to the originals here
 too.  (The whole tokenizer and the containers: test_torch_optimal.py.)
 """
 
+import functools
 import io
 
 import numpy as np
@@ -298,22 +299,58 @@ def test_model_and_dp_round_match_jax(case):
         eq(g, r, name)
 
 
-@pytest.mark.parametrize("fb", [5, 32])
-def test_dp_parse_band_matches_jax_band_and_pallas(fb):
+@functools.cache
+def _small(fb):
+    """4 lanes x 256 positions (one ragged) through the JAX pipeline, the
+    JAX arguments of its scans and the port's packed inputs."""
     data, lens = _lanes(256, seed=fb, short=180)
     ref = _jax_pipeline(data, lens, fb)
     model = {k: jnp.asarray(v) for k, v in ref["model"].items()}
     args = (jnp.asarray(data), jnp.asarray(lens), jnp.asarray(ref["ld"]),
             jnp.asarray(ref["dd"]), model, fb, 2, False)
     kw = dict(r0pos=jnp.asarray(ref["r0pos"]), replen=jnp.asarray(ref["replen"]))
-    pallas = jp.dp_parse_pallas(*args, **kw, interpret=True)
     packed, tables = tp.dp_inputs(T(data), T(ref["ld"]), T(ref["dd"]),
                                   {k: T(v) for k, v in ref["model"].items()},
                                   fb, T(ref["r0pos"]), T(ref["replen"]))
-    got = tp.dp_parse_band(packed, tables, T(lens), fb, 2)
+    return lens, ref, args, kw, (packed, tables, T(lens), fb, 2)
+
+
+@pytest.mark.parametrize("fb", [5, 32])
+def test_dp_parse_band_matches_jax_band_and_pallas(fb):
+    lens, ref, args, kw, port_args = _small(fb)
+    pallas = jp.dp_parse_pallas(*args, **kw, interpret=True)
+    got = tp.dp_parse_band(*port_args)
     for g, b, p in zip(got, (ref["frm"], ref["choice"]), pallas):
         eq(g, b)
         eq(g, p)
+
+
+def test_dp_parse_band_matches_jax_pallas2():
+    """K4's plain version (the port's dp_parse_band) against K4's reference,
+    dp_parse_pallas2 in interpret mode, at fb 32 (the scan-pair test of
+    test_torch_optimal.py covers fb 16)."""
+    lens, ref, args, kw, port_args = _small(32)
+    pallas2 = jp.dp_parse_pallas2(*args, **kw, interpret=True)
+    for g, p in zip(tp.dp_parse_band(*port_args), pallas2):
+        eq(g, p)
+
+
+def test_dp_parse_naive_matches_jax(case):
+    """The naive plane scan: price, from, choice and kind planes, each
+    (L, N + fb + 1), equal to JAX dp_parse's on the same inputs."""
+    data, lens, ref = case
+    model = {k: jnp.asarray(v) for k, v in ref["model"].items()}
+    want = jp.dp_parse(jnp.asarray(data), jnp.asarray(lens), jnp.asarray(ref["ld"]),
+                       jnp.asarray(ref["dd"]), model, 32, 2, False,
+                       r0pos=jnp.asarray(ref["r0pos"]),
+                       replen=jnp.asarray(ref["replen"]))
+    packed, tables = tp.dp_inputs(T(data), T(ref["ld"]), T(ref["dd"]),
+                                  {k: T(v) for k, v in ref["model"].items()},
+                                  32, T(ref["r0pos"]), T(ref["replen"]))
+    got = tp.dp_parse(packed, tables, T(lens), 32, 2)
+    for name, g, w in zip(("price", "from", "choice", "rkind"), got, want):
+        assert g.shape == (4, 2048 + 33), name
+        eq(g, w, name)
 
 
 def test_extract_tokens_matches_jax(case):

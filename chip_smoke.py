@@ -48,15 +48,25 @@ prints its seconds):
      (128 x 16 KiB, lc0, dict 4 KiB, fb 8) through K5 and K1, both timed,
      and K5 against its plain version on those streams cut at
      CMP_OUT_K5 bytes; a 256 KiB main-path lane raises ValueError
- 11. the kernel matrix (tools/chip_check.py:59-111): five shapes and
+ 11. the codec matrix (tools/chip_check.py:59-111): five shapes and
      lc/lp/pb, preset and dictionary cases through encode_blocks /
      decode_blocks, lazy and optimal, the stdlib reading each block it
-     can (lc + lp <= 4, no preset); K5 and K1 on 16 x 16 KiB at dict
-     4 KiB, on a preset-primed batch and on EOS lanes from the stdlib's
-     FORMAT_ALONE (caps past the end decode, caps at half raise)
- 12. no module of jax, jaxlib or lzma_tpu was loaded
-The last three lines are the card, the kernels' JSON record and the
-result JSON.
+     can (lc + lp <= 4, no preset)
+ 12. the decoder matrix: K5 and K1 on 16 x 16 KiB at dict 4 KiB, on a
+     preset-primed batch and on EOS lanes from the stdlib's FORMAT_ALONE
+     (caps past the end decode, caps at half raise)
+ 13. the probes (lzma_tpu_torch/probes, the TPU probes P1-P15 of
+     tools/probe_*.py): each probe kernel against its plain version on
+     the card at a cut (PROBE_CUT_* steps or bytes; exact), the copies
+     also against the TPU probes' reference arrays, unaligned rows
+     refused before a launch; the ablation's full and realrow on the
+     first 32 champion streams equal to K1, to the plain decoder and to
+     the input; then every probe's table (the TPU probe's sweep, CUDA
+     events, one line a table), the probes' launch counts set to 0 just
+     before and read just after
+ 14. no module of jax, jaxlib or lzma_tpu was loaded
+The last three lines are the card, the kernels' JSON record (K1-K5 and
+P1-P15) and the result JSON.
 """
 
 from __future__ import annotations
@@ -101,6 +111,13 @@ MATRIX = [
     (1 * 1024 + 17, 1024, 3, 0, 2, 0, 0),
     (12 * 4096, 4096, 3, 0, 2, 0, 1024),
 ]
+
+#: phase 13's cuts: the probes' plain versions run this many steps (the
+#: make cases fewer: their steps are hundreds of selects), and the
+#: ablation's plain decoder each lane to its first token boundary at or
+#: past PROBE_CUT_OUT bytes, on the first PROBE_LANES champion streams
+#: (tools/probe_ring_ablate.py main_real: 32 x 16 KiB, lc0, dict 4 KiB)
+PROBE_CUT_ITERS, PROBE_CUT_MAKE, PROBE_CUT_OUT, PROBE_LANES = 256, 64, 128, 32
 
 #: the card's peaks (NVIDIA H100 SXM data sheet, 700 W): HBM bytes/s, and
 #: the float32 rate outside the tensor cores, used for the int32
@@ -213,6 +230,13 @@ def bound(n_bytes, n_ops):
     b_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     o_ms = n_ops / SCALAR_OPS_PER_S * 1e3
     return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+
+def record(name, source, replaces, n, err, ms, plain, bnd, library=None):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": n, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain, "bound_ms": bnd[0],
+            "bound_by": bnd[1], "library_ms": library}
 
 
 def check_serializer(ctx, bits, totals, arena, max_out):
@@ -353,6 +377,257 @@ def stdlib_reads_every_block(blob, data, params):
         if lzma.decompress(alone, format=lzma.FORMAT_ALONE) != part:
             raise AssertionError(f"stdlib lzma disagrees on block {i}")
     return offsets, bsizes
+
+
+def probe_phase(dev, card, comp, comp_lens, cuts, want):
+    """Phase 13: the Hopper probes.  `comp`, `comp_lens` are PROBE_LANES
+    real streams of CH_BLOCK bytes (lc0, dict CH_DICT), `want` their
+    input (lanes, CH_BLOCK) uint8 and `cuts` each lane's first token end
+    at or past PROBE_CUT_OUT.  Holds each probe kernel against its plain
+    version on the card, then runs every probe's table with the launch
+    counts set to 0 just before.  Returns the records of P1-P15."""
+    import torch
+    from lzma_tpu_torch.ops import cuda_ring
+    from lzma_tpu_torch.probes import (_cuda, probe_dma, probe_dma2,
+                                       probe_fsm_cost, probe_fsm_cost2,
+                                       probe_gather, probe_gather2,
+                                       probe_packed_ablate, probe_ring_ablate)
+
+    F, F2, G, G2 = probe_fsm_cost, probe_fsm_cost2, probe_gather, probe_gather2
+    D, D2, RA, PA = probe_dma, probe_dma2, probe_ring_ablate, probe_packed_ablate
+    held = {}   # site: (max |diff|, the plain version's ms at its main cut)
+
+    def hold(site, kernel_res, plain_res, plain_ms=None):
+        err = max(int((k.long() - p.long()).abs().max())
+                  for k, p in zip(kernel_res, plain_res))
+        if err:
+            raise AssertionError(f"{site}: kernel differs from its plain "
+                                 f"version by {err}")
+        worst, ms = held.get(site, (0, None))
+        held[site] = (max(worst, err), ms if plain_ms is None else plain_ms)
+
+    def timed(fn):
+        box = {}
+        ms = wall_ms(lambda: box.update(r=fn()))
+        return box["r"], ms
+
+    # -- each kernel against its plain version on the card, at a cut --
+    it, n = PROBE_CUT_ITERS, 128
+    seed = F.seeds(n, dev)
+    for site, name in (("P10", "v1"), ("P11", "v2"), ("P12", "v_i16")):
+        plain, ms = timed(lambda: getattr(F, f"{name}_plain")(seed, it))
+        for placement in F.PLACEMENTS:
+            hold(site, getattr(F, name)(seed, it, placement, digest=True), plain, ms)
+    for label, kw in F2.CASES:
+        plain, ms = timed(lambda: F2.make_plain(
+            seed, PROBE_CUT_MAKE, kw["loop"], kw.get("selects", 0),
+            kw.get("nregs", 0)))
+        for placement in F2.PLACEMENTS:
+            hold("P13", F2.make(seed, PROBE_CUT_MAKE, placement=placement,
+                                digest=True, **kw), plain,
+                 ms if label == "while +24regs+120sel" else None)
+    for width in (128, 4096, 8192):
+        arr, idx = G.inputs(width, device=dev)
+        main = width == 4096
+        plain, ms = timed(lambda: G.probe_native_plain(arr, idx, it))
+        for placement in G.PLACEMENTS:
+            hold("P5", [G.probe_native(arr, idx, it, placement)], [plain],
+                 ms if main else None)
+        plain, ms = timed(lambda: G.probe_onehot_plain(arr, idx, it))
+        hold("P6", [G.probe_onehot(arr, idx, it)], [plain], ms if main else None)
+        zeros, idx = G.scatter_inputs(width, device=dev)
+        plain, ms = timed(lambda: G.probe_scatter_plain(zeros, idx, it))
+        hold("P7", [G.probe_scatter(zeros, idx, it)], [plain], ms if main else None)
+    for lanes, width, g in G2.CHAINS:
+        arr, idx = G2.chain_inputs(lanes, width, dev)
+        plain, ms = timed(lambda: G2.probe_chain_plain(arr, idx, g, it))
+        for placement in G2.PLACEMENTS:
+            hold("P8", [G2.probe_chain(arr, idx, g, it, placement)], [plain],
+                 ms if (lanes, width, g) == (64, 4096, 1) else None)
+    for width in G2.TAA_WIDTHS:
+        arr, idx = G2.taa_inputs(16, width, dev)
+        plain, ms = timed(lambda: G2.probe_taa_plain(arr, idx))
+        hold("P9", [G2.probe_taa(arr, idx)], [plain], ms)
+    # the copies: the TPU probes' reference arrays (arange windows, as the
+    # JAX probes assert them) and the refused rows, decided on the host
+    src, copied = D.source(dev), []
+    for site, name, offs in (("P1", "probe1", D.OFFS1), ("P2", "probe2", D.OFFS2)):
+        offs_t, rounds = D.offsets(offs, dev), D.ROUNDS[name]
+        for form in D.FORMS:
+            out, refused = getattr(D, name)(src, offs_t, form)
+            want_refused = ([i for i, o in enumerate(offs) if o % 4]
+                            if form in D.ALIGNED else [])
+            if refused != want_refused:
+                raise AssertionError(f"{name} {form} refused {refused}, not "
+                                     f"{want_refused}")
+            keep = [i for i in range(D.N) if i not in refused]
+            if not torch.equal(out.cpu()[keep], D.reference(offs, rounds)[keep]):
+                raise AssertionError(f"{name} {form} differs from the TPU "
+                                     "probe's reference")
+            plain, ms = timed(lambda: D.copy_plain(src, list(offs), rounds, refused))
+            hold(site, [out], [plain], ms if form == "bulk" else None)
+            copied.append(f"{name} {form}: " + D.describe(refused, offs))
+    x = D.tile(dev)
+    plain, ms = timed(lambda: D.probe3_plain(x))
+    if not torch.equal(plain.cpu(), D.tile("cpu") + 3 * D.C + 5):
+        raise AssertionError("probe3's plain version misses the TPU reference")
+    hold("P3", [D.probe3(x)], [plain], ms)
+    offs_t = D.offsets(D.OFFS1, dev)
+    for kernel in D2.KERNELS:
+        out, refused = D2.run(kernel, src, offs_t)
+        if refused != ([4, 6] if kernel in D2.DYNAMIC else []):
+            raise AssertionError(f"probe_dma2 {kernel} refused {refused}")
+        keep = [i for i in range(D.N) if i not in refused]
+        if not torch.equal(out.cpu()[keep], D2.expected(kernel)[keep]):
+            raise AssertionError(f"probe_dma2 {kernel} differs from the TPU "
+                                 "probe's check")
+        plain, ms = timed(lambda: D2.run_plain(src, D2.starts(kernel, D.OFFS1),
+                                                refused))
+        hold("P4", [out], [plain], ms if kernel == "kC" else None)
+    # K1's body: full and realrow (P15) and the packed probe's full (P14,
+    # each row read to its end) on real streams cut at token boundaries,
+    # then full on the whole rows against K1 and the input
+    dargs = (CH_DICT, 0, 0, 2, CH_BLOCK)
+    plain, ms = timed(lambda: RA.plain(comp, comp_lens, cuts, *dargs, "full"))
+    if not bool(plain[1].all()):
+        raise AssertionError("the plain decoder failed a cut lane")
+    for variant in RA.PLAIN:
+        hold("P15", RA.ablate(comp, comp_lens, cuts, *dargs, variant)[:3],
+             plain[:3], ms)
+    whole = torch.full_like(comp_lens, comp.shape[1])
+    plain, ms = timed(lambda: RA.plain(comp, whole, cuts, *dargs, "full"))
+    hold("P14", PA.ablate(comp, CH_DICT, 0, CH_BLOCK, "full", out_sizes=cuts)[:3],
+         plain[:3], ms)
+    sizes = torch.full_like(comp_lens, CH_BLOCK)
+    k1 = cuda_ring.decode_cuda(comp, comp_lens, sizes, *dargs)
+    full = RA.ablate(comp, comp_lens, sizes, *dargs, "full")
+    if not (all(torch.equal(a, b) for a, b in zip(full[:3], k1))
+            and torch.equal(full[0], want) and bool(full[1].all())):
+        raise AssertionError("the ablation's full differs from K1 or the input")
+    log(f"[probes vs plain] P1-P15 equal to their plain versions on the card "
+        f"({PROBE_CUT_ITERS} steps, make {PROBE_CUT_MAKE}; P14/P15 "
+        f"{PROBE_LANES} champion streams cut at {int(cuts.min())}.."
+        f"{int(cuts.max())} B); the copies equal the TPU probes' references "
+        f"({'; '.join(copied)}); full on whole rows = K1 = the input")
+
+    # -- every probe's table, its launches counted from 0 --
+    for m in (F, F2, G, G2, RA, PA, D, D2):
+        m.LAUNCHES.clear()
+    fsm, fsm2, gat = F.sweep(dev), F2.sweep(dev), G.sweep(dev)
+    taa, chains = G2.sweep(dev)
+    ring = RA.sweep(dev, comp, comp_lens, sizes)
+    packed, dma, dma2 = PA.sweep(dev), D.sweep(dev), D2.sweep(dev)
+    launches = {"P1": D.LAUNCHES["probe1"], "P2": D.LAUNCHES["probe2"],
+                "P3": D.LAUNCHES["probe3"], "P4": D2.LAUNCHES["run"],
+                "P5": G.LAUNCHES["probe_native"], "P6": G.LAUNCHES["probe_onehot"],
+                "P7": G.LAUNCHES["probe_scatter"], "P8": G2.LAUNCHES["probe_chain"],
+                "P9": G2.LAUNCHES["probe_taa"], "P10": F.LAUNCHES["v1"],
+                "P11": F.LAUNCHES["v2"], "P12": F.LAUNCHES["v_i16"],
+                "P13": F2.LAUNCHES["make"], "P14": PA.LAUNCHES["ablate"],
+                "P15": RA.LAUNCHES["ablate"]}
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a probe kernel did not run in its table: {launches}")
+    if not all(r[3] for r in dma) or not all(r[2] for r in dma2) \
+            or not all(ok for _, ok, _ in taa):
+        raise AssertionError("a probe's table disagrees with the TPU reference")
+    log(f"[P10-P12 probe_fsm_cost] ms a launch of {F.ITERS} steps and ns a "
+        f"step (the slope from {F.ITERS // 2} steps), {F.lanes_per_block()} lanes "
+        f"a block (v1 {F.lane_bytes('v1')} B a lane) on {card}: "
+        + "; ".join(f"{f} {pl} n={k} {ms:.3f} ms {ns:.1f} ns"
+                    for f, pl, k, ms, ns in fsm))
+    log(f"[P13 probe_fsm_cost2] ms a launch of {F2.ITERS} steps and ns a step "
+        f"on {card}: " + "; ".join(f"{lb} {pl} n={k} {ms:.3f} ms {ns:.1f} ns"
+                                   for lb, pl, k, ms, ns in fsm2))
+    log(f"[P5-P7 probe_gather] ms a launch of {G.ITERS} steps and ns a step, "
+        f"{G.N} lanes on {card}: " + "; ".join(
+            f"{f} w={w} {ms:.3f} ms {ns:.1f} ns" for f, w, ms, ns in gat))
+    log(f"[P8-P9 probe_gather2] {G2.ITERS} steps on {card}: "
+        + "; ".join(f"taa w={w} {us:.2f} us a launch" for w, _, us in taa) + "; "
+        + "; ".join(f"n={k} w={w} g={g} {pl} {ms:.3f} ms {ns:.1f} ns/step "
+                    f"{pair:.1f} ns/pair" for k, w, g, pl, ms, ns, pair in chains))
+    log(f"[P15 probe_ring_ablate] {PROBE_LANES} real rows x {CH_BLOCK} B on "
+        f"{card}; a launch's ms, then a lane's own clock: " + "; ".join(
+            f"{v} {ms:.3f} ms (lane {lms:.3f}, slowest {slow:.3f}) {nb:.1f} ns/B "
+            f"{nst:.1f} ns/step {nbit:.1f} ns/bit {bits:.0f} bits {cp:.0f} copied "
+            f"cs {cs}" for v, ms, nb, nst, nbit, bits, cp, lms, slow, cs in ring))
+    log(f"[P14 probe_packed_ablate] random input, {PA.MAX_OUT} B a lane on "
+        f"{card}; a launch's ms, then a lane's own clock: " + "; ".join(
+            f"{v} n={k} {ms:.3f} ms (lane {lms:.3f}, slowest {slow:.3f}) "
+            f"{nb:.1f} ns/B {nst:.1f} ns/step {nbit:.1f} ns/bit {bits:.0f} bits "
+            f"{cp:.0f} copied cs {cs}"
+            for v, k, ms, nb, nst, nbit, bits, cp, lms, slow, cs in packed))
+    log(f"[P1-P4 probe_dma, probe_dma2] one block on {card}, µs a launch (CUDA "
+        f"events) and ns in the kernel (clock64 at "
+        f"{_cuda.clock_khz(torch.device(dev).index or 0)} kHz): "
+        + "; ".join(f"{nm} {f} {us:.2f} us {ns:.1f} ns" for nm, f, _, _, us, ns in dma)
+        + "; " + "; ".join(f"{k} {us:.2f} us {ns:.1f} ns" for k, _, _, us, ns in dma2))
+    log(f"[probe launches] {launches}")
+
+    # -- the records: ms at the TPU probe's main shape, bounds from it --
+    def pick(rows, *key):
+        return next(r for r in rows if r[:len(key)] == key)
+
+    # the copies' time is the kernel's clock: a launch of one block is
+    # bound by the host's submission (both are in the table above)
+    ring_full, packed_full = pick(ring, "full"), pick(packed, "full", 128)
+    steps = 128 * F.ITERS      # lanes x steps of P10-P13's main shape
+    tile_io = 8 * 128 * 4 * 2  # the (8, 128) int32 tile read and written
+    site = {
+        "P1": ("probe_dma.probe1", "probe_copy.cu", "tools/probe_dma.py:53",
+               pick(dma, "probe1", "bulk")[5] / 1e6, (tile_io + 32, 0)),
+        "P2": ("probe_dma.probe2", "probe_copy.cu", "tools/probe_dma.py:92",
+               pick(dma, "probe2", "bulk")[5] / 1e6, (tile_io * 3 // 2 + 32, 0)),
+        "P3": ("probe_dma.probe3", "probe_copy.cu", "tools/probe_dma.py:116",
+               pick(dma, "probe3")[5] / 1e6, (tile_io, 8 * 128)),
+        "P4": ("probe_dma2.run", "probe_copy.cu", "tools/probe_dma2.py:38",
+               pick(dma2, "kC")[4] / 1e6, (tile_io + 32, 0)),
+        "P5": ("probe_gather.probe_native", "probe_gather.cu",
+               "tools/probe_gather.py:32", pick(gat, "native shared", 4096)[2],
+               (G.N * 4096 * 4 + G.N * 8, G.N * G.ITERS * 2)),
+        "P6": ("probe_gather.probe_onehot", "probe_gather.cu",
+               "tools/probe_gather.py:66", pick(gat, "one-hot gather", 4096)[2],
+               (G.N * 4096 * 4 + G.N * 8, G.N * G.ITERS * 2)),
+        "P7": ("probe_gather.probe_scatter", "probe_gather.cu",
+               "tools/probe_gather.py:95", pick(gat, "one-hot scatter", 4096)[2],
+               (G.N * 4096 * 4 + G.N * 8, G.N * (G.ITERS + 4096))),
+        "P8": ("probe_gather2.probe_chain", "probe_gather.cu",
+               "tools/probe_gather2.py:43", pick(chains, 64, 4096, 1, "shared")[4],
+               (64 * 4096 * 4 + 64 * 8, 64 * G2.ITERS * 6)),
+        "P9": ("probe_gather2.probe_taa", "probe_gather.cu",
+               "tools/probe_gather2.py:72", pick(taa, 512)[2] / 1e3,
+               (16 * 4 * 3, 16)),
+        "P10": ("probe_fsm_cost.v1", "probe_fsm.cu", "tools/probe_fsm_cost.py:75",
+                pick(fsm, "v1", "shared", 128)[3], (1024, steps * 20)),
+        "P11": ("probe_fsm_cost.v2", "probe_fsm.cu", "tools/probe_fsm_cost.py:135",
+                pick(fsm, "v2", "shared", 128)[3], (1024, steps * 30)),
+        "P12": ("probe_fsm_cost.v_i16", "probe_fsm.cu", "tools/probe_fsm_cost.py:165",
+                pick(fsm, "v_i16", "shared", 128)[3], (1024, steps * 10)),
+        "P13": ("probe_fsm_cost2.make", "probe_fsm.cu", "tools/probe_fsm_cost2.py:89",
+                pick(fsm2, "while +24regs+120sel", "shared", 128)[3],
+                (1024, steps * (14 + 24 * 4 + 120 * 3))),
+        # K1's body: ~10 operations a bit, 3 a copied byte, each lane's
+        # input read and output written once, counted from this run
+        "P14": ("probe_packed_ablate.ablate", "probe_ablate.cu",
+                "tools/probe_packed_ablate.py:165", packed_full[2],
+                (128 * (PA.MAX_IN + PA.MAX_OUT),
+                 int(128 * (10 * packed_full[6] + 3 * packed_full[7])))),
+        "P15": ("probe_ring_ablate.ablate", "probe_ablate.cu",
+                "tools/probe_ring_ablate.py:177", ring_full[1],
+                (int(comp_lens.sum()) + PROBE_LANES * CH_BLOCK,
+                 int(PROBE_LANES * (10 * ring_full[5] + 3 * ring_full[6])))),
+    }
+    records = []
+    for key, (name, src_file, replaces, ms, work) in site.items():
+        err, plain_ms = held[key]
+        library = None
+        if key == "P9":   # torch.gather computes the same function
+            arr, idx = G2.taa_inputs(16, 512, dev)
+            col = idx.long()[:, None]
+            library = event_ms(lambda: arr.gather(1, col), 20)
+        records.append(record(name, f"lzma_tpu_torch/csrc/{src_file}", replaces,
+                              launches[key], err, ms, plain_ms, bound(*work),
+                              library))
+    return records
 
 
 def drive(api, data, params, parse, dev):
@@ -750,7 +1025,7 @@ def main():
         f"a main-path lane raises: {over}")
     done("K5 path")
 
-    # ---- 11. the kernel matrix (tools/chip_check.py:59-111 on the card) ----
+    # ---- 11. the codec matrix (tools/chip_check.py:59-111 on the card) ----
     for total, bs, lc, lp, pb_, ps, dl in MATRIX:
         m_data = corpus(total)
         m_params = LzmaParams(lc=lc, lp=lp, pb=pb_, dict_size=1 << 14,
@@ -772,6 +1047,9 @@ def main():
         log(f"[matrix] {total} B in {bs} B blocks, lc{lc} lp{lp} pb{pb_}, "
             f"preset {ps}, dictionary {dl}: lazy and optimal round-trip"
             + ("; the stdlib reads every block" if stdlib else ""))
+    done("codec matrix")
+
+    # ---- 12. the decoder matrix: K5 and K1 ----
     decoders = (("K5", cuda_decoder.decode_batch_resident),
                 ("K1", cuda_ring.decode_batch_cuda))
     pr = LzmaParams(dict_size=1 << 12, fast_bytes=16)
@@ -804,9 +1082,19 @@ def main():
         raise AssertionError(f"matrix: {name} let an EOS lane past its cap")
     log("[matrix] EOS lanes with caps at half their size: K5 and K1 raise "
         "CapExceededError")
-    done("matrix")
+    done("decoder matrix")
 
-    # ---- 12. nothing of JAX or of the JAX package was loaded ----
+    # ---- 13. the probes (tools/probe_*.py, P1-P15) ----
+    p_cuts = token_cut(ct_pos[:PROBE_LANES], ct_len[:PROBE_LANES],
+                       ct_valid[:PROBE_LANES], PROBE_CUT_OUT,
+                       [CH_BLOCK] * PROBE_LANES)
+    probe_records = probe_phase(
+        dev, card, comp[:PROBE_LANES].contiguous(),
+        comp_lens[:PROBE_LANES].contiguous(), p_cuts,
+        want_out[:PROBE_LANES * CH_BLOCK].reshape(PROBE_LANES, CH_BLOCK))
+    done("probes")
+
+    # ---- 14. nothing of JAX or of the JAX package was loaded ----
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib")
                  or m == "lzma_tpu" or m.startswith("lzma_tpu."))
@@ -814,12 +1102,6 @@ def main():
         raise AssertionError(f"JAX or lzma_tpu modules loaded: {bad[:8]}")
     log("[imports] no jax, jaxlib, lzma_tpu or lzma_tpu.* module loaded")
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
-
-    def record(name, source, replaces, n, err, ms, plain, bnd):
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": n, "max_abs_err": err,
-                "ms": ms, "plain_ms": plain, "bound_ms": bnd[0],
-                "bound_by": bnd[1], "library_ms": None}
 
     kernels = [
         record("dp_parse", "lzma_tpu_torch/csrc/dp_parse.cu",
@@ -837,7 +1119,7 @@ def main():
         record("block_decode", "lzma_tpu_torch/csrc/block_decoder.cu",
                "lzma_tpu/ops/pallas_decoder.py:80", k5_launches, k5_err, k5_ms,
                k5_plain, k5_bound),
-    ]
+    ] + probe_records
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,13 @@
 //     (the step that crosses it still completes, as in the FSM).
 // The pointers are generic: the caller decides where the arena, the
 // window and the input live.
+//
+// decode_lane<KO> takes a set of knock-out flags (kKo*, below) for the
+// ablation probe csrc/probe_ablate.cu, the counterpart of the TPU's
+// tools/probe_ring_ablate.py and probe_packed_ablate.py.  Each flag is
+// tested with `if constexpr`, and the default, 0, is the decoder above:
+// K1 and K5 instantiate decode_lane<0> and compile what they did before
+// the flags existed.
 
 #pragma once
 
@@ -39,7 +46,22 @@ constexpr uint32_t kTop = 1u << 24;
 constexpr int kLiteralCoderSize = 0x300;
 constexpr int kMaxOverrun = 40;
 
-struct Rc {
+// Knock-out flags of decode_lane.  Every knock-out keeps the lane alive
+// (kKoAlive): no error rule ends it, a copy reads its window at any
+// distance (back() clamps the index) and stops at the bound, so a lane
+// decodes until out_pos reaches its size whatever it decodes.
+constexpr int kKoAlive = 1;     // error exits off
+constexpr int kKoNoArena = 2;   // each probability read as 1024, never stored
+constexpr int kKoNoInput = 4;   // renormalisation shifts in 0
+constexpr int kKoNoWin = 8;     // back() gives 0; emit counts, stores nothing
+constexpr int kKoNoRing = 16;   // emit counts, stores nothing (back() reads)
+constexpr int kKoBareBit = 32;  // one bit a byte at (out_pos*7 + t) % size
+constexpr int kKoNoCtx = 64;    // every bit at (out_pos*7 + t) % size
+constexpr int kKoNoTrans = 128; // one is_match bit a byte, no trees
+constexpr int kKoCount = 256;   // count bits decoded and bytes copied
+
+template <int KO>
+struct RcT {
   uint32_t range;
   uint32_t code;
   int in_pos;
@@ -52,7 +74,9 @@ struct Rc {
     if (range < kTop) {
       uint32_t byte = 0;
       if (in_pos < in_len) {
-        byte = in[in_pos < max_in ? in_pos : max_in - 1];
+        if constexpr (!(KO & kKoNoInput)) {
+          byte = in[in_pos < max_in ? in_pos : max_in - 1];
+        }
       } else {
         ++overrun;
       }
@@ -63,17 +87,22 @@ struct Rc {
   }
 
   __device__ int bit(uint16_t* prob) {
-    const uint32_t pr = *prob;
+    uint32_t pr = 1024u;
+    if constexpr (!(KO & kKoNoArena)) pr = *prob;
     const uint32_t bound = (range >> 11) * pr;
     int b;
     if (code < bound) {
       range = bound;
-      *prob = static_cast<uint16_t>(pr + ((2048u - pr) >> 5));
+      if constexpr (!(KO & kKoNoArena)) {
+        *prob = static_cast<uint16_t>(pr + ((2048u - pr) >> 5));
+      }
       b = 0;
     } else {
       range -= bound;
       code -= bound;
-      *prob = static_cast<uint16_t>(pr - (pr >> 5));
+      if constexpr (!(KO & kKoNoArena)) {
+        *prob = static_cast<uint16_t>(pr - (pr >> 5));
+      }
       b = 1;
     }
     normalize();
@@ -90,26 +119,33 @@ struct Rc {
     return b;
   }
 
-  __device__ bool failed() const { return overrun > kMaxOverrun; }
+  // a kept-alive lane never fails
+  __device__ bool failed() const {
+    if constexpr (KO & kKoAlive) return false;
+    return overrun > kMaxOverrun;
+  }
 };
 
 // Every decode step is followed by the overrun check; a failed lane
-// stops at once (the FSM marks it ERROR in the same step).
+// stops at once (the FSM marks it ERROR in the same step).  site()
+// gives the probability a bit decodes at (knocked out by kKoNoCtx) and
+// counts the bit (kKoCount).
 #define DEC_BIT(dst, prob)         \
   do {                             \
-    (dst) = rc.bit(prob);          \
+    (dst) = rc.bit(site(prob));    \
     if (rc.failed()) goto fail;    \
   } while (0)
 #define DEC_DIRECT(dst)            \
   do {                             \
     (dst) = rc.direct();           \
+    if constexpr (KO & kKoCount) ++n_dec; \
     if (rc.failed()) goto fail;    \
   } while (0)
 // A literal bit: the FSM completes its step before it marks the lane
 // failed, so an overrun on a literal's last bit still emits the byte.
 #define LIT_BIT(prob)                                 \
   do {                                                \
-    b = rc.bit(prob);                                 \
+    b = rc.bit(site(prob));                           \
     sym = (sym << 1) | static_cast<uint32_t>(b);      \
     if (rc.failed()) {                                \
       if (sym >= 0x100u) emit(sym & 0xFFu);           \
@@ -122,18 +158,23 @@ struct Rc {
 // caller left it); `in` is the lane's padded stream of max_in bytes, of
 // which in_len are the stream.  size > 0 is the absolute end position;
 // size = -cap marks an EOS lane.  Writes ok and the final output
-// position.
+// position, and under kKoCount the bits decoded to counts[0] and the
+// bytes copied by matches to counts[1].
+template <int KO = 0>
 __device__ __forceinline__ void decode_lane(
     const uint8_t* in, int in_len, int max_in, uint16_t* p, uint8_t* o,
     int max_out, int P, int size, int dict_size, int lc, int lp, int pb,
-    const LztLayout& L, bool* ok, int* out_pos_res) {
-  Rc rc{0xFFFFFFFFu, 0, 5, 0, in, in_len, max_in};
+    const LztLayout& L, bool* ok, int* out_pos_res, int* counts = nullptr) {
+  constexpr bool kAlive = (KO & kKoAlive) != 0;
+  RcT<KO> rc{0xFFFFFFFFu, 0, 5, 0, in, in_len, max_in};
   for (int i = 0; i < 5; ++i) {
     rc.code = (rc.code << 8) | (i < rc.in_len ? rc.in[i] : 0u);
   }
 
   const bool eos = size < 0;       // EOS lane: ends at the end marker
-  const int bound = eos ? -size : size;
+  // a kept-alive lane ends at its bound, so that bound stays in its row
+  const int bound = kAlive ? min(eos ? -size : size, max_out)
+                           : (eos ? -size : size);
   const int dict_check = dict_size > 1 ? dict_size : 1;
   const int pb_mask = (1 << pb) - 1;
   const int lp_mask = (1 << lp) - 1;
@@ -144,8 +185,10 @@ __device__ __forceinline__ void decode_lane(
   uint32_t prev = P ? o[P - 1] : 0u;
   bool good = false;
   int b;
+  int n_dec = 0, n_copy = 0;  // bits decoded, bytes copied (kKoCount)
 
   auto back = [&](int dist) -> uint32_t {
+    if constexpr (KO & kKoNoWin) return 0u;
     long long i = static_cast<long long>(out_pos) - dist - 1;
     i = i < 0 ? 0 : (i > max_out - 1 ? max_out - 1 : i);
     return o[i];
@@ -153,9 +196,31 @@ __device__ __forceinline__ void decode_lane(
   // a byte that passes the bound is still written (at most at the last
   // column) and counted before the lane fails, as in the FSM
   auto emit = [&](uint32_t byte) {
-    o[out_pos < max_out ? out_pos : max_out - 1] = static_cast<uint8_t>(byte);
+    if constexpr (!(KO & (kKoNoWin | kKoNoRing))) {
+      o[out_pos < max_out ? out_pos : max_out - 1] = static_cast<uint8_t>(byte);
+    }
     ++out_pos;
   };
+  auto site = [&](uint16_t* prob) -> uint16_t* {
+    if constexpr (KO & kKoCount) ++n_dec;
+    if constexpr (KO & kKoNoCtx) return p + (out_pos * 7 + n_dec) % L.size;
+    return prob;
+  };
+
+  if constexpr (KO & (kKoBareBit | kKoNoTrans)) {
+    // one bit a byte, emitted as back(rep0) + bit: barebit at a made-up
+    // index, notrans at the is_match context of the unchanging state
+    while (out_pos < bound) {
+      uint16_t* pr = p + L.is_match + (state << L.pos_bits) +
+                     ((out_pos - P) & pb_mask);
+      if constexpr (KO & kKoBareBit) pr = p + (out_pos * 7 + n_dec) % L.size;
+      b = rc.bit(pr);
+      if constexpr (KO & kKoCount) ++n_dec;
+      emit(back(rep0) + static_cast<uint32_t>(b));
+    }
+    good = true;
+    goto fail;  // the common exit
+  }
 
   for (;;) {
     const int coded = out_pos - P;
@@ -180,7 +245,7 @@ __device__ __forceinline__ void decode_lane(
       while (sym < 0x100u) LIT_BIT(&lit[sym]);
       prev = sym & 0xFFu;
       emit(prev);
-      if (out_pos > bound) goto fail;
+      if (!kAlive && out_pos > bound) goto fail;
       state = state < 4 ? 0 : (state < 10 ? state - 3 : state - 6);
     } else {
       DEC_BIT(b, &p[L.is_rep + state]);
@@ -294,7 +359,7 @@ __device__ __forceinline__ void decode_lane(
                 good = true;
                 break;
               }
-              if (dist < 0) goto fail;
+              if (!kAlive && dist < 0) goto fail;
               rep0 = dist;
             }
           }
@@ -303,14 +368,20 @@ __device__ __forceinline__ void decode_lane(
         }
       }
       // ---- entering the copy: the distance must lie in the window ----
-      if (rep0 >= out_pos || rep0 >= dict_check) goto fail;
+      if (!kAlive && (rep0 >= out_pos || rep0 >= dict_check)) goto fail;
       for (int k = 0; k < len; ++k) {
         prev = back(rep0);
         emit(prev);
-        if (out_pos > bound) goto fail;
+        if constexpr (KO & kKoCount) ++n_copy;
+        if constexpr (kAlive) {
+          if (out_pos >= bound) break;
+        } else {
+          if (out_pos > bound) goto fail;
+        }
       }
     }
-    if (!eos && out_pos >= bound) {
+    // a kept-alive lane ends at its bound even where it is an EOS lane
+    if ((!eos || kAlive) && out_pos >= bound) {
       good = true;
       break;
     }
@@ -318,6 +389,10 @@ __device__ __forceinline__ void decode_lane(
 fail:
   *ok = good;
   *out_pos_res = out_pos;
+  if constexpr (KO & kKoCount) {
+    counts[0] = n_dec;
+    counts[1] = n_copy;
+  }
 }
 
 #undef DEC_BIT

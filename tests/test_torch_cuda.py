@@ -325,3 +325,136 @@ def test_resident_wrapper_rejects_bad_dtype_and_device(card):
         cuda_decoder.decode_resident(comp.int(), lens, lens, 1 << 12, 3, 0, 2, 64)
     with pytest.raises(ValueError):
         cuda_decoder.decode_resident(comp, lens.cpu(), lens, 1 << 12, 3, 0, 2, 64)
+
+
+# ------------------------------------------ the Hopper probes (tools/probe_*.py)
+from lzma_tpu_torch.probes import (probe_dma, probe_dma2, probe_fsm_cost,  # noqa: E402
+                                   probe_fsm_cost2, probe_gather, probe_gather2,
+                                   probe_packed_ablate, probe_ring_ablate)
+
+
+def _same(kernel_res, plain_res):
+    for a, b in zip(kernel_res, plain_res):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("placement", ["shared", "device"])
+@pytest.mark.parametrize("name", ["v1", "v2", "v_i16"])
+def test_fsm_probe_kernel_matches_plain(card, name, placement):
+    fn = getattr(probe_fsm_cost, name)
+    before = probe_fsm_cost.LAUNCHES[name]
+    # 21 lanes: the last block of 8 is part empty
+    k = fn(probe_fsm_cost.seeds(21, card), 300, placement, digest=True)
+    _same(k, fn(probe_fsm_cost.seeds(21, "cpu"), 300, digest=True))
+    assert probe_fsm_cost.LAUNCHES[name] == before + 1
+
+
+@pytest.mark.parametrize("placement", ["shared", "device"])
+@pytest.mark.parametrize("kw", [dict(loop="fori"), dict(loop="while"),
+                                dict(loop="fori", selects=150),
+                                dict(loop="while", nregs=24, selects=120)],
+                         ids=["fixed", "while", "selects", "registers"])
+def test_fsm_cost2_make_kernel_matches_plain(card, kw, placement):
+    k = probe_fsm_cost2.make(probe_fsm_cost.seeds(13, card), 64,
+                             placement=placement, digest=True, **kw)
+    _same(k, probe_fsm_cost2.make(probe_fsm_cost.seeds(13, "cpu"), 64,
+                                  digest=True, **kw))
+
+
+@pytest.mark.parametrize("width", [128, 4096])
+def test_gather_probe_kernels_match_plain(card, width):
+    arr, idx = probe_gather.inputs(width, 40, card)
+    idx[::3] -= 5 * width + 7        # a negative index is taken as a floor modulo
+    want = probe_gather.probe_native(arr.cpu(), idx.cpu(), 300)
+    for placement in ("shared", "device"):
+        assert torch.equal(probe_gather.probe_native(arr, idx, 300, placement).cpu(),
+                           want)
+    assert torch.equal(probe_gather.probe_onehot(arr, idx, 300).cpu(), want)
+    zeros, idx = probe_gather.scatter_inputs(width, 40, card)
+    assert torch.equal(probe_gather.probe_scatter(zeros, idx, 300).cpu(),
+                       probe_gather.probe_scatter(zeros.cpu(), idx.cpu(), 300))
+
+
+@pytest.mark.parametrize("g", [1, 2, 4])
+def test_chain_probe_kernel_matches_plain(card, g):
+    arr, idx = probe_gather2.chain_inputs(9, 2688, card)
+    idx[1] = -100
+    want = probe_gather2.probe_chain(arr.cpu(), idx.cpu(), g, 200)
+    for placement in ("shared", "device"):
+        before = arr.clone()
+        assert torch.equal(probe_gather2.probe_chain(arr, idx, g, 200,
+                                                     placement).cpu(), want)
+        assert torch.equal(arr, before)
+    arr, idx = probe_gather2.taa_inputs(16, 512, card)
+    idx[3], idx[5] = 512, -1         # outside the row: 0
+    got = probe_gather2.probe_taa(arr, idx).cpu()
+    assert torch.equal(got, probe_gather2.probe_taa(arr.cpu(), idx.cpu()))
+    assert got[3] == 0 and got[5] == 0
+
+
+@pytest.mark.parametrize("form", list(probe_dma.FORMS))
+def test_copy_probe_kernels_match_plain(card, form):
+    for name, offs in (("probe1", probe_dma.OFFS1), ("probe2", probe_dma.OFFS2)):
+        fn = getattr(probe_dma, name)
+        k_out, k_ref = fn(probe_dma.source(card), probe_dma.offsets(offs, card), form)
+        p_out, p_ref = fn(probe_dma.source("cpu"), probe_dma.offsets(offs, "cpu"),
+                          form)
+        assert k_ref == p_ref and torch.equal(k_out.cpu(), p_out)
+    x = probe_dma.tile(card)
+    assert torch.equal(probe_dma.probe3(x).cpu(), probe_dma.probe3(x.cpu()))
+    for kernel in probe_dma2.KERNELS:
+        src, offs = probe_dma.source(card), probe_dma.offsets(probe_dma.OFFS1, card)
+        k_out, k_ref = probe_dma2.run(kernel, src, offs)
+        p_out, p_ref = probe_dma2.run(kernel, src.cpu(), offs.cpu())
+        assert k_ref == p_ref and torch.equal(k_out.cpu(), p_out)
+
+
+def test_unaligned_bulk_copies_are_refused_without_a_launch(card):
+    """A source 4 B past a 16 B boundary: no row may go to a bulk copy or
+    cp.async of 16 B, so nothing launches and every row is -1."""
+    src = torch.arange(8 * 1024 + 1, dtype=torch.int32, device=card)[1:].view(8, 1024)
+    offs = probe_dma.offsets((0,) * 8, card)
+    before = (sum(probe_dma.LAUNCHES.values()), probe_dma2.LAUNCHES["run"])
+    for form in probe_dma.ALIGNED:
+        out, refused = probe_dma.probe1(src, offs, form)
+        assert refused == list(range(8)) and bool((out == -1).all())
+    out, refused = probe_dma2.run("kA", src, offs)
+    assert refused == list(range(8)) and bool((out == -1).all())
+    assert (sum(probe_dma.LAUNCHES.values()), probe_dma2.LAUNCHES["run"]) == before
+    # the 4-byte forms take the same rows
+    out, refused = probe_dma.probe1(src, offs, "async4")
+    assert refused == [] and torch.equal(out.cpu(), src.cpu()[:, :128])
+
+
+def test_ablation_full_and_realrow_equal_k1_and_plain(card):
+    params = LzmaParams(lc=0, dict_size=1 << 12, fast_bytes=8)
+    blocks = _blocks(4, 1024, 5)
+    streams = [encode_stream(b, params, mode="greedy") for b in blocks]
+    comp, lens = pad_rows(streams, card)
+    sizes = torch.tensor([len(b) for b in blocks], dtype=torch.int32, device=card)
+    args = (comp, lens, sizes, params.dict_size, 0, 0, 2, 1024)
+    k1 = cuda_ring.decode_cuda(*args)
+    plain = _decode_fsm(*(a.cpu() if torch.is_tensor(a) else a for a in args))
+    counts = []
+    for variant in ("full", "realrow"):
+        out, ok, out_pos, bits = probe_ring_ablate.ablate(*args, variant)
+        _same((out, ok, out_pos), plain)
+        assert all(torch.equal(a, b) for a, b in zip((out, ok, out_pos), k1))
+        counts.append(bits[:, :2])
+    assert torch.equal(*counts) and bool((counts[0] > 0).all())   # bits, copies
+    for i, b in enumerate(blocks):
+        assert k1[0][i, :len(b)].cpu().numpy().tobytes() == b
+
+
+def test_ablation_knockouts_run_to_their_bound_twice_alike(card):
+    comp = probe_packed_ablate.random_input(8, device=card)
+    for variant in probe_packed_ablate.VARIANTS:
+        first = probe_packed_ablate.ablate(comp, 1 << 12, 0, 4096, variant)
+        again = probe_packed_ablate.ablate(comp, 1 << 12, 0, 4096, variant)
+        assert probe_ring_ablate.same(first, again)   # all but the clock
+        assert bool((first[2] == 4096).all()) and bool((first[3][:, 0] > 0).all())
+    n = torch.full((8,), comp.shape[1], dtype=torch.int32, device=card)
+    size = torch.full((8,), 4096, dtype=torch.int32, device=card)
+    for variant in ("noctx", "barebit"):
+        res = probe_ring_ablate.ablate(comp, n, size, 1 << 12, 0, 0, 2, 4096, variant)
+        assert bool((res[2] == 4096).all())

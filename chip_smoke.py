@@ -198,22 +198,6 @@ def dp_round_inputs(blocks, params, device):
     return packed, tables, lens
 
 
-def event_ms(fn, reps):
-    """Mean device time of fn over `reps` launches (CUDA events, warm)."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def wall_ms(fn):
     import torch
 
@@ -232,11 +216,12 @@ def bound(n_bytes, n_ops):
     return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
 
 
-def record(name, source, replaces, n, err, ms, plain, bnd, library=None):
+def record(name, source, replaces, n, err, ms, plain, bnd, library=None,
+           **extra):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": n, "max_abs_err": err,
             "ms": ms, "plain_ms": plain, "bound_ms": bnd[0],
-            "bound_by": bnd[1], "library_ms": library}
+            "bound_by": bnd[1], "library_ms": library, **extra}
 
 
 def check_serializer(ctx, bits, totals, arena, max_out):
@@ -567,20 +552,24 @@ def probe_phase(dev, card, comp, comp_lens, cuts, want):
     def pick(rows, *key):
         return next(r for r in rows if r[:len(key)] == key)
 
-    # the copies' time is the kernel's clock: a launch of one block is
-    # bound by the host's submission (both are in the table above)
+    # the copies' ms is a launch's (CUDA events), as every record's and
+    # the library's; a launch of one block is bound by the host's
+    # submission, so clock_ms beside it is the staging alone (clock64)
     ring_full, packed_full = pick(ring, "full"), pick(packed, "full", 128)
+    copy_ms = {"P1": pick(dma, "probe1", "bulk")[4:6],
+               "P2": pick(dma, "probe2", "bulk")[4:6],
+               "P3": pick(dma, "probe3")[4:6], "P4": pick(dma2, "kC")[3:5]}
     steps = 128 * F.ITERS      # lanes x steps of P10-P13's main shape
     tile_io = 8 * 128 * 4 * 2  # the (8, 128) int32 tile read and written
     site = {
         "P1": ("probe_dma.probe1", "probe_copy.cu", "tools/probe_dma.py:53",
-               pick(dma, "probe1", "bulk")[5] / 1e6, (tile_io + 32, 0)),
+               copy_ms["P1"][0] / 1e3, (tile_io + 32, 0)),
         "P2": ("probe_dma.probe2", "probe_copy.cu", "tools/probe_dma.py:92",
-               pick(dma, "probe2", "bulk")[5] / 1e6, (tile_io * 3 // 2 + 32, 0)),
+               copy_ms["P2"][0] / 1e3, (tile_io * 3 // 2 + 32, 0)),
         "P3": ("probe_dma.probe3", "probe_copy.cu", "tools/probe_dma.py:116",
-               pick(dma, "probe3")[5] / 1e6, (tile_io, 8 * 128)),
+               copy_ms["P3"][0] / 1e3, (tile_io, 8 * 128)),
         "P4": ("probe_dma2.run", "probe_copy.cu", "tools/probe_dma2.py:38",
-               pick(dma2, "kC")[4] / 1e6, (tile_io + 32, 0)),
+               copy_ms["P4"][0] / 1e3, (tile_io + 32, 0)),
         "P5": ("probe_gather.probe_native", "probe_gather.cu",
                "tools/probe_gather.py:32", pick(gat, "native shared", 4096)[2],
                (G.N * 4096 * 4 + G.N * 8, G.N * G.ITERS * 2)),
@@ -616,17 +605,25 @@ def probe_phase(dev, card, comp, comp_lens, cuts, want):
                 (int(comp_lens.sum()) + PROBE_LANES * CH_BLOCK,
                  int(PROBE_LANES * (10 * ring_full[5] + 3 * ring_full[6])))),
     }
+    # one PyTorch call that computes the same function, its index built
+    # outside the timing: torch.gather of each row at its offsets (P1 and
+    # kC read OFFS1; the refused rows are gathered too), x + x[3, 5], and
+    # take_along_axis; P2's sum of two rounds is not one call
+    arr, idx = G2.taa_inputs(16, 512, dev)
+    col = idx.long()[:, None]
+    rows = D.offsets(D.OFFS1, dev).long()[:, None] + torch.arange(D.C, device=dev)
+    x = D.tile(dev)
+    gather_ms = _cuda.event_ms(lambda: src.gather(1, rows), 20)
+    library = {"P1": gather_ms, "P4": gather_ms,
+               "P3": _cuda.event_ms(lambda: torch.add(x, x[3, 5]), 20),
+               "P9": _cuda.event_ms(lambda: arr.gather(1, col), 20)}
     records = []
     for key, (name, src_file, replaces, ms, work) in site.items():
         err, plain_ms = held[key]
-        library = None
-        if key == "P9":   # torch.gather computes the same function
-            arr, idx = G2.taa_inputs(16, 512, dev)
-            col = idx.long()[:, None]
-            library = event_ms(lambda: arr.gather(1, col), 20)
+        extra = {"clock_ms": copy_ms[key][1] / 1e6} if key in copy_ms else {}
         records.append(record(name, f"lzma_tpu_torch/csrc/{src_file}", replaces,
                               launches[key], err, ms, plain_ms, bound(*work),
-                              library))
+                              library.get(key), **extra))
     return records
 
 
@@ -688,6 +685,7 @@ def main():
     from lzma_tpu_torch.ops.device_encoder import encode_batch, probing
     from lzma_tpu_torch.ops.device_parser import tokenize_optimal
     from lzma_tpu_torch.parallel import blocks as blk
+    from lzma_tpu_torch.probes._cuda import event_ms
     from lzma_tpu_torch.runtime import build
 
     phase_t = [time.perf_counter()]

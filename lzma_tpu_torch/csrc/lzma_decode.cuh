@@ -21,9 +21,9 @@
 // decode_lane<KO> takes a set of knock-out flags (kKo*, below) for the
 // ablation probe csrc/probe_ablate.cu, the counterpart of the TPU's
 // tools/probe_ring_ablate.py and probe_packed_ablate.py.  Each flag is
-// tested with `if constexpr`, and the default, 0, is the decoder above:
-// K1 and K5 instantiate decode_lane<0> and compile what they did before
-// the flags existed.
+// tested with `if constexpr` at one site of the body, and the default, 0,
+// is the decoder above: K1 and K5 instantiate decode_lane<0> and compile
+// what they did before the flags existed.
 
 #pragma once
 
@@ -55,10 +55,8 @@ constexpr int kKoNoArena = 2;   // each probability read as 1024, never stored
 constexpr int kKoNoInput = 4;   // renormalisation shifts in 0
 constexpr int kKoNoWin = 8;     // back() gives 0; emit counts, stores nothing
 constexpr int kKoNoRing = 16;   // emit counts, stores nothing (back() reads)
-constexpr int kKoBareBit = 32;  // one bit a byte at (out_pos*7 + t) % size
-constexpr int kKoNoCtx = 64;    // every bit at (out_pos*7 + t) % size
-constexpr int kKoNoTrans = 128; // one is_match bit a byte, no trees
-constexpr int kKoCount = 256;   // count bits decoded and bytes copied
+constexpr int kKoNoCtx = 32;    // every bit at a made-up index (site())
+constexpr int kKoCount = 64;    // count bits decoded and bytes copied
 
 template <int KO>
 struct RcT {
@@ -187,6 +185,12 @@ __device__ __forceinline__ void decode_lane(
   int b;
   int n_dec = 0, n_copy = 0;  // bits decoded, bytes copied (kKoCount)
 
+  // noctx's made-up index, (out_pos*7 + the bits decoded) mod the arena's
+  // size, stepped by increments wrapped by a compare: no division on the
+  // chain (L.size > 7)
+  int ctx = 0;
+  if constexpr (KO & kKoNoCtx) ctx = (P * 7) % L.size;
+
   auto back = [&](int dist) -> uint32_t {
     if constexpr (KO & kKoNoWin) return 0u;
     long long i = static_cast<long long>(out_pos) - dist - 1;
@@ -200,27 +204,19 @@ __device__ __forceinline__ void decode_lane(
       o[out_pos < max_out ? out_pos : max_out - 1] = static_cast<uint8_t>(byte);
     }
     ++out_pos;
+    if constexpr (KO & kKoNoCtx) {
+      ctx += 7;
+      if (ctx >= L.size) ctx -= L.size;
+    }
   };
   auto site = [&](uint16_t* prob) -> uint16_t* {
     if constexpr (KO & kKoCount) ++n_dec;
-    if constexpr (KO & kKoNoCtx) return p + (out_pos * 7 + n_dec) % L.size;
+    if constexpr (KO & kKoNoCtx) {
+      if (++ctx == L.size) ctx = 0;
+      return p + ctx;
+    }
     return prob;
   };
-
-  if constexpr (KO & (kKoBareBit | kKoNoTrans)) {
-    // one bit a byte, emitted as back(rep0) + bit: barebit at a made-up
-    // index, notrans at the is_match context of the unchanging state
-    while (out_pos < bound) {
-      uint16_t* pr = p + L.is_match + (state << L.pos_bits) +
-                     ((out_pos - P) & pb_mask);
-      if constexpr (KO & kKoBareBit) pr = p + (out_pos * 7 + n_dec) % L.size;
-      b = rc.bit(pr);
-      if constexpr (KO & kKoCount) ++n_dec;
-      emit(back(rep0) + static_cast<uint32_t>(b));
-    }
-    good = true;
-    goto fail;  // the common exit
-  }
 
   for (;;) {
     const int coded = out_pos - P;

@@ -11,13 +11,18 @@
 // the wrapper lzma_tpu_torch/probes/probe_ring_ablate.py passes):
 //   0 realrow   the exact body (error rules on), bits counted
 //   1 full      the body with the lane kept alive (error exits off)
-//   2 noctx     every bit at (out_pos*7 + t) % size; trees and state run
+//   2 noctx     every bit at the index (out_pos*7 + bits) mod the
+//               arena's size, stepped without a division; trees and
+//               state run
 //   3 noarena   every probability 1024, never stored
 //   4 noinput   renormalisation shifts in 0
 //   5 nowin     back() gives 0, no byte stored
 //   6 noring    no byte stored (back() still reads)
 //   7 notrans   one is_match bit a byte, no trees, no state change
-//   8 barebit   one bit a byte at (out_pos*7 + t) % size: the chain's floor
+//   8 barebit   one bit a byte at the index 8 * out_pos mod the arena's
+//               size, stepped without a division
+// notrans and barebit are not knock-outs at a site of decode_lane but
+// a loop of their own here (one_bit_lane) over its range coder RcT.
 // Every variant but realrow keeps its lanes alive, so a lane decodes to
 // |size| bytes whatever it reads (the TPU probes did the same); their
 // output is garbage and is used for timing only.  realrow and full on a
@@ -40,6 +45,45 @@
 
 namespace {
 
+// The one-bit loops' flags, above decode_lane's kKo* (which RcT reads).
+constexpr int kOneBitCtx = 1 << 8;   // notrans
+constexpr int kOneBitBare = 1 << 9;  // barebit
+
+// notrans and barebit: one bit a byte, emitted as the byte before it
+// plus the bit (decode_lane's back(rep0) with rep0 = 0), no trees and no
+// state change, to the lane's bound.  notrans decodes at the is_match
+// context of state 0; barebit at 8k for byte k (decode_lane's made-up
+// index), wrapped by a compare.  Writes what decode_lane<kKoAlive |
+// kKoCount> writes.
+template <int KO>
+__device__ void one_bit_lane(const uint8_t* in, int in_len, int max_in,
+                             uint16_t* p, uint8_t* o, int max_out, int size,
+                             int pb, const LztLayout& L, bool* ok,
+                             int* out_pos_res, int* counts) {
+  RcT<KO> rc{0xFFFFFFFFu, 0, 5, 0, in, in_len, max_in};
+  for (int i = 0; i < 5; ++i) {
+    rc.code = (rc.code << 8) | (i < rc.in_len ? rc.in[i] : 0u);
+  }
+  const int bound = min(size < 0 ? -size : size, max_out);
+  const int pb_mask = (1 << pb) - 1;
+  int out_pos = 0, idx = 0;
+  while (out_pos < bound) {
+    uint16_t* pr = p + L.is_match + (out_pos & pb_mask);
+    if constexpr (KO & kOneBitBare) {
+      pr = p + idx;
+      idx += 8;
+      if (idx >= L.size) idx -= L.size;
+    }
+    const uint32_t b = static_cast<uint32_t>(rc.bit(pr));
+    o[out_pos] = static_cast<uint8_t>(o[out_pos > 0 ? out_pos - 1 : 0] + b);
+    ++out_pos;
+  }
+  *ok = true;
+  *out_pos_res = out_pos;
+  counts[0] = out_pos;
+  counts[1] = 0;
+}
+
 template <int KO>
 __global__ void ablate_kernel(const uint8_t* __restrict__ comp,
                               const int* __restrict__ comp_lens,
@@ -56,10 +100,17 @@ __global__ void ablate_kernel(const uint8_t* __restrict__ comp,
   uint16_t* p = probs + static_cast<size_t>(lane) * L.size;
   for (int i = 0; i < L.size; ++i) p[i] = 1024;
   const long long t0 = clock64();
-  decode_lane<KO>(comp + static_cast<size_t>(lane) * max_in, comp_lens[lane],
-                  max_in, p, out + static_cast<size_t>(lane) * max_out,
-                  max_out, 0, out_sizes[lane], dict_size, lc, lp, pb, L,
-                  ok + lane, out_pos_res + lane, counts + 3 * lane);
+  const uint8_t* in = comp + static_cast<size_t>(lane) * max_in;
+  uint8_t* o = out + static_cast<size_t>(lane) * max_out;
+  if constexpr (KO & (kOneBitCtx | kOneBitBare)) {
+    one_bit_lane<KO>(in, comp_lens[lane], max_in, p, o, max_out,
+                     out_sizes[lane], pb, L, ok + lane, out_pos_res + lane,
+                     counts + 3 * lane);
+  } else {
+    decode_lane<KO>(in, comp_lens[lane], max_in, p, o, max_out, 0,
+                    out_sizes[lane], dict_size, lc, lp, pb, L, ok + lane,
+                    out_pos_res + lane, counts + 3 * lane);
+  }
   counts[3 * lane + 2] = static_cast<int>(clock64() - t0);
 }
 
@@ -78,8 +129,8 @@ AblateFn variant_kernel(int variant) {
     case 4: return ablate_kernel<kLive | kKoNoInput>;
     case 5: return ablate_kernel<kLive | kKoNoWin>;
     case 6: return ablate_kernel<kLive | kKoNoRing>;
-    case 7: return ablate_kernel<kLive | kKoNoTrans>;
-    case 8: return ablate_kernel<kLive | kKoBareBit>;
+    case 7: return ablate_kernel<kLive | kOneBitCtx>;
+    case 8: return ablate_kernel<kLive | kOneBitBare>;
     default: return nullptr;
   }
 }

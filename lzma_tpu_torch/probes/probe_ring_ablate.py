@@ -10,13 +10,16 @@ variants (``VARIANTS``):
 
     realrow   the exact body, error rules on (K1's outcome)
     full      the body with the lane kept alive: no error ends it
-    noctx     every bit at (out_pos*7 + t) % size; trees and state run
+    noctx     every bit at a made-up index, (out_pos*7 + bits) mod the
+              arena's size, stepped without a division; trees and
+              state run
     noarena   every probability 1024, never stored
     noinput   renormalisation shifts in 0
     nowin     back() gives 0, no byte stored
     noring    no byte stored (back() still reads)
     notrans   one is_match bit a byte, no trees, no state change
-    barebit   one bit a byte at (out_pos*7 + t) % size: the chain's floor
+    barebit   one bit a byte at the index 8 * out_pos mod the arena's
+              size, stepped without a division
 
 Every variant but realrow keeps its lanes alive, so each lane decodes to
 |size| bytes whatever it reads, as the TPU probe's did; a knock-out's

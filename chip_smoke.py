@@ -11,10 +11,13 @@ prints its seconds):
   2. build the CUDA kernels from lzma_tpu_torch/csrc (one nvcc a source,
      all started together)
   3. each kernel against its plain PyTorch version on the card at small
-     shapes: the range encoder (K2) and both decoders (K1, K5) on 8 lanes
-     x 2 KiB, K1 and K5 on a preset-primed batch made by the port's own
-     encoder, both DP scans (K3, K4) on the first round's inputs of 8
-     lanes x 2 KiB
+     shapes: the range encoder (K2) with its arena in shared and in device
+     memory, and both decoders (K1, K5), on 8 lanes x 2 KiB; K2 at lc8 lp4,
+     whose arena is over the card's shared memory, where it must place
+     the arena in device memory and refuse a shared one; K1 and K5 on a
+     preset-primed batch made by the port's own encoder; both DP scans
+     (K3, K4) on the first round's inputs of 8 lanes x 2 KiB at fb 8, 32
+     (K3 relaxes a length on 4 lanes) and 273 (on one thread a length)
   4. the card against the JAX reference: the 8-lane containers of
      generate_bench_data(64 KiB) must hash to PIN_SHA256 (lazy) and
      PIN_OPT_SHA256 (optimal), which tests/test_torch_api.py pins to the
@@ -32,8 +35,9 @@ prints its seconds):
      device memory; then the same encode again inside probing(), which
      must give the same container: its stage breakdown (the device
      synchronized around each stage), its whole-lane kernel stages
-     beside their bounds (K3's by bytes and operations), and the inputs
-     phases 8 and 9 take
+     beside their bounds (K3's by bytes and operations), K2 on the whole
+     lanes' (ctx, bit) streams and K1 on the whole container's streams
+     timed by CUDA events, and the inputs phases 8 and 9 take
   8. the K4 path: tokenize_optimal(scan="band2") on phase 5's 32 x 16 KiB
      gives the tokens of the default scan, K4 launched (its count); K4 on
      the main path's whole last DP round (32 x 262,144 positions) gives
@@ -224,25 +228,30 @@ def record(name, source, replaces, n, err, ms, plain, bnd, library=None,
             "bound_by": bnd[1], "library_ms": library, **extra}
 
 
-def check_serializer(ctx, bits, totals, arena, max_out):
-    """K2 against serialize on the same card tensors (tolerance zero).
+def check_serializer(ctx, bits, totals, arena, max_out, placements=(None,)):
+    """K2 against serialize on the same card tensors (tolerance zero), the
+    arena in each of `placements` (None: the wrapper's own choice).
     Returns (max |diff|, kernel out, kernel lens, plain version's ms)."""
     import torch
     from lzma_tpu_torch.ops.cuda_serializer import serialize_cuda
     from lzma_tpu_torch.ops.device_encoder import serialize
 
-    k_out, k_lens, consumed = serialize_cuda(ctx, bits, totals, arena, max_out)
     box = {}
     plain_ms = wall_ms(lambda: box.update(
         p=serialize(ctx, bits, totals, arena, max_out)))
     p_out, p_lens = box["p"]
-    if not torch.equal(consumed, totals):
-        raise AssertionError("range coder kernel left bits unconsumed")
-    if not torch.equal(k_lens, p_lens):
-        raise AssertionError(f"range coder lens differ: {k_lens} vs {p_lens}")
-    err = int((k_out.int() - p_out.int()).abs().max())
-    if err:
-        raise AssertionError("range coder bytes differ from the plain version")
+    for placement in placements:
+        k_out, k_lens, consumed = serialize_cuda(ctx, bits, totals, arena,
+                                                 max_out, placement=placement)
+        if not torch.equal(consumed, totals):
+            raise AssertionError("range coder kernel left bits unconsumed")
+        if not torch.equal(k_lens, p_lens):
+            raise AssertionError(f"range coder lens differ ({placement}): "
+                                 f"{k_lens} vs {p_lens}")
+        err = int((k_out.int() - p_out.int()).abs().max())
+        if err:
+            raise AssertionError(f"range coder bytes differ from the plain "
+                                 f"version ({placement})")
     return err, k_out, k_lens, plain_ms
 
 
@@ -707,8 +716,36 @@ def main():
     blocks = lane_blocks(CMP_LANES, CMP_BYTES, seed=1)
     ctx, bits, totals, max_out = lowered(blocks, params, dev)
     k2_err, k_out, k_lens, _ = check_serializer(ctx, bits, totals, arena,
-                                                int(max_out))
-    log(f"[K2 vs plain] {CMP_LANES}x{CMP_BYTES}: bytes and lens equal")
+                                                int(max_out),
+                                                cuda_serializer.PLACEMENTS)
+    # an arena over the card's shared memory: device memory, never shared
+    big = LzmaParams(lc=8, lp=4)
+    big_arena = ProbLayout(big.lc, big.lp, big.pb, pos_bits=big.pb).size
+    limit = cuda_decoder.smem_limit(dev.index or 0)
+    placed = (cuda_serializer.arena_placement(arena, limit),
+              cuda_serializer.arena_placement(big_arena, limit))
+    if placed != ("shared", "device"):
+        raise AssertionError(f"K2 placements {placed} for arenas {arena}, "
+                             f"{big_arena} under {limit} B")
+    b_ctx, b_bits, b_totals, b_max = lowered(blocks, big, dev)
+    err, _, _, _ = check_serializer(b_ctx, b_bits, b_totals, big_arena,
+                                    int(b_max))
+    k2_err = max(k2_err, err)
+    before = cuda_serializer.LAUNCHES
+    try:
+        cuda_serializer.serialize_cuda(b_ctx, b_bits, b_totals, big_arena,
+                                       int(b_max), placement="shared")
+    except ValueError as e:
+        if cuda_serializer.LAUNCHES != before:
+            raise
+        refused = str(e)
+    else:
+        raise AssertionError("K2 took a shared arena the card cannot hold")
+    del b_ctx, b_bits, b_totals
+    log(f"[K2 vs plain] {CMP_LANES}x{CMP_BYTES}: bytes and lens equal with the "
+        f"arena ({arena} probabilities) in shared and in device memory; lc8 "
+        f"lp4 ({big_arena}) placed in device memory and equal; a shared one "
+        f"refused before a launch: {refused}")
     lens_h = k_lens.cpu().tolist()
     streams = [k_out[i, :lens_h[i]].cpu().numpy().tobytes() for i in range(len(blocks))]
     comp, comp_lens = pad_rows(streams, dev)
@@ -739,11 +776,16 @@ def main():
     log("[K1, K5 vs plain] preset-primed batch from the port's encoder: "
         "equal, round trip")
 
-    packed, tables, lens = dp_round_inputs(blocks, params, dev)
-    k3_err, _ = check_scans(packed, tables, lens.to(torch.int32),
-                            params.fast_bytes, params.pb)
-    log(f"[K3, K4 vs plain] {CMP_LANES}x{CMP_BYTES}, fb {params.fast_bytes}: "
-        "from and choice equal")
+    k3_err = 0
+    for fb_s in (8, params.fast_bytes, 273):
+        s_params = LzmaParams(fast_bytes=fb_s)
+        packed, tables, lens = dp_round_inputs(blocks, s_params, dev)
+        err, _ = check_scans(packed, tables, lens.to(torch.int32), fb_s,
+                             s_params.pb)
+        k3_err = max(k3_err, err)
+        log(f"[K3, K4 vs plain] {CMP_LANES}x{CMP_BYTES}, fb {fb_s} (K3 "
+            f"{cuda_parser.dp_parse_plan(fb_s, s_params.pb, packed.shape[2])[0]}"
+            " threads): from and choice equal")
     done("small shapes")
 
     # ---- 4. the pinned containers (card vs the JAX reference) ----
@@ -848,15 +890,47 @@ def main():
         f"{dp_whole[1]} operations")
     n_bits = int(totals.sum())
     n_comp = offsets[-1] - offsets[0]
+    k2_whole_bound = bound(8 * n_bits + n_comp, 10 * n_bits)
+    k1_whole_bound = bound(sum(bsizes) + n_comp, 0)
     whole = {
         "dp_parse": (secs["dp_parse"][-1], bound(*dp_whole)),
-        "rc_serialize": (secs["rc_serialize"][-1],
-                         bound(8 * n_bits + n_comp, 10 * n_bits)),
-        "decode (K1 and its host work)": (t_dec, bound(sum(bsizes) + n_comp, 0)),
+        "rc_serialize": (secs["rc_serialize"][-1], k2_whole_bound),
+        "decode (K1 and its host work)": (t_dec, k1_whole_bound),
     }
     log(f"[whole lanes] {L} x {N} on {card}: " + "; ".join(
         f"{k} {s * 1e3:.1f} ms a call, bound {b[0]:.4f} ms by {b[1]}"
         for k, (s, b) in whole.items()))
+    # K2 on the whole lanes' final (ctx, bit) streams and K1 on the whole
+    # container's streams, each timed alone by CUDA events
+    mo_main = MAIN_BLOCK + MAIN_BLOCK // 4 + 128
+    k2_res = cuda_serializer.serialize_cuda(ctx, bits, totals, arena, mo_main)
+    streams = [blob[offsets[i]:offsets[i + 1]] for i in range(len(bsizes))]
+    k2_rows = k2_res[0].cpu().numpy()
+    if not torch.equal(k2_res[2], totals) or k2_res[1].tolist() != [
+            len(x) for x in streams] or any(
+            k2_rows[i, :len(x)].tobytes() != x for i, x in enumerate(streams)):
+        raise AssertionError("K2 on the whole lanes differs from the container")
+    del k2_res, k2_rows
+    k2_whole = event_ms(lambda: cuda_serializer.serialize_cuda(
+        ctx, bits, totals, arena, mo_main), 3)
+    comp, comp_lens = pad_rows(streams, dev)
+    w_sizes = torch.tensor(bsizes, dtype=torch.int32, device=dev)
+    wargs = (comp, comp_lens, w_sizes, params.dict_size, params.lc, params.lp,
+             params.pb, MAIN_BLOCK)
+    k1_out = cuda_ring.decode_cuda(*wargs)
+    k1_rows = k1_out[0].cpu().numpy()
+    if not bool(k1_out[1].all()) or any(
+            k1_rows[i, :n].tobytes() != data[i * MAIN_BLOCK:i * MAIN_BLOCK + n]
+            for i, n in enumerate(bsizes)):
+        raise AssertionError("K1 on the whole container differs from the input")
+    del k1_out, k1_rows
+    k1_whole = event_ms(lambda: cuda_ring.decode_cuda(*wargs), 3)
+    log(f"[K2, K1 whole lanes] {L} lanes on {card}, CUDA events: rc_serialize "
+        f"{k2_whole:.3f} ms a call ({n_bits} pairs, "
+        f"{k2_whole * 1e6 / int(totals.max()):.1f} ns a pair of the longest "
+        f"lane), bound {k2_whole_bound[0]:.4f} ms by {k2_whole_bound[1]}; "
+        f"ring_decode {k1_whole:.3f} ms a call, bound {k1_whole_bound[0]:.4f} "
+        f"ms by {k1_whole_bound[1]}")
     done("main path")
 
     # ---- 8. the K4 path at full width ----
@@ -918,7 +992,6 @@ def main():
     k3_bound = bound(*dp_work(packed, lens))
     # K2: the final lowering's (ctx, bit) streams, each lane cut to its
     # first CMP_BITS pairs
-    mo_main = MAIN_BLOCK + MAIN_BLOCK // 4 + 128
     cut_totals = torch.clamp(totals, max=CMP_BITS)
     k2_ms = event_ms(lambda: cuda_serializer.serialize_cuda(
         ctx, bits, cut_totals, arena, mo_main), 20)
@@ -930,8 +1003,6 @@ def main():
     # K1: the main container's streams, each lane decoded up to the end of
     # its first token that reaches CMP_OUT bytes, a size the stream stops
     # at cleanly (K5's window cannot hold these lanes: phase 10)
-    streams = [blob[offsets[i]:offsets[i + 1]] for i in range(len(bsizes))]
-    comp, comp_lens = pad_rows(streams, dev)
     cuts = token_cut(t_pos, t_len, t_valid, CMP_OUT, bsizes)
     dargs = (comp, comp_lens, cuts, params.dict_size, params.lc,
              params.lp, params.pb, MAIN_BLOCK)
@@ -1101,22 +1172,30 @@ def main():
     log("[imports] no jax, jaxlib, lzma_tpu or lzma_tpu.* module loaded")
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
 
+    # beside the cut's numbers, each codec kernel's time over whole lanes
+    # (CUDA events: the main path's for K1-K4, the champion's for K5) and
+    # that work's bound
     kernels = [
         record("dp_parse", "lzma_tpu_torch/csrc/dp_parse.cu",
                "lzma_tpu/ops/device_parser.py:804", launches["dp_parse"],
-               k3_err, k3_ms, k3_plain, k3_bound),
+               k3_err, k3_ms, k3_plain, k3_bound, whole_ms=k3_whole,
+               whole_bound_ms=whole_bound[0]),
         record("dp_parse2", "lzma_tpu_torch/csrc/dp_parse2.cu",
                "lzma_tpu/ops/device_parser.py:1128", k4_launches, k3_err,
-               k4_ms, k3_plain, k3_bound),
+               k4_ms, k3_plain, k3_bound, whole_ms=k4_whole,
+               whole_bound_ms=whole_bound[0]),
         record("rc_serialize", "lzma_tpu_torch/csrc/rc_serializer.cu",
                "lzma_tpu/ops/pallas_serializer.py:58", launches["rc_serialize"],
-               k2_err, k2_ms, k2_plain, k2_bound),
+               k2_err, k2_ms, k2_plain, k2_bound, whole_ms=k2_whole,
+               whole_bound_ms=k2_whole_bound[0]),
         record("ring_decode", "lzma_tpu_torch/csrc/ring_decoder.cu",
                "lzma_tpu/ops/pallas_ring.py:89", launches["ring_decode"],
-               k1_err, k1_ms, k1_plain, k1_bound),
+               k1_err, k1_ms, k1_plain, k1_bound, whole_ms=k1_whole,
+               whole_bound_ms=k1_whole_bound[0]),
         record("block_decode", "lzma_tpu_torch/csrc/block_decoder.cu",
                "lzma_tpu/ops/pallas_decoder.py:80", k5_launches, k5_err, k5_ms,
-               k5_plain, k5_bound),
+               k5_plain, k5_bound, whole_ms=k5_whole,
+               whole_bound_ms=ch_bound[0]),
     ] + probe_records
     print(card)
     print(json.dumps({"kernels": kernels}))

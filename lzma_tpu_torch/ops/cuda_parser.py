@@ -7,7 +7,8 @@ finalize step and a history band) and ``dp_parse2_cuda`` (K4, node state
 carried in the band) take the packed inputs of ``device_parser.dp_inputs``
 and return the same (from, choice) planes.  A CUDA tensor launches the
 kernel (or the wrapper raises); a CPU tensor takes the plain version of
-both, ``device_parser.dp_parse_band``.
+both, ``device_parser.dp_parse_band``.  K3's block layout (rings, tiles of
+staged rows, shared memory) is ``dp_parse_plan``'s.
 """
 
 from __future__ import annotations
@@ -25,11 +26,45 @@ LAUNCHES = 0
 #: the same for dp_parse2_cuda
 LAUNCHES2 = 0
 
+#: packed rows a tile, staged into K3's shared memory (csrc/dp_parse.cu kTile)
+TILE_ROWS = 64
+#: candidate pairs a row K3 takes at most (csrc/dp_parse.cu kMaxPairs)
+MAX_PAIRS = 16
+#: ints of a node's relax terms handed from K3's finalize warp to its
+#: relax warps (csrc/dp_parse.cu kNodeVals)
+NODE_VALS = 16
+#: the largest fb at which K3 relaxes a length on 4 lanes, a lane a pair
+#: (rows of at most 4 pairs; csrc/dp_parse.cu kSplitFb)
+SPLIT_FB = 65
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length()
+
+
+def dp_parse_plan(fb: int, pb: int, C: int):
+    """K3's block for fast bytes `fb`, pb and rows of C int32: (threads,
+    B, H, shared bytes).  The relax threads own the lengths 2..fb, 4
+    lanes a length (a lane a pair) at fb <= SPLIT_FB with at most 4
+    pairs a row, else one thread, rounded up to warps; one more warp
+    finalizes the next node while they relax; B >= fb + 2 and H >= fb + 1
+    are the future and history rings, powers of two; the shared memory
+    holds the table row, the rings (price, from, choice, kind; state, 4
+    reps), two entries of NODE_VALS relax terms and two tiles of
+    TILE_ROWS rows."""
+    split = 4 if fb <= SPLIT_FB and (C - 5) // 6 <= 4 else 1
+    threads = (split * (fb - 1) + 31) // 32 * 32 + 32
+    B, H = _pow2_at_least(fb + 2), _pow2_at_least(fb + 1)
+    smem = 4 * (table_size(pb, fb) + 4 * B + 5 * H + 2 * NODE_VALS
+                + 2 * TILE_ROWS * C)
+    return threads, B, H, smem
+
 
 @functools.cache
 def _kernel(name: str):
     fn = getattr(build.load(), name)
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    n_int = 10 if name == "lzt_dp_parse" else 7
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * n_int + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -61,10 +96,11 @@ def _launch(name: str, packed, tables, lens, fb: int, pb: int):
     out_from = torch.empty((L, N + 1), dtype=torch.int32, device=dev)
     out_choice = torch.empty((L, N + 1), dtype=torch.int32, device=dev)
     fn = _kernel(f"lzt_{name}")
+    plan = dp_parse_plan(fb, pb, C)[1:] if name == "dp_parse" else ()
     with torch.cuda.device(dev):
         err = fn(packed.data_ptr(), tables.data_ptr(), lens.data_ptr(),
                  out_from.data_ptr(), out_choice.data_ptr(), L, N, C,
-                 (C - 5) // 6, fb, pb, tables.shape[1],
+                 (C - 5) // 6, fb, pb, tables.shape[1], *plan,
                  torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
@@ -78,6 +114,9 @@ def dp_parse_cuda(packed, tables, lens, fb: int, pb: int):
     global LAUNCHES
     if packed.device.type == "cpu":
         return dp_parse_band(packed, tables, lens, fb, pb)
+    if packed.dim() == 3 and (packed.shape[2] - 5) // 6 > MAX_PAIRS:
+        raise ValueError(f"K3 takes at most {MAX_PAIRS} pairs a row, got "
+                         f"{(packed.shape[2] - 5) // 6}")
     out = _launch("dp_parse", packed, tables, lens, fb, pb)
     LAUNCHES += 1
     return out

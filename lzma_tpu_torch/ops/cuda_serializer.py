@@ -6,6 +6,11 @@ replaces ``serialize_pallas`` and ``serialize_checked`` replaces
 wrapper raises); a CPU tensor takes the plain version,
 ``device_encoder.serialize``.  Nothing reroutes a failed launch or an
 incomplete lane to the plain version.
+
+A lane's probability arena lives in shared memory when it fits beside the
+staged tiles of (ctx, bit) pairs, else in device memory
+(``arena_placement``); the placement is decided before the launch and a
+lane never takes the other one.
 """
 
 from __future__ import annotations
@@ -16,15 +21,38 @@ import functools
 import torch
 
 from ..runtime import build
+from .cuda_decoder import smem_limit
 from .device_encoder import serialize
 
 #: kernel launches made through serialize_cuda since the count was last set
 LAUNCHES = 0
 
+#: (ctx, bit) pairs a tile, staged into shared memory ahead of the coder
+#: (csrc/rc_serializer.cu kTile), two tiles of int32 ctx and bits
+TILE = 1 << 10
+PLACEMENTS = ("shared", "device")
+
+
+def smem_bytes(placement: str, arena_size: int) -> int:
+    """Dynamic shared memory a block of the kernel takes: the two tiles,
+    and for the "shared" placement the uint16 arena rounded up to 16 B."""
+    if placement not in PLACEMENTS:
+        raise ValueError(f"placement must be one of {PLACEMENTS}, got {placement!r}")
+    arena = (2 * arena_size + 15) // 16 * 16 if placement == "shared" else 0
+    return 2 * 2 * TILE * 4 + arena
+
+
+def arena_placement(arena_size: int, limit: int) -> str:
+    """Where a lane's arena of `arena_size` probabilities goes on a card
+    that gives a block `limit` bytes of shared memory: "shared" when it
+    fits beside the tiles, else "device"."""
+    return "shared" if smem_bytes("shared", arena_size) <= limit else "device"
+
+
 @functools.cache
 def _kernel():
     fn = build.load().lzt_rc_serialize
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -43,12 +71,16 @@ def _check(ctx, bits, totals):
             raise ValueError(f"{name} must be contiguous")
 
 
-def serialize_cuda(ctx, bits, totals, arena_size: int, max_out: int):
+def serialize_cuda(ctx, bits, totals, arena_size: int, max_out: int,
+                   placement: str | None = None):
     """Range-code per-lane (ctx, bit) streams.  ctx, bits: (N, B) int32;
     totals: (N,) int32.  ctx >= 0 is an adaptive slot, -1 a direct bit,
     anything else a step that codes nothing.  Returns (out (N, max_out)
     uint8, lens (N,) int32, consumed (N,) int32): consumed is -1 for a
-    lane whose output would pass max_out, else totals."""
+    lane whose output would pass max_out, else totals.  `placement`
+    ("shared" or "device") puts the arena there; None takes
+    ``arena_placement`` for this card.  A "shared" arena the card cannot
+    hold raises ValueError."""
     global LAUNCHES
     if ctx.device.type == "cpu":
         out, lens = serialize(ctx, bits, totals, arena_size, max_out)
@@ -59,15 +91,26 @@ def serialize_cuda(ctx, bits, totals, arena_size: int, max_out: int):
     _check(ctx, bits, totals)
     n, b = ctx.shape
     dev = ctx.device
-    probs = torch.empty((n, arena_size), dtype=torch.int16, device=dev)
+    limit = smem_limit(dev.index if dev.index is not None
+                       else torch.cuda.current_device())
+    if placement is None:
+        placement = arena_placement(arena_size, limit)
+    smem = smem_bytes(placement, arena_size)
+    if smem > limit:
+        raise ValueError(f"an arena of {arena_size} probabilities needs {smem} "
+                         f"B of shared memory and the card gives a block {limit} B")
+    shared = placement == "shared"
+    probs = None if shared else torch.empty((n, arena_size), dtype=torch.int16,
+                                            device=dev)
     out = torch.zeros((n, max_out), dtype=torch.uint8, device=dev)
     lens = torch.empty((n,), dtype=torch.int32, device=dev)
     consumed = torch.empty((n,), dtype=torch.int32, device=dev)
     fn = _kernel()
     with torch.cuda.device(dev):
         err = fn(ctx.data_ptr(), bits.data_ptr(), totals.data_ptr(),
-                 probs.data_ptr(), out.data_ptr(), lens.data_ptr(),
-                 consumed.data_ptr(), n, b, arena_size, max_out,
+                 None if shared else probs.data_ptr(), out.data_ptr(),
+                 lens.data_ptr(), consumed.data_ptr(), n, b, arena_size,
+                 max_out, int(shared), smem,
                  torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"rc_serialize launch failed: CUDA error {err}")

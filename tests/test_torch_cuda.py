@@ -222,6 +222,113 @@ def test_dp_parse_wrapper_rejects_bad_dtype_and_device(card, scan_fn):
         fn(packed, tables, lens, 32, 3)  # table size
 
 
+# K3 at its tile edges: n_pos under one tile (64 rows), a whole tile, not
+# a multiple of it, and 1,041 rows (a lane's base, lane * 1041 * 116 B, is
+# not 16-byte aligned); lane 1 has len 0, lane 2 is ragged; fb 8 relaxes
+# a length on 4 lanes, a lane a pair, fb 100 on one thread a length
+@pytest.mark.parametrize("n_pos", [37, 64, 200, 1041])
+@pytest.mark.parametrize("fb", [8, 100])
+def test_dp_parse_kernel_at_tile_edges_and_unaligned_lanes(card, n_pos, fb):
+    blocks = _blocks(3, 1100, n_pos + fb)
+    packed, tables, lens = _dp_inputs(blocks, fb, 2, card)
+    packed = packed[:, :n_pos].contiguous()
+    lens = torch.clamp(lens, max=n_pos)
+    lens[1] = 0
+    lens[2] = n_pos * 2 // 3
+    assert (packed.shape[1] * packed.shape[2] * 4) % 16 or n_pos != 1041
+    before = cuda_parser.LAUNCHES
+    k = cuda_parser.dp_parse_cuda(packed, tables, lens, fb, 2)
+    p = dp_parse_band(packed, tables, lens, fb, 2)
+    torch.cuda.synchronize()
+    assert cuda_parser.LAUNCHES == before + 1
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+
+
+def _with_pairs(packed, M):
+    """The route's rows (M_DP = 4 pairs) cut to or widened to M pairs
+    (the extra pairs repeat the first ones): ld, dd, dcost, the tail."""
+    idx = [k % 4 for k in range(M)]
+    ld, dd = packed[..., :4], packed[..., 4:8]
+    dc = packed[..., 8:24].reshape(*packed.shape[:2], 4, 4)
+    return torch.cat([ld[..., idx], dd[..., idx],
+                      dc[..., idx, :].reshape(*packed.shape[:2], 4 * M),
+                      packed[..., 24:]], dim=2).contiguous()
+
+
+# K3 with other pair counts than the route's 4: fewer (lanes of a length
+# left idle) and more (one thread a length, up to 16 pairs)
+@pytest.mark.parametrize("M", [2, 6])
+def test_dp_parse_kernel_with_other_pair_counts(card, M):
+    packed, tables, lens = _dp_inputs(_blocks(3, 512, M), 32, 2, card)
+    packed = _with_pairs(packed, M)
+    assert packed.shape[2] == 6 * M + 5
+    k = cuda_parser.dp_parse_cuda(packed, tables, lens, 32, 2)
+    p = dp_parse_band(packed, tables, lens, 32, 2)
+    torch.cuda.synchronize()
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+
+
+def _pair_streams(n_lanes, n_bits, arena, seed):
+    """Synthetic (ctx, bit) rows: adaptive slots over the arena with runs
+    of one slot, direct bits (-1) and a run of padding (-3) in each lane."""
+    rng = np.random.default_rng(seed)
+    ctx = rng.integers(0, arena, (n_lanes, n_bits))
+    ctx[:, 1::7] = ctx[:, 0::7][:, :ctx[:, 1::7].shape[1]]   # repeated slots
+    ctx[rng.random((n_lanes, n_bits)) < 0.1] = -1
+    for k in range(n_lanes):
+        at = int(rng.integers(0, n_bits - 40))
+        ctx[k, at:at + 37] = -3
+    bits = (rng.random((n_lanes, n_bits)) < 0.3).astype(np.int64)
+    return ctx, bits
+
+
+# K2 at its tile edges (1,024 pairs a tile), in both arena placements:
+# totals 0, one under / at / over a tile, over n_bits (the last pair
+# repeats), n_bits = 4,097 (rows not 16-byte aligned); max_out 300 makes
+# the long lanes overflow in their third tile
+@pytest.mark.parametrize("placement", ["shared", "device"])
+@pytest.mark.parametrize("max_out", [1 << 13, 300])
+def test_serializer_kernel_at_tile_edges_in_both_placements(card, placement,
+                                                            max_out):
+    arena = ProbLayout(3, 0, 2, pos_bits=2).size
+    n_bits = 4097
+    ctx, bits = _pair_streams(7, n_bits, arena, max_out)
+    totals = [0, 1023, 1024, 1025, 2049, n_bits, n_bits + 9]
+    ctx, bits, totals = (torch.tensor(x, dtype=torch.int32, device=card)
+                         for x in (ctx, bits, totals))
+    before = cuda_serializer.LAUNCHES
+    out, lens, consumed = cuda_serializer.serialize_cuda(
+        ctx, bits, totals, arena, max_out, placement=placement)
+    p_out, p_lens = serialize(ctx, bits, totals, arena, max_out)
+    torch.cuda.synchronize()
+    assert cuda_serializer.LAUNCHES == before + 1
+    assert torch.equal(lens, p_lens) and torch.equal(out, p_out)
+    assert torch.equal(consumed, torch.where(p_lens > max_out, -1, totals))
+    if max_out == 300:
+        assert torch.equal(consumed[:4], totals[:4])
+        assert (consumed[5:] == -1).all()
+
+
+def test_serializer_placement_is_chosen_and_never_switched(card):
+    small = ProbLayout(3, 0, 2, pos_bits=2).size
+    large = ProbLayout(8, 4, 2, pos_bits=2).size
+    limit = cuda_decoder.smem_limit(card.index or 0)
+    assert cuda_serializer.arena_placement(small, limit) == "shared"
+    assert cuda_serializer.arena_placement(large, limit) == "device"
+    ctx = torch.zeros((2, 8), dtype=torch.int32, device=card)
+    totals = torch.full((2,), 8, dtype=torch.int32, device=card)
+    before = cuda_serializer.LAUNCHES
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_serializer.serialize_cuda(ctx, ctx, totals, large, 32,
+                                       placement="shared")
+    with pytest.raises(ValueError):
+        cuda_serializer.serialize_cuda(ctx, ctx, totals, small, 32,
+                                       placement="global")
+    assert cuda_serializer.LAUNCHES == before
+
+
 def test_optimal_encode_on_the_card_equals_the_cpu(card):
     data = generate_bench_data(20000)
     params = LzmaParams(dict_size=1 << 14)

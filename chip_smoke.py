@@ -12,9 +12,9 @@ prints its seconds):
      all started together)
   3. each kernel against its plain PyTorch version on the card at small
      shapes: the range encoder (K2) with its arena in shared and in device
-     memory, and both decoders (K1, K5), on 8 lanes x 2 KiB; K2 at lc8 lp4,
-     whose arena is over the card's shared memory, where it must place
-     the arena in device memory and refuse a shared one; K1 and K5 on a
+     memory (the same streams with lc8 lp4's arena size, which is over the
+     card's shared memory), and both decoders (K1, K5), on 8 lanes x 2
+     KiB; K2 on lc8 lp4's own streams, in device memory; K1 and K5 on a
      preset-primed batch made by the port's own encoder; both DP scans
      (K3, K4) on the first round's inputs of 8 lanes x 2 KiB at fb 8, 32
      (K3 relaxes a length on 4 lanes) and 273 (on one thread a length)
@@ -228,10 +228,12 @@ def record(name, source, replaces, n, err, ms, plain, bnd, library=None,
             "bound_by": bnd[1], "library_ms": library, **extra}
 
 
-def check_serializer(ctx, bits, totals, arena, max_out, placements=(None,)):
-    """K2 against serialize on the same card tensors (tolerance zero), the
-    arena in each of `placements` (None: the wrapper's own choice).
-    Returns (max |diff|, kernel out, kernel lens, plain version's ms)."""
+def check_serializer(ctx, bits, totals, arena, max_out, arenas=()):
+    """K2 against serialize on the same card tensors (tolerance zero),
+    with an arena of `arena` probabilities and of each size in `arenas`
+    (larger ones, which code the same bytes: the card may place them
+    elsewhere).  Returns (max |diff|, kernel out, kernel lens, plain
+    version's ms)."""
     import torch
     from lzma_tpu_torch.ops.cuda_serializer import serialize_cuda
     from lzma_tpu_torch.ops.device_encoder import serialize
@@ -240,18 +242,18 @@ def check_serializer(ctx, bits, totals, arena, max_out, placements=(None,)):
     plain_ms = wall_ms(lambda: box.update(
         p=serialize(ctx, bits, totals, arena, max_out)))
     p_out, p_lens = box["p"]
-    for placement in placements:
-        k_out, k_lens, consumed = serialize_cuda(ctx, bits, totals, arena,
-                                                 max_out, placement=placement)
+    for size in (*arenas, arena):
+        k_out, k_lens, consumed = serialize_cuda(ctx, bits, totals, size,
+                                                 max_out)
         if not torch.equal(consumed, totals):
             raise AssertionError("range coder kernel left bits unconsumed")
         if not torch.equal(k_lens, p_lens):
-            raise AssertionError(f"range coder lens differ ({placement}): "
+            raise AssertionError(f"range coder lens differ (arena {size}): "
                                  f"{k_lens} vs {p_lens}")
         err = int((k_out.int() - p_out.int()).abs().max())
         if err:
             raise AssertionError(f"range coder bytes differ from the plain "
-                                 f"version ({placement})")
+                                 f"version (arena {size})")
     return err, k_out, k_lens, plain_ms
 
 
@@ -696,6 +698,7 @@ def main():
     from lzma_tpu_torch.parallel import blocks as blk
     from lzma_tpu_torch.probes._cuda import event_ms
     from lzma_tpu_torch.runtime import build
+    from lzma_tpu_torch.runtime.card import smem_limit
 
     phase_t = [time.perf_counter()]
 
@@ -715,37 +718,27 @@ def main():
     arena = ProbLayout(params.lc, params.lp, params.pb, pos_bits=params.pb).size
     blocks = lane_blocks(CMP_LANES, CMP_BYTES, seed=1)
     ctx, bits, totals, max_out = lowered(blocks, params, dev)
-    k2_err, k_out, k_lens, _ = check_serializer(ctx, bits, totals, arena,
-                                                int(max_out),
-                                                cuda_serializer.PLACEMENTS)
-    # an arena over the card's shared memory: device memory, never shared
+    # an arena over the card's shared memory goes to device memory: lc8
+    # lp4's size, on these streams and on lc8 lp4's own
     big = LzmaParams(lc=8, lp=4)
     big_arena = ProbLayout(big.lc, big.lp, big.pb, pos_bits=big.pb).size
-    limit = cuda_decoder.smem_limit(dev.index or 0)
+    limit = smem_limit(dev.index or 0)
     placed = (cuda_serializer.arena_placement(arena, limit),
               cuda_serializer.arena_placement(big_arena, limit))
     if placed != ("shared", "device"):
         raise AssertionError(f"K2 placements {placed} for arenas {arena}, "
                              f"{big_arena} under {limit} B")
+    k2_err, k_out, k_lens, _ = check_serializer(ctx, bits, totals, arena,
+                                                int(max_out), (big_arena,))
     b_ctx, b_bits, b_totals, b_max = lowered(blocks, big, dev)
     err, _, _, _ = check_serializer(b_ctx, b_bits, b_totals, big_arena,
                                     int(b_max))
     k2_err = max(k2_err, err)
-    before = cuda_serializer.LAUNCHES
-    try:
-        cuda_serializer.serialize_cuda(b_ctx, b_bits, b_totals, big_arena,
-                                       int(b_max), placement="shared")
-    except ValueError as e:
-        if cuda_serializer.LAUNCHES != before:
-            raise
-        refused = str(e)
-    else:
-        raise AssertionError("K2 took a shared arena the card cannot hold")
     del b_ctx, b_bits, b_totals
     log(f"[K2 vs plain] {CMP_LANES}x{CMP_BYTES}: bytes and lens equal with the "
-        f"arena ({arena} probabilities) in shared and in device memory; lc8 "
-        f"lp4 ({big_arena}) placed in device memory and equal; a shared one "
-        f"refused before a launch: {refused}")
+        f"arena ({arena} probabilities) in shared memory and, at lc8 lp4's "
+        f"size ({big_arena}), in device memory ({limit} B a block); lc8 lp4's "
+        f"own streams in device memory and equal")
     lens_h = k_lens.cpu().tolist()
     streams = [k_out[i, :lens_h[i]].cpu().numpy().tobytes() for i in range(len(blocks))]
     comp, comp_lens = pad_rows(streams, dev)

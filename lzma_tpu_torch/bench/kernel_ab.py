@@ -1,7 +1,6 @@
 """Time the DP scans (K3, K4) and the range encoder (K2) of this checkout
 against those of another checkout, on the main path's whole lanes, on one
-card, in turns; then each variant of K3 and K2 that puts one link of
-their first versions back, and K3's step split into parts by clock64.
+card, in turns.
 
     python -m lzma_tpu_torch.bench.kernel_ab OTHER_CHECKOUT
 
@@ -9,23 +8,23 @@ The inputs are chip_smoke.py's main path: text_part() +
 generate_bench_data(5 << 20), LzmaParams() defaults (lc3 lp0 pb2, fb 32),
 parse="optimal", 32 lanes of 256 KiB; an encode inside
 device_encoder.probing() records the last DP round's packed rows, tables
-and lens and the final (ctx, bit) streams.  OTHER_CHECKOUT's kernels are
-built by its own lzma_tpu_torch/runtime/build.py and called through the C
-interface K3 and K2 had before their redesign (lzt_dp_parse: 5 pointers,
-7 ints, a stream; lzt_rc_serialize: 7 pointers, 4 ints, a stream; K4's
-lzt_dp_parse2 is the same in both).  Each kernel is timed by CUDA events
-after a warm launch, in the order other, this, this, other; the two
-checkouts' outputs must be equal.  Needs a CUDA device and nvcc.  Prints
-the card (nvidia-smi name, power limit), then one JSON line.
+and lens and the final (ctx, bit) streams.  OTHER_CHECKOUT's package is
+loaded under another name and its kernels are built by its own
+runtime/build.py and called through its own wrappers
+(``ops.cuda_parser.dp_parse_cuda``, ``dp_parse2_cuda``,
+``ops.cuda_serializer.serialize_cuda``), whose signatures both checkouts
+share.  Each kernel is timed by CUDA events after a warm launch, in the
+order other, this, this, other; the two checkouts' outputs must be
+equal.  Needs a CUDA device and nvcc.  Prints the card (nvidia-smi name,
+power limit), then one JSON line.
 """
 
 from __future__ import annotations
 
-import ctypes
+import importlib
 import importlib.util
 import json
 import os
-import subprocess
 import sys
 
 import torch
@@ -34,43 +33,25 @@ from ..core.layout import ProbLayout
 from ..format.properties import LzmaParams
 from ..ops import api, cuda_parser, cuda_serializer
 from ..ops.device_encoder import probing
-from ..probes._cuda import clock_khz, event_ms
-from ..runtime import build
+from ..probes._cuda import card, event_ms
 from .corpus import text_part
 from .datagen import generate_bench_data
 
 BLOCK = 1 << 18
-P, I = ctypes.c_void_p, ctypes.c_int
-#: K3's and K2's variants (csrc/dp_parse.cu, csrc/rc_serializer.cu kVar)
-K3_VARIANTS = {"sync_rows": 1, "mod_rings": 2}
-K2_VARIANTS = {"direct_pairs": 1, "no_forward": 2}
-#: the parts of K3's step its span variant times, by slot of a lane's 16
-#: (csrc/dp_parse.cu lzt_dp_parse_spans)
-K3_SPANS = {"relax warp: loads": 0, "relax warp: relax": 1,
-            "relax warp: store, wait to the barrier": 3,
-            "finalize warp: node": 4, "finalize warp: flag prices": 5,
-            "finalize warp: literal edge and stores": 6,
-            "finalize warp: wait to the barrier": 7, "in all": 8}
+OTHER = "_kernel_ab_other"
 
 
-def _other_library(root: str) -> ctypes.CDLL:
-    path = os.path.join(root, "lzma_tpu_torch", "runtime", "build.py")
-    spec = importlib.util.spec_from_file_location("_other_build", path)
+def other_wrappers(root: str):
+    """OTHER_CHECKOUT's ops.cuda_parser and ops.cuda_serializer, its
+    package loaded as OTHER."""
+    pkg = os.path.join(os.path.abspath(root), "lzma_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        OTHER, os.path.join(pkg, "__init__.py"), submodule_search_locations=[pkg])
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[OTHER] = mod
     spec.loader.exec_module(mod)
-    return ctypes.CDLL(mod.build())
-
-
-def _fn(lib, name, argtypes):
-    fn = getattr(lib, name)
-    fn.argtypes = argtypes
-    fn.restype = I
-    return fn
-
-
-def _check(err, what):
-    if err:
-        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
+    return (importlib.import_module(f"{OTHER}.ops.cuda_parser"),
+            importlib.import_module(f"{OTHER}.ops.cuda_serializer"))
 
 
 def main_path_inputs(dev):
@@ -90,94 +71,39 @@ def main(argv=None) -> None:
         raise SystemExit(__doc__)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: no CUDA device")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    print(card.splitlines()[0], flush=True)
+    name = card().splitlines()[0]
+    print(name, flush=True)
     dev = torch.device("cuda", 0)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    this, other = build.load(), _other_library(argv[0])
+    o_parser, o_serializer = other_wrappers(argv[0])
     params = LzmaParams()
     fb, pb = params.fast_bytes, params.pb
     arena = ProbLayout(params.lc, params.lp, pb, pos_bits=pb).size
     (packed, tables, lens), (ctx, bits, totals) = main_path_inputs(dev)
-    L, N, C = packed.shape
-    nb = ctx.shape[1]
+    L, N, _ = packed.shape
     max_out = BLOCK + BLOCK // 4 + 128
-
-    def scan(lib_fn, extra=()):
-        out = (torch.empty((L, N + 1), dtype=torch.int32, device=dev),
-               torch.empty((L, N + 1), dtype=torch.int32, device=dev))
-        _check(lib_fn(packed.data_ptr(), tables.data_ptr(), lens.data_ptr(),
-                      out[0].data_ptr(), out[1].data_ptr(), L, N, C,
-                      (C - 5) // 6, fb, pb, tables.shape[1], *extra, stream),
-               "scan")
-        return out
-
-    def code(lib_fn, shared, extra=()):
-        probs = None if shared else torch.empty((L, arena), dtype=torch.int16,
-                                                device=dev)
-        out = torch.zeros((L, max_out), dtype=torch.uint8, device=dev)
-        lens_o = torch.empty((L,), dtype=torch.int32, device=dev)
-        consumed = torch.empty((L,), dtype=torch.int32, device=dev)
-        _check(lib_fn(ctx.data_ptr(), bits.data_ptr(), totals.data_ptr(),
-                      None if probs is None else probs.data_ptr(),
-                      out.data_ptr(), lens_o.data_ptr(), consumed.data_ptr(),
-                      L, nb, arena, max_out, *extra, stream), "rc_serialize")
-        return out, lens_o, consumed
-
-    plan = cuda_parser.dp_parse_plan(fb, pb, C)[1:]
-    k3_var = _fn(this, "lzt_dp_parse_variant", [P] * 5 + [I] * 11 + [P])
-    k3 = {"other": lambda: scan(_fn(other, "lzt_dp_parse", [P] * 5 + [I] * 7 + [P])),
-          "this": lambda: scan(k3_var, (*plan, 0))}
-    k4 = {name: (lambda lib=lib: scan(_fn(lib, "lzt_dp_parse2", [P] * 5 + [I] * 7 + [P])))
-          for name, lib in (("other", other), ("this", this))}
-    k2_var = _fn(this, "lzt_rc_serialize_variant", [P] * 7 + [I] * 7 + [P])
-    smem = {pl: cuda_serializer.smem_bytes(pl, arena) for pl in cuda_serializer.PLACEMENTS}
-    k2 = {"other": lambda: code(_fn(other, "lzt_rc_serialize", [P] * 7 + [I] * 4 + [P]), False),
-          "this": lambda: code(k2_var, True, (1, smem["shared"], 0))}
-
-    result = {"card": card.splitlines()[0], "lanes": L, "positions": N,
+    scan = (packed, tables, lens, fb, pb)
+    code = (ctx, bits, totals, arena, max_out)
+    kernels = {
+        "dp_parse": {"other": lambda: o_parser.dp_parse_cuda(*scan),
+                     "this": lambda: cuda_parser.dp_parse_cuda(*scan)},
+        "dp_parse2": {"other": lambda: o_parser.dp_parse2_cuda(*scan),
+                      "this": lambda: cuda_parser.dp_parse2_cuda(*scan)},
+        "rc_serialize": {"other": lambda: o_serializer.serialize_cuda(*code),
+                         "this": lambda: cuda_serializer.serialize_cuda(*code)},
+    }
+    result = {"card": name, "lanes": L, "positions": N,
               "pairs_longest_lane": int(totals.max()), "pairs": int(totals.sum())}
-    for name, fns in (("dp_parse", k3), ("dp_parse2", k4), ("rc_serialize", k2)):
+    for kernel, fns in kernels.items():
         outs = {k: fn() for k, fn in fns.items()}
         if not all(torch.equal(a, b) for a, b in zip(outs["other"], outs["this"])):
-            raise AssertionError(f"{name}: this checkout's output differs from the other's")
+            raise AssertionError(f"{kernel}: this checkout's output differs "
+                                 "from the other's")
         del outs
-        reps = 2 if name != "rc_serialize" else 3
+        reps = 3 if kernel == "rc_serialize" else 2
         times = {k: [] for k in fns}
         for k in ("other", "this", "this", "other"):
             times[k].append(event_ms(fns[k], reps))
-        result[name] = times
-    # each variant on the same inputs, its output equal to the kernel's
-    want = k3["this"]()
-    for var, v in K3_VARIANTS.items():
-        fn = lambda v=v: scan(k3_var, (*plan, v))
-        if not all(torch.equal(a, b) for a, b in zip(fn(), want)):
-            raise AssertionError(f"dp_parse variant {var} differs")
-        result[f"dp_parse {var}"] = event_ms(fn, 2)
-    # K3's step in parts: cycles a step summed over the lanes' steps, and
-    # ns at the clock rate the card reports
-    spans = torch.zeros((L, 16), dtype=torch.int64, device=dev)
-    k3_spans = _fn(this, "lzt_dp_parse_spans", [P] * 5 + [I] * 10 + [P, P])
-    if not all(torch.equal(a, b) for a, b in zip(
-            scan(k3_spans, (*plan, spans.data_ptr())), want)):
-        raise AssertionError("dp_parse spans differs")
-    per_step = spans.double().sum(0) / (L * N)
-    khz = clock_khz(0)
-    result["dp_parse spans"] = {
-        "clock_khz": khz,
-        "cycles_a_step": {k: float(per_step[i]) for k, i in K3_SPANS.items()},
-        "ns_a_step": {k: float(per_step[i]) * 1e6 / khz
-                      for k, i in K3_SPANS.items()}}
-    want = k2["this"]()
-    for pl in cuda_serializer.PLACEMENTS:
-        for var, v in {"full": 0, **K2_VARIANTS}.items():
-            fn = lambda pl=pl, v=v: code(k2_var, pl == "shared",
-                                         (int(pl == "shared"), smem[pl], v))
-            if not all(torch.equal(a, b) for a, b in zip(fn(), want)):
-                raise AssertionError(f"rc_serialize {pl} {var} differs")
-            result[f"rc_serialize {pl} {var}"] = event_ms(fn, 3)
+        result[kernel] = times
     print(json.dumps(result), flush=True)
 
 

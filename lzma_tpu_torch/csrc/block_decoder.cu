@@ -69,15 +69,6 @@ __global__ void block_decode_kernel(const uint8_t* __restrict__ comp,
 
 }  // namespace
 
-// The opt-in shared memory one block may use on `device`, in bytes, or
-// a negative CUDA error.
-extern "C" int lzt_block_decode_smem_limit(int device) {
-  int v = 0;
-  cudaError_t err = cudaDeviceGetAttribute(
-      &v, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  return err == cudaSuccess ? v : -static_cast<int>(err);
-}
-
 extern "C" int lzt_block_decode(const uint8_t* comp, const int* comp_lens,
                                 const int* out_sizes, const uint8_t* preset,
                                 int preset_len, uint8_t* out, bool* ok,

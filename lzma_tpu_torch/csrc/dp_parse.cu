@@ -47,11 +47,6 @@
 //   - computes the relax and the finalize without branches, M a
 //     compile-time bound.
 // The step is then ~870 cycles, the two warps' halves about even.
-// Variants (kVar, timing only, through lzt_dp_parse_variant) put one
-// link back: kSyncRows reads each row from device memory inside the step
-// (no tiles), kModRings indexes the rings by `%` of their run-time
-// sizes; kSpans (lzt_dp_parse_spans) sums clock64 cycles over the parts
-// of a step, for both warps' halves.
 // Tie order is the plain version's: into slot s every match/rep edge from
 // nodes s-fb..s-2 in node order (pairs m = 0..M-1, then the rep0 source,
 // strict `<`, the first equal rep index), then the literal/shortRep edge
@@ -69,11 +64,6 @@ constexpr int kShortRep = 5;
 constexpr int kTileLog = 6;
 constexpr int kTile = 1 << kTileLog;  // rows a tile (cuda_parser.TILE_ROWS)
 constexpr int kNodeVals = 16;         // a node's relax terms (9 used)
-constexpr int kFull = 0;
-constexpr int kSyncRows = 1;
-constexpr int kModRings = 2;
-constexpr int kSpans = 3;
-constexpr int kNumSpans = 16;  // a lane's span slots (lzt_dp_parse_spans)
 constexpr int kMaxPairs = 16;  // M a row at most (cuda_parser.MAX_PAIRS)
 constexpr int kSplitFb = 65;   // fb a lane a pair takes (cuda_parser.SPLIT_FB)
 
@@ -104,42 +94,19 @@ __device__ __forceinline__ void stage_tile(int* buf, const int* src, int t,
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// kSpans: the clock once `x` is ready.  The volatile store of x has to
-// issue first, and a warp issues in order, so the read waits for x.
-template <int kVar>
-__device__ __forceinline__ long long mark(volatile int* sink, int x) {
-  if constexpr (kVar == kSpans) {
-    *sink = x;
-    return clock64();
-  } else {
-    return 0;
-  }
-}
-
-// x mod a ring of size mask + 1, x >= -(mask + 1)
-template <int kVar>
-__device__ __forceinline__ int ring(int x, int mask) {
-  if constexpr (kVar == kModRings) {
-    return (x + mask + 1) % (mask + 1);
-  } else {
-    return x & mask;
-  }
-}
-
 // The block: threads [0, n_relax) relax, kSplit a length 2..fb (n_relax
 // = kSplit * W rounded up to warps); the last warp finalizes.  kMaxM
 // bounds the pairs a row holds at compile time (M_DP = 4 on the route).
 // kSplit 4 (fb <= 65, M <= 4): a lane a pair, the length's best by a
 // shuffle reduction; kSplit 1: a thread a length, its pairs in turn.
-template <int kVar, int kMaxM, int kSplit>
+template <int kMaxM, int kSplit>
 __global__ void dp_parse_kernel(const int* __restrict__ packed,
                                 const int* __restrict__ tables,
                                 const int* __restrict__ lens,
                                 int* __restrict__ out_from,
                                 int* __restrict__ out_choice, int n_pos,
                                 int C, int M, int fb, int pb, int tab_size,
-                                int b_mask, int h_mask,
-                                long long* __restrict__ spans) {
+                                int b_mask, int h_mask) {
   extern __shared__ int smem[];
   const int lane = blockIdx.x;
   const int tid = threadIdx.x;
@@ -176,9 +143,7 @@ __global__ void dp_parse_kernel(const int* __restrict__ packed,
   const int len = lens[lane];
   const int tile_ints = kTile * C;
 
-  if (n_pos > 0 && kVar != kSyncRows) {
-    stage_tile(rows, src, 0, n_pos, C, tid, nth);
-  }
+  if (n_pos > 0) stage_tile(rows, src, 0, n_pos, C, tid, nth);
   for (int k = tid; k < tab_size; k += nth) tab[k] = lane_tab[k];
   for (int k = tid; k < B; k += nth) {
     bp[k] = k == 0 ? 0 : kInf;
@@ -190,23 +155,10 @@ __global__ void dp_parse_kernel(const int* __restrict__ packed,
   async_wait();
   __syncthreads();
 
-  // row j of the lane: in its tile, or (kSyncRows) in device memory
+  // row j of the lane, in its tile
   auto row_at = [&](int j) -> const int* {
-    if constexpr (kVar == kSyncRows) {
-      return src + static_cast<size_t>(j) * C;
-    } else {
-      return rows + ((j >> kTileLog) & 1) * tile_ints + (j & (kTile - 1)) * C;
-    }
+    return rows + ((j >> kTileLog) & 1) * tile_ints + (j & (kTile - 1)) * C;
   };
-
-  // kSpans: a lane's cycles; the sink the marks store to
-  long long acc[4] = {0, 0, 0, 0};
-  long long t_end = 0;
-  volatile int* sink = kVar == kSpans
-      ? reinterpret_cast<volatile int*>(spans + static_cast<size_t>(lane) * kNumSpans +
-                                        kNumSpans - 1)
-      : nullptr;
-  const long long t_start = kVar == kSpans ? clock64() : 0;
 
   // ---------------------------------------------------------------- finalize
   // The finalize warp's state: node j-1 and the literal/shortRep edge out
@@ -218,14 +170,13 @@ __global__ void dp_parse_kernel(const int* __restrict__ packed,
   // history entry and its relax terms (nv[j & 1]), retires slot j-1, and
   // holds the edge out of it.
   auto finalize = [&](int j) {
-    const long long f0 = kVar == kSpans ? clock64() : 0;
     // row j's literal terms, loaded first (row n_pos does not exist)
     const int* row = row_at(min(j, n_pos - 1));
     const bool live = j < len;
     const int lit = live ? row[6 * M] : 0, mlit = live ? row[6 * M + 1] : 0;
     const int r0p = live ? row[6 * M + 2] : 0;
     const bool sr_eq = live && row[6 * M + 4] > 0;
-    const int s = ring<kVar>(j, b_mask);
+    const int s = j & b_mask;
     const int pp = bp[s], pd = bf[s], pc = bc[s], pk = bk[s];
     const bool lw = lit_p < pp;
     const int p_j = lw ? lit_p : pp;
@@ -235,7 +186,7 @@ __global__ void dp_parse_kernel(const int* __restrict__ packed,
     // the predecessor is node j-1 for a step of 1 (and for an unreached
     // node, as the plain version's clamp gives), else its history entry
     const bool near = lw || pd < 2;
-    const int hs = ring<kVar>(j - max(pd, 2), h_mask);
+    const int hs = (j - max(pd, 2)) & h_mask;
     const int sp = near ? st1 : hst[hs];
     const int a0 = near ? q0 : hrp[4 * hs], a1 = near ? q1 : hrp[4 * hs + 1];
     const int a2 = near ? q2 : hrp[4 * hs + 2], a3 = near ? q3 : hrp[4 * hs + 3];
@@ -252,7 +203,6 @@ __global__ void dp_parse_kernel(const int* __restrict__ packed,
     int r2 = ((is_rep && kk >= 2) || is_m) ? a1 : a2;
     int r3 = ((is_rep && kk >= 3) || is_m) ? a2 : a3;
     if (j == 0) st = r0 = r1 = r2 = r3 = 0;
-    const long long f1 = mark<kVar>(sink, st ^ r0 ^ r1 ^ r2 ^ r3);
 
     // node j's flag prices: the one lookup by state
     const int ps = j & (n_ps - 1);
@@ -262,7 +212,6 @@ __global__ void dp_parse_kernel(const int* __restrict__ packed,
     const int f_ir0 = ir0[st], f_ir1 = ir1[st];
     const int sel0 = sel[st];
     const int rep_head = p_j + f_im1 + f_ir1;
-    const long long f2 = mark<kVar>(sink, rep_head ^ f_im0 ^ f_r0l0 ^ f_r0l1 ^ f_ir0);
 
     // the literal / shortRep edge -> node j+1, held until node j+1
     {
@@ -289,7 +238,7 @@ __global__ void dp_parse_kernel(const int* __restrict__ packed,
       v[6] = r1;
       v[7] = r2;
       v[8] = r3;
-      const int hw = ring<kVar>(j, h_mask);
+      const int hw = j & h_mask;
       hst[hw] = st;
       hrp[4 * hw] = r0;
       hrp[4 * hw + 1] = r1;
@@ -298,7 +247,7 @@ __global__ void dp_parse_kernel(const int* __restrict__ packed,
       if (j > 0) {
         // slot j-1 was read in the previous step; it becomes node j-1+B,
         // beyond this step's relax window j+1..j-1+fb
-        const int sr = ring<kVar>(j - 1, b_mask);
+        const int sr = (j - 1) & b_mask;
         bp[sr] = kInf;
         bf[sr] = 0;
         bc[sr] = -1;
@@ -311,13 +260,6 @@ __global__ void dp_parse_kernel(const int* __restrict__ packed,
     q1 = r1;
     q2 = r2;
     q3 = r3;
-    if constexpr (kVar == kSpans) {
-      const long long f3 = mark<kVar>(sink, lit_p ^ lit_c ^ lit_k);
-      acc[0] += f1 - f0;
-      acc[1] += f2 - f1;
-      acc[2] += f3 - f2;
-      t_end = f3;
-    }
   };
 
   // ------------------------------------------------------------------- relax
@@ -330,10 +272,9 @@ __global__ void dp_parse_kernel(const int* __restrict__ packed,
   // Node i's edges of this thread's length into slot i+l: pairs m =
   // 0..M-1 then the rep0 source, strict `<`, without branches.
   auto relax = [&](int i) {
-    const long long r0t = kVar == kSpans ? clock64() : 0;
     const int* row = row_at(i);
     const int* v = nv + (i & 1) * kNodeVals;
-    const int sl = ring<kVar>(i + l, b_mask);
+    const int sl = (i + l) & b_mask;
     const int cur = relaxes ? bp[sl] : kInf;
     const int ps = i & (n_ps - 1);
     const int rem = len - i;
@@ -342,7 +283,6 @@ __global__ void dp_parse_kernel(const int* __restrict__ packed,
     const int lt_r = ltr[ps * W + lw2];
     const int mbase = v[0], rb0 = v[1], rb1 = v[2], rb2 = v[3], rb3 = v[4];
     const int r0 = v[5], r1 = v[6], r2 = v[7], r3 = v[8];
-    const long long r1t = mark<kVar>(sink, mbase ^ rb3 ^ r3 ^ cur);
     int best = kInf, bdist = 0, bkind = kMatch;
     // pair m's edge of this length: its price, or kInf where it cannot
     // relax; its distance and kind
@@ -395,17 +335,11 @@ __global__ void dp_parse_kernel(const int* __restrict__ packed,
     best = better0 ? cost0 : best;
     bdist = better0 ? r0p : bdist;
     bkind = better0 ? 0 : bkind;
-    const long long r2t = mark<kVar>(sink, best ^ bdist ^ bkind);
     if (pm == 0 && best < cur) {
       bp[sl] = best;
       bf[sl] = l;
       bc[sl] = max(bdist, 0);
       bk[sl] = bkind;
-    }
-    if constexpr (kVar == kSpans) {
-      acc[0] += r1t - r0t;
-      acc[1] += r2t - r1t;
-      t_end = r2t;
     }
   };
 
@@ -413,12 +347,10 @@ __global__ void dp_parse_kernel(const int* __restrict__ packed,
   if (finalizer) finalize(0);
   __syncthreads();
   for (int i = 0; i < n_pos; ++i) {
-    if constexpr (kVar != kSyncRows) {
-      const int t = i >> kTileLog;
-      if ((i & (kTile - 1)) == 0 && ((t + 1) << kTileLog) < n_pos) {
-        stage_tile(rows + ((t + 1) & 1) * tile_ints, src, t + 1, n_pos, C,
-                   tid, nth);
-      }
+    const int t = i >> kTileLog;
+    if ((i & (kTile - 1)) == 0 && ((t + 1) << kTileLog) < n_pos) {
+      stage_tile(rows + ((t + 1) & 1) * tile_ints, src, t + 1, n_pos, C, tid,
+                 nth);
     }
     if (finalizer) {
       finalize(i + 1);
@@ -427,46 +359,27 @@ __global__ void dp_parse_kernel(const int* __restrict__ packed,
     }
     // the tile of row i+2 (read by the next step's finalize), issued at
     // its predecessor's first step, has landed
-    if (kVar != kSyncRows && ((i + 2) & (kTile - 1)) == 0) async_wait();
-    if constexpr (kVar == kSpans) {
-      const long long t = clock64();
-      acc[3] += t - t_end;  // from the half's last result to the barrier
-    }
+    if (((i + 2) & (kTile - 1)) == 0) async_wait();
     __syncthreads();
-  }
-  if constexpr (kVar == kSpans) {
-    // slots: relax warp's lane 0 in 0..3 (loads, relax, -, to barrier),
-    // the finalize warp's lane 0 in 4..7 (node, flag prices, literal edge
-    // and stores, to barrier), the lane's cycles in all at 8
-    const long long total = clock64() - t_start;
-    long long* o = spans + static_cast<size_t>(lane) * kNumSpans;
-    if (tid == 0) {
-      for (int k = 0; k < 4; ++k) o[k] = acc[k];
-      o[8] = total;
-    }
-    if (tid == n_relax) {
-      for (int k = 0; k < 4; ++k) o[4 + k] = acc[k];
-    }
   }
 }
 
 bool is_pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
 
-template <int kVar, int kMaxM, int kSplit>
+template <int kMaxM, int kSplit>
 int launch(const int* packed, const int* tables, const int* lens,
            int* out_from, int* out_choice, int n_lanes, int n_pos, int C,
            int M, int fb, int pb, int tab_size, int b, int h, int smem_bytes,
-           cudaStream_t stream, long long* spans = nullptr) {
+           cudaStream_t stream) {
   const int threads = ((kSplit * (fb - 1) + 31) / 32) * 32 + 32;
   cudaError_t err = cudaFuncSetAttribute(
-      dp_parse_kernel<kVar, kMaxM, kSplit>,
+      dp_parse_kernel<kMaxM, kSplit>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_lanes > 0) {
-    dp_parse_kernel<kVar, kMaxM, kSplit><<<n_lanes, threads, smem_bytes,
-                                           stream>>>(
+    dp_parse_kernel<kMaxM, kSplit><<<n_lanes, threads, smem_bytes, stream>>>(
         packed, tables, lens, out_from, out_choice, n_pos, C, M, fb, pb,
-        tab_size, b - 1, h - 1, spans);
+        tab_size, b - 1, h - 1);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -484,57 +397,20 @@ bool plan_ok(int C, int M, int fb, int tab_size, int b, int h,
 
 // smem_bytes, b and h are cuda_parser.dp_parse_plan's: the launch is
 // refused (cudaErrorInvalidValue) unless they are the layout above.
-// variant: 0 the kernel; timing only (M <= 4, fb <= 65), 1 kSyncRows,
-// 2 kModRings.
-extern "C" int lzt_dp_parse_variant(const int* packed, const int* tables,
-                                    const int* lens, int* out_from,
-                                    int* out_choice, int n_lanes, int n_pos,
-                                    int C, int M, int fb, int pb,
-                                    int tab_size, int b, int h,
-                                    int smem_bytes, int variant,
-                                    void* stream) {
-  if (!plan_ok(C, M, fb, tab_size, b, h, smem_bytes) || variant < 0 ||
-      variant > 2 || (variant != 0 && (M > 4 || fb > kSplitFb))) {
+extern "C" int lzt_dp_parse(const int* packed, const int* tables,
+                            const int* lens, int* out_from, int* out_choice,
+                            int n_lanes, int n_pos, int C, int M, int fb,
+                            int pb, int tab_size, int b, int h,
+                            int smem_bytes, void* stream) {
+  if (!plan_ok(C, M, fb, tab_size, b, h, smem_bytes)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define LZT_DP_ARGS                                                        \
   packed, tables, lens, out_from, out_choice, n_lanes, n_pos, C, M, fb, pb, \
       tab_size, b, h, smem_bytes, s
-  if (M > 4) return launch<kFull, kMaxPairs, 1>(LZT_DP_ARGS);
-  if (fb > kSplitFb) return launch<kFull, 4, 1>(LZT_DP_ARGS);
-  if (variant == kSyncRows) return launch<kSyncRows, 4, 4>(LZT_DP_ARGS);
-  if (variant == kModRings) return launch<kModRings, 4, 4>(LZT_DP_ARGS);
-  return launch<kFull, 4, 4>(LZT_DP_ARGS);
+  if (M > 4) return launch<kMaxPairs, 1>(LZT_DP_ARGS);
+  if (fb > kSplitFb) return launch<4, 1>(LZT_DP_ARGS);
+  return launch<4, 4>(LZT_DP_ARGS);
 #undef LZT_DP_ARGS
-}
-
-extern "C" int lzt_dp_parse(const int* packed, const int* tables,
-                            const int* lens, int* out_from, int* out_choice,
-                            int n_lanes, int n_pos, int C, int M, int fb,
-                            int pb, int tab_size, int b, int h,
-                            int smem_bytes, void* stream) {
-  return lzt_dp_parse_variant(packed, tables, lens, out_from, out_choice,
-                              n_lanes, n_pos, C, M, fb, pb, tab_size, b, h,
-                              smem_bytes, kFull, stream);
-}
-
-// Timing only: K3 with its clock64 spans (M <= 4, fb <= 65).  spans: n_lanes x 16
-// int64, a lane's cycles summed over its steps: the relax warp's loads,
-// relax and wait for the barrier in 0, 1, 3; the finalize warp's node,
-// flag prices, literal edge and stores, and wait in 4..7; in all at 8.
-extern "C" int lzt_dp_parse_spans(const int* packed, const int* tables,
-                                  const int* lens, int* out_from,
-                                  int* out_choice, int n_lanes, int n_pos,
-                                  int C, int M, int fb, int pb, int tab_size,
-                                  int b, int h, int smem_bytes,
-                                  long long* spans, void* stream) {
-  if (!plan_ok(C, M, fb, tab_size, b, h, smem_bytes) || M > 4 ||
-      fb > kSplitFb || spans == nullptr) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return launch<kSpans, 4, 4>(packed, tables, lens, out_from, out_choice,
-                           n_lanes, n_pos, C, M, fb, pb, tab_size, b, h,
-                           smem_bytes, static_cast<cudaStream_t>(stream),
-                           spans);
 }

@@ -38,10 +38,6 @@
 //     shared base in a register (read once through a volatile load) and
 //     unrolls the loop so that the values rotate without moves.
 // That is ~50 ns a pair.  Output bytes are direct stores, off the chain.
-// Variants (kVar, timing only, through lzt_rc_serialize_variant) put one
-// link back: kDirectPairs loads each pair from device memory on the
-// chain (no tiles), kNoForward loads a pair's probability only after the
-// previous pair's store.
 //
 // ctx >= 0: adaptive bit at that arena slot; ctx == -1: direct bit; any
 // other ctx inside `totals` consumes a step and codes nothing.  A lane
@@ -56,9 +52,6 @@ namespace {
 constexpr int kThreads = 32;
 constexpr int kTileLog = 10;
 constexpr int kTile = 1 << kTileLog;  // pairs a tile (cuda_serializer.TILE)
-constexpr int kFull = 0;
-constexpr int kDirectPairs = 1;
-constexpr int kNoForward = 2;
 
 struct Enc {
   uint64_t low;
@@ -167,7 +160,7 @@ __device__ __forceinline__ void stage_tile(uint32_t buf, const int* cx,
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-template <bool kShared, int kVar>
+template <bool kShared>
 __global__ void __launch_bounds__(kThreads)
     rc_serialize_kernel(const int* __restrict__ ctx,
                         const int* __restrict__ bits,
@@ -204,8 +197,7 @@ __global__ void __launch_bounds__(kThreads)
   // pairs read from the rows; past n_bits the last pair repeats, as the
   // plain version clamps its index
   const int n_rows = min(total, n_bits);
-  const int n_tiles =
-      kVar == kDirectPairs ? 0 : (n_rows + kTile - 1) >> kTileLog;
+  const int n_tiles = (n_rows + kTile - 1) >> kTileLog;
 
   if (n_tiles > 0) stage_tile(tiles, cx, bt, 0, n_rows, tid);
   for (int k = tid; k < arena_size; k += kThreads) p[k] = 1024;
@@ -223,52 +215,36 @@ __global__ void __launch_bounds__(kThreads)
       const uint32_t sc = tiles + 4u * 2 * kTile * (t & 1);
       const uint32_t sb = sc + 4u * kTile;
       const int n = min(kTile, n_rows - (t << kTileLog));
-      if constexpr (kVar == kNoForward) {
-        for (int j = 0; j < n; ++j) {
-          const int c = lds32(sc + 4u * j);
-          const uint32_t upd = e.step(c, lds32(sb + 4u * j),
-                                      arena.load(max(c, 0)));
-          if (c >= 0) arena.store(c, upd);
-        }
-      } else {
-        // pair j codes while pair j+1's probability and pair j+2 load;
-        // the probability is read before pair j's store and takes its
-        // value when both pairs share a slot
-        int c = lds32(sc), b = lds32(sb);
-        const int j1 = min(1, n - 1);
-        int cn = lds32(sc + 4u * j1), bn = lds32(sb + 4u * j1);
-        uint32_t pr = arena.load(max(c, 0));
-        // unrolled, so that the values rotate through registers without
-        // moves, a move of a just-loaded value being a wait for the load
+      // pair j codes while pair j+1's probability and pair j+2 load;
+      // the probability is read before pair j's store and takes its
+      // value when both pairs share a slot
+      int c = lds32(sc), b = lds32(sb);
+      const int j1 = min(1, n - 1);
+      int cn = lds32(sc + 4u * j1), bn = lds32(sb + 4u * j1);
+      uint32_t pr = arena.load(max(c, 0));
+      // unrolled, so that the values rotate through registers without
+      // moves, a move of a just-loaded value being a wait for the load
 #pragma unroll 4
-        for (int j = 0; j < n; ++j) {
-          const int j2 = min(j + 2, n - 1);
-          const int c2 = lds32(sc + 4u * j2), b2 = lds32(sb + 4u * j2);
-          uint32_t prn = arena.load(max(cn, 0));
-          const uint32_t upd = e.step(c, b, pr);
-          if (c >= 0) {
-            arena.store(c, upd);
-            if (cn == c) prn = upd;
-          }
-          c = cn;
-          b = bn;
-          cn = c2;
-          bn = b2;
-          pr = prn;
+      for (int j = 0; j < n; ++j) {
+        const int j2 = min(j + 2, n - 1);
+        const int c2 = lds32(sc + 4u * j2), b2 = lds32(sb + 4u * j2);
+        uint32_t prn = arena.load(max(cn, 0));
+        const uint32_t upd = e.step(c, b, pr);
+        if (c >= 0) {
+          arena.store(c, upd);
+          if (cn == c) prn = upd;
         }
+        c = cn;
+        b = bn;
+        cn = c2;
+        bn = b2;
+        pr = prn;
       }
     }
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     __syncwarp();
   }
   if (tid != 0) return;
-  if constexpr (kVar == kDirectPairs) {
-    for (int i = 0; i < n_rows; ++i) {
-      const int c = cx[i];
-      const uint32_t upd = e.step(c, bt[i], arena.load(max(c, 0)));
-      if (c >= 0) arena.store(c, upd);
-    }
-  }
   if (total > n_rows && n_bits > 0) {
     const int c = cx[n_bits - 1], b = bt[n_bits - 1];
     for (int i = n_rows; i < total; ++i) {
@@ -281,17 +257,17 @@ __global__ void __launch_bounds__(kThreads)
   consumed[lane] = e.overflow ? -1 : total;
 }
 
-template <bool kShared, int kVar>
+template <bool kShared>
 int launch(const int* ctx, const int* bits, const int* totals,
            uint16_t* probs, uint8_t* out, int* lens, int* consumed,
            int n_lanes, int n_bits, int arena_size, int max_out,
            int smem_bytes, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      rc_serialize_kernel<kShared, kVar>,
+      rc_serialize_kernel<kShared>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_lanes > 0) {
-    rc_serialize_kernel<kShared, kVar><<<n_lanes, kThreads, smem_bytes,
+    rc_serialize_kernel<kShared><<<n_lanes, kThreads, smem_bytes,
                                          stream>>>(
         ctx, bits, totals, probs, out, lens, consumed, n_bits, arena_size,
         max_out);
@@ -304,47 +280,24 @@ int launch(const int* ctx, const int* bits, const int* totals,
 // shared != 0 puts the arena in shared memory (probs unused), else in
 // `probs` (n_lanes x arena_size uint16).  smem_bytes is
 // cuda_serializer.smem_bytes's: the launch is refused
-// (cudaErrorInvalidValue) unless it is the layout above.  variant: 0 the
-// kernel; timing only, 1 kDirectPairs, 2 kNoForward.
-extern "C" int lzt_rc_serialize_variant(const int* ctx, const int* bits,
-                                        const int* totals, uint16_t* probs,
-                                        uint8_t* out, int* lens,
-                                        int* consumed, int n_lanes,
-                                        int n_bits, int arena_size,
-                                        int max_out, int shared,
-                                        int smem_bytes, int variant,
-                                        void* stream) {
-  const long long tiles = 4LL * 4 * kTile;
-  const long long need =
-      tiles + (shared ? (2LL * arena_size + 15) / 16 * 16 : 0);
-  if (need != smem_bytes || (!shared && probs == nullptr) || variant < 0 ||
-      variant > 2) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define LZT_RC_ARGS                                                      \
-  ctx, bits, totals, probs, out, lens, consumed, n_lanes, n_bits,        \
-      arena_size, max_out, smem_bytes, s
-  if (variant == kDirectPairs) {
-    return shared ? launch<true, kDirectPairs>(LZT_RC_ARGS)
-                  : launch<false, kDirectPairs>(LZT_RC_ARGS);
-  }
-  if (variant == kNoForward) {
-    return shared ? launch<true, kNoForward>(LZT_RC_ARGS)
-                  : launch<false, kNoForward>(LZT_RC_ARGS);
-  }
-  return shared ? launch<true, kFull>(LZT_RC_ARGS)
-                : launch<false, kFull>(LZT_RC_ARGS);
-#undef LZT_RC_ARGS
-}
-
+// (cudaErrorInvalidValue) unless it is the layout above.
 extern "C" int lzt_rc_serialize(const int* ctx, const int* bits,
                                 const int* totals, uint16_t* probs,
                                 uint8_t* out, int* lens, int* consumed,
                                 int n_lanes, int n_bits, int arena_size,
                                 int max_out, int shared, int smem_bytes,
                                 void* stream) {
-  return lzt_rc_serialize_variant(ctx, bits, totals, probs, out, lens,
-                                  consumed, n_lanes, n_bits, arena_size,
-                                  max_out, shared, smem_bytes, kFull, stream);
+  const long long tiles = 4LL * 4 * kTile;
+  const long long need =
+      tiles + (shared ? (2LL * arena_size + 15) / 16 * 16 : 0);
+  if (need != smem_bytes || (!shared && probs == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return shared ? launch<true>(ctx, bits, totals, probs, out, lens, consumed,
+                               n_lanes, n_bits, arena_size, max_out,
+                               smem_bytes, s)
+                : launch<false>(ctx, bits, totals, probs, out, lens,
+                                consumed, n_lanes, n_bits, arena_size,
+                                max_out, smem_bytes, s);
 }

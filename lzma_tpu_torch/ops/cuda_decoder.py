@@ -23,6 +23,7 @@ import torch
 from ..core.layout import ProbLayout
 from ..format.properties import LzmaParams
 from ..runtime import build
+from ..runtime.card import smem_limit
 from .cuda_ring import _LAYOUT_FIELDS, _Layout, _check
 from .device_decoder import _decode_fsm, decode_lanes
 
@@ -52,19 +53,6 @@ def _kernel():
                    + [_Layout, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
-
-
-@functools.cache
-def smem_limit(device_index: int) -> int:
-    """The card's opt-in shared memory per block, in bytes
-    (cudaDevAttrMaxSharedMemoryPerBlockOptin)."""
-    fn = build.load().lzt_block_decode_smem_limit
-    fn.argtypes = [ctypes.c_int]
-    fn.restype = ctypes.c_int
-    v = fn(device_index)
-    if v <= 0:
-        raise RuntimeError(f"shared memory limit query failed: CUDA error {-v}")
-    return v
 
 
 def decode_resident(comp, comp_lens, out_sizes, dict_size: int, lc: int,

@@ -21,7 +21,7 @@ import functools
 import torch
 
 from ..runtime import build
-from .cuda_decoder import smem_limit
+from ..runtime.card import smem_limit
 from .device_encoder import serialize
 
 #: kernel launches made through serialize_cuda since the count was last set
@@ -71,16 +71,14 @@ def _check(ctx, bits, totals):
             raise ValueError(f"{name} must be contiguous")
 
 
-def serialize_cuda(ctx, bits, totals, arena_size: int, max_out: int,
-                   placement: str | None = None):
+def serialize_cuda(ctx, bits, totals, arena_size: int, max_out: int):
     """Range-code per-lane (ctx, bit) streams.  ctx, bits: (N, B) int32;
     totals: (N,) int32.  ctx >= 0 is an adaptive slot, -1 a direct bit,
     anything else a step that codes nothing.  Returns (out (N, max_out)
     uint8, lens (N,) int32, consumed (N,) int32): consumed is -1 for a
-    lane whose output would pass max_out, else totals.  `placement`
-    ("shared" or "device") puts the arena there; None takes
-    ``arena_placement`` for this card.  A "shared" arena the card cannot
-    hold raises ValueError."""
+    lane whose output would pass max_out, else totals.  The arena goes
+    where ``arena_placement`` puts `arena_size` probabilities on this
+    card."""
     global LAUNCHES
     if ctx.device.type == "cpu":
         out, lens = serialize(ctx, bits, totals, arena_size, max_out)
@@ -93,12 +91,8 @@ def serialize_cuda(ctx, bits, totals, arena_size: int, max_out: int,
     dev = ctx.device
     limit = smem_limit(dev.index if dev.index is not None
                        else torch.cuda.current_device())
-    if placement is None:
-        placement = arena_placement(arena_size, limit)
+    placement = arena_placement(arena_size, limit)
     smem = smem_bytes(placement, arena_size)
-    if smem > limit:
-        raise ValueError(f"an arena of {arena_size} probabilities needs {smem} "
-                         f"B of shared memory and the card gives a block {limit} B")
     shared = placement == "shared"
     probs = None if shared else torch.empty((n, arena_size), dtype=torch.int16,
                                             device=dev)

@@ -28,7 +28,7 @@ from collections import Counter
 
 import torch
 
-from ..ops.cuda_decoder import smem_limit
+from ..runtime.card import smem_limit
 from . import _cuda
 
 N = 32

@@ -25,6 +25,7 @@ from lzma_tpu_torch.ops.device_encoder import _lower_lanes, serialize
 from lzma_tpu_torch.ops.device_decoder import CapExceededError
 from lzma_tpu_torch.ops.device_parser import (_lists_and_seed, _round_inputs,
                                               dp_parse_band)
+from lzma_tpu_torch.runtime.card import smem_limit
 
 pytestmark = pytest.mark.cuda
 
@@ -284,23 +285,27 @@ def _pair_streams(n_lanes, n_bits, arena, seed):
     return ctx, bits
 
 
-# K2 at its tile edges (1,024 pairs a tile), in both arena placements:
-# totals 0, one under / at / over a tile, over n_bits (the last pair
-# repeats), n_bits = 4,097 (rows not 16-byte aligned); max_out 300 makes
-# the long lanes overflow in their third tile
+# K2 at its tile edges (1,024 pairs a tile), in both arena placements
+# (lc3 lp0's arena in shared memory; the same streams with lc8 lp4's
+# arena size, over the card's shared memory, in device memory): totals
+# 0, one under / at / over a tile, over n_bits (the last pair repeats),
+# n_bits = 4,097 (rows not 16-byte aligned); max_out 300 makes the long
+# lanes overflow in their third tile
 @pytest.mark.parametrize("placement", ["shared", "device"])
 @pytest.mark.parametrize("max_out", [1 << 13, 300])
 def test_serializer_kernel_at_tile_edges_in_both_placements(card, placement,
                                                             max_out):
-    arena = ProbLayout(3, 0, 2, pos_bits=2).size
+    slots = ProbLayout(3, 0, 2, pos_bits=2).size
+    arena = slots if placement == "shared" else ProbLayout(8, 4, 2, pos_bits=2).size
+    assert cuda_serializer.arena_placement(arena, smem_limit(card.index or 0)) == placement
     n_bits = 4097
-    ctx, bits = _pair_streams(7, n_bits, arena, max_out)
+    ctx, bits = _pair_streams(7, n_bits, slots, max_out)
     totals = [0, 1023, 1024, 1025, 2049, n_bits, n_bits + 9]
     ctx, bits, totals = (torch.tensor(x, dtype=torch.int32, device=card)
                          for x in (ctx, bits, totals))
     before = cuda_serializer.LAUNCHES
-    out, lens, consumed = cuda_serializer.serialize_cuda(
-        ctx, bits, totals, arena, max_out, placement=placement)
+    out, lens, consumed = cuda_serializer.serialize_cuda(ctx, bits, totals,
+                                                         arena, max_out)
     p_out, p_lens = serialize(ctx, bits, totals, arena, max_out)
     torch.cuda.synchronize()
     assert cuda_serializer.LAUNCHES == before + 1
@@ -312,21 +317,12 @@ def test_serializer_kernel_at_tile_edges_in_both_placements(card, placement,
 
 
 def test_serializer_placement_is_chosen_and_never_switched(card):
-    small = ProbLayout(3, 0, 2, pos_bits=2).size
-    large = ProbLayout(8, 4, 2, pos_bits=2).size
-    limit = cuda_decoder.smem_limit(card.index or 0)
-    assert cuda_serializer.arena_placement(small, limit) == "shared"
-    assert cuda_serializer.arena_placement(large, limit) == "device"
-    ctx = torch.zeros((2, 8), dtype=torch.int32, device=card)
-    totals = torch.full((2,), 8, dtype=torch.int32, device=card)
-    before = cuda_serializer.LAUNCHES
-    with pytest.raises(ValueError, match="shared memory"):
-        cuda_serializer.serialize_cuda(ctx, ctx, totals, large, 32,
-                                       placement="shared")
-    with pytest.raises(ValueError):
-        cuda_serializer.serialize_cuda(ctx, ctx, totals, small, 32,
-                                       placement="global")
-    assert cuda_serializer.LAUNCHES == before
+    limit = smem_limit(card.index or 0)
+    for lc, lp in ((0, 0), (3, 0), (4, 3), (8, 0), (8, 4)):
+        arena = ProbLayout(lc, lp, 2, pos_bits=2).size
+        placement = cuda_serializer.arena_placement(arena, limit)
+        assert placement == ("shared" if lc + lp <= 7 else "device")
+        assert cuda_serializer.smem_bytes(placement, arena) <= limit
 
 
 def test_optimal_encode_on_the_card_equals_the_cpu(card):

@@ -14,7 +14,9 @@ prints its seconds):
      shapes: the range encoder (K2) with its arena in shared and in device
      memory (the same streams with lc8 lp4's arena size, which is over the
      card's shared memory), and both decoders (K1, K5), on 8 lanes x 2
-     KiB; K2 on lc8 lp4's own streams, in device memory; K1 and K5 on a
+     KiB; K2 on lc8 lp4's own streams, in device memory, and K1 on them
+     with its arena in device memory (K1's placement, as K2's, by the
+     arena's size alone; lc3 lp0's is in shared memory); K1 and K5 on a
      preset-primed batch made by the port's own encoder; both DP scans
      (K3, K4) on the first round's inputs of 8 lanes x 2 KiB at fb 8, 32
      (K3 relaxes a length on 4 lanes) and 273 (on one thread a length)
@@ -63,9 +65,10 @@ prints its seconds):
      tools/probe_*.py): each probe kernel against its plain version on
      the card at a cut (PROBE_CUT_* steps or bytes; exact), the copies
      also against the TPU probes' reference arrays, unaligned rows
-     refused before a launch; the ablation's full and realrow on the
-     first 32 champion streams equal to K1, to the plain decoder and to
-     the input; then every probe's table (the TPU probe's sweep, CUDA
+     refused before a launch; the ablation's exact variants (realrow,
+     full, smemwin, spans) on the first 32 champion streams equal to the
+     plain decoder, full on the whole rows to K1 and the input; then
+     every probe's table (the TPU probe's sweep, CUDA
      events, one line a table), the probes' launch counts set to 0 just
      before and read just after
  14. no module of jax, jaxlib or lzma_tpu was loaded
@@ -545,7 +548,8 @@ def probe_phase(dev, card, comp, comp_lens, cuts, want):
         f"{card}; a launch's ms, then a lane's own clock: " + "; ".join(
             f"{v} {ms:.3f} ms (lane {lms:.3f}, slowest {slow:.3f}) {nb:.1f} ns/B "
             f"{nst:.1f} ns/step {nbit:.1f} ns/bit {bits:.0f} bits {cp:.0f} copied "
-            f"cs {cs}" for v, ms, nb, nst, nbit, bits, cp, lms, slow, cs in ring))
+            f"cs {cs}" for v, ms, nb, nst, nbit, bits, cp, lms, slow, cs in ring)
+        + "; spans: " + RA.spans_line(dev, comp, comp_lens, sizes))
     log(f"[P14 probe_packed_ablate] random input, {PA.MAX_OUT} B a lane on "
         f"{card}; a launch's ms, then a lane's own clock: " + "; ".join(
             f"{v} n={k} {ms:.3f} ms (lane {lms:.3f}, slowest {slow:.3f}) "
@@ -731,20 +735,41 @@ def main():
     k2_err, k_out, k_lens, _ = check_serializer(ctx, bits, totals, arena,
                                                 int(max_out), (big_arena,))
     b_ctx, b_bits, b_totals, b_max = lowered(blocks, big, dev)
-    err, _, _, _ = check_serializer(b_ctx, b_bits, b_totals, big_arena,
-                                    int(b_max))
+    err, b_out, b_lens, _ = check_serializer(b_ctx, b_bits, b_totals,
+                                             big_arena, int(b_max))
     k2_err = max(k2_err, err)
     del b_ctx, b_bits, b_totals
     log(f"[K2 vs plain] {CMP_LANES}x{CMP_BYTES}: bytes and lens equal with the "
         f"arena ({arena} probabilities) in shared memory and, at lc8 lp4's "
         f"size ({big_arena}), in device memory ({limit} B a block); lc8 lp4's "
         f"own streams in device memory and equal")
+    # K1 in both placements: lc3 lp0's arena in shared memory (below), lc8
+    # lp4's in device memory, on lc8 lp4's streams that K2 just coded
+    placed = (cuda_ring.arena_placement(arena, limit),
+              cuda_ring.arena_placement(big_arena, limit))
+    if placed != ("shared", "device"):
+        raise AssertionError(f"K1 placements {placed} for arenas {arena}, "
+                             f"{big_arena} under {limit} B")
+    b_lens = b_lens.cpu().tolist()
+    comp, comp_lens = pad_rows([b_out[i, :b_lens[i]].cpu().numpy().tobytes()
+                                for i in range(len(blocks))], dev)
+    sizes = torch.tensor([len(b) for b in blocks], dtype=torch.int32, device=dev)
+    mo = 1 << (max(len(b) for b in blocks) - 1).bit_length()
+    k1_err, d_out, _ = check_decoder(comp, comp_lens, sizes, big, mo,
+                                     resident=False)
+    for i, b in enumerate(blocks):
+        if d_out[i, :len(b)].cpu().numpy().tobytes() != b:
+            raise AssertionError(f"lc8 lp4 lane {i} does not round-trip in K1")
+    del b_out
+    log(f"[K1 vs plain] {CMP_LANES}x{CMP_BYTES}, lc8 lp4's streams with K1's "
+        "arena in device memory: out/ok/out_pos equal, round trip")
     lens_h = k_lens.cpu().tolist()
     streams = [k_out[i, :lens_h[i]].cpu().numpy().tobytes() for i in range(len(blocks))]
     comp, comp_lens = pad_rows(streams, dev)
     sizes = torch.tensor([len(b) for b in blocks], dtype=torch.int32, device=dev)
     mo = 1 << (max(len(b) for b in blocks) - 1).bit_length()
-    k1_err, d_out, _ = check_decoder(comp, comp_lens, sizes, params, mo)
+    err, d_out, _ = check_decoder(comp, comp_lens, sizes, params, mo)
+    k1_err = max(k1_err, err)
     for i, b in enumerate(blocks):
         if d_out[i, :len(b)].cpu().numpy().tobytes() != b:
             raise AssertionError(f"lane {i} does not round-trip")
@@ -922,8 +947,9 @@ def main():
         f"{k2_whole:.3f} ms a call ({n_bits} pairs, "
         f"{k2_whole * 1e6 / int(totals.max()):.1f} ns a pair of the longest "
         f"lane), bound {k2_whole_bound[0]:.4f} ms by {k2_whole_bound[1]}; "
-        f"ring_decode {k1_whole:.3f} ms a call, bound {k1_whole_bound[0]:.4f} "
-        f"ms by {k1_whole_bound[1]}")
+        f"ring_decode {k1_whole:.3f} ms a call ({k1_whole * 1e6 / int(totals.max()):.1f} "
+        f"ns a decoded bit of the longest lane, its bits = its coded pairs), "
+        f"bound {k1_whole_bound[0]:.4f} ms by {k1_whole_bound[1]}")
     done("main path")
 
     # ---- 8. the K4 path at full width ----

@@ -1,22 +1,32 @@
-"""Time the DP scans (K3, K4) and the range encoder (K2) of this checkout
-against those of another checkout, on the main path's whole lanes, on one
-card, in turns.
+"""Time the kernels of this checkout against those of another checkout, on
+one card, in turns: the DP scans (K3, K4), the range encoder (K2) and the
+decoders (K1, K5).
 
-    python -m lzma_tpu_torch.bench.kernel_ab OTHER_CHECKOUT
+    python -m lzma_tpu_torch.bench.kernel_ab OTHER_CHECKOUT [KERNEL ...]
 
-The inputs are chip_smoke.py's main path: text_part() +
-generate_bench_data(5 << 20), LzmaParams() defaults (lc3 lp0 pb2, fb 32),
-parse="optimal", 32 lanes of 256 KiB; an encode inside
+KERNEL picks among dp_parse, dp_parse2, rc_serialize, ring_decode,
+ring_decode_champion and block_decode_champion (default: all).  The
+inputs are chip_smoke.py's: the main path is text_part() +
+generate_bench_data(5 << 20), LzmaParams() defaults (lc3 lp0 pb2, fb
+32), parse="optimal", 32 lanes of 256 KiB; an encode inside
 device_encoder.probing() records the last DP round's packed rows, tables
-and lens and the final (ctx, bit) streams.  OTHER_CHECKOUT's package is
-loaded under another name and its kernels are built by its own
+and lens and the final (ctx, bit) streams (K3, K4, K2), and its
+container's streams are K1's (ring_decode).  The champion shape
+(bench.py:344-390) is 128 lanes of 16 KiB of bench data, lc0, dict 4
+KiB, fb 8, lazy: K1 and K5 decode its streams.  OTHER_CHECKOUT's package
+is loaded under another name and its kernels are built by its own
 runtime/build.py and called through its own wrappers
 (``ops.cuda_parser.dp_parse_cuda``, ``dp_parse2_cuda``,
-``ops.cuda_serializer.serialize_cuda``), whose signatures both checkouts
+``ops.cuda_serializer.serialize_cuda``, ``ops.cuda_ring.decode_cuda``,
+``ops.cuda_decoder.decode_resident``), whose signatures both checkouts
 share.  Each kernel is timed by CUDA events after a warm launch, in the
 order other, this, this, other; the two checkouts' outputs must be
-equal.  Needs a CUDA device and nvcc.  Prints the card (nvidia-smi name,
-power limit), then one JSON line.
+equal.  Beside the decoders' times: the bits the longest lane decodes,
+the bytes its matches copy and the shares of its cycles by kind of
+symbol (this checkout's ``probes.probe_ring_ablate`` spans, K1 with
+clock64 spans), so that a time reads as ns a decoded bit of the longest
+lane.  Needs a CUDA device and nvcc.  Prints the card
+(nvidia-smi name, power limit), then one JSON line.
 """
 
 from __future__ import annotations
@@ -31,75 +41,136 @@ import torch
 
 from ..core.layout import ProbLayout
 from ..format.properties import LzmaParams
-from ..ops import api, cuda_parser, cuda_serializer
-from ..ops.device_encoder import probing
+from ..ops import api, cuda_decoder, cuda_parser, cuda_ring, cuda_serializer
+from ..ops.device_decoder import pad_rows
+from ..ops.device_encoder import encode_batch, probing
+from ..parallel import blocks as blk
+from ..probes import probe_ring_ablate
 from ..probes._cuda import card, event_ms
 from .corpus import text_part
 from .datagen import generate_bench_data
 
 BLOCK = 1 << 18
 OTHER = "_kernel_ab_other"
+#: the champion shape (chip_smoke CH_*)
+CH_LANES, CH_BLOCK, CH_DICT = 128, 1 << 14, 1 << 12
+KERNELS = ("dp_parse", "dp_parse2", "rc_serialize", "ring_decode",
+           "ring_decode_champion", "block_decode_champion")
+MAIN_PATH = KERNELS[:4]
 
 
 def other_wrappers(root: str):
-    """OTHER_CHECKOUT's ops.cuda_parser and ops.cuda_serializer, its
-    package loaded as OTHER."""
+    """OTHER_CHECKOUT's ops.cuda_parser, ops.cuda_serializer,
+    ops.cuda_ring and ops.cuda_decoder, its package loaded as OTHER."""
     pkg = os.path.join(os.path.abspath(root), "lzma_tpu_torch")
     spec = importlib.util.spec_from_file_location(
         OTHER, os.path.join(pkg, "__init__.py"), submodule_search_locations=[pkg])
     mod = importlib.util.module_from_spec(spec)
     sys.modules[OTHER] = mod
     spec.loader.exec_module(mod)
-    return (importlib.import_module(f"{OTHER}.ops.cuda_parser"),
-            importlib.import_module(f"{OTHER}.ops.cuda_serializer"))
+    return tuple(importlib.import_module(f"{OTHER}.ops.{name}") for name in
+                 ("cuda_parser", "cuda_serializer", "cuda_ring", "cuda_decoder"))
 
 
 def main_path_inputs(dev):
-    """(packed, tables, lens) of the last DP round and (ctx, bits, totals)
-    of the final lowering, from one probed optimal encode of main8M."""
+    """(packed, tables, lens) of the last DP round, (ctx, bits, totals)
+    of the final lowering and K1's arguments over the container's
+    streams, from one probed optimal encode of main8M."""
     data = text_part() + generate_bench_data(5 << 20)
+    params = LzmaParams()
     with probing() as probe:
-        api.encode_blocks(data, LzmaParams(), block_size=BLOCK,
-                          parse="optimal", device=dev)
+        blob = api.encode_blocks(data, params, block_size=BLOCK,
+                                 parse="optimal", device=dev)
     ctx, bits, totals = probe["lowered"][3:]
-    return probe["dp_inputs"], (ctx, bits, totals)
+    frame = blk.parse_container(blob)
+    offs, sizes = frame.stream_extents(len(blob))
+    comp, comp_lens = pad_rows([blob[offs[i]:offs[i + 1]]
+                                for i in range(len(sizes))], dev)
+    sizes = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    decode = (comp, comp_lens, sizes, params.dict_size, params.lc, params.lp,
+              params.pb, BLOCK)
+    return probe["dp_inputs"], (ctx, bits, totals), decode
+
+
+def champion_inputs(dev):
+    """K1's and K5's arguments at the champion shape."""
+    params = LzmaParams(lc=0, dict_size=CH_DICT, fast_bytes=8)
+    data = generate_bench_data(CH_LANES * CH_BLOCK)
+    blocks = [data[i:i + CH_BLOCK] for i in range(0, len(data), CH_BLOCK)]
+    comp, comp_lens = pad_rows(encode_batch(blocks, params, device=dev), dev)
+    sizes = torch.full((CH_LANES,), CH_BLOCK, dtype=torch.int32, device=dev)
+    return (comp, comp_lens, sizes, CH_DICT, 0, 0, params.pb, CH_BLOCK)
+
+
+def decoded_work(args):
+    """(bits, copied bytes, {kind of symbol: share of its cycles}) of the
+    lane that decodes the most bits, by this checkout's K1 with its
+    counts and clock64 spans (probe_ring_ablate spans)."""
+    counts = probe_ring_ablate.ablate(*args, "spans")[3]
+    k = int(torch.argmax(counts[:, 0]))
+    shares = probe_ring_ablate.breakdown(counts, k)
+    return (int(counts[k, 0]), int(counts[k, 1]),
+            dict(zip(probe_ring_ablate.SPANS, (round(x, 4) for x in shares))))
 
 
 def main(argv=None) -> None:
     argv = sys.argv[1:] if argv is None else argv
-    if len(argv) != 1:
+    if len(argv) < 1 or any(k not in KERNELS for k in argv[1:]):
         raise SystemExit(__doc__)
+    chosen = argv[1:] or list(KERNELS)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: no CUDA device")
     name = card().splitlines()[0]
     print(name, flush=True)
     dev = torch.device("cuda", 0)
-    o_parser, o_serializer = other_wrappers(argv[0])
-    params = LzmaParams()
-    fb, pb = params.fast_bytes, params.pb
-    arena = ProbLayout(params.lc, params.lp, pb, pos_bits=pb).size
-    (packed, tables, lens), (ctx, bits, totals) = main_path_inputs(dev)
-    L, N, _ = packed.shape
-    max_out = BLOCK + BLOCK // 4 + 128
-    scan = (packed, tables, lens, fb, pb)
-    code = (ctx, bits, totals, arena, max_out)
-    kernels = {
-        "dp_parse": {"other": lambda: o_parser.dp_parse_cuda(*scan),
-                     "this": lambda: cuda_parser.dp_parse_cuda(*scan)},
-        "dp_parse2": {"other": lambda: o_parser.dp_parse2_cuda(*scan),
-                      "this": lambda: cuda_parser.dp_parse2_cuda(*scan)},
-        "rc_serialize": {"other": lambda: o_serializer.serialize_cuda(*code),
-                         "this": lambda: cuda_serializer.serialize_cuda(*code)},
-    }
-    result = {"card": name, "lanes": L, "positions": N,
-              "pairs_longest_lane": int(totals.max()), "pairs": int(totals.sum())}
-    for kernel, fns in kernels.items():
+    o_parser, o_serializer, o_ring, o_decoder = other_wrappers(argv[0])
+    result = {"card": name}
+    kernels = {}
+    if any(k in MAIN_PATH for k in chosen):
+        params = LzmaParams()
+        fb, pb = params.fast_bytes, params.pb
+        arena = ProbLayout(params.lc, params.lp, pb, pos_bits=pb).size
+        (packed, tables, lens), (ctx, bits, totals), dec = main_path_inputs(dev)
+        L, N, _ = packed.shape
+        max_out = BLOCK + BLOCK // 4 + 128
+        scan = (packed, tables, lens, fb, pb)
+        code = (ctx, bits, totals, arena, max_out)
+        result.update(lanes=L, positions=N,
+                      pairs_longest_lane=int(totals.max()),
+                      pairs=int(totals.sum()))
+        kernels.update({
+            "dp_parse": {"other": lambda: o_parser.dp_parse_cuda(*scan),
+                         "this": lambda: cuda_parser.dp_parse_cuda(*scan)},
+            "dp_parse2": {"other": lambda: o_parser.dp_parse2_cuda(*scan),
+                          "this": lambda: cuda_parser.dp_parse2_cuda(*scan)},
+            "rc_serialize": {
+                "other": lambda: o_serializer.serialize_cuda(*code),
+                "this": lambda: cuda_serializer.serialize_cuda(*code)},
+            "ring_decode": {"other": lambda: o_ring.decode_cuda(*dec),
+                            "this": lambda: cuda_ring.decode_cuda(*dec)},
+        })
+        if "ring_decode" in chosen:
+            result["ring_decode_longest_lane"] = decoded_work(dec)
+    if any(k.endswith("champion") for k in chosen):
+        ch = champion_inputs(dev)
+        kernels.update({
+            "ring_decode_champion": {"other": lambda: o_ring.decode_cuda(*ch),
+                                     "this": lambda: cuda_ring.decode_cuda(*ch)},
+            "block_decode_champion": {
+                "other": lambda: o_decoder.decode_resident(*ch),
+                "this": lambda: cuda_decoder.decode_resident(*ch)},
+        })
+        result["champion_longest_lane"] = decoded_work(ch)
+    for kernel in chosen:
+        fns = kernels[kernel]
         outs = {k: fn() for k, fn in fns.items()}
         if not all(torch.equal(a, b) for a, b in zip(outs["other"], outs["this"])):
             raise AssertionError(f"{kernel}: this checkout's output differs "
                                  "from the other's")
         del outs
-        reps = 3 if kernel == "rc_serialize" else 2
+        reps = 3 if kernel in ("rc_serialize", "ring_decode") else 2
+        if kernel.endswith("champion"):
+            reps = 5
         times = {k: [] for k in fns}
         for k in ("other", "this", "this", "other"):
             times[k].append(event_ms(fns[k], reps))

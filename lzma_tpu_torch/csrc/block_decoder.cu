@@ -9,8 +9,9 @@
 // zeros) in dynamic shared memory; one thread runs the decode there
 // (lzma_decode.cuh decode_lane, the same body as K1, so the outcome per
 // lane is that of the plain version lzma_tpu_torch/ops/device_decoder.py
-// _decode_fsm, error rules included); then the CTA writes the window to
-// device memory once.
+// _decode_fsm, error rules included; its two speeds, branch-free bits
+// and probabilities loaded ahead are K1's); then the CTA writes the
+// window to device memory once.
 //
 // What bounds it on this card: the same serial chain of bit decodes as
 // K1, one lane a CTA; what it changes is where each step's probability
@@ -57,9 +58,13 @@ __global__ void block_decode_kernel(const uint8_t* __restrict__ comp,
   __syncthreads();
 
   if (tid == 0) {
-    decode_lane(in, comp_lens[lane], max_in, p, win, max_out, preset_len,
-                out_sizes[lane], dict_size, lc, lp, pb, L, ok + lane,
-                out_pos_res + lane);
+    const uint32_t s0 = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+    const int in_len = comp_lens[lane];
+    SmemIn input{s0 + in_off, in_len, min(in_len, max_in),
+                 max_in > 0 ? in[max_in - 1] : 0u};
+    decode_lane(input, Arena<true>{s0}, SmemWin{s0 + win_off}, max_out,
+                preset_len, out_sizes[lane], dict_size, lc, lp, pb, L,
+                ok + lane, out_pos_res + lane);
   }
   __syncthreads();
 

@@ -6,9 +6,11 @@
 // stubbed at a time, to find what a decode step costs.  On this card the
 // genuine body is lzma_decode.cuh decode_lane, which K1
 // (ring_decoder.cu) and K5 (block_decoder.cu) call; this kernel is K1's
-// kernel, one lane a block with the arena and window in device memory,
-// instantiated with decode_lane's knock-out flags.  Variants (the ids
-// the wrapper lzma_tpu_torch/probes/probe_ring_ablate.py passes):
+// block (lzma_decode.cuh ring_block: the input staged in shared memory,
+// the arena where cuda_ring.arena_placement puts it, the window in
+// device memory), instantiated with decode_lane's knock-out flags.
+// Variants (the ids the wrapper lzma_tpu_torch/probes/probe_ring_ablate.py
+// passes):
 //   0 realrow   the exact body (error rules on), bits counted
 //   1 full      the body with the lane kept alive (error exits off)
 //   2 noctx     every bit at the index (out_pos*7 + bits) mod the
@@ -21,14 +23,28 @@
 //   7 notrans   one is_match bit a byte, no trees, no state change
 //   8 barebit   one bit a byte at the index 8 * out_pos mod the arena's
 //               size, stepped without a division
-// notrans and barebit are not knock-outs at a site of decode_lane but
-// a loop of their own here (one_bit_lane) over its range coder RcT.
+//   9 barereg   barebit with the byte before kept in a register instead
+//               of read back from the row it was just stored to
+//  10 barefast  barereg with the fast body's bit (branch-free, its
+//               probability loaded a bit ahead)
+//  11 barechain  barefast storing no byte: the bit's chain alone
+//  12 smemwin   full with the window in shared memory (rows up to the
+//               card's shared memory less K1's): the same path and
+//               bytes as full, so full - smemwin is what the window in
+//               device memory costs
+//  13 spans     realrow with clock64 spans by kind of symbol
+//               (lzma_decode.cuh kSpan*) in counts[:, 3:8]; the clock
+//               reads lengthen its time
+// notrans and the bare bits are not knock-outs at a site of decode_lane
+// but a loop of their own here (one_bit_lane) over its coder: the
+// checked bit (the first version's) or, for barefast, the fast one.
 // Every variant but realrow keeps its lanes alive, so a lane decodes to
 // |size| bytes whatever it reads (the TPU probes did the same); their
 // output is garbage and is used for timing only.  realrow and full on a
 // valid stream give K1's bytes, ok flags and output positions.  Every
 // variant writes, a lane, the bits it decodes, the bytes its matches
-// copy and the SM cycles (clock64) its decode took (counts (N, 3)): a
+// copy and the SM cycles (clock64) its decode took (counts (N, 8), the
+// last five columns spans's and 0 elsewhere): a
 // knock-out decodes another path than full, and its lanes differ, so
 // its time is compared lane by lane, a step (a bit or a copied byte), a
 // bit or a byte.
@@ -45,92 +61,139 @@
 
 namespace {
 
-// The one-bit loops' flags, above decode_lane's kKo* (which RcT reads).
-constexpr int kOneBitCtx = 1 << 8;   // notrans
-constexpr int kOneBitBare = 1 << 9;  // barebit
+// The one-bit loops' flags, above decode_lane's kKo*.
+constexpr int kOneBitCtx = 1 << 8;    // notrans
+constexpr int kOneBitBare = 1 << 9;   // barebit
+constexpr int kOneBitReg = 1 << 10;   // barereg
+constexpr int kOneBitFast = 1 << 11;  // barefast
+constexpr int kOneBitChain = 1 << 12; // barechain (with kOneBitFast)
+constexpr int kOneBit = kOneBitCtx | kOneBitBare | kOneBitReg | kOneBitFast;
+constexpr int kWinSmem = 1 << 13;     // smemwin
+// counts a lane: bits, copied bytes, cycles, then kSpans spans
+constexpr int kCounts = 3 + kSpans;
 
-// notrans and barebit: one bit a byte, emitted as the byte before it
-// plus the bit (decode_lane's back(rep0) with rep0 = 0), no trees and no
-// state change, to the lane's bound.  notrans decodes at the is_match
-// context of state 0; barebit at 8k for byte k (decode_lane's made-up
-// index), wrapped by a compare.  Writes what decode_lane<kKoAlive |
-// kKoCount> writes.
-template <int KO>
-__device__ void one_bit_lane(const uint8_t* in, int in_len, int max_in,
-                             uint16_t* p, uint8_t* o, int max_out, int size,
-                             int pb, const LztLayout& L, bool* ok,
+// notrans and the bare bits: one bit a byte, emitted as the byte before
+// it plus the bit (decode_lane's back(rep0) with rep0 = 0), no trees and
+// no state change, to the lane's bound.  notrans decodes at the is_match
+// context of state 0; the bare bits at 8k for byte k (decode_lane's
+// made-up index), wrapped by a compare.  Writes what decode_lane<kKoAlive
+// | kKoCount> writes.
+template <int KO, class Ar>
+__device__ void one_bit_lane(RingIn& in, Ar a, DevWin w, int max_out,
+                             int size, int pb, const LztLayout& L, bool* ok,
                              int* out_pos_res, int* counts) {
-  RcT<KO> rc{0xFFFFFFFFu, 0, 5, 0, in, in_len, max_in};
-  for (int i = 0; i < 5; ++i) {
-    rc.code = (rc.code << 8) | (i < rc.in_len ? rc.in[i] : 0u);
-  }
+  constexpr int kCoder = KO & (kKoAlive | kKoNoArena | kKoNoInput);
+  Lane<kCoder, RingIn, Ar, DevWin> s{in, a, w, L};
+  s.range = 0xFFFFFFFFu;
+  s.code = 0;
+  s.in_pos = 5;
+  s.overrun = 0;
+  s.start();
   const int bound = min(size < 0 ? -size : size, max_out);
   const int pb_mask = (1 << pb) - 1;
-  int out_pos = 0, idx = 0;
+  int out_pos = 0, idx = 0, in_fast = -1;
+  uint32_t prev = 0;
+  uint32_t pr = s.ld(0);
   while (out_pos < bound) {
-    uint16_t* pr = p + L.is_match + (out_pos & pb_mask);
-    if constexpr (KO & kOneBitBare) {
-      pr = p + idx;
+    if (s.in_pos >= in_fast) in_fast = in.refill(s.in_pos);
+    int i = L.is_match + (out_pos & pb_mask);
+    if constexpr (KO & (kOneBitBare | kOneBitReg | kOneBitFast)) {
+      i = idx;
       idx += 8;
       if (idx >= L.size) idx -= L.size;
     }
-    const uint32_t b = static_cast<uint32_t>(rc.bit(pr));
-    o[out_pos] = static_cast<uint8_t>(o[out_pos > 0 ? out_pos - 1 : 0] + b);
+    uint32_t b;
+    if constexpr (KO & kOneBitFast) {
+      // the next bit's probability loads before this one's store (the
+      // indexes differ: L.size > 8)
+      const uint32_t pn = s.ld(idx);
+      b = s.in_pos < in_fast ? s.fbit(pr, i) : s.cbit(i);
+      pr = pn;
+    } else {
+      b = s.cbit(i);
+    }
+    if constexpr (KO & (kOneBitReg | kOneBitFast)) {
+      prev = (prev + b) & 0xFFu;
+    } else {
+      prev = w.load(out_pos > 0 ? out_pos - 1 : 0) + b;
+    }
+    if constexpr (!(KO & kOneBitChain)) w.store(out_pos, prev);
     ++out_pos;
   }
+  in.finish();
   *ok = true;
   *out_pos_res = out_pos;
   counts[0] = out_pos;
   counts[1] = 0;
 }
 
-template <int KO>
-__global__ void ablate_kernel(const uint8_t* __restrict__ comp,
-                              const int* __restrict__ comp_lens,
-                              const int* __restrict__ out_sizes,
-                              uint16_t* __restrict__ probs,
-                              uint8_t* __restrict__ out,
-                              bool* __restrict__ ok,
-                              int* __restrict__ out_pos_res,
-                              int* __restrict__ counts, int n_lanes,
-                              int max_in, int dict_size, int lc, int lp,
-                              int pb, int max_out, LztLayout L) {
+template <int KO, bool kShared>
+__global__ void __launch_bounds__(kRingThreads)
+    ablate_kernel(const uint8_t* __restrict__ comp,
+                  const int* __restrict__ comp_lens,
+                  const int* __restrict__ out_sizes,
+                  uint16_t* __restrict__ probs, uint8_t* __restrict__ out,
+                  bool* __restrict__ ok, int* __restrict__ out_pos_res,
+                  int* __restrict__ counts, int max_in, int dict_size, int lc,
+                  int lp, int pb, int max_out, LztLayout L) {
   const int lane = blockIdx.x;
-  if (lane >= n_lanes || threadIdx.x != 0) return;
-  uint16_t* p = probs + static_cast<size_t>(lane) * L.size;
-  for (int i = 0; i < L.size; ++i) p[i] = 1024;
-  const long long t0 = clock64();
-  const uint8_t* in = comp + static_cast<size_t>(lane) * max_in;
   uint8_t* o = out + static_cast<size_t>(lane) * max_out;
-  if constexpr (KO & (kOneBitCtx | kOneBitBare)) {
-    one_bit_lane<KO>(in, comp_lens[lane], max_in, p, o, max_out,
-                     out_sizes[lane], pb, L, ok + lane, out_pos_res + lane,
-                     counts + 3 * lane);
-  } else {
-    decode_lane<KO>(in, comp_lens[lane], max_in, p, o, max_out, 0,
-                    out_sizes[lane], dict_size, lc, lp, pb, L, ok + lane,
-                    out_pos_res + lane, counts + 3 * lane);
-  }
-  counts[3 * lane + 2] = static_cast<int>(clock64() - t0);
+  ring_block<kShared>(
+      comp + static_cast<size_t>(lane) * max_in, comp_lens[lane], max_in,
+      nullptr, 0,
+      kShared ? nullptr : probs + static_cast<size_t>(lane) * L.size, o, L,
+      [&](RingIn& in, Arena<kShared> arena, DevWin win) {
+        int* c = counts + kCounts * lane;
+        if constexpr (KO & kWinSmem) {
+          // the window after the arena, zeroed; written back at the end
+          const uint32_t wb = arena.base + (2u * L.size + 15u) / 16u * 16u;
+          for (int k = 0; k < max_out; ++k) sts_u8(wb + k, 0);
+          const long long t0 = clock64();
+          decode_lane<KO & ~kWinSmem>(in, arena, SmemWin{wb}, max_out, 0,
+                                      out_sizes[lane], dict_size, lc, lp, pb,
+                                      L, ok + lane, out_pos_res + lane, c);
+          c[2] = static_cast<int>(clock64() - t0);
+          for (int k = 0; k < max_out; ++k) win.store(k, lds_u8(wb + k));
+          return;
+        }
+        const long long t0 = clock64();
+        if constexpr (KO & kOneBit) {
+          one_bit_lane<KO>(in, arena, win, max_out, out_sizes[lane], pb, L,
+                           ok + lane, out_pos_res + lane, c);
+        } else {
+          decode_lane<KO>(in, arena, win, max_out, 0, out_sizes[lane],
+                          dict_size, lc, lp, pb, L, ok + lane,
+                          out_pos_res + lane, c);
+        }
+        c[2] = static_cast<int>(clock64() - t0);
+      });
 }
 
 using AblateFn = void (*)(const uint8_t*, const int*, const int*, uint16_t*,
                           uint8_t*, bool*, int*, int*, int, int, int, int,
-                          int, int, int, LztLayout);
+                          int, int, LztLayout);
 
 constexpr int kLive = kKoAlive | kKoCount;
 
+template <bool kShared>
 AblateFn variant_kernel(int variant) {
   switch (variant) {
-    case 0: return ablate_kernel<kKoCount>;
-    case 1: return ablate_kernel<kLive>;
-    case 2: return ablate_kernel<kLive | kKoNoCtx>;
-    case 3: return ablate_kernel<kLive | kKoNoArena>;
-    case 4: return ablate_kernel<kLive | kKoNoInput>;
-    case 5: return ablate_kernel<kLive | kKoNoWin>;
-    case 6: return ablate_kernel<kLive | kKoNoRing>;
-    case 7: return ablate_kernel<kLive | kOneBitCtx>;
-    case 8: return ablate_kernel<kLive | kOneBitBare>;
+    case 0: return ablate_kernel<kKoCount, kShared>;
+    case 1: return ablate_kernel<kLive, kShared>;
+    case 2: return ablate_kernel<kLive | kKoNoCtx, kShared>;
+    case 3: return ablate_kernel<kLive | kKoNoArena, kShared>;
+    case 4: return ablate_kernel<kLive | kKoNoInput, kShared>;
+    case 5: return ablate_kernel<kLive | kKoNoWin, kShared>;
+    case 6: return ablate_kernel<kLive | kKoNoRing, kShared>;
+    case 7: return ablate_kernel<kLive | kOneBitCtx, kShared>;
+    case 8: return ablate_kernel<kLive | kOneBitBare, kShared>;
+    case 9: return ablate_kernel<kLive | kOneBitReg, kShared>;
+    case 10: return ablate_kernel<kLive | kOneBitFast, kShared>;
+    case 11: return ablate_kernel<kLive | kOneBitFast | kOneBitChain, kShared>;
+    case 12:
+      if constexpr (kShared) return ablate_kernel<kLive | kWinSmem, true>;
+      return nullptr;
+    case 13: return ablate_kernel<kKoCount | kKoSpans, kShared>;
     default: return nullptr;
   }
 }
@@ -138,20 +201,35 @@ AblateFn variant_kernel(int variant) {
 }  // namespace
 
 // Launch variant `variant` over n_lanes lanes; `out` must be zeroed by
-// the caller.  Returns a CUDA error, or -1 for an unknown variant.
+// the caller.  shared and smem_bytes are K1's (cuda_ring.arena_placement,
+// smem_bytes; smemwin adds max_out rounded up to 16 B and needs the
+// shared arena); probs (n_lanes x layout.size uint16) is used when the
+// arena is in device memory.  Returns a CUDA error, or -1 for an unknown
+// variant or a layout that is not K1's.
 extern "C" int lzt_probe_ablate(int variant, const uint8_t* comp,
                                 const int* comp_lens, const int* out_sizes,
                                 uint16_t* probs, uint8_t* out, bool* ok,
                                 int* out_pos, int* counts, int n_lanes,
                                 int max_in, int dict_size, int lc, int lp,
-                                int pb, int max_out, LztLayout layout,
+                                int pb, int max_out, int shared,
+                                int smem_bytes, LztLayout layout,
                                 void* stream) {
-  AblateFn fn = variant_kernel(variant);
-  if (fn == nullptr) return -1;
+  AblateFn fn = shared ? variant_kernel<true>(variant)
+                       : variant_kernel<false>(variant);
+  const long long need =
+      kCtrlBytes + 2LL * kInTile +
+      (shared ? (2LL * layout.size + 15) / 16 * 16 : 0) +
+      (variant == 12 ? (max_out + 15LL) / 16 * 16 : 0);
+  if (fn == nullptr || need != smem_bytes || (!shared && probs == nullptr)) {
+    return -1;
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
   if (n_lanes > 0) {
-    fn<<<n_lanes, 1, 0, static_cast<cudaStream_t>(stream)>>>(
-        comp, comp_lens, out_sizes, probs, out, ok, out_pos, counts, n_lanes,
-        max_in, dict_size, lc, lp, pb, max_out, layout);
+    fn<<<n_lanes, kRingThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+        comp, comp_lens, out_sizes, probs, out, ok, out_pos, counts, max_in,
+        dict_size, lc, lp, pb, max_out, layout);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,6 +7,13 @@ groups of the TPU route existed for its VMEM budget and are gone.  A
 CUDA tensor launches the kernel (or the wrapper raises); a CPU tensor
 takes the plain version, ``device_decoder._decode_fsm``.  A lane that
 fails raises CorruptStreamError; it is never re-decoded another way.
+
+A lane's probability arena lives in shared memory when it fits beside
+the staged input tiles, else in device memory (``arena_placement``); the
+placement is a pure function of the arena's size and the card's limit,
+decided before the launch, and a lane never takes the other one.  The
+lane's stream comes into shared memory by tiles of ``IN_TILE`` bytes,
+two at a time; its window is its output row in device memory.
 """
 
 from __future__ import annotations
@@ -20,10 +27,35 @@ import torch
 from ..core.layout import ProbLayout
 from ..format.properties import LzmaParams
 from ..runtime import build
+from ..runtime.card import smem_limit
 from .device_decoder import _decode_fsm, decode_lanes
 
 #: kernel launches made through decode_cuda since the count was last set
 LAUNCHES = 0
+
+#: input bytes a tile, staged into shared memory ahead of the decoder
+#: (csrc/lzma_decode.cuh kInTile), two tiles in a ring
+IN_TILE = 1 << 12
+#: the ring's control words (csrc/lzma_decode.cuh kCtrlBytes)
+CTRL_BYTES = 16
+PLACEMENTS = ("shared", "device")
+
+
+def smem_bytes(placement: str, arena_size: int) -> int:
+    """Dynamic shared memory a block of the kernel takes: the control
+    words, the two input tiles, and for the "shared" placement the
+    uint16 arena rounded up to 16 B."""
+    if placement not in PLACEMENTS:
+        raise ValueError(f"placement must be one of {PLACEMENTS}, got {placement!r}")
+    arena = (2 * arena_size + 15) // 16 * 16 if placement == "shared" else 0
+    return CTRL_BYTES + 2 * IN_TILE + arena
+
+
+def arena_placement(arena_size: int, limit: int) -> str:
+    """Where a lane's arena of `arena_size` probabilities goes on a card
+    that gives a block `limit` bytes of shared memory: "shared" when it
+    fits beside the input tiles, else "device"."""
+    return "shared" if smem_bytes("shared", arena_size) <= limit else "device"
 
 _LAYOUT_FIELDS = ("is_match", "is_rep", "is_rep_g0", "is_rep_g1", "is_rep_g2",
                   "is_rep0_long", "pos_slot", "spec_pos", "align", "len_coder",
@@ -41,7 +73,7 @@ class _Layout(ctypes.Structure):
 def _kernel():
     fn = build.load().lzt_ring_decode
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                    + [_Layout, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -69,6 +101,19 @@ def _check(comp, comp_lens, out_sizes, preset, max_out):
             raise ValueError(f"{name} must be contiguous")
 
 
+def launch_args(comp, layout: ProbLayout):
+    """What a launch of csrc/ring_decoder.cu's block needs beside its
+    tensors, on comp's card: (shared (0/1), dynamic shared bytes, the
+    device arena (N, layout.size) int16 or None)."""
+    dev = comp.device
+    limit = smem_limit(dev.index if dev.index is not None
+                       else torch.cuda.current_device())
+    placement = arena_placement(layout.size, limit)
+    probs = None if placement == "shared" else torch.empty(
+        (comp.shape[0], layout.size), dtype=torch.int16, device=dev)
+    return int(placement == "shared"), smem_bytes(placement, layout.size), probs
+
+
 def decode_cuda(comp, comp_lens, out_sizes, dict_size: int, lc: int, lp: int,
                 pb: int, max_out: int, preset=None):
     """Decode N padded raw LZMA streams, one lane each.  comp: (N, max_in)
@@ -76,7 +121,8 @@ def decode_cuda(comp, comp_lens, out_sizes, dict_size: int, lc: int, lp: int,
     an EOS lane).  `preset` ((P,) uint8 or None) primes every lane's
     window: out_sizes are then absolute end positions and the payload
     sits at out[:, P:].  Returns (out (N, max_out) uint8, ok (N,) bool,
-    out_pos (N,) int32)."""
+    out_pos (N,) int32).  The arena goes where ``arena_placement`` puts
+    it on this card."""
     global LAUNCHES
     if comp.device.type == "cpu":
         return _decode_fsm(comp, comp_lens, out_sizes, dict_size, lc, lp, pb,
@@ -87,7 +133,7 @@ def decode_cuda(comp, comp_lens, out_sizes, dict_size: int, lc: int, lp: int,
     layout = ProbLayout(lc, lp, pb, pos_bits=pb)
     n, max_in = comp.shape
     dev = comp.device
-    probs = torch.empty((n, layout.size), dtype=torch.int16, device=dev)
+    shared, smem, probs = launch_args(comp, layout)
     out = torch.zeros((n, max_out), dtype=torch.uint8, device=dev)
     ok = torch.empty((n,), dtype=torch.bool, device=dev)
     out_pos = torch.empty((n,), dtype=torch.int32, device=dev)
@@ -96,9 +142,9 @@ def decode_cuda(comp, comp_lens, out_sizes, dict_size: int, lc: int, lp: int,
     with torch.cuda.device(dev):
         err = fn(comp.data_ptr(), comp_lens.data_ptr(), out_sizes.data_ptr(),
                  preset.data_ptr() if plen else None, plen,
-                 probs.data_ptr(), out.data_ptr(), ok.data_ptr(),
-                 out_pos.data_ptr(), n, max_in, int(dict_size), lc, lp, pb,
-                 max_out,
+                 None if probs is None else probs.data_ptr(), out.data_ptr(),
+                 ok.data_ptr(), out_pos.data_ptr(), n, max_in, int(dict_size),
+                 lc, lp, pb, max_out, shared, smem,
                  _Layout(*(getattr(layout, f) for f in _LAYOUT_FIELDS)),
                  torch.cuda.current_stream(dev).cuda_stream)
     if err:

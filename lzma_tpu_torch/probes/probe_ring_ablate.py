@@ -4,8 +4,9 @@ the counterpart of ``tools/probe_ring_ablate.py`` (``ablate``).
 The TPU probe ran the genuine ``decode_pallas_ring`` body with parts
 stubbed, to find what a decode step costs.  Here the genuine body is
 ``csrc/lzma_decode.cuh`` ``decode_lane``, which K1 and K5 call;
-``csrc/probe_ablate.cu`` is K1's kernel (a lane a block, arena and
-window in device memory) instantiated with its knock-out flags.  The
+``csrc/probe_ablate.cu`` is K1's block (a lane a block, the input staged
+in shared memory, the arena where ``cuda_ring.arena_placement`` puts it,
+the window in device memory) instantiated with its knock-out flags.  The
 variants (``VARIANTS``):
 
     realrow   the exact body, error rules on (K1's outcome)
@@ -20,6 +21,17 @@ variants (``VARIANTS``):
     notrans   one is_match bit a byte, no trees, no state change
     barebit   one bit a byte at the index 8 * out_pos mod the arena's
               size, stepped without a division
+    barereg   barebit with the byte before kept in a register, not
+              read back from the row it was just stored to
+    barefast  barereg with the fast body's bit (branch-free, its
+              probability loaded a bit ahead)
+    barechain barefast storing no byte: the bit's chain alone
+    smemwin   full with the window in shared memory: the same path and
+              bytes as full, so full - smemwin is what K1's window in
+              device memory costs (rows that fit beside K1's shared
+              arena)
+    spans     realrow with clock64 spans by kind of symbol (SPANS); the
+              clock reads lengthen it
 
 Every variant but realrow keeps its lanes alive, so each lane decodes to
 |size| bytes whatever it reads, as the TPU probe's did; a knock-out's
@@ -48,18 +60,24 @@ import torch
 from ..bench.datagen import generate_bench_data
 from ..core.layout import ProbLayout
 from ..format.properties import LzmaParams
-from ..ops.cuda_ring import _LAYOUT_FIELDS, _Layout, _check
+from ..ops.cuda_ring import _LAYOUT_FIELDS, _Layout, _check, launch_args
 from ..ops.device_decoder import _decode_fsm, pad_rows
 from ..ops.device_encoder import encode_batch
 from . import _cuda
 
 #: the variant ids of csrc/probe_ablate.cu
 VARIANTS = {"realrow": 0, "full": 1, "noctx": 2, "noarena": 3, "noinput": 4,
-            "nowin": 5, "noring": 6, "notrans": 7, "barebit": 8}
+            "nowin": 5, "noring": 6, "notrans": 7, "barebit": 8, "barereg": 9,
+            "barefast": 10, "barechain": 11, "smemwin": 12, "spans": 13}
 #: the variants a plain version exists for (on valid streams)
-PLAIN = ("realrow", "full")
+PLAIN = ("realrow", "full", "smemwin", "spans")
+#: the spans variant's kinds of symbol (csrc/lzma_decode.cuh kSpan*):
+#: counts[:, 3:8], SM cycles
+SPANS = ("plain literal", "matched literal", "match or rep", "copy",
+         "checked symbol")
 #: the TPU probe's variants, then realrow on its real rows
-TABLE = ("full", "noctx", "noarena", "noinput", "nowin", "notrans", "barebit")
+TABLE = ("full", "noctx", "noarena", "noinput", "nowin", "noring", "notrans",
+         "barebit", "barereg", "barefast", "barechain", "smemwin")
 #: the TPU probe's real rows (main_real): 32 lanes of 16 KiB of bench
 #: data, lc0, dict 4 KiB, fb 8
 REAL_LANES, REAL_BLOCK, REAL_DICT = 32, 1 << 14, 1 << 12
@@ -72,30 +90,37 @@ LAUNCHES = Counter()
 def _kernel():
     P, I = _cuda.P, _cuda.I
     return _cuda.kernel("lzt_probe_ablate",
-                        [I] + [P] * 8 + [I] * 7 + [_Layout, P])
+                        [I] + [P] * 8 + [I] * 9 + [_Layout, P])
 
 
 def run_kernel(variant, comp, comp_lens, out_sizes, dict_size, lc, lp, pb,
                max_out):
     """One launch of csrc/probe_ablate.cu: (out (N, max_out) uint8, ok (N,)
-    bool, out_pos (N,) int32, counts (N, 3) int32: bits decoded, bytes
-    copied, SM cycles of the decode).  The wrappers count it."""
+    bool, out_pos (N,) int32, counts (N, 8) int32: bits decoded, bytes
+    copied, SM cycles of the decode, then the SPANS (spans only, else
+    0)).  The wrappers count it."""
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {tuple(VARIANTS)}, got {variant!r}")
     _check(comp, comp_lens, out_sizes, None, max_out)
     layout = ProbLayout(lc, lp, pb, pos_bits=pb)
     n, max_in = comp.shape
     dev = comp.device
-    probs = torch.empty((n, layout.size), dtype=torch.int16, device=dev)
+    shared, smem, probs = launch_args(comp, layout)
+    if variant == "smemwin":
+        if not shared:
+            raise ValueError("smemwin needs K1's arena in shared memory")
+        smem += (max_out + 15) // 16 * 16
     out = torch.zeros((n, max_out), dtype=torch.uint8, device=dev)
     ok = torch.empty((n,), dtype=torch.bool, device=dev)
     out_pos = torch.empty((n,), dtype=torch.int32, device=dev)
-    counts = torch.empty((n, 3), dtype=torch.int32, device=dev)
+    counts = torch.zeros((n, 3 + len(SPANS)), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = _kernel()(VARIANTS[variant], comp.data_ptr(), comp_lens.data_ptr(),
-                        out_sizes.data_ptr(), probs.data_ptr(), out.data_ptr(),
-                        ok.data_ptr(), out_pos.data_ptr(), counts.data_ptr(), n,
-                        max_in, int(dict_size), lc, lp, pb, max_out,
+                        out_sizes.data_ptr(),
+                        None if probs is None else probs.data_ptr(),
+                        out.data_ptr(), ok.data_ptr(), out_pos.data_ptr(),
+                        counts.data_ptr(), n, max_in, int(dict_size), lc, lp,
+                        pb, max_out, shared, smem,
                         _Layout(*(getattr(layout, f) for f in _LAYOUT_FIELDS)),
                         _cuda.stream(comp))
     _cuda.raise_on(err, f"probe_ablate {variant}")
@@ -115,9 +140,9 @@ def plain(comp, comp_lens, out_sizes, dict_size, lc, lp, pb, max_out, variant):
 def ablate(comp, comp_lens, out_sizes, dict_size: int, lc: int, lp: int,
            pb: int, max_out: int, variant: str = "full"):
     """Decode N padded raw streams with `variant` of K1's body: (out (N,
-    max_out) uint8, ok (N,) bool, out_pos (N,) int32, counts (N, 3) int32
-    of bits decoded, bytes copied and the decode's SM cycles, None from
-    the plain version).  comp (N, max_in) uint8, comp_lens and out_sizes
+    max_out) uint8, ok (N,) bool, out_pos (N,) int32, counts (N, 8) int32
+    of bits decoded, bytes copied, the decode's SM cycles and the SPANS,
+    None from the plain version).  comp (N, max_in) uint8, comp_lens and out_sizes
     (N,) int32."""
     if not _cuda.on_device(comp, "ablate"):
         return plain(comp, comp_lens, out_sizes, dict_size, lc, lp, pb,
@@ -162,12 +187,20 @@ def per_lane(res):
     lanes of (ns a byte, ns a step, ns a bit, bits, copied bytes, ms of
     the decode), and the slowest lane's ms; a step is a bit or a copied
     byte."""
-    bits, copies, cycles = res[3].double().unbind(dim=1)
+    bits, copies, cycles = res[3][:, :3].double().unbind(dim=1)
     ns = cycles * 1e6 / _cuda.clock_khz(res[3].device.index or 0)
     mean = lambda x: float(x.mean())
     return (mean(ns / res[2].double()), mean(ns / (bits + copies)),
             mean(ns / bits), mean(bits), mean(copies), mean(ns) / 1e6,
             float(ns.max()) / 1e6)
+
+
+def breakdown(counts, lane=None):
+    """The spans variant's SPANS as shares of their sum, over all lanes
+    or for one lane."""
+    spans = counts[:, 3:].double()
+    spans = spans.sum(0) if lane is None else spans[lane]
+    return tuple(float(x) for x in spans / spans.sum())
 
 
 def sweep(device, comp, comp_lens, sizes, variants=TABLE + ("realrow",)):
@@ -186,6 +219,14 @@ def sweep(device, comp, comp_lens, sizes, variants=TABLE + ("realrow",)):
     return rows
 
 
+def spans_line(device, comp, comp_lens, sizes) -> str:
+    """The spans variant's shares over the streams (dict 4 KiB, lc0,
+    pb2), as one line."""
+    res = ablate(comp, comp_lens, sizes, REAL_DICT, 0, 0, 2, int(sizes.max()),
+                 "spans")
+    return ", ".join(f"{k} {100 * v:.1f}%" for k, v in zip(SPANS, breakdown(res[3])))
+
+
 def main():
     dev = _cuda.cuda_device()
     comp, comp_lens, sizes, want = real_rows(dev)
@@ -199,7 +240,9 @@ def main():
           f"{nbit:6.1f} ns/bit, {bits:7.0f} bits and {cp:6.0f} copied bytes, "
           f"checksum {cs}")
          for v, ms, nb, nst, nbit, bits, cp, lane_ms, slow, cs
-         in sweep(dev, comp, comp_lens, sizes)])
+         in sweep(dev, comp, comp_lens, sizes)]
+        + [("spans", "the decode's cycles: "
+            + spans_line(dev, comp, comp_lens, sizes))])
 
 
 if __name__ == "__main__":

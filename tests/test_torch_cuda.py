@@ -337,6 +337,146 @@ def test_optimal_encode_on_the_card_equals_the_cpu(card):
     assert api.decode_blocks(blob, device=card) == data
 
 
+# ------------------------------------- K1 and K5: the two-speed decode body
+def _k1_k5_plain(comp, lens, sizes, dict_size, lc, lp, pb, max_out,
+                 preset=None, resident=True):
+    """K1 (and K5 where `resident`) on the card against _decode_fsm on
+    the CPU: equal (out, ok, out_pos), each kernel launched once.
+    Returns K1's result on the CPU."""
+    dev = torch.device("cuda", 0)
+    args = [torch.as_tensor(np.asarray(x), dtype=t) for x, t in
+            ((comp, torch.uint8), (lens, torch.int32), (sizes, torch.int32))]
+    pre = (None if preset is None else
+           torch.frombuffer(bytearray(preset), dtype=torch.uint8))
+    want = _decode_fsm(*args, dict_size, lc, lp, pb, max_out, preset=pre)
+    card_args = [a.to(dev) for a in args]
+    card_pre = None if pre is None else pre.to(dev)
+    fns = [cuda_ring.decode_cuda] + ([cuda_decoder.decode_resident]
+                                     if resident else [])
+    for fn in fns:
+        mod = cuda_ring if fn is cuda_ring.decode_cuda else cuda_decoder
+        before = mod.LAUNCHES
+        got = fn(*card_args, dict_size, lc, lp, pb, max_out, preset=card_pre)
+        assert mod.LAUNCHES == before + 1
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w), fn.__name__
+    return [w for w in want]
+
+
+def _rows(streams, width=None):
+    width = width or 1 << max(4, (max(len(x) for x in streams) - 1).bit_length())
+    comp = np.zeros((len(streams), width), np.uint8)
+    for i, x in enumerate(streams):
+        comp[i, :len(x)] = np.frombuffer(x, np.uint8)
+    return comp, [len(x) for x in streams]
+
+
+# K1's arena in both placements: lc3 lp0's in shared memory, lc8 lp4's
+# (3,146,902 probabilities) in device memory, chosen by its size alone
+@pytest.mark.parametrize("lc,lp,placement", [(3, 0, "shared"), (0, 0, "shared"),
+                                             (4, 3, "shared"), (8, 4, "device")])
+def test_ring_decoder_in_both_placements(card, lc, lp, placement):
+    arena = ProbLayout(lc, lp, 2, pos_bits=2).size
+    assert cuda_ring.arena_placement(arena, smem_limit(card.index or 0)) == placement
+    params = LzmaParams(lc=lc, lp=lp, pb=2, dict_size=1 << 12)
+    blocks = _blocks(4, 2048, 11 + lc)
+    comp, lens = _rows([encode_stream(b, params, mode="greedy") for b in blocks])
+    out = _k1_k5_plain(comp, lens, [len(b) for b in blocks], 1 << 12, lc, lp,
+                       2, 2048, resident=placement == "shared")
+    assert bool(out[1].all())
+    for i, b in enumerate(blocks):
+        assert out[0][i, :len(b)].numpy().tobytes() == b
+
+
+def _exact_stream(target, seed):
+    """(payload, its stream of exactly `target` bytes): incompressible
+    bytes, a length searched for."""
+    params = LzmaParams(dict_size=1 << 12)
+    rng = np.random.default_rng(seed)
+    data = rng.integers(0, 256, target + 256, dtype=np.uint8).tobytes()
+    n, tried = target - 16, set()
+    for _ in range(200):
+        stream = encode_stream(data[:n], params, mode="greedy")
+        if len(stream) == target:
+            return data[:n], stream
+        tried.add(n)
+        step = n + target - len(stream)
+        n = step if step not in tried else max(tried) + 1
+    raise AssertionError(f"no stream of {target} bytes")
+
+
+# K1 stages its input by tiles of IN_TILE bytes: valid streams of tile - 1,
+# tile, tile + 1 and 2 x tile bytes, rows of 8,195 bytes (the lanes' bases
+# 0, 3, 2 and 1 past a 4-byte boundary), decode to their payloads in K1
+# and K5; the same streams cut at the tile edges fail in K1 exactly as in
+# K5, whose input is resident (their plain version's loop would take
+# ~40,000 steps a lane)
+def test_ring_decoder_at_input_tile_edges_and_unaligned_rows(card):
+    T = cuda_ring.IN_TILE
+    pairs = [_exact_stream(n, n) for n in (T - 1, T, T + 1, 2 * T)]
+    payloads, streams = zip(*pairs)
+    cuts = [streams[3][:n] for n in (T - 1, T, T + 1, 2 * T - 1)]
+    comp, lens = _rows(list(streams) + cuts, width=2 * T + 3)
+    comp, lens = (torch.tensor(x, device=card) for x in (comp, lens))
+    lens = lens.to(torch.int32)
+    sizes = torch.tensor([len(x) for x in payloads] + [len(payloads[3])] * 4,
+                         dtype=torch.int32, device=card)
+    args = (comp, lens, sizes, 1 << 12, 3, 0, 2, 2 * T)
+    k1, k5 = cuda_ring.decode_cuda(*args), cuda_decoder.decode_resident(*args)
+    for a, b in zip(k1, k5):
+        assert torch.equal(a, b)
+    # cut at the tile edges the lanes fail; cut by its last byte one may
+    # still decode (up to 40 bytes past a stream's end read as 0)
+    assert k1[1][:7].tolist() == [True] * 4 + [False] * 3
+    for i, x in enumerate(payloads):
+        assert k1[0][i, :len(x)].cpu().numpy().tobytes() == x
+    # a lane of three and more tiles, with the plain version, cut short
+    _k1_k5_plain(comp[:4].cpu(), lens[:4].cpu(), [700] * 4, 1 << 12, 3, 0, 2,
+                 2 * T)
+
+
+# the restated body's cases (tests/test_torch_kernel_plans.py) on the card
+@pytest.mark.parametrize("group", range(2))
+def test_decoders_on_truncations_like_plain(card, group):
+    params = LzmaParams(dict_size=1 << 12)
+    good = encode_stream(generate_bench_data(1024), params, mode="greedy")
+    cuts = [good[:len(good) - k] for k in range(1 + 32 * group, 33 + 32 * group)]
+    comp, lens = _rows(cuts)
+    _k1_k5_plain(comp, lens, [1024] * 32, 1 << 12, 3, 0, 2, 1024)
+
+
+def test_decoders_at_the_output_margin_like_plain(card):
+    params = LzmaParams(dict_size=1 << 12)
+    block = generate_bench_data(1024)
+    comp, lens = _rows([encode_stream(block, params, mode="greedy")] * 8)
+    n = len(block)
+    sizes = [n - 274, n - 273, n - 272, n, n - 1, 272, 273, 1]
+    _k1_k5_plain(comp, lens, sizes, 1 << 12, 3, 0, 2, 1024)
+    for max_out in (n - 100, n + 272, n + 273):
+        _k1_k5_plain(comp[:1], lens[:1], [n], 1 << 12, 3, 0, 2, max_out)
+
+
+def test_decoders_on_rep0_runs_of_273(card):
+    # one literal, then copies at distance 1 of kMatchMaxLen bytes each
+    params = LzmaParams(dict_size=1 << 12)
+    payloads = [b"a" * 4000, b"ab" * 1500 + b"c" * 1000]
+    comp, lens = _rows([encode_stream(x, params, mode="greedy") for x in payloads])
+    out = _k1_k5_plain(comp, lens, [len(x) for x in payloads], 1 << 12, 3, 0, 2,
+                       4096)
+    for i, x in enumerate(payloads):
+        assert out[0][i, :len(x)].numpy().tobytes() == x
+
+
+def test_decoders_on_eos_lanes_with_caps_like_plain(card):
+    params = LzmaParams(dict_size=1 << 12, write_eos=True)
+    payload = generate_bench_data(1500)
+    comp, lens = _rows([encode_stream(payload, params, mode="greedy")] * 4)
+    n = len(payload)
+    out = _k1_k5_plain(comp, lens, [-n, -(n - 1), -4096, -(n // 2)], 1 << 12,
+                       3, 0, 2, 4096)
+    assert out[1].tolist() == [True, False, True, False]
+
+
 # ------------------------------------------------- K5, the resident decoder
 def test_resident_decoder_matches_plain_with_and_without_preset(card):
     params = LzmaParams(dict_size=1 << 12)

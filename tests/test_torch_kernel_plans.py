@@ -1,4 +1,5 @@
-"""What the redesigned K2 and K3 decide on the host, and K3's step order.
+"""What the redesigned K1, K2 and K3 decide on the host, K3's step order
+and the decoders' two-speed body.
 
 These run on the CPU.  The CUDA kernels themselves are held against their
 plain versions on the card (tests/test_torch_cuda.py, chip_smoke.py); here:
@@ -13,21 +14,37 @@ plain versions on the card (tests/test_torch_cuda.py, chip_smoke.py); here:
   node i relaxes from the terms handed over a step earlier; power-of-two
   rings indexed by masks, slot i retired at step i), equal to
   ``dp_parse_band``'s planes on the bench config's first-round inputs
-  (its first 4 lanes).
+  (its first 4 lanes);
+- K1's arena placement (``cuda_ring.arena_placement``) over the lc/lp
+  grid, as K2's;
+- a scalar restatement of the decode body of K1 and K5
+  (``csrc/lzma_decode.cuh``): the fast symbol while the input and output
+  margins hold, the checked symbol after, and the per-symbol checks the
+  fast one keeps, equal to ``_decode_fsm`` on valid lanes, truncations
+  at each of a stream's last 64 bytes, corrupt bytes, bounds and rows at
+  the output margin, EOS lanes and caps, a preset and lc8 lp4 (2 KiB
+  lanes at most, 8 a call).
 """
+
+import pathlib
+import re
 
 import numpy as np
 import pytest
 import torch
 
+from lzma_tpu.codec.encoder import encode_stream
+# the scalar encoder takes lzma_tpu's parameter class
+from lzma_tpu.format.properties import LzmaParams
 from lzma_tpu_torch.bench.datagen import generate_bench_data
 from lzma_tpu_torch.core.layout import ProbLayout
-from lzma_tpu_torch.ops import cuda_serializer
+from lzma_tpu_torch.ops import cuda_ring, cuda_serializer
+from lzma_tpu_torch.ops.cuda_ring import CTRL_BYTES, IN_TILE
 from lzma_tpu_torch.ops.cuda_parser import (NODE_VALS, SPLIT_FB, TILE_ROWS,
                                             dp_parse_plan)
 from lzma_tpu_torch.ops.cuda_serializer import (PLACEMENTS, TILE,
                                                 arena_placement, smem_bytes)
-from lzma_tpu_torch.ops.device_decoder import pad_rows
+from lzma_tpu_torch.ops.device_decoder import _decode_fsm, pad_rows
 from lzma_tpu_torch.ops.device_parser import (INF, M_DP, RK_LIT, RK_MATCH,
                                               RK_SHORTREP, _lists_and_seed,
                                               _round_inputs, dp_parse_band,
@@ -265,3 +282,512 @@ def test_k3_step_order_equals_dp_parse_band_at_other_widths(fb, pb):
     want = dp_parse_band(packed, tables, lens, fb, pb)
     for g, w in zip(got, want):
         assert np.array_equal(g, w.numpy())
+
+
+# ------------------------------------------------- K1 and K5: the decode body
+# K1's arena placement (cuda_ring.arena_placement): the arena in shared
+# memory when it fits beside the control words and the two input tiles
+@pytest.mark.parametrize("lp", range(5))
+@pytest.mark.parametrize("lc", range(9))
+def test_ring_arena_placement_over_the_lc_lp_grid(lc, lp):
+    arena = ProbLayout(lc, lp, 2, pos_bits=2).size
+    ring = CTRL_BYTES + 2 * IN_TILE
+    shared = ring + (2 * arena + 15) // 16 * 16
+    assert cuda_ring.smem_bytes("shared", arena) == shared
+    assert cuda_ring.smem_bytes("device", arena) == ring
+    want = "shared" if shared <= H100_SMEM else "device"
+    assert cuda_ring.arena_placement(arena, H100_SMEM) == want
+    assert cuda_ring.arena_placement(arena, shared) == "shared"
+    assert cuda_ring.arena_placement(arena, shared - 1) == "device"
+    assert (want == "shared") == (lc + lp <= 7)
+    with pytest.raises(ValueError):
+        cuda_ring.smem_bytes("global", arena)
+
+
+def _header_constant(name):
+    src = (pathlib.Path(cuda_ring.__file__).parent.parent / "csrc"
+           / "lzma_decode.cuh").read_text()
+    expr = re.search(rf"constexpr int {name} = ([^;]+);", src).group(1)
+    return eval(expr, {"kSymbolMaxBits": SYMBOL_MAX_BITS, "kInTileLog": 12})
+
+
+# A scalar restatement of csrc/lzma_decode.cuh's two-speed body: the fast
+# symbol (no per-bit or per-byte check: it asserts instead that the
+# margins make each check needless; branch-free bits; both children of a
+# tree level read before the level's bit; the matched literal's offs/bit
+# walk; a copy's batches of 8 loads before their 8 stores) while in_pos <
+# lim - IN_MARGIN + 1 and out_pos < min(bound, max_out) - MATCH_MAX + 1,
+# the checked symbol (the first version's, every check on) after.  The
+# input ring is a residency matter and is not restated.
+TOP = 1 << 24
+MATCH_MAX = 273
+SYMBOL_MAX_BITS = 1 + 1 + 2 + 8 + 6 + 26 + 4
+IN_MARGIN = SYMBOL_MAX_BITS
+GO_ON, END, FAIL = 0, 1, 2
+
+
+class _Fail(Exception):
+    pass
+
+
+class TwoSpeed:
+    def __init__(self, row, in_len, size, dict_size, lc, lp, pb, max_out,
+                 preset=b""):
+        self.row, self.in_len = bytes(row), in_len
+        self.lim = min(in_len, len(row))
+        self.last = row[-1] if len(row) else 0
+        self.L = ProbLayout(lc, lp, pb, pos_bits=pb)
+        self.p = [1024] * self.L.size
+        self.P, self.max_out = len(preset), max_out
+        self.o = bytearray(max_out)
+        self.o[:self.P] = preset
+        self.eos = size < 0
+        self.bound = -size if self.eos else size
+        self.dict_check = max(dict_size, 1)
+        self.lc, self.pb_mask, self.lp_mask = lc, (1 << pb) - 1, (1 << lp) - 1
+        self.range, self.code, self.in_pos, self.overrun = 0xFFFFFFFF, 0, 5, 0
+        self.out_pos, self.state = self.P, 0
+        self.rep = [0, 0, 0, 0]
+        self.prev = preset[-1] if preset else 0
+        self.symbols = {"fast": 0, "checked": 0}
+        for i in range(5):
+            self.code = (self.code << 8) | (self.in_byte(i) if i < in_len else 0)
+
+    def in_byte(self, i):
+        return self.row[i] if i < self.lim else self.last
+
+    # ---- the fast bits: no check
+    def fbit(self, pr, i):
+        assert self.in_pos < self.lim             # the input margin holds
+        nb = self.row[self.in_pos]                # read every bit
+        bnd = (self.range >> 11) * pr
+        one = self.code >= bnd
+        self.range = self.range - bnd if one else bnd
+        self.code = self.code - bnd if one else self.code
+        self.p[i] = pr - (pr >> 5) if one else pr + ((2048 - pr) >> 5)
+        need = self.range < TOP
+        self.range = (self.range << 8) & 0xFFFFFFFF if need else self.range
+        self.code = ((self.code << 8) | nb) & 0xFFFFFFFF if need else self.code
+        self.in_pos += need
+        return int(one)
+
+    def fdirect(self):
+        assert self.in_pos < self.lim
+        nb = self.row[self.in_pos]
+        self.range >>= 1
+        t = (self.code - self.range) & 0xFFFFFFFF
+        b = 1 - (t >> 31)
+        self.code = t if b else self.code
+        need = self.range < TOP
+        self.range = (self.range << 8) & 0xFFFFFFFF if need else self.range
+        self.code = ((self.code << 8) | nb) & 0xFFFFFFFF if need else self.code
+        self.in_pos += need
+        return b
+
+    def ftree(self, t, depth, rev=False):
+        m, pr, val = 1, self.p[t + 1], 0
+        for k in range(depth):
+            p0, p1 = self.p[t + 2 * m], self.p[t + 2 * m + 1]   # loaded ahead
+            b = self.fbit(pr, t + m)
+            m = 2 * m + b
+            val |= b << k
+            pr = p1 if b else p0
+        return val if rev else m - (1 << depth)
+
+    def fmatched(self, lit, mb):
+        offs, mm = 0x100, mb << 1
+        bitv, offs = offs, offs & mm
+        sym, idx = 1, offs + bitv + 1
+        pr = self.p[lit + idx]
+        for k in range(8):
+            mn = mm << 1
+            o0, o1 = offs ^ bitv, offs
+            i0, i1 = (o0 & mn) + o0 + 2 * sym, (o1 & mn) + o1 + 2 * sym + 1
+            if k < 7:
+                p0, p1 = self.p[lit + i0], self.p[lit + i1]   # loaded ahead
+            b = self.fbit(pr, lit + idx)
+            sym = 2 * sym + b
+            on = o1 if b else o0
+            bitv, offs, mm = on, on & mn, mn
+            idx = i1 if b else i0
+            if k < 7:
+                pr = p1 if b else p0
+        return sym
+
+    def fast_symbol(self):
+        L, s = self.L, self.state
+        coded = self.out_pos - self.P
+        ps = coded & self.pb_mask
+        im = L.is_match + (s << L.pos_bits) + ps
+        lit = L.literal + (((coded & self.lp_mask) << self.lc)
+                           + (self.prev >> (8 - self.lc))) * 0x300
+        matched = s >= 7
+        mb = self.o[self.out_pos - self.rep[0] - 1] if matched else 0
+        if self.fbit(self.p[im], im) == 0:
+            if not matched:                           # a plain 8-level tree
+                sym = self.ftree(lit, 8) + 256
+            else:                                     # the offs/bit walk
+                sym = self.fmatched(lit, mb)
+            self.prev = sym & 0xFF
+            self.o[self.out_pos] = self.prev      # the output margin holds
+            self.out_pos += 1
+            self.state = 0 if s < 4 else (s - 3 if s < 10 else s - 6)
+            return GO_ON
+        length, rep = 0, self.rep
+        if self.fbit(self.p[L.is_rep + s], L.is_rep + s) == 0:
+            rep[1:] = rep[:3]
+            len_base = L.len_coder
+        else:
+            if self.fbit(self.p[L.is_rep_g0 + s], L.is_rep_g0 + s) == 0:
+                r0l = L.is_rep0_long + (s << L.pos_bits) + ps
+                if self.fbit(self.p[r0l], r0l) == 0:
+                    self.state, length = (9 if s < 7 else 11), 1
+            elif self.fbit(self.p[L.is_rep_g1 + s], L.is_rep_g1 + s) == 0:
+                rep[0], rep[1] = rep[1], rep[0]
+            else:
+                k = 2 + self.fbit(self.p[L.is_rep_g2 + s], L.is_rep_g2 + s)
+                rep[:k + 1] = [rep[k]] + rep[:k]
+            len_base = L.rep_len_coder
+        if length == 0:
+            ch, ch2 = len_base + L.len_choice, len_base + L.len_choice2
+            if self.fbit(self.p[ch], ch) == 0:
+                length = self.ftree(len_base + L.len_low + (ps << 3), 3) + 2
+            elif self.fbit(self.p[ch2], ch2) == 0:
+                length = self.ftree(len_base + L.len_mid + (ps << 3), 3) + 10
+            else:
+                length = self.ftree(len_base + L.len_high, 8) + 18
+            if len_base == L.len_coder:
+                self.state = 7 if s < 7 else 10
+                slot = self.ftree(L.pos_slot + min(length - 2, 3) * 64, 6)
+                if slot < 4:
+                    rep[0] = slot
+                else:
+                    nd = (slot >> 1) - 1
+                    base = (2 | (slot & 1)) << nd
+                    if slot < 14:
+                        rep[0] = base + self.ftree(L.spec_pos + base - slot - 1,
+                                                   nd, rev=True)
+                    else:
+                        acc = 0
+                        for _ in range(nd - 4):
+                            acc = (acc << 1) | self.fdirect()
+                        dist = base + (acc << 4) + self.ftree(L.align, 4, rev=True)
+                        dist = ((dist + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+                        if dist == -1 and self.eos:      # the end marker
+                            return END
+                        if dist < 0:
+                            return FAIL
+                        rep[0] = dist
+            else:
+                self.state = 8 if s < 7 else 11
+        # the distance check, once a symbol
+        if rep[0] >= self.out_pos or rep[0] >= self.dict_check:
+            return FAIL
+        d = rep[0] + 1
+        src, j = self.out_pos - d, 0
+        assert self.out_pos + length <= min(self.bound, self.max_out)
+        for k in range(0, length, 8):        # every source byte < out_pos
+            batch = []
+            for _ in range(min(8, length - k)):  # a batch's loads, then stores
+                batch.append(self.o[src + j])
+                j = 0 if j + 1 == d else j + 1
+            for u, v in enumerate(batch):
+                self.o[self.out_pos + k + u] = v
+            self.prev = batch[-1]
+        self.out_pos += length
+        return GO_ON
+
+    # ---- the checked body: every bit checks the overrun, every window
+    # index is clamped, every copied byte the bound
+    def cbit(self, i):
+        pr = self.p[i]
+        bnd = (self.range >> 11) * pr
+        if self.code < bnd:
+            self.range, b = bnd, 0
+            self.p[i] = pr + ((2048 - pr) >> 5)
+        else:
+            self.range, self.code, b = self.range - bnd, self.code - bnd, 1
+            self.p[i] = pr - (pr >> 5)
+        self.cnorm()
+        return b
+
+    def cnorm(self):
+        if self.range < TOP:
+            byte = 0
+            if self.in_pos < self.in_len:
+                byte = self.in_byte(self.in_pos)
+            else:
+                self.overrun += 1
+            self.in_pos += 1
+            self.range = (self.range << 8) & 0xFFFFFFFF
+            self.code = ((self.code << 8) | byte) & 0xFFFFFFFF
+
+    def cdirect(self):
+        rd = self.range >> 1
+        b = 1 - (((self.code - rd) & 0xFFFFFFFF) >> 31)
+        if b:
+            self.code -= rd
+        self.range = rd
+        self.cnorm()
+        return b
+
+    def bit(self, i):
+        b = self.cbit(i)
+        if self.overrun > 40:
+            raise _Fail
+        return b
+
+    def back(self, dist):
+        return self.o[min(max(self.out_pos - dist - 1, 0), self.max_out - 1)]
+
+    def emit(self, byte):
+        self.o[min(self.out_pos, self.max_out - 1)] = byte
+        self.out_pos += 1
+
+    def checked_symbol(self):
+        try:
+            return self._checked()
+        except _Fail:
+            return FAIL
+
+    def _checked(self):
+        L, s, rep = self.L, self.state, self.rep
+        coded = self.out_pos - self.P
+        ps = coded & self.pb_mask
+        if self.bit(L.is_match + (s << L.pos_bits) + ps) == 0:
+            lit = L.literal + (((coded & self.lp_mask) << self.lc)
+                               + (self.prev >> (8 - self.lc))) * 0x300
+            sym, walk = 1, []
+            if s >= 7:
+                mb = self.back(rep[0])
+                while sym < 0x100:
+                    mbit = (mb >> 7) & 1
+                    mb <<= 1
+                    b = self.lit_bit(lit + ((1 + mbit) << 8) + sym, sym)
+                    sym = (sym << 1) | b
+                    if mbit != b:
+                        break
+            while sym < 0x100:
+                sym = (sym << 1) | self.lit_bit(lit + sym, sym)
+            self.prev = sym & 0xFF
+            self.emit(self.prev)
+            if self.out_pos > self.bound:
+                return FAIL
+            self.state = 0 if s < 4 else (s - 3 if s < 10 else s - 6)
+            return GO_ON
+        length = 0
+        if self.bit(L.is_rep + s) == 0:
+            rep[1:] = rep[:3]
+            len_base = L.len_coder
+        else:
+            if self.bit(L.is_rep_g0 + s) == 0:
+                if self.bit(L.is_rep0_long + (s << L.pos_bits) + ps) == 0:
+                    self.state, length = (9 if s < 7 else 11), 1
+            elif self.bit(L.is_rep_g1 + s) == 0:
+                rep[0], rep[1] = rep[1], rep[0]
+            else:
+                k = 2 + self.bit(L.is_rep_g2 + s)
+                rep[:k + 1] = [rep[k]] + rep[:k]
+            len_base = L.rep_len_coder
+        if length == 0:
+            if self.bit(len_base + L.len_choice) == 0:
+                tree, top, base_len = len_base + L.len_low + (ps << 3), 8, 0
+            elif self.bit(len_base + L.len_choice2) == 0:
+                tree, top, base_len = len_base + L.len_mid + (ps << 3), 8, 8
+            else:
+                tree, top, base_len = len_base + L.len_high, 256, 16
+            m = 1
+            while m < top:
+                m = (m << 1) | self.bit(tree + m)
+            length = base_len + m - top + 2
+            if len_base == L.len_coder:
+                self.state = 7 if s < 7 else 10
+                t, m = L.pos_slot + min(length - 2, 3) * 64, 1
+                while m < 64:
+                    m = (m << 1) | self.bit(t + m)
+                slot = m - 64
+                if slot < 4:
+                    rep[0] = slot
+                else:
+                    nd = (slot >> 1) - 1
+                    base, rev = (2 | (slot & 1)) << nd, 0
+                    if slot < 14:
+                        t, m = L.spec_pos + base - slot - 1, 1
+                        for i in range(nd):
+                            b = self.bit(t + m)
+                            m, rev = (m << 1) | b, rev | (b << i)
+                        rep[0] = base + rev
+                    else:
+                        acc = 0
+                        for _ in range(nd - 4):
+                            acc = (acc << 1) | self.cdirect()
+                            if self.overrun > 40:
+                                raise _Fail
+                        m = 1
+                        for i in range(4):
+                            b = self.bit(L.align + m)
+                            m, rev = (m << 1) | b, rev | (b << i)
+                        dist = base + (acc << 4) + rev
+                        dist = ((dist + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+                        if dist == -1 and self.eos:
+                            return END
+                        if dist < 0:
+                            return FAIL
+                        rep[0] = dist
+            else:
+                self.state = 8 if s < 7 else 11
+        if rep[0] >= self.out_pos or rep[0] >= self.dict_check:
+            return FAIL
+        for _ in range(length):
+            self.prev = self.back(rep[0])
+            self.emit(self.prev)
+            if self.out_pos > self.bound:
+                return FAIL
+        return GO_ON
+
+    def lit_bit(self, i, sym):
+        # the FSM completes a literal's last bit before it fails the lane
+        b = self.cbit(i)
+        if self.overrun > 40:
+            if (sym << 1 | b) >= 0x100:
+                self.emit(((sym << 1) | b) & 0xFF)
+            raise _Fail
+        return b
+
+    def run(self):
+        """Symbols to the lane's end: (out, ok, out_pos)."""
+        out_fast = min(self.bound, self.max_out) - MATCH_MAX + 1
+        in_fast = self.lim - IN_MARGIN + 1
+        while True:
+            fast = self.in_pos < in_fast and self.out_pos < out_fast
+            self.symbols["fast" if fast else "checked"] += 1
+            r = self.fast_symbol() if fast else self.checked_symbol()
+            if r != GO_ON:
+                return bytes(self.o), r == END, self.out_pos
+            if not self.eos and self.out_pos >= self.bound:
+                return bytes(self.o), True, self.out_pos
+
+
+def _two_speed_vs_plain(streams, sizes, dict_size, lc, lp, pb, max_out,
+                        preset=b"", width=None):
+    """Every lane through TwoSpeed and _decode_fsm: equal (out, ok,
+    out_pos).  Returns the TwoSpeed lanes."""
+    assert len(streams) <= 8
+    width = width or 1 << max(4, (max(len(s) for s in streams) - 1).bit_length())
+    comp = np.zeros((len(streams), width), np.uint8)
+    for i, s in enumerate(streams):
+        comp[i, :len(s)] = np.frombuffer(s, np.uint8)
+    lens = [len(s) for s in streams]
+    pre = torch.frombuffer(bytearray(preset), dtype=torch.uint8) if preset else None
+    want = _decode_fsm(torch.from_numpy(comp), torch.tensor(lens, dtype=torch.int32),
+                       torch.tensor(sizes, dtype=torch.int32), dict_size, lc, lp,
+                       pb, max_out, preset=pre)
+    lanes = []
+    for i in range(len(streams)):
+        lane = TwoSpeed(comp[i], lens[i], sizes[i], dict_size, lc, lp, pb,
+                        max_out, preset)
+        out, ok, pos = lane.run()
+        assert (out, ok, pos) == (want[0][i].numpy().tobytes(), bool(want[1][i]),
+                                  int(want[2][i])), f"lane {i}"
+        lanes.append(lane)
+    return lanes
+
+
+_PARAMS = LzmaParams(dict_size=1 << 12)
+
+
+def _lane_blocks(n, size, seed):
+    rng = np.random.default_rng(seed)
+    bench = generate_bench_data(n * size)
+    out = [bench[i * size:(i + 1) * size] for i in range(n)]
+    out[-1] = out[-1][:size // 2] + rng.integers(0, 256, size // 2,
+                                                 dtype=np.uint8).tobytes()
+    return out
+
+
+def test_two_speed_constants_are_the_kernels():
+    assert _header_constant("kMatchMaxLen") == MATCH_MAX
+    assert _header_constant("kSymbolMaxBits") == SYMBOL_MAX_BITS == 48
+    assert _header_constant("kInMargin") == IN_MARGIN
+    assert 1 << _header_constant("kInTileLog") == IN_TILE
+
+
+def test_two_speed_body_equals_plain_on_valid_lanes():
+    blocks = _lane_blocks(8, 2048, 1)
+    streams = [encode_stream(b, _PARAMS, mode="greedy") for b in blocks]
+    lanes = _two_speed_vs_plain(streams, [2048] * 8, 1 << 12, 3, 0, 2, 2048)
+    # each lane runs fast to its margins, then hands over to the checked body
+    assert all(x.symbols["fast"] > 0 and x.symbols["checked"] > 0 for x in lanes)
+
+
+def _trunc_stream():
+    return encode_stream(generate_bench_data(1024), _PARAMS, mode="greedy")
+
+
+# the stream cut at every one of its last 64 bytes, 8 lanes a call
+@pytest.mark.parametrize("group", range(8))
+def test_two_speed_body_equals_plain_on_truncations(group):
+    good = _trunc_stream()
+    cuts = [good[:len(good) - k] for k in range(1 + 8 * group, 9 + 8 * group)]
+    lanes = _two_speed_vs_plain(cuts, [1024] * 8, 1 << 12, 3, 0, 2, 1024)
+    assert all(x.symbols["fast"] > 0 for x in lanes)
+
+
+def test_two_speed_body_equals_plain_on_corrupt_lanes():
+    blocks = _lane_blocks(2, 2048, 3)
+    good = encode_stream(blocks[0], _PARAMS, mode="greedy")
+    streams = []
+    for at in (len(good) // 4, len(good) // 2, 3 * len(good) // 4, 60):
+        for flip in (0x5A, 0x01):
+            bad = bytearray(good)
+            bad[at] ^= flip
+            streams.append(bytes(bad))
+    _two_speed_vs_plain(streams, [2048] * 8, 1 << 12, 3, 0, 2, 2048)
+    # a dictionary of 16 bytes fails the first far copy, in the fast body
+    lanes = _two_speed_vs_plain([good], [2048], 16, 3, 0, 2, 2048)
+    assert lanes[0].symbols["checked"] == 0
+
+
+def test_two_speed_body_equals_plain_at_the_output_margin():
+    # sizes (the bound) at n - 274, n - 273 and n - 272 for a lane of n =
+    # 1024 bytes, then rows (max_out) beside the bound
+    block = generate_bench_data(1024)
+    s = encode_stream(block, _PARAMS, mode="greedy")
+    n = len(block)
+    sizes = [n - MATCH_MAX - 1, n - MATCH_MAX, n - MATCH_MAX + 1, n, n - 1,
+             MATCH_MAX - 1, MATCH_MAX, 1]
+    lanes = _two_speed_vs_plain([s] * 8, sizes, 1 << 12, 3, 0, 2, 1024)
+    # a bound of 273 lets the first symbol run fast, one of 272 none
+    assert [x.symbols["fast"] > 0 for x in lanes] == [True] * 5 + [False, True,
+                                                                   False]
+    for max_out in (n - 100, n + MATCH_MAX - 1, n + MATCH_MAX):
+        _two_speed_vs_plain([s], [n], 1 << 12, 3, 0, 2, max_out)
+
+
+def test_two_speed_body_equals_plain_on_eos_lanes_and_caps():
+    params = LzmaParams(dict_size=1 << 12, write_eos=True)
+    payload = generate_bench_data(2000)
+    s = encode_stream(payload, params, mode="greedy")
+    n = len(payload)
+    lanes = _two_speed_vs_plain([s] * 4, [-n, -(n - 1), -4096, -(n // 2)],
+                                1 << 12, 3, 0, 2, 4096)
+    assert [x.symbols["fast"] > 0 for x in lanes] == [True] * 4
+
+
+def test_two_speed_body_equals_plain_with_a_preset():
+    bench = generate_bench_data(5 * 1024)
+    preset = bench[:512]
+    blocks = [bench[1024 * (i + 1):1024 * (i + 2)] for i in range(4)]
+    streams = [encode_stream(b, _PARAMS, preset=preset, mode="greedy")
+               for b in blocks]
+    lanes = _two_speed_vs_plain(streams, [1024 + 512] * 4, 1 << 12, 3, 0, 2,
+                                2048, preset=preset)
+    assert all(x.symbols["fast"] > 0 for x in lanes)
+
+
+def test_two_speed_body_equals_plain_at_lc8_lp4():
+    params = LzmaParams(lc=8, lp=4, pb=2, dict_size=1 << 12)
+    blocks = _lane_blocks(2, 1024, 8)
+    streams = [encode_stream(b, params, mode="greedy") for b in blocks]
+    _two_speed_vs_plain(streams, [1024] * 2, 1 << 12, 8, 4, 2, 1024)
+

@@ -5,7 +5,8 @@ decoders (K1, K5).
     python -m lzma_tpu_torch.bench.kernel_ab OTHER_CHECKOUT [KERNEL ...]
 
 KERNEL picks among dp_parse, dp_parse2, rc_serialize, ring_decode,
-ring_decode_champion and block_decode_champion (default: all).  The
+ring_input, ring_decode_champion, block_decode_champion and
+ring_input_champion (default: all).  The
 inputs are chip_smoke.py's: the main path is text_part() +
 generate_bench_data(5 << 20), LzmaParams() defaults (lc3 lp0 pb2, fb
 32), parse="optimal", 32 lanes of 256 KiB; an encode inside
@@ -19,9 +20,13 @@ runtime/build.py and called through its own wrappers
 (``ops.cuda_parser.dp_parse_cuda``, ``dp_parse2_cuda``,
 ``ops.cuda_serializer.serialize_cuda``, ``ops.cuda_ring.decode_cuda``,
 ``ops.cuda_decoder.decode_resident``), whose signatures both checkouts
-share.  Each kernel is timed by CUDA events after a warm launch, in the
-order other, this, this, other; the two checkouts' outputs must be
-equal.  Beside the decoders' times: the bits the longest lane decodes,
+share.  ring_input and ring_input_champion compare no checkouts: on
+K1's main-path and champion streams they time this checkout's K1 body
+with its input staged in the shared-memory ring ("this",
+``probes.probe_ring_ablate`` realrow) against the same body reading the
+row straight from device memory ("other", ldgin).  Each kernel is timed
+by CUDA events after a warm launch, in the order other, this, this,
+other; the two sides' outputs must be equal.  Beside the decoders' times: the bits the longest lane decodes,
 the bytes its matches copy and the shares of its cycles by kind of
 symbol (this checkout's ``probes.probe_ring_ablate`` spans, K1 with
 clock64 spans), so that a time reads as ns a decoded bit of the longest
@@ -55,8 +60,9 @@ OTHER = "_kernel_ab_other"
 #: the champion shape (chip_smoke CH_*)
 CH_LANES, CH_BLOCK, CH_DICT = 128, 1 << 14, 1 << 12
 KERNELS = ("dp_parse", "dp_parse2", "rc_serialize", "ring_decode",
-           "ring_decode_champion", "block_decode_champion")
-MAIN_PATH = KERNELS[:4]
+           "ring_input", "ring_decode_champion", "block_decode_champion",
+           "ring_input_champion")
+MAIN_PATH = KERNELS[:5]
 
 
 def other_wrappers(root: str):
@@ -113,6 +119,15 @@ def decoded_work(args):
             dict(zip(probe_ring_ablate.SPANS, (round(x, 4) for x in shares))))
 
 
+def ring_input(args):
+    """K1's body on args with its input in the ring ("this") and read
+    from device memory ("other"), their outputs less the clocks."""
+    def run(variant):
+        out, ok, out_pos, counts = probe_ring_ablate.ablate(*args, variant)
+        return out, ok, out_pos, counts[:, :2]
+    return {"other": lambda: run("ldgin"), "this": lambda: run("realrow")}
+
+
 def main(argv=None) -> None:
     argv = sys.argv[1:] if argv is None else argv
     if len(argv) < 1 or any(k not in KERNELS for k in argv[1:]):
@@ -148,6 +163,7 @@ def main(argv=None) -> None:
                 "this": lambda: cuda_serializer.serialize_cuda(*code)},
             "ring_decode": {"other": lambda: o_ring.decode_cuda(*dec),
                             "this": lambda: cuda_ring.decode_cuda(*dec)},
+            "ring_input": ring_input(dec),
         })
         if "ring_decode" in chosen:
             result["ring_decode_longest_lane"] = decoded_work(dec)
@@ -159,6 +175,7 @@ def main(argv=None) -> None:
             "block_decode_champion": {
                 "other": lambda: o_decoder.decode_resident(*ch),
                 "this": lambda: cuda_decoder.decode_resident(*ch)},
+            "ring_input_champion": ring_input(ch),
         })
         result["champion_longest_lane"] = decoded_work(ch)
     for kernel in chosen:
@@ -168,7 +185,7 @@ def main(argv=None) -> None:
             raise AssertionError(f"{kernel}: this checkout's output differs "
                                  "from the other's")
         del outs
-        reps = 3 if kernel in ("rc_serialize", "ring_decode") else 2
+        reps = 3 if kernel in ("rc_serialize", "ring_decode", "ring_input") else 2
         if kernel.endswith("champion"):
             reps = 5
         times = {k: [] for k in fns}

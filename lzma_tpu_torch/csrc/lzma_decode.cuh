@@ -202,6 +202,14 @@ constexpr int kRingMask = 2 * kInTile - 1;
 constexpr int kDone = 0x7FFFFFFF;
 constexpr int kCtrlBytes = 16;             // cur, ready, the pinned base
 
+// The dynamic shared memory of K1's block (ring_block): the control
+// words, the two tiles and, when the arena is in shared memory, its
+// uint16s rounded up to 16 B (cuda_ring.smem_bytes).
+inline long long ring_smem_bytes(bool shared_arena, int arena_size) {
+  return kCtrlBytes + 2LL * kInTile +
+         (shared_arena ? (2LL * arena_size + 15) / 16 * 16 : 0);
+}
+
 struct RingIn {
   uint32_t ring, ctrl;
   int shift, in_len, lim, end_r, cur, ready;
@@ -213,7 +221,8 @@ struct RingIn {
   // bytes a symbol may read from in_pos are staged, and give the input
   // position below which a fast symbol may start: its bytes are staged
   // and it stays in this tile (so that the next tile is published on
-  // entering it).
+  // entering it).  A lane with no input (lim <= 0) has no tile to wait
+  // for: its checked symbols read `last` or count an overrun.
   __device__ __forceinline__ int refill(int in_pos) {
     const int r = in_pos + shift;
     const int c = r >> kInTileLog;
@@ -221,7 +230,8 @@ struct RingIn {
       cur = c;
       stv_s32(ctrl, c);
     }
-    const int need = (min(r + kInMargin, end_r) - 1) >> kInTileLog;
+    const int need =
+        lim > 0 ? (min(r + kInMargin, end_r) - 1) >> kInTileLog : -1;
     if (need > ready) {
       do {
         ready = ldv_s32(ctrl + 4);
@@ -377,30 +387,15 @@ struct Lane {
     return m;
   }
   // A reverse tree of n levels (n <= 5) at arena index t: the same walk
-  // of nodes; the bits make the value low bit first.
+  // of nodes; the bits make the value low bit first.  Unrolled where n is
+  // a constant at the call (align's 4).
   __device__ __forceinline__ uint32_t frev(int t, int n) {
     uint32_t m = 1, rev = 0;
     uint32_t pr = ld(t + 1);
+#pragma unroll
     for (int k = 0; k < n; ++k) {
       uint32_t p0 = 0, p1 = 0;
       if (k + 1 < n) {
-        p0 = ld(t + 2 * m);
-        p1 = ld(t + 2 * m + 1);
-      }
-      const uint32_t b = fbit(pr, t + m);
-      m = 2 * m + b;
-      rev |= b << k;
-      pr = b ? p1 : p0;
-    }
-    return rev;
-  }
-  __device__ __forceinline__ uint32_t frev4(int t) {
-    uint32_t m = 1, rev = 0;
-    uint32_t pr = ld(t + 1);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      uint32_t p0 = 0, p1 = 0;
-      if (k + 1 < 4) {
         p0 = ld(t + 2 * m);
         p1 = ld(t + 2 * m + 1);
       }
@@ -518,7 +513,8 @@ struct Lane {
       ctx_bytes(1);
       state = state < 4 ? 0 : (state < 10 ? state - 3 : state - 6);
       return kGoOn;
-    }    if constexpr (KO & kKoSpans) kind = kSpanMatch;
+    }
+    if constexpr (KO & kKoSpans) kind = kSpanMatch;
     int len = 0, len_base;
     const int g0 = L.is_rep_g0 + state;
     const uint32_t p_g0 = ld(g0);
@@ -600,7 +596,7 @@ struct Lane {
               acc = (acc << 1) | fdirect();
             }
             const int dist =
-                static_cast<int>(base + (acc << 4) + frev4(L.align));
+                static_cast<int>(base + (acc << 4) + frev(L.align, 4));
             if (dist == -1 && eos) return kEnd;  // end marker
             if (!kAlive && dist < 0) return kFail;
             rep0 = dist;

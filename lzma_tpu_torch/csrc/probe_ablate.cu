@@ -35,13 +35,18 @@
 //  13 spans     realrow with clock64 spans by kind of symbol
 //               (lzma_decode.cuh kSpan*) in counts[:, 3:8]; the clock
 //               reads lengthen its time
+//  14 ldgin     realrow reading the row straight from device memory
+//               (through the read-only cache, K5's margin rule) instead
+//               of K1's staged ring: the same path and bytes as realrow,
+//               so ldgin - realrow is what the ring buys
 // notrans and the bare bits are not knock-outs at a site of decode_lane
 // but a loop of their own here (one_bit_lane) over its coder: the
 // checked bit (the first version's) or, for barefast, the fast one.
-// Every variant but realrow keeps its lanes alive, so a lane decodes to
-// |size| bytes whatever it reads (the TPU probes did the same); their
-// output is garbage and is used for timing only.  realrow and full on a
-// valid stream give K1's bytes, ok flags and output positions.  Every
+// Every variant but realrow, spans and ldgin keeps its lanes alive, so a
+// lane decodes to |size| bytes whatever it reads (the TPU probes did the
+// same); their output is garbage and is used for timing only.  realrow,
+// spans, ldgin and full on a valid stream give K1's bytes, ok flags and
+// output positions (realrow, spans and ldgin on any stream).  Every
 // variant writes, a lane, the bits it decodes, the bytes its matches
 // copy and the SM cycles (clock64) its decode took (counts (N, 8), the
 // last five columns spans's and 0 elsewhere): a
@@ -69,6 +74,7 @@ constexpr int kOneBitFast = 1 << 11;  // barefast
 constexpr int kOneBitChain = 1 << 12; // barechain (with kOneBitFast)
 constexpr int kOneBit = kOneBitCtx | kOneBitBare | kOneBitReg | kOneBitFast;
 constexpr int kWinSmem = 1 << 13;     // smemwin
+constexpr int kLdgIn = 1 << 14;       // ldgin
 // counts a lane: bits, copied bytes, cycles, then kSpans spans
 constexpr int kCounts = 3 + kSpans;
 
@@ -127,6 +133,17 @@ __device__ void one_bit_lane(RingIn& in, Ar a, DevWin w, int max_out,
   counts[1] = 0;
 }
 
+// ldgin's input: the row in device memory, read by __ldg; a fast symbol
+// may start while kInMargin of its bytes remain (SmemIn's rule).
+struct LdgIn {
+  const uint8_t* row;
+  int in_len, lim;
+  uint32_t last;
+  __device__ __forceinline__ uint32_t at(int i) const { return __ldg(row + i); }
+  __device__ __forceinline__ int refill(int) { return lim - kInMargin + 1; }
+  __device__ __forceinline__ void finish() {}
+};
+
 template <int KO, bool kShared>
 __global__ void __launch_bounds__(kRingThreads)
     ablate_kernel(const uint8_t* __restrict__ comp,
@@ -144,6 +161,19 @@ __global__ void __launch_bounds__(kRingThreads)
       kShared ? nullptr : probs + static_cast<size_t>(lane) * L.size, o, L,
       [&](RingIn& in, Arena<kShared> arena, DevWin win) {
         int* c = counts + kCounts * lane;
+        if constexpr (KO & kLdgIn) {
+          in.finish();  // the producer warp stages nothing more
+          const uint8_t* row = comp + static_cast<size_t>(lane) * max_in;
+          const int in_len = comp_lens[lane];
+          LdgIn g{row, in_len, min(in_len, max_in),
+                  in_len > max_in && max_in > 0 ? row[max_in - 1] : 0u};
+          const long long t0 = clock64();
+          decode_lane<KO & ~kLdgIn>(g, arena, win, max_out, 0,
+                                    out_sizes[lane], dict_size, lc, lp, pb, L,
+                                    ok + lane, out_pos_res + lane, c);
+          c[2] = static_cast<int>(clock64() - t0);
+          return;
+        }
         if constexpr (KO & kWinSmem) {
           // the window after the arena, zeroed; written back at the end
           const uint32_t wb = arena.base + (2u * L.size + 15u) / 16u * 16u;
@@ -194,6 +224,7 @@ AblateFn variant_kernel(int variant) {
       if constexpr (kShared) return ablate_kernel<kLive | kWinSmem, true>;
       return nullptr;
     case 13: return ablate_kernel<kKoCount | kKoSpans, kShared>;
+    case 14: return ablate_kernel<kKoCount | kLdgIn, kShared>;
     default: return nullptr;
   }
 }
@@ -201,28 +232,25 @@ AblateFn variant_kernel(int variant) {
 }  // namespace
 
 // Launch variant `variant` over n_lanes lanes; `out` must be zeroed by
-// the caller.  shared and smem_bytes are K1's (cuda_ring.arena_placement,
-// smem_bytes; smemwin adds max_out rounded up to 16 B and needs the
-// shared arena); probs (n_lanes x layout.size uint16) is used when the
-// arena is in device memory.  Returns a CUDA error, or -1 for an unknown
-// variant or a layout that is not K1's.
+// the caller.  shared is K1's (cuda_ring.arena_placement), and so is the
+// block's dynamic shared memory (ring_smem_bytes; smemwin adds max_out
+// rounded up to 16 B and needs the shared arena); probs (n_lanes x
+// layout.size uint16) is used when the arena is in device memory.
+// Returns a CUDA error, or -1 for an unknown variant or a device arena
+// without probs.
 extern "C" int lzt_probe_ablate(int variant, const uint8_t* comp,
                                 const int* comp_lens, const int* out_sizes,
                                 uint16_t* probs, uint8_t* out, bool* ok,
                                 int* out_pos, int* counts, int n_lanes,
                                 int max_in, int dict_size, int lc, int lp,
                                 int pb, int max_out, int shared,
-                                int smem_bytes, LztLayout layout,
-                                void* stream) {
+                                LztLayout layout, void* stream) {
   AblateFn fn = shared ? variant_kernel<true>(variant)
                        : variant_kernel<false>(variant);
-  const long long need =
-      kCtrlBytes + 2LL * kInTile +
-      (shared ? (2LL * layout.size + 15) / 16 * 16 : 0) +
-      (variant == 12 ? (max_out + 15LL) / 16 * 16 : 0);
-  if (fn == nullptr || need != smem_bytes || (!shared && probs == nullptr)) {
-    return -1;
-  }
+  if (fn == nullptr || (!shared && probs == nullptr)) return -1;
+  const int smem_bytes = static_cast<int>(
+      ring_smem_bytes(shared != 0, layout.size) +
+      (variant == 12 ? (max_out + 15LL) / 16 * 16 : 0));
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -63,7 +63,8 @@ int launch(const uint8_t* comp, const int* comp_lens, const int* out_sizes,
            const uint8_t* preset, int preset_len, uint16_t* probs,
            uint8_t* out, bool* ok, int* out_pos, int n_lanes, int max_in,
            int dict_size, int lc, int lp, int pb, int max_out,
-           LztLayout layout, int smem_bytes, cudaStream_t stream) {
+           LztLayout layout, cudaStream_t stream) {
+  const int smem_bytes = static_cast<int>(ring_smem_bytes(kShared, layout.size));
   cudaError_t err = cudaFuncSetAttribute(
       ring_decode_kernel<kShared>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem_bytes);
@@ -79,29 +80,25 @@ int launch(const uint8_t* comp, const int* comp_lens, const int* out_sizes,
 }  // namespace
 
 // shared != 0 puts the arena in shared memory (probs unused), else in
-// `probs` (n_lanes x layout.size uint16).  smem_bytes is
-// cuda_ring.smem_bytes's: the launch is refused (cudaErrorInvalidValue)
-// unless it is the layout of lzma_decode.cuh ring_block.
+// `probs` (n_lanes x layout.size uint16); the block's dynamic shared
+// memory follows (ring_smem_bytes).  A device arena without `probs` is
+// refused (cudaErrorInvalidValue).
 extern "C" int lzt_ring_decode(const uint8_t* comp, const int* comp_lens,
                                const int* out_sizes, const uint8_t* preset,
                                int preset_len, uint16_t* probs, uint8_t* out,
                                bool* ok, int* out_pos, int n_lanes, int max_in,
                                int dict_size, int lc, int lp, int pb,
-                               int max_out, int shared, int smem_bytes,
-                               LztLayout layout, void* stream) {
-  const long long need =
-      kCtrlBytes + 2LL * kInTile +
-      (shared ? (2LL * layout.size + 15) / 16 * 16 : 0);
-  if (need != smem_bytes || (!shared && probs == nullptr)) {
+                               int max_out, int shared, LztLayout layout,
+                               void* stream) {
+  if (!shared && probs == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return shared ? launch<true>(comp, comp_lens, out_sizes, preset, preset_len,
                                probs, out, ok, out_pos, n_lanes, max_in,
-                               dict_size, lc, lp, pb, max_out, layout,
-                               smem_bytes, s)
+                               dict_size, lc, lp, pb, max_out, layout, s)
                 : launch<false>(comp, comp_lens, out_sizes, preset,
                                 preset_len, probs, out, ok, out_pos, n_lanes,
                                 max_in, dict_size, lc, lp, pb, max_out, layout,
-                                smem_bytes, s);
+                                s);
 }

@@ -38,24 +38,21 @@ LAUNCHES = 0
 IN_TILE = 1 << 12
 #: the ring's control words (csrc/lzma_decode.cuh kCtrlBytes)
 CTRL_BYTES = 16
-PLACEMENTS = ("shared", "device")
 
 
-def smem_bytes(placement: str, arena_size: int) -> int:
-    """Dynamic shared memory a block of the kernel takes: the control
-    words, the two input tiles, and for the "shared" placement the
-    uint16 arena rounded up to 16 B."""
-    if placement not in PLACEMENTS:
-        raise ValueError(f"placement must be one of {PLACEMENTS}, got {placement!r}")
-    arena = (2 * arena_size + 15) // 16 * 16 if placement == "shared" else 0
-    return CTRL_BYTES + 2 * IN_TILE + arena
+def smem_bytes(arena_size: int) -> int:
+    """Dynamic shared memory a block takes with its arena of `arena_size`
+    probabilities in shared memory: the control words, the two input
+    tiles and the uint16 arena rounded up to 16 B (the kernel's own
+    count is csrc/lzma_decode.cuh ring_smem_bytes)."""
+    return CTRL_BYTES + 2 * IN_TILE + (2 * arena_size + 15) // 16 * 16
 
 
 def arena_placement(arena_size: int, limit: int) -> str:
     """Where a lane's arena of `arena_size` probabilities goes on a card
     that gives a block `limit` bytes of shared memory: "shared" when it
     fits beside the input tiles, else "device"."""
-    return "shared" if smem_bytes("shared", arena_size) <= limit else "device"
+    return "shared" if smem_bytes(arena_size) <= limit else "device"
 
 _LAYOUT_FIELDS = ("is_match", "is_rep", "is_rep_g0", "is_rep_g1", "is_rep_g2",
                   "is_rep0_long", "pos_slot", "spec_pos", "align", "len_coder",
@@ -73,7 +70,7 @@ class _Layout(ctypes.Structure):
 def _kernel():
     fn = build.load().lzt_ring_decode
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
                    + [_Layout, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -103,15 +100,15 @@ def _check(comp, comp_lens, out_sizes, preset, max_out):
 
 def launch_args(comp, layout: ProbLayout):
     """What a launch of csrc/ring_decoder.cu's block needs beside its
-    tensors, on comp's card: (shared (0/1), dynamic shared bytes, the
-    device arena (N, layout.size) int16 or None)."""
+    tensors, on comp's card: (shared (0/1), the device arena (N,
+    layout.size) int16 or None)."""
     dev = comp.device
     limit = smem_limit(dev.index if dev.index is not None
                        else torch.cuda.current_device())
     placement = arena_placement(layout.size, limit)
     probs = None if placement == "shared" else torch.empty(
         (comp.shape[0], layout.size), dtype=torch.int16, device=dev)
-    return int(placement == "shared"), smem_bytes(placement, layout.size), probs
+    return int(placement == "shared"), probs
 
 
 def decode_cuda(comp, comp_lens, out_sizes, dict_size: int, lc: int, lp: int,
@@ -133,7 +130,7 @@ def decode_cuda(comp, comp_lens, out_sizes, dict_size: int, lc: int, lp: int,
     layout = ProbLayout(lc, lp, pb, pos_bits=pb)
     n, max_in = comp.shape
     dev = comp.device
-    shared, smem, probs = launch_args(comp, layout)
+    shared, probs = launch_args(comp, layout)
     out = torch.zeros((n, max_out), dtype=torch.uint8, device=dev)
     ok = torch.empty((n,), dtype=torch.bool, device=dev)
     out_pos = torch.empty((n,), dtype=torch.int32, device=dev)
@@ -144,7 +141,7 @@ def decode_cuda(comp, comp_lens, out_sizes, dict_size: int, lc: int, lp: int,
                  preset.data_ptr() if plen else None, plen,
                  None if probs is None else probs.data_ptr(), out.data_ptr(),
                  ok.data_ptr(), out_pos.data_ptr(), n, max_in, int(dict_size),
-                 lc, lp, pb, max_out, shared, smem,
+                 lc, lp, pb, max_out, shared,
                  _Layout(*(getattr(layout, f) for f in _LAYOUT_FIELDS)),
                  torch.cuda.current_stream(dev).cuda_stream)
     if err:

@@ -32,15 +32,18 @@ variants (``VARIANTS``):
               arena)
     spans     realrow with clock64 spans by kind of symbol (SPANS); the
               clock reads lengthen it
+    ldgin     realrow reading the row straight from device memory
+              (``__ldg``) instead of K1's staged ring: the same path
+              and bytes, so ldgin - realrow is what the ring buys
 
-Every variant but realrow keeps its lanes alive, so each lane decodes to
+Every variant but realrow, spans and ldgin keeps its lanes alive, so each lane decodes to
 |size| bytes whatever it reads, as the TPU probe's did; a knock-out's
 output is garbage, for timing only, and has no plain version.  Each
 variant counts a lane's decoded bits, the bytes its matches copy and the
 SM cycles its decode took: a knock-out decodes another path than full,
 and a launch lasts as long as its slowest lane, so times compare lane by
 lane, a step (a bit or a copied byte, the TPU decoder's FSM step).  On a valid stream
-with positive sizes no error rule fires, so realrow and full give K1's
+with positive sizes no error rule fires, so realrow, ldgin and full give K1's
 bytes, ok flags and output positions; their plain version is the exact
 decoder, ``device_decoder._decode_fsm``, which a CPU tensor takes.  The TPU
 variants with no counterpart here: ``noflush`` (K1 writes its output row
@@ -68,16 +71,17 @@ from . import _cuda
 #: the variant ids of csrc/probe_ablate.cu
 VARIANTS = {"realrow": 0, "full": 1, "noctx": 2, "noarena": 3, "noinput": 4,
             "nowin": 5, "noring": 6, "notrans": 7, "barebit": 8, "barereg": 9,
-            "barefast": 10, "barechain": 11, "smemwin": 12, "spans": 13}
+            "barefast": 10, "barechain": 11, "smemwin": 12, "spans": 13,
+            "ldgin": 14}
 #: the variants a plain version exists for (on valid streams)
-PLAIN = ("realrow", "full", "smemwin", "spans")
+PLAIN = ("realrow", "full", "smemwin", "spans", "ldgin")
 #: the spans variant's kinds of symbol (csrc/lzma_decode.cuh kSpan*):
 #: counts[:, 3:8], SM cycles
 SPANS = ("plain literal", "matched literal", "match or rep", "copy",
          "checked symbol")
 #: the TPU probe's variants, then realrow on its real rows
 TABLE = ("full", "noctx", "noarena", "noinput", "nowin", "noring", "notrans",
-         "barebit", "barereg", "barefast", "barechain", "smemwin")
+         "barebit", "barereg", "barefast", "barechain", "smemwin", "ldgin")
 #: the TPU probe's real rows (main_real): 32 lanes of 16 KiB of bench
 #: data, lc0, dict 4 KiB, fb 8
 REAL_LANES, REAL_BLOCK, REAL_DICT = 32, 1 << 14, 1 << 12
@@ -90,7 +94,7 @@ LAUNCHES = Counter()
 def _kernel():
     P, I = _cuda.P, _cuda.I
     return _cuda.kernel("lzt_probe_ablate",
-                        [I] + [P] * 8 + [I] * 9 + [_Layout, P])
+                        [I] + [P] * 8 + [I] * 8 + [_Layout, P])
 
 
 def run_kernel(variant, comp, comp_lens, out_sizes, dict_size, lc, lp, pb,
@@ -105,11 +109,9 @@ def run_kernel(variant, comp, comp_lens, out_sizes, dict_size, lc, lp, pb,
     layout = ProbLayout(lc, lp, pb, pos_bits=pb)
     n, max_in = comp.shape
     dev = comp.device
-    shared, smem, probs = launch_args(comp, layout)
-    if variant == "smemwin":
-        if not shared:
-            raise ValueError("smemwin needs K1's arena in shared memory")
-        smem += (max_out + 15) // 16 * 16
+    shared, probs = launch_args(comp, layout)
+    if variant == "smemwin" and not shared:
+        raise ValueError("smemwin needs K1's arena in shared memory")
     out = torch.zeros((n, max_out), dtype=torch.uint8, device=dev)
     ok = torch.empty((n,), dtype=torch.bool, device=dev)
     out_pos = torch.empty((n,), dtype=torch.int32, device=dev)
@@ -120,7 +122,7 @@ def run_kernel(variant, comp, comp_lens, out_sizes, dict_size, lc, lp, pb,
                         None if probs is None else probs.data_ptr(),
                         out.data_ptr(), ok.data_ptr(), out_pos.data_ptr(),
                         counts.data_ptr(), n, max_in, int(dict_size), lc, lp,
-                        pb, max_out, shared, smem,
+                        pb, max_out, shared,
                         _Layout(*(getattr(layout, f) for f in _LAYOUT_FIELDS)),
                         _cuda.stream(comp))
     _cuda.raise_on(err, f"probe_ablate {variant}")

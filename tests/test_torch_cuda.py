@@ -410,17 +410,19 @@ def _exact_stream(target, seed):
 # 0, 3, 2 and 1 past a 4-byte boundary), decode to their payloads in K1
 # and K5; the same streams cut at the tile edges fail in K1 exactly as in
 # K5, whose input is resident (their plain version's loop would take
-# ~40,000 steps a lane)
+# ~40,000 steps a lane); lanes of 0 input bytes at each base, and of 1-3
+# bytes, stage no tile or a part of one and fail as in the plain version
 def test_ring_decoder_at_input_tile_edges_and_unaligned_rows(card):
     T = cuda_ring.IN_TILE
     pairs = [_exact_stream(n, n) for n in (T - 1, T, T + 1, 2 * T)]
     payloads, streams = zip(*pairs)
     cuts = [streams[3][:n] for n in (T - 1, T, T + 1, 2 * T - 1)]
-    comp, lens = _rows(list(streams) + cuts, width=2 * T + 3)
+    short = [streams[0][:n] for n in (0, 0, 0, 0, 1, 2, 3, 3)]
+    comp, lens = _rows(list(streams) + cuts + short, width=2 * T + 3)
     comp, lens = (torch.tensor(x, device=card) for x in (comp, lens))
     lens = lens.to(torch.int32)
-    sizes = torch.tensor([len(x) for x in payloads] + [len(payloads[3])] * 4,
-                         dtype=torch.int32, device=card)
+    sizes = torch.tensor([len(x) for x in payloads] + [len(payloads[3])] * 4
+                         + [100] * 8, dtype=torch.int32, device=card)
     args = (comp, lens, sizes, 1 << 12, 3, 0, 2, 2 * T)
     k1, k5 = cuda_ring.decode_cuda(*args), cuda_decoder.decode_resident(*args)
     for a, b in zip(k1, k5):
@@ -432,6 +434,9 @@ def test_ring_decoder_at_input_tile_edges_and_unaligned_rows(card):
         assert k1[0][i, :len(x)].cpu().numpy().tobytes() == x
     # a lane of three and more tiles, with the plain version, cut short
     _k1_k5_plain(comp[:4].cpu(), lens[:4].cpu(), [700] * 4, 1 << 12, 3, 0, 2,
+                 2 * T)
+    # the short lanes, at the same bases, with the plain version
+    _k1_k5_plain(comp[8:].cpu(), lens[8:].cpu(), [100] * 8, 1 << 12, 3, 0, 2,
                  2 * T)
 
 
@@ -679,12 +684,13 @@ def test_ablation_full_and_realrow_equal_k1_and_plain(card):
     k1 = cuda_ring.decode_cuda(*args)
     plain = _decode_fsm(*(a.cpu() if torch.is_tensor(a) else a for a in args))
     counts = []
-    for variant in ("full", "realrow"):
+    for variant in ("full", "realrow", "ldgin"):
         out, ok, out_pos, bits = probe_ring_ablate.ablate(*args, variant)
         _same((out, ok, out_pos), plain)
         assert all(torch.equal(a, b) for a, b in zip((out, ok, out_pos), k1))
         counts.append(bits[:, :2])
-    assert torch.equal(*counts) and bool((counts[0] > 0).all())   # bits, copies
+    assert all(torch.equal(counts[0], c) for c in counts[1:])   # bits, copies
+    assert bool((counts[0] > 0).all())
     for i, b in enumerate(blocks):
         assert k1[0][i, :len(b)].cpu().numpy().tobytes() == b
 

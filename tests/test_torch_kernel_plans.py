@@ -293,15 +293,12 @@ def test_ring_arena_placement_over_the_lc_lp_grid(lc, lp):
     arena = ProbLayout(lc, lp, 2, pos_bits=2).size
     ring = CTRL_BYTES + 2 * IN_TILE
     shared = ring + (2 * arena + 15) // 16 * 16
-    assert cuda_ring.smem_bytes("shared", arena) == shared
-    assert cuda_ring.smem_bytes("device", arena) == ring
+    assert cuda_ring.smem_bytes(arena) == shared
     want = "shared" if shared <= H100_SMEM else "device"
     assert cuda_ring.arena_placement(arena, H100_SMEM) == want
     assert cuda_ring.arena_placement(arena, shared) == "shared"
     assert cuda_ring.arena_placement(arena, shared - 1) == "device"
     assert (want == "shared") == (lc + lp <= 7)
-    with pytest.raises(ValueError):
-        cuda_ring.smem_bytes("global", arena)
 
 
 def _header_constant(name):
@@ -710,6 +707,7 @@ def test_two_speed_constants_are_the_kernels():
     assert _header_constant("kSymbolMaxBits") == SYMBOL_MAX_BITS == 48
     assert _header_constant("kInMargin") == IN_MARGIN
     assert 1 << _header_constant("kInTileLog") == IN_TILE
+    assert _header_constant("kCtrlBytes") == CTRL_BYTES
 
 
 def test_two_speed_body_equals_plain_on_valid_lanes():

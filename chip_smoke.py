@@ -13,8 +13,9 @@ prints its seconds):
   3. each kernel against its plain PyTorch version on the card at small
      shapes: the range encoder (K2) with its arena in shared and in device
      memory (the same streams with lc8 lp4's arena size, which is over the
-     card's shared memory), and both decoders (K1, K5), on 8 lanes x 2
-     KiB; K2 on lc8 lp4's own streams, in device memory, and K1 on them
+     card's shared memory), both decoders (K1, K5) and the classify carry
+     (K6, on the lazy and the optimal parse's tokens with the EOS marker
+     appended), on 8 lanes x 2 KiB; K2 on lc8 lp4's own streams, in device memory, and K1 on them
      with its arena in device memory (K1's placement, as K2's, by the
      arena's size alone; lc3 lp0's is in shared memory); K1 and K5 on a
      preset-primed batch made by the port's own encoder; both DP scans
@@ -30,16 +31,18 @@ prints its seconds):
      block decoded by the stdlib lzma module
   6. the lazy path at 8 MiB (text corpus + bench data, LzmaParams()
      defaults, 256 KiB blocks = 32 lanes): encode, decode, round trip,
-     stdlib lzma, K1 and K2 launched
+     stdlib lzma, K6 launched once, K1 and K2
   7. the main path: the same 8 MiB with parse="optimal": encode, decode,
      round trip, stdlib lzma, smaller than the lazy container; K3
-     launched at least twice, K2 and K1 at least once; MB/s, ratio, peak
+     launched at least twice, K6 three times, K2 and K1 at least once;
+     MB/s, ratio, peak
      device memory; then the same encode again inside probing(), which
      must give the same container: its stage breakdown (the device
      synchronized around each stage), its whole-lane kernel stages
      beside their bounds (K3's by bytes and operations), K2 on the whole
-     lanes' (ctx, bit) streams and K1 on the whole container's streams
-     timed by CUDA events, and the inputs phases 8 and 9 take
+     lanes' (ctx, bit) streams, K1 on the whole container's streams and
+     K6 on the final tokens' rows timed by CUDA events, and the inputs
+     phases 8 and 9 take
   8. the K4 path: tokenize_optimal(scan="band2") on phase 5's 32 x 16 KiB
      gives the tokens of the default scan, K4 launched (its count); K4 on
      the main path's whole last DP round (32 x 262,144 positions) gives
@@ -48,7 +51,8 @@ prints its seconds):
      (its own 32 x 256 KiB tensors, the work cut so that the plain
      versions finish: K3 and K4 scan the first CMP_POS positions, K2
      codes the first CMP_BITS pairs, K1 decodes each lane up to the first
-     token boundary at or past CMP_OUT bytes), all timed on those inputs
+     token boundary at or past CMP_OUT bytes), all timed on those inputs;
+     K6 against its plain carry on the whole final tokens, uncut
  10. the K5 path: phase 5's 32 streams through decode_batch_resident
      equal the input and K1 (K5 launched, its count); K1's champion shape
      (128 x 16 KiB, lc0, dict 4 KiB, fb 8) through K5 and K1, both timed,
@@ -71,8 +75,21 @@ prints its seconds):
      every probe's table (the TPU probe's sweep, CUDA
      events, one line a table), the probes' launch counts set to 0 just
      before and read just after
- 14. no module of jax, jaxlib or lzma_tpu was loaded
-The last three lines are the card, the kernels' JSON record (K1-K5 and
+ 14. the `.lzma` path at full size: the 8 MiB of phase 6 as ONE stream
+     through ops.api.encode_alone, with a known size and with the EOS
+     marker, and decode_alone: the stdlib and the port read both back,
+     K6, K2 and K1 launched once a stream (counts set to 0 just before
+     each), MB/s and peak memory, the EOS encode again inside probing()
+     for its stages and K6's time on its rows; the `.lzma` pins
+     (PIN_ALONE_SHA256, PIN_ALONE_EOS_SHA256 = the JAX package's
+     encode_alone of 64 KiB of bench data); the front door
+     (lzma_tpu_torch.compress -> decompress on 2 MiB); the command line
+     (`python -m lzma_tpu_torch e -eos` and `d` on 1 MiB in a temporary
+     directory under lzma_tpu_torch/_build, the stdlib reading the file);
+     lzma_tpu_torch.entry's fn(*args) hashing to PIN_ENTRY_SHA256 (the
+     JAX package's __graft_entry__.entry())
+ 15. no module of jax, jaxlib or lzma_tpu was loaded
+The last three lines are the card, the kernels' JSON record (K1-K6 and
 P1-P15) and the result JSON.
 """
 
@@ -99,6 +116,14 @@ BENCH_INPUT = dict(size=1 << 19, dict_size=1 << 14, fast_bytes=32,
 BENCH_RATIO = 2.256
 BENCH_BYTES = 232_363
 PIN_BENCH_SHA256 = "d1d072795dfa96bfe5cdd3c8d71c4d7fadf1557a05b07a9f1f8166e659f3644c"
+
+#: SHA-256 of lzma_tpu.ops.api.encode_alone(generate_bench_data(1 << 16),
+#: LzmaParams(write_eos=False / True)): the `.lzma` path's pins
+ALONE_PIN_SIZE = 1 << 16
+PIN_ALONE_SHA256 = "654f73da0aea6ab637a249b03248459ac26f07c9e9f7431cbe432ef6ead8e8e0"
+PIN_ALONE_EOS_SHA256 = "75a2179f5254419a7b6c9e881e8466870b76a7ad599074afe039f560c9bfb79e"
+#: entry_digest of __graft_entry__.entry()'s fn(*example_args)
+PIN_ENTRY_SHA256 = "1892b58191d0211dfb8bef90a0e16b341da5a11fb17edd2a55d79bd86fbfbb6c"
 
 MAIN_BLOCK = 1 << 18
 CMP_LANES, CMP_BYTES = 8, 2048       # kernel vs plain comparison shape
@@ -155,6 +180,15 @@ def bench_input():
     return (generate_bench_data(b["size"]),
             LzmaParams(dict_size=b["dict_size"], fast_bytes=b["fast_bytes"]),
             b["block_size"])
+
+
+def entry_digest(out, lens):
+    """SHA-256 of a lane encode's result (numpy arrays): the comp rows'
+    bytes, then the lens as little-endian int32."""
+    import numpy as np
+
+    return hashlib.sha256(np.ascontiguousarray(out, dtype=np.uint8).tobytes()
+                          + np.asarray(lens, dtype="<i4").tobytes()).hexdigest()
 
 
 def lane_blocks(n_lanes, size, seed):
@@ -341,6 +375,36 @@ def token_cut(t_pos, t_len, t_valid, at, sizes):
     full = torch.tensor(sizes, device=t_pos.device)
     return torch.where(past.any(dim=1), ends.gather(1, first)[:, 0],
                        full).to(torch.int32)
+
+
+def classify_work(rows):
+    """(bytes, operations) of the classify carry on these token rows (T,
+    N): dist, len and valid read once and case, state and r0 written
+    once; ~30 operations a step of a lane up to its last valid token and
+    ~10 a token of the tail filled after it."""
+    import torch
+
+    dist, _, valid = rows
+    T, N = dist.shape
+    pos = torch.arange(1, T + 1, device=dist.device)[:, None]
+    steps = int((valid * pos).amax(dim=0).sum()) if T else 0
+    return T * N * (4 + 4 + 1 + 3 * 4), 30 * steps + 10 * (T * N - steps)
+
+
+def check_classify(rows):
+    """K6 against _classify_carry on the same card rows (tolerance zero).
+    Returns (max |diff| over case, state and r0, plain version's ms)."""
+    from lzma_tpu_torch.ops.cuda_classify import classify_carry_cuda
+    from lzma_tpu_torch.ops.device_encoder import _classify_carry
+
+    box = {}
+    plain_ms = wall_ms(lambda: box.update(p=_classify_carry(*rows)))
+    err = max(int((k.long() - p.long()).abs().max()) if k.numel() else 0
+              for k, p in zip(classify_carry_cuda(*rows), box["p"]))
+    if err:
+        raise AssertionError(f"classify carry differs from the plain version "
+                             f"by {err}")
+    return err, plain_ms
 
 
 def decode_bytes(streams, cuts, sizes):
@@ -649,10 +713,11 @@ def drive(api, data, params, parse, dev):
     Returns (container, encode s, decode s, launches, peak device bytes,
     the container's (offsets, block sizes))."""
     import torch
-    from lzma_tpu_torch.ops import cuda_parser, cuda_ring, cuda_serializer
+    from lzma_tpu_torch.ops import (cuda_classify, cuda_parser, cuda_ring,
+                                    cuda_serializer)
 
-    counted = {"dp_parse": cuda_parser, "rc_serialize": cuda_serializer,
-               "ring_decode": cuda_ring}
+    counted = {"dp_parse": cuda_parser, "classify": cuda_classify,
+               "rc_serialize": cuda_serializer, "ring_decode": cuda_ring}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for mod in counted.values():
@@ -672,6 +737,135 @@ def drive(api, data, params, parse, dev):
         raise AssertionError(f"8 MiB {parse} round trip differs")
     extents = stdlib_reads_every_block(blob, data, params)
     return blob, t_enc, t_dec, launches, peak, extents
+
+
+def alone_phase(dev, card, data):
+    """Phase 14: `data` as one `.lzma` stream, known size and EOS, through
+    ops.api.encode_alone/decode_alone with the counts of K6, K2 and K1 set
+    to 0 before each; the stage breakdown of the EOS encode; the `.lzma`
+    pins; the front door; the command line; the lane entry.  Returns K6's
+    ms on the stream's token rows and their bound."""
+    import os
+    import tempfile
+
+    import torch
+    import lzma_tpu_torch
+    from lzma_tpu_torch.bench.datagen import generate_bench_data
+    from lzma_tpu_torch.entry import entry
+    from lzma_tpu_torch.format.properties import LzmaParams
+    from lzma_tpu_torch.ops import api, cuda_classify, cuda_ring, cuda_serializer
+    from lzma_tpu_torch.ops.device_encoder import probing
+    from lzma_tpu_torch.probes._cuda import event_ms
+
+    counted = {"classify": cuda_classify, "rc_serialize": cuda_serializer,
+               "ring_decode": cuda_ring}
+    mb = len(data) / 1e6
+    blobs = {}
+    for eos in (False, True):
+        params = LzmaParams(write_eos=eos)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for mod in counted.values():
+            mod.LAUNCHES = 0
+        t = time.perf_counter()
+        blob = api.encode_alone(data, params, device=dev)
+        torch.cuda.synchronize()
+        t_enc = time.perf_counter() - t
+        t = time.perf_counter()
+        back = api.decode_alone(blob, device=dev)
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t
+        launches = {k: mod.LAUNCHES for k, mod in counted.items()}
+        peak = torch.cuda.max_memory_allocated()
+        size = 2**64 - 1 if eos else len(data)
+        if back != data or blob[5:13] != size.to_bytes(8, "little"):
+            raise AssertionError(f".lzma stream (eos {eos}) does not round-trip")
+        if lzma.decompress(blob, format=lzma.FORMAT_ALONE) != data:
+            raise AssertionError(f"stdlib lzma disagrees on the .lzma stream "
+                                 f"(eos {eos})")
+        if launches != {"classify": 1, "rc_serialize": 1, "ring_decode": 1}:
+            raise AssertionError(f"the .lzma path's launches: {launches}")
+        blobs[eos] = blob
+        log(f"[lzma stream] {len(data)} B as one stream, "
+            f"{'EOS marker' if eos else 'known size'}, lazy, on {card}: "
+            f"{len(blob)} B (ratio {len(blob) / len(data):.4f}), encode "
+            f"{t_enc:.3f} s = {mb / t_enc:.3f} MB/s, decode {t_dec:.3f} s = "
+            f"{mb / t_dec:.3f} MB/s, peak device memory {peak / 2**20:.1f} "
+            f"MiB, launches {launches}; the stdlib and decode_alone read it")
+    with probing() as probe:
+        t = time.perf_counter()
+        again = api.encode_alone(data, LzmaParams(write_eos=True), device=dev)
+        torch.cuda.synchronize()
+        t_probed = time.perf_counter() - t
+    if again != blobs[True]:
+        raise AssertionError("the probed .lzma encode wrote another stream")
+    rows = probe["classify_rows"]
+    k6_ms = event_ms(lambda: cuda_classify.classify_carry_cuda(*rows), 3)
+    work = classify_work(rows)
+    k6_bound = bound(*work)
+    n_tok = int(probe["lowered"][2].sum())
+    log(f"[lzma stream stages] probed EOS encode {t_probed:.3f} s, "
+        f"{n_tok} tokens, {int(probe['lowered'][5].sum())} coded pairs: "
+        + ", ".join(f"{k} {sum(v) * 1e3:.1f} ms" for k, v in probe["seconds"].items())
+        + f"; K6 on its rows {k6_ms:.3f} ms (CUDA events, "
+        f"{k6_ms * 1e6 / n_tok:.1f} ns a token), bound {k6_bound[0]:.4f} ms by "
+        f"{k6_bound[1]}")
+    del probe, rows
+
+    small = generate_bench_data(ALONE_PIN_SIZE)
+    for eos, pin in ((False, PIN_ALONE_SHA256), (True, PIN_ALONE_EOS_SHA256)):
+        blob = api.encode_alone(small, LzmaParams(write_eos=eos), device=dev)
+        digest = hashlib.sha256(blob).hexdigest()
+        if digest != pin or api.decode_alone(blob, device=dev) != small:
+            raise AssertionError(f".lzma pin (eos {eos}): {digest} != {pin}")
+    log(f"[lzma pins] encode_alone of {ALONE_PIN_SIZE} B of bench data, known "
+        "size and EOS: sha256 = the JAX reference's; both read back")
+
+    part = data[:2 << 20]
+    t = time.perf_counter()
+    blob = lzma_tpu_torch.compress(part, device=dev)
+    if lzma_tpu_torch.decompress(blob, device=dev) != part \
+            or lzma_tpu_torch.decompress(blobs[True], device=dev) != data:
+        raise AssertionError("the front door does not round-trip")
+    log(f"[front door] compress -> decompress of {len(part)} B (LZTB, 1 MiB "
+        f"blocks, optimal): {len(blob)} B; decompress reads the .lzma "
+        f"stream; {time.perf_counter() - t:.3f} s")
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work_dir = os.path.join(root, "lzma_tpu_torch", "_build")
+    os.makedirs(work_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=work_dir) as tmp:
+        src, enc, dec = (os.path.join(tmp, x) for x in ("in", "in.lzma", "out"))
+        with open(src, "wb") as f:
+            f.write(data[:1 << 20])
+        t = time.perf_counter()
+        for args in (["e", "-eos", "-q", src, enc], ["d", "-q", enc, dec]):
+            run = subprocess.run([sys.executable, "-m", "lzma_tpu_torch", *args],
+                                 cwd=root, capture_output=True, text=True,
+                                 timeout=600)
+            if run.returncode != 0:
+                raise AssertionError(f"python -m lzma_tpu_torch {args[0]}: rc "
+                                     f"{run.returncode}\n{run.stdout}{run.stderr}")
+        with open(enc, "rb") as f:
+            cli_blob = f.read()
+        with open(dec, "rb") as f:
+            cli_back = f.read()
+        if cli_back != data[:1 << 20] or lzma.decompress(
+                cli_blob, format=lzma.FORMAT_ALONE) != cli_back:
+            raise AssertionError("the command line does not round-trip")
+    log(f"[cli] python -m lzma_tpu_torch e -eos / d on {len(cli_back)} B: "
+        f"{len(cli_blob)} B, round trip, the stdlib reads it; "
+        f"{time.perf_counter() - t:.3f} s for both processes")
+
+    fn, args = entry()
+    out, lens = fn(*args)
+    digest = entry_digest(out.cpu().numpy(), lens.cpu().numpy())
+    if digest != PIN_ENTRY_SHA256:
+        raise AssertionError(f"entry() output {digest} != {PIN_ENTRY_SHA256}")
+    log(f"[entry] lzma_tpu_torch.entry: fn(*args) on {args[0].device}, "
+        f"{tuple(out.shape)}, lens {lens.tolist()}: sha256 = the JAX "
+        "reference's __graft_entry__.entry()")
+    return k6_ms, k6_bound
 
 
 def main():
@@ -694,10 +888,13 @@ def main():
     from lzma_tpu_torch.bench.datagen import generate_bench_data
     from lzma_tpu_torch.core.layout import ProbLayout
     from lzma_tpu_torch.format.properties import LzmaParams, decode_props
-    from lzma_tpu_torch.ops import (api, cuda_decoder, cuda_parser, cuda_ring,
-                                    cuda_serializer)
+    from lzma_tpu_torch.ops import (api, cuda_classify, cuda_decoder,
+                                    cuda_parser, cuda_ring, cuda_serializer)
     from lzma_tpu_torch.ops.device_decoder import CapExceededError, pad_rows
-    from lzma_tpu_torch.ops.device_encoder import encode_batch, probing
+    from lzma_tpu_torch.ops.device_encoder import (_append_eos_tokens,
+                                                   _classify_rows,
+                                                   encode_batch, probing,
+                                                   tokenize)
     from lzma_tpu_torch.ops.device_parser import tokenize_optimal
     from lzma_tpu_torch.parallel import blocks as blk
     from lzma_tpu_torch.probes._cuda import event_ms
@@ -804,6 +1001,24 @@ def main():
         log(f"[K3, K4 vs plain] {CMP_LANES}x{CMP_BYTES}, fb {fb_s} (K3 "
             f"{cuda_parser.dp_parse_plan(fb_s, s_params.pb, packed.shape[2])[0]}"
             " threads): from and choice equal")
+
+    # K6 on both parses' tokens of the same lanes, the EOS marker appended
+    k6_err = 0
+    c_data, c_lens = pad_rows(blocks, dev)
+    for parse in ("lazy", "optimal"):
+        if parse == "lazy":
+            tok = tokenize(c_data, c_lens, c_data.shape[1], params.fast_bytes)
+        else:
+            tok = tokenize_optimal(c_data, c_lens, c_data.shape[1], lc=params.lc,
+                                   lp=params.lp, pb=params.pb,
+                                   fb=params.fast_bytes)
+        eos_tok = _append_eos_tokens(*tok[:4], tok[4], c_lens)
+        err, _ = check_classify(_classify_rows(*eos_tok[1:]))
+        k6_err = max(k6_err, err)
+        log(f"[K6 vs plain] {CMP_LANES}x{CMP_BYTES}, {parse} parse with the "
+            f"EOS marker ({eos_tok[0].shape[1]} token rows, "
+            f"{int(eos_tok[3].sum(1).max())} valid in the longest lane): case, "
+            "state and r0 equal")
     done("small shapes")
 
     # ---- 4. the pinned containers (card vs the JAX reference) ----
@@ -852,7 +1067,8 @@ def main():
     mb = len(data) / 1e6
     lazy_blob, t_enc, t_dec, launches, peak, _ = drive(api, data, params,
                                                        "lazy", dev)
-    if launches["rc_serialize"] < 1 or launches["ring_decode"] < 1:
+    if launches["rc_serialize"] < 1 or launches["ring_decode"] < 1 \
+            or launches["classify"] != 1:
         raise AssertionError(f"a kernel did not run on the lazy path: {launches}")
     log(f"[lazy] {len(data)} B in {len(data) // MAIN_BLOCK} lanes of {MAIN_BLOCK} B "
         f"on {card}: encode {t_enc:.3f} s = {mb / t_enc:.3f} MB/s, decode "
@@ -866,7 +1082,7 @@ def main():
     blob, t_enc, t_dec, launches, peak, (offsets, bsizes) = drive(
         api, data, params, "optimal", dev)
     if launches["dp_parse"] < 2 or launches["rc_serialize"] < 1 \
-            or launches["ring_decode"] < 1:
+            or launches["ring_decode"] < 1 or launches["classify"] != 3:
         raise AssertionError(f"a kernel did not run on the main path: {launches}")
     if len(blob) >= len(lazy_blob):
         raise AssertionError(f"optimal container {len(blob)} B is not smaller "
@@ -943,6 +1159,17 @@ def main():
         raise AssertionError("K1 on the whole container differs from the input")
     del k1_out, k1_rows
     k1_whole = event_ms(lambda: cuda_ring.decode_cuda(*wargs), 3)
+    # K6 on the final tokens' rows (the last classify call's)
+    c_rows = probe.pop("classify_rows")
+    k6_whole = event_ms(lambda: cuda_classify.classify_carry_cuda(*c_rows), 3)
+    k6_work = classify_work(c_rows)
+    k6_whole_bound = bound(*k6_work)
+    log(f"[K6 whole lanes] {c_rows[0].shape[1]} lanes x {c_rows[0].shape[0]} "
+        f"token rows on {card}: classify carry {k6_whole:.3f} ms a call (CUDA "
+        f"events), {k6_work[0]} B, {k6_work[1]} operations, bound "
+        f"{k6_whole_bound[0]:.4f} ms by {k6_whole_bound[1]}; "
+        f"{k6_whole * 1e6 / int(t_valid.sum(1).max()):.1f} ns a token of the "
+        "longest lane")
     log(f"[K2, K1 whole lanes] {L} lanes on {card}, CUDA events: rc_serialize "
         f"{k2_whole:.3f} ms a call ({n_bits} pairs, "
         f"{k2_whole * 1e6 / int(totals.max()):.1f} ns a pair of the longest "
@@ -1034,6 +1261,12 @@ def main():
         if d_out[i, :n].cpu().numpy().tobytes() != data[i * MAIN_BLOCK:i * MAIN_BLOCK + n]:
             raise AssertionError(f"lane {i} decodes wrong up to byte {n}")
     k1_bound = bound(decode_bytes(streams, cuts, bsizes), 0)
+    # K6: the final tokens' whole rows, uncut (one plain call)
+    err, k6_plain = check_classify(c_rows)
+    k6_err = max(k6_err, err)
+    del c_rows
+    log(f"[K6 vs plain] main path's final tokens, whole: equal; kernel "
+        f"{k6_whole:.3f} ms vs plain {k6_plain:.1f} ms on {card}")
     log(f"[times] main path's shapes ({len(bsizes)} lanes x {MAIN_BLOCK} B) on "
         f"{card}: dp_parse kernel {k3_ms:.3f} ms, dp_parse2 kernel "
         f"{k4_ms:.3f} ms vs plain {k3_plain:.1f} ms ({CMP_POS} positions a "
@@ -1182,7 +1415,11 @@ def main():
         want_out[:PROBE_LANES * CH_BLOCK].reshape(PROBE_LANES, CH_BLOCK))
     done("probes")
 
-    # ---- 14. nothing of JAX or of the JAX package was loaded ----
+    # ---- 14. the .lzma path at full size, front door, CLI, entry ----
+    k6_stream, k6_stream_bound = alone_phase(dev, card, data)
+    done("lzma stream")
+
+    # ---- 15. nothing of JAX or of the JAX package was loaded ----
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib")
                  or m == "lzma_tpu" or m.startswith("lzma_tpu."))
@@ -1192,8 +1429,9 @@ def main():
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
 
     # beside the cut's numbers, each codec kernel's time over whole lanes
-    # (CUDA events: the main path's for K1-K4, the champion's for K5) and
-    # that work's bound
+    # (CUDA events: the main path's for K1-K4 and K6, the champion's for
+    # K5) and that work's bound; K6's ms is the whole main path's (its
+    # plain version ran uncut there) and stream_ms the single stream's
     kernels = [
         record("dp_parse", "lzma_tpu_torch/csrc/dp_parse.cu",
                "lzma_tpu/ops/device_parser.py:804", launches["dp_parse"],
@@ -1215,6 +1453,11 @@ def main():
                "lzma_tpu/ops/pallas_decoder.py:80", k5_launches, k5_err, k5_ms,
                k5_plain, k5_bound, whole_ms=k5_whole,
                whole_bound_ms=ch_bound[0]),
+        record("classify_carry", "lzma_tpu_torch/csrc/classify.cu",
+               "lzma_tpu/ops/device_encoder.py:85", launches["classify"],
+               k6_err, k6_whole, k6_plain, k6_whole_bound, whole_ms=k6_whole,
+               whole_bound_ms=k6_whole_bound[0], stream_ms=k6_stream,
+               stream_bound_ms=k6_stream_bound[0]),
     ] + probe_records
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -33,6 +33,17 @@ DEFAULT_FAST_BYTES = 0x20    # Encoder.java:27
 MAX_EXPANSION = 8192
 
 
+def validate_alone_size(out_size: int, payload_len: int) -> None:
+    """Reject a `.lzma` 8-byte size field impossible for its payload before
+    any output buffer is sized from it (properties.validate_alone_size).
+    EOS-terminated streams (out_size < 0) are exempt."""
+    if out_size >= 0 and out_size > payload_len * MAX_EXPANSION + (1 << 16):
+        from ..core.rangecoder import CorruptStreamError
+
+        raise CorruptStreamError(
+            "claimed .lzma size is impossible for this payload")
+
+
 @dataclass(frozen=True)
 class LzmaParams:
     """Full encoder/decoder parameter set."""

@@ -1,24 +1,34 @@
-"""The device block codec's surface: LZTB containers in and out.
+"""The device codec's surface: raw and `.lzma` streams, LZTB containers.
 
-Port of ``lzma_tpu/ops/api.py`` (``encode_blocks``, ``decode_blocks``) and
-the carry-over helper ``from_numpy``.  Blocks are batched across lanes;
-on a CUDA device the optimal parse's DP scan, the range encoder and the
-decoder run as the CUDA kernels of ``cuda_parser``, ``cuda_serializer``
-and ``cuda_ring``, on the CPU as their plain PyTorch versions.  The
-container format is ``lzma_tpu``'s (the port's copy is
-``parallel/blocks.py``), so either package decodes the other's.
+Port of ``lzma_tpu/ops/api.py`` (``encode_stream``, ``decode_stream``,
+``encode_alone``, ``decode_alone``, ``encode_blocks``, ``decode_blocks``)
+and the carry-over helper ``from_numpy``.  A single stream is one lane;
+blocks are batched across lanes.  On a CUDA device the classify carry,
+the optimal parse's DP scan, the range encoder and the decoder run as
+the CUDA kernels of ``cuda_classify``, ``cuda_parser``,
+``cuda_serializer`` and ``cuda_ring``, on the CPU as their plain PyTorch
+versions.  The formats are ``lzma_tpu``'s (the port's copies are
+``format/properties.py`` and ``parallel/blocks.py``), so either package
+decodes the other's.  There is no host-codec fallback: a stream the
+device path cannot decode raises.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
 
 from ..core.rangecoder import CorruptStreamError
-from ..format.properties import LzmaParams
+from ..format.properties import LzmaParams, decode_props, validate_alone_size
 from ..parallel import blocks as blk
 from .cuda_ring import decode_batch_cuda
+from .device_decoder import CapExceededError
 from .device_encoder import encode_batch
+
+#: the `.lzma` size field of an EOS-terminated stream (size unknown)
+UNKNOWN_SIZE = 0xFFFFFFFFFFFFFFFF
 
 
 def from_numpy(*arrays, device="cuda"):
@@ -29,6 +39,64 @@ def from_numpy(*arrays, device="cuda"):
     package's are read-only).  Returns a tuple of tensors."""
     return tuple(torch.from_numpy(np.array(a, copy=True, order="C")).to(device)
                  for a in arrays)
+
+
+def encode_stream(data: bytes, params: LzmaParams, device="cuda") -> bytes:
+    """One raw LZMA stream on one lane (api.encode_stream): the lazy
+    parse, ended by the EOS marker where ``params.write_eos``."""
+    (s,) = encode_batch([data], params, write_eos=params.write_eos,
+                        device=device)
+    return s
+
+
+def decode_stream(comp: bytes, params: LzmaParams, out_size: int,
+                  device="cuda") -> bytes:
+    """One raw LZMA stream of `out_size` bytes on one lane
+    (api.decode_stream); a negative size -cap marks an EOS-terminated
+    stream decoded up to cap bytes."""
+    (d,) = decode_batch_cuda([comp], params, [out_size], device=device)
+    return d
+
+
+def encode_alone(data: bytes, params: LzmaParams, device="cuda") -> bytes:
+    """A `.lzma` (LZMA_Alone) file (api.encode_alone): the 5 props bytes,
+    the 8-byte size (all ones where ``params.write_eos``: the stream ends
+    with the marker) and the stream."""
+    size = UNKNOWN_SIZE if params.write_eos else len(data)
+    return (params.encode_props() + size.to_bytes(8, "little")
+            + encode_stream(data, params, device=device))
+
+
+def decode_alone(data: bytes, device="cuda") -> bytes:
+    """Decode a `.lzma` (LZMA_Alone) file (api.decode_alone).  A known size
+    is checked against the payload before it sizes any buffer.  An
+    EOS-terminated stream decodes under a cap that starts at 16 bytes a
+    coded byte (64 KiB at least) and grows 4x each time the lane runs out
+    of it, up to a ceiling: 273 bytes a coded byte plus 512 (the
+    reference's bound) or $LZMA_TPU_DEVICE_EOS_CEILING (32 MiB unset),
+    whichever is smaller; past that it raises CapExceededError.
+    A corrupt stream raises CorruptStreamError; nothing falls back to a
+    host decoder."""
+    if len(data) < 13:
+        raise CorruptStreamError(".lzma input too short")
+    params = decode_props(data[:5])
+    out_size = int.from_bytes(data[5:13], "little")
+    comp_len = len(data) - 13
+    if out_size != UNKNOWN_SIZE:
+        validate_alone_size(out_size, comp_len)
+        return decode_stream(data[13:], params, out_size, device=device)
+    ceiling = min(273 * comp_len + 512,
+                  int(os.environ.get("LZMA_TPU_DEVICE_EOS_CEILING", 1 << 25)))
+    cap = min(max(16 * comp_len, 1 << 16), ceiling)
+    while True:
+        try:
+            return decode_stream(data[13:], params, -cap, device=device)
+        except CapExceededError as e:
+            if cap >= ceiling:
+                raise CapExceededError(
+                    f"EOS stream not ended within the {ceiling}-byte "
+                    "ceiling") from e
+            cap = min(cap * 4, ceiling)
 
 
 def encode_blocks(

@@ -1,6 +1,7 @@
 """Lane-parallel LZMA encoder in PyTorch: parse, classify, lower, serialize.
 
-Port of ``lzma_tpu/ops/device_encoder.py`` (everything but the EOS marker).
+Port of ``lzma_tpu/ops/device_encoder.py`` (all but the TPU's two-dispatch
+``encode_lanes_pallas`` and the trace dump).
 Once the token stream is fixed, the (context, bit) sequence fed to the
 range coder is fully determined, so the encoder splits into
 
@@ -8,14 +9,16 @@ range coder is fully determined, so the encoder splits into
                                        lazy parse, or
                                        ops/device_parser.tokenize_optimal)
   B. token classification scan        (classify_tokens: state machine and
-                                       rep-distance MTF per token)
+                                       rep-distance MTF per token; the
+                                       serial carry is the CUDA kernel of
+                                       cuda_classify)
   C. bit lowering                     (lower_tokens: every token's
                                        (ctx, bit) pairs from closed forms,
                                        scattered into a flat stream)
   D. range-coder serialization        (serialize, the plain version of
                                        the CUDA kernel in cuda_serializer)
 
-``encode_batch`` runs D through ``cuda_serializer.serialize_checked``:
+``encode_lanes`` runs D through ``cuda_serializer.serialize_checked``:
 the kernel for CUDA tensors, the plain ``serialize`` for CPU tensors.
 A preset (a dictionary shared by every lane) primes each lane's window:
 it is searched as match history and never coded, and preset-primed
@@ -87,55 +90,52 @@ def _state_table(device):
     return torch.cat(rows).to(device)
 
 
-def classify_tokens(data, t_pos, t_len, t_dist, t_valid):
-    """LZMA state machine and rep MTF over the token stream
-    (device_encoder.classify_tokens).
+def _classify_rows(t_len, t_dist, t_valid):
+    """The scan's per-token operands as (T, N) rows, one per step, so that
+    a step reads one contiguous row: dist int32, len int32, valid bool."""
+    return (t_dist.T.to(torch.int32).contiguous(),
+            t_len.T.to(torch.int32).contiguous(),
+            t_valid.T.bool().contiguous())
 
-    data: (N, max_n) uint8; token arrays (N, T).  Returns per-token int64
-    tensors: kind, rep_idx, state_before, match_mode, match_byte,
-    prev_byte, lit_byte.  The reference's lax.scan becomes a loop over
-    the tokens up to the last valid one; past it the carry holds, so the
-    tail is filled in one vectorized step.
-    """
-    N, T = t_pos.shape
-    device = data.device
-    max_n = data.shape[1]
-    d8 = data.long()
-    t_pos = t_pos.long()
-    t_dist = t_dist.long()
-    valid = t_valid.bool()
+
+def _case_of(reps, dist, lit, weights):
+    """First matching rep (r0 priority) -> case 1..4, none -> 0; a
+    literal -> 5.  weights: [4, 3, 2, 1]."""
+    m = ((reps == dist[..., None]) * weights).amax(dim=-1)
+    return _w(lit, 5, _w(m > 0, 5 - m, 0))
+
+
+def _classify_carry(dist_r, len_r, valid_r):
+    """The serial part of classify_tokens: the state machine and the rep
+    MTF carried over the token rows (T, N) of ``_classify_rows``.
+    Returns (case_r, state_r, r0_r), (T, N) int32: each token's scan case
+    (0 fresh match, 1..4 rep0..rep3, 5 literal), the state before it and
+    rep0 before it.  An invalid token holds the carry (case 6 of the
+    transition); past a lane's last valid token the carry holds to the
+    end.  The plain version of ``cuda_classify.classify_carry_cuda``."""
+    T, N = dist_r.shape
+    device = dist_r.device
+    dist_r = dist_r.long()
     # EOS_DIST is a MATCH (the end marker), not a literal
-    is_lit = (t_dist < 0) & (t_dist != EOS_DIST)
-    prev_byte = _w(t_pos > 0, d8.gather(1, torch.clamp(t_pos - 1, min=0)), 0)
-    lit_byte = d8.gather(1, torch.clamp(t_pos, max=max_n - 1))
-
+    lit_r = (dist_r < 0) & (dist_r != EOS_DIST)
+    short_r = (len_r < 2).long() * 12
     table = _state_table(device)
     perm = torch.tensor(_REP_PERM, dtype=torch.int64, device=device)
     weights = torch.tensor([4, 3, 2, 1], dtype=torch.int64, device=device)
-    # per-token operands as contiguous rows, one per scan step
-    dist_r = t_dist.T.contiguous()
-    lit_r = is_lit.T.contiguous()
-    valid_r = valid.T.contiguous()
-    short_r = ((t_len < 2).long() * 12).T.contiguous()
-    case_r = torch.empty((T, N), dtype=torch.int64, device=device)
-    state_r = torch.empty((T, N), dtype=torch.int64, device=device)
-    r0_r = torch.empty((T, N), dtype=torch.int64, device=device)
+    case_r = torch.empty((T, N), dtype=torch.int32, device=device)
+    state_r = torch.empty((T, N), dtype=torch.int32, device=device)
+    r0_r = torch.empty((T, N), dtype=torch.int32, device=device)
 
     state = torch.zeros((N,), dtype=torch.int64, device=device)
     reps = torch.zeros((N, 4), dtype=torch.int64, device=device)
-    any_valid = torch.nonzero(valid.any(dim=0))
+    any_valid = torch.nonzero(valid_r.any(dim=1))
     n_loop = int(any_valid.max()) + 1 if any_valid.numel() else 0
-
-    def case_of(reps_, dist_, lit_):
-        # first matching rep (r0 priority) -> case 1..4, none -> 0
-        m = ((reps_ == dist_[..., None]) * weights).amax(dim=-1)
-        return _w(lit_, 5, _w(m > 0, 5 - m, 0))
 
     for i in range(n_loop):
         dist = dist_r[i]
         state_r[i] = state
         r0_r[i] = reps[:, 0]
-        case = case_of(reps, dist, lit_r[i])
+        case = _case_of(reps, dist, lit_r[i], weights)
         case_r[i] = case
         ucase = _w(valid_r[i], case, 6)
         reps = torch.cat([dist[:, None], reps], dim=1).gather(1, perm[ucase])
@@ -143,16 +143,48 @@ def classify_tokens(data, t_pos, t_len, t_dist, t_valid):
     if n_loop < T:
         state_r[n_loop:] = state
         r0_r[n_loop:] = reps[:, 0]
-        case_r[n_loop:] = case_of(reps[None], dist_r[n_loop:], lit_r[n_loop:])
+        case_r[n_loop:] = _case_of(reps[None], dist_r[n_loop:], lit_r[n_loop:],
+                                   weights)
+    return case_r, state_r, r0_r
 
-    case = case_r.T
-    state_b = state_r.T
+
+def _classify_finish(data, t_pos, t_dist, carry):
+    """The vectorized part of classify_tokens: from the carry's (case,
+    state, r0) rows to the per-token outputs (see classify_tokens)."""
+    max_n = data.shape[1]
+    d8 = data.long()
+    t_pos = t_pos.long()
+    t_dist = t_dist.long()
+    case_r, state_r, r0_r = carry
+    is_lit = (t_dist < 0) & (t_dist != EOS_DIST)
+    prev_byte = _w(t_pos > 0, d8.gather(1, torch.clamp(t_pos - 1, min=0)), 0)
+    lit_byte = d8.gather(1, torch.clamp(t_pos, max=max_n - 1))
+    case = case_r.T.long()
+    state_b = state_r.T.long()
     is_rep = (case >= 1) & (case <= 4)
     kind = _w(is_lit, K_LIT, _w(is_rep, K_REP, K_MATCH))
     rep_idx = _w(is_rep, case - 1, 3)
     match_mode = ((state_b >= 7) & is_lit).long()
-    match_byte = d8.gather(1, torch.clamp(t_pos - r0_r.T - 1, 0, max_n - 1))
+    match_byte = d8.gather(1, torch.clamp(t_pos - r0_r.T.long() - 1, 0,
+                                          max_n - 1))
     return kind, rep_idx, state_b, match_mode, match_byte, prev_byte, lit_byte
+
+
+def classify_tokens(data, t_pos, t_len, t_dist, t_valid):
+    """LZMA state machine and rep MTF over the token stream
+    (device_encoder.classify_tokens).
+
+    data: (N, max_n) uint8; token arrays (N, T).  Returns per-token int64
+    tensors: kind, rep_idx, state_before, match_mode, match_byte,
+    prev_byte, lit_byte.  The reference's lax.scan is the carry
+    (``cuda_classify.classify_carry_cuda``: the CUDA kernel for CUDA
+    tensors, the plain ``_classify_carry`` for CPU ones) and a
+    vectorized finish."""
+    from .cuda_classify import classify_carry_cuda
+
+    rows = _classify_rows(t_len, t_dist, t_valid)
+    keep("classify_rows", rows)
+    return _classify_finish(data, t_pos, t_dist, classify_carry_cuda(*rows))
 
 
 # ---------------------------------------------------------------- phase C
@@ -507,8 +539,9 @@ def probing():
     """Record what the encodes inside the block do, into the dict it
     yields: each stage's seconds under "seconds" (a list a stage, one
     entry a call; the device is synchronized around each stage), the
-    last DP round's inputs under "dp_inputs" and the final tokens and
-    (ctx, bit) streams under "lowered", all held by reference.  For
+    last DP round's inputs under "dp_inputs", the last classify call's
+    token rows under "classify_rows" and the final tokens and (ctx, bit)
+    streams under "lowered", all held by reference.  For
     diagnostics; an encode outside such a block records nothing."""
     global _PROBE
     outer, _PROBE = _PROBE, {}
@@ -542,13 +575,36 @@ def stage(name: str, device):
         time.perf_counter() - t)
 
 
+def _append_eos_tokens(t_pos, t_len, t_dist, t_valid, ntok, lens):
+    """Append the end-of-stream marker token to every lane's compacted
+    stream (device_encoder._append_eos_tokens): a len-2 match at the
+    EOS_DIST sentinel distance coded at the end position.  The token
+    arrays grow by one column, padded as the reference pads them (pos 0,
+    len 1, dist -1); token ntok of each lane becomes the marker."""
+    N, T = t_pos.shape
+    device = t_pos.device
+
+    def pad(a, value):
+        return torch.cat([a, torch.full((N, 1), value, dtype=a.dtype,
+                                        device=device)], dim=1)
+
+    t_pos, t_len, t_dist = pad(t_pos, 0), pad(t_len, 1), pad(t_dist, -1)
+    lanes = torch.arange(N, device=device)
+    ntok = ntok.long()
+    t_pos[lanes, ntok] = lens.to(t_pos.dtype)
+    t_len[lanes, ntok] = 2
+    t_dist[lanes, ntok] = EOS_DIST
+    t_valid = torch.arange(T + 1, device=device)[None, :] < (ntok + 1)[:, None]
+    return t_pos, t_len, t_dist, t_valid
+
+
 def _lower_lanes(data, lens, dict_size, lc, lp, pb, fb, num_candidates,
-                 preset=None, parse: str = "lazy"):
-    """Phases A-C for a lane batch (device_encoder._lower_lanes without
-    the EOS marker).  `preset` ((P,) uint8 tensor or None) primes every
-    lane's window; preset-primed lanes keep the lazy parse.
-    parse="optimal" tokenizes with device_parser.tokenize_optimal.
-    Returns (ctx, bits, totals, max_out)."""
+                 preset=None, write_eos: bool = False, parse: str = "lazy"):
+    """Phases A-C for a lane batch (device_encoder._lower_lanes).
+    `preset` ((P,) uint8 tensor or None) primes every lane's window;
+    preset-primed lanes keep the lazy parse.  parse="optimal" tokenizes
+    with device_parser.tokenize_optimal.  `write_eos` appends the end
+    marker after either parse.  Returns (ctx, bits, totals, max_out)."""
     N, max_n = data.shape
     device = data.device
     plen = 0 if preset is None else int(preset.shape[0])
@@ -567,7 +623,10 @@ def _lower_lanes(data, lens, dict_size, lc, lp, pb, fb, num_candidates,
         with stage("tokenize", device):
             tok = tokenize(data, lens, dict_size, fb, num_candidates,
                            start=plen)
-    t_pos, t_len, t_dist, t_valid, _ = tok
+    t_pos, t_len, t_dist, t_valid, ntok = tok
+    if write_eos:
+        t_pos, t_len, t_dist, t_valid = _append_eos_tokens(
+            t_pos, t_len, t_dist, t_valid, ntok, lens)
     with stage("classify", device):
         meta = classify_tokens(data, t_pos, t_len, t_dist, t_valid)
     max_bits = 10 * max_n + 128
@@ -579,22 +638,38 @@ def _lower_lanes(data, lens, dict_size, lc, lp, pb, fb, num_candidates,
     return ctx, bits, totals, max_n + max_n // 4 + 128
 
 
+def encode_lanes(data, lens, dict_size, *, lc: int, lp: int, pb: int,
+                 fb: int, num_candidates: int = DEFAULT_NUM_CANDIDATES,
+                 preset=None, write_eos: bool = False, parse: str = "lazy"):
+    """The lane-parallel encode on tensors (device_encoder.encode_lanes):
+    phases A-C, then the range coder through
+    ``cuda_serializer.serialize_checked`` (the CUDA kernel for CUDA
+    tensors, the plain ``serialize`` for CPU ones).  data: (N, max_n)
+    uint8, lens: (N,) int32, dict_size an int (or a 0-d tensor).
+    `preset` ((P,) uint8 or None) primes every lane's window.  Returns
+    (comp (N, max_out) uint8, comp_lens (N,) int32)."""
+    from .cuda_serializer import serialize_checked
+
+    ctx, bits, totals, max_out = _lower_lanes(
+        data, lens, int(dict_size), lc, lp, pb, fb, num_candidates,
+        preset=preset, write_eos=write_eos, parse=parse)
+    layout = ProbLayout(lc, lp, pb, pos_bits=pb)
+    with stage("rc_serialize", data.device):
+        return serialize_checked(ctx, bits, totals, layout.size, int(max_out))
+
+
 def encode_batch(blocks, params: LzmaParams, fb=None,
                  num_candidates: int = DEFAULT_NUM_CANDIDATES,
                  preset: bytes = b"", write_eos: bool = False,
                  parse: str = "lazy", device="cuda"):
-    """Encode independent blocks lane-parallel (device_encoder.encode_batch).
-    `preset` primes every lane's window with one shared dictionary (LZTB
-    v2/v3 blocks).  The range coder is the CUDA kernel for a CUDA
-    `device` and the plain ``serialize`` for the CPU (``probing`` records
-    the stages).  The EOS marker (`write_eos`) is not ported yet and
-    raises NotImplementedError.  Returns a list of raw LZMA streams."""
-    from .cuda_serializer import serialize_checked
-
+    """Encode independent blocks lane-parallel (device_encoder.encode_batch)
+    through ``encode_lanes``.  `preset` primes every lane's window with
+    one shared dictionary (LZTB v2/v3 blocks); `write_eos` ends every
+    stream with the end marker.  The range coder is the CUDA kernel for a
+    CUDA `device` and the plain ``serialize`` for the CPU (``probing``
+    records the stages).  Returns a list of raw LZMA streams."""
     if not blocks:
         return []
-    if write_eos:
-        raise NotImplementedError("the end-of-stream marker is not ported")
     params = params.validated_for_encode()
     fb = clamp_fb(fb if fb is not None else params.fast_bytes)
     data_t, lens_t = pad_rows(blocks, device)  # pow2 bucket, as the reference
@@ -604,13 +679,10 @@ def encode_batch(blocks, params: LzmaParams, fb=None,
     dict_j = min(params.dict_size, data_t.shape[1] + len(preset))
     preset_t = (torch.frombuffer(bytearray(preset), dtype=torch.uint8).to(device)
                 if preset else None)
-    ctx, bits, totals, max_out = _lower_lanes(
-        data_t, lens_t, dict_j, params.lc, params.lp, params.pb, fb,
-        num_candidates, preset=preset_t, parse=parse)
-    layout = ProbLayout(params.lc, params.lp, params.pb, pos_bits=params.pb)
-    with stage("rc_serialize", device):
-        out, out_lens = serialize_checked(ctx, bits, totals, layout.size,
-                                          int(max_out))
+    out, out_lens = encode_lanes(
+        data_t, lens_t, dict_j, lc=params.lc, lp=params.lp, pb=params.pb,
+        fb=fb, num_candidates=num_candidates, preset=preset_t,
+        write_eos=write_eos, parse=parse)
     out = out.cpu().numpy()
     out_lens = out_lens.cpu().numpy()
     return [out[i, : out_lens[i]].tobytes() for i in range(len(blocks))]

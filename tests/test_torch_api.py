@@ -25,6 +25,7 @@ from lzma_tpu.bench.corpus import text_part  # noqa: E402
 from lzma_tpu.bench.datagen import generate_bench_data  # noqa: E402
 from lzma_tpu.format.properties import LzmaParams  # noqa: E402
 from lzma_tpu.ops import api as japi  # noqa: E402
+from lzma_tpu.ops import device_encoder as jde  # noqa: E402
 from lzma_tpu_torch.ops import api as tapi  # noqa: E402
 from lzma_tpu_torch.ops.device_encoder import encode_batch as tencode_batch  # noqa: E402
 
@@ -92,14 +93,49 @@ def test_smoke_bench_pin_is_the_jax_container():
     assert hashlib.sha256(blob).hexdigest() == smoke.PIN_BENCH_SHA256
 
 
+def test_smoke_alone_pins_are_the_jax_streams():
+    """chip_smoke.py holds the card's `.lzma` files of 64 KiB of bench data,
+    with a known size and with the EOS marker, to these JAX streams."""
+    smoke = _smoke()
+    data = generate_bench_data(smoke.ALONE_PIN_SIZE)
+    for eos, pin in ((False, smoke.PIN_ALONE_SHA256),
+                     (True, smoke.PIN_ALONE_EOS_SHA256)):
+        blob = japi.encode_alone(data, LzmaParams(write_eos=eos))
+        assert hashlib.sha256(blob).hexdigest() == pin
+
+
+def test_smoke_entry_pin_is_the_jax_entry():
+    """__graft_entry__.entry()'s output (JAX) and lzma_tpu_torch.entry's
+    (the port, CPU) hash to chip_smoke.py's PIN_ENTRY_SHA256."""
+    from lzma_tpu_torch.entry import entry
+
+    smoke = _smoke()
+    sys.path.insert(0, ROOT)
+    try:
+        import __graft_entry__
+    finally:
+        sys.path.remove(ROOT)
+    fn, args = __graft_entry__.entry()
+    out, lens = fn(*args)
+    assert smoke.entry_digest(np.asarray(out), np.asarray(lens)) == \
+        smoke.PIN_ENTRY_SHA256
+    t_fn, t_args = entry("cpu")
+    t_out, t_lens = t_fn(*t_args)
+    assert t_args[0].dtype == torch.uint8 and t_args[1].dtype == torch.int32
+    assert smoke.entry_digest(t_out.numpy(), t_lens.numpy()) == \
+        smoke.PIN_ENTRY_SHA256
+
+
 def test_not_ported_options_raise():
     data = generate_bench_data(3000)
     with pytest.raises(NotImplementedError):
         tapi.encode_blocks(data, block_size=1024, parse="optimal:lazy",
                            device="cpu")
-    with pytest.raises(NotImplementedError):
-        tencode_batch([data[:500]], LzmaParams(write_eos=True), parse="optimal",
-                      write_eos=True, device="cpu")
+    # the EOS marker is ported: the optimal parse's stream equals JAX's
+    eos = LzmaParams(write_eos=True)
+    assert tencode_batch([data[:500]], eos, parse="optimal", write_eos=True,
+                         device="cpu") == \
+        jde.encode_batch([data[:500]], eos, parse="optimal", write_eos=True)
     with pytest.raises(ValueError):
         tapi.encode_blocks(data, LzmaParams(write_eos=True), device="cpu")
     # what the port has since added: the optimal parse and the
@@ -122,9 +158,11 @@ def test_from_numpy_carries_arrays_over():
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port and running a CPU encode (lazy
-    and optimal) and decode loads nothing of JAX and nothing of the JAX
-    package (lzma_tpu_torch starts with lzma_tpu, hence the exact test)."""
+    """Importing every module of the port (cli, entry and utils among
+    them) and running a CPU encode (lazy and optimal) and decode, and a
+    `.lzma` round trip with the EOS marker, loads nothing of JAX and
+    nothing of the JAX package (lzma_tpu_torch starts with lzma_tpu,
+    hence the exact test)."""
     code = (
         "import sys, pkgutil, importlib; sys.path.insert(0, sys.argv[1]);"
         "import lzma_tpu_torch as P;"
@@ -136,6 +174,9 @@ def test_port_imports_no_jax():
         "[api.decode_blocks(api.encode_blocks(d, block_size=1024, parse=p,"
         " device='cpu'), device='cpu') == d or sys.exit(p)"
         " for p in ('lazy', 'optimal')];"
+        "e = P.LzmaParams(write_eos=True);"
+        "api.decode_alone(api.encode_alone(d[:300], e, device='cpu'),"
+        " device='cpu') == d[:300] or sys.exit('alone');"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib') or m == 'lzma_tpu' or m.startswith('lzma_tpu.'));"
         "assert not bad, bad"

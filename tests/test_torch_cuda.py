@@ -18,10 +18,13 @@ from lzma_tpu.format.properties import LzmaParams
 from lzma_tpu_torch.bench.datagen import generate_bench_data
 from lzma_tpu_torch.core.layout import ProbLayout
 from lzma_tpu_torch.core.rangecoder import CorruptStreamError
-from lzma_tpu_torch.ops import (api, cuda_decoder, cuda_parser, cuda_ring,
-                                cuda_serializer)
+from lzma_tpu_torch.ops import (api, cuda_classify, cuda_decoder, cuda_parser,
+                                cuda_ring, cuda_serializer)
 from lzma_tpu_torch.ops.device_decoder import _decode_fsm, pad_rows
-from lzma_tpu_torch.ops.device_encoder import _lower_lanes, serialize
+from lzma_tpu_torch.ops.device_encoder import (EOS_DIST, _append_eos_tokens,
+                                               _classify_carry, _classify_rows,
+                                               _lower_lanes, classify_tokens,
+                                               serialize, tokenize)
 from lzma_tpu_torch.ops.device_decoder import CapExceededError
 from lzma_tpu_torch.ops.device_parser import (_lists_and_seed, _round_inputs,
                                               dp_parse_band)
@@ -335,6 +338,161 @@ def test_optimal_encode_on_the_card_equals_the_cpu(card):
     assert blob == api.encode_blocks(data, params, block_size=4096,
                                      parse="optimal", device="cpu")
     assert api.decode_blocks(blob, device=card) == data
+
+
+# ---------------------------------------------- K6: the classify carry
+def _token_rows(T, N, seed, gaps):
+    """Random token rows (T, N): literals, fresh matches, rep hits, EOS
+    markers and short reps; each lane valid up to its own end, with
+    invalid tokens inside where `gaps`."""
+    rng = np.random.default_rng(seed)
+    kind = rng.random((T, N))
+    dist = np.where(kind < 0.4, -1, np.where(kind < 0.7, rng.integers(0, 6, (T, N)),
+                                             rng.integers(0, 1 << 20, (T, N))))
+    dist = np.where(rng.random((T, N)) < 0.02, EOS_DIST, dist)
+    ln = rng.integers(1, 274, (T, N))
+    valid = np.arange(T)[:, None] < rng.integers(0, T + 1, N)[None, :]
+    if gaps:
+        valid &= rng.random((T, N)) > 0.1
+    return (torch.from_numpy(dist.astype(np.int32)),
+            torch.from_numpy(ln.astype(np.int32)), torch.from_numpy(valid))
+
+
+def _carry_on_card(rows, dev):
+    before = cuda_classify.LAUNCHES
+    got = cuda_classify.classify_carry_cuda(*(r.to(dev) for r in rows))
+    torch.cuda.synchronize()
+    assert cuda_classify.LAUNCHES == before + (rows[0].numel() > 0)
+    return [g.cpu() for g in got]
+
+
+# lanes of 0, 1 and 2 tokens; a lane per thread of one warp, of 33 (a
+# second block), of 65; all-valid prefixes and invalid gaps
+@pytest.mark.parametrize("T,N", [(0, 3), (1, 1), (2, 2), (3, 1), (37, 33),
+                                 (300, 64), (129, 65)])
+@pytest.mark.parametrize("gaps", [False, True])
+def test_classify_kernel_matches_plain(card, T, N, gaps):
+    rows = _token_rows(T, N, T * 7 + N, gaps)
+    for g, w in zip(_carry_on_card(rows, card), _classify_carry(*rows)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dist", [-1, 0, 5, EOS_DIST])
+def test_classify_kernel_on_one_kind_lanes(card, dist):
+    """All literals, all rep0 (dist 0 at the start), all rep hits of a
+    fresh distance, all EOS markers; lens 1 and 2 (short and long reps)."""
+    T, N = 64, 4
+    d = torch.full((T, N), dist, dtype=torch.int32)
+    ln = torch.tensor([1, 2, 1, 2], dtype=torch.int32).expand(T, N).contiguous()
+    v = torch.ones((T, N), dtype=torch.bool)
+    v[:, 3] = torch.arange(T) < 17
+    for g, w in zip(_carry_on_card((d, ln, v), card), _classify_carry(d, ln, v)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("parse", ["lazy", "optimal"])
+def test_classify_on_the_card_equals_the_cpu_with_eos_tokens(card, parse):
+    blocks = _blocks(4, 2048, 3)
+    data, lens = pad_rows(blocks, "cpu")
+    if parse == "lazy":
+        tok = tokenize(data, lens, 2048, 32, 4)
+    else:
+        from lzma_tpu_torch.ops.device_parser import tokenize_optimal
+
+        tok = tokenize_optimal(data, lens, 2048, lc=3, lp=0, pb=2, fb=32)
+    toks = _append_eos_tokens(*tok[:4], tok[4], lens)
+    want = classify_tokens(data, *toks)
+    before = cuda_classify.LAUNCHES
+    got = classify_tokens(data.to(card), *(t.to(card) for t in toks))
+    assert cuda_classify.LAUNCHES == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def _carry_scalar(dist_r, len_r, valid_r):
+    """A scalar restatement of the carry (one lane): the reference's
+    is_r0..is_r3 chain and Base.java's state updates."""
+    state, reps = 0, [0, 0, 0, 0]
+    out = []
+    for d, ln, v in zip(dist_r.tolist(), len_r.tolist(), valid_r.tolist()):
+        lit = d < 0 and d != EOS_DIST
+        hit = next((k for k in range(4) if reps[k] == d), None)
+        case = 5 if lit else 0 if hit is None else hit + 1
+        out.append((case, state, reps[0]))
+        if not v:
+            continue
+        if lit:
+            state = 0 if state < 4 else state - 3 if state < 10 else state - 6
+            continue
+        reps = [d] + [r for k, r in enumerate(reps) if k != (hit if hit is not
+                                                              None else 3)]
+        if case == 0:
+            state = 7 if state < 7 else 10
+        else:
+            state = (9 if ln < 2 else 8) if state < 7 else 11
+    return [torch.tensor([o[k] for o in out], dtype=torch.int32)
+            for k in range(3)]
+
+
+def test_classify_kernel_on_a_one_lane_mib_stream(card):
+    """One lane of 1 MiB (the lazy parse's ~390K tokens and the EOS
+    marker): the kernel equals a scalar restatement of the carry, and the
+    `.lzma` file it helps encode reads back through the stdlib."""
+    import lzma
+
+    data = generate_bench_data(1 << 20)
+    d, n = pad_rows([data], card)
+    tok = tokenize(d, n, 1 << 20, 32, 4)
+    toks = _append_eos_tokens(*tok[:4], tok[4], n)
+    rows = [r.cpu() for r in _classify_rows(toks[1], toks[2], toks[3])]
+    got = _carry_on_card(rows, card)
+    want = _carry_scalar(rows[0][:, 0], rows[1][:, 0], rows[2][:, 0])
+    for g, w in zip(got, want):
+        assert torch.equal(g[:, 0], w)
+    params = LzmaParams(write_eos=True)
+    blob = api.encode_alone(data, params, device=card)
+    assert lzma.decompress(blob, format=lzma.FORMAT_ALONE) == data
+    assert api.decode_alone(blob, device=card) == data
+
+
+def test_classify_wrapper_rejects_bad_dtype_and_device(card):
+    d = torch.zeros((4, 2), dtype=torch.int32, device=card)
+    v = torch.ones((4, 2), dtype=torch.bool, device=card)
+    with pytest.raises(TypeError):
+        cuda_classify.classify_carry_cuda(d.long(), d, v)
+    with pytest.raises(TypeError):
+        cuda_classify.classify_carry_cuda(d, d, v.int())
+    with pytest.raises(ValueError):
+        cuda_classify.classify_carry_cuda(d, d.cpu(), v)
+    with pytest.raises(ValueError):
+        cuda_classify.classify_carry_cuda(d, d[:2], v)
+    with pytest.raises(ValueError):
+        cuda_classify.classify_carry_cuda(d.T, d.T, v.T)
+
+
+def test_eos_cap_grows_on_the_card(card, monkeypatch):
+    """decode_alone of an EOS stream 68x smaller than its output: the cap
+    starts at 16 bytes a coded byte, grows x4 twice, and the last decodes;
+    K1 runs each attempt."""
+    import lzma
+
+    from lzma_tpu_torch.bench.corpus import text_part
+
+    data = text_part()[:20000] * 20
+    blob = lzma.compress(data, format=lzma.FORMAT_ALONE)
+    caps = []
+    real = api.decode_batch_cuda
+
+    def spy(streams, params, sizes, device="cuda"):
+        caps.append(-sizes[0])
+        return real(streams, params, sizes, device=device)
+
+    monkeypatch.setattr(api, "decode_batch_cuda", spy)
+    before = cuda_ring.LAUNCHES
+    assert api.decode_alone(blob, device=card) == data
+    floor = 16 * (len(blob) - 13)
+    assert caps == [floor, 4 * floor, 16 * floor]
+    assert cuda_ring.LAUNCHES == before + 3
 
 
 # ------------------------------------- K1 and K5: the two-speed decode body

@@ -157,11 +157,12 @@ def test_encoder_rejects_what_is_not_ported():
     with pytest.raises(NotImplementedError):
         tde.encode_batch([b"abc"], LzmaParams(), parse="optimal:lists2",
                          device="cpu")
-    with pytest.raises(NotImplementedError):
-        tde.encode_batch([b"abc" * 9], LzmaParams(write_eos=True),
-                         parse="optimal", write_eos=True, device="cpu")
-    # the optimal parse and preset priming are ported now
+    # the optimal parse, preset priming and the EOS marker are ported now
     blocks = [generate_bench_data(700), b"abcabcabd" * 20]
+    assert tde.encode_batch([b"abc" * 9], LzmaParams(write_eos=True),
+                            parse="optimal", write_eos=True, device="cpu") == \
+        jde.encode_batch([b"abc" * 9], LzmaParams(write_eos=True),
+                         parse="optimal", write_eos=True)
     for kw in (dict(parse="optimal"), dict(preset=b"abcab" * 30)):
         assert tde.encode_batch(blocks, LzmaParams(), device="cpu", **kw) == \
             jde.encode_batch(blocks, LzmaParams(), use_pallas=True, **kw)

@@ -28,6 +28,7 @@ from lzma_tpu.ops import device_encoder as jde  # noqa: E402
 from lzma_tpu.ops import device_matcher as jm  # noqa: E402
 from lzma_tpu.ops import device_parser as jp  # noqa: E402
 from lzma_tpu.parallel import blocks as jblk  # noqa: E402
+from lzma_tpu.utils import dicttrain as jdict  # noqa: E402
 from lzma_tpu_torch.bench.corpus import text_part  # noqa: E402
 from lzma_tpu_torch.bench.datagen import generate_bench_data  # noqa: E402
 from lzma_tpu_torch.core import constants as tc  # noqa: E402
@@ -37,6 +38,7 @@ from lzma_tpu_torch.format import properties as tprops  # noqa: E402
 from lzma_tpu_torch.ops import device_matcher as tm  # noqa: E402
 from lzma_tpu_torch.ops import device_parser as tp  # noqa: E402
 from lzma_tpu_torch.parallel import blocks as tblk  # noqa: E402
+from lzma_tpu_torch.utils import dicttrain as tdict  # noqa: E402
 
 TIERS = dict(jp.DP_TIERS)
 
@@ -136,6 +138,15 @@ def test_vendored_properties_match():
     with pytest.raises(ValueError):
         tprops.decode_props(bytes([225, 0, 0, 1, 0]))
     assert tprops.MAX_EXPANSION == jprops.MAX_EXPANSION
+    for size, payload in ((0, 0), (1 << 16, 0), (8192 * 5 + (1 << 16), 5),
+                          (-1, 0)):
+        tprops.validate_alone_size(size, payload)
+        jprops.validate_alone_size(size, payload)
+    for size, payload in (((1 << 16) + 1, 0), (8192 * 5 + (1 << 16) + 1, 5)):
+        with pytest.raises(ValueError, match="impossible"):   # CorruptStreamError
+            tprops.validate_alone_size(size, payload)
+        with pytest.raises(ValueError, match="impossible"):
+            jprops.validate_alone_size(size, payload)
 
 
 def test_vendored_container_matches():
@@ -159,6 +170,22 @@ def test_vendored_container_matches():
     for bad in (b"LZTX" + blob[4:], blob[:10], blob[:4] + b"\x07" + blob[5:]):
         with pytest.raises(ValueError):   # CorruptStreamError is a ValueError
             tblk.parse_container(bad)
+
+
+def test_vendored_dicttrain_matches():
+    corpus = generate_bench_data(60_000) + text_part()[:20_000]
+    for size, kw in ((1 << 12, {}), (1000, dict(k=16, d=4)),
+                     (1 << 16, dict(table_bits=12)), (5, {})):
+        assert tdict.train_dictionary(corpus, size, **kw) == \
+            jdict.train_dictionary(corpus, size, **kw)
+    samples = [corpus[:3000], corpus[5000:9000]]
+    assert tdict.train_dictionary(samples, 2048) == \
+        jdict.train_dictionary(samples, 2048)
+    assert tdict.train_dictionary(b"abc", 100) == b"abc"
+    assert tdict.train_dictionary(bytes(range(256)) * 4, 64) == \
+        jdict.train_dictionary(bytes(range(256)) * 4, 64)
+    with pytest.raises(ValueError):
+        tdict.train_dictionary(corpus, 0)
 
 
 def test_vendored_bench_data_matches():

@@ -80,7 +80,10 @@ prints its seconds):
      marker, and decode_alone: the stdlib and the port read both back,
      K6, K2 and K1 launched once a stream (counts set to 0 just before
      each), MB/s and peak memory, the EOS encode again inside probing()
-     for its stages and K6's time on its rows; the `.lzma` pins
+     for its stages and K6's time on its rows; K6, K2 and K1 against
+     their plain versions on that stream's tensors, cut as in phase 9
+     (K6 on the first CMP_POS token rows and on the rows from CMP_POS
+     before the EOS token to the end, the whole tail); the `.lzma` pins
      (PIN_ALONE_SHA256, PIN_ALONE_EOS_SHA256 = the JAX package's
      encode_alone of 64 KiB of bench data); the front door
      (lzma_tpu_torch.compress -> decompress on 2 MiB); the command line
@@ -379,16 +382,23 @@ def token_cut(t_pos, t_len, t_valid, at, sizes):
 
 def classify_work(rows):
     """(bytes, operations) of the classify carry on these token rows (T,
-    N): dist, len and valid read once and case, state and r0 written
-    once; ~30 operations a step of a lane up to its last valid token and
-    ~10 a token of the tail filled after it."""
-    import torch
-
+    N): dist and valid read once over every row, len once over each
+    lane's steps up to its last valid token (the only rows the carry
+    reads it on), and case, state and r0 written once over every row.
+    No operations are counted: the bound is the bytes'."""
     dist, _, valid = rows
     T, N = dist.shape
-    pos = torch.arange(1, T + 1, device=dist.device)[:, None]
-    steps = int((valid * pos).amax(dim=0).sum()) if T else 0
-    return T * N * (4 + 4 + 1 + 3 * 4), 30 * steps + 10 * (T * N - steps)
+    steps = int(lane_steps(valid).sum()) if T else 0
+    return T * N * (4 + 1 + 3 * 4) + 4 * steps, 0
+
+
+def lane_steps(valid):
+    """Each lane's 1 + index of its last valid token row (0 where none):
+    (N,) int64 on valid's device."""
+    import torch
+
+    pos = torch.arange(1, valid.shape[0] + 1, device=valid.device)[:, None]
+    return (valid * pos).amax(dim=0)
 
 
 def check_classify(rows):
@@ -744,7 +754,8 @@ def alone_phase(dev, card, data):
     ops.api.encode_alone/decode_alone with the counts of K6, K2 and K1 set
     to 0 before each; the stage breakdown of the EOS encode; the `.lzma`
     pins; the front door; the command line; the lane entry.  Returns K6's
-    ms on the stream's token rows and their bound."""
+    ms on the stream's token rows, their bound, and the max |diff| of K6,
+    K2 and K1 against their plain versions on the stream's tensors, cut."""
     import os
     import tempfile
 
@@ -752,8 +763,10 @@ def alone_phase(dev, card, data):
     import lzma_tpu_torch
     from lzma_tpu_torch.bench.datagen import generate_bench_data
     from lzma_tpu_torch.entry import entry
+    from lzma_tpu_torch.core.layout import ProbLayout
     from lzma_tpu_torch.format.properties import LzmaParams
     from lzma_tpu_torch.ops import api, cuda_classify, cuda_ring, cuda_serializer
+    from lzma_tpu_torch.ops.device_decoder import _pow2_at_least, pad_rows
     from lzma_tpu_torch.ops.device_encoder import probing
     from lzma_tpu_torch.probes._cuda import event_ms
 
@@ -810,7 +823,42 @@ def alone_phase(dev, card, data):
         + f"; K6 on its rows {k6_ms:.3f} ms (CUDA events, "
         f"{k6_ms * 1e6 / n_tok:.1f} ns a token), bound {k6_bound[0]:.4f} ms by "
         f"{k6_bound[1]}")
-    del probe, rows
+    # each kernel against its plain version on the stream's own card
+    # tensors, cut as phase 9 cuts the main path's (tolerance zero): K6 on
+    # the first CMP_POS token rows and on the rows from CMP_POS before the
+    # EOS token to the end (the whole tail past it), K2 on the lane's first
+    # CMP_BITS pairs, K1 on the EOS stream up to its first token boundary
+    # at or past CMP_OUT bytes in the first EOS decode's output bucket
+    t_pos, t_len, t_valid, ctx, bits, totals = probe["lowered"]
+    last = int(lane_steps(rows[2])[0])
+    errs = {}
+    for cut, at in (("head", slice(0, CMP_POS)),
+                    ("edge", slice(max(0, last - CMP_POS), None))):
+        err, _ = check_classify(tuple(r[at].contiguous() for r in rows))
+        errs["classify"] = max(errs.get("classify", 0), err)
+    max_n = (ctx.shape[1] - 128) // 10     # _lower_lanes' max_bits
+    arena = ProbLayout(params.lc, params.lp, params.pb, pos_bits=params.pb).size
+    errs["rc_serialize"], _, _, _ = check_serializer(
+        ctx, bits, torch.clamp(totals, max=CMP_BITS), arena,
+        max_n + max_n // 4 + 128)
+    comp_len = len(blobs[True]) - 13
+    cap = min(max(16 * comp_len, 1 << 16), 273 * comp_len + 512, 1 << 25)
+    comp, comp_lens = pad_rows([blobs[True][13:]], dev)
+    cuts = token_cut(t_pos, t_len, t_valid, CMP_OUT, [len(data)])
+    errs["ring_decode"], d_out, _ = check_decoder(
+        comp, comp_lens, cuts, params, _pow2_at_least(cap, 16), resident=False)
+    n_cut = int(cuts[0])
+    if d_out[0, :n_cut].cpu().numpy().tobytes() != data[:n_cut]:
+        raise AssertionError(f"the .lzma stream decodes wrong up to byte {n_cut}")
+    log(f"[lzma stream vs plain] on {card}, tolerance 0: classify carry on "
+        f"token rows [0, {CMP_POS}) and [{max(0, last - CMP_POS)}, "
+        f"{rows[0].shape[0]}) (the EOS token is row {last - 1}) max |diff| "
+        f"{errs['classify']}; rc_serialize on the first "
+        f"{int(torch.clamp(totals, max=CMP_BITS)[0])} of {int(totals[0])} "
+        f"pairs max |diff| {errs['rc_serialize']}; ring_decode to byte {n_cut} "
+        f"in a {_pow2_at_least(cap, 16)}-byte bucket max |diff| "
+        f"{errs['ring_decode']}")
+    del probe, rows, t_pos, t_len, t_valid, ctx, bits, totals, d_out
 
     small = generate_bench_data(ALONE_PIN_SIZE)
     for eos, pin in ((False, PIN_ALONE_SHA256), (True, PIN_ALONE_EOS_SHA256)):
@@ -865,7 +913,7 @@ def alone_phase(dev, card, data):
     log(f"[entry] lzma_tpu_torch.entry: fn(*args) on {args[0].device}, "
         f"{tuple(out.shape)}, lens {lens.tolist()}: sha256 = the JAX "
         "reference's __graft_entry__.entry()")
-    return k6_ms, k6_bound
+    return k6_ms, k6_bound, errs
 
 
 def main():
@@ -1166,7 +1214,7 @@ def main():
     k6_whole_bound = bound(*k6_work)
     log(f"[K6 whole lanes] {c_rows[0].shape[1]} lanes x {c_rows[0].shape[0]} "
         f"token rows on {card}: classify carry {k6_whole:.3f} ms a call (CUDA "
-        f"events), {k6_work[0]} B, {k6_work[1]} operations, bound "
+        f"events), {k6_work[0]} B read and written, bound "
         f"{k6_whole_bound[0]:.4f} ms by {k6_whole_bound[1]}; "
         f"{k6_whole * 1e6 / int(t_valid.sum(1).max()):.1f} ns a token of the "
         "longest lane")
@@ -1416,7 +1464,10 @@ def main():
     done("probes")
 
     # ---- 14. the .lzma path at full size, front door, CLI, entry ----
-    k6_stream, k6_stream_bound = alone_phase(dev, card, data)
+    k6_stream, k6_stream_bound, stream_errs = alone_phase(dev, card, data)
+    k6_err = max(k6_err, stream_errs["classify"])
+    k2_err = max(k2_err, stream_errs["rc_serialize"])
+    k1_err = max(k1_err, stream_errs["ring_decode"])
     done("lzma stream")
 
     # ---- 15. nothing of JAX or of the JAX package was loaded ----

@@ -35,10 +35,13 @@ def compress(data: bytes, params: LzmaParams | None = None,
     optimal parse, every block a lane.  `preset_len` shares the input's
     first bytes with every block after block 0 (LZTB v2); `dictionary`
     primes every block with a stored dictionary (LZTB v3); `train_dict=N`
-    trains an N-byte one from the input.  The port has only the device
-    backend, which writes no `.lzma` file (``ops.api.encode_alone``
-    does); ``params="auto"`` and ``train_dict="auto"`` need the host
-    codec and are not ported."""
+    trains an N-byte one from the input.  `container` and `backend` are
+    there only so that calls written for ``lzma_tpu.compress`` run
+    unchanged: each takes one value ("lztb", "device"), and the default
+    container is LZTB, where the reference's is "alone".  The port has
+    only the device backend, which writes no `.lzma` file
+    (``ops.api.encode_alone`` does); ``params="auto"`` and
+    ``train_dict="auto"`` need the host codec and are not ported."""
     if backend != "device":
         raise ValueError(f"unknown backend: {backend!r} (the port has only "
                          'backend="device")')

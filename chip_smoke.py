@@ -9,18 +9,22 @@ Phases (any failure exits non-zero; no phase is caught and skipped; each
 prints its seconds):
   1. no CUDA device fails; the card's name and power limit (nvidia-smi)
   2. build the CUDA kernels from lzma_tpu_torch/csrc (one nvcc a source,
-     all started together)
+     all started together; K3 and K4 share dp_rows.cuh, their row tiles)
   3. each kernel against its plain PyTorch version on the card at small
      shapes: the range encoder (K2) with its arena in shared and in device
      memory (the same streams with lc8 lp4's arena size, which is over the
      card's shared memory), both decoders (K1, K5) and the classify carry
-     (K6, on the lazy and the optimal parse's tokens with the EOS marker
-     appended), on 8 lanes x 2 KiB; K2 on lc8 lp4's own streams, in device memory, and K1 on them
+     (K6, a scan over each lane's token rows in five grids, on the lazy
+     and the optimal parse's tokens with the EOS marker appended), on 8
+     lanes x 2 KiB; K2 on lc8 lp4's own streams, in device memory, and K1
+     on them
      with its arena in device memory (K1's placement, as K2's, by the
      arena's size alone; lc3 lp0's is in shared memory); K1 and K5 on a
      preset-primed batch made by the port's own encoder; both DP scans
-     (K3, K4) on the first round's inputs of 8 lanes x 2 KiB at fb 8, 32
-     (K3 relaxes a length on 4 lanes) and 273 (on one thread a length)
+     (K3, K4: K4 the carried band on K3's row tiles, a literal warp beside
+     its relax warps) on the first round's inputs of 8 lanes x 2 KiB at fb
+     8, 32 (both relax a length on 4 lanes) and 273 (on one thread a
+     length)
   4. the card against the JAX reference: the 8-lane containers of
      generate_bench_data(64 KiB) must hash to PIN_SHA256 (lazy) and
      PIN_OPT_SHA256 (optimal), which tests/test_torch_api.py pins to the
@@ -41,18 +45,20 @@ prints its seconds):
      synchronized around each stage), its whole-lane kernel stages
      beside their bounds (K3's by bytes and operations), K2 on the whole
      lanes' (ctx, bit) streams, K1 on the whole container's streams and
-     K6 on the final tokens' rows timed by CUDA events, and the inputs
-     phases 8 and 9 take
+     K6 on the final tokens' rows timed by CUDA events (K6 beside its
+     bound and the bytes its three passes over the rows move), and the
+     inputs phases 8 and 9 take
   8. the K4 path: tokenize_optimal(scan="band2") on phase 5's 32 x 16 KiB
      gives the tokens of the default scan, K4 launched (its count); K4 on
      the main path's whole last DP round (32 x 262,144 positions) gives
-     K3's planes; both timed there
+     K3's planes; both timed there, K4 with dp_parse2_plan's block
   9. each kernel against its plain version at the main path's shapes
      (its own 32 x 256 KiB tensors, the work cut so that the plain
      versions finish: K3 and K4 scan the first CMP_POS positions, K2
      codes the first CMP_BITS pairs, K1 decodes each lane up to the first
      token boundary at or past CMP_OUT bytes), all timed on those inputs;
-     K6 against its plain carry on the whole final tokens, uncut
+     K6 (the scan) against its plain carry on the whole final tokens,
+     uncut
  10. the K5 path: phase 5's 32 streams through decode_batch_resident
      equal the input and K1 (K5 launched, its count); K1's champion shape
      (128 x 16 KiB, lc0, dict 4 KiB, fb 8) through K5 and K1, both timed,
@@ -80,7 +86,8 @@ prints its seconds):
      marker, and decode_alone: the stdlib and the port read both back,
      K6, K2 and K1 launched once a stream (counts set to 0 just before
      each), MB/s and peak memory, the EOS encode again inside probing()
-     for its stages and K6's time on its rows; K6, K2 and K1 against
+     for its stages and K6's time on its rows (one lane: the scan spreads
+     its 8,388,609 rows over 2,049 tiles); K6, K2 and K1 against
      their plain versions on that stream's tensors, cut as in phase 9
      (K6 on the first CMP_POS token rows and on the rows from CMP_POS
      before the EOS token to the end, the whole tail); the `.lzma` pins
@@ -390,6 +397,17 @@ def classify_work(rows):
     T, N = dist.shape
     steps = int(lane_steps(valid).sum()) if T else 0
     return T * N * (4 + 1 + 3 * 4) + 4 * steps, 0
+
+
+def classify_moved(rows):
+    """Bytes K6's design moves on these rows: its three passes read dist
+    and valid, then dist, len and valid, then dist, len and valid again
+    and write case, state and r0 (35 B a row), and its scratch (the
+    tiles' and chunks' lists and maps) is written once and read once."""
+    from lzma_tpu_torch.ops.cuda_classify import scratch_bytes
+
+    T, N = rows[0].shape
+    return T * N * 35 + 2 * scratch_bytes(T, N)
 
 
 def lane_steps(valid):
@@ -816,13 +834,15 @@ def alone_phase(dev, card, data):
     k6_ms = event_ms(lambda: cuda_classify.classify_carry_cuda(*rows), 3)
     work = classify_work(rows)
     k6_bound = bound(*work)
+    moved = classify_moved(rows)
     n_tok = int(probe["lowered"][2].sum())
     log(f"[lzma stream stages] probed EOS encode {t_probed:.3f} s, "
         f"{n_tok} tokens, {int(probe['lowered'][5].sum())} coded pairs: "
         + ", ".join(f"{k} {sum(v) * 1e3:.1f} ms" for k, v in probe["seconds"].items())
         + f"; K6 on its rows {k6_ms:.3f} ms (CUDA events, "
         f"{k6_ms * 1e6 / n_tok:.1f} ns a token), bound {k6_bound[0]:.4f} ms by "
-        f"{k6_bound[1]}")
+        f"{k6_bound[1]}; the scan moves {moved} B "
+        f"({moved / HBM_BYTES_PER_S * 1e3:.4f} ms at the HBM rate)")
     # each kernel against its plain version on the stream's own card
     # tensors, cut as phase 9 cuts the main path's (tolerance zero): K6 on
     # the first CMP_POS token rows and on the rows from CMP_POS before the
@@ -1046,9 +1066,12 @@ def main():
         err, _ = check_scans(packed, tables, lens.to(torch.int32), fb_s,
                              s_params.pb)
         k3_err = max(k3_err, err)
+        C = packed.shape[2]
+        k4_plan = cuda_parser.dp_parse2_plan(fb_s, s_params.pb, C)
         log(f"[K3, K4 vs plain] {CMP_LANES}x{CMP_BYTES}, fb {fb_s} (K3 "
-            f"{cuda_parser.dp_parse_plan(fb_s, s_params.pb, packed.shape[2])[0]}"
-            " threads): from and choice equal")
+            f"{cuda_parser.dp_parse_plan(fb_s, s_params.pb, C)[0]} threads, "
+            f"K4 {k4_plan[0]} threads, band {k4_plan[1]}): from and choice "
+            "equal")
 
     # K6 on both parses' tokens of the same lanes, the EOS marker appended
     k6_err = 0
@@ -1212,10 +1235,13 @@ def main():
     k6_whole = event_ms(lambda: cuda_classify.classify_carry_cuda(*c_rows), 3)
     k6_work = classify_work(c_rows)
     k6_whole_bound = bound(*k6_work)
+    k6_moved = classify_moved(c_rows)
     log(f"[K6 whole lanes] {c_rows[0].shape[1]} lanes x {c_rows[0].shape[0]} "
         f"token rows on {card}: classify carry {k6_whole:.3f} ms a call (CUDA "
         f"events), {k6_work[0]} B read and written, bound "
-        f"{k6_whole_bound[0]:.4f} ms by {k6_whole_bound[1]}; "
+        f"{k6_whole_bound[0]:.4f} ms by {k6_whole_bound[1]}; the scan moves "
+        f"{k6_moved} B ({k6_moved / HBM_BYTES_PER_S * 1e3:.4f} ms at the HBM "
+        "rate); "
         f"{k6_whole * 1e6 / int(t_valid.sum(1).max()):.1f} ns a token of the "
         "longest lane")
     log(f"[K2, K1 whole lanes] {L} lanes on {card}, CUDA events: rc_serialize "
@@ -1491,7 +1517,9 @@ def main():
         record("dp_parse2", "lzma_tpu_torch/csrc/dp_parse2.cu",
                "lzma_tpu/ops/device_parser.py:1128", k4_launches, k3_err,
                k4_ms, k3_plain, k3_bound, whole_ms=k4_whole,
-               whole_bound_ms=whole_bound[0]),
+               whole_bound_ms=whole_bound[0], whole_k3_ms=k3_whole,
+               design="carried band on K3's row tiles, a literal warp, "
+                      "4 lanes a length"),
         record("rc_serialize", "lzma_tpu_torch/csrc/rc_serializer.cu",
                "lzma_tpu/ops/pallas_serializer.py:58", launches["rc_serialize"],
                k2_err, k2_ms, k2_plain, k2_bound, whole_ms=k2_whole,
@@ -1508,7 +1536,8 @@ def main():
                "lzma_tpu/ops/device_encoder.py:85", launches["classify"],
                k6_err, k6_whole, k6_plain, k6_whole_bound, whole_ms=k6_whole,
                whole_bound_ms=k6_whole_bound[0], stream_ms=k6_stream,
-               stream_bound_ms=k6_stream_bound[0]),
+               stream_bound_ms=k6_stream_bound[0], moved_bytes=k6_moved,
+               design="scan over each lane's token rows, five grids"),
     ] + probe_records
     print(card)
     print(json.dumps({"kernels": kernels}))

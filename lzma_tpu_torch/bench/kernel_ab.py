@@ -1,26 +1,30 @@
 """Time the kernels of this checkout against those of another checkout, on
-one card, in turns: the DP scans (K3, K4), the range encoder (K2) and the
-decoders (K1, K5).
+one card, in turns: the DP scans (K3, K4), the range encoder (K2), the
+decoders (K1, K5) and the classify carry (K6).
 
     python -m lzma_tpu_torch.bench.kernel_ab OTHER_CHECKOUT [KERNEL ...]
 
 KERNEL picks among dp_parse, dp_parse2, rc_serialize, ring_decode,
-ring_input, ring_decode_champion, block_decode_champion and
-ring_input_champion (default: all).  The
+ring_input, classify, classify_stream, ring_decode_champion,
+block_decode_champion and ring_input_champion (default: all).  The
 inputs are chip_smoke.py's: the main path is text_part() +
 generate_bench_data(5 << 20), LzmaParams() defaults (lc3 lp0 pb2, fb
 32), parse="optimal", 32 lanes of 256 KiB; an encode inside
 device_encoder.probing() records the last DP round's packed rows, tables
-and lens and the final (ctx, bit) streams (K3, K4, K2), and its
-container's streams are K1's (ring_decode).  The champion shape
+and lens, the final (ctx, bit) streams and the final tokens' classify
+rows (K3, K4, K2, K6 as classify), and its container's streams are K1's
+(ring_decode).  classify_stream is K6 on the rows of the same 8 MiB as
+ONE `.lzma` stream (ops.api.encode_alone, lazy, the EOS marker): one
+lane of 8,388,609 token rows.  The champion shape
 (bench.py:344-390) is 128 lanes of 16 KiB of bench data, lc0, dict 4
 KiB, fb 8, lazy: K1 and K5 decode its streams.  OTHER_CHECKOUT's package
 is loaded under another name and its kernels are built by its own
 runtime/build.py and called through its own wrappers
 (``ops.cuda_parser.dp_parse_cuda``, ``dp_parse2_cuda``,
 ``ops.cuda_serializer.serialize_cuda``, ``ops.cuda_ring.decode_cuda``,
-``ops.cuda_decoder.decode_resident``), whose signatures both checkouts
-share.  ring_input and ring_input_champion compare no checkouts: on
+``ops.cuda_decoder.decode_resident``,
+``ops.cuda_classify.classify_carry_cuda``), whose signatures both
+checkouts share.  ring_input and ring_input_champion compare no checkouts: on
 K1's main-path and champion streams they time this checkout's K1 body
 with its input staged in the shared-memory ring ("this",
 ``probes.probe_ring_ablate`` realrow) against the same body reading the
@@ -46,7 +50,8 @@ import torch
 
 from ..core.layout import ProbLayout
 from ..format.properties import LzmaParams
-from ..ops import api, cuda_decoder, cuda_parser, cuda_ring, cuda_serializer
+from ..ops import (api, cuda_classify, cuda_decoder, cuda_parser, cuda_ring,
+                   cuda_serializer)
 from ..ops.device_decoder import pad_rows
 from ..ops.device_encoder import encode_batch, probing
 from ..parallel import blocks as blk
@@ -60,14 +65,15 @@ OTHER = "_kernel_ab_other"
 #: the champion shape (chip_smoke CH_*)
 CH_LANES, CH_BLOCK, CH_DICT = 128, 1 << 14, 1 << 12
 KERNELS = ("dp_parse", "dp_parse2", "rc_serialize", "ring_decode",
-           "ring_input", "ring_decode_champion", "block_decode_champion",
-           "ring_input_champion")
-MAIN_PATH = KERNELS[:5]
+           "ring_input", "classify", "classify_stream", "ring_decode_champion",
+           "block_decode_champion", "ring_input_champion")
+MAIN_PATH = KERNELS[:6]
 
 
 def other_wrappers(root: str):
     """OTHER_CHECKOUT's ops.cuda_parser, ops.cuda_serializer,
-    ops.cuda_ring and ops.cuda_decoder, its package loaded as OTHER."""
+    ops.cuda_ring, ops.cuda_decoder and ops.cuda_classify, its package
+    loaded as OTHER."""
     pkg = os.path.join(os.path.abspath(root), "lzma_tpu_torch")
     spec = importlib.util.spec_from_file_location(
         OTHER, os.path.join(pkg, "__init__.py"), submodule_search_locations=[pkg])
@@ -75,14 +81,20 @@ def other_wrappers(root: str):
     sys.modules[OTHER] = mod
     spec.loader.exec_module(mod)
     return tuple(importlib.import_module(f"{OTHER}.ops.{name}") for name in
-                 ("cuda_parser", "cuda_serializer", "cuda_ring", "cuda_decoder"))
+                 ("cuda_parser", "cuda_serializer", "cuda_ring", "cuda_decoder",
+                  "cuda_classify"))
+
+
+def main_data():
+    return text_part() + generate_bench_data(5 << 20)
 
 
 def main_path_inputs(dev):
     """(packed, tables, lens) of the last DP round, (ctx, bits, totals)
-    of the final lowering and K1's arguments over the container's
-    streams, from one probed optimal encode of main8M."""
-    data = text_part() + generate_bench_data(5 << 20)
+    of the final lowering, K1's arguments over the container's streams
+    and the final tokens' classify rows, from one probed optimal encode
+    of main8M."""
+    data = main_data()
     params = LzmaParams()
     with probing() as probe:
         blob = api.encode_blocks(data, params, block_size=BLOCK,
@@ -95,7 +107,16 @@ def main_path_inputs(dev):
     sizes = torch.tensor(sizes, dtype=torch.int32, device=dev)
     decode = (comp, comp_lens, sizes, params.dict_size, params.lc, params.lp,
               params.pb, BLOCK)
-    return probe["dp_inputs"], (ctx, bits, totals), decode
+    return probe["dp_inputs"], (ctx, bits, totals), decode, \
+        probe["classify_rows"]
+
+
+def stream_rows(dev):
+    """The classify rows of main8M as one `.lzma` stream with the EOS
+    marker (one lane)."""
+    with probing() as probe:
+        api.encode_alone(main_data(), LzmaParams(write_eos=True), device=dev)
+    return probe["classify_rows"]
 
 
 def champion_inputs(dev):
@@ -138,14 +159,16 @@ def main(argv=None) -> None:
     name = card().splitlines()[0]
     print(name, flush=True)
     dev = torch.device("cuda", 0)
-    o_parser, o_serializer, o_ring, o_decoder = other_wrappers(argv[0])
+    o_parser, o_serializer, o_ring, o_decoder, o_classify = \
+        other_wrappers(argv[0])
     result = {"card": name}
     kernels = {}
     if any(k in MAIN_PATH for k in chosen):
         params = LzmaParams()
         fb, pb = params.fast_bytes, params.pb
         arena = ProbLayout(params.lc, params.lp, pb, pos_bits=pb).size
-        (packed, tables, lens), (ctx, bits, totals), dec = main_path_inputs(dev)
+        (packed, tables, lens), (ctx, bits, totals), dec, c_rows = \
+            main_path_inputs(dev)
         L, N, _ = packed.shape
         max_out = BLOCK + BLOCK // 4 + 128
         scan = (packed, tables, lens, fb, pb)
@@ -164,9 +187,19 @@ def main(argv=None) -> None:
             "ring_decode": {"other": lambda: o_ring.decode_cuda(*dec),
                             "this": lambda: cuda_ring.decode_cuda(*dec)},
             "ring_input": ring_input(dec),
+            "classify": {
+                "other": lambda: o_classify.classify_carry_cuda(*c_rows),
+                "this": lambda: cuda_classify.classify_carry_cuda(*c_rows)},
         })
+        result["classify_rows"] = list(c_rows[0].shape)
         if "ring_decode" in chosen:
             result["ring_decode_longest_lane"] = decoded_work(dec)
+    if "classify_stream" in chosen:
+        s_rows = stream_rows(dev)
+        kernels["classify_stream"] = {
+            "other": lambda: o_classify.classify_carry_cuda(*s_rows),
+            "this": lambda: cuda_classify.classify_carry_cuda(*s_rows)}
+        result["classify_stream_rows"] = list(s_rows[0].shape)
     if any(k.endswith("champion") for k in chosen):
         ch = champion_inputs(dev)
         kernels.update({
@@ -186,7 +219,7 @@ def main(argv=None) -> None:
                                  "from the other's")
         del outs
         reps = 3 if kernel in ("rc_serialize", "ring_decode", "ring_input") else 2
-        if kernel.endswith("champion"):
+        if kernel.endswith("champion") or kernel.startswith("classify"):
             reps = 5
         times = {k: [] for k in fns}
         for k in ("other", "this", "this", "other"):

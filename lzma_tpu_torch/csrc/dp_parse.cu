@@ -39,9 +39,8 @@
 //   - hands node i's relax terms (the match and rep bases, the reps) to
 //     the relax warps through a two-entry buffer in shared memory;
 //   - stages rows by tiles of kTile rows, double-buffered, with 4-byte
-//     cp.async (a lane's base, lane * N * C * 4 bytes, is not 16-byte
-//     aligned for every N; nothing is read past the lane): one wait a
-//     tile, issued a tile ahead;
+//     cp.async (dp_rows.cuh, shared with K4): one wait a tile, issued a
+//     tile ahead;
 //   - indexes the rings (future band B >= fb + 2, history H >= fb + 1,
 //     powers of two) by masks: no division anywhere in the loop;
 //   - computes the relax and the finalize without branches, M a
@@ -55,43 +54,20 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "dp_rows.cuh"
+
 namespace {
 
 constexpr int kInf = 0x0FFFFFFF;
 constexpr int kLit = -1;
 constexpr int kMatch = 4;
 constexpr int kShortRep = 5;
-constexpr int kTileLog = 6;
-constexpr int kTile = 1 << kTileLog;  // rows a tile (cuda_parser.TILE_ROWS)
 constexpr int kNodeVals = 16;         // a node's relax terms (9 used)
 constexpr int kMaxPairs = 16;  // M a row at most (cuda_parser.MAX_PAIRS)
 constexpr int kSplitFb = 65;   // fb a lane a pair takes (cuda_parser.SPLIT_FB)
 
 __device__ __forceinline__ int next_lit(int s) {
   return s < 4 ? 0 : (s < 10 ? s - 3 : s - 6);
-}
-
-__device__ __forceinline__ void async4(int* dst, const int* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void async_wait() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Rows [t * kTile, min((t + 1) * kTile, n_pos)) of the lane into `buf`,
-// one group of 4-byte copies a thread.
-__device__ __forceinline__ void stage_tile(int* buf, const int* src, int t,
-                                           int n_pos, int C, int tid,
-                                           int nth) {
-  const int first = t << kTileLog;
-  const int n = min(kTile, n_pos - first) * C;
-  const int* s = src + static_cast<size_t>(first) * C;
-  for (int k = tid; k < n; k += nth) async4(buf + k, s + k);
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
 // The block: threads [0, n_relax) relax, kSplit a length 2..fb (n_relax

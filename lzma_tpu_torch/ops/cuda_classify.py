@@ -5,9 +5,11 @@ Counterpart of the ``lax.scan`` in ``lzma_tpu/ops/device_encoder.py``
 ``pallas_call``).  ``classify_carry_cuda`` replaces the serial part,
 ``device_encoder._classify_carry``: the state machine and the rep MTF
 carried over every lane's tokens.  A CUDA tensor launches the kernel (or
-the wrapper raises); a CPU tensor takes the plain version.  One thread
-runs a lane's tokens in order; each lane's tail past its last valid
-token is filled from the held carry in parallel.
+the wrapper raises); a CPU tensor takes the plain version.  The carry is
+a scan: the reps before a token are the most recent distinct distances
+before it and its state the composition of the earlier tokens' state
+maps, both associative, so the kernel spreads every lane's rows over the
+card in tiles (five grids, one call; the source says how).
 """
 
 from __future__ import annotations
@@ -23,14 +25,30 @@ from .device_encoder import _classify_carry
 #: kernel launches made through classify_carry_cuda since the count was
 #: last set
 LAUNCHES = 0
+#: rows of a lane a thread of the kernel takes (csrc/classify.cu kChunk)
+CHUNK_ROWS = 16
+#: threads of a tile's block, a chunk each (csrc/classify.cu kThreads):
+#: a tile is TILE_THREADS // W chunks of W lanes, W the lanes rounded up
+#: to a power of two, at most 32
+TILE_THREADS = 256
 
 
 @functools.cache
 def _kernel():
-    fn = build.load().lzt_classify
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    lib = build.load()
+    fn = lib.lzt_classify
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    size = lib.lzt_classify_scratch
+    size.argtypes = [ctypes.c_int] * 2
+    size.restype = ctypes.c_longlong
+    return fn, size
+
+
+def scratch_bytes(T: int, N: int) -> int:
+    """Bytes of the kernel's scratch for (T, N) token rows: the tiles'
+    and the chunks' lists and maps (csrc/classify.cu's layout)."""
+    return int(_kernel()[1](T, N))
 
 
 def _check(dist_r, len_r, valid_r):
@@ -65,14 +83,14 @@ def classify_carry_cuda(dist_r, len_r, valid_r):
     outs = [torch.empty((T, N), dtype=torch.int32, device=dev) for _ in range(3)]
     if T == 0 or N == 0:
         return tuple(outs)
-    ends = torch.empty((N,), dtype=torch.int32, device=dev)
-    carry = torch.empty((5, N), dtype=torch.int32, device=dev)
     case_r, state_r, r0_r = outs
-    fn = _kernel()
+    fn = _kernel()[0]
+    scratch = torch.empty((scratch_bytes(T, N),), dtype=torch.uint8,
+                          device=dev)
     with torch.cuda.device(dev):
         err = fn(dist_r.data_ptr(), len_r.data_ptr(), valid_r.data_ptr(),
-                 ends.data_ptr(), carry.data_ptr(), case_r.data_ptr(),
-                 state_r.data_ptr(), r0_r.data_ptr(), T, N,
+                 scratch.data_ptr(), case_r.data_ptr(), state_r.data_ptr(),
+                 r0_r.data_ptr(), T, N,
                  torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"classify launch failed: CUDA error {err}")

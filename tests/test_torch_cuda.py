@@ -224,15 +224,23 @@ def test_dp_parse_wrapper_rejects_bad_dtype_and_device(card, scan_fn):
         fn(packed, tables, lens.cpu(), 32, 2)
     with pytest.raises(ValueError):
         fn(packed, tables, lens, 32, 3)  # table size
+    with pytest.raises(ValueError):      # over MAX_PAIRS pairs a row
+        fn(_with_pairs(packed, cuda_parser.MAX_PAIRS + 1), tables, lens, 32, 2)
 
 
-# K3 at its tile edges: n_pos under one tile (64 rows), a whole tile, not
-# a multiple of it, and 1,041 rows (a lane's base, lane * 1041 * 116 B, is
-# not 16-byte aligned); lane 1 has len 0, lane 2 is ragged; fb 8 relaxes
-# a length on 4 lanes, a lane a pair, fb 100 on one thread a length
+# K3 and K4 at their tile edges: n_pos under one tile (64 rows), a whole
+# tile, not a multiple of it, and 1,041 rows (a lane's base, lane * 1041
+# * 116 B, is not 16-byte aligned); lane 1 has len 0, lane 2 is ragged;
+# fb 8 relaxes a length on 4 lanes, a lane a pair, fb 100 on one thread a
+# length
+_SCANS = {"dp_parse_cuda": "LAUNCHES", "dp_parse2_cuda": "LAUNCHES2"}
+
+
+@pytest.mark.parametrize("scan_fn", list(_SCANS))
 @pytest.mark.parametrize("n_pos", [37, 64, 200, 1041])
 @pytest.mark.parametrize("fb", [8, 100])
-def test_dp_parse_kernel_at_tile_edges_and_unaligned_lanes(card, n_pos, fb):
+def test_dp_parse_kernel_at_tile_edges_and_unaligned_lanes(card, n_pos, fb,
+                                                           scan_fn):
     blocks = _blocks(3, 1100, n_pos + fb)
     packed, tables, lens = _dp_inputs(blocks, fb, 2, card)
     packed = packed[:, :n_pos].contiguous()
@@ -240,11 +248,11 @@ def test_dp_parse_kernel_at_tile_edges_and_unaligned_lanes(card, n_pos, fb):
     lens[1] = 0
     lens[2] = n_pos * 2 // 3
     assert (packed.shape[1] * packed.shape[2] * 4) % 16 or n_pos != 1041
-    before = cuda_parser.LAUNCHES
-    k = cuda_parser.dp_parse_cuda(packed, tables, lens, fb, 2)
+    before = getattr(cuda_parser, _SCANS[scan_fn])
+    k = getattr(cuda_parser, scan_fn)(packed, tables, lens, fb, 2)
     p = dp_parse_band(packed, tables, lens, fb, 2)
     torch.cuda.synchronize()
-    assert cuda_parser.LAUNCHES == before + 1
+    assert getattr(cuda_parser, _SCANS[scan_fn]) == before + 1
     for a, b in zip(k, p):
         assert torch.equal(a, b)
 
@@ -260,14 +268,15 @@ def _with_pairs(packed, M):
                       packed[..., 24:]], dim=2).contiguous()
 
 
-# K3 with other pair counts than the route's 4: fewer (lanes of a length
-# left idle) and more (one thread a length, up to 16 pairs)
+# K3 and K4 with other pair counts than the route's 4: fewer (lanes of a
+# length left idle) and more (one thread a length, up to 16 pairs)
+@pytest.mark.parametrize("scan_fn", list(_SCANS))
 @pytest.mark.parametrize("M", [2, 6])
-def test_dp_parse_kernel_with_other_pair_counts(card, M):
+def test_dp_parse_kernel_with_other_pair_counts(card, M, scan_fn):
     packed, tables, lens = _dp_inputs(_blocks(3, 512, M), 32, 2, card)
     packed = _with_pairs(packed, M)
     assert packed.shape[2] == 6 * M + 5
-    k = cuda_parser.dp_parse_cuda(packed, tables, lens, 32, 2)
+    k = getattr(cuda_parser, scan_fn)(packed, tables, lens, 32, 2)
     p = dp_parse_band(packed, tables, lens, 32, 2)
     torch.cuda.synchronize()
     for a, b in zip(k, p):
@@ -388,6 +397,49 @@ def test_classify_kernel_on_one_kind_lanes(card, dist):
     v[:, 3] = torch.arange(T) < 17
     for g, w in zip(_carry_on_card((d, ln, v), card), _classify_carry(d, ln, v)):
         assert torch.equal(g, w)
+
+
+# K6 at its chunk and tile edges: T around a chunk (CHUNK_ROWS rows of a
+# lane a thread) and around a tile (TILE_THREADS / W chunks of W lanes, W
+# = N up to 32 rounded up to a power of two: 4,096 rows at N = 1, 1,024
+# at N = 3, 128 at N = 32 and 33); N = 33 adds a second, one-lane-wide
+# column of tiles.  T = k K + r R + c: 1, K-1, K, K+1, 8K+3, R-1, R, R+1
+# and 3R+5
+@pytest.mark.parametrize("N", [1, 3, 32, 33])
+@pytest.mark.parametrize("k,r,c", [(0, 0, 1), (1, 0, -1), (1, 0, 0),
+                                   (1, 0, 1), (8, 0, 3), (0, 1, -1),
+                                   (0, 1, 0), (0, 1, 1), (0, 3, 5)])
+def test_classify_kernel_at_chunk_and_tile_edges(card, N, k, r, c):
+    K = cuda_classify.CHUNK_ROWS
+    W = min(32, 1 << (N - 1).bit_length())
+    T = k * K + r * (cuda_classify.TILE_THREADS // W * K) + c
+    rows = _token_rows(T, N, T * 5 + N, True)
+    for g, w in zip(_carry_on_card(rows, card), _classify_carry(*rows)):
+        assert torch.equal(g, w)
+
+
+def test_classify_kernel_on_lanes_with_no_valid_row(card):
+    """Every lane invalid; then every other lane invalid: the reps stay
+    (0, 0, 0, 0) and the state 0 over the whole lane, and each row's
+    case is its dist's against those."""
+    rows = _token_rows(600, 9, 17, True)
+    none = (rows[0], rows[1], torch.zeros_like(rows[2]))
+    some = (rows[0], rows[1], rows[2] & (torch.arange(9) % 2 == 0))
+    for r in (none, some):
+        for g, w in zip(_carry_on_card(r, card), _classify_carry(*r)):
+            assert torch.equal(g, w)
+
+
+def test_classify_kernel_on_one_lane_of_2_20_rows(card):
+    """One lane of 2^20 random rows (256 tiles of 4,096 rows) against the
+    scalar carry."""
+    T = 1 << 20
+    rows = _token_rows(T, 1, 20, True)
+    rows[2][: T - 5, 0] = rows[2][: T - 5, 0] | (torch.arange(T - 5) % 7 == 0)
+    got = _carry_on_card(rows, card)
+    want = _carry_scalar(rows[0][:, 0], rows[1][:, 0], rows[2][:, 0])
+    for g, w in zip(got, want):
+        assert torch.equal(g[:, 0], w)
 
 
 @pytest.mark.parametrize("parse", ["lazy", "optimal"])

@@ -1,5 +1,5 @@
-"""What the redesigned K1, K2 and K3 decide on the host, K3's step order
-and the decoders' two-speed body.
+"""What the redesigned K1-K4 decide on the host, K3's step order and the
+decoders' two-speed body.
 
 These run on the CPU.  The CUDA kernels themselves are held against their
 plain versions on the card (tests/test_torch_cuda.py, chip_smoke.py); here:
@@ -8,7 +8,9 @@ plain versions on the card (tests/test_torch_cuda.py, chip_smoke.py); here:
   lc/lp grid against a given shared-memory limit, and its footprint;
 - K3's block plan (``cuda_parser.dp_parse_plan``): its shared memory at
   fb 5..273 x pb 0..4 fits the H100's opt-in 232,448 B a block, its
-  rings are powers of two wide enough for the step;
+  rings are powers of two wide enough for the step; K4's
+  (``dp_parse2_plan``) likewise at M 1..16 pairs a row, and the
+  constants the wrappers share with K3, K4 and K6's sources;
 - a numpy restatement of K3's new step order (step i finalizes node i+1
   from slot i+1 and the literal/shortRep edge held from node i, while
   node i relaxes from the terms handed over a step earlier; power-of-two
@@ -40,7 +42,9 @@ from lzma_tpu_torch.bench.datagen import generate_bench_data
 from lzma_tpu_torch.core.layout import ProbLayout
 from lzma_tpu_torch.ops import cuda_ring, cuda_serializer
 from lzma_tpu_torch.ops.cuda_ring import CTRL_BYTES, IN_TILE
-from lzma_tpu_torch.ops.cuda_parser import (NODE_VALS, SPLIT_FB, TILE_ROWS,
+from lzma_tpu_torch.ops import cuda_classify
+from lzma_tpu_torch.ops.cuda_parser import (MAX_PAIRS, NODE_VALS, SPLIT_FB,
+                                            TILE_ROWS, dp_parse2_plan,
                                             dp_parse_plan)
 from lzma_tpu_torch.ops.cuda_serializer import (PLACEMENTS, TILE,
                                                 arena_placement, smem_bytes)
@@ -118,6 +122,37 @@ def test_dp_parse_plan_fits_the_card(pb):
             assert threads == 160
         for ring, least in ((B, fb + 2), (H, fb + 1)):
             assert ring & (ring - 1) == 0 and least <= ring < 2 * least
+
+
+@pytest.mark.parametrize("pb", range(5))
+def test_dp_parse2_plan_fits_the_card(pb):
+    for M in range(1, MAX_PAIRS + 1):
+        C = 6 * M + 5
+        for fb in range(5, 274):
+            threads, B, smem = dp_parse2_plan(fb, pb, C)
+            assert smem <= H100_SMEM
+            assert smem == 4 * (table_size(pb, fb) + 8 * B + 2 * TILE_ROWS * C)
+            # the relax warps as K3's, then the literal/shortRep warp
+            assert threads == dp_parse_plan(fb, pb, C)[0] <= 1024
+            relax, split = threads - 32, 4 if fb <= SPLIT_FB and M <= 4 else 1
+            assert relax % 32 == 0 and relax - 32 < split * (fb - 1) <= relax
+            assert B & (B - 1) == 0 and fb + 1 <= B < 2 * (fb + 1)
+
+
+def _source_constant(name, file):
+    src = (pathlib.Path(cuda_ring.__file__).parent.parent / "csrc"
+           / file).read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+def test_scan_constants_are_the_kernels():
+    assert _source_constant("kChunk", "classify.cu") == cuda_classify.CHUNK_ROWS
+    assert _source_constant("kThreads", "classify.cu") == \
+        cuda_classify.TILE_THREADS
+    assert 1 << _source_constant("kTileLog", "dp_rows.cuh") == TILE_ROWS
+    for file in ("dp_parse.cu", "dp_parse2.cu"):
+        assert _source_constant("kMaxPairs", file) == MAX_PAIRS
+        assert _source_constant("kSplitFb", file) == SPLIT_FB
 
 
 def _split(tables, n_ps, W):

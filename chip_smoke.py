@@ -46,7 +46,7 @@ prints its seconds):
      beside their bounds (K3's by bytes and operations), K2 on the whole
      lanes' (ctx, bit) streams, K1 on the whole container's streams and
      K6 on the final tokens' rows timed by CUDA events (K6 beside its
-     bound and the bytes its three passes over the rows move), and the
+     bound and a model of the bytes its design moves), and the
      inputs phases 8 and 9 take
   8. the K4 path: tokenize_optimal(scan="band2") on phase 5's 32 x 16 KiB
      gives the tokens of the default scan, K4 launched (its count); K4 on
@@ -400,10 +400,13 @@ def classify_work(rows):
 
 
 def classify_moved(rows):
-    """Bytes K6's design moves on these rows: its three passes read dist
-    and valid, then dist, len and valid, then dist, len and valid again
-    and write case, state and r0 (35 B a row), and its scratch (the
-    tiles' and chunks' lists and maps) is written once and read once."""
+    """A model of the bytes K6's design moves on these rows, not a
+    measurement: its three passes over the rows read dist and valid, then
+    dist, len and valid, then dist, len and valid again and write case,
+    state and r0 (35 B a row), and its scratch (the tiles' and chunks'
+    lists and maps) counts as written once and read once, which leaves out
+    the lane scans' rewrite of the tiles' lists and maps and the later
+    grids' second reads of them.  Logged only, beside the bound."""
     from lzma_tpu_torch.ops.cuda_classify import scratch_bytes
 
     T, N = rows[0].shape
@@ -841,8 +844,8 @@ def alone_phase(dev, card, data):
         + ", ".join(f"{k} {sum(v) * 1e3:.1f} ms" for k, v in probe["seconds"].items())
         + f"; K6 on its rows {k6_ms:.3f} ms (CUDA events, "
         f"{k6_ms * 1e6 / n_tok:.1f} ns a token), bound {k6_bound[0]:.4f} ms by "
-        f"{k6_bound[1]}; the scan moves {moved} B "
-        f"({moved / HBM_BYTES_PER_S * 1e3:.4f} ms at the HBM rate)")
+        f"{k6_bound[1]}; the design moves about {moved} B by classify_moved's "
+        f"model ({moved / HBM_BYTES_PER_S * 1e3:.4f} ms at the HBM rate)")
     # each kernel against its plain version on the stream's own card
     # tensors, cut as phase 9 cuts the main path's (tolerance zero): K6 on
     # the first CMP_POS token rows and on the rows from CMP_POS before the
@@ -1239,9 +1242,9 @@ def main():
     log(f"[K6 whole lanes] {c_rows[0].shape[1]} lanes x {c_rows[0].shape[0]} "
         f"token rows on {card}: classify carry {k6_whole:.3f} ms a call (CUDA "
         f"events), {k6_work[0]} B read and written, bound "
-        f"{k6_whole_bound[0]:.4f} ms by {k6_whole_bound[1]}; the scan moves "
-        f"{k6_moved} B ({k6_moved / HBM_BYTES_PER_S * 1e3:.4f} ms at the HBM "
-        "rate); "
+        f"{k6_whole_bound[0]:.4f} ms by {k6_whole_bound[1]}; the design moves "
+        f"about {k6_moved} B by classify_moved's model ("
+        f"{k6_moved / HBM_BYTES_PER_S * 1e3:.4f} ms at the HBM rate); "
         f"{k6_whole * 1e6 / int(t_valid.sum(1).max()):.1f} ns a token of the "
         "longest lane")
     log(f"[K2, K1 whole lanes] {L} lanes on {card}, CUDA events: rc_serialize "
@@ -1536,7 +1539,7 @@ def main():
                "lzma_tpu/ops/device_encoder.py:85", launches["classify"],
                k6_err, k6_whole, k6_plain, k6_whole_bound, whole_ms=k6_whole,
                whole_bound_ms=k6_whole_bound[0], stream_ms=k6_stream,
-               stream_bound_ms=k6_stream_bound[0], moved_bytes=k6_moved,
+               stream_bound_ms=k6_stream_bound[0],
                design="scan over each lane's token rows, five grids"),
     ] + probe_records
     print(card)

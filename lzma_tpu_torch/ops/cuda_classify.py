@@ -25,12 +25,6 @@ from .device_encoder import _classify_carry
 #: kernel launches made through classify_carry_cuda since the count was
 #: last set
 LAUNCHES = 0
-#: rows of a lane a thread of the kernel takes (csrc/classify.cu kChunk)
-CHUNK_ROWS = 16
-#: threads of a tile's block, a chunk each (csrc/classify.cu kThreads):
-#: a tile is TILE_THREADS // W chunks of W lanes, W the lanes rounded up
-#: to a power of two, at most 32
-TILE_THREADS = 256
 
 
 @functools.cache

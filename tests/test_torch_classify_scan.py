@@ -18,8 +18,6 @@ card (tests/test_torch_cuda.py, chip_smoke.py).
 
 import numpy as np
 import pytest
-from hypothesis import given, settings
-from hypothesis import strategies as st
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
@@ -247,37 +245,41 @@ def test_chunked_model_through_classify_tokens_equals_jax(monkeypatch, K):
 
 
 # ---------------------------------------------------------------- joins
-_dist = st.sampled_from([0, 1, 2, 3, 5, 7, 1 << 20, EOS_DIST])
-_list = st.lists(_dist, max_size=4, unique=True).map(
-    lambda xs: xs + [EMPTY] * (4 - len(xs)))
-_map = st.lists(st.integers(0, 11), min_size=12, max_size=12).map(
-    lambda xs: sum(x << (4 * s) for s, x in enumerate(xs)))
+# the joins' laws on seeded random draws: lists of up to 4 distinct
+# distances (zero and EOS among them) padded with EMPTY, and maps of 12
+# states in nibbles
+_DISTS = np.array([0, 1, 2, 3, 5, 7, 1 << 20, EOS_DIST])
 
 
-@settings(max_examples=200, deadline=None, database=None)
-@given(a=_list, b=_list, c=_list, f=_map, g=_map, h=_map)
-def test_joins_are_associative_with_identities(a, b, c, f, g, h):
-    la, lb, lc = (torch.tensor(x) for x in (a, b, c))
-    assert torch.equal(join_lists(join_lists(la, lb), lc),
-                       join_lists(la, join_lists(lb, lc)))
-    empty = torch.full((4,), EMPTY)
-    assert torch.equal(join_lists(empty, la), la)
-    assert torch.equal(join_lists(la, empty), la)
-    mf, mg, mh = (torch.tensor(x) for x in (f, g, h))
-    assert torch.equal(join_maps(join_maps(mf, mg), mh),
-                       join_maps(mf, join_maps(mg, mh)))
-    ident = torch.tensor(IDENTITY)
-    assert torch.equal(join_maps(ident, mf), mf)
-    assert torch.equal(join_maps(mf, ident), mf)
+def _random_list(rng):
+    xs = rng.choice(_DISTS, size=rng.integers(0, 5), replace=False).tolist()
+    return torch.tensor(xs + [EMPTY] * (4 - len(xs)))
 
 
-@settings(max_examples=100, deadline=None, database=None)
-@given(xs=st.lists(st.tuples(_dist | st.just(-1), st.booleans()),
-                   min_size=1, max_size=12),
-       cut=st.integers(0, 12))
-def test_list_of_a_split_segment_is_the_join_of_its_parts(xs, cut):
+def _random_map(rng):
+    return torch.tensor(sum(int(x) << (4 * s) for s, x in
+                            enumerate(rng.integers(0, 12, size=12))))
+
+
+def test_joins_are_associative_with_identities():
+    rng = np.random.default_rng(8)
+    empty, ident = torch.full((4,), EMPTY), torch.tensor(IDENTITY)
+    for _ in range(200):
+        la, lb, lc = (_random_list(rng) for _ in range(3))
+        assert torch.equal(join_lists(join_lists(la, lb), lc),
+                           join_lists(la, join_lists(lb, lc)))
+        assert torch.equal(join_lists(empty, la), la)
+        assert torch.equal(join_lists(la, empty), la)
+        mf, mg, mh = (_random_map(rng) for _ in range(3))
+        assert torch.equal(join_maps(join_maps(mf, mg), mh),
+                           join_maps(mf, join_maps(mg, mh)))
+        assert torch.equal(join_maps(ident, mf), mf)
+        assert torch.equal(join_maps(mf, ident), mf)
+
+
+def test_list_of_a_split_segment_is_the_join_of_its_parts():
     """The MTF from an empty list over a segment equals the join of the
-    lists of its two parts: the summary is a homomorphism."""
+    lists of its two parts, at every cut: the summary is a homomorphism."""
     def summary(part):
         r = torch.full((4,), EMPTY)
         for dist, valid in part:
@@ -285,5 +287,11 @@ def test_list_of_a_split_segment_is_the_join_of_its_parts(xs, cut):
             r = mtf(r, case_of(r, d), d, torch.tensor(valid))
         return r
 
-    assert torch.equal(summary(xs), join_lists(summary(xs[:cut]),
-                                               summary(xs[cut:])))
+    rng = np.random.default_rng(9)
+    for _ in range(100):
+        n = int(rng.integers(1, 13))
+        xs = list(zip(rng.choice(np.append(_DISTS, -1), size=n).tolist(),
+                      rng.integers(0, 2, size=n).astype(bool).tolist()))
+        cut = int(rng.integers(0, 13))
+        assert torch.equal(summary(xs), join_lists(summary(xs[:cut]),
+                                                   summary(xs[cut:])))

@@ -7,6 +7,9 @@ a machine with an NVIDIA H100 and the CUDA toolkit:
     python -m pytest tests/test_torch_cuda.py -q
 """
 
+import pathlib
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -399,8 +402,15 @@ def test_classify_kernel_on_one_kind_lanes(card, dist):
         assert torch.equal(g, w)
 
 
-# K6 at its chunk and tile edges: T around a chunk (CHUNK_ROWS rows of a
-# lane a thread) and around a tile (TILE_THREADS / W chunks of W lanes, W
+def _classify_constant(name):
+    """A ``constexpr int`` of csrc/classify.cu, read from the source."""
+    src = (pathlib.Path(cuda_classify.__file__).parent.parent / "csrc"
+           / "classify.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+# K6 at its chunk and tile edges: T around a chunk (kChunk rows of a lane
+# a thread) and around a tile (kThreads / W chunks of W lanes, W
 # = N up to 32 rounded up to a power of two: 4,096 rows at N = 1, 1,024
 # at N = 3, 128 at N = 32 and 33); N = 33 adds a second, one-lane-wide
 # column of tiles.  T = k K + r R + c: 1, K-1, K, K+1, 8K+3, R-1, R, R+1
@@ -410,9 +420,9 @@ def test_classify_kernel_on_one_kind_lanes(card, dist):
                                    (1, 0, 1), (8, 0, 3), (0, 1, -1),
                                    (0, 1, 0), (0, 1, 1), (0, 3, 5)])
 def test_classify_kernel_at_chunk_and_tile_edges(card, N, k, r, c):
-    K = cuda_classify.CHUNK_ROWS
+    K = _classify_constant("kChunk")
     W = min(32, 1 << (N - 1).bit_length())
-    T = k * K + r * (cuda_classify.TILE_THREADS // W * K) + c
+    T = k * K + r * (_classify_constant("kThreads") // W * K) + c
     rows = _token_rows(T, N, T * 5 + N, True)
     for g, w in zip(_carry_on_card(rows, card), _classify_carry(*rows)):
         assert torch.equal(g, w)

@@ -42,7 +42,6 @@ from lzma_tpu_torch.bench.datagen import generate_bench_data
 from lzma_tpu_torch.core.layout import ProbLayout
 from lzma_tpu_torch.ops import cuda_ring, cuda_serializer
 from lzma_tpu_torch.ops.cuda_ring import CTRL_BYTES, IN_TILE
-from lzma_tpu_torch.ops import cuda_classify
 from lzma_tpu_torch.ops.cuda_parser import (MAX_PAIRS, NODE_VALS, SPLIT_FB,
                                             TILE_ROWS, dp_parse2_plan,
                                             dp_parse_plan)
@@ -146,9 +145,6 @@ def _source_constant(name, file):
 
 
 def test_scan_constants_are_the_kernels():
-    assert _source_constant("kChunk", "classify.cu") == cuda_classify.CHUNK_ROWS
-    assert _source_constant("kThreads", "classify.cu") == \
-        cuda_classify.TILE_THREADS
     assert 1 << _source_constant("kTileLog", "dp_rows.cuh") == TILE_ROWS
     for file in ("dp_parse.cu", "dp_parse2.cu"):
         assert _source_constant("kMaxPairs", file) == MAX_PAIRS

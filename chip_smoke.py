@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive lzma_tpu_torch's device block codec on one NVIDIA GPU and check it.
+"""Drive lzma_tpu_torch's device block codec and its hybrid encode on one
+NVIDIA GPU and check them.
 
 Run from the repository root with no arguments:
 
@@ -98,9 +99,32 @@ prints its seconds):
      directory under lzma_tpu_torch/_build, the stdlib reading the file);
      lzma_tpu_torch.entry's fn(*args) hashing to PIN_ENTRY_SHA256 (the
      JAX package's __graft_entry__.entry())
- 15. no module of jax, jaxlib or lzma_tpu was loaded
+ 15. the hybrid's pins: ops.hybrid.encode_blocks_hybrid_optimal and
+     encode_blocks_hybrid of generate_bench_data(HYBRID_PIN_SIZE) (16 KiB
+     blocks, dict 16 KiB, fb 16) hash to PIN_HYBRID_OPT_SHA256 and
+     PIN_HYBRID_LAZY_SHA256 (tests/test_torch_api.py: the JAX package's
+     containers); both round-trip
+ 16. hybrid8M-opt: phase 6's 8 MiB, LzmaParams() defaults, 32 blocks of
+     256 KiB, DEFAULT_TIERS, all host threads: the candidate lists on the
+     card, the optimal parse on the host; wall time and MB/s split by a
+     PhaseTimer (search on the card, transfer, flatten, host parse), the
+     host's CPU count, ratio beside main8M-opt's, peak device memory; the
+     container round-trips through K1 (counted from 0) and the stdlib
+     reads every block
+ 17. hybrid8M-lazy: the same input through the lazy hybrid; its container
+     equals phase 6's main8M-lazy container byte for byte; its time
+ 18. the profile: phase 7's encode and decode again under
+     utils.profiling.profiler_trace (torch.profiler, CPU and CUDA): the
+     card's busy share of each traced window and the ten heaviest device
+     operations; the probed encode's peak memory by stage (the peak within
+     the stage above what was allocated as it began)
+ 19. the trace dump: encode_batch(trace=) on TRACE_LANES x TRACE_BYTES of
+     that input, lazy and optimal, on the card (K6 launched) gives the
+     lines of the same call on the CPU
+ 20. no module of jax, jaxlib or lzma_tpu was loaded
 The last three lines are the card, the kernels' JSON record (K1-K6 and
-P1-P15) and the result JSON.
+P1-P15; K1's carries its launches in phase 16's decode, K6's in phase
+19's dumps) and the result JSON.
 """
 
 from __future__ import annotations
@@ -135,7 +159,17 @@ PIN_ALONE_EOS_SHA256 = "75a2179f5254419a7b6c9e881e8466870b76a7ad599074afe039f560
 #: entry_digest of __graft_entry__.entry()'s fn(*example_args)
 PIN_ENTRY_SHA256 = "1892b58191d0211dfb8bef90a0e16b341da5a11fb17edd2a55d79bd86fbfbb6c"
 
+#: SHA-256 of lzma_tpu.ops.hybrid.encode_blocks_hybrid_optimal and
+#: encode_blocks_hybrid of generate_bench_data(HYBRID_PIN_SIZE),
+#: LzmaParams(dict_size=1 << 14, fast_bytes=16), block_size=1 << 14
+#: (pinned by tests/test_torch_api.py)
+HYBRID_PIN_SIZE = (1 << 16) + 1234
+PIN_HYBRID_OPT_SHA256 = "651eef81b7317ea7717c2b68b561e6759de3a8f932719cbf5392bd54e2674d0f"
+PIN_HYBRID_LAZY_SHA256 = "818ecdaccc636d8a19d711b6ca4e280057953a91111a9ffb9fc95b7f0db469dd"
+
 MAIN_BLOCK = 1 << 18
+#: the trace dump's lanes (phase 19): TRACE_LANES x TRACE_BYTES
+TRACE_LANES, TRACE_BYTES = 2, 2048
 CMP_LANES, CMP_BYTES = 8, 2048       # kernel vs plain comparison shape
 CMP_POS = 2048                       # K3's positions per lane at the main shapes
 CMP_BITS = 1 << 15                   # K2's work per lane at the main shapes
@@ -939,6 +973,183 @@ def alone_phase(dev, card, data):
     return k6_ms, k6_bound, errs
 
 
+def hybrid_pin_input():
+    from lzma_tpu_torch.bench.datagen import generate_bench_data
+    from lzma_tpu_torch.format.properties import LzmaParams
+
+    return (generate_bench_data(HYBRID_PIN_SIZE),
+            LzmaParams(dict_size=1 << 14, fast_bytes=16), 1 << 14)
+
+
+def hybrid_phase(dev, card, data, params, opt_blob, lazy_blob):
+    """Phases 15-17: the hybrid's pins, then main8M's input through the
+    hybrid-optimal encode (the search split from the host's parse by a
+    PhaseTimer; K1 decodes the container, counted from 0; the stdlib reads
+    every block) and through the lazy hybrid, whose container must be
+    main8M-lazy's.  Returns K1's launches in the hybrid-optimal decode."""
+    import os
+
+    import torch
+    from lzma_tpu_torch.ops import api, cuda_ring, hybrid
+    from lzma_tpu_torch.utils.profiling import PhaseTimer
+
+    cpus = os.cpu_count()
+    h_data, h_params, h_block = hybrid_pin_input()
+    for name, fn, pin in (
+            ("optimal", hybrid.encode_blocks_hybrid_optimal, PIN_HYBRID_OPT_SHA256),
+            ("lazy", hybrid.encode_blocks_hybrid, PIN_HYBRID_LAZY_SHA256)):
+        blob = fn(h_data, h_params, block_size=h_block, device=dev)
+        digest = hashlib.sha256(blob).hexdigest()
+        if digest != pin:
+            raise AssertionError(f"hybrid {name} container hash {digest} != {pin}")
+        if api.decode_blocks(blob, device=dev) != h_data:
+            raise AssertionError(f"hybrid {name} pinned container does not "
+                                 "round-trip")
+        log(f"[hybrid pin] {name}, {len(h_data)} B in {h_block} B blocks: "
+            f"{len(blob)} B, sha256 {digest} = the JAX reference's; round trip")
+
+    mb = len(data) / 1e6
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    group = hybrid._group_lanes(len(data) // MAIN_BLOCK, MAIN_BLOCK, 29, dev)
+    torch.cuda.reset_peak_memory_stats()
+    timer = PhaseTimer()
+    t = time.perf_counter()
+    blob = hybrid.encode_blocks_hybrid_optimal(
+        data, params, block_size=MAIN_BLOCK, num_threads=0, device=dev,
+        timer=timer)
+    torch.cuda.synchronize()
+    t_enc = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    cuda_ring.LAUNCHES = 0
+    t = time.perf_counter()
+    back = api.decode_blocks(blob, device=dev)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t
+    k1 = cuda_ring.LAUNCHES
+    if back != data:
+        raise AssertionError("hybrid8M-opt does not round-trip through K1")
+    if k1 < 1:
+        raise AssertionError("K1 did not run on the hybrid container's decode")
+    stdlib_reads_every_block(blob, data, params)
+    split = ", ".join(f"{k} {v:.3f} s" for k, v in timer.totals.items())
+    log(f"[hybrid8M-opt] {len(data)} B in {len(data) // MAIN_BLOCK} lanes of "
+        f"{MAIN_BLOCK} B, DEFAULT_TIERS (29 candidates a position, "
+        f"{group} lanes a search group), on {card} with {cpus} host CPUs "
+        f"(os.cpu_count): encode {t_enc:.3f} s = {mb / t_enc:.3f} MB/s ({split}), "
+        f"ratio {len(blob) / len(data):.4f} (main8M-opt "
+        f"{len(opt_blob) / len(data):.4f}, {len(blob)} against "
+        f"{len(opt_blob)} B), peak device memory {peak / 2**20:.1f} MiB; "
+        f"decode {t_dec:.3f} s = {mb / t_dec:.3f} MB/s, K1 launched {k1}; "
+        "round trip, every block decodes with the stdlib lzma module")
+
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timer = PhaseTimer()
+    t = time.perf_counter()
+    lazy = hybrid.encode_blocks_hybrid(data, params, block_size=MAIN_BLOCK,
+                                       num_threads=0, device=dev, timer=timer)
+    torch.cuda.synchronize()
+    t_lazy = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    if lazy != lazy_blob:
+        raise AssertionError("hybrid8M-lazy's container differs from main8M-lazy's")
+    split = ", ".join(f"{k} {v:.3f} s" for k, v in timer.totals.items())
+    log(f"[hybrid8M-lazy] the same input and params on {card} with {cpus} host "
+        f"CPUs: encode {t_lazy:.3f} s = {mb / t_lazy:.3f} MB/s ({split}), "
+        f"{len(lazy)} B = "
+        f"main8M-lazy's container byte for byte (the same tokens, the host's "
+        f"serializer), peak device memory {peak / 2**20:.1f} MiB")
+    return k1
+
+
+def profile_phase(dev, card, data, params, blob, stage_peaks):
+    """Phase 18: one main8M-opt encode and one decode under profiler_trace:
+    the card's busy share of each traced window and its ten heaviest
+    operations; then the probed encode's peak memory by stage."""
+    import shutil
+    import tempfile
+
+    import torch
+    from lzma_tpu_torch.ops import api
+    from lzma_tpu_torch.runtime import build
+    from lzma_tpu_torch.utils.profiling import device_busy, profiler_trace
+
+    tmp = tempfile.mkdtemp(dir=build.BUILD_DIR)
+    try:
+        with profiler_trace(tmp, device=dev) as enc:
+            again = api.encode_blocks(data, params, block_size=MAIN_BLOCK,
+                                      parse="optimal", device=dev)
+        with profiler_trace(tmp, device=dev) as dec:
+            back = api.decode_blocks(again, device=dev)
+        if again != blob or back != data:
+            raise AssertionError("the traced encode or decode differs")
+        for what, prof in (("encode", enc), ("decode", dec)):
+            busy = device_busy(prof.trace_path, top=10)
+            if busy["device_events"] == 0:
+                raise AssertionError(f"the {what} trace holds no device activity")
+            log(f"[profile] main8M-opt {what} on {card}, torch.profiler: window "
+                f"{busy['window_us'] / 1e3:.1f} ms, the card busy "
+                f"{busy['busy_us'] / 1e3:.1f} ms = {busy['busy_share']:.4f} of it "
+                f"(idle {1 - busy['busy_share']:.4f}), {busy['device_events']} "
+                "device events; heaviest: " + "; ".join(
+                    f"{name[:60]} {t / 1e3:.2f} ms x{c}"
+                    for name, t, c in busy["top"]))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("[profile] main8M-opt probed encode, peak device memory a stage above "
+        "what was allocated as it began, MiB: " + ", ".join(
+            f"{k} " + "/".join(f"{b / 2**20:.1f}" for b in v)
+            for k, v in stage_peaks.items()))
+    torch.cuda.empty_cache()
+
+
+def trace_phase(dev, card, data, params):
+    """Phase 19: encode_batch(trace=) on TRACE_LANES x TRACE_BYTES, lazy and
+    optimal: the card's lines (K6 classifies the dump's tokens) equal the
+    same call's on the CPU.  Returns K6's launches in the card's calls."""
+    import io
+    import logging
+
+    from lzma_tpu_torch.ops import cuda_classify
+    from lzma_tpu_torch.ops.device_encoder import encode_batch
+    from lzma_tpu_torch.utils.trace import CodecTrace
+
+    blocks = [data[i * TRACE_BYTES:(i + 1) * TRACE_BYTES]
+              for i in range(TRACE_LANES)]
+
+    def lines(parse, device):
+        log_ = logging.getLogger(f"chip_smoke.trace.{parse}.{device}")
+        log_.setLevel(logging.DEBUG)
+        log_.propagate = False
+        stream = io.StringIO()
+        h = logging.StreamHandler(stream)
+        h.setFormatter(logging.Formatter("%(message)s"))
+        log_.addHandler(h)
+        try:
+            encode_batch(blocks, params, parse=parse, trace=CodecTrace(log_),
+                         device=device)
+        finally:
+            log_.removeHandler(h)
+        return stream.getvalue().splitlines()
+
+    cuda_classify.LAUNCHES = 0
+    got = {parse: lines(parse, dev) for parse in ("lazy", "optimal")}
+    k6 = cuda_classify.LAUNCHES
+    for parse, card_lines in got.items():
+        cpu_lines = lines(parse, "cpu")
+        n_match = sum("matches=" in ln for ln in card_lines)
+        if card_lines != cpu_lines or not n_match:
+            raise AssertionError(f"the {parse} trace dump differs on the card")
+        log(f"[trace dump] {parse}, {TRACE_LANES} x {TRACE_BYTES} B on {card}: "
+            f"{len(card_lines)} lines ({n_match} candidate lists) = the CPU's")
+    if k6 < 4:
+        raise AssertionError(f"K6 ran {k6} times in the card's trace dumps")
+    return k6
+
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -1179,6 +1390,7 @@ def main():
     if again != blob:
         raise AssertionError("the probed optimal encode wrote another container")
     secs = probe["seconds"]
+    stage_peaks = probe["peak_bytes"]
     t_pos, t_len, t_valid, ctx, bits, totals = probe["lowered"]
     log(f"[stages] probed optimal encode {t_probed:.3f} s (unprobed "
         f"{t_enc:.3f} s), max tokens/lane {int(t_valid.sum(1).max())}, "
@@ -1499,7 +1711,19 @@ def main():
     k1_err = max(k1_err, stream_errs["ring_decode"])
     done("lzma stream")
 
-    # ---- 15. nothing of JAX or of the JAX package was loaded ----
+    # ---- 15-17. the hybrid: pins, hybrid8M-opt, hybrid8M-lazy ----
+    hybrid_k1 = hybrid_phase(dev, card, data, params, blob, lazy_blob)
+    done("hybrid")
+
+    # ---- 18. main8M-opt under the profiler; peak memory by stage ----
+    profile_phase(dev, card, data, params, blob, stage_peaks)
+    done("profile")
+
+    # ---- 19. the trace dump on the card ----
+    trace_k6 = trace_phase(dev, card, data, params)
+    done("trace dump")
+
+    # ---- 20. nothing of JAX or of the JAX package was loaded ----
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib")
                  or m == "lzma_tpu" or m.startswith("lzma_tpu."))
@@ -1530,7 +1754,7 @@ def main():
         record("ring_decode", "lzma_tpu_torch/csrc/ring_decoder.cu",
                "lzma_tpu/ops/pallas_ring.py:89", launches["ring_decode"],
                k1_err, k1_ms, k1_plain, k1_bound, whole_ms=k1_whole,
-               whole_bound_ms=k1_whole_bound[0]),
+               whole_bound_ms=k1_whole_bound[0], hybrid_launches=hybrid_k1),
         record("block_decode", "lzma_tpu_torch/csrc/block_decoder.cu",
                "lzma_tpu/ops/pallas_decoder.py:80", k5_launches, k5_err, k5_ms,
                k5_plain, k5_bound, whole_ms=k5_whole,
@@ -1539,7 +1763,7 @@ def main():
                "lzma_tpu/ops/device_encoder.py:85", launches["classify"],
                k6_err, k6_whole, k6_plain, k6_whole_bound, whole_ms=k6_whole,
                whole_bound_ms=k6_whole_bound[0], stream_ms=k6_stream,
-               stream_bound_ms=k6_stream_bound[0],
+               stream_bound_ms=k6_stream_bound[0], trace_launches=trace_k6,
                design="scan over each lane's token rows, five grids"),
     ] + probe_records
     print(card)

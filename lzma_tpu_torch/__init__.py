@@ -11,8 +11,11 @@ packages write and read the same `.lzma` streams and LZTB containers.
                classify + bit lowering, range encoder and decoder (plain
                PyTorch versions beside the CUDA kernels that replace the
                TPU's Pallas kernels and its compiled classify scan)
-- ``runtime``  builds ``csrc/*.cu`` with ``nvcc`` and loads it with ctypes
+- ``runtime``  builds ``csrc/*.cu`` with ``nvcc`` and the hybrid's host
+               encoder (``runtime/src/host_encoder.cpp``) with ``g++``,
+               and loads both with ctypes
 - ``csrc``     the hand-written Hopper (sm_90a) kernels
+- ``utils``    trained dictionaries, the decision trace, profiling
 - ``cli``      the LzmaAlone command line on the device codec
                (``python -m lzma_tpu_torch``)
 - ``entry``    the lane encode step and its example batch
@@ -28,29 +31,32 @@ __version__ = "0.1.0"
 
 def compress(data: bytes, params: LzmaParams | None = None,
              container: str = "lztb", block_size: int = 1 << 20,
-             preset_len: int = 0, dictionary: bytes = b"", train_dict=0,
-             backend: str = "device", device="cuda") -> bytes:
+             num_threads: int = 0, preset_len: int = 0,
+             dictionary: bytes = b"", train_dict=0, backend: str = "device",
+             device="cuda") -> bytes:
     """Compress in memory into the block-parallel LZTB container, as
-    ``lzma_tpu.compress(container="lztb", backend="device")``: the
-    optimal parse, every block a lane.  `preset_len` shares the input's
-    first bytes with every block after block 0 (LZTB v2); `dictionary`
-    primes every block with a stored dictionary (LZTB v3); `train_dict=N`
-    trains an N-byte one from the input.  `container` and `backend` are
-    there only so that calls written for ``lzma_tpu.compress`` run
-    unchanged: each takes one value ("lztb", "device"), and the default
-    container is LZTB, where the reference's is "alone".  The port has
-    only the device backend, which writes no `.lzma` file
-    (``ops.api.encode_alone`` does); ``params="auto"`` and
-    ``train_dict="auto"`` need the host codec and are not ported."""
-    if backend != "device":
-        raise ValueError(f"unknown backend: {backend!r} (the port has only "
-                         'backend="device")')
+    ``lzma_tpu.compress(container="lztb", backend=...)``.
+    backend="device": the optimal parse on the card, every block a lane.
+    backend="hybrid": the card's multi-tier candidate lists and the
+    reference's optimal parse on the host, `num_threads` threads (all
+    cores at 0; ``ops.hybrid.encode_blocks_hybrid_optimal``).
+    `preset_len` shares the input's first bytes with every block after
+    block 0 (LZTB v2); `dictionary` primes every block with a stored
+    dictionary (LZTB v3); `train_dict=N` trains an N-byte one from the
+    input.  `container` is there only so that calls written for
+    ``lzma_tpu.compress`` run unchanged: it takes one value, "lztb", the
+    default here, where the reference's is "alone" (``ops.api.encode_alone``
+    writes a `.lzma` file).  ``params="auto"`` and ``train_dict="auto"``
+    need the host codec's search and are not ported."""
+    if backend not in ("device", "hybrid"):
+        raise ValueError(f"unknown backend: {backend!r} (the port has "
+                         '"device" and "hybrid")')
     if params == "auto" or train_dict == "auto":
         raise NotImplementedError(
             '"auto" parameters and dictionaries need the host codec')
     if container == "alone":
-        raise ValueError('backend="device" encodes the block-parallel LZTB '
-                         'container; pass container="lztb"')
+        raise ValueError(f'backend="{backend}" encodes the block-parallel '
+                         'LZTB container; pass container="lztb"')
     if container != "lztb":
         raise ValueError(f"unknown container: {container!r}")
     if train_dict:
@@ -59,6 +65,12 @@ def compress(data: bytes, params: LzmaParams | None = None,
         from .utils.dicttrain import train_dictionary
 
         dictionary = train_dictionary(data, train_dict)
+    if backend == "hybrid":
+        from .ops.hybrid import encode_blocks_hybrid_optimal
+
+        return encode_blocks_hybrid_optimal(
+            data, params, block_size=block_size, num_threads=num_threads,
+            preset_len=preset_len, dictionary=dictionary, device=device)
     from .ops import api
 
     return api.encode_blocks(data, params or LzmaParams(),

@@ -1,9 +1,9 @@
 """LzmaAlone-compatible command line on the device codec.
 
 Port of ``lzma_tpu/cli.py``'s `e`/`d` commands on its ``-backendtpu``
-route: the reference's switch grammar (LzmaAlone.java:42-134), the same
-defaults (dict 2^23, fb 128, lc3 lp0 pb2) and the `.lzma` and LZTB
-files of the JAX package, byte for byte.
+and ``-backendhybrid`` routes: the reference's switch grammar
+(LzmaAlone.java:42-134), the same defaults (dict 2^23, fb 128, lc3 lp0
+pb2) and the `.lzma` and LZTB files of the JAX package, byte for byte.
 
     python -m lzma_tpu_torch e [switches] in out    encode
     python -m lzma_tpu_torch d [switches] in out    decode
@@ -11,12 +11,18 @@ files of the JAX package, byte for byte.
 `e` writes one `.lzma` stream (``ops.api.encode_alone``; ``-eos`` ends
 it with the marker), or with ``-bs{N}`` an LZTB container of N-byte
 blocks (``ops.api.encode_blocks``, the lazy parse; ``-ps{N}`` a shared
-preset, LZTB v2; ``-td{N}`` a trained N-byte dictionary, LZTB v3).  `d`
-reads either.  The device is the only backend (``-backendtpu`` names
-it); the switches of the host codecs (other backends, ``-mf``, ``-a``,
-``-t``, ``-tune``, ``-tdauto``) and the benchmark `b` end in
-"error: ..." and exit 1, as does any failure.  `main(device="cpu")`
-runs the plain versions instead of the card's kernels.
+preset, LZTB v2; ``-td{N}`` a trained N-byte dictionary, LZTB v3).
+``-backendhybrid -bs{N}`` writes the container by the hybrid encode (the
+card's search, the host's coder, ``ops.hybrid``): ``-a2`` (the default)
+the candidate lists and the optimal parse, ``-a0``/``-a1`` the lazy
+tokens; ``-mf`` picks the match finder of a trained dictionary's stream
+and ``-t{N}`` the host threads.  `d` reads either container on the
+device.  ``-backendtpu`` (the default) names the device codec, which
+takes none of ``-a``, ``-mf`` and ``-t``; the switches of the host
+codecs (``-backendscalar``, ``-backendnative``, ``-tune``, ``-tdauto``)
+and the benchmark `b` end in "error: ..." and exit 1, as does any
+failure.  `main(device="cpu")` runs the plain versions instead of the
+card's kernels.
 """
 
 from __future__ import annotations
@@ -38,11 +44,17 @@ Usage:  lzma_tpu_torch <e|d> [<switches>...] inputFile outputFile
   -lp{N}: set number of literal pos bits - [0, 4], default: 0
   -pb{N}: set number of pos bits - [0, 4], default: 2
   -eos:   write End Of Stream marker
-  -backendtpu: the device codec (the only backend)
+  -mf{MF_ID}: match finder of a trained dictionary's stream (hybrid):
+          [bt2, bt4, hc4, fast4], default: bt4
+  -backend{B}: tpu | hybrid (default: tpu, the device codec; hybrid =
+          the card's match search + the host's coder, encode with
+          -bs{N}; -a2 [default] the candidate lists + the host optimal
+          parse, -a0/-a1 the lazy device tokenizer)
   -bs{N}: block size (bytes) -> block-parallel LZTB container
   -ps{N}: shared preset-dictionary bytes for block-parallel mode (LZTB v2)
   -td{N}: train an N-byte dictionary from the input and store it in the
           container, priming every block (LZTB v3)
+  -t{N}:  host threads of the hybrid encode
   -q:     quiet
 """
 
@@ -53,7 +65,8 @@ TRAIN_SAMPLE_BYTES = 64 << 20
 class CommandLine:
     """Switch parser with the reference's grammar (lzma_tpu.cli.CommandLine).
     A switch of the host codecs parses, as there, and is recorded in
-    `unsupported` for the dispatch to refuse."""
+    `unsupported` for the dispatch to refuse; ``-a``, ``-mf`` and ``-t``
+    are recorded in `hybrid_only` too, which the device codec refuses."""
 
     def __init__(self):
         self.command = None
@@ -64,8 +77,13 @@ class CommandLine:
         self.block_size = 0
         self.preset_len = 0
         self.train_dict = 0
+        self.backend = "tpu"
+        self.algorithm = 2
+        self.match_finder = "bt4"
+        self.threads = 0
         self.quiet = False
         self.unsupported: list[str] = []
+        self.hybrid_only: list[str] = []
         self.in_file = None
         self.out_file = None
 
@@ -75,8 +93,10 @@ class CommandLine:
                 backend = s[7:]
                 if backend not in ("scalar", "native", "tpu", "hybrid"):
                     return False
-                if backend != "tpu":
+                if backend in ("scalar", "native"):
                     self.unsupported.append(f"-backend{backend}")
+                else:
+                    self.backend = backend
             elif s.startswith("bs"):
                 self.block_size = int(s[2:])
             elif s.startswith("d"):
@@ -84,8 +104,8 @@ class CommandLine:
             elif s.startswith("fb"):
                 self.fb = int(s[2:])
             elif s.startswith("a"):
-                int(s[1:])
-                self.unsupported.append("-a")
+                self.algorithm = int(s[1:])
+                self.hybrid_only.append("-a")
             elif s.startswith("lc"):
                 self.lc = int(s[2:])
             elif s.startswith("lp"):
@@ -97,9 +117,11 @@ class CommandLine:
             elif s.startswith("eos"):
                 self.eos = True
             elif s.startswith("mf"):
-                if s[2:] not in ("bt2", "bt4", "bt4b", "hc4", "fast4"):
+                mf = "bt4" if s[2:] == "bt4b" else s[2:]   # bt4b: alias
+                if mf not in ("bt2", "bt4", "hc4", "fast4"):
                     return False
-                self.unsupported.append("-mf")
+                self.match_finder = mf
+                self.hybrid_only.append("-mf")
             elif s == "tune":
                 self.unsupported.append("-tune")
             elif s.startswith("td"):
@@ -110,8 +132,8 @@ class CommandLine:
                     if self.train_dict < 1:
                         return False
             elif s.startswith("t"):
-                int(s[1:])
-                self.unsupported.append("-t")
+                self.threads = int(s[1:])
+                self.hybrid_only.append("-t")
             elif s.startswith("q"):
                 self.quiet = True
             else:
@@ -151,7 +173,7 @@ class CommandLine:
     def params(self) -> LzmaParams:
         return LzmaParams(lc=self.lc, lp=self.lp, pb=self.pb,
                           dict_size=self.dict_size, fast_bytes=self.fb,
-                          write_eos=self.eos)
+                          match_finder=self.match_finder, write_eos=self.eos)
 
 
 def main(argv=None, device="cuda") -> int:
@@ -181,8 +203,16 @@ def _dispatch(cmd: CommandLine, device) -> int:
         print("error: the benchmark (b) is not ported to the device codec")
         return 1
     if cmd.unsupported:
-        print(f"error: {', '.join(cmd.unsupported)} not supported: the device "
-              "codec is the only backend")
+        print(f"error: {', '.join(cmd.unsupported)} not supported: the port "
+              "has the device codec and the hybrid")
+        return 1
+    if cmd.hybrid_only and cmd.backend != "hybrid":
+        print(f"error: {', '.join(cmd.hybrid_only)} not supported by the "
+              "device codec (-backendhybrid takes them)")
+        return 1
+    hybrid = cmd.command == "e" and cmd.backend == "hybrid"
+    if hybrid and not cmd.block_size:
+        print("error: -backendhybrid encodes the block container; pass -bs{N}")
         return 1
     if not cmd.in_file or not cmd.out_file:
         print(HELP)
@@ -196,6 +226,7 @@ def _dispatch(cmd: CommandLine, device) -> int:
     except OSError as e:
         print(f"error: cannot read {cmd.in_file}: {e.strerror}")
         return 1
+    tag = "device"
     if cmd.command == "e":
         params = cmd.params().validated_for_encode()
         if cmd.block_size:
@@ -205,9 +236,21 @@ def _dispatch(cmd: CommandLine, device) -> int:
 
                 dictionary = train_dictionary(data[:TRAIN_SAMPLE_BYTES],
                                               cmd.train_dict)
-            out = api.encode_blocks(data, params, block_size=cmd.block_size,
-                                    preset_len=cmd.preset_len,
-                                    dictionary=dictionary, device=device)
+            kw = dict(block_size=cmd.block_size, preset_len=cmd.preset_len,
+                      dictionary=dictionary, device=device)
+            if hybrid:
+                from .ops import hybrid as hyb
+
+                if cmd.algorithm >= 2:
+                    out = hyb.encode_blocks_hybrid_optimal(
+                        data, params, num_threads=cmd.threads, **kw)
+                    tag = "hybrid-optimal"
+                else:
+                    out = hyb.encode_blocks_hybrid(
+                        data, params, num_threads=cmd.threads, **kw)
+                    tag = "hybrid"
+            else:
+                out = api.encode_blocks(data, params, **kw)
         else:
             out = api.encode_alone(data, params, device=device)
     elif data[:4] == b"LZTB":
@@ -221,5 +264,5 @@ def _dispatch(cmd: CommandLine, device) -> int:
         print(f"error: cannot write {cmd.out_file}: {e.strerror}")
         return 1
     if not cmd.quiet:
-        print(f"{cmd.command}: {len(data)} -> {len(out)} bytes [device]")
+        print(f"{cmd.command}: {len(data)} -> {len(out)} bytes [{tag}]")
     return 0

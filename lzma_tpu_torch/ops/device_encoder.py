@@ -1,7 +1,7 @@
 """Lane-parallel LZMA encoder in PyTorch: parse, classify, lower, serialize.
 
 Port of ``lzma_tpu/ops/device_encoder.py`` (all but the TPU's two-dispatch
-``encode_lanes_pallas`` and the trace dump).
+``encode_lanes_pallas``; ``encode_batch(trace=)`` dumps the decisions).
 Once the token stream is fixed, the (context, bit) sequence fed to the
 range coder is fully determined, so the encoder splits into
 
@@ -538,7 +538,10 @@ _PROBE = None
 def probing():
     """Record what the encodes inside the block do, into the dict it
     yields: each stage's seconds under "seconds" (a list a stage, one
-    entry a call; the device is synchronized around each stage), the
+    entry a call; the device is synchronized around each stage), on a
+    CUDA device each stage's peak bytes above what was allocated when it
+    began under "peak_bytes" (the same lists; the card's peak statistics
+    are reset at each stage's start), the
     last DP round's inputs under "dp_inputs", the last classify call's
     token rows under "classify_rows" and the final tokens and (ctx, bit)
     streams under "lowered", all held by reference.  For
@@ -560,17 +563,22 @@ def keep(name: str, value):
 @contextlib.contextmanager
 def stage(name: str, device):
     """Time one encode stage into the probing() block's seconds,
-    synchronizing `device` on both sides; nothing outside such a block."""
+    synchronizing `device` on both sides, and on a CUDA device record its
+    peak memory; nothing outside such a block."""
     if _PROBE is None:
         yield
         return
-    sync = torch.cuda.synchronize if torch.device(device).type == "cuda" else None
-    if sync:
-        sync(device)
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
     t = time.perf_counter()
     yield
-    if sync:
-        sync(device)
+    if cuda:
+        torch.cuda.synchronize(device)
+        _PROBE.setdefault("peak_bytes", {}).setdefault(name, []).append(
+            torch.cuda.max_memory_allocated(device) - base)
     _PROBE.setdefault("seconds", {}).setdefault(name, []).append(
         time.perf_counter() - t)
 
@@ -658,16 +666,67 @@ def encode_lanes(data, lens, dict_size, *, lc: int, lp: int, pb: int,
         return serialize_checked(ctx, bits, totals, layout.size, int(max_out))
 
 
+def _dump_device_trace(trace, data_t, lens_t, dict_j: int, fb: int,
+                       num_candidates: int, preset_t, parse: str, params):
+    """Run the (deterministic) tokenizer once more, outside the encode, and
+    print every lane's decision stream and the candidate lists at each
+    decision through `trace` (device_encoder._dump_device_trace): the
+    optimal parse's lists are find_match_lists_rmq's at DP_TIERS with the
+    DP's cap, the lists the DP saw; the lazy parse's are its best pair,
+    a list of one.  Lines and their order are the reference's; the parse
+    is the encode's own lc/lp/pb (the reference's dump prices it at lc3
+    lp0 pb2 whatever the encode's)."""
+    from .device_matcher import (DP_M_CAP, DP_TIER_KS, find_best_matches_rmq,
+                                 find_match_lists_rmq)
+
+    N, max_n = data_t.shape
+    dj, lj, plen = data_t, lens_t, 0
+    if preset_t is not None:
+        plen = int(preset_t.shape[0])
+        dj = torch.cat([preset_t.to(dj.dtype).expand(N, plen), dj], dim=1)
+        lj = lj + plen
+    optimal = parse.startswith("optimal") and plen == 0
+    if optimal:
+        from .device_parser import tokenize_optimal
+
+        tok = tokenize_optimal(dj, lj, dict_j, lc=params.lc, lp=params.lp,
+                               pb=params.pb, fb=fb)
+        cl, cd, cn = find_match_lists_rmq(dj, lj, dict_j, fb, m_cap=DP_M_CAP,
+                                          m_cap_order="rr", **DP_TIER_KS)
+    else:
+        tok = tokenize(dj, lj, dict_j, fb, num_candidates, start=plen)
+        bl, bd = find_best_matches_rmq(dj, lj, dict_j, fb, num_candidates)
+        cl = bl[:, :, None]
+        cd = torch.where(bl > 0, bd, 0)[:, :, None]
+        cn = (bl >= 2).long()
+    tp, tl, td, tv, ntok = tok
+    meta = classify_tokens(dj, tp, tl, td, tv)
+    kinds, rep_idx = meta[0].cpu().numpy(), meta[1].cpu().numpy()
+    tp, tl, td, ntok, cl, cd, cn = (x.cpu().numpy()
+                                    for x in (tp, tl, td, ntok, cl, cd, cn))
+    for i in range(N):
+        trace.tokens(i, tp[i] - plen, tl[i], td[i], kinds[i], rep_idx[i],
+                     int(ntok[i]))
+        for j in range(int(ntok[i])):
+            pos = int(tp[i, j])
+            pairs = [(int(cl[i, pos, m]), int(cd[i, pos, m]))
+                     for m in range(int(cn[i, pos]))]
+            trace.matches(pos - plen, pairs)
+
+
 def encode_batch(blocks, params: LzmaParams, fb=None,
                  num_candidates: int = DEFAULT_NUM_CANDIDATES,
                  preset: bytes = b"", write_eos: bool = False,
-                 parse: str = "lazy", device="cuda"):
+                 parse: str = "lazy", device="cuda", trace=None):
     """Encode independent blocks lane-parallel (device_encoder.encode_batch)
     through ``encode_lanes``.  `preset` primes every lane's window with
     one shared dictionary (LZTB v2/v3 blocks); `write_eos` ends every
     stream with the end marker.  The range coder is the CUDA kernel for a
     CUDA `device` and the plain ``serialize`` for the CPU (``probing``
-    records the stages).  Returns a list of raw LZMA streams."""
+    records the stages).  `trace` (``utils.trace.CodecTrace``), where it
+    is enabled, prints every lane's decisions and candidate lists in the
+    scalar per-symbol format (``_dump_device_trace``).  Returns a list of
+    raw LZMA streams."""
     if not blocks:
         return []
     params = params.validated_for_encode()
@@ -679,6 +738,9 @@ def encode_batch(blocks, params: LzmaParams, fb=None,
     dict_j = min(params.dict_size, data_t.shape[1] + len(preset))
     preset_t = (torch.frombuffer(bytearray(preset), dtype=torch.uint8).to(device)
                 if preset else None)
+    if trace is not None and getattr(trace, "enabled", False):
+        _dump_device_trace(trace, data_t, lens_t, dict_j, fb, num_candidates,
+                           preset_t, parse, params)
     out, out_lens = encode_lanes(
         data_t, lens_t, dict_j, lc=params.lc, lp=params.lp, pb=params.pb,
         fb=fb, num_candidates=num_candidates, preset=preset_t,

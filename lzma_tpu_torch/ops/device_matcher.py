@@ -4,8 +4,10 @@ Port of the RMQ routes of ``lzma_tpu/ops/device_matcher.py``: 4-byte hash
 sort-neighbor candidates, exact match lengths from suffix-rank LCP range
 minimum queries (prefix doubling to the 273-byte depth), the pointwise
 lazy decision, pointer-doubling path marking and prefix-sum compaction;
-and, for the optimal parse, the multi-tier candidate lists
-(``_rmq_search``) and the rep0 match lengths (``rep_match_lens_rmq``).
+the multi-tier candidate lists (``_rmq_search``: the optimal parse's at
+its defaults, the hybrid's uncapped through ``find_match_lists_rmq``),
+their flattening on the device (``pack_match_lists``) and the rep0 match
+lengths (``rep_match_lens_rmq``).
 
 The JAX functions run on one lane under ``jax.vmap``; here the lane axis
 is written out: every tensor is (N, max_n, ...) and rolls, sorts,
@@ -34,6 +36,12 @@ DP_TIERS = ((2, 1), (3, 1), (4, 12), (6, 4), (8, 6), (16, 3), (32, 2))
 #: unique candidates a position kept before the LCP queries
 #: (device_parser.DP_M_CAP, with DP_M_CAP_ORDER "rr")
 DP_M_CAP = 12
+#: the tiers' spans in the reference's column order, and each tier's k
+#: where a caller names none (device_matcher.find_match_lists' defaults)
+TIER_SPANS = (2, 3, 4, 6, 8, 16, 32)
+TIER_DEFAULTS = dict(k2=1, k3=1, k4=4, k6=0, k8=2, k16=0, k32=0)
+#: DP_TIERS as keyword ks
+DP_TIER_KS = {f"k{span}": k for span, k in DP_TIERS}
 
 
 def _take(best_len, best_dist):
@@ -279,16 +287,27 @@ def find_best_matches_rmq(data, n, dict_size: int, fb: int,
     return best_len, torch.clamp(best_dist, min=0)
 
 
-def _neighbor_candidates(h, pos, k: int):
-    """The k nearest previous positions with the same hash, ranks 1..k
-    (device_matcher._neighbor_candidates): one stable sort groups equal
-    hashes, and rank j's candidate is the sort neighbour j back.  h (N,
-    max_n).  Returns a list of k (N, max_n) tensors, -1 = none."""
+def _ranks(k):
+    """A tier's ranks: an int k is ranks 1..k (the k nearest), a tuple
+    lists them (rank-spaced sampling reaches deeper into crowded hash
+    groups at the same candidate budget)."""
+    return tuple(range(1, k + 1)) if isinstance(k, int) else tuple(k)
+
+
+def _neighbor_candidates(h, pos, k):
+    """The previous positions with the same hash at ranks `k` (an int or
+    a tuple, as `_ranks`; device_matcher._neighbor_candidates): one stable
+    sort groups equal hashes, and rank j's candidate is the sort neighbour
+    j back.  h (N, max_n).  Returns one (N, max_n) tensor a rank, -1 =
+    none."""
+    ranks = _ranks(k)
+    if not ranks:
+        return []
     # lexsort((pos, h)): a stable sort of h keeps position order in ties
     order = torch.sort(h, dim=1, stable=True).indices
     sorted_h = h.gather(1, order)
     cands = []
-    for j in range(1, k + 1):
+    for j in ranks:
         prev = torch.roll(order, j, dims=1)
         same = (torch.roll(sorted_h, j, dims=1) == sorted_h) & (pos >= j)
         cands.append(_scatter_rows(order, torch.where(same, prev, -1), -1))
@@ -303,14 +322,28 @@ def _mul32(h, m: int):
     return (lo + hi) & _M32
 
 
-def _tier_candidates(data, n, pos):
-    """The multi-tier candidate build (device_matcher._tier_candidates)
-    over DP_TIERS: exact 2/3-byte values and 4/6/8/16/32-byte
-    multiplicative hashes, each tier's k nearest previous occurrences.
-    data (N, max_n) uint8, n (N,).  Returns cand (N, max_n, 29), tier by
-    tier; -1 = no candidate."""
+def tier_ranks(tiers=None):
+    """Each tier's (bytes hashed, ranks), in the reference's column order,
+    from keyword ks as find_match_lists takes them (k2, k3, k4, k6, k8,
+    k16, k32; each an int or a tuple of ranks; the missing ones at
+    TIER_DEFAULTS).  A tier of no ranks gives no column."""
+    ks = dict(TIER_DEFAULTS, **(tiers or {}))
+    unknown = sorted(set(ks) - set(TIER_DEFAULTS))
+    if unknown:
+        raise ValueError(f"unknown tiers {unknown}: the tiers are "
+                         f"{sorted(TIER_DEFAULTS)}")
+    return [(span, _ranks(ks[f"k{span}"])) for span in TIER_SPANS]
+
+
+def _tier_candidates(data, n, pos, ranks):
+    """The multi-tier candidate build (device_matcher._tier_candidates):
+    exact 2/3-byte values and 4/6/8/16/32-byte multiplicative hashes, each
+    tier's candidates at its ranks.  data (N, max_n) uint8, n (N,),
+    `ranks` from tier_ranks.  Returns cand (N, max_n, M), tier by tier,
+    M the number of ranks in all; -1 = no candidate."""
     d = data.long()
-    b = [torch.roll(d, -i, dims=1) for i in range(32)]
+    deepest = max([8] + [span for span, r in ranks if r])
+    b = [torch.roll(d, -i, dims=1) for i in range(deepest)]
     uniq = 0x80000000 ^ pos
     n2 = n[:, None]
 
@@ -322,54 +355,81 @@ def _tier_candidates(data, n, pos):
             h = _mul32(h, _HASH_MULS[0]) ^ ((b[i] * _HASH_MULS[1]) & _M32)
         return mark(h, hi)
 
+    used = {span for span, r in ranks if r}
     h = {2: mark(b[0] | (b[1] << 8), 2),
          3: mark(b[0] | (b[1] << 8) | (b[2] << 16), 3),
          4: mark(((b[0] * _HASH_MULS[0]) ^ (b[1] * _HASH_MULS[1])
                   ^ (b[2] * _HASH_MULS[2]) ^ (b[3] * _HASH_MULS[3])) & _M32, 4)}
-    h[6] = extend(h[4], 4, 6)
     h[8] = extend(h[4], 4, 8)
-    h[16] = extend(h[8], 8, 16)
-    h[32] = extend(h[16], 16, 32)
-    return torch.stack([c for span, k in DP_TIERS
-                        for c in _neighbor_candidates(h[span], pos, k)], dim=2)
+    if 6 in used:
+        h[6] = extend(h[4], 4, 6)
+    if deepest > 8:
+        h[16] = extend(h[8], 8, 16)
+    if 32 in used:
+        h[32] = extend(h[16], 16, 32)
+    return torch.stack([c for span, r in ranks if r
+                        for c in _neighbor_candidates(h[span], pos, r)],
+                       dim=2)
 
 
-def _rmq_search(data, n, dict_size: int, fb: int):
+def _dedup_cap(cand, ranks, m_cap: int, m_cap_order: str):
+    """Candidates deduplicated across tiers, nearest first, optionally cut
+    to the m_cap (device_matcher._rmq_search).  "rr" keeps by round-robin
+    tier priority (every tier's rank-1 candidate first, then rank-2, ...);
+    otherwise one row sort groups duplicates and a second puts the
+    nearest first, then the first m_cap stay.  cand (N, max_n, M).
+    Returns the kept candidates, -1 past each row's last."""
+    big = 1 << 30
+    M = cand.shape[2]
+    if m_cap_order == "rr" and 0 < m_cap < M:
+        sizes = [len(r) for _, r in ranks]
+        offs = [sum(sizes[:i]) for i in range(len(sizes))]
+        perm = [base + r for r in range(max(sizes))
+                for sz, base in zip(sizes, offs) if r < sz]
+        cp = cand[:, :, perm]
+        dup = [torch.zeros_like(cp[:, :, 0], dtype=torch.bool)]
+        for j in range(1, cp.shape[2]):
+            eqa = (cp[:, :, j:j + 1] == cp[:, :, :j]).any(dim=2)
+            dup.append(eqa & (cp[:, :, j] >= 0))
+        cp = torch.where(torch.stack(dup, dim=2), -1, cp)
+        # pack survivors by priority, truncate, then nearest first
+        prio = torch.arange(cp.shape[2], device=cand.device)
+        pk = torch.where(cp >= 0, prio, big)
+        ordp = torch.sort(pk, dim=2, stable=True).indices[:, :, :m_cap]
+        cp = cp.gather(2, ordp)
+        key = torch.sort(torch.where(cp >= 0, -cp, big), dim=2).values
+        return torch.where(key >= big, -1, -key)
+    cs = torch.sort(cand, dim=2).values
+    dup = torch.zeros_like(cs, dtype=torch.bool)
+    dup[:, :, 1:] = cs[:, :, 1:] == cs[:, :, :-1]
+    cs = torch.where(dup, -1, cs)
+    key = torch.sort(torch.where(cs >= 0, -cs, big), dim=2).values
+    cand = torch.where(key >= big, -1, -key)
+    return cand[:, :, :m_cap] if 0 < m_cap < M else cand
+
+
+def _rmq_search(data, n, dict_size: int, fb: int, tiers=None,
+                m_cap: int = DP_M_CAP, m_cap_order: str = "rr"):
     """Ascending (len, dist) candidate lists per position, every lane at
-    once (device_matcher._rmq_search at DP_TIERS, m_cap DP_M_CAP,
-    m_cap_order "rr"): tier candidates, deduplicated across tiers and
-    capped to DP_M_CAP by round-robin tier priority (every tier's rank-1
-    candidate first), exact lengths from the fb-deep suffix table, then
-    the merge that keeps strictly increasing lengths at ascending
-    distance.  data (N, max_n) uint8, n (N,).  Returns (lens (N, max_n,
-    M), dists (N, max_n, M), counts (N, max_n), rank, T); the suffix rank
-    and min table come back for the rep0 length queries."""
+    once (device_matcher._rmq_search): tier candidates at `tiers` (keyword
+    ks, as tier_ranks takes them; None is DP_TIERS), deduplicated across
+    tiers and cut to `m_cap` by `m_cap_order` (m_cap 0 keeps them all),
+    exact lengths from the fb-deep suffix table, then the merge that
+    keeps strictly increasing lengths at ascending distance.  The
+    defaults are the optimal parse's search (DP_TIERS, DP_M_CAP, "rr").
+    data (N, max_n) uint8, n (N,).  Returns (lens (N, max_n, M), dists
+    (N, max_n, M), counts (N, max_n), rank, T); the suffix rank and min
+    table come back for the rep0 length queries."""
     N, max_n = data.shape
     device = data.device
     pos = torch.arange(max_n, dtype=torch.int64, device=device)
     n = n.long()
     rank, T = _suffix_rank_lcp(data, n, pos, max_n, fb)
-    cand = _tier_candidates(data, n, pos)
-    big = 1 << 30
-
-    sizes = [k for _, k in DP_TIERS]
-    offs = [sum(sizes[:i]) for i in range(len(sizes))]
-    perm = [base + r for r in range(max(sizes))
-            for sz, base in zip(sizes, offs) if r < sz]
-    cp = cand[:, :, perm]
-    dup = [torch.zeros_like(cp[:, :, 0], dtype=torch.bool)]
-    for j in range(1, cp.shape[2]):
-        eqa = (cp[:, :, j:j + 1] == cp[:, :, :j]).any(dim=2)
-        dup.append(eqa & (cp[:, :, j] >= 0))
-    cp = torch.where(torch.stack(dup, dim=2), -1, cp)
-    # pack survivors by priority, truncate, then nearest first
-    prio = torch.arange(cp.shape[2], device=device)
-    pk = torch.where(cp >= 0, prio, big)
-    ordp = torch.sort(pk, dim=2, stable=True).indices[:, :, :DP_M_CAP]
-    cp = cp.gather(2, ordp)
-    key = torch.sort(torch.where(cp >= 0, -cp, big), dim=2).values
-    cand = torch.where(key >= big, -1, -key)
+    ranks = tier_ranks(DP_TIER_KS if tiers is None else tiers)
+    cand = _dedup_cap(_tier_candidates(data, n, pos, ranks), ranks, m_cap,
+                      m_cap_order)
     M = cand.shape[2]
+    big = 1 << 30
 
     p3 = pos[None, :, None]
     in_window = (cand >= 0) & (p3 - cand <= dict_size) & (cand < p3)
@@ -377,22 +437,60 @@ def _rmq_search(data, n, dict_size: int, fb: int):
     length = torch.minimum(length, torch.clamp(n[:, None] - pos, min=0)[:, :, None])
     dist = torch.where(in_window, p3 - cand - 1, big)
     length = torch.where(in_window, length, 0)
+    del cand, in_window
 
     # merge: columns are nearest first; keep strictly increasing lengths
     runmax = torch.zeros_like(length[:, :, 0])
-    keeps = []
+    keep = torch.empty_like(length, dtype=torch.bool)
     for j in range(M):
         sl = length[:, :, j]
-        keeps.append((sl >= MIN_MATCH) & (sl > runmax) & (dist[:, :, j] < big))
+        keep[:, :, j] = (sl >= MIN_MATCH) & (sl > runmax) & (dist[:, :, j] < big)
         runmax = torch.maximum(runmax, sl)
-    keep = torch.stack(keeps, dim=2)
-    tgt = torch.where(keep, torch.cumsum(keep.long(), dim=2) - 1, M)
+    tgt = torch.where(keep, torch.cumsum(keep, dim=2) - 1, M)
 
     def put(values):
         out = torch.zeros((N, max_n, M + 1), dtype=torch.int64, device=device)
         return out.scatter_(2, tgt, values)[:, :, :M]
 
     return put(length), put(dist), keep.long().sum(dim=2), rank, T
+
+
+def find_match_lists_rmq(data, n, dict_size: int, fb: int, k4=4, k8=2, k2=1,
+                         k3=1, k6=0, k16=0, k32=0, m_cap: int = 0,
+                         m_cap_order: str = "near"):
+    """Multi-tier ascending (len, dist) candidate lists per position, every
+    lane at once (device_matcher.find_match_lists_rmq under jax.vmap): the
+    tiers' nearest previous occurrences (each k an int or a tuple of
+    ranks), deduplicated, with exact lengths capped at fb; each kept
+    length at its minimal distance (BinTree.fillMatches' contract).
+    `m_cap` > 0 first cuts each position's candidates by `m_cap_order`.
+    data (N, max_n) uint8, n (N,).  Returns (lens, dists) (N, max_n, M)
+    with each row's pairs at its front, and counts (N, max_n)."""
+    tiers = dict(k2=k2, k3=k3, k4=k4, k6=k6, k8=k8, k16=k16, k32=k32)
+    return _rmq_search(data, n, dict_size, fb, tiers, m_cap, m_cap_order)[:3]
+
+
+def pack_match_lists(cl, cd, counts, cap: int):
+    """Each lane's (max_n, M) list rows flattened into a (cap,) pair
+    buffer, on the lists' device (device_matcher.pack_match_lists under
+    jax.vmap), so the row padding never crosses to the host.  A position
+    whose pairs would pass `cap` has its count clamped (the parser sees a
+    shorter list; the streams stay valid).  cl, cd (N, max_n, M), counts
+    (N, max_n).  Returns (flat_l, flat_d) (N, cap) int32 and the counts
+    kept (N, max_n) int32."""
+    N, max_n, M = cl.shape
+    counts = counts.long()
+    base = torch.cumsum(counts, dim=1) - counts          # pair offset a position
+    counts_eff = torch.clamp(torch.minimum(counts, cap - base), 0, M)
+    col = torch.arange(M, device=cl.device)
+    slot = torch.where(col < counts_eff[:, :, None], base[:, :, None] + col,
+                       cap).reshape(N, -1)
+
+    def flat(values):
+        out = torch.zeros((N, cap + 1), dtype=torch.int32, device=cl.device)
+        return out.scatter_(1, slot, values.reshape(N, -1).to(torch.int32))[:, :cap]
+
+    return flat(cl), flat(cd), counts_eff.to(torch.int32)
 
 
 def rep_match_lens_rmq(rank, T, r0pos, n, fb: int):

@@ -126,6 +126,25 @@ def test_smoke_entry_pin_is_the_jax_entry():
         smoke.PIN_ENTRY_SHA256
 
 
+def test_smoke_hybrid_pins_are_the_jax_containers():
+    """chip_smoke.py holds the card's hybrid containers (optimal and lazy)
+    to PIN_HYBRID_OPT_SHA256 and PIN_HYBRID_LAZY_SHA256: the JAX package's
+    ops.hybrid encodes of the same input."""
+    from lzma_tpu.ops import hybrid as jhybrid
+    from lzma_tpu.runtime import native as jnative
+
+    if not jnative.available():
+        pytest.skip("no C++ toolchain")
+    smoke = _smoke()
+    data, params, block = smoke.hybrid_pin_input()
+    assert len(data) == (1 << 16) + 1234 and block == 1 << 14
+    for fn, pin in ((jhybrid.encode_blocks_hybrid_optimal,
+                     smoke.PIN_HYBRID_OPT_SHA256),
+                    (jhybrid.encode_blocks_hybrid, smoke.PIN_HYBRID_LAZY_SHA256)):
+        blob = fn(data, _jax_params(params), block_size=block)
+        assert hashlib.sha256(blob).hexdigest() == pin
+
+
 def test_not_ported_options_raise():
     data = generate_bench_data(3000)
     with pytest.raises(NotImplementedError):
@@ -158,11 +177,12 @@ def test_from_numpy_carries_arrays_over():
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port (cli, entry and utils among
-    them) and running a CPU encode (lazy and optimal) and decode, and a
-    `.lzma` round trip with the EOS marker, loads nothing of JAX and
-    nothing of the JAX package (lzma_tpu_torch starts with lzma_tpu,
-    hence the exact test)."""
+    """Importing every module of the port (cli, entry, utils, ops.hybrid
+    and the host encoder's runtime.native among them) and running a CPU
+    encode (lazy and optimal) and decode, a `.lzma` round trip with the
+    EOS marker and, where g++ is, both hybrid encodes, loads nothing of
+    JAX and nothing of the JAX package (lzma_tpu_torch starts with
+    lzma_tpu, hence the exact test), and no library of lzma_tpu/runtime."""
     code = (
         "import sys, pkgutil, importlib; sys.path.insert(0, sys.argv[1]);"
         "import lzma_tpu_torch as P;"
@@ -177,6 +197,13 @@ def test_port_imports_no_jax():
         "e = P.LzmaParams(write_eos=True);"
         "api.decode_alone(api.encode_alone(d[:300], e, device='cpu'),"
         " device='cpu') == d[:300] or sys.exit('alone');"
+        "from lzma_tpu_torch.ops import hybrid;"
+        "from lzma_tpu_torch.runtime import native;"
+        "native.available() and [api.decode_blocks(f(d, block_size=1024,"
+        " device='cpu'), device='cpu') == d or sys.exit(f.__name__) for f in"
+        " (hybrid.encode_blocks_hybrid, hybrid.encode_blocks_hybrid_optimal)];"
+        "maps = open('/proc/self/maps').read();"
+        "assert 'lzma_tpu/runtime' not in maps, 'lzma_tpu/runtime library';"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib') or m == 'lzma_tpu' or m.startswith('lzma_tpu.'));"
         "assert not bad, bad"

@@ -927,3 +927,67 @@ def test_ablation_knockouts_run_to_their_bound_twice_alike(card):
     for variant in ("noctx", "barebit"):
         res = probe_ring_ablate.ablate(comp, n, size, 1 << 12, 0, 0, 2, 4096, variant)
         assert bool((res[2] == 4096).all())
+
+
+# ------------------------------------------------ the hybrid, profiling
+@pytest.mark.parametrize("tiers,fb", [(None, 32), (dict(k4=(1, 3), k8=1), 128)])
+def test_hybrid_search_on_the_card_matches_the_cpu(card, tiers, fb):
+    """The hybrid's list search and its packing (no kernel of its own:
+    plain PyTorch on the card) give the CPU's lists, pair buffers and
+    counts, the clamped ones at a small cap included."""
+    from lzma_tpu_torch.ops import device_matcher as dm
+    from lzma_tpu_torch.ops.hybrid import DEFAULT_TIERS
+
+    tiers = DEFAULT_TIERS if tiers is None else tiers
+    d, n = pad_rows(_blocks(4, 4096, 5), "cpu")
+    n[1] = 3000
+    want = dm.find_match_lists_rmq(d, n, 4096, fb, **tiers)
+    got = dm.find_match_lists_rmq(d.to(card), n.to(card), 4096, fb, **tiers)
+    assert all(torch.equal(w, g.cpu()) for w, g in zip(want, got))
+    for cap in (3 * 4096, 1024):
+        packed = dm.pack_match_lists(*got, cap)
+        assert all(torch.equal(w, g.cpu()) for w, g in
+                   zip(dm.pack_match_lists(*want, cap), packed))
+
+
+def test_hybrid_encodes_on_the_card_equal_the_cpu(card):
+    from lzma_tpu_torch.format.properties import LzmaParams as TParams
+    from lzma_tpu_torch.ops import hybrid
+
+    data = b"".join(_blocks(5, 4000, 9))
+    p = TParams(dict_size=1 << 13, fast_bytes=16)
+    for fn in (hybrid.encode_blocks_hybrid, hybrid.encode_blocks_hybrid_optimal):
+        for kw in (dict(), dict(preset_len=500), dict(dictionary=data[-700:])):
+            blob = fn(data, p, block_size=4096, device=card, **kw)
+            assert blob == fn(data, p, block_size=4096, device="cpu", **kw)
+            assert api.decode_blocks(blob, device=card) == data
+
+
+def test_phase_timer_covers_an_async_kernel(card):
+    """torch.cuda._sleep spins the card for a number of cycles and returns
+    at once; a phase that names its tensor waits for it."""
+    from lzma_tpu_torch.utils.profiling import PhaseTimer
+
+    x = torch.ones(1, device=card)
+    torch.cuda.synchronize()
+    t = PhaseTimer()
+    with t.phase("enqueue"):
+        torch.cuda._sleep(1 << 30)
+    torch.cuda.synchronize()
+    with t.phase("synced", sync_arrays=[x]):
+        torch.cuda._sleep(1 << 30)
+    # 2**30 cycles at the H100's top clock (1.98 GHz) is 0.54 s
+    assert t.totals["synced"] > 0.4 > t.totals["enqueue"]
+
+
+def test_profiler_trace_sees_the_card(card, tmp_path):
+    from lzma_tpu_torch.utils.profiling import device_busy, profiler_trace
+
+    a = torch.randn(2048, 2048, device=card)
+    with profiler_trace(str(tmp_path), device=card) as prof:
+        for _ in range(5):
+            a = a @ a
+            a = a / a.norm()
+    busy = device_busy(prof.trace_path, top=3)
+    assert busy["device_events"] >= 10 and 0 < busy["busy_share"] <= 1
+    assert len(busy["top"]) == 3

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive lzma_tpu_torch's device block codec and its hybrid encode on one
-NVIDIA GPU and check them.
+"""Drive lzma_tpu_torch's device block codec, its hybrid encode and its
+block mesh on one NVIDIA GPU and check them.
 
 Run from the repository root with no arguments:
 
@@ -121,10 +121,26 @@ prints its seconds):
  19. the trace dump: encode_batch(trace=) on TRACE_LANES x TRACE_BYTES of
      that input, lazy and optimal, on the card (K6 launched) gives the
      lines of the same call on the CPU
- 20. no module of jax, jaxlib or lzma_tpu was loaded
+ 20. the block mesh (parallel.mesh, multihost) over an NCCL group of one
+     rank in this process, phase 6's 8 MiB in 32 lanes of 256 KiB,
+     LzmaParams() defaults: encode_blocks_mesh lazy and optimal equal
+     phases 6 and 7's containers, gather=True (an all_gather on the card)
+     the same bytes, v2 (preset_len=MESH_PRESET) and v3 (a MESH_DICT-byte
+     dictionary from utils.dicttrain.train_dictionary) api.encode_blocks'
+     with the same arguments, encode_blocks_mesh_hybrid phase 16's
+     container; every one round-trips through decode_blocks_mesh; K2, K3
+     and K6 launch in the mesh's encodes and K1 in its decodes (counted
+     from 0 around each call); wall times and MB/s beside
+     api.encode_blocks' in the same phase
+ 21. MESH_RANKS spawned Gloo ranks whose kernels share the card (the
+     collectives on host tensors), 8 of the 32 lanes a rank: rank 0's
+     lazy and optimal containers equal phases 6 and 7's; each rank's
+     encode time split into its shard's kernels and the gather
+ 22. no module of jax, jaxlib or lzma_tpu was loaded
 The last three lines are the card, the kernels' JSON record (K1-K6 and
 P1-P15; K1's carries its launches in phase 16's decode, K6's in phase
-19's dumps) and the result JSON.
+19's dumps, K1, K2, K3 and K6 theirs in phase 20's mesh calls) and the
+result JSON.
 """
 
 from __future__ import annotations
@@ -168,6 +184,9 @@ PIN_HYBRID_OPT_SHA256 = "651eef81b7317ea7717c2b68b561e6759de3a8f932719cbf5392bd5
 PIN_HYBRID_LAZY_SHA256 = "818ecdaccc636d8a19d711b6ca4e280057953a91111a9ffb9fc95b7f0db469dd"
 
 MAIN_BLOCK = 1 << 18
+#: phase 21: the v2 preset and the v3 dictionary on the mesh, and the
+#: ranks of the Gloo group that share the one card
+MESH_PRESET, MESH_DICT, MESH_RANKS = 1 << 16, 1 << 16, 4
 #: the trace dump's lanes (phase 19): TRACE_LANES x TRACE_BYTES
 TRACE_LANES, TRACE_BYTES = 2, 2048
 CMP_LANES, CMP_BYTES = 8, 2048       # kernel vs plain comparison shape
@@ -986,7 +1005,8 @@ def hybrid_phase(dev, card, data, params, opt_blob, lazy_blob):
     hybrid-optimal encode (the search split from the host's parse by a
     PhaseTimer; K1 decodes the container, counted from 0; the stdlib reads
     every block) and through the lazy hybrid, whose container must be
-    main8M-lazy's.  Returns K1's launches in the hybrid-optimal decode."""
+    main8M-lazy's.  Returns K1's launches in the hybrid-optimal decode and
+    hybrid8M-opt's container."""
     import os
 
     import torch
@@ -1015,7 +1035,7 @@ def hybrid_phase(dev, card, data, params, opt_blob, lazy_blob):
     torch.cuda.reset_peak_memory_stats()
     timer = PhaseTimer()
     t = time.perf_counter()
-    blob = hybrid.encode_blocks_hybrid_optimal(
+    blob = opt8 = hybrid.encode_blocks_hybrid_optimal(
         data, params, block_size=MAIN_BLOCK, num_threads=0, device=dev,
         timer=timer)
     torch.cuda.synchronize()
@@ -1061,7 +1081,7 @@ def hybrid_phase(dev, card, data, params, opt_blob, lazy_blob):
         f"{len(lazy)} B = "
         f"main8M-lazy's container byte for byte (the same tokens, the host's "
         f"serializer), peak device memory {peak / 2**20:.1f} MiB")
-    return k1
+    return k1, opt8
 
 
 def profile_phase(dev, card, data, params, blob, stage_peaks):
@@ -1148,6 +1168,207 @@ def trace_phase(dev, card, data, params):
         raise AssertionError(f"K6 ran {k6} times in the card's trace dumps")
     return k6
 
+
+
+def counted_call(fn):
+    """fn() with the launch counts of K1, K2, K3 and K6 set to 0 just
+    before it and read just after, the card synchronised around it.
+    Returns (its result, seconds, launches)."""
+    import torch
+    from lzma_tpu_torch.ops import (cuda_classify, cuda_parser, cuda_ring,
+                                    cuda_serializer)
+
+    counted = {"dp_parse": cuda_parser, "classify": cuda_classify,
+               "rc_serialize": cuda_serializer, "ring_decode": cuda_ring}
+    torch.cuda.synchronize()
+    for mod in counted.values():
+        mod.LAUNCHES = 0
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    return out, secs, {k: mod.LAUNCHES for k, mod in counted.items()}
+
+
+def mesh_rank(rank, init_method, data_path, out_dir):
+    """Phase 21, one rank of MESH_RANKS in a Gloo group, its kernels on
+    cuda:0 beside the other ranks': a warm-up, then the 8 MiB through
+    encode_blocks_mesh (every rank encodes its MAIN_BLOCK lanes of the
+    32), lazy and optimal, with the shard's kernels and the gather timed
+    apart; rank 0 writes both containers, every rank its record."""
+    import os
+
+    import torch
+    from lzma_tpu_torch.format.properties import LzmaParams
+    from lzma_tpu_torch.parallel import mesh, multihost
+    from lzma_tpu_torch.utils.profiling import PhaseTimer
+
+    multihost.initialize(init_method, MESH_RANKS, rank, "gloo", "cuda")
+    try:
+        m = multihost.global_mesh("cuda")
+        with open(data_path, "rb") as f:
+            data = f.read()
+        params = LzmaParams()
+        # the CUDA context and the kernels' library, on every rank
+        mesh.encode_blocks_mesh(data[: MESH_RANKS * MAIN_BLOCK], params,
+                                block_size=MAIN_BLOCK, mesh=m)
+        rec = {"device": str(m.device), "per_card": m.per_card}
+        for parse in ("lazy", "optimal"):
+            timer = PhaseTimer()
+            blob, secs, launches = counted_call(lambda: mesh.encode_blocks_mesh(
+                data, params, block_size=MAIN_BLOCK, mesh=m, parse=parse,
+                timer=timer))
+            rec[parse] = dict(seconds=secs, launches=launches, **timer.totals)
+            if rank == 0:
+                with open(os.path.join(out_dir, f"{parse}.bin"), "wb") as f:
+                    f.write(blob)
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(rec, f)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def mesh_nccl_phase(dev, card, data, params, lazy_blob, opt_blob, hybrid_blob):
+    """Phase 20: the block mesh over an NCCL group of one rank in this
+    process.  Its lazy and optimal containers are phases 6 and 7's,
+    gather=True writes the same, v2 and v3 equal api.encode_blocks with
+    the same arguments, the mesh hybrid is phase 16's container, and each
+    round-trips through decode_blocks_mesh; K2, K3 and K6 launch in its
+    encodes and K1 in its decodes.  Returns those launches (encodes,
+    decodes), each summed over the mesh's calls."""
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from lzma_tpu_torch.ops import api
+    from lzma_tpu_torch.parallel import mesh, multihost
+    from lzma_tpu_torch.utils.dicttrain import train_dictionary
+
+    mb = len(data) / 1e6
+    enc = {k: 0 for k in ("dp_parse", "classify", "rc_serialize", "ring_decode")}
+    dec = dict(enc)
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "lzma_tpu_torch", "_build")
+
+    def check(name, got, want):
+        if got != want:
+            raise AssertionError(f"[mesh] {name} differs")
+
+    def add(total, launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        multihost.initialize("file://" + os.path.join(tmp, "store"), 1, 0,
+                             "nccl", "cuda")
+        try:
+            m = multihost.global_mesh("cuda")
+            if (m.world, m.backend, m.device) != (1, "nccl", dev):
+                raise AssertionError(f"[mesh] {m}")
+            # NCCL builds its communicator at the group's first collective
+            _, t_first, _ = counted_call(lambda: dist.all_gather(
+                [torch.empty(1, device=dev)], torch.zeros(1, device=dev)))
+            lines = [f"the group's first all_gather (NCCL's communicator) "
+                     f"{t_first:.3f} s"]
+            cases = [("lazy", dict(parse="lazy"), lazy_blob),
+                     ("optimal", dict(parse="optimal"), opt_blob),
+                     ("lazy, gather=True", dict(gather=True), lazy_blob),
+                     (f"v2 preset_len={MESH_PRESET}",
+                      dict(preset_len=MESH_PRESET), None)]
+            t = time.perf_counter()
+            dictionary = train_dictionary(data, MESH_DICT)
+            lines.append(f"train_dictionary {time.perf_counter() - t:.3f} s "
+                         f"for a {len(dictionary)} B dictionary")
+            cases.append((f"v3 dictionary of {len(dictionary)} B",
+                          dict(dictionary=dictionary), None))
+            for name, kw, want in cases:
+                gather = kw.get("gather", False)
+                api_kw = {k: v for k, v in kw.items() if k != "gather"}
+                blob, t_mesh, launches = counted_call(
+                    lambda: mesh.encode_blocks_mesh(
+                        data, params, block_size=MAIN_BLOCK, mesh=m, **kw))
+                add(enc, launches)
+                want_blob, t_api, _ = counted_call(
+                    lambda: api.encode_blocks(data, params,
+                                              block_size=MAIN_BLOCK, device=dev,
+                                              **api_kw))
+                check(f"{name} container (against api.encode_blocks)", blob,
+                      want_blob)
+                if want is not None:
+                    check(f"{name} container (against phase 6/7's)", blob, want)
+                back, t_dec, launches = counted_call(
+                    lambda: mesh.decode_blocks_mesh(blob, mesh=m, gather=gather))
+                add(dec, launches)
+                check(f"{name} round trip", back, data)
+                lines.append(
+                    f"{name}: encode {t_mesh:.3f} s = {mb / t_mesh:.3f} MB/s "
+                    f"(api.encode_blocks {t_api:.3f} s = {mb / t_api:.3f} MB/s), "
+                    f"decode {t_dec:.3f} s = {mb / t_dec:.3f} MB/s, {len(blob)} B")
+            blob, t_h, _ = counted_call(lambda: mesh.encode_blocks_mesh_hybrid(
+                data, params, block_size=MAIN_BLOCK, mesh=m))
+            check("hybrid container (against phase 16's)", blob, hybrid_blob)
+            lines.append(f"hybrid: encode {t_h:.3f} s = {mb / t_h:.3f} MB/s, "
+                         "= phase 16's container")
+        finally:
+            dist.destroy_process_group()
+    if min(enc["rc_serialize"], enc["dp_parse"], enc["classify"],
+           dec["ring_decode"]) < 1:
+        raise AssertionError(f"[mesh] a kernel did not run: encodes {enc}, "
+                             f"decodes {dec}")
+    log(f"[mesh NCCL world 1] {len(data)} B in {len(data) // MAIN_BLOCK} lanes "
+        f"of {MAIN_BLOCK} B on {card}: " + "; ".join(lines)
+        + f"; launches in the mesh encodes {enc}, decodes {dec}")
+    return enc, dec
+
+
+def mesh_gloo_phase(card, data, lazy_blob, opt_blob):
+    """Phase 21: MESH_RANKS Gloo ranks (spawned, mesh_rank) whose kernels
+    share the one card, the collectives on host tensors: rank 0's lazy
+    and optimal containers are phases 6 and 7's, and K2 and K6 (K3 in the
+    optimal encode) launch on every rank."""
+    import os
+    import tempfile
+
+    import torch
+
+    torch.cuda.empty_cache()
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "lzma_tpu_torch", "_build")
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        path = os.path.join(tmp, "data.bin")
+        with open(path, "wb") as f:
+            f.write(data)
+        t = time.perf_counter()
+        torch.multiprocessing.start_processes(
+            mesh_rank, args=("file://" + os.path.join(tmp, "store"), path, tmp),
+            nprocs=MESH_RANKS, start_method="spawn")
+        t_all = time.perf_counter() - t
+        recs = []
+        for r in range(MESH_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                recs.append(json.load(f))
+        for parse, want in (("lazy", lazy_blob), ("optimal", opt_blob)):
+            with open(os.path.join(tmp, f"{parse}.bin"), "rb") as f:
+                if f.read() != want:
+                    raise AssertionError(f"[mesh] {MESH_RANKS}-rank Gloo {parse} "
+                                         "container differs from phase 6/7's")
+            for r, rec in enumerate(recs):
+                got = rec[parse]["launches"]
+                if min(got["rc_serialize"], got["classify"]) < 1 or (
+                        parse == "optimal" and got["dp_parse"] < 1):
+                    raise AssertionError(f"[mesh] rank {r} {parse}: {got}")
+    log(f"[mesh Gloo {MESH_RANKS} ranks] on {card}, every rank's kernels on "
+        f"{recs[0]['device']} ({recs[0]['per_card']} ranks a card), "
+        f"{len(data) // MAIN_BLOCK // MESH_RANKS} lanes a rank; the ranks' "
+        f"run {t_all:.3f} s (spawn, the CUDA contexts, a warm-up); "
+        + "; ".join(
+            f"{parse}: " + ", ".join(
+                f"rank {r} encode {rec[parse]['seconds']:.3f} s (shard "
+                f"{rec[parse]['shard']:.3f} s, gather {rec[parse]['gather']:.3f} s)"
+                for r, rec in enumerate(recs))
+            for parse in ("lazy", "optimal"))
+        + "; rank 0's containers = world 1's")
 
 
 def main():
@@ -1712,7 +1933,8 @@ def main():
     done("lzma stream")
 
     # ---- 15-17. the hybrid: pins, hybrid8M-opt, hybrid8M-lazy ----
-    hybrid_k1 = hybrid_phase(dev, card, data, params, blob, lazy_blob)
+    hybrid_k1, hybrid_blob = hybrid_phase(dev, card, data, params, blob,
+                                          lazy_blob)
     done("hybrid")
 
     # ---- 18. main8M-opt under the profiler; peak memory by stage ----
@@ -1723,7 +1945,14 @@ def main():
     trace_k6 = trace_phase(dev, card, data, params)
     done("trace dump")
 
-    # ---- 20. nothing of JAX or of the JAX package was loaded ----
+    # ---- 20-21. the block mesh: NCCL at world size 1, Gloo ranks on the card ----
+    mesh_enc, mesh_dec = mesh_nccl_phase(dev, card, data, params, lazy_blob,
+                                         blob, hybrid_blob)
+    done("mesh NCCL")
+    mesh_gloo_phase(card, data, lazy_blob, blob)
+    done("mesh Gloo")
+
+    # ---- 22. nothing of JAX or of the JAX package was loaded ----
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib")
                  or m == "lzma_tpu" or m.startswith("lzma_tpu."))
@@ -1740,7 +1969,8 @@ def main():
         record("dp_parse", "lzma_tpu_torch/csrc/dp_parse.cu",
                "lzma_tpu/ops/device_parser.py:804", launches["dp_parse"],
                k3_err, k3_ms, k3_plain, k3_bound, whole_ms=k3_whole,
-               whole_bound_ms=whole_bound[0]),
+               whole_bound_ms=whole_bound[0],
+               mesh_launches=mesh_enc["dp_parse"]),
         record("dp_parse2", "lzma_tpu_torch/csrc/dp_parse2.cu",
                "lzma_tpu/ops/device_parser.py:1128", k4_launches, k3_err,
                k4_ms, k3_plain, k3_bound, whole_ms=k4_whole,
@@ -1750,11 +1980,13 @@ def main():
         record("rc_serialize", "lzma_tpu_torch/csrc/rc_serializer.cu",
                "lzma_tpu/ops/pallas_serializer.py:58", launches["rc_serialize"],
                k2_err, k2_ms, k2_plain, k2_bound, whole_ms=k2_whole,
-               whole_bound_ms=k2_whole_bound[0]),
+               whole_bound_ms=k2_whole_bound[0],
+               mesh_launches=mesh_enc["rc_serialize"]),
         record("ring_decode", "lzma_tpu_torch/csrc/ring_decoder.cu",
                "lzma_tpu/ops/pallas_ring.py:89", launches["ring_decode"],
                k1_err, k1_ms, k1_plain, k1_bound, whole_ms=k1_whole,
-               whole_bound_ms=k1_whole_bound[0], hybrid_launches=hybrid_k1),
+               whole_bound_ms=k1_whole_bound[0], hybrid_launches=hybrid_k1,
+               mesh_launches=mesh_dec["ring_decode"]),
         record("block_decode", "lzma_tpu_torch/csrc/block_decoder.cu",
                "lzma_tpu/ops/pallas_decoder.py:80", k5_launches, k5_err, k5_ms,
                k5_plain, k5_bound, whole_ms=k5_whole,
@@ -1764,6 +1996,7 @@ def main():
                k6_err, k6_whole, k6_plain, k6_whole_bound, whole_ms=k6_whole,
                whole_bound_ms=k6_whole_bound[0], stream_ms=k6_stream,
                stream_bound_ms=k6_stream_bound[0], trace_launches=trace_k6,
+               mesh_launches=mesh_enc["classify"],
                design="scan over each lane's token rows, five grids"),
     ] + probe_records
     print(card)

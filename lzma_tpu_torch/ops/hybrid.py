@@ -160,29 +160,32 @@ def encode_blocks_hybrid(
                           payload)
 
 
-def _group_lanes(n: int, width: int, M: int, device) -> int:
+def _group_lanes(n: int, width: int, M: int, device,
+                 share: float = _MEM_SHARE) -> int:
     """Lanes a list search runs at once: all of them on the CPU; on a CUDA
-    device as many as fit in _MEM_SHARE of its free memory by the
-    search's bytes a position (at least one)."""
+    device as many as fit in `share` of its free memory by the search's
+    bytes a position (at least one)."""
     device = torch.device(device)
     if device.type != "cuda":
         return max(n, 1)
     free, _ = torch.cuda.mem_get_info(device)
     per_lane = width * (_BYTES_PER_CANDIDATE * M + _BYTES_PER_POSITION)
-    return max(1, min(n, int(free * _MEM_SHARE // per_lane)))
+    return max(1, min(n, int(free * share // per_lane)))
 
 
 def _match_lists_grouped(arr, lane_lens, dict_size: int, fb: int, tiers,
-                         device="cuda", timer: PhaseTimer | None = None):
+                         device="cuda", timer: PhaseTimer | None = None,
+                         group: int | None = None):
     """The uncapped candidate lists of every lane, flattened on the card by
     pack_match_lists at 3 pairs a position, in groups of lanes
-    (hybrid._match_lists_grouped).  Returns numpy (fl (n, cap) int32,
-    fd (n, cap) int32, counts (n, width) int32)."""
+    (hybrid._match_lists_grouped): `group` lanes at once, by default
+    _group_lanes'.  Returns numpy (fl (n, cap) int32, fd (n, cap) int32,
+    counts (n, width) int32)."""
     timer = timer or PhaseTimer()
     n, width = arr.shape
     cap = 3 * width
-    M = sum(len(r) for _, r in tier_ranks(tiers))
-    group = _group_lanes(n, width, M, device)
+    if group is None:
+        group = _group_lanes(n, width, _columns(tiers), device)
     fls, fds, cnts = [], [], []
     for i in range(0, n, group):
         out = []
@@ -202,6 +205,11 @@ def _match_lists_grouped(arr, lane_lens, dict_size: int, fb: int, tiers,
         fds.append(fd)
         cnts.append(ce)
     return np.concatenate(fls), np.concatenate(fds), np.concatenate(cnts)
+
+
+def _columns(tiers) -> int:
+    """The candidates a position of the list search at `tiers`."""
+    return sum(len(r) for _, r in tier_ranks(tiers))
 
 
 def _flatten_packed(fl, fd, counts, n_pos_per_lane):

@@ -177,9 +177,10 @@ def test_from_numpy_carries_arrays_over():
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port (cli, entry, utils, ops.hybrid
-    and the host encoder's runtime.native among them) and running a CPU
-    encode (lazy and optimal) and decode, a `.lzma` round trip with the
+    """Importing every module of the port (cli, entry, utils, ops.hybrid,
+    parallel.mesh and multihost and the host encoder's runtime.native
+    among them) and running a CPU encode (lazy and optimal) and decode, a
+    mesh round trip with no process group, a `.lzma` round trip with the
     EOS marker and, where g++ is, both hybrid encodes, loads nothing of
     JAX and nothing of the JAX package (lzma_tpu_torch starts with
     lzma_tpu, hence the exact test), and no library of lzma_tpu/runtime."""
@@ -194,6 +195,10 @@ def test_port_imports_no_jax():
         "[api.decode_blocks(api.encode_blocks(d, block_size=1024, parse=p,"
         " device='cpu'), device='cpu') == d or sys.exit(p)"
         " for p in ('lazy', 'optimal')];"
+        "from lzma_tpu_torch.parallel import mesh;"
+        "mesh.decode_blocks_mesh(mesh.encode_blocks_mesh(d[:600],"
+        " block_size=1024, device='cpu'), device='cpu') == d[:600]"
+        " or sys.exit('mesh');"
         "e = P.LzmaParams(write_eos=True);"
         "api.decode_alone(api.encode_alone(d[:300], e, device='cpu'),"
         " device='cpu') == d[:300] or sys.exit('alone');"

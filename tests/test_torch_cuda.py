@@ -991,3 +991,54 @@ def test_profiler_trace_sees_the_card(card, tmp_path):
     busy = device_busy(prof.trace_path, top=3)
     assert busy["device_events"] >= 10 and 0 < busy["busy_share"] <= 1
     assert len(busy["top"]) == 3
+
+
+@pytest.fixture
+def nccl_mesh(card, tmp_path):
+    """An NCCL group of one rank in this process (file:// store), its mesh
+    on the card; destroyed after the test."""
+    import torch.distributed as dist
+    from lzma_tpu_torch.parallel import mesh, multihost
+
+    multihost.initialize("file://" + str(tmp_path / "store"), 1, 0, "nccl",
+                         "cuda")
+    try:
+        yield mesh.make_mesh("cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("gather", [False, True])
+def test_nccl_mesh_world1_equals_the_lane_encoder(card, nccl_mesh, gather):
+    """8 x 16 KiB through the mesh at world size 1 over NCCL: the container
+    is api.encode_blocks', K2 launches in the encode and K1 in the decode
+    (gather=True runs the all_gather on the card)."""
+    from lzma_tpu_torch.format.properties import LzmaParams as TParams
+    from lzma_tpu_torch.parallel import mesh
+
+    assert (nccl_mesh.world, nccl_mesh.backend, nccl_mesh.comm_device.type) \
+        == (1, "nccl", "cuda")
+    data = b"".join(_blocks(8, 1 << 14, 21))
+    p = TParams(dict_size=1 << 16)
+    cuda_serializer.LAUNCHES = 0
+    blob = mesh.encode_blocks_mesh(data, p, block_size=1 << 14, mesh=nccl_mesh,
+                                   gather=gather)
+    assert cuda_serializer.LAUNCHES > 0
+    assert blob == api.encode_blocks(data, p, block_size=1 << 14, device=card)
+    cuda_ring.LAUNCHES = 0
+    assert mesh.decode_blocks_mesh(blob, mesh=nccl_mesh, gather=gather) == data
+    assert cuda_ring.LAUNCHES > 0
+
+
+def test_nccl_takes_one_card_a_rank_on_the_card(card, tmp_path):
+    import torch.distributed as dist
+    from lzma_tpu_torch import entry
+    from lzma_tpu_torch.parallel import multihost
+
+    n = torch.cuda.device_count() + 1
+    with pytest.raises(ValueError, match="NCCL takes one card a rank"):
+        multihost.initialize("file://" + str(tmp_path / "store"), n, 0, "nccl",
+                             "cuda")
+    assert not dist.is_initialized()
+    with pytest.raises(ValueError, match="NCCL takes one card a rank"):
+        entry.dryrun_multichip(n, device="cuda")

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive lzma_tpu_torch's device block codec, its hybrid encode and its
-block mesh on one NVIDIA GPU and check them.
+"""Drive lzma_tpu_torch's device block codec, its hybrid encode, its
+block mesh, its automatic parameters and its benchmark on one NVIDIA GPU
+and check them.
 
 Run from the repository root with no arguments:
 
@@ -135,12 +136,40 @@ prints its seconds):
  21. MESH_RANKS spawned Gloo ranks whose kernels share the card (the
      collectives on host tensors), 8 of the 32 lanes a rank: rank 0's
      lazy and optimal containers equal phases 6 and 7's; each rank's
-     encode time split into its shard's kernels and the gather
- 22. no module of jax, jaxlib or lzma_tpu was loaded
+     encode time split into its shard's kernels and the gather;
+     decode_blocks_mesh of the optimal container gives the input on every
+     rank (K1 on each); rank 0's v2 and v3 containers (the heads
+     broadcast from rank 0) equal phase 20's, its encode_blocks_mesh_hybrid
+     container phase 16's (the lane groups sized from a 1/MESH_RANKS share
+     of the card's free memory); each rank's seconds and launches
+ 22. auto: select_params and select_dictionary on the first AUTO_SIZE
+     bytes of phase 6's input (text) in AUTO_BLOCK blocks choose
+     PIN_AUTO_PARAMS and the PIN_AUTO_DICT_SHA256 dictionary (the JAX
+     package's choices, pinned by tests/test_torch_autotune.py), each
+     timed on the host beside os.cpu_count(); lzma_tpu_torch.compress with
+     params="auto" (K3 launched), and with train_dict="auto" too (LZTB
+     v3), equals the optimal api.encode_blocks with those choices; both
+     round-trip
+ 23. cli auto: `python -m lzma_tpu_torch e -tune -tdauto -bs{AUTO_BLOCK}
+     -d22 -fb32` and `d` on those bytes (a temporary directory under
+     lzma_tpu_torch/_build): the "tuned:" line, the file equal to
+     api.encode_blocks (the lazy parse) with phase 22's choices, read back
+ 24. the benchmark `b` in this process through cli.main: `b 2`
+     (-backendtpu: dict 2 MiB, 4 MiB a pass, one lane; K6 and K2 launch
+     once a pass, K1 twice) and `b 1 -backendhybrid` (K1 twice a pass,
+     no K6 or K2); the harness CRC-checks every decode; the report lines
+     (KB/s, MIPS) and the wall time
+ 25. dp ratio: bench.py:556-563's device_dp_ratio, text_part()[:256 KiB]
+     in 64 KiB blocks, dict 64 KiB, fb 32, optimal: 61,535 B, ratio 4.260
+     (BENCH_r05), PIN_DP_RATIO_SHA256 (lzma_tpu.ops.api.encode_blocks'
+     container, pinned by a slow test in tests/test_torch_bench.py);
+     round trip; the stdlib reads every block
+ 26. no module of jax, jaxlib or lzma_tpu was loaded
 The last three lines are the card, the kernels' JSON record (K1-K6 and
 P1-P15; K1's carries its launches in phase 16's decode, K6's in phase
-19's dumps, K1, K2, K3 and K6 theirs in phase 20's mesh calls) and the
-result JSON.
+19's dumps, K1, K2, K3 and K6 theirs in phase 20's mesh calls, K1, K2
+and K6 theirs in phase 24's `b -backendtpu` and K1 in `b
+-backendhybrid`) and the result JSON.
 """
 
 from __future__ import annotations
@@ -184,6 +213,24 @@ PIN_HYBRID_OPT_SHA256 = "651eef81b7317ea7717c2b68b561e6759de3a8f932719cbf5392bd5
 PIN_HYBRID_LAZY_SHA256 = "818ecdaccc636d8a19d711b6ca4e280057953a91111a9ffb9fc95b7f0db469dd"
 
 MAIN_BLOCK = 1 << 18
+#: the auto phase: the first AUTO_SIZE bytes of the main input (all text)
+#: in AUTO_BLOCK blocks, and what lzma_tpu's select_params and
+#: select_dictionary choose there with LzmaParams() defaults (pinned by
+#: tests/test_torch_autotune.py)
+AUTO_SIZE, AUTO_BLOCK = 1 << 21, 1 << 18
+PIN_AUTO_PARAMS = (3, 0, 2)
+AUTO_DICT_LEN = 16384
+PIN_AUTO_DICT_SHA256 = "a36c6f3a006e52c356ccfec7ac59bff8cf04c553d5e5db2b0da8a172280d24d3"
+#: bench.py:556-563's device_dp_ratio: text_part()[:DP_RATIO_SIZE], dict
+#: 64 KiB, fb 32, 64 KiB blocks, the optimal parse; BENCH_r05's ratio,
+#: and the size and SHA-256 of lzma_tpu.ops.api.encode_blocks' container
+#: (pinned by tests/test_torch_bench.py, a slow test)
+DP_RATIO_SIZE, DP_RATIO_BLOCK = 1 << 18, 1 << 16
+DP_RATIO = 4.260
+DP_RATIO_BYTES = 61_535
+PIN_DP_RATIO_SHA256 = "255eece96f72fa5520a6d8cf83a772bcaaa39216b4abacb517ad1e8d76836c04"
+#: the `b` phase's passes on -backendtpu and on -backendhybrid
+BENCH_PASSES_TPU, BENCH_PASSES_HYBRID = 2, 1
 #: phase 21: the v2 preset and the v3 dictionary on the mesh, and the
 #: ranks of the Gloo group that share the one card
 MESH_PRESET, MESH_DICT, MESH_RANKS = 1 << 16, 1 << 16, 4
@@ -823,6 +870,20 @@ def drive(api, data, params, parse, dev):
     return blob, t_enc, t_dec, launches, peak, extents
 
 
+def run_cli(args):
+    """`python -m lzma_tpu_torch *args` from the repository root, on the
+    card; raises unless it exits 0.  Returns its standard output."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    run = subprocess.run([sys.executable, "-m", "lzma_tpu_torch", *args],
+                         cwd=root, capture_output=True, text=True, timeout=600)
+    if run.returncode != 0:
+        raise AssertionError(f"python -m lzma_tpu_torch {args[0]}: rc "
+                             f"{run.returncode}\n{run.stdout}{run.stderr}")
+    return run.stdout
+
+
 def alone_phase(dev, card, data):
     """Phase 14: `data` as one `.lzma` stream, known size and EOS, through
     ops.api.encode_alone/decode_alone with the counts of K6, K2 and K1 set
@@ -964,12 +1025,7 @@ def alone_phase(dev, card, data):
             f.write(data[:1 << 20])
         t = time.perf_counter()
         for args in (["e", "-eos", "-q", src, enc], ["d", "-q", enc, dec]):
-            run = subprocess.run([sys.executable, "-m", "lzma_tpu_torch", *args],
-                                 cwd=root, capture_output=True, text=True,
-                                 timeout=600)
-            if run.returncode != 0:
-                raise AssertionError(f"python -m lzma_tpu_torch {args[0]}: rc "
-                                     f"{run.returncode}\n{run.stdout}{run.stderr}")
+            run_cli(args)
         with open(enc, "rb") as f:
             cli_blob = f.read()
         with open(dec, "rb") as f:
@@ -1195,7 +1251,11 @@ def mesh_rank(rank, init_method, data_path, out_dir):
     cuda:0 beside the other ranks': a warm-up, then the 8 MiB through
     encode_blocks_mesh (every rank encodes its MAIN_BLOCK lanes of the
     32), lazy and optimal, with the shard's kernels and the gather timed
-    apart; rank 0 writes both containers, every rank its record."""
+    apart; decode_blocks_mesh of the optimal container (every rank decodes
+    its lanes and receives the whole input); the v2 (MESH_PRESET) and v3
+    (the dictionary in dict.bin) encodes, their heads broadcast from rank
+    0; encode_blocks_mesh_hybrid.  Rank 0 writes the containers, every
+    rank its record."""
     import os
 
     import torch
@@ -1208,20 +1268,42 @@ def mesh_rank(rank, init_method, data_path, out_dir):
         m = multihost.global_mesh("cuda")
         with open(data_path, "rb") as f:
             data = f.read()
+        with open(os.path.join(out_dir, "dict.bin"), "rb") as f:
+            dictionary = f.read()
         params = LzmaParams()
         # the CUDA context and the kernels' library, on every rank
         mesh.encode_blocks_mesh(data[: MESH_RANKS * MAIN_BLOCK], params,
                                 block_size=MAIN_BLOCK, mesh=m)
         rec = {"device": str(m.device), "per_card": m.per_card}
+
+        def keep(name, blob):
+            if rank == 0:
+                with open(os.path.join(out_dir, f"{name}.bin"), "wb") as f:
+                    f.write(blob)
+
         for parse in ("lazy", "optimal"):
             timer = PhaseTimer()
             blob, secs, launches = counted_call(lambda: mesh.encode_blocks_mesh(
                 data, params, block_size=MAIN_BLOCK, mesh=m, parse=parse,
                 timer=timer))
             rec[parse] = dict(seconds=secs, launches=launches, **timer.totals)
-            if rank == 0:
-                with open(os.path.join(out_dir, f"{parse}.bin"), "wb") as f:
-                    f.write(blob)
+            keep(parse, blob)
+        back, secs, launches = counted_call(
+            lambda: mesh.decode_blocks_mesh(blob, mesh=m))
+        rec["decode"] = dict(seconds=secs, launches=launches,
+                             equal=back == data)
+        for name, kw in (("v2", dict(preset_len=MESH_PRESET)),
+                         ("v3", dict(dictionary=dictionary))):
+            blob, secs, launches = counted_call(lambda: mesh.encode_blocks_mesh(
+                data, params, block_size=MAIN_BLOCK, mesh=m, **kw))
+            rec[name] = dict(seconds=secs, launches=launches)
+            keep(name, blob)
+        blob, secs, launches = counted_call(
+            lambda: mesh.encode_blocks_mesh_hybrid(data, params,
+                                                   block_size=MAIN_BLOCK,
+                                                   mesh=m))
+        rec["hybrid"] = dict(seconds=secs, launches=launches)
+        keep("hybrid", blob)
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump(rec, f)
     finally:
@@ -1235,7 +1317,8 @@ def mesh_nccl_phase(dev, card, data, params, lazy_blob, opt_blob, hybrid_blob):
     the same arguments, the mesh hybrid is phase 16's container, and each
     round-trips through decode_blocks_mesh; K2, K3 and K6 launch in its
     encodes and K1 in its decodes.  Returns those launches (encodes,
-    decodes), each summed over the mesh's calls."""
+    decodes), each summed over the mesh's calls, and the v2 and v3
+    containers and the v3 dictionary ({"v2", "v3", "dictionary"})."""
     import os
     import tempfile
 
@@ -1282,6 +1365,7 @@ def mesh_nccl_phase(dev, card, data, params, lazy_blob, opt_blob, hybrid_blob):
                          f"for a {len(dictionary)} B dictionary")
             cases.append((f"v3 dictionary of {len(dictionary)} B",
                           dict(dictionary=dictionary), None))
+            kept = {"dictionary": dictionary}
             for name, kw, want in cases:
                 gather = kw.get("gather", False)
                 api_kw = {k: v for k, v in kw.items() if k != "gather"}
@@ -1301,6 +1385,8 @@ def mesh_nccl_phase(dev, card, data, params, lazy_blob, opt_blob, hybrid_blob):
                     lambda: mesh.decode_blocks_mesh(blob, mesh=m, gather=gather))
                 add(dec, launches)
                 check(f"{name} round trip", back, data)
+                if name[:2] in ("v2", "v3"):
+                    kept[name[:2]] = blob
                 lines.append(
                     f"{name}: encode {t_mesh:.3f} s = {mb / t_mesh:.3f} MB/s "
                     f"(api.encode_blocks {t_api:.3f} s = {mb / t_api:.3f} MB/s), "
@@ -1319,14 +1405,17 @@ def mesh_nccl_phase(dev, card, data, params, lazy_blob, opt_blob, hybrid_blob):
     log(f"[mesh NCCL world 1] {len(data)} B in {len(data) // MAIN_BLOCK} lanes "
         f"of {MAIN_BLOCK} B on {card}: " + "; ".join(lines)
         + f"; launches in the mesh encodes {enc}, decodes {dec}")
-    return enc, dec
+    return enc, dec, kept
 
 
-def mesh_gloo_phase(card, data, lazy_blob, opt_blob):
+def mesh_gloo_phase(card, data, lazy_blob, opt_blob, hybrid_blob, kept):
     """Phase 21: MESH_RANKS Gloo ranks (spawned, mesh_rank) whose kernels
     share the one card, the collectives on host tensors: rank 0's lazy
-    and optimal containers are phases 6 and 7's, and K2 and K6 (K3 in the
-    optimal encode) launch on every rank."""
+    and optimal containers are phases 6 and 7's, its v2 and v3 containers
+    phase 20's (`kept`, with the v3 dictionary), its mesh-hybrid container
+    phase 16's; every rank's decode gives the input; K2 and K6 (K3 in the
+    optimal encode) launch on every rank, and K1 in every rank's
+    decode."""
     import os
     import tempfile
 
@@ -1339,6 +1428,8 @@ def mesh_gloo_phase(card, data, lazy_blob, opt_blob):
         path = os.path.join(tmp, "data.bin")
         with open(path, "wb") as f:
             f.write(data)
+        with open(os.path.join(tmp, "dict.bin"), "wb") as f:
+            f.write(kept["dictionary"])
         t = time.perf_counter()
         torch.multiprocessing.start_processes(
             mesh_rank, args=("file://" + os.path.join(tmp, "store"), path, tmp),
@@ -1348,16 +1439,23 @@ def mesh_gloo_phase(card, data, lazy_blob, opt_blob):
         for r in range(MESH_RANKS):
             with open(os.path.join(tmp, f"rank{r}.json")) as f:
                 recs.append(json.load(f))
-        for parse, want in (("lazy", lazy_blob), ("optimal", opt_blob)):
-            with open(os.path.join(tmp, f"{parse}.bin"), "rb") as f:
+        for name, want in (("lazy", lazy_blob), ("optimal", opt_blob),
+                           ("v2", kept["v2"]), ("v3", kept["v3"]),
+                           ("hybrid", hybrid_blob)):
+            with open(os.path.join(tmp, f"{name}.bin"), "rb") as f:
                 if f.read() != want:
-                    raise AssertionError(f"[mesh] {MESH_RANKS}-rank Gloo {parse} "
-                                         "container differs from phase 6/7's")
-            for r, rec in enumerate(recs):
+                    raise AssertionError(
+                        f"[mesh] {MESH_RANKS}-rank Gloo {name} container "
+                        "differs from world 1's (phases 6, 7, 16, 20)")
+        for r, rec in enumerate(recs):
+            for parse in ("lazy", "optimal"):
                 got = rec[parse]["launches"]
                 if min(got["rc_serialize"], got["classify"]) < 1 or (
                         parse == "optimal" and got["dp_parse"] < 1):
                     raise AssertionError(f"[mesh] rank {r} {parse}: {got}")
+            if not rec["decode"]["equal"] or \
+                    rec["decode"]["launches"]["ring_decode"] < 1:
+                raise AssertionError(f"[mesh] rank {r} decode: {rec['decode']}")
     log(f"[mesh Gloo {MESH_RANKS} ranks] on {card}, every rank's kernels on "
         f"{recs[0]['device']} ({recs[0]['per_card']} ranks a card), "
         f"{len(data) // MAIN_BLOCK // MESH_RANKS} lanes a rank; the ranks' "
@@ -1368,7 +1466,194 @@ def mesh_gloo_phase(card, data, lazy_blob, opt_blob):
                 f"{rec[parse]['shard']:.3f} s, gather {rec[parse]['gather']:.3f} s)"
                 for r, rec in enumerate(recs))
             for parse in ("lazy", "optimal"))
-        + "; rank 0's containers = world 1's")
+        + "; " + "; ".join(
+            f"{name}: " + ", ".join(
+                f"rank {r} {rec[name]['seconds']:.3f} s "
+                f"{rec[name]['launches']}" for r, rec in enumerate(recs))
+            for name in ("decode", "v2", "v3", "hybrid"))
+        + "; rank 0's containers (lazy, optimal, v2, v3, hybrid) = world 1's, "
+        "every rank's decode = the input")
+
+
+def auto_phase(dev, card, data):
+    """Phase 22: select_params and select_dictionary on the first AUTO_SIZE
+    bytes in AUTO_BLOCK blocks (LzmaParams() defaults) choose
+    PIN_AUTO_PARAMS and the PIN_AUTO_DICT_SHA256 dictionary (the JAX
+    package's choices); compress(params="auto") equals the optimal
+    api.encode_blocks with the chosen params, and compress(params="auto",
+    train_dict="auto") the same with the chosen dictionary (LZTB v3);
+    both round-trip.  Returns the chosen params and dictionary."""
+    import os
+
+    import lzma_tpu_torch
+    from lzma_tpu_torch.format.properties import LzmaParams
+    from lzma_tpu_torch.ops import api
+    from lzma_tpu_torch.utils.autotune import select_params
+    from lzma_tpu_torch.utils.dicttrain import select_dictionary
+
+    part = data[:AUTO_SIZE]
+    t = time.perf_counter()
+    chosen = select_params(part, LzmaParams(), block_size=AUTO_BLOCK)
+    t_params = time.perf_counter() - t
+    if (chosen.lc, chosen.lp, chosen.pb) != PIN_AUTO_PARAMS:
+        raise AssertionError(f"[auto] select_params chose {chosen}")
+    t = time.perf_counter()
+    dictionary = select_dictionary(part, LzmaParams(), block_size=AUTO_BLOCK)
+    t_dict = time.perf_counter() - t
+    digest = hashlib.sha256(dictionary).hexdigest()
+    if (len(dictionary), digest) != (AUTO_DICT_LEN, PIN_AUTO_DICT_SHA256):
+        raise AssertionError(f"[auto] select_dictionary chose {len(dictionary)} "
+                             f"B, sha256 {digest}")
+    lines = []
+    for what, kw, want_kw in (
+            ('params="auto"', dict(params="auto"), {}),
+            ('params="auto", train_dict="auto"',
+             dict(params="auto", train_dict="auto"),
+             dict(dictionary=dictionary))):
+        blob, t_auto, auto_launches = counted_call(
+            lambda: lzma_tpu_torch.compress(part, block_size=AUTO_BLOCK,
+                                            device=dev, **kw))
+        want, t_enc, _ = counted_call(
+            lambda: api.encode_blocks(part, chosen, block_size=AUTO_BLOCK,
+                                      parse="optimal", device=dev, **want_kw))
+        if blob != want:
+            raise AssertionError(f"[auto] compress({what}) differs from "
+                                 "api.encode_blocks with its choices")
+        back, t_dec, dec_launches = counted_call(
+            lambda: lzma_tpu_torch.decompress(blob, device=dev))
+        if back != part:
+            raise AssertionError(f"[auto] compress({what}) does not round-trip")
+        if min(auto_launches["rc_serialize"], auto_launches["classify"],
+               dec_launches["ring_decode"]) < 1 or (
+                   not want_kw and auto_launches["dp_parse"] < 1):
+            raise AssertionError(f"[auto] a kernel did not run: {auto_launches}, "
+                                 f"decode {dec_launches}")
+        lines.append(
+            f"compress({what}) {t_auto:.3f} s (the selections on the host "
+            f"and the encode), {len(blob)} B = api.encode_blocks with the "
+            f"choices, whose encode on the card took {t_enc:.3f} s; launches "
+            f"{auto_launches}; decompress {t_dec:.3f} s, K1 "
+            f"{dec_launches['ring_decode']}")
+    log(f"[auto] {len(part)} B in {AUTO_BLOCK} B blocks on {card} with "
+        f"{os.cpu_count()} host CPUs (os.cpu_count): select_params "
+        f"{t_params:.3f} s -> lc{chosen.lc} lp{chosen.lp} pb{chosen.pb}; "
+        f"select_dictionary {t_dict:.3f} s -> {len(dictionary)} B, sha256 = "
+        "the JAX package's choices; " + "; ".join(lines))
+    return chosen, dictionary
+
+
+def cli_auto_phase(dev, card, data, chosen, dictionary):
+    """Phase 23: `python -m lzma_tpu_torch e -tune -tdauto -bs{AUTO_BLOCK}
+    -d22 -fb32` (LzmaParams()'s dict and fast bytes; the command line's
+    own defaults are LzmaAlone's) and `d` on the first AUTO_SIZE bytes, in
+    a temporary directory under lzma_tpu_torch/_build: the file is
+    api.encode_blocks with the auto phase's choices on the command line's
+    -bs route (the lazy parse, as lzma_tpu's -backendtpu; the front door's
+    optimal parse codes the v3 dictionary's own stream otherwise) and
+    reads back."""
+    import os
+    import tempfile
+
+    from lzma_tpu_torch.ops import api
+
+    part = data[:AUTO_SIZE]
+    root = os.path.dirname(os.path.abspath(__file__))
+    work_dir = os.path.join(root, "lzma_tpu_torch", "_build")
+    os.makedirs(work_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=work_dir) as tmp:
+        src, enc, dec = (os.path.join(tmp, x) for x in ("in", "in.lztb", "out"))
+        with open(src, "wb") as f:
+            f.write(part)
+        t = time.perf_counter()
+        out = run_cli(["e", "-tune", "-tdauto", f"-bs{AUTO_BLOCK}", "-d22",
+                       "-fb32", src, enc])
+        secs = [time.perf_counter() - t]
+        tuned = "".join(ln for ln in out.splitlines() if ln.startswith("tuned:"))
+        t = time.perf_counter()
+        run_cli(["d", "-q", enc, dec])
+        secs.append(time.perf_counter() - t)
+        with open(enc, "rb") as f:
+            cli_blob = f.read()
+        with open(dec, "rb") as f:
+            cli_back = f.read()
+    want = api.encode_blocks(part, chosen, block_size=AUTO_BLOCK,
+                             dictionary=dictionary, device=dev)
+    want_tuned = "tuned: -lc{} -lp{} -pb{}".format(*PIN_AUTO_PARAMS)
+    if tuned != want_tuned or cli_blob != want or cli_back != part:
+        raise AssertionError(f"[cli auto] {tuned!r}; the file equals "
+                             f"api.encode_blocks': {cli_blob == want}; reads "
+                             f"back: {cli_back == part}")
+    log(f"[cli auto] python -m lzma_tpu_torch e -tune -tdauto -bs{AUTO_BLOCK} "
+        f"-d22 -fb32 / d on {len(part)} B on {card}: '{tuned}', {len(cli_blob)} "
+        f"B = api.encode_blocks (lazy) with the auto phase's choices, round "
+        f"trip; e {secs[0]:.3f} s, d {secs[1]:.3f} s (each a process)")
+
+
+def bench_phase(card):
+    """Phase 24: the benchmark `b` in this process through cli.main, so
+    that the launch counts can be read: `b {BENCH_PASSES_TPU}`
+    (-backendtpu: ops.api.encode_stream and decode_stream, one lane, dict
+    2 MiB, 4 MiB a pass) launches K6 and K2 once a pass and K1 twice;
+    `b {BENCH_PASSES_HYBRID} -backendhybrid` (the hybrid's stream, decoded
+    on the card) K1 twice a pass and neither K6 nor K2.  The harness
+    CRC-checks every decode.  Returns the launches {backend: {kernel: n}}."""
+    import contextlib
+    import io
+
+    from lzma_tpu_torch import cli
+
+    got = {}
+    for backend, passes in (("tpu", BENCH_PASSES_TPU),
+                            ("hybrid", BENCH_PASSES_HYBRID)):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc, secs, launches = counted_call(
+                lambda: cli.main(["b", str(passes), f"-backend{backend}"]))
+        report = [ln.strip() for ln in out.getvalue().splitlines()
+                  if "KB/s" in ln]
+        want = dict(ring_decode=2 * passes, dp_parse=0,
+                    classify=passes if backend == "tpu" else 0,
+                    rc_serialize=passes if backend == "tpu" else 0)
+        if rc != 0 or launches != want or len(report) != passes + 1:
+            raise AssertionError(f"[b -backend{backend}] rc {rc}, launches "
+                                 f"{launches} (want {want})\n{out.getvalue()}")
+        got[backend] = launches
+        log(f"[b -backend{backend}] {passes} passes of {1 << 22} B (dict 2 MiB) "
+            f"on {card}, CRC-checked: " + " | ".join(report)
+            + f"; wall {secs:.3f} s; launches {launches}")
+    return got
+
+
+def dp_ratio_phase(dev, card):
+    """Phase 25: bench.py:556-563's device_dp_ratio on the card: the first
+    DP_RATIO_SIZE bytes of the text corpus, dict 64 KiB, fb 32, 64 KiB
+    blocks, the optimal parse: DP_RATIO_BYTES bytes, ratio DP_RATIO
+    (BENCH_r05), PIN_DP_RATIO_SHA256 (lzma_tpu.ops.api.encode_blocks'
+    container); round trip; the stdlib reads every block."""
+    from lzma_tpu_torch.bench.corpus import text_part
+    from lzma_tpu_torch.format.properties import LzmaParams
+    from lzma_tpu_torch.ops import api
+
+    part = text_part()[:DP_RATIO_SIZE]
+    params = LzmaParams(dict_size=1 << 16, fast_bytes=32)
+    blob, t_enc, launches = counted_call(lambda: api.encode_blocks(
+        part, params, block_size=DP_RATIO_BLOCK, parse="optimal", device=dev))
+    digest = hashlib.sha256(blob).hexdigest()
+    ratio = round(len(part) / len(blob), 3)
+    if (len(blob), ratio, digest) != (DP_RATIO_BYTES, DP_RATIO,
+                                      PIN_DP_RATIO_SHA256):
+        raise AssertionError(f"[dp ratio] {len(blob)} B, ratio {ratio}, "
+                             f"sha256 {digest}")
+    back, t_dec, dec_launches = counted_call(
+        lambda: api.decode_blocks(blob, device=dev))
+    if back != part:
+        raise AssertionError("[dp ratio] the container does not round-trip")
+    stdlib_reads_every_block(blob, part, params)
+    log(f"[dp ratio] {len(part)} B of text in {DP_RATIO_BLOCK} B blocks, dict "
+        f"64 KiB, fb 32, optimal, on {card}: {len(blob)} B, ratio {ratio} "
+        f"(BENCH_r05 device_dp_ratio {DP_RATIO}), sha256 = the JAX package's; "
+        f"encode {t_enc:.3f} s {launches}, decode {t_dec:.3f} s "
+        f"{dec_launches}; every block decodes with the stdlib lzma module")
 
 
 def main():
@@ -1946,13 +2231,27 @@ def main():
     done("trace dump")
 
     # ---- 20-21. the block mesh: NCCL at world size 1, Gloo ranks on the card ----
-    mesh_enc, mesh_dec = mesh_nccl_phase(dev, card, data, params, lazy_blob,
-                                         blob, hybrid_blob)
+    mesh_enc, mesh_dec, mesh_kept = mesh_nccl_phase(
+        dev, card, data, params, lazy_blob, blob, hybrid_blob)
     done("mesh NCCL")
-    mesh_gloo_phase(card, data, lazy_blob, blob)
+    mesh_gloo_phase(card, data, lazy_blob, blob, hybrid_blob, mesh_kept)
     done("mesh Gloo")
 
-    # ---- 22. nothing of JAX or of the JAX package was loaded ----
+    # ---- 22-23. params="auto", train_dict="auto"; -tune -tdauto ----
+    chosen, dictionary = auto_phase(dev, card, data)
+    done("auto")
+    cli_auto_phase(dev, card, data, chosen, dictionary)
+    done("cli auto")
+
+    # ---- 24. the benchmark b on both backends ----
+    bench_launches = bench_phase(card)
+    done("b")
+
+    # ---- 25. device_dp_ratio ----
+    dp_ratio_phase(dev, card)
+    done("dp ratio")
+
+    # ---- 26. nothing of JAX or of the JAX package was loaded ----
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib")
                  or m == "lzma_tpu" or m.startswith("lzma_tpu."))
@@ -1981,12 +2280,15 @@ def main():
                "lzma_tpu/ops/pallas_serializer.py:58", launches["rc_serialize"],
                k2_err, k2_ms, k2_plain, k2_bound, whole_ms=k2_whole,
                whole_bound_ms=k2_whole_bound[0],
-               mesh_launches=mesh_enc["rc_serialize"]),
+               mesh_launches=mesh_enc["rc_serialize"],
+               bench_launches=bench_launches["tpu"]["rc_serialize"]),
         record("ring_decode", "lzma_tpu_torch/csrc/ring_decoder.cu",
                "lzma_tpu/ops/pallas_ring.py:89", launches["ring_decode"],
                k1_err, k1_ms, k1_plain, k1_bound, whole_ms=k1_whole,
                whole_bound_ms=k1_whole_bound[0], hybrid_launches=hybrid_k1,
-               mesh_launches=mesh_dec["ring_decode"]),
+               mesh_launches=mesh_dec["ring_decode"],
+               bench_launches=bench_launches["tpu"]["ring_decode"],
+               bench_hybrid_launches=bench_launches["hybrid"]["ring_decode"]),
         record("block_decode", "lzma_tpu_torch/csrc/block_decoder.cu",
                "lzma_tpu/ops/pallas_decoder.py:80", k5_launches, k5_err, k5_ms,
                k5_plain, k5_bound, whole_ms=k5_whole,
@@ -1997,6 +2299,7 @@ def main():
                whole_bound_ms=k6_whole_bound[0], stream_ms=k6_stream,
                stream_bound_ms=k6_stream_bound[0], trace_launches=trace_k6,
                mesh_launches=mesh_enc["classify"],
+               bench_launches=bench_launches["tpu"]["classify"],
                design="scan over each lane's token rows, five grids"),
     ] + probe_records
     print(card)

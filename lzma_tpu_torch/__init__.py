@@ -4,8 +4,9 @@ A second package beside the JAX one.  It imports ``torch`` and never
 ``jax``, and nothing of ``lzma_tpu``: what it needs of that package's
 jax-free modules it keeps as its own copies under the same names
 (``core``, ``format``, ``parallel.blocks``, ``bench``,
-``utils.dicttrain``), held equal to the originals by the tests, so both
-packages write and read the same `.lzma` streams and LZTB containers.
+``utils.{autotune,crc,dicttrain}``), held equal to the originals by the
+tests, so both packages write and read the same `.lzma` streams and LZTB
+containers and choose the same parameters.
 
 - ``ops``      the lane-parallel codec: lazy and optimal-parse tokenizers,
                classify + bit lowering, range encoder and decoder (plain
@@ -15,7 +16,10 @@ packages write and read the same `.lzma` streams and LZTB containers.
                encoder (``runtime/src/host_encoder.cpp``) with ``g++``,
                and loads both with ctypes
 - ``csrc``     the hand-written Hopper (sm_90a) kernels
-- ``utils``    trained dictionaries, the decision trace, profiling
+- ``utils``    trained and auto-sized dictionaries, lc/lp/pb selection,
+               CRC-32, the decision trace, profiling
+- ``bench``    the benchmark data, the text corpus, the `b` command's
+               rating loop (``bench.harness``) and the kernels' A/B
 - ``cli``      the LzmaAlone command line on the device codec
                (``python -m lzma_tpu_torch``)
 - ``entry``    the lane encode step and its example batch
@@ -33,7 +37,7 @@ def compress(data: bytes, params: LzmaParams | None = None,
              container: str = "lztb", block_size: int = 1 << 20,
              num_threads: int = 0, preset_len: int = 0,
              dictionary: bytes = b"", train_dict=0, backend: str = "device",
-             device="cuda") -> bytes:
+             device="cuda", **kw) -> bytes:
     """Compress in memory into the block-parallel LZTB container, as
     ``lzma_tpu.compress(container="lztb", backend=...)``.
     backend="device": the optimal parse on the card, every block a lane.
@@ -46,22 +50,37 @@ def compress(data: bytes, params: LzmaParams | None = None,
     input.  `container` is there only so that calls written for
     ``lzma_tpu.compress`` run unchanged: it takes one value, "lztb", the
     default here, where the reference's is "alone" (``ops.api.encode_alone``
-    writes a `.lzma` file).  ``params="auto"`` and ``train_dict="auto"``
-    need the host codec's search and are not ported."""
+    writes a `.lzma` file).  Keyword arguments are ``LzmaParams`` fields
+    (``dict_size=``, ``lc=``, ...) in place of `params`.
+    ``params="auto"`` picks lc/lp/pb by measured cost on a spread sample
+    of the input (``utils.autotune.select_params``; the keyword fields are
+    its baseline), and ``train_dict="auto"`` trains a dictionary and sizes
+    it against its storage cost, possibly to none
+    (``utils.dicttrain.select_dictionary``); both size their candidates
+    with the host encoder (``runtime.native``), and raise where it cannot
+    be built."""
     if backend not in ("device", "hybrid"):
         raise ValueError(f"unknown backend: {backend!r} (the port has "
                          '"device" and "hybrid")')
-    if params == "auto" or train_dict == "auto":
-        raise NotImplementedError(
-            '"auto" parameters and dictionaries need the host codec')
     if container == "alone":
         raise ValueError(f'backend="{backend}" encodes the block-parallel '
                          'LZTB container; pass container="lztb"')
     if container != "lztb":
         raise ValueError(f"unknown container: {container!r}")
-    if train_dict:
-        if dictionary:
-            raise ValueError("pass either dictionary= or train_dict=, not both")
+    if train_dict and dictionary:
+        raise ValueError("pass either dictionary= or train_dict=, not both")
+    if params == "auto":
+        from .utils.autotune import select_params
+
+        params = select_params(data, LzmaParams(**kw) if kw else None,
+                               block_size=block_size)
+        kw = {}
+    params = params or (LzmaParams(**kw) if kw else None)
+    if train_dict == "auto":
+        from .utils.dicttrain import select_dictionary
+
+        dictionary = select_dictionary(data, params, block_size=block_size)
+    elif train_dict:
         from .utils.dicttrain import train_dictionary
 
         dictionary = train_dictionary(data, train_dict)

@@ -1,28 +1,38 @@
 """LzmaAlone-compatible command line on the device codec.
 
-Port of ``lzma_tpu/cli.py``'s `e`/`d` commands on its ``-backendtpu``
-and ``-backendhybrid`` routes: the reference's switch grammar
-(LzmaAlone.java:42-134), the same defaults (dict 2^23, fb 128, lc3 lp0
-pb2) and the `.lzma` and LZTB files of the JAX package, byte for byte.
+Port of ``lzma_tpu/cli.py`` on its ``-backendtpu`` and ``-backendhybrid``
+routes: the reference's switch grammar (LzmaAlone.java:42-134), the same
+defaults (dict 2^23, fb 128, lc3 lp0 pb2) and the `.lzma` and LZTB files
+of the JAX package, byte for byte.
 
     python -m lzma_tpu_torch e [switches] in out    encode
     python -m lzma_tpu_torch d [switches] in out    decode
+    python -m lzma_tpu_torch b [switches] [passes]  benchmark
 
 `e` writes one `.lzma` stream (``ops.api.encode_alone``; ``-eos`` ends
 it with the marker), or with ``-bs{N}`` an LZTB container of N-byte
 blocks (``ops.api.encode_blocks``, the lazy parse; ``-ps{N}`` a shared
-preset, LZTB v2; ``-td{N}`` a trained N-byte dictionary, LZTB v3).
-``-backendhybrid -bs{N}`` writes the container by the hybrid encode (the
-card's search, the host's coder, ``ops.hybrid``): ``-a2`` (the default)
-the candidate lists and the optimal parse, ``-a0``/``-a1`` the lazy
-tokens; ``-mf`` picks the match finder of a trained dictionary's stream
-and ``-t{N}`` the host threads.  `d` reads either container on the
-device.  ``-backendtpu`` (the default) names the device codec, which
-takes none of ``-a``, ``-mf`` and ``-t``; the switches of the host
-codecs (``-backendscalar``, ``-backendnative``, ``-tune``, ``-tdauto``)
-and the benchmark `b` end in "error: ..." and exit 1, as does any
-failure.  `main(device="cpu")` runs the plain versions instead of the
-card's kernels.
+preset, LZTB v2; ``-td{N}`` a trained N-byte dictionary, LZTB v3,
+``-tdauto`` one sized against its storage cost).  ``-tune`` picks
+lc/lp/pb by measured cost on the input's first bytes; every encode route
+reads the tuned values.  ``-backendhybrid -bs{N}`` writes the container
+by the hybrid encode (the card's search, the host's coder,
+``ops.hybrid``): ``-a2`` (the default) the candidate lists and the
+optimal parse, ``-a0``/``-a1`` the lazy tokens; ``-mf`` picks the match
+finder of a trained dictionary's stream and ``-t{N}`` the host threads.
+`d` reads either container on the device.  `b` is the reference's
+rating loop (``bench.harness``, LzmaBench.java): `passes` (10 unless
+given) encodes of dict + 2 MiB of benchmark data (dict 2 MiB unless
+``-d``), each decoded twice and CRC-checked; ``-backendtpu`` rates the
+device codec's one-lane stream (``ops.api.encode_stream`` and
+``decode_stream``), ``-backendhybrid`` the hybrid's
+(``ops.hybrid.encode_stream_hybrid_optimal``), decoded on the card.
+``-backendtpu`` (the default) names the device codec, which takes none
+of ``-a``, ``-mf`` and ``-t``; the host codecs' backends
+(``-backendscalar``, ``-backendnative``) end in "error: ..." and exit 1,
+as does any failure, a missing CUDA device among them.
+`main(device="cpu")` runs the plain versions instead of the card's
+kernels.
 """
 
 from __future__ import annotations
@@ -34,11 +44,12 @@ from .format.properties import LzmaParams
 BANNER = "\nLZMA (torch) 0.1 — the device codec of lzma_tpu on CUDA\n"
 
 HELP = """
-Usage:  lzma_tpu_torch <e|d> [<switches>...] inputFile outputFile
+Usage:  lzma_tpu_torch <e|d|b> [<switches>...] inputFile outputFile
   e: encode file
   d: decode file
+  b: Benchmark [passes]
 <Switches>
-  -d{N}:  set dictionary - [0,28], default: 23 (8MB)
+  -d{N}:  set dictionary - [0,28], default: 23 (8MB; b: 21)
   -fb{N}: set number of fast bytes - [5, 273], default: 128
   -lc{N}: set number of literal context bits - [0, 8], default: 3
   -lp{N}: set number of literal pos bits - [0, 4], default: 0
@@ -49,11 +60,14 @@ Usage:  lzma_tpu_torch <e|d> [<switches>...] inputFile outputFile
   -backend{B}: tpu | hybrid (default: tpu, the device codec; hybrid =
           the card's match search + the host's coder, encode with
           -bs{N}; -a2 [default] the candidate lists + the host optimal
-          parse, -a0/-a1 the lazy device tokenizer)
+          parse, -a0/-a1 the lazy device tokenizer; b rates its stream
+          and decodes it on the card)
   -bs{N}: block size (bytes) -> block-parallel LZTB container
   -ps{N}: shared preset-dictionary bytes for block-parallel mode (LZTB v2)
   -td{N}: train an N-byte dictionary from the input and store it in the
-          container, priming every block (LZTB v3)
+          container, priming every block (LZTB v3); -tdauto auto-sizes
+          the dictionary against its storage cost
+  -tune:  pick lc/lp/pb by measured cost on the input's first bytes
   -t{N}:  host threads of the hybrid encode
   -q:     quiet
 """
@@ -64,19 +78,22 @@ TRAIN_SAMPLE_BYTES = 64 << 20
 
 class CommandLine:
     """Switch parser with the reference's grammar (lzma_tpu.cli.CommandLine).
-    A switch of the host codecs parses, as there, and is recorded in
+    A backend of the host codecs parses, as there, and is recorded in
     `unsupported` for the dispatch to refuse; ``-a``, ``-mf`` and ``-t``
-    are recorded in `hybrid_only` too, which the device codec refuses."""
+    are recorded in `hybrid_only`, which the device codec refuses."""
 
     def __init__(self):
         self.command = None
+        self.num_passes = 10
         self.dict_size = 1 << 23
+        self.dict_defined = False
         self.lc, self.lp, self.pb = 3, 0, 2
         self.fb = 128
         self.eos = False
         self.block_size = 0
         self.preset_len = 0
         self.train_dict = 0
+        self.tune = False
         self.backend = "tpu"
         self.algorithm = 2
         self.match_finder = "bt4"
@@ -101,6 +118,7 @@ class CommandLine:
                 self.block_size = int(s[2:])
             elif s.startswith("d"):
                 self.dict_size = 1 << int(s[1:])
+                self.dict_defined = True
             elif s.startswith("fb"):
                 self.fb = int(s[2:])
             elif s.startswith("a"):
@@ -123,10 +141,10 @@ class CommandLine:
                 self.match_finder = mf
                 self.hybrid_only.append("-mf")
             elif s == "tune":
-                self.unsupported.append("-tune")
+                self.tune = True
             elif s.startswith("td"):
                 if s[2:] == "auto":
-                    self.unsupported.append("-tdauto")
+                    self.train_dict = "auto"
                 else:
                     self.train_dict = int(s[2:])
                     if self.train_dict < 1:
@@ -162,7 +180,15 @@ class CommandLine:
                     return False
                 self.command = cmd
             elif pos == 1:
-                self.in_file = s
+                if self.command == "b":
+                    try:
+                        self.num_passes = int(s)
+                    except ValueError:
+                        return False
+                    if self.num_passes < 1:
+                        return False
+                else:
+                    self.in_file = s
             elif pos == 2:
                 self.out_file = s
             else:
@@ -197,11 +223,10 @@ def main(argv=None, device="cuda") -> int:
 
 
 def _dispatch(cmd: CommandLine, device) -> int:
+    import torch
+
     from .ops import api
 
-    if cmd.command == "b":
-        print("error: the benchmark (b) is not ported to the device codec")
-        return 1
     if cmd.unsupported:
         print(f"error: {', '.join(cmd.unsupported)} not supported: the port "
               "has the device codec and the hybrid")
@@ -210,6 +235,11 @@ def _dispatch(cmd: CommandLine, device) -> int:
         print(f"error: {', '.join(cmd.hybrid_only)} not supported by the "
               "device codec (-backendhybrid takes them)")
         return 1
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        print("error: no CUDA device: the device codec runs on the card")
+        return 1
+    if cmd.command == "b":
+        return _benchmark(cmd, device)
     hybrid = cmd.command == "e" and cmd.backend == "hybrid"
     if hybrid and not cmd.block_size:
         print("error: -backendhybrid encodes the block container; pass -bs{N}")
@@ -226,16 +256,31 @@ def _dispatch(cmd: CommandLine, device) -> int:
     except OSError as e:
         print(f"error: cannot read {cmd.in_file}: {e.strerror}")
         return 1
+    if cmd.command == "e" and cmd.tune:
+        # measured lc/lp/pb on the input's first bytes; every encode route
+        # below reads the tuned values through cmd.params()
+        from .utils.autotune import select_params
+
+        tuned = select_params(data[:TRAIN_SAMPLE_BYTES], cmd.params(),
+                              block_size=cmd.block_size or (1 << 20))
+        cmd.lc, cmd.lp, cmd.pb = tuned.lc, tuned.lp, tuned.pb
+        if not cmd.quiet:
+            print(f"tuned: -lc{tuned.lc} -lp{tuned.lp} -pb{tuned.pb}")
     tag = "device"
     if cmd.command == "e":
         params = cmd.params().validated_for_encode()
         if cmd.block_size:
             dictionary = b""
-            if cmd.train_dict:
+            sample = data[:TRAIN_SAMPLE_BYTES]
+            if cmd.train_dict == "auto":
+                from .utils.dicttrain import select_dictionary
+
+                dictionary = select_dictionary(sample, cmd.params(),
+                                               block_size=cmd.block_size)
+            elif cmd.train_dict:
                 from .utils.dicttrain import train_dictionary
 
-                dictionary = train_dictionary(data[:TRAIN_SAMPLE_BYTES],
-                                              cmd.train_dict)
+                dictionary = train_dictionary(sample, cmd.train_dict)
             kw = dict(block_size=cmd.block_size, preset_len=cmd.preset_len,
                       dictionary=dictionary, device=device)
             if hybrid:
@@ -265,4 +310,26 @@ def _dispatch(cmd: CommandLine, device) -> int:
         return 1
     if not cmd.quiet:
         print(f"{cmd.command}: {len(data)} -> {len(out)} bytes [{tag}]")
+    return 0
+
+
+def _benchmark(cmd: CommandLine, device) -> int:
+    """`b`: the rating loop on the device codec's one-lane stream, or with
+    -backendhybrid on the hybrid's; both decoded on `device`."""
+    from .bench.harness import run_benchmark
+
+    dict_size = cmd.dict_size if cmd.dict_defined else (1 << 21)
+    params = LzmaParams(dict_size=dict_size)
+    encode_fn = None    # the harness's own: api.encode_stream on `device`
+    if cmd.backend == "hybrid":
+        from .ops.hybrid import encode_stream_hybrid_optimal
+        from .runtime import native
+
+        native.require("b -backendhybrid")   # before any pass, not after one
+
+        def encode_fn(d):
+            return encode_stream_hybrid_optimal(d, params, device=device)
+
+    run_benchmark(cmd.num_passes, dict_size, params=params,
+                  encode_fn=encode_fn, device=device)
     return 0

@@ -4,9 +4,11 @@ ctypes.
 The port's own copy of what ``lzma_tpu/runtime/native.py`` gives the
 hybrid: ``encode_token_blocks`` (the lazy hybrid's serializer),
 ``encode_candidate_blocks`` (the optimal parser over the card's candidate
-lists) and ``encode_stream`` (one raw stream: an LZTB v3 container's
-trained dictionary).  The source is ``runtime/src/host_encoder.cpp``, the
-encoder half of the JAX package's C++ runtime.  At first use it is
+lists) and ``encode_stream`` (one raw stream, after a preset or not: an
+LZTB v3 container's trained dictionary, and the sizes by which
+``utils.autotune`` and ``utils.dicttrain`` choose).  The source is
+``runtime/src/host_encoder.cpp``, the encoder half of the JAX package's
+C++ runtime.  At first use it is
 compiled with the JAX package's flags into ``lzma_tpu_torch/_build/``,
 under a name made of the SHA-256 of the source, the flags and the host's
 CPU model (``-march=native``), so an edited source builds anew and never
@@ -112,6 +114,9 @@ def _bind(lib):
     lib.lzt_encode.restype = i64
     lib.lzt_encode.argtypes = [ctypes.c_char_p, i64, i32, i32, i32, u32, i32,
                                i32, i32, i32, p, i64]
+    lib.lzt_encode_pre.restype = i64
+    lib.lzt_encode_pre.argtypes = [ctypes.c_char_p, i64, i64, i32, i32, i32,
+                                   u32, i32, i32, i32, i32, p, i64]
     lib.lzt_encode_bound.restype = i64
     lib.lzt_encode_bound.argtypes = [i64]
     lib.lzt_encode_token_blocks.restype = i64
@@ -133,6 +138,17 @@ def available() -> bool:
         return True
     except RuntimeError:
         return False
+
+
+def require(caller: str) -> None:
+    """Build and load the host encoder for `caller`, which sizes its
+    choices with it, or raise a RuntimeError whose cause is the build's
+    error: the port has no scalar codec to size them with instead."""
+    try:
+        _lib()
+    except (RuntimeError, OSError) as e:
+        raise RuntimeError(f"{caller} needs the host encoder, which did not "
+                           "build") from e
 
 
 def _threads(num_threads: int) -> int:
@@ -199,20 +215,26 @@ def encode_candidate_blocks(data_padded, block_size: int, lc: int, lp: int,
     return out.raw[:total], list(sizes)
 
 
-def encode_stream(data: bytes, params: LzmaParams) -> bytes:
+def encode_stream(data: bytes, params: LzmaParams,
+                  preset: bytes = b"") -> bytes:
     """One raw LZMA stream by the optimal parse with `params`' match
-    finder (native.encode_stream with no preset)."""
-    if len(data) > MAX_STREAM:
+    finder (native.encode_stream).  A `preset` primes the window: matches
+    and literal context reach into it, and only `data` is coded."""
+    if len(data) + len(preset) > MAX_STREAM:
         raise ValueError("single LZMA stream too large for int32 window "
                          "positions")
     params = params.validated_for_encode()
     lib = _lib()
     cap = lib.lzt_encode_bound(len(data))
     out = ctypes.create_string_buffer(cap)
-    n = lib.lzt_encode(data, len(data), params.lc, params.lp, params.pb,
-                       params.dict_size, params.fast_bytes,
-                       _MF_INDEX[params.match_finder],
-                       1 if params.write_eos else 0, 1, out, cap)
+    args = (params.lc, params.lp, params.pb, params.dict_size,
+            params.fast_bytes, _MF_INDEX[params.match_finder],
+            1 if params.write_eos else 0, 1, out, cap)
+    if preset:
+        buf = preset + data
+        n = lib.lzt_encode_pre(buf, len(buf), len(preset), *args)
+    else:
+        n = lib.lzt_encode(data, len(data), *args)
     if n < 0:
         raise ValueError(f"host encode failed: {n}")
     return out.raw[:n]

@@ -5,10 +5,12 @@
 // behaviour unchanged: the static tables, the probability layout and the
 // range encoder, the match finders (BT2/BT4/HC4/FAST4 and CAND, the
 // precomputed candidate lists), the optimal and lazy parsers with symbol
-// emission, and the token serializer.  The decoder half is left out.  Four
+// emission, and the token serializer.  The decoder half is left out.  Five
 // C entries: lzt_encode (one raw stream; the trained dictionary of an LZTB
-// v3 container), lzt_encode_bound, lzt_encode_token_blocks (the hybrid's
-// lazy half) and lzt_encode_candidate_blocks (its optimal half).  Output is
+// v3 container), lzt_encode_pre (one raw stream after a preset: the sizing
+// of a trained dictionary's candidates), lzt_encode_bound,
+// lzt_encode_token_blocks (the hybrid's lazy half) and
+// lzt_encode_candidate_blocks (its optimal half).  Output is
 // byte-identical to the original library's (tests/test_torch_hybrid.py).
 //
 // Reference behavior pinned against (semantics, not code):
@@ -2080,6 +2082,32 @@ int64_t lzt_encode(const uint8_t* data, int64_t n, int lc, int lp, int pb,
 }
 
 int64_t lzt_encode_bound(int64_t n) { return n + n / 8 + 4096; }
+
+// Encode payload with a preset dictionary.  `buf` holds preset||payload
+// contiguously (total_n bytes); the first preset_len bytes are preset.
+// The preset primes the dictionary window (matches and literal context
+// may reach into it); only the payload bytes are coded.
+int64_t lzt_encode_pre(const uint8_t* buf, int64_t total_n, int64_t preset_len,
+                       int lc, int lp, int pb, uint32_t dict_size, int fb,
+                       int mf, int eos, int optimal, uint8_t* out,
+                       int64_t out_cap) {
+  if (total_n < 0 || total_n > (int64_t)0x7FF00000) return -1;  // int32 positions
+  if (lc < 0 || lc > 8 || lp < 0 || lp > 4 || pb < 0 || pb > 4) return -1;
+  if (fb < 5 || fb > kMatchMaxLen) return -1;
+  if (dict_size < 1 || dict_size > (1u << 29)) return -1;
+  if (preset_len < 0 || preset_len > total_n) return -1;
+  EncParams p;
+  p.lc = lc; p.lp = lp; p.pb = pb;
+  p.dict_size = dict_size;
+  p.fb = fb; p.mf = mf; p.eos = eos; p.optimal = optimal;
+  std::vector<uint8_t> sink;
+  sink.reserve((size_t)(total_n - preset_len) + (size_t)(total_n - preset_len) / 8 + 256);
+  Encoder enc(p);
+  enc.encode(buf, (size_t)total_n, &sink, (size_t)preset_len);
+  if ((int64_t)sink.size() > out_cap) return -6;
+  std::memcpy(out, sink.data(), sink.size());
+  return (int64_t)sink.size();
+}
 
 // Serialize precomputed token streams (hybrid TPU pipeline).  Blocks laid
 // out back-to-back: block i's tokens are tok_counts[i] triplets starting

@@ -7,15 +7,19 @@ its d-mers' frequencies, take the best segment of each epoch while
 zeroing the d-mers it covers, and lay the best segments at the END of
 the dictionary, nearest the coded data.  The dictionary primes every
 lane of an LZTB v3 container (``ops/api.encode_blocks(dictionary=)``).
-Pure NumPy, deterministic.  ``select_dictionary`` (the auto-sized
-choice) needs the host codec and is not ported.
+Pure NumPy, deterministic.  ``select_dictionary`` sizes the dictionary
+against its storage cost (``compress(train_dict="auto")``), by the host
+encoder's streams (``runtime.native.encode_stream``); where that encoder
+cannot be built, it raises.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from ..format.properties import LzmaParams
 from ..parallel.blocks import MAX_DICT_LEN
+from ..runtime import native
 
 _FNV = np.uint64(0x100000001B3)
 _MIX = np.uint64(0x9E3779B97F4A7C15)
@@ -114,3 +118,65 @@ def train_dictionary(
     chosen.sort(key=lambda t: t[0])
     cat = b"".join(seg for _, seg in chosen)
     return cat[-dict_size:]
+
+
+def select_dictionary(
+    data,
+    params=None,
+    block_size: int = 1 << 20,
+    max_size: int = 1 << 16,
+    sample_blocks: int = 8,
+    **train_kw,
+) -> bytes:
+    """Train a dictionary and auto-size it against its storage cost.
+
+    A stored dictionary (LZTB v3) is paid for in the container, so the
+    right size depends on the data, and on low-redundancy data NO
+    dictionary is best.  This trains once at `max_size`, then (the
+    trainer lays segments worst to best, so every suffix is itself a
+    well-ordered dictionary) scores the suffix lengths max, max/2, ...
+    down to 256, and 0, by compressed cost on a spread sample of blocks
+    (the payload extrapolated to the full block count, the dictionary's
+    own stream included) and returns the cheapest, possibly ``b""``.
+    """
+    if isinstance(data, (bytes, bytearray, memoryview)):
+        buf = bytes(data)
+    else:
+        buf = b"".join(bytes(s) for s in data)
+    params = (params or LzmaParams()).validated_for_encode()
+    native.require("select_dictionary")
+
+    def enc(b, pre=b""):
+        return native.encode_stream(b, params, preset=pre)
+
+    n_blocks = max(1, (len(buf) + block_size - 1) // block_size)
+    k = max(1, min(sample_blocks, n_blocks))
+    # evenly spread indices INCLUDING the last block (a stepped slice
+    # front-biases the sample whenever n_blocks % k != 0)
+    if k == 1:
+        idxs = [0]
+    else:
+        idxs = sorted({round(i * (n_blocks - 1) / (k - 1)) for i in range(k)})
+    sample = [buf[i * block_size : (i + 1) * block_size] for i in idxs]
+    scale = n_blocks / len(sample)
+
+    trained = train_dictionary(buf, max_size, **train_kw)
+    length = len(trained)
+    candidates = []
+    while length >= 256:
+        candidates.append(length)
+        length //= 2
+    candidates.append(0)
+    costs = {}
+    for cand in candidates:
+        dct = trained[len(trained) - cand :] if cand else b""
+        dict_cost = len(enc(dct)) + 8 if dct else 0
+        payload = sum(len(enc(b, dct)) for b in sample)
+        costs[cand] = dict_cost + payload * scale
+    # sampling extrapolation is noisy (blocks containing a segment's own
+    # source match it once, which scales misleadingly): take the SMALLEST
+    # candidate within 0.2% of the best, so noise-level "wins" collapse
+    # to a smaller, or no, dictionary
+    floor = min(costs.values()) * 1.002
+    cand = min(c for c, cost in costs.items() if cost <= floor)
+    return trained[len(trained) - cand :] if cand else b""

@@ -963,6 +963,34 @@ def test_hybrid_encodes_on_the_card_equal_the_cpu(card):
             assert api.decode_blocks(blob, device=card) == data
 
 
+def test_compress_auto_on_the_card_equals_the_cpu(card):
+    """params="auto" and train_dict="auto" choose on the host and encode
+    on the card the container the CPU's plain versions write."""
+    import lzma_tpu_torch
+    from lzma_tpu_torch.format.properties import LzmaParams as TParams
+
+    data = b"".join(_blocks(3, 2000, 5))
+    for kw in (dict(params="auto", dict_size=1 << 12),
+               dict(train_dict="auto", params=TParams(dict_size=1 << 12))):
+        blob = lzma_tpu_torch.compress(data, block_size=2048, device=card, **kw)
+        assert blob == lzma_tpu_torch.compress(data, block_size=2048,
+                                               device="cpu", **kw)
+        assert lzma_tpu_torch.decompress(blob, device=card) == data
+
+
+def test_cli_benchmark_runs_on_the_card(card, capsys):
+    """`b 1 -d18`: one pass of 2.25 MiB, K6 and K2 once, K1 twice (the
+    harness CRC-checks both decodes)."""
+    from lzma_tpu_torch import cli
+
+    for mod in (cuda_classify, cuda_serializer, cuda_ring):
+        mod.LAUNCHES = 0
+    assert cli.main(["b", "1", "-d18"]) == 0
+    assert capsys.readouterr().out.count(" KB/s ") == 4
+    assert (cuda_classify.LAUNCHES, cuda_serializer.LAUNCHES,
+            cuda_ring.LAUNCHES) == (1, 1, 2)
+
+
 def test_phase_timer_covers_an_async_kernel(card):
     """torch.cuda._sleep spins the card for a number of cycles and returns
     at once; a phase that names its tensor waits for it."""

@@ -313,6 +313,7 @@ CLI_CASES = {
     "lazy-a1": ["e", "-bs2048", "-a1", "-d12"],
     "lazy-a0-preset": ["e", "-bs2048", "-a0", "-ps500"],
     "optimal-td-mf-t": ["e", "-bs2048", "-td300", "-mfhc4", "-fb64", "-t2"],
+    "optimal-tune-tdauto": ["e", "-bs2048", "-tune", "-tdauto"],
 }
 
 
@@ -335,6 +336,6 @@ def test_cli_backendhybrid_refusals(host, tmp_path, capsys):
     src.write_bytes(TEXT[:500])
     out = str(tmp_path / "o")
     for args in (["e", "-backendhybrid"], ["e", "-backendhybrid", "-bs256", "-eos"],
-                 ["e", "-backendhybrid", "-bs256", "-tune"]):
+                 ["e", "-backendhybrid", "-tune", "-tdauto"]):
         assert tcli.main([*args, str(src), out], device="cpu") == 1
         assert "error:" in capsys.readouterr().out

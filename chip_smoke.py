@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive lzma_tpu_torch's device block codec, its hybrid encode, its
-block mesh, its automatic parameters and its benchmark on one NVIDIA GPU
-and check them.
+block mesh, its automatic parameters, its benchmark and its file codec
+on one NVIDIA GPU and check them.
 
 Run from the repository root with no arguments:
 
@@ -164,12 +164,29 @@ prints its seconds):
      (BENCH_r05), PIN_DP_RATIO_SHA256 (lzma_tpu.ops.api.encode_blocks'
      container, pinned by a slow test in tests/test_torch_bench.py);
      round trip; the stdlib reads every block
- 26. no module of jax, jaxlib or lzma_tpu was loaded
+ 26. the LZTB file codec on files past one-shot capacity (a temporary
+     directory under lzma_tpu_torch/_build; filestream's batch log on):
+     file128M-opt, phase 6's 8 MiB tiled 16 times through
+     lzma_tpu_torch.compress_file(parse="optimal") and decompress_file in
+     this process; file256M-lazy, tiled 32 times through `python -m
+     lzma_tpu_torch e -bs262144 -d22 -fb32` and `d`, each a process.
+     Each container is phase 7's (6's) streams repeated under the tiled
+     header and size table, the stdlib reads blocks 0, n/2 and n-1, and
+     the round trip hashes to the input's SHA-256; each batch's peak
+     device memory (reset before it) is at or below the sizer's model plus
+     10% and, with what was allocated before it, at or below 80% of the
+     card; K1, K2 and K6 (and K3 under the optimal parse) launch; batches,
+     blocks a batch, peaks beside the model, seconds and MB/s are printed.
+     Then an open("wb") writer fed 1 MiB writes over the first 16 MiB
+     writes compress_file's container of those bytes, and open("rb")
+     reads it back in 1 MiB reads
+ 27. no module of jax, jaxlib or lzma_tpu was loaded
 The last three lines are the card, the kernels' JSON record (K1-K6 and
 P1-P15; K1's carries its launches in phase 16's decode, K6's in phase
 19's dumps, K1, K2, K3 and K6 theirs in phase 20's mesh calls, K1, K2
 and K6 theirs in phase 24's `b -backendtpu` and K1 in `b
--backendhybrid`) and the result JSON.
+-backendhybrid`, and K1, K2, K3 and K6 theirs in phase 26's file
+configurations, `file_launches`) and the result JSON.
 """
 
 from __future__ import annotations
@@ -234,6 +251,11 @@ BENCH_PASSES_TPU, BENCH_PASSES_HYBRID = 2, 1
 #: phase 21: the v2 preset and the v3 dictionary on the mesh, and the
 #: ranks of the Gloo group that share the one card
 MESH_PRESET, MESH_DICT, MESH_RANKS = 1 << 16, 1 << 16, 4
+#: phase 26: the file codec's inputs, phase 6's 8 MiB tiled (128 MiB
+#: optimal, 256 MiB lazy), and the file objects' writes over the first
+#: FILE_WRITER_TILES tiles
+FILE_OPT_TILES, FILE_LAZY_TILES, FILE_WRITER_TILES = 16, 32, 2
+FILE_WRITE = 1 << 20
 #: the trace dump's lanes (phase 19): TRACE_LANES x TRACE_BYTES
 TRACE_LANES, TRACE_BYTES = 2, 2048
 CMP_LANES, CMP_BYTES = 8, 2048       # kernel vs plain comparison shape
@@ -1589,6 +1611,214 @@ def cli_auto_phase(dev, card, data, chosen, dictionary):
         f"trip; e {secs[0]:.3f} s, d {secs[1]:.3f} s (each a process)")
 
 
+def file_phase(dev, card, data, lazy_blob, opt_blob):
+    """Phase 26: the LZTB file codec on files past one-shot capacity, in a
+    temporary directory under lzma_tpu_torch/_build.  file128M-opt: phase
+    6's input tiled FILE_OPT_TILES times through compress_file
+    (parse="optimal") and decompress_file; file256M-lazy: tiled
+    FILE_LAZY_TILES times through `python -m lzma_tpu_torch e -bs{N}` and
+    `d`, each a process.  Each container is phase 7's (6's) header for
+    the tiled size and its streams repeated, with the stdlib reading a
+    sample of the blocks; each round trip hashes to the input's SHA-256.
+    Every batch (filestream's batch log) peaks at or below its modelled
+    bytes plus 10% and, with what was allocated before it, at or below
+    80% of the card; K1, K2, K6 (and K3 under the optimal parse) launch.
+    Then an open("wb") writer fed FILE_WRITE-byte writes over the first
+    FILE_WRITER_TILES tiles equals compress_file's container of those
+    bytes, and open("rb") reads it back in FILE_WRITE-byte reads.
+    Returns {config: launches}."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    import lzma_tpu_torch
+    from lzma_tpu_torch.format.properties import LzmaParams
+    from lzma_tpu_torch.parallel import blocks as blk
+    from lzma_tpu_torch.parallel import filestream
+
+    if len(data) % MAIN_BLOCK:
+        raise AssertionError("the tiled input must keep whole blocks")
+    params = LzmaParams()
+    total_mem = torch.cuda.get_device_properties(dev).total_memory
+
+    def tiled(path, tiles):
+        digest = hashlib.sha256()
+        with open(path, "wb") as f:
+            for _ in range(tiles):
+                f.write(data)
+                digest.update(data)
+        return digest.hexdigest()
+
+    def sha(path):
+        digest = hashlib.sha256()
+        with open(path, "rb") as f:
+            for chunk in iter(lambda: f.read(1 << 24), b""):
+                digest.update(chunk)
+        return digest.hexdigest()
+
+    def container(blob, tiles):
+        """`blob` (phase 6 or 7's container) as the container of its input
+        tiled `tiles` times: the header, the sizes and the streams
+        repeated."""
+        frame = blk.parse_container(blob)
+        n = len(frame.comp_sizes)
+        head = blk.pack_header(params, MAIN_BLOCK, len(data) * tiles, n * tiles)
+        return (head + blob[frame.payload_offset - 4 * n:frame.payload_offset]
+                * tiles, blob[frame.payload_offset:])
+
+    def check_file(path, blob, tiles):
+        want_head, payload = container(blob, tiles)
+        with open(path, "rb") as f:
+            got_head = f.read(len(want_head))
+            chunks = [f.read(len(payload)) for _ in range(tiles)]
+            tail = f.read(1)
+        if got_head != want_head or tail or any(c != payload for c in chunks):
+            raise AssertionError(f"{path}: not the {tiles}-fold container")
+        # the stdlib reads a sample of the blocks: the first, one in the
+        # middle, the last
+        with open(path, "rb") as f:
+            params_f, bs, total, n, *_ = blk.read_header(f)
+        frame = blk.parse_container(blob)
+        offs, sizes = frame.stream_extents(len(blob))
+        per = len(sizes)
+        for i in (0, n // 2, n - 1):
+            j = i % per
+            alone = (params_f.encode_props() + sizes[j].to_bytes(8, "little")
+                     + blob[offs[j]:offs[j + 1]])
+            if lzma.decompress(alone, format=lzma.FORMAT_ALONE) != \
+                    data[j * bs:j * bs + sizes[j]]:
+                raise AssertionError(f"stdlib lzma disagrees on block {i}")
+        return n
+
+    def batches(log_path, kind):
+        with open(log_path) as f:
+            lines = [json.loads(ln) for ln in f if ln.strip()]
+        lines = [ln for ln in lines if ln["kind"] == kind]
+        for ln in lines:
+            if ln["peak"] > 1.1 * ln["estimate"] or \
+                    ln["base"] + ln["peak"] > 0.8 * total_mem:
+                raise AssertionError(f"a {kind} batch outgrew its model: {ln}")
+        return lines
+
+    def report(name, lines, secs, size):
+        launches = {}
+        for ln in lines:
+            for k, v in ln["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        log(f"[{name} {lines[0]['kind']}] {len(lines)} batches of "
+            f"{[ln['blocks'] for ln in lines]} blocks on {card}: "
+            f"{secs:.3f} s = {size / 1e6 / secs:.3f} MB/s; peak / model MiB "
+            + ", ".join(f"{ln['peak'] / 2**20:.1f}/{ln['estimate'] / 2**20:.1f}"
+                        for ln in lines)
+            + f" (allocated before the first {lines[0]['base'] / 2**20:.1f} "
+            f"MiB; card {total_mem / 2**20:.0f} MiB); batch seconds "
+            + ", ".join(f"{ln['seconds']:.3f}" for ln in lines)
+            + f"; launches {launches}")
+        return launches
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work_dir = os.path.join(root, "lzma_tpu_torch", "_build")
+    os.makedirs(work_dir, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=work_dir)
+    log_path = os.path.join(tmp, "batches.jsonl")
+    os.environ[filestream.BATCH_LOG_ENV] = log_path
+    found = {}
+    try:
+        # file128M-opt: the front door in this process
+        src, enc, back = (os.path.join(tmp, x) for x in ("o.in", "o.lztb",
+                                                          "o.out"))
+        want = tiled(src, FILE_OPT_TILES)
+        size = len(data) * FILE_OPT_TILES
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        n_out = lzma_tpu_torch.compress_file(src, enc, params,
+                                             block_size=MAIN_BLOCK,
+                                             parse="optimal", device=dev)
+        torch.cuda.synchronize()
+        t_enc = time.perf_counter() - t
+        t = time.perf_counter()
+        n_back = lzma_tpu_torch.decompress_file(enc, back, device=dev)
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t
+        n = check_file(enc, opt_blob, FILE_OPT_TILES)
+        if n_back != size or n_out != os.path.getsize(enc) or sha(back) != want:
+            raise AssertionError("file128M-opt does not round-trip")
+        log(f"[file128M-opt] {size} B in {n} blocks of {MAIN_BLOCK} B: "
+            f"{n_out} B (ratio {n_out / size:.4f}) = phase 7's container "
+            f"{FILE_OPT_TILES}-fold; decompress_file's SHA-256 = the input's; "
+            "the stdlib reads blocks 0, n/2, n-1")
+        launches = report("file128M-opt", batches(log_path, "encode"), t_enc,
+                          size)
+        dec_launches = report("file128M-opt", batches(log_path, "decode"),
+                              t_dec, size)
+        launches["ring_decode"] += dec_launches["ring_decode"]
+        if min(launches.values()) < 1:
+            raise AssertionError(f"a kernel did not run: {launches}")
+        found["file128M-opt"] = launches
+        for x in (src, enc, back, log_path):
+            os.remove(x)
+
+        # file256M-lazy: the command line, each command a process
+        src, enc, back = (os.path.join(tmp, x) for x in ("l.in", "l.lztb",
+                                                          "l.out"))
+        want = tiled(src, FILE_LAZY_TILES)
+        size = len(data) * FILE_LAZY_TILES
+        # the processes size their batches from the card's free memory:
+        # hand back what this process's cache holds unallocated
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        run_cli(["e", f"-bs{MAIN_BLOCK}", "-d22", "-fb32", "-q", src, enc])
+        t_enc = time.perf_counter() - t
+        t = time.perf_counter()
+        run_cli(["d", "-q", enc, back])
+        t_dec = time.perf_counter() - t
+        n = check_file(enc, lazy_blob, FILE_LAZY_TILES)
+        if sha(back) != want:
+            raise AssertionError("file256M-lazy does not round-trip")
+        log(f"[file256M-lazy] {size} B in {n} blocks of {MAIN_BLOCK} B: "
+            f"{os.path.getsize(enc)} B = phase 6's container "
+            f"{FILE_LAZY_TILES}-fold; d's SHA-256 = the input's; the stdlib "
+            "reads blocks 0, n/2, n-1; seconds are each a process's")
+        launches = report("file256M-lazy", batches(log_path, "encode"), t_enc,
+                          size)
+        dec_launches = report("file256M-lazy", batches(log_path, "decode"),
+                              t_dec, size)
+        launches["ring_decode"] += dec_launches["ring_decode"]
+        if min(v for k, v in launches.items() if k != "dp_parse") < 1:
+            raise AssertionError(f"a kernel did not run: {launches}")
+        found["file256M-lazy"] = launches
+        for x in (src, enc, back):
+            os.remove(x)
+
+        # the file objects: FILE_WRITE-byte writes, then reads
+        part = data * FILE_WRITER_TILES
+        path = os.path.join(tmp, "w.lztb")
+        t = time.perf_counter()
+        with lzma_tpu_torch.open(path, "wb", params=params,
+                                 block_size=MAIN_BLOCK, device=dev) as w:
+            for i in range(0, len(part), FILE_WRITE):
+                w.write(part[i:i + FILE_WRITE])
+        t_w = time.perf_counter() - t
+        check_file(path, opt_blob, FILE_WRITER_TILES)
+        t = time.perf_counter()
+        got = bytearray()
+        with lzma_tpu_torch.open(path, "rb", device=dev) as r:
+            for chunk in iter(lambda: r.read(FILE_WRITE), b""):
+                got += chunk
+        t_r = time.perf_counter() - t
+        if got != part:
+            raise AssertionError("open('rb') does not read the writer's file back")
+        log(f"[file objects] open('wb') fed {len(part) // FILE_WRITE} writes of "
+            f"{FILE_WRITE} B: compress_file's container of those "
+            f"{len(part)} B ({t_w:.3f} s); open('rb') read it back in "
+            f"{FILE_WRITE}-byte reads ({t_r:.3f} s) on {card}")
+    finally:
+        del os.environ[filestream.BATCH_LOG_ENV]
+        shutil.rmtree(tmp, ignore_errors=True)
+    return found
+
+
 def bench_phase(card):
     """Phase 24: the benchmark `b` in this process through cli.main, so
     that the launch counts can be read: `b {BENCH_PASSES_TPU}`
@@ -2251,7 +2481,11 @@ def main():
     dp_ratio_phase(dev, card)
     done("dp ratio")
 
-    # ---- 26. nothing of JAX or of the JAX package was loaded ----
+    # ---- 26. the LZTB file codec: file128M-opt, file256M-lazy ----
+    file_launches = file_phase(dev, card, data, lazy_blob, blob)
+    done("files")
+
+    # ---- 27. nothing of JAX or of the JAX package was loaded ----
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib")
                  or m == "lzma_tpu" or m.startswith("lzma_tpu."))
@@ -2269,7 +2503,8 @@ def main():
                "lzma_tpu/ops/device_parser.py:804", launches["dp_parse"],
                k3_err, k3_ms, k3_plain, k3_bound, whole_ms=k3_whole,
                whole_bound_ms=whole_bound[0],
-               mesh_launches=mesh_enc["dp_parse"]),
+               mesh_launches=mesh_enc["dp_parse"],
+               file_launches=file_launches["file128M-opt"]["dp_parse"]),
         record("dp_parse2", "lzma_tpu_torch/csrc/dp_parse2.cu",
                "lzma_tpu/ops/device_parser.py:1128", k4_launches, k3_err,
                k4_ms, k3_plain, k3_bound, whole_ms=k4_whole,
@@ -2281,14 +2516,18 @@ def main():
                k2_err, k2_ms, k2_plain, k2_bound, whole_ms=k2_whole,
                whole_bound_ms=k2_whole_bound[0],
                mesh_launches=mesh_enc["rc_serialize"],
-               bench_launches=bench_launches["tpu"]["rc_serialize"]),
+               bench_launches=bench_launches["tpu"]["rc_serialize"],
+               file_launches={k: v["rc_serialize"]
+                              for k, v in file_launches.items()}),
         record("ring_decode", "lzma_tpu_torch/csrc/ring_decoder.cu",
                "lzma_tpu/ops/pallas_ring.py:89", launches["ring_decode"],
                k1_err, k1_ms, k1_plain, k1_bound, whole_ms=k1_whole,
                whole_bound_ms=k1_whole_bound[0], hybrid_launches=hybrid_k1,
                mesh_launches=mesh_dec["ring_decode"],
                bench_launches=bench_launches["tpu"]["ring_decode"],
-               bench_hybrid_launches=bench_launches["hybrid"]["ring_decode"]),
+               bench_hybrid_launches=bench_launches["hybrid"]["ring_decode"],
+               file_launches={k: v["ring_decode"]
+                              for k, v in file_launches.items()}),
         record("block_decode", "lzma_tpu_torch/csrc/block_decoder.cu",
                "lzma_tpu/ops/pallas_decoder.py:80", k5_launches, k5_err, k5_ms,
                k5_plain, k5_bound, whole_ms=k5_whole,
@@ -2300,6 +2539,8 @@ def main():
                stream_bound_ms=k6_stream_bound[0], trace_launches=trace_k6,
                mesh_launches=mesh_enc["classify"],
                bench_launches=bench_launches["tpu"]["classify"],
+               file_launches={k: v["classify"]
+                              for k, v in file_launches.items()},
                design="scan over each lane's token rows, five grids"),
     ] + probe_records
     print(card)

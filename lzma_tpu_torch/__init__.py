@@ -24,8 +24,11 @@ containers and choose the same parameters.
                (``python -m lzma_tpu_torch``)
 - ``entry``    the lane encode step and its example batch
 
-``compress``/``decompress`` are the front door, on the card unless the
-caller passes ``device="cpu"``.
+``compress``/``decompress`` are the front door, and ``compress_file``,
+``decompress_file`` and ``open`` its file routes (``parallel.filestream``,
+``parallel.fileobj``: an LZTB file of any size in batches of blocks sized
+to the card's memory, O(batch); a `.lzma` file whole, O(file)), on the
+card unless the caller passes ``device="cpu"``.
 """
 
 from .format.properties import LzmaParams, decode_props  # noqa: F401
@@ -106,3 +109,138 @@ def decompress(data: bytes, device="cuda") -> bytes:
     if data[:4] == b"LZTB":
         return api.decode_blocks(data, device=device)
     return api.decode_alone(data, device=device)
+
+
+def _sample(src) -> bytes:
+    """The file's first DEFAULT_BATCH_BYTES: what the automatic choices
+    and dictionary training see of a file, as in lzma_tpu."""
+    import builtins
+
+    from .parallel.filestream import DEFAULT_BATCH_BYTES
+
+    with builtins.open(src, "rb") as f:
+        return f.read(DEFAULT_BATCH_BYTES)
+
+
+def compress_file(src, dst, params: LzmaParams | None = None,
+                  block_size: int = 1 << 20, num_threads: int = 0,
+                  preset_len: int = 0, dictionary: bytes = b"",
+                  train_dict=0, container: str = "lztb",
+                  parse: str = "optimal", device="cuda", **kw) -> int:
+    """Compress file `src` to `dst`, as ``lzma_tpu.compress_file``.
+    Returns the container size in bytes.
+
+    container="lztb" (default): the LZTB container, streamed through the
+    card in batches of blocks sized to its memory
+    (``parallel.filestream.encode_file``): O(batch) memory, the bytes of
+    ``compress`` of the whole file with the same `parse` ("optimal" or
+    "lazy").  `preset_len` (LZTB v2), `dictionary` (LZTB v3) and
+    `train_dict` (N or "auto") as in ``compress``; training and
+    ``params="auto"`` read the file's first DEFAULT_BATCH_BYTES.
+    container="alone": one `.lzma` stream (``encode_file_alone``, the
+    lazy parse): the whole file is read, O(file) memory.  `num_threads`
+    is accepted so that calls written for ``lzma_tpu`` run unchanged;
+    the card uses no host threads.  Keyword arguments are
+    ``LzmaParams`` fields in place of `params`."""
+    from .parallel import filestream
+
+    if params is not None and kw and params != "auto":
+        raise TypeError(
+            f"pass either params= or keyword overrides, not both: {sorted(kw)}")
+    if params == "auto":
+        from .utils.autotune import select_params
+
+        params = select_params(_sample(src), LzmaParams(**kw) if kw else None,
+                               block_size=block_size)
+        kw = {}
+    params = params or (LzmaParams(**kw) if kw else None)
+    if container == "alone":
+        if preset_len or dictionary or train_dict:
+            raise ValueError(
+                "preset dictionaries apply to the LZTB container only")
+        return filestream.encode_file_alone(src, dst, params, device=device)
+    if container != "lztb":
+        raise ValueError(f"unknown container: {container!r}")
+    if train_dict:
+        if dictionary:
+            raise ValueError("pass either dictionary= or train_dict=, not both")
+        if train_dict == "auto":
+            from .utils.dicttrain import select_dictionary
+
+            dictionary = select_dictionary(_sample(src), params,
+                                           block_size=block_size)
+        else:
+            from .utils.dicttrain import train_dictionary
+
+            dictionary = train_dictionary(_sample(src), train_dict)
+    return filestream.encode_file(
+        src, dst, params, block_size=block_size, parse=parse,
+        preset_len=preset_len, dictionary=dictionary, device=device)
+
+
+def decompress_file(src, dst, num_threads: int = 0, device="cuda") -> int:
+    """Decompress file `src` to `dst`, as ``lzma_tpu.decompress_file``:
+    an LZTB container in batches of blocks sized to the card's memory
+    (``parallel.filestream.decode_file``, O(batch)), a `.lzma` stream whole
+    (``decode_file_alone``, O(file)), told apart by the LZTB magic.
+    `num_threads` is accepted and unused, as in ``compress_file``.
+    Returns the decompressed size."""
+    import builtins
+
+    from .parallel import filestream
+
+    with builtins.open(src, "rb") as f:
+        magic = f.read(4)
+    if magic == b"LZTB":
+        return filestream.decode_file(src, dst, device=device)
+    return filestream.decode_file_alone(src, dst, device=device)
+
+
+def open(path, mode: str = "rb", container: str = "lztb", **kw):  # noqa: A001
+    """Open a compressed file for streaming IO (mirrors lzma.open and
+    ``lzma_tpu.open``).  `path` is a filename or a binary file object
+    (readable for 'rb', writable for 'wb'; telling a file object's
+    container apart needs it seekable).  'wb' returns a writer of
+    incremental write() calls with a size unknown until close(), 'rb' a
+    reader of incremental read() calls; readers tell the containers
+    apart by the LZTB magic whatever `container` says.
+    container="lztb" (default): ``parallel.fileobj.LZTBWriter`` /
+    ``LZTBReader``, O(batch) memory; keywords params, block_size, parse,
+    preset_len, dictionary, batch_bytes, device (writer) and batch_bytes,
+    device (reader).  container="alone": ``AloneWriter`` (EOS-terminated)
+    / ``AloneReader``, whole-buffer, O(file) memory; keywords params,
+    device.  ``LzmaParams`` fields (dict_size=..., fast_bytes=...) are
+    accepted as in ``compress``; `num_threads` is accepted and unused."""
+    import builtins
+    import dataclasses
+
+    from .parallel.fileobj import AloneReader, AloneWriter, open_lztb
+
+    kw.pop("num_threads", None)
+    fields = {f.name for f in dataclasses.fields(LzmaParams)}
+    param_kw = {k: kw.pop(k) for k in list(kw) if k in fields}
+    if param_kw:
+        if kw.get("params") is not None:
+            raise TypeError(
+                f"pass either params= or field overrides, not both: "
+                f"{sorted(param_kw)}")
+        kw["params"] = LzmaParams(**param_kw)
+    if mode in ("rb", "r"):
+        if hasattr(path, "read"):
+            pos = path.tell()
+            magic = path.read(4)
+            path.seek(pos)
+        else:
+            with builtins.open(path, "rb") as f:
+                magic = f.read(4)
+        if magic != b"LZTB":
+            if set(kw) - {"device"}:
+                raise TypeError(
+                    f"unsupported kwargs for .lzma reads: {sorted(kw)}")
+            return AloneReader(path, **kw)
+        return open_lztb(path, mode, **kw)
+    if mode in ("wb", "w") and container == "alone":
+        return AloneWriter(path, **kw)
+    if container != "lztb":
+        raise ValueError(f"unknown container: {container!r}")
+    return open_lztb(path, mode, **kw)

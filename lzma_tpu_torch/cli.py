@@ -11,7 +11,9 @@ of the JAX package, byte for byte.
 
 `e` writes one `.lzma` stream (``ops.api.encode_alone``; ``-eos`` ends
 it with the marker), or with ``-bs{N}`` an LZTB container of N-byte
-blocks (``ops.api.encode_blocks``, the lazy parse; ``-ps{N}`` a shared
+blocks, streamed from the file in batches sized to the card's memory
+(``parallel.filestream.encode_file``, the lazy parse: the bytes of
+``ops.api.encode_blocks``; ``-ps{N}`` a shared
 preset, LZTB v2; ``-td{N}`` a trained N-byte dictionary, LZTB v3,
 ``-tdauto`` one sized against its storage cost).  ``-tune`` picks
 lc/lp/pb by measured cost on the input's first bytes; every encode route
@@ -20,7 +22,9 @@ by the hybrid encode (the card's search, the host's coder,
 ``ops.hybrid``): ``-a2`` (the default) the candidate lists and the
 optimal parse, ``-a0``/``-a1`` the lazy tokens; ``-mf`` picks the match
 finder of a trained dictionary's stream and ``-t{N}`` the host threads.
-`d` reads either container on the device.  `b` is the reference's
+`d` reads either container on the device, an LZTB one streamed
+(``filestream.decode_file``); the `.lzma` routes and ``-backendhybrid``
+read the whole file.  `b` is the reference's
 rating loop (``bench.harness``, LzmaBench.java): `passes` (10 unless
 given) encodes of dict + 2 MiB of benchmark data (dict 2 MiB unless
 ``-d``), each decoded twice and CRC-checked; ``-backendtpu`` rates the
@@ -251,8 +255,12 @@ def _dispatch(cmd: CommandLine, device) -> int:
         print("error: -td requires the block container (-bs{N})")
         return 1
     try:
+        # the block container streams from the file (O(batch) memory):
+        # -tune and -td see its first TRAIN_SAMPLE_BYTES, `d` its magic;
+        # the other routes read it whole
+        sample = cmd.command == "e" and (cmd.tune or cmd.train_dict)
         with open(cmd.in_file, "rb") as f:
-            data = f.read()
+            head = f.read(TRAIN_SAMPLE_BYTES if sample else 4)
     except OSError as e:
         print(f"error: cannot read {cmd.in_file}: {e.strerror}")
         return 1
@@ -261,45 +269,33 @@ def _dispatch(cmd: CommandLine, device) -> int:
         # below reads the tuned values through cmd.params()
         from .utils.autotune import select_params
 
-        tuned = select_params(data[:TRAIN_SAMPLE_BYTES], cmd.params(),
+        tuned = select_params(head, cmd.params(),
                               block_size=cmd.block_size or (1 << 20))
         cmd.lc, cmd.lp, cmd.pb = tuned.lc, tuned.lp, tuned.pb
         if not cmd.quiet:
             print(f"tuned: -lc{tuned.lc} -lp{tuned.lp} -pb{tuned.pb}")
+    if (cmd.command == "e" and cmd.block_size and not hybrid
+            or cmd.command == "d" and head[:4] == b"LZTB"):
+        return _stream(cmd, head, device)
+    with open(cmd.in_file, "rb") as f:
+        data = f.read()
     tag = "device"
     if cmd.command == "e":
         params = cmd.params().validated_for_encode()
-        if cmd.block_size:
-            dictionary = b""
-            sample = data[:TRAIN_SAMPLE_BYTES]
-            if cmd.train_dict == "auto":
-                from .utils.dicttrain import select_dictionary
+        if hybrid:
+            from .ops import hybrid as hyb
 
-                dictionary = select_dictionary(sample, cmd.params(),
-                                               block_size=cmd.block_size)
-            elif cmd.train_dict:
-                from .utils.dicttrain import train_dictionary
-
-                dictionary = train_dictionary(sample, cmd.train_dict)
             kw = dict(block_size=cmd.block_size, preset_len=cmd.preset_len,
-                      dictionary=dictionary, device=device)
-            if hybrid:
-                from .ops import hybrid as hyb
-
-                if cmd.algorithm >= 2:
-                    out = hyb.encode_blocks_hybrid_optimal(
-                        data, params, num_threads=cmd.threads, **kw)
-                    tag = "hybrid-optimal"
-                else:
-                    out = hyb.encode_blocks_hybrid(
-                        data, params, num_threads=cmd.threads, **kw)
-                    tag = "hybrid"
+                      dictionary=_trained_dict(cmd, head),
+                      num_threads=cmd.threads, device=device)
+            if cmd.algorithm >= 2:
+                out = hyb.encode_blocks_hybrid_optimal(data, params, **kw)
+                tag = "hybrid-optimal"
             else:
-                out = api.encode_blocks(data, params, **kw)
+                out = hyb.encode_blocks_hybrid(data, params, **kw)
+                tag = "hybrid"
         else:
             out = api.encode_alone(data, params, device=device)
-    elif data[:4] == b"LZTB":
-        out = api.decode_blocks(data, device=device)
     else:
         out = api.decode_alone(data, device=device)
     try:
@@ -310,6 +306,43 @@ def _dispatch(cmd: CommandLine, device) -> int:
         return 1
     if not cmd.quiet:
         print(f"{cmd.command}: {len(data)} -> {len(out)} bytes [{tag}]")
+    return 0
+
+
+def _trained_dict(cmd: CommandLine, sample: bytes) -> bytes:
+    """-td{N} / -tdauto: the dictionary trained on the input's first
+    bytes, or none."""
+    if cmd.train_dict == "auto":
+        from .utils.dicttrain import select_dictionary
+
+        return select_dictionary(sample, cmd.params(),
+                                 block_size=cmd.block_size)
+    if cmd.train_dict:
+        from .utils.dicttrain import train_dictionary
+
+        return train_dictionary(sample, cmd.train_dict)
+    return b""
+
+
+def _stream(cmd: CommandLine, head: bytes, device) -> int:
+    """`e -bs{N}` (the lazy parse, as ``ops.api.encode_blocks``) and `d` of
+    an LZTB container, streamed file to file in batches of blocks sized to
+    the card's memory (``parallel.filestream``): O(batch) memory."""
+    import os
+
+    from .parallel import filestream
+
+    in_size = os.path.getsize(cmd.in_file)
+    if cmd.command == "e":
+        out_size = filestream.encode_file(
+            cmd.in_file, cmd.out_file, cmd.params().validated_for_encode(),
+            block_size=cmd.block_size, parse="lazy", preset_len=cmd.preset_len,
+            dictionary=_trained_dict(cmd, head), device=device)
+    else:
+        out_size = filestream.decode_file(cmd.in_file, cmd.out_file,
+                                          device=device)
+    if not cmd.quiet:
+        print(f"{cmd.command}: {in_size} -> {out_size} bytes [device]")
     return 0
 
 

@@ -23,6 +23,7 @@ import torch
 from ..core.rangecoder import CorruptStreamError
 from ..format.properties import LzmaParams, decode_props, validate_alone_size
 from ..parallel import blocks as blk
+from ..parallel.filestream import decode_batch_blocks, encode_batch_blocks
 from .cuda_ring import decode_batch_cuda
 from .device_decoder import CapExceededError
 from .device_encoder import encode_batch
@@ -113,7 +114,9 @@ def encode_blocks(
     primed with block 0's prefix); `dictionary` writes LZTB v3 (the
     dictionary stored as its own stream, priming every lane).
     parse="optimal" tokenizes with the optimal-parse DP; preset-primed
-    lanes keep the lazy parse."""
+    lanes keep the lazy parse.  On a CUDA device the lanes run in groups
+    that fit its memory (``parallel.filestream.encode_batch_blocks``; all
+    at once on the CPU): the bytes do not depend on the grouping."""
     params = (params or LzmaParams()).validated_for_encode()
     if params.write_eos:
         raise ValueError("block container uses known sizes; EOS not supported")
@@ -124,9 +127,14 @@ def encode_blocks(
     if not data:
         dictionary = b""
     blocks = blk.split_blocks(data, block_size)
+    group = encode_batch_blocks(parse, block_size, preset_len,
+                                max(len(blocks), 1) * block_size, device,
+                                len(dictionary))
 
     def enc(bs, **kw):
-        return encode_batch(bs, params, device=device, **kw)
+        return [s for i in range(0, len(bs), group)
+                for s in encode_batch(bs[i:i + group], params, device=device,
+                                      **kw)]
 
     dict_stream = b""
     if dictionary:
@@ -143,7 +151,8 @@ def encode_blocks(
 
 def decode_blocks(blob, device="cuda") -> bytes:
     """Lane-parallel block decode of an LZTB container, versions 1-3
-    (api.decode_blocks with use_pallas=True)."""
+    (api.decode_blocks with use_pallas=True), in groups of lanes that fit
+    the card's memory (``parallel.filestream.decode_batch_blocks``)."""
     frame = blk.parse_container(blob)
     n = len(frame.comp_sizes)
     if n == 0:
@@ -151,9 +160,16 @@ def decode_blocks(blob, device="cuda") -> bytes:
     offsets, sizes = frame.stream_extents(len(blob))
     streams = [bytes(blob[offsets[i] : offsets[i + 1]]) for i in range(n)]
 
+    group = decode_batch_blocks(frame.params, frame.block_size,
+                                max(frame.comp_sizes),
+                                frame.preset_len or frame.dict_len,
+                                n * frame.block_size, device)
+
     def dec(s, o, preset=b""):
-        return decode_batch_cuda(s, frame.params, o, preset=preset,
-                                 device=device)
+        return [part for i in range(0, len(s), group)
+                for part in decode_batch_cuda(s[i:i + group], frame.params,
+                                              o[i:i + group], preset=preset,
+                                              device=device)]
 
     if frame.dict_len:
         # LZTB v3: decode the stored dictionary on one lane, then all

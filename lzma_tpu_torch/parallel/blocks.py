@@ -37,6 +37,8 @@ VERSION_TRAINED = 3
 _HEAD = struct.Struct("<4sB5sIQI")
 _PRESET_FIELD = struct.Struct("<I")
 _DICT_FIELD = struct.Struct("<II")
+#: the file codec's block size where a caller names none
+DEFAULT_BLOCK_SIZE = 1 << 20
 #: hard ceiling on stored-dictionary length (int32 window positions)
 MAX_DICT_LEN = 1 << 27
 

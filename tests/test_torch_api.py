@@ -180,8 +180,9 @@ def test_port_imports_no_jax():
     """Importing every module of the port (cli, entry, utils, ops.hybrid,
     parallel.mesh and multihost and the host encoder's runtime.native
     among them) and running a CPU encode (lazy and optimal) and decode, a
-    mesh round trip with no process group, a `.lzma` round trip with the
-    EOS marker and, where g++ is, both hybrid encodes, loads nothing of
+    mesh round trip with no process group, a file round trip through
+    compress_file and decompress_file, a `.lzma` round trip with the EOS
+    marker and, where g++ is, both hybrid encodes, loads nothing of
     JAX and nothing of the JAX package (lzma_tpu_torch starts with
     lzma_tpu, hence the exact test), and no library of lzma_tpu/runtime."""
     code = (
@@ -199,6 +200,12 @@ def test_port_imports_no_jax():
         "mesh.decode_blocks_mesh(mesh.encode_blocks_mesh(d[:600],"
         " block_size=1024, device='cpu'), device='cpu') == d[:600]"
         " or sys.exit('mesh');"
+        "import os, tempfile; f = os.path.join(tempfile.mkdtemp(), 'f');"
+        "open(f, 'wb').write(d[:600]);"
+        "P.compress_file(f, f + '.z', block_size=256, parse='lazy',"
+        " device='cpu');"
+        "P.decompress_file(f + '.z', f + '.o', device='cpu') == 600"
+        " or sys.exit('file');"
         "e = P.LzmaParams(write_eos=True);"
         "api.decode_alone(api.encode_alone(d[:300], e, device='cpu'),"
         " device='cpu') == d[:300] or sys.exit('alone');"

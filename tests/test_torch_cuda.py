@@ -7,6 +7,7 @@ a machine with an NVIDIA H100 and the CUDA toolkit:
     python -m pytest tests/test_torch_cuda.py -q
 """
 
+import json
 import pathlib
 import re
 
@@ -976,6 +977,42 @@ def test_compress_auto_on_the_card_equals_the_cpu(card):
         assert blob == lzma_tpu_torch.compress(data, block_size=2048,
                                                device="cpu", **kw)
         assert lzma_tpu_torch.decompress(blob, device=card) == data
+
+
+@pytest.mark.parametrize("parse", ["lazy", "optimal"])
+def test_encode_file_on_the_card_equals_encode_blocks(card, parse, tmp_path,
+                                                      monkeypatch):
+    """The file codec on the card, in batches of 2 blocks (the last the
+    lone tail) and in the sizer's own batches, writes api.encode_blocks'
+    container (v1 and v2) and decode_file reads it back; K3 launches under
+    the optimal parse, K6 and K2 in every batch."""
+    from lzma_tpu_torch.format.properties import LzmaParams as TParams
+    from lzma_tpu_torch.parallel import filestream as fs
+
+    data = b"".join(_blocks(5, 4096, 12)) + b"tail" * 100
+    p = TParams(dict_size=1 << 13, fast_bytes=16)
+    src, dst, out = tmp_path / "in", tmp_path / "c.lztb", tmp_path / "out"
+    src.write_bytes(data)
+    log = tmp_path / "batches.jsonl"
+    monkeypatch.setenv(fs.BATCH_LOG_ENV, str(log))
+    for kw in (dict(), dict(preset_len=1000)):
+        want = api.encode_blocks(data, p, block_size=4096, parse=parse,
+                                 device=card, **kw)
+        for batch in (2 * 4096, fs.DEFAULT_BATCH_BYTES):
+            log.unlink(missing_ok=True)
+            fs.encode_file(src, dst, p, block_size=4096, parse=parse,
+                           batch_bytes=batch, device=card, **kw)
+            assert dst.read_bytes() == want
+            lines = [json.loads(ln) for ln in log.read_text().splitlines()]
+            assert len(lines) == (3 if batch < 4 * 4096 else 1)
+            for ln in lines:
+                assert ln["peak"] <= 1.1 * ln["estimate"]
+                assert ln["launches"]["rc_serialize"] >= 1
+            # primed lanes parse lazy: K3 runs where block 0 or no preset is
+            assert lines[0]["launches"]["dp_parse"] >= (parse == "optimal")
+        assert fs.decode_file(dst, out, batch_bytes=2 * 4096,
+                              device=card) == len(data)
+        assert out.read_bytes() == data
 
 
 def test_cli_benchmark_runs_on_the_card(card, capsys):

@@ -164,6 +164,26 @@ def test_vendored_container_matches():
         assert tblk.read_header(io.BytesIO(blob))[1:] == \
             jblk.read_header(io.BytesIO(blob))[1:]
     assert tblk.split_blocks(b"x" * 10, 4) == jblk.split_blocks(b"x" * 10, 4)
+    assert (tblk.DEFAULT_BLOCK_SIZE, tblk.MAX_EXPANSION) == \
+        (jblk.DEFAULT_BLOCK_SIZE, jblk.MAX_EXPANSION)
+    # the file codec's batch ceiling and the CLI's training sample
+    from lzma_tpu.parallel import filestream as jfs
+    from lzma_tpu_torch import cli as tcli
+    from lzma_tpu_torch.parallel import filestream as tfs
+
+    assert tfs.DEFAULT_BATCH_BYTES == tcli.TRAIN_SAMPLE_BYTES == \
+        jfs.DEFAULT_BATCH_BYTES
+    for total, size in ((100, 0), (8192 * 16 + (1 << 16), 16),
+                        (8192 * 16 + (1 << 16) + 1, 16)):
+        f = io.BytesIO(b"\x00" * size)
+        outcome = []
+        for mod in (tfs, jfs):
+            try:
+                mod.check_total_size_plausible(total, f)
+                outcome.append(None)
+            except ValueError as e:
+                outcome.append(str(e))
+        assert outcome[0] == outcome[1]
     assert tblk.validated_preset_len(900, 512, 700) == 512
     with pytest.raises(ValueError):
         tblk.validated_dictionary(b"d", preset_len=3)

@@ -15,10 +15,13 @@ prints its seconds):
   3. each kernel against its plain PyTorch version on the card at small
      shapes: the range encoder (K2) with its arena in shared and in device
      memory (the same streams with lc8 lp4's arena size, which is over the
-     card's shared memory), both decoders (K1, K5) and the classify carry
-     (K6, a scan over each lane's token rows in five grids, on the lazy
-     and the optimal parse's tokens with the EOS marker appended), on 8
-     lanes x 2 KiB; K2 on lc8 lp4's own streams, in device memory, and K1
+     card's shared memory), both decoders (K1, K5), the classify carry
+     (K6, a scan over each lane's token rows in five grids) and the bit
+     lowering (K7, tile sums, a lane scan, a thread a token, a fill), K6
+     and K7 on the lazy and the optimal parse's tokens with the EOS
+     marker appended, on 8 lanes x 2 KiB, K7 also on a preset-primed
+     lc8 lp4 pb4 batch (pos_base); K2 on lc8 lp4's own streams, in device
+     memory, and K1
      on them
      with its arena in device memory (K1's placement, as K2's, by the
      arena's size alone; lc3 lp0's is in shared memory); K1 and K5 on a
@@ -37,18 +40,21 @@ prints its seconds):
      block decoded by the stdlib lzma module
   6. the lazy path at 8 MiB (text corpus + bench data, LzmaParams()
      defaults, 256 KiB blocks = 32 lanes): encode, decode, round trip,
-     stdlib lzma, K6 launched once, K1 and K2
+     stdlib lzma, K6 and K7 launched once, K1 and K2
   7. the main path: the same 8 MiB with parse="optimal": encode, decode,
      round trip, stdlib lzma, smaller than the lazy container; K3
-     launched at least twice, K6 three times, K2 and K1 at least once;
-     MB/s, ratio, peak
+     launched at least twice, K6 and K7 three times, K2 and K1 at least
+     once; MB/s, ratio, peak
      device memory; then the same encode again inside probing(), which
      must give the same container: its stage breakdown (the device
-     synchronized around each stage), its whole-lane kernel stages
+     synchronized around each stage; the price model's five stages also
+     summed as "model"), its whole-lane kernel stages
      beside their bounds (K3's by bytes and operations), K2 on the whole
      lanes' (ctx, bit) streams, K1 on the whole container's streams and
      K6 on the final tokens' rows timed by CUDA events (K6 beside its
-     bound and a model of the bytes its design moves), and the
+     bound and a model of the bytes its design moves), K7 on the final
+     lowering's arguments (equal to the encode's streams) beside its
+     bound, and the
      inputs phases 8 and 9 take
   8. the K4 path: tokenize_optimal(scan="band2") on phase 5's 32 x 16 KiB
      gives the tokens of the default scan, K4 launched (its count); K4 on
@@ -60,7 +66,8 @@ prints its seconds):
      codes the first CMP_BITS pairs, K1 decodes each lane up to the first
      token boundary at or past CMP_OUT bytes), all timed on those inputs;
      K6 (the scan) against its plain carry on the whole final tokens,
-     uncut
+     uncut, and K7 against its plain lowering on the whole final
+     lowering's arguments, uncut
  10. the K5 path: phase 5's 32 streams through decode_batch_resident
      equal the input and K1 (K5 launched, its count); K1's champion shape
      (128 x 16 KiB, lc0, dict 4 KiB, fb 8) through K5 and K1, both timed,
@@ -86,13 +93,15 @@ prints its seconds):
  14. the `.lzma` path at full size: the 8 MiB of phase 6 as ONE stream
      through ops.api.encode_alone, with a known size and with the EOS
      marker, and decode_alone: the stdlib and the port read both back,
-     K6, K2 and K1 launched once a stream (counts set to 0 just before
-     each), MB/s and peak memory, the EOS encode again inside probing()
-     for its stages and K6's time on its rows (one lane: the scan spreads
-     its 8,388,609 rows over 2,049 tiles); K6, K2 and K1 against
-     their plain versions on that stream's tensors, cut as in phase 9
-     (K6 on the first CMP_POS token rows and on the rows from CMP_POS
-     before the EOS token to the end, the whole tail); the `.lzma` pins
+     K6, K7, K2 and K1 launched once a stream (counts set to 0 just
+     before each), MB/s and peak memory, the EOS encode again inside
+     probing() for its stages and K6's time on its rows and K7's on its
+     tokens (one lane: the scan spreads its 8,388,609 rows over 2,049
+     tiles, K7 its tokens over 8,193); K6, K7, K2 and K1 against their
+     plain versions on that stream's tensors, cut as in phase 9 (K6 and
+     K7 on the first CMP_POS token rows, K7's doubled by invalid ones,
+     and on the rows from CMP_POS before the EOS token to the end, the
+     whole tail); the `.lzma` pins
      (PIN_ALONE_SHA256, PIN_ALONE_EOS_SHA256 = the JAX package's
      encode_alone of 64 KiB of bench data); the front door
      (lzma_tpu_torch.compress -> decompress on 2 MiB); the command line
@@ -155,10 +164,10 @@ prints its seconds):
      lzma_tpu_torch/_build): the "tuned:" line, the file equal to
      api.encode_blocks (the lazy parse) with phase 22's choices, read back
  24. the benchmark `b` in this process through cli.main: `b 2`
-     (-backendtpu: dict 2 MiB, 4 MiB a pass, one lane; K6 and K2 launch
-     once a pass, K1 twice) and `b 1 -backendhybrid` (K1 twice a pass,
-     no K6 or K2); the harness CRC-checks every decode; the report lines
-     (KB/s, MIPS) and the wall time
+     (-backendtpu: dict 2 MiB, 4 MiB a pass, one lane; K6, K7 and K2
+     launch once a pass, K1 twice) and `b 1 -backendhybrid` (K1 twice a
+     pass, no K6, K7 or K2); the harness CRC-checks every decode; the
+     report lines (KB/s, MIPS) and the wall time
  25. dp ratio: bench.py:556-563's device_dp_ratio, text_part()[:256 KiB]
      in 64 KiB blocks, dict 64 KiB, fb 32, optimal: 61,535 B, ratio 4.260
      (BENCH_r05), PIN_DP_RATIO_SHA256 (lzma_tpu.ops.api.encode_blocks'
@@ -175,18 +184,20 @@ prints its seconds):
      the round trip hashes to the input's SHA-256; each batch's peak
      device memory (reset before it) is at or below the sizer's model plus
      10% and, with what was allocated before it, at or below 80% of the
-     card; K1, K2 and K6 (and K3 under the optimal parse) launch; batches,
-     blocks a batch, peaks beside the model, seconds and MB/s are printed.
+     card; K1, K2, K6 and K7 (and K3 under the optimal parse) launch;
+     batches, blocks a batch, peaks beside the model, seconds and MB/s
+     are printed.
      Then an open("wb") writer fed 1 MiB writes over the first 16 MiB
      writes compress_file's container of those bytes, and open("rb")
      reads it back in 1 MiB reads
  27. no module of jax, jaxlib or lzma_tpu was loaded
-The last three lines are the card, the kernels' JSON record (K1-K6 and
+The last three lines are the card, the kernels' JSON record (K1-K7 and
 P1-P15; K1's carries its launches in phase 16's decode, K6's in phase
-19's dumps, K1, K2, K3 and K6 theirs in phase 20's mesh calls, K1, K2
-and K6 theirs in phase 24's `b -backendtpu` and K1 in `b
--backendhybrid`, and K1, K2, K3 and K6 theirs in phase 26's file
-configurations, `file_launches`) and the result JSON.
+19's dumps, K1, K2, K3, K6 and K7 theirs in phase 20's mesh calls, K1,
+K2, K6 and K7 theirs in phase 24's `b -backendtpu` and K1 in `b
+-backendhybrid`, and K1, K2, K3, K6 and K7 theirs in phase 26's file
+configurations, `file_launches`; K7's its lazy and stream launches too)
+and the result JSON.
 """
 
 from __future__ import annotations
@@ -560,6 +571,69 @@ def check_classify(rows):
     return err, plain_ms
 
 
+def lower_work(args, totals):
+    """(bytes, operations) of the lowering on these arguments
+    (lower_tokens_cuda's) with these totals: t_valid read over every
+    token slot and the ten int64 planes (the meta, t_pos, t_len, t_dist)
+    over each valid token, the only ones read there; ctx and bits written
+    over every slot of every lane and total once.  Operations: 60 integer
+    operations a valid token for its geometry and 10 a (ctx, bit) pair,
+    a count of the closed forms' arithmetic (the scans are not counted)."""
+    meta, t_pos, t_len, t_dist, t_valid = args[:5]
+    N, T = t_pos.shape
+    n_valid = int(t_valid.sum())
+    planes = (*meta, t_pos, t_len, t_dist)
+    n_read = N * T * t_valid.element_size() + n_valid * sum(
+        p.element_size() for p in planes)
+    n_write = 2 * 4 * N * args[8] + 4 * N
+    return n_read + n_write, 60 * n_valid + 10 * int(totals.sum())
+
+
+def lower_cut(args, at, pad=False):
+    """The lowering's arguments cut to the token columns `at` (a slice);
+    `pad` doubles the width with invalid columns, so that the long
+    tokens of a cut of valid ones fit the compacted buffer (T // 2 + 2)
+    as they fit a whole lane's.  max_bits is the whole call's or, where
+    smaller, MAXB bits a token slot (every token fits)."""
+    import torch
+    from lzma_tpu_torch.ops.device_encoder import MAXB
+
+    meta, t_pos, t_len, t_dist, t_valid, lc, lp, pb, max_bits, base = args
+    planes = [x[:, at] for x in (*meta, t_pos, t_len, t_dist, t_valid)]
+    if pad:
+        planes = [torch.cat([x, torch.zeros_like(x)], dim=1) for x in planes]
+    width = planes[0].shape[1]
+    return (tuple(planes[:7]), *planes[7:], lc, lp, pb,
+            min(max_bits, MAXB * width + 128), base)
+
+
+def check_lower(args):
+    """K7 against _lower_tokens_plain on the same card tensors (tolerance
+    zero).  Returns (max |diff| over ctx, bits and total, plain version's
+    ms)."""
+    from lzma_tpu_torch.ops.cuda_lower import lower_tokens_cuda
+    from lzma_tpu_torch.ops.device_encoder import _lower_tokens_plain
+
+    box = {}
+    plain_ms = wall_ms(lambda: box.update(p=_lower_tokens_plain(*args)))
+    err = max(int((k.long() - p.long()).abs().max()) if k.numel() else 0
+              for k, p in zip(lower_tokens_cuda(*args), box["p"]))
+    if err:
+        raise AssertionError(f"lower differs from the plain version by {err}")
+    return err, plain_ms
+
+
+def counters():
+    """The kernels whose launches a main-path run counts, by name: K3
+    dp_parse, K6 classify, K7 lower, K2 rc_serialize, K1 ring_decode."""
+    from lzma_tpu_torch.ops import (cuda_classify, cuda_lower, cuda_parser,
+                                    cuda_ring, cuda_serializer)
+
+    return {"dp_parse": cuda_parser, "classify": cuda_classify,
+            "lower": cuda_lower, "rc_serialize": cuda_serializer,
+            "ring_decode": cuda_ring}
+
+
 def decode_bytes(streams, cuts, sizes):
     """Bytes a decode to `cuts` must move: the output written and each
     lane's stream in proportion to the share of its block decoded (the
@@ -866,11 +940,8 @@ def drive(api, data, params, parse, dev):
     Returns (container, encode s, decode s, launches, peak device bytes,
     the container's (offsets, block sizes))."""
     import torch
-    from lzma_tpu_torch.ops import (cuda_classify, cuda_parser, cuda_ring,
-                                    cuda_serializer)
 
-    counted = {"dp_parse": cuda_parser, "classify": cuda_classify,
-               "rc_serialize": cuda_serializer, "ring_decode": cuda_ring}
+    counted = counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for mod in counted.values():
@@ -908,11 +979,13 @@ def run_cli(args):
 
 def alone_phase(dev, card, data):
     """Phase 14: `data` as one `.lzma` stream, known size and EOS, through
-    ops.api.encode_alone/decode_alone with the counts of K6, K2 and K1 set
-    to 0 before each; the stage breakdown of the EOS encode; the `.lzma`
-    pins; the front door; the command line; the lane entry.  Returns K6's
-    ms on the stream's token rows, their bound, and the max |diff| of K6,
-    K2 and K1 against their plain versions on the stream's tensors, cut."""
+    ops.api.encode_alone/decode_alone with the counts of K6, K7, K2 and K1
+    set to 0 before each; the stage breakdown of the EOS encode; the
+    `.lzma` pins; the front door; the command line; the lane entry.
+    Returns K6's ms on the stream's token rows and K7's on its tokens
+    ({"classify": ms, "lower": ms}), their bounds (likewise), and the max
+    |diff| of K6, K7, K2 and K1 against their plain versions on the
+    stream's tensors, cut."""
     import os
     import tempfile
 
@@ -922,13 +995,12 @@ def alone_phase(dev, card, data):
     from lzma_tpu_torch.entry import entry
     from lzma_tpu_torch.core.layout import ProbLayout
     from lzma_tpu_torch.format.properties import LzmaParams
-    from lzma_tpu_torch.ops import api, cuda_classify, cuda_ring, cuda_serializer
+    from lzma_tpu_torch.ops import api, cuda_classify, cuda_lower
     from lzma_tpu_torch.ops.device_decoder import _pow2_at_least, pad_rows
     from lzma_tpu_torch.ops.device_encoder import probing
     from lzma_tpu_torch.probes._cuda import event_ms
 
-    counted = {"classify": cuda_classify, "rc_serialize": cuda_serializer,
-               "ring_decode": cuda_ring}
+    counted = counters()
     mb = len(data) / 1e6
     blobs = {}
     for eos in (False, True):
@@ -953,7 +1025,8 @@ def alone_phase(dev, card, data):
         if lzma.decompress(blob, format=lzma.FORMAT_ALONE) != data:
             raise AssertionError(f"stdlib lzma disagrees on the .lzma stream "
                                  f"(eos {eos})")
-        if launches != {"classify": 1, "rc_serialize": 1, "ring_decode": 1}:
+        if launches != {"dp_parse": 0, "classify": 1, "lower": 1,
+                        "rc_serialize": 1, "ring_decode": 1}:
             raise AssertionError(f"the .lzma path's launches: {launches}")
         blobs[eos] = blob
         log(f"[lzma stream] {len(data)} B as one stream, "
@@ -970,18 +1043,25 @@ def alone_phase(dev, card, data):
     if again != blobs[True]:
         raise AssertionError("the probed .lzma encode wrote another stream")
     rows = probe["classify_rows"]
-    k6_ms = event_ms(lambda: cuda_classify.classify_carry_cuda(*rows), 3)
-    work = classify_work(rows)
-    k6_bound = bound(*work)
+    l_args = probe["lower_args"]
+    ms = {"classify": event_ms(
+        lambda: cuda_classify.classify_carry_cuda(*rows), 3),
+          "lower": event_ms(lambda: cuda_lower.lower_tokens_cuda(*l_args), 3)}
+    bounds = {"classify": bound(*classify_work(rows)),
+              "lower": bound(*lower_work(l_args, probe["lowered"][5]))}
     moved = classify_moved(rows)
     n_tok = int(probe["lowered"][2].sum())
     log(f"[lzma stream stages] probed EOS encode {t_probed:.3f} s, "
         f"{n_tok} tokens, {int(probe['lowered'][5].sum())} coded pairs: "
         + ", ".join(f"{k} {sum(v) * 1e3:.1f} ms" for k, v in probe["seconds"].items())
-        + f"; K6 on its rows {k6_ms:.3f} ms (CUDA events, "
-        f"{k6_ms * 1e6 / n_tok:.1f} ns a token), bound {k6_bound[0]:.4f} ms by "
-        f"{k6_bound[1]}; the design moves about {moved} B by classify_moved's "
-        f"model ({moved / HBM_BYTES_PER_S * 1e3:.4f} ms at the HBM rate)")
+        + f"; K6 on its rows {ms['classify']:.3f} ms (CUDA events, "
+        f"{ms['classify'] * 1e6 / n_tok:.1f} ns a token), bound "
+        f"{bounds['classify'][0]:.4f} ms by {bounds['classify'][1]}; the "
+        f"design moves about {moved} B by classify_moved's model ("
+        f"{moved / HBM_BYTES_PER_S * 1e3:.4f} ms at the HBM rate); K7 on its "
+        f"tokens {ms['lower']:.3f} ms (CUDA events, "
+        f"{ms['lower'] * 1e6 / n_tok:.2f} ns a token), bound "
+        f"{bounds['lower'][0]:.4f} ms by {bounds['lower'][1]}")
     # each kernel against its plain version on the stream's own card
     # tensors, cut as phase 9 cuts the main path's (tolerance zero): K6 on
     # the first CMP_POS token rows and on the rows from CMP_POS before the
@@ -995,6 +1075,10 @@ def alone_phase(dev, card, data):
                     ("edge", slice(max(0, last - CMP_POS), None))):
         err, _ = check_classify(tuple(r[at].contiguous() for r in rows))
         errs["classify"] = max(errs.get("classify", 0), err)
+        # K7 on the same token columns (the head's width doubled by
+        # invalid ones: its tokens are all valid)
+        err, _ = check_lower(lower_cut(l_args, at, pad=cut == "head"))
+        errs["lower"] = max(errs.get("lower", 0), err)
     max_n = (ctx.shape[1] - 128) // 10     # _lower_lanes' max_bits
     arena = ProbLayout(params.lc, params.lp, params.pb, pos_bits=params.pb).size
     errs["rc_serialize"], _, _, _ = check_serializer(
@@ -1012,12 +1096,13 @@ def alone_phase(dev, card, data):
     log(f"[lzma stream vs plain] on {card}, tolerance 0: classify carry on "
         f"token rows [0, {CMP_POS}) and [{max(0, last - CMP_POS)}, "
         f"{rows[0].shape[0]}) (the EOS token is row {last - 1}) max |diff| "
-        f"{errs['classify']}; rc_serialize on the first "
+        f"{errs['classify']}; lower on the same token columns max |diff| "
+        f"{errs['lower']}; rc_serialize on the first "
         f"{int(torch.clamp(totals, max=CMP_BITS)[0])} of {int(totals[0])} "
         f"pairs max |diff| {errs['rc_serialize']}; ring_decode to byte {n_cut} "
         f"in a {_pow2_at_least(cap, 16)}-byte bucket max |diff| "
         f"{errs['ring_decode']}")
-    del probe, rows, t_pos, t_len, t_valid, ctx, bits, totals, d_out
+    del probe, rows, l_args, t_pos, t_len, t_valid, ctx, bits, totals, d_out
 
     small = generate_bench_data(ALONE_PIN_SIZE)
     for eos, pin in ((False, PIN_ALONE_SHA256), (True, PIN_ALONE_EOS_SHA256)):
@@ -1067,7 +1152,7 @@ def alone_phase(dev, card, data):
     log(f"[entry] lzma_tpu_torch.entry: fn(*args) on {args[0].device}, "
         f"{tuple(out.shape)}, lens {lens.tolist()}: sha256 = the JAX "
         "reference's __graft_entry__.entry()")
-    return k6_ms, k6_bound, errs
+    return ms, bounds, errs
 
 
 def hybrid_pin_input():
@@ -1249,15 +1334,12 @@ def trace_phase(dev, card, data, params):
 
 
 def counted_call(fn):
-    """fn() with the launch counts of K1, K2, K3 and K6 set to 0 just
+    """fn() with the launch counts of K1, K2, K3, K6 and K7 set to 0 just
     before it and read just after, the card synchronised around it.
     Returns (its result, seconds, launches)."""
     import torch
-    from lzma_tpu_torch.ops import (cuda_classify, cuda_parser, cuda_ring,
-                                    cuda_serializer)
 
-    counted = {"dp_parse": cuda_parser, "classify": cuda_classify,
-               "rc_serialize": cuda_serializer, "ring_decode": cuda_ring}
+    counted = counters()
     torch.cuda.synchronize()
     for mod in counted.values():
         mod.LAUNCHES = 0
@@ -1351,7 +1433,7 @@ def mesh_nccl_phase(dev, card, data, params, lazy_blob, opt_blob, hybrid_blob):
     from lzma_tpu_torch.utils.dicttrain import train_dictionary
 
     mb = len(data) / 1e6
-    enc = {k: 0 for k in ("dp_parse", "classify", "rc_serialize", "ring_decode")}
+    enc = {k: 0 for k in counters()}
     dec = dict(enc)
     build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              "lzma_tpu_torch", "_build")
@@ -1420,7 +1502,7 @@ def mesh_nccl_phase(dev, card, data, params, lazy_blob, opt_blob, hybrid_blob):
                          "= phase 16's container")
         finally:
             dist.destroy_process_group()
-    if min(enc["rc_serialize"], enc["dp_parse"], enc["classify"],
+    if min(enc["rc_serialize"], enc["dp_parse"], enc["classify"], enc["lower"],
            dec["ring_decode"]) < 1:
         raise AssertionError(f"[mesh] a kernel did not run: encodes {enc}, "
                              f"decodes {dec}")
@@ -1622,7 +1704,7 @@ def file_phase(dev, card, data, lazy_blob, opt_blob):
     sample of the blocks; each round trip hashes to the input's SHA-256.
     Every batch (filestream's batch log) peaks at or below its modelled
     bytes plus 10% and, with what was allocated before it, at or below
-    80% of the card; K1, K2, K6 (and K3 under the optimal parse) launch.
+    80% of the card; K1, K2, K6, K7 (and K3 under the optimal parse) launch.
     Then an open("wb") writer fed FILE_WRITE-byte writes over the first
     FILE_WRITER_TILES tiles equals compress_file's container of those
     bytes, and open("rb") reads it back in FILE_WRITE-byte reads.
@@ -1823,9 +1905,9 @@ def bench_phase(card):
     """Phase 24: the benchmark `b` in this process through cli.main, so
     that the launch counts can be read: `b {BENCH_PASSES_TPU}`
     (-backendtpu: ops.api.encode_stream and decode_stream, one lane, dict
-    2 MiB, 4 MiB a pass) launches K6 and K2 once a pass and K1 twice;
+    2 MiB, 4 MiB a pass) launches K6, K7 and K2 once a pass and K1 twice;
     `b {BENCH_PASSES_HYBRID} -backendhybrid` (the hybrid's stream, decoded
-    on the card) K1 twice a pass and neither K6 nor K2.  The harness
+    on the card) K1 twice a pass and none of K6, K7 and K2.  The harness
     CRC-checks every decode.  Returns the launches {backend: {kernel: n}}."""
     import contextlib
     import io
@@ -1843,6 +1925,7 @@ def bench_phase(card):
                   if "KB/s" in ln]
         want = dict(ring_decode=2 * passes, dp_parse=0,
                     classify=passes if backend == "tpu" else 0,
+                    lower=passes if backend == "tpu" else 0,
                     rc_serialize=passes if backend == "tpu" else 0)
         if rc != 0 or launches != want or len(report) != passes + 1:
             raise AssertionError(f"[b -backend{backend}] rc {rc}, launches "
@@ -1907,13 +1990,15 @@ def main():
     from lzma_tpu_torch.core.layout import ProbLayout
     from lzma_tpu_torch.format.properties import LzmaParams, decode_props
     from lzma_tpu_torch.ops import (api, cuda_classify, cuda_decoder,
-                                    cuda_parser, cuda_ring, cuda_serializer)
+                                    cuda_lower, cuda_parser, cuda_ring,
+                                    cuda_serializer)
     from lzma_tpu_torch.ops.device_decoder import CapExceededError, pad_rows
     from lzma_tpu_torch.ops.device_encoder import (_append_eos_tokens,
                                                    _classify_rows,
+                                                   classify_tokens,
                                                    encode_batch, probing,
                                                    tokenize)
-    from lzma_tpu_torch.ops.device_parser import tokenize_optimal
+    from lzma_tpu_torch.ops.device_parser import MODEL_STAGES, tokenize_optimal
     from lzma_tpu_torch.parallel import blocks as blk
     from lzma_tpu_torch.probes._cuda import event_ms
     from lzma_tpu_torch.runtime import build
@@ -2023,8 +2108,9 @@ def main():
             f"K4 {k4_plan[0]} threads, band {k4_plan[1]}): from and choice "
             "equal")
 
-    # K6 on both parses' tokens of the same lanes, the EOS marker appended
-    k6_err = 0
+    # K6 and K7 on both parses' tokens of the same lanes, the EOS marker
+    # appended
+    k6_err = k7_err = 0
     c_data, c_lens = pad_rows(blocks, dev)
     for parse in ("lazy", "optimal"):
         if parse == "lazy":
@@ -2036,10 +2122,26 @@ def main():
         eos_tok = _append_eos_tokens(*tok[:4], tok[4], c_lens)
         err, _ = check_classify(_classify_rows(*eos_tok[1:]))
         k6_err = max(k6_err, err)
-        log(f"[K6 vs plain] {CMP_LANES}x{CMP_BYTES}, {parse} parse with the "
-            f"EOS marker ({eos_tok[0].shape[1]} token rows, "
+        meta = classify_tokens(c_data, *eos_tok)
+        err, _ = check_lower((tuple(m.long() for m in meta), *eos_tok,
+                              params.lc, params.lp, params.pb,
+                              10 * c_data.shape[1] + 128, 0))
+        k7_err = max(k7_err, err)
+        log(f"[K6, K7 vs plain] {CMP_LANES}x{CMP_BYTES}, {parse} parse with "
+            f"the EOS marker ({eos_tok[0].shape[1]} token rows, "
             f"{int(eos_tok[3].sum(1).max())} valid in the longest lane): case, "
-            "state and r0 equal")
+            "state and r0 equal; ctx, bits and total equal")
+    # K7 at lc8 lp4 pb4 on a preset-primed batch (coded positions from
+    # pos_base), as the port's own encoder lowers it
+    with probing() as l_probe:
+        encode_batch(p_blocks, LzmaParams(lc=8, lp=4, pb=4), preset=preset,
+                     device=dev)
+    err, _ = check_lower(l_probe["lower_args"])
+    k7_err = max(k7_err, err)
+    log(f"[K7 vs plain] lc8 lp4 pb4, {len(p_blocks)} lanes primed with a "
+        f"{len(preset)} B preset (pos_base {l_probe['lower_args'][-1]}): ctx, "
+        "bits and total equal")
+    del l_probe
     done("small shapes")
 
     # ---- 4. the pinned containers (card vs the JAX reference) ----
@@ -2088,8 +2190,9 @@ def main():
     mb = len(data) / 1e6
     lazy_blob, t_enc, t_dec, launches, peak, _ = drive(api, data, params,
                                                        "lazy", dev)
+    lazy_launches = launches
     if launches["rc_serialize"] < 1 or launches["ring_decode"] < 1 \
-            or launches["classify"] != 1:
+            or launches["classify"] != 1 or launches["lower"] != 1:
         raise AssertionError(f"a kernel did not run on the lazy path: {launches}")
     log(f"[lazy] {len(data)} B in {len(data) // MAIN_BLOCK} lanes of {MAIN_BLOCK} B "
         f"on {card}: encode {t_enc:.3f} s = {mb / t_enc:.3f} MB/s, decode "
@@ -2103,7 +2206,8 @@ def main():
     blob, t_enc, t_dec, launches, peak, (offsets, bsizes) = drive(
         api, data, params, "optimal", dev)
     if launches["dp_parse"] < 2 or launches["rc_serialize"] < 1 \
-            or launches["ring_decode"] < 1 or launches["classify"] != 3:
+            or launches["ring_decode"] < 1 or launches["classify"] != 3 \
+            or launches["lower"] != 3:
         raise AssertionError(f"a kernel did not run on the main path: {launches}")
     if len(blob) >= len(lazy_blob):
         raise AssertionError(f"optimal container {len(blob)} B is not smaller "
@@ -2128,6 +2232,7 @@ def main():
     secs = probe["seconds"]
     stage_peaks = probe["peak_bytes"]
     t_pos, t_len, t_valid, ctx, bits, totals = probe["lowered"]
+    model_s = [sum(x) for x in zip(*(secs[k] for k in MODEL_STAGES))]
     log(f"[stages] probed optimal encode {t_probed:.3f} s (unprobed "
         f"{t_enc:.3f} s), max tokens/lane {int(t_valid.sum(1).max())}, "
         f"max coded bits/lane {int(totals.max())}: "
@@ -2136,7 +2241,10 @@ def main():
                        + " + ".join(f"{x * 1e3:.1f}" for x in v) + ")"
                        if len(v) > 1 else "")
                     for k, v in secs.items())
-        + f"; decode {t_dec * 1e3:.1f} ms")
+        + f"; model (the sum of {', '.join(MODEL_STAGES)}) "
+        f"{sum(model_s) * 1e3:.1f} ms ({len(model_s)} calls: "
+        + " + ".join(f"{x * 1e3:.1f}" for x in model_s)
+        + f"); decode {t_dec * 1e3:.1f} ms")
     # the whole-lane kernel stages beside their bounds at the main path's
     # full shapes (K3's work counted on the last round's inputs)
     L, N = t_pos.shape
@@ -2195,6 +2303,24 @@ def main():
         f"{k6_moved / HBM_BYTES_PER_S * 1e3:.4f} ms at the HBM rate); "
         f"{k6_whole * 1e6 / int(t_valid.sum(1).max()):.1f} ns a token of the "
         "longest lane")
+    # K7 on the final tokens (the last lowering's arguments)
+    l_args = probe.pop("lower_args")
+    k7_out = cuda_lower.lower_tokens_cuda(*l_args)
+    if not all(torch.equal(a, b) for a, b in zip(k7_out, (ctx, bits, totals))):
+        raise AssertionError("K7 on the final tokens differs from the encode's "
+                             "(ctx, bit) streams")
+    del k7_out
+    k7_whole = event_ms(lambda: cuda_lower.lower_tokens_cuda(*l_args), 3)
+    k7_work = lower_work(l_args, totals)
+    k7_whole_bound = bound(*k7_work)
+    n_tok_valid = int(l_args[4].sum())
+    log(f"[K7 whole lanes] {L} lanes x {l_args[1].shape[1]} token slots "
+        f"({n_tok_valid} valid tokens, {n_bits} pairs, max_bits {l_args[8]}) on "
+        f"{card}: lower {k7_whole:.3f} ms a call (CUDA events, the wrapper with "
+        f"its status readback), {k7_work[0]} B read and written, {k7_work[1]} "
+        f"operations, bound {k7_whole_bound[0]:.4f} ms by {k7_whole_bound[1]} "
+        f"({k7_whole / k7_whole_bound[0]:.1f}x); "
+        f"{k7_whole * 1e6 / n_tok_valid:.2f} ns a token")
     log(f"[K2, K1 whole lanes] {L} lanes on {card}, CUDA events: rc_serialize "
         f"{k2_whole:.3f} ms a call ({n_bits} pairs, "
         f"{k2_whole * 1e6 / int(totals.max()):.1f} ns a pair of the longest "
@@ -2292,6 +2418,12 @@ def main():
     del c_rows
     log(f"[K6 vs plain] main path's final tokens, whole: equal; kernel "
         f"{k6_whole:.3f} ms vs plain {k6_plain:.1f} ms on {card}")
+    # K7: the final lowering's whole arguments, uncut (one plain call)
+    err, k7_plain = check_lower(l_args)
+    k7_err = max(k7_err, err)
+    del l_args
+    log(f"[K7 vs plain] main path's final tokens, whole: ctx, bits and total "
+        f"equal; kernel {k7_whole:.3f} ms vs plain {k7_plain:.1f} ms on {card}")
     log(f"[times] main path's shapes ({len(bsizes)} lanes x {MAIN_BLOCK} B) on "
         f"{card}: dp_parse kernel {k3_ms:.3f} ms, dp_parse2 kernel "
         f"{k4_ms:.3f} ms vs plain {k3_plain:.1f} ms ({CMP_POS} positions a "
@@ -2441,8 +2573,9 @@ def main():
     done("probes")
 
     # ---- 14. the .lzma path at full size, front door, CLI, entry ----
-    k6_stream, k6_stream_bound, stream_errs = alone_phase(dev, card, data)
+    stream_ms, stream_bounds, stream_errs = alone_phase(dev, card, data)
     k6_err = max(k6_err, stream_errs["classify"])
+    k7_err = max(k7_err, stream_errs["lower"])
     k2_err = max(k2_err, stream_errs["rc_serialize"])
     k1_err = max(k1_err, stream_errs["ring_decode"])
     done("lzma stream")
@@ -2535,13 +2668,25 @@ def main():
         record("classify_carry", "lzma_tpu_torch/csrc/classify.cu",
                "lzma_tpu/ops/device_encoder.py:85", launches["classify"],
                k6_err, k6_whole, k6_plain, k6_whole_bound, whole_ms=k6_whole,
-               whole_bound_ms=k6_whole_bound[0], stream_ms=k6_stream,
-               stream_bound_ms=k6_stream_bound[0], trace_launches=trace_k6,
+               whole_bound_ms=k6_whole_bound[0], stream_ms=stream_ms["classify"],
+               stream_bound_ms=stream_bounds["classify"][0],
+               trace_launches=trace_k6,
                mesh_launches=mesh_enc["classify"],
                bench_launches=bench_launches["tpu"]["classify"],
                file_launches={k: v["classify"]
                               for k, v in file_launches.items()},
                design="scan over each lane's token rows, five grids"),
+        record("lower", "lzma_tpu_torch/csrc/lower.cu",
+               "lzma_tpu/ops/device_encoder.py:163", launches["lower"],
+               k7_err, k7_whole, k7_plain, k7_whole_bound, whole_ms=k7_whole,
+               whole_bound_ms=k7_whole_bound[0], stream_ms=stream_ms["lower"],
+               stream_bound_ms=stream_bounds["lower"][0],
+               lazy_launches=lazy_launches["lower"],
+               stream_launches=1, mesh_launches=mesh_enc["lower"],
+               bench_launches=bench_launches["tpu"]["lower"],
+               file_launches={k: v["lower"]
+                              for k, v in file_launches.items()},
+               design="tile sums, a lane scan, a thread a token, a fill"),
     ] + probe_records
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -204,11 +204,26 @@ def lower_tokens(data, meta, t_pos, t_len, t_dist, t_valid, lc, lp, pb,
     streams (device_encoder.lower_tokens).  `pos_base` is the preset
     length when the window is primed: token positions are absolute and
     coded positions start at pos_base.  Returns ctx (N, max_bits) int32,
-    bit (N, max_bits) int32, total (N,) int32.
+    bit (N, max_bits) int32, total (N,) int32.  `data` is not read.
 
-    Where the reference silently drops bits that do not fit (a long
-    token past the compacted buffer, a bit past max_bits), this raises:
-    valid inputs never reach either."""
+    ``cuda_lower.lower_tokens_cuda``: the CUDA kernel for CUDA tensors,
+    the plain ``_lower_tokens_plain`` for CPU ones.  Where the reference
+    silently drops bits that do not fit (a long token past the compacted
+    buffer, a bit past max_bits), both raise: valid inputs never reach
+    either."""
+    from .cuda_lower import lower_tokens_cuda
+
+    return lower_tokens_cuda(tuple(m.long() for m in meta), t_pos.long(),
+                             t_len.long(), t_dist.long(), t_valid.bool(), lc,
+                             lp, pb, max_bits, pos_base)
+
+
+def _lower_tokens_plain(meta, t_pos, t_len, t_dist, t_valid, lc, lp, pb,
+                        max_bits, pos_base: int = 0):
+    """The plain version of ``cuda_lower.lower_tokens_cuda``: the
+    reference's lowering as ~60 tensor ops a bit slot, 9 short slots then
+    up to MAXB long ones, one scatter a slot (arguments and result as
+    ``lower_tokens``)."""
     layout = ProbLayout(lc, lp, pb, pos_bits=pb)
     kind, rep_idx, state, match_mode, match_byte, prev_byte, lit_byte = meta
     N, T = t_pos.shape
@@ -429,7 +444,7 @@ def lower_tokens(data, meta, t_pos, t_len, t_dist, t_valid, lc, lp, pb,
                    "reduced", "base_val")
     F_long = {kk: comp(F_full[kk]) for kk in LONG_FIELDS}
     long_c = comp(long_cls)
-    maxb = min(int(_w(long_cls, nbits, 0).max()) if T else 0, MAXB)
+    maxb = min(int(_w(long_cls, nbits, 0).max()) if N * T else 0, MAXB)
     for t in range(maxb):
         ctx_out = emit_slot(F_long, long_c, t, False, ctx_out)
     ctx_out = ctx_out[:, :max_bits]
@@ -543,8 +558,10 @@ def probing():
     began under "peak_bytes" (the same lists; the card's peak statistics
     are reset at each stage's start), the
     last DP round's inputs under "dp_inputs", the last classify call's
-    token rows under "classify_rows" and the final tokens and (ctx, bit)
-    streams under "lowered", all held by reference.  For
+    token rows under "classify_rows", the final tokens and (ctx, bit)
+    streams under "lowered" and the final lowering's arguments
+    (``cuda_lower.lower_tokens_cuda``'s) under "lower_args", all held by
+    reference.  For
     diagnostics; an encode outside such a block records nothing."""
     global _PROBE
     outer, _PROBE = _PROBE, {}
@@ -643,6 +660,8 @@ def _lower_lanes(data, lens, dict_size, lc, lp, pb, fb, num_candidates,
                                          t_valid, lc, lp, pb, max_bits,
                                          pos_base=plen)
     keep("lowered", (t_pos, t_len, t_valid, ctx, bits, totals))
+    keep("lower_args", (meta, t_pos, t_len, t_dist, t_valid, lc, lp, pb,
+                        max_bits, plen))
     return ctx, bits, totals, max_n + max_n // 4 + 128
 
 

@@ -656,15 +656,26 @@ def _round_inputs(data, lens, tokens, ld, dd, suffix, lc: int, lp: int,
         ctx, bits, totals = lower_tokens(data, meta, tp, tl, td, tv, lc, lp,
                                          pb, 10 * N + 128)
     del meta
-    with stage("model", device):
+    # the price model's parts, each its own stage (MODEL_STAGES; not
+    # nested: a stage resets the card's peak statistics)
+    with stage("empirical_probs", device):
         layout = ProbLayout(lc, lp, pb, pos_bits=pb)
         probs = empirical_probs(ctx, bits, totals, layout.size)
         del ctx, bits
+    with stage("rep0_trace", device):
         r0pos = rep0_trace(tp, td, tv, N)
+    with stage("rep_match_lens_rmq", device):
         replen = rep_match_lens_rmq(*suffix, r0pos, lens, fb)
+    with stage("build_price_model", device):
         model = build_price_model(data, probs, lc, lp, pb, r0pos)
+    with stage("dp_inputs", device):
         return dp_inputs(data, ld, dd, model, fb, r0pos, replen)
 
+
+#: the stages of _round_inputs' price model, in order; their sum is the
+#: one "model" stage of earlier breakdowns
+MODEL_STAGES = ("empirical_probs", "rep0_trace", "rep_match_lens_rmq",
+                "build_price_model", "dp_inputs")
 
 #: tokenize_optimal's scans: JAX's band=True, "pallas2" and False
 SCANS = ("band", "band2", "naive")

@@ -173,13 +173,15 @@ def decode_batch_blocks(params: LzmaParams, block_size: int, max_comp: int,
 
 def _launches() -> dict:
     """The kernels' launch counts (K1 ring_decode, K2 rc_serialize, K3
-    dp_parse, K6 classify)."""
-    from ..ops import cuda_classify, cuda_parser, cuda_ring, cuda_serializer
+    dp_parse, K6 classify, K7 lower)."""
+    from ..ops import (cuda_classify, cuda_lower, cuda_parser, cuda_ring,
+                       cuda_serializer)
 
     return {"ring_decode": cuda_ring.LAUNCHES,
             "rc_serialize": cuda_serializer.LAUNCHES,
             "dp_parse": cuda_parser.LAUNCHES,
-            "classify": cuda_classify.LAUNCHES}
+            "classify": cuda_classify.LAUNCHES,
+            "lower": cuda_lower.LAUNCHES}
 
 
 class _BatchLog:

@@ -22,12 +22,15 @@ from lzma_tpu.format.properties import LzmaParams
 from lzma_tpu_torch.bench.datagen import generate_bench_data
 from lzma_tpu_torch.core.layout import ProbLayout
 from lzma_tpu_torch.core.rangecoder import CorruptStreamError
-from lzma_tpu_torch.ops import (api, cuda_classify, cuda_decoder, cuda_parser,
-                                cuda_ring, cuda_serializer)
+from lzma_tpu_torch.ops import (api, cuda_classify, cuda_decoder, cuda_lower,
+                                cuda_parser, cuda_ring, cuda_serializer)
 from lzma_tpu_torch.ops.device_decoder import _decode_fsm, pad_rows
-from lzma_tpu_torch.ops.device_encoder import (EOS_DIST, _append_eos_tokens,
+from lzma_tpu_torch.ops.device_encoder import (EOS_DIST, K_MATCH,
+                                               _append_eos_tokens,
                                                _classify_carry, _classify_rows,
-                                               _lower_lanes, classify_tokens,
+                                               _lower_lanes,
+                                               _lower_tokens_plain,
+                                               classify_tokens, lower_tokens,
                                                serialize, tokenize)
 from lzma_tpu_torch.ops.device_decoder import CapExceededError
 from lzma_tpu_torch.ops.device_parser import (_lists_and_seed, _round_inputs,
@@ -531,6 +534,216 @@ def test_classify_wrapper_rejects_bad_dtype_and_device(card):
         cuda_classify.classify_carry_cuda(d, d[:2], v)
     with pytest.raises(ValueError):
         cuda_classify.classify_carry_cuda(d.T, d.T, v.T)
+
+
+# ------------------------------------------------ K7: the bit lowering
+def _lower_inputs(counts, seed, dev, lc=3, lp=0, pb=2, pos_base=0,
+                  max_bits=None):
+    """lower_tokens_cuda's arguments on `dev` for lanes of `counts` valid
+    tokens each (literals, fresh matches over every slot band, reps of the
+    lane's last distances, short reps, the EOS marker at each lane's end),
+    in T = 2 max(counts) + 8 slots (a parse's long tokens fit T // 2 + 2),
+    classified by the port's classify_tokens on `dev`."""
+    rng = np.random.default_rng(seed)
+    N, T = len(counts), 2 * max(counts, default=0) + 8
+    t_pos = np.zeros((N, T), np.int64)
+    t_len = np.ones((N, T), np.int64)
+    t_dist = np.full((N, T), -1, np.int64)
+    end = 0
+    for i, c in enumerate(counts):
+        u = rng.random(c)
+        band = rng.integers(0, 5, c)
+        fresh = np.select([band == 0, band == 1, band == 2, band == 3],
+                          [rng.integers(0, 4, c), rng.integers(4, 128, c),
+                           rng.integers(128, 1 << 20, c),
+                           rng.integers(1 << 20, 1 << 27, c)],
+                          rng.integers(1 << 27, 1 << 31, c))
+        ln = np.where(rng.random(c) < 0.5, rng.choice([2, 9, 17, 273], c),
+                      rng.integers(2, 274, c))
+        lit = u < 0.4
+        rep = (u >= 0.4) & (u < 0.65) & (np.arange(c) >= 4)
+        back = rng.integers(1, 5, c)
+        d = np.where(lit, -1, fresh)
+        for j in np.nonzero(rep)[0]:
+            d[j] = d[j - back[j]] if d[j - back[j]] >= 0 else d[j]
+        ln = np.where(lit, 1, np.where(rep & (rng.random(c) < 0.2), 1, ln))
+        if not c:
+            continue
+        d[-1], ln[-1] = EOS_DIST, 2
+        pos = pos_base + np.concatenate([[0], np.cumsum(ln)[:-1]])
+        t_pos[i, :c], t_len[i, :c], t_dist[i, :c] = pos, ln, d
+        end = max(end, int(pos[-1]) + 2)
+    t_valid = np.arange(T)[None, :] < np.array(counts)[:, None]
+    data = torch.from_numpy(rng.integers(0, 256, (N, max(end, pos_base + 1)),
+                                         dtype=np.uint8)).to(dev)
+    tok = [torch.from_numpy(a).to(dev) for a in (t_pos, t_len, t_dist, t_valid)]
+    meta = tuple(m.long() for m in classify_tokens(data, *tok))
+    if max_bits is None:
+        max_bits = 50 * T + 128
+    return (meta, *tok, lc, lp, pb, max_bits, pos_base)
+
+
+def _lower_on_card(args):
+    """K7 on the card against the plain version on the same card tensors;
+    one launch."""
+    before = cuda_lower.LAUNCHES
+    got = cuda_lower.lower_tokens_cuda(*args)
+    torch.cuda.synchronize()
+    assert cuda_lower.LAUNCHES == before + 1
+    want = _lower_tokens_plain(*args)
+    for name, g, w in zip(("ctx", "bits", "total"), got, want):
+        assert g.dtype == w.dtype == torch.int32, name
+        assert torch.equal(g, w), name
+    return got
+
+
+def _lower_constant(name):
+    """A ``constexpr int`` of csrc/lower.cu, read from the source."""
+    src = (pathlib.Path(cuda_lower.__file__).parent.parent / "csrc"
+           / "lower.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+# K7 at its tile edges: lanes of a tile (kTile tokens) - 1, + 0, + 1, two
+# and three tiles and some, of 0 and 1 token; N = 1, 3 and 33 (blocks run
+# lanes fastest)
+@pytest.mark.parametrize("N", [1, 3, 33])
+def test_lower_kernel_at_tile_edges(card, N):
+    K = _lower_constant("kThreads") * _lower_constant("kRounds")
+    sizes = [0, 1, K - 1, K, K + 1, 2 * K + 1, 3 * K + 5]
+    counts = [sizes[(i * 5 + N) % len(sizes)] for i in range(N)]
+    counts[-1] = K + 1 if N > 1 else K - 1
+    _lower_on_card(_lower_inputs(counts, N, card))
+
+
+def test_lower_kernel_on_one_lane_of_2_20_tokens(card):
+    """One lane of 2^20 + 3 tokens spread over 1,025 tiles."""
+    _, _, total = _lower_on_card(_lower_inputs([(1 << 20) + 3], 7, card))
+    assert int(total[0]) > 1 << 20
+
+
+@pytest.mark.parametrize("parse", ["lazy", "optimal"])
+def test_lower_kernel_on_both_parses_with_eos_tokens(card, parse):
+    """The lazy and the optimal parse's tokens of 4 lanes, the EOS marker
+    appended, classified on the card: K7 = the plain version, and the
+    lowering on the card = on the CPU."""
+    blocks = _blocks(4, 4096, 5)
+    data, lens = pad_rows(blocks, card)
+    if parse == "lazy":
+        tok = tokenize(data, lens, 4096, 32, 4)
+    else:
+        from lzma_tpu_torch.ops.device_parser import tokenize_optimal
+
+        tok = tokenize_optimal(data, lens, 4096, lc=3, lp=0, pb=2, fb=32)
+    toks = _append_eos_tokens(*tok[:4], tok[4], lens)
+    meta = tuple(m.long() for m in classify_tokens(data, *toks))
+    args = (meta, *toks, 3, 0, 2, 10 * data.shape[1] + 128, 0)
+    got = _lower_on_card(args)
+    cpu = lower_tokens(None, tuple(m.cpu() for m in meta),
+                       *(t.cpu() for t in toks), 3, 0, 2, args[8])
+    for g, w in zip(got, cpu):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_lower_kernel_at_lc8_lp4_pb4_with_a_preset(card):
+    """The port's encoder's own lowering of a preset-primed batch at lc8
+    lp4 pb4 (coded positions from pos_base), and synthetic lanes at an
+    odd pos_base."""
+    from lzma_tpu_torch.ops.device_encoder import encode_batch, probing
+
+    blocks = _blocks(3, 2048, 11)
+    with probing() as probe:
+        encode_batch(blocks, LzmaParams(lc=8, lp=4, pb=4),
+                     preset=blocks[0][:700], device=card)
+    assert probe["lower_args"][-1] == 700
+    _lower_on_card(probe["lower_args"])
+    _lower_on_card(_lower_inputs([300, 1500, 0], 3, card, lc=8, lp=4, pb=4,
+                                 pos_base=1001))
+
+
+def test_lower_kernel_raises_where_the_plain_version_raises(card):
+    """max_bits one below the longest lane's total, then below a middle
+    lane's only; more long tokens than T // 2 + 2: the plain version's
+    ValueError, after one launch; a total equal to max_bits passes."""
+    args = list(_lower_inputs([700, 1300, 40], 13, card))
+    total = _lower_on_card(tuple(args))[2]
+    for cap, lane in ((int(total.max()), None), (int(total[1]), 1)):
+        args[8] = cap
+        if lane is None:
+            _lower_on_card(tuple(args))              # exactly full: fits
+        args[8] = cap - 1
+        for fn in (cuda_lower.lower_tokens_cuda, _lower_tokens_plain):
+            with pytest.raises(ValueError, match="exceed"):
+                fn(*args)
+    args = list(_lower_inputs([600], 17, card))
+    T = args[1].shape[1]
+    args[0] = tuple(torch.full_like(m, K_MATCH) if k == 0 else m
+                    for k, m in enumerate(args[0]))
+    args[2] = torch.full_like(args[2], 3)           # every token a match
+    args[4] = torch.arange(T, device=card)[None] < T // 2 + 3
+    for fn in (cuda_lower.lower_tokens_cuda, _lower_tokens_plain):
+        with pytest.raises(ValueError, match="long tokens"):
+            fn(*args)
+
+
+def test_lower_kernel_reads_strided_planes(card):
+    """Planes transposed (the classify finish's layout), sliced out of
+    wider rows (the compaction's) and expanded along a lane give the
+    contiguous planes' result."""
+    args = _lower_inputs([500, 900, 20, 1100], 19, card)
+    want = _lower_on_card(args)
+    meta, t_pos, t_len, t_dist, t_valid = args[:5]
+    strided = []
+    for k, x in enumerate((*meta, t_pos, t_len, t_dist)):
+        if k % 2:
+            x = x.T.contiguous().T                   # stride (1, N)
+        else:
+            x = torch.cat([x, x[:, :5]], dim=1)[:, :x.shape[1]]
+        strided.append(x)
+    assert not strided[1].is_contiguous() and not strided[0].is_contiguous()
+    got = _lower_on_card((tuple(strided[:7]), *strided[7:], t_valid.T
+                          .contiguous().T, *args[5:]))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    # one lane's planes expanded to 3 lanes (stride 0) = that lane thrice
+    one = [x[2:3] for x in (*meta, t_pos, t_len, t_dist, t_valid)]
+    wide = [x.expand(3, -1) for x in one]
+    got = _lower_on_card((tuple(wide[:7]), *wide[7:], *args[5:]))
+    assert torch.equal(got[0], want[0][2:3].expand(3, -1))
+
+
+def test_lower_kernel_on_empty_shapes(card):
+    """No token slots, or no lanes: every slot fill, every total 0, and
+    no launch."""
+    for N, T in ((3, 0), (0, 7)):
+        z = torch.zeros((N, T), dtype=torch.int64, device=card)
+        args = (tuple(z for _ in range(7)), z, z + 1, z - 1, z.bool(), 3, 0,
+                2, 64, 0)
+        before = cuda_lower.LAUNCHES
+        got = cuda_lower.lower_tokens_cuda(*args)
+        assert cuda_lower.LAUNCHES == before
+        for g, w in zip(got, _lower_tokens_plain(*args)):
+            assert torch.equal(g, w)
+
+
+def test_lower_wrapper_rejects_bad_dtype_device_and_layout(card):
+    args = list(_lower_inputs([10, 20], 23, card))
+    bad = [
+        (TypeError, 1, args[1].int()),                      # t_pos int32
+        (TypeError, 4, args[4].int()),                      # t_valid int32
+        (ValueError, 3, args[3].cpu()),                     # another device
+        (ValueError, 2, args[2][:1]),                       # another shape
+        (ValueError, 1, args[1].to_sparse()),               # not strided
+    ]
+    for err, k, x in bad:
+        a = list(args)
+        a[k] = x
+        with pytest.raises(err):
+            cuda_lower.lower_tokens_cuda(*a)
+    with pytest.raises(TypeError):
+        cuda_lower.lower_tokens_cuda(tuple(m.int() for m in args[0]), *args[1:])
+    with pytest.raises(ValueError):
+        cuda_lower.lower_tokens_cuda(args[0][:6], *args[1:])
 
 
 def test_eos_cap_grows_on_the_card(card, monkeypatch):

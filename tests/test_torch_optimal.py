@@ -62,6 +62,9 @@ def test_tokenize_optimal_matches_jax():
         np.testing.assert_array_equal(g.numpy(), np.asarray(r), err_msg=name)
     secs = probe["seconds"]
     assert len(secs["dp_parse"]) == 2 and len(secs["classify"]) == 2
+    # the price model in five sibling stages, each once a round
+    assert "model" not in secs
+    assert all(len(secs[k]) == 2 for k in tp.MODEL_STAGES)
     assert probe["dp_inputs"][0].shape == (4, 2048, 29)
     # outside the block nothing is recorded
     tp.tokenize_optimal(T(data[:1, :256]), T(lens[:1] // 8), 256, **kw)

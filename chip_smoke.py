@@ -16,11 +16,15 @@ prints its seconds):
      shapes: the range encoder (K2) with its arena in shared and in device
      memory (the same streams with lc8 lp4's arena size, which is over the
      card's shared memory), both decoders (K1, K5), the classify carry
-     (K6, a scan over each lane's token rows in five grids) and the bit
-     lowering (K7, tile sums, a lane scan, a thread a token, a fill), K6
-     and K7 on the lazy and the optimal parse's tokens with the EOS
-     marker appended, on 8 lanes x 2 KiB, K7 also on a preset-primed
-     lc8 lp4 pb4 batch (pos_base); K2 on lc8 lp4's own streams, in device
+     (K6, a scan over each lane's token rows in five grids), the bit
+     lowering (K7, tile sums, a lane scan, a fill, each round's pairs
+     staged in shared memory and written out) and its slot counts
+     (K8, a histogram a block), K6, K7 and K8 on the lazy and the optimal
+     parse's tokens with the EOS marker appended, on 8 lanes x 2 KiB, K7
+     and K8 also on a preset-primed lc8 lp4 pb4 batch (pos_base; K8's
+     3,147,574 slots a lane in device memory, lc3 lp0 pb2's in shared
+     memory), K8 on one 256 KiB lane of literals only (the hot slots); K2
+     on lc8 lp4's own streams, in device
      memory, and K1
      on them
      with its arena in device memory (K1's placement, as K2's, by the
@@ -40,10 +44,11 @@ prints its seconds):
      block decoded by the stdlib lzma module
   6. the lazy path at 8 MiB (text corpus + bench data, LzmaParams()
      defaults, 256 KiB blocks = 32 lanes): encode, decode, round trip,
-     stdlib lzma, K6 and K7 launched once, K1 and K2
+     stdlib lzma, K6 and K7 launched once, K8 not at all, K1 and K2
   7. the main path: the same 8 MiB with parse="optimal": encode, decode,
      round trip, stdlib lzma, smaller than the lazy container; K3
-     launched at least twice, K6 and K7 three times, K2 and K1 at least
+     launched at least twice, K6 three times, K8 twice (the two rounds
+     count their pairs), K7 once (the final tokens), K2 and K1 at least
      once; MB/s, ratio, peak
      device memory; then the same encode again inside probing(), which
      must give the same container: its stage breakdown (the device
@@ -54,7 +59,9 @@ prints its seconds):
      K6 on the final tokens' rows timed by CUDA events (K6 beside its
      bound and a model of the bytes its design moves), K7 on the final
      lowering's arguments (equal to the encode's streams) beside its
-     bound, and the
+     bound, K8 on the last round's lower_counts arguments beside its
+     bound and beside the route it replaced (K7's planes of the same
+     tokens, then pair_counts, whose counts K8's equal), and the
      inputs phases 8 and 9 take
   8. the K4 path: tokenize_optimal(scan="band2") on phase 5's 32 x 16 KiB
      gives the tokens of the default scan, K4 launched (its count); K4 on
@@ -66,8 +73,9 @@ prints its seconds):
      codes the first CMP_BITS pairs, K1 decodes each lane up to the first
      token boundary at or past CMP_OUT bytes), all timed on those inputs;
      K6 (the scan) against its plain carry on the whole final tokens,
-     uncut, and K7 against its plain lowering on the whole final
-     lowering's arguments, uncut
+     uncut, K7 against its plain lowering on the whole final
+     lowering's arguments, uncut, and K8 against its plain counts on the
+     whole last round's arguments, uncut
  10. the K5 path: phase 5's 32 streams through decode_batch_resident
      equal the input and K1 (K5 launched, its count); K1's champion shape
      (128 x 16 KiB, lc0, dict 4 KiB, fb 8) through K5 and K1, both timed,
@@ -191,13 +199,14 @@ prints its seconds):
      writes compress_file's container of those bytes, and open("rb")
      reads it back in 1 MiB reads
  27. no module of jax, jaxlib or lzma_tpu was loaded
-The last three lines are the card, the kernels' JSON record (K1-K7 and
-P1-P15; K1's carries its launches in phase 16's decode, K6's in phase
-19's dumps, K1, K2, K3, K6 and K7 theirs in phase 20's mesh calls, K1,
-K2, K6 and K7 theirs in phase 24's `b -backendtpu` and K1 in `b
--backendhybrid`, and K1, K2, K3, K6 and K7 theirs in phase 26's file
-configurations, `file_launches`; K7's its lazy and stream launches too)
-and the result JSON.
+The last three lines are the card, the kernels' JSON record (K1-K8 and
+P1-P15, 23 records; K1's carries its launches in phase 16's decode, K6's
+in phase 19's dumps, K1, K2, K3, K6, K7 and K8 theirs in phase 20's mesh
+calls, K1, K2, K6, K7 and K8 theirs in phase 24's `b -backendtpu` and K1
+in `b -backendhybrid`, and K1, K2, K3, K6, K7 and K8 theirs in phase
+26's file configurations, `file_launches`; K7's and K8's their lazy
+launches too, K7's its stream launches, K8's the route it replaced,
+`route_ms`) and the result JSON.
 """
 
 from __future__ import annotations
@@ -623,15 +632,85 @@ def check_lower(args):
     return err, plain_ms
 
 
+def count_work(args, totals):
+    """(bytes, operations) of the slot counts on these arguments
+    (lower_counts_cuda's) with these totals: t_valid read over every
+    token slot and the ten int64 planes over each valid token, n and n1
+    written once over every slot of every lane and total once.
+    Operations: 60 integer operations a valid token for its geometry and
+    10 a pair, as lower_work counts them (the histogram's adds are not
+    counted)."""
+    from lzma_tpu_torch.core.layout import ProbLayout
+
+    meta, t_pos, t_len, t_dist, t_valid, lc, lp, pb = args[:8]
+    N, T = t_pos.shape
+    n_valid = int(t_valid.sum())
+    planes = (*meta, t_pos, t_len, t_dist)
+    n_read = N * T * t_valid.element_size() + n_valid * sum(
+        p.element_size() for p in planes)
+    n_write = 2 * 4 * N * ProbLayout(lc, lp, pb, pos_bits=pb).size + 4 * N
+    return n_read + n_write, 60 * n_valid + 10 * int(totals.sum())
+
+
+def check_counts(args):
+    """K8 against _lower_counts_plain on the same card tensors (tolerance
+    zero).  Returns (max |diff| over n, n1 and total, plain version's
+    ms)."""
+    from lzma_tpu_torch.ops.cuda_lower import lower_counts_cuda
+    from lzma_tpu_torch.ops.device_encoder import _lower_counts_plain
+
+    box = {}
+    plain_ms = wall_ms(lambda: box.update(p=_lower_counts_plain(*args)))
+    err = max(int((k.long() - p.long()).abs().max()) if k.numel() else 0
+              for k, p in zip(lower_counts_cuda(*args), box["p"]))
+    if err:
+        raise AssertionError(f"lower_counts differs from the plain version "
+                             f"by {err}")
+    return err, plain_ms
+
+
+def literal_args(data, lc, lp, pb):
+    """lower_counts_cuda's arguments for lanes of literals only, a token a
+    byte of `data` ((N, n) uint8 on the card), classified by the port's
+    classify_tokens: every pair lands on is_match and the literal trees,
+    the hot slots."""
+    import torch
+    from lzma_tpu_torch.ops.device_encoder import classify_tokens
+
+    N, n = data.shape
+    t_pos = torch.arange(n, device=data.device).expand(N, n).contiguous()
+    t_len = torch.ones_like(t_pos)
+    t_dist = torch.full_like(t_pos, -1)
+    t_valid = torch.ones_like(t_pos, dtype=torch.bool)
+    meta = classify_tokens(data, t_pos, t_len, t_dist, t_valid)
+    return (tuple(m.long() for m in meta), t_pos, t_len, t_dist, t_valid, lc,
+            lp, pb, 10 * n + 128, 0)
+
+
 def counters():
     """The kernels whose launches a main-path run counts, by name: K3
-    dp_parse, K6 classify, K7 lower, K2 rc_serialize, K1 ring_decode."""
+    dp_parse, K6 classify, K7 lower, K8 lower_counts, K2 rc_serialize, K1
+    ring_decode; each the (module, attribute) of its wrapper's count."""
     from lzma_tpu_torch.ops import (cuda_classify, cuda_lower, cuda_parser,
                                     cuda_ring, cuda_serializer)
 
-    return {"dp_parse": cuda_parser, "classify": cuda_classify,
-            "lower": cuda_lower, "rc_serialize": cuda_serializer,
-            "ring_decode": cuda_ring}
+    return {"dp_parse": (cuda_parser, "LAUNCHES"),
+            "classify": (cuda_classify, "LAUNCHES"),
+            "lower": (cuda_lower, "LAUNCHES"),
+            "lower_counts": (cuda_lower, "COUNT_LAUNCHES"),
+            "rc_serialize": (cuda_serializer, "LAUNCHES"),
+            "ring_decode": (cuda_ring, "LAUNCHES")}
+
+
+def zero_counts():
+    """Every count of counters() set to 0."""
+    for mod, attr in counters().values():
+        setattr(mod, attr, 0)
+
+
+def read_counts():
+    """Every count of counters(), by name."""
+    return {k: getattr(mod, attr) for k, (mod, attr) in counters().items()}
 
 
 def decode_bytes(streams, cuts, sizes):
@@ -941,11 +1020,9 @@ def drive(api, data, params, parse, dev):
     the container's (offsets, block sizes))."""
     import torch
 
-    counted = counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for mod in counted.values():
-        mod.LAUNCHES = 0
+    zero_counts()
     t = time.perf_counter()
     blob = api.encode_blocks(data, params, block_size=MAIN_BLOCK, parse=parse,
                              device=dev)
@@ -955,7 +1032,7 @@ def drive(api, data, params, parse, dev):
     back = api.decode_blocks(blob, device=dev)
     torch.cuda.synchronize()
     t_dec = time.perf_counter() - t
-    launches = {k: mod.LAUNCHES for k, mod in counted.items()}
+    launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
     if back != data:
         raise AssertionError(f"8 MiB {parse} round trip differs")
@@ -1000,15 +1077,13 @@ def alone_phase(dev, card, data):
     from lzma_tpu_torch.ops.device_encoder import probing
     from lzma_tpu_torch.probes._cuda import event_ms
 
-    counted = counters()
     mb = len(data) / 1e6
     blobs = {}
     for eos in (False, True):
         params = LzmaParams(write_eos=eos)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for mod in counted.values():
-            mod.LAUNCHES = 0
+        zero_counts()
         t = time.perf_counter()
         blob = api.encode_alone(data, params, device=dev)
         torch.cuda.synchronize()
@@ -1017,7 +1092,7 @@ def alone_phase(dev, card, data):
         back = api.decode_alone(blob, device=dev)
         torch.cuda.synchronize()
         t_dec = time.perf_counter() - t
-        launches = {k: mod.LAUNCHES for k, mod in counted.items()}
+        launches = read_counts()
         peak = torch.cuda.max_memory_allocated()
         size = 2**64 - 1 if eos else len(data)
         if back != data or blob[5:13] != size.to_bytes(8, "little"):
@@ -1026,7 +1101,8 @@ def alone_phase(dev, card, data):
             raise AssertionError(f"stdlib lzma disagrees on the .lzma stream "
                                  f"(eos {eos})")
         if launches != {"dp_parse": 0, "classify": 1, "lower": 1,
-                        "rc_serialize": 1, "ring_decode": 1}:
+                        "lower_counts": 0, "rc_serialize": 1,
+                        "ring_decode": 1}:
             raise AssertionError(f"the .lzma path's launches: {launches}")
         blobs[eos] = blob
         log(f"[lzma stream] {len(data)} B as one stream, "
@@ -1334,20 +1410,18 @@ def trace_phase(dev, card, data, params):
 
 
 def counted_call(fn):
-    """fn() with the launch counts of K1, K2, K3, K6 and K7 set to 0 just
-    before it and read just after, the card synchronised around it.
+    """fn() with the launch counts of K1, K2, K3, K6, K7 and K8 set to 0
+    just before it and read just after, the card synchronised around it.
     Returns (its result, seconds, launches)."""
     import torch
 
-    counted = counters()
     torch.cuda.synchronize()
-    for mod in counted.values():
-        mod.LAUNCHES = 0
+    zero_counts()
     t = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     secs = time.perf_counter() - t
-    return out, secs, {k: mod.LAUNCHES for k, mod in counted.items()}
+    return out, secs, read_counts()
 
 
 def mesh_rank(rank, init_method, data_path, out_dir):
@@ -1503,7 +1577,7 @@ def mesh_nccl_phase(dev, card, data, params, lazy_blob, opt_blob, hybrid_blob):
         finally:
             dist.destroy_process_group()
     if min(enc["rc_serialize"], enc["dp_parse"], enc["classify"], enc["lower"],
-           dec["ring_decode"]) < 1:
+           enc["lower_counts"], dec["ring_decode"]) < 1:
         raise AssertionError(f"[mesh] a kernel did not run: encodes {enc}, "
                              f"decodes {dec}")
     log(f"[mesh NCCL world 1] {len(data)} B in {len(data) // MAIN_BLOCK} lanes "
@@ -1555,7 +1629,8 @@ def mesh_gloo_phase(card, data, lazy_blob, opt_blob, hybrid_blob, kept):
             for parse in ("lazy", "optimal"):
                 got = rec[parse]["launches"]
                 if min(got["rc_serialize"], got["classify"]) < 1 or (
-                        parse == "optimal" and got["dp_parse"] < 1):
+                        parse == "optimal" and min(got["dp_parse"],
+                                                   got["lower_counts"]) < 1):
                     raise AssertionError(f"[mesh] rank {r} {parse}: {got}")
             if not rec["decode"]["equal"] or \
                     rec["decode"]["launches"]["ring_decode"] < 1:
@@ -1867,7 +1942,8 @@ def file_phase(dev, card, data, lazy_blob, opt_blob):
         dec_launches = report("file256M-lazy", batches(log_path, "decode"),
                               t_dec, size)
         launches["ring_decode"] += dec_launches["ring_decode"]
-        if min(v for k, v in launches.items() if k != "dp_parse") < 1:
+        if min(v for k, v in launches.items()
+               if k not in ("dp_parse", "lower_counts")) < 1:
             raise AssertionError(f"a kernel did not run: {launches}")
         found["file256M-lazy"] = launches
         for x in (src, enc, back):
@@ -1925,7 +2001,7 @@ def bench_phase(card):
                   if "KB/s" in ln]
         want = dict(ring_decode=2 * passes, dp_parse=0,
                     classify=passes if backend == "tpu" else 0,
-                    lower=passes if backend == "tpu" else 0,
+                    lower=passes if backend == "tpu" else 0, lower_counts=0,
                     rc_serialize=passes if backend == "tpu" else 0)
         if rc != 0 or launches != want or len(report) != passes + 1:
             raise AssertionError(f"[b -backend{backend}] rc {rc}, launches "
@@ -1996,7 +2072,8 @@ def main():
     from lzma_tpu_torch.ops.device_encoder import (_append_eos_tokens,
                                                    _classify_rows,
                                                    classify_tokens,
-                                                   encode_batch, probing,
+                                                   encode_batch,
+                                                   pair_counts, probing,
                                                    tokenize)
     from lzma_tpu_torch.ops.device_parser import MODEL_STAGES, tokenize_optimal
     from lzma_tpu_torch.parallel import blocks as blk
@@ -2108,9 +2185,9 @@ def main():
             f"K4 {k4_plan[0]} threads, band {k4_plan[1]}): from and choice "
             "equal")
 
-    # K6 and K7 on both parses' tokens of the same lanes, the EOS marker
-    # appended
-    k6_err = k7_err = 0
+    # K6, K7 and K8 on both parses' tokens of the same lanes, the EOS
+    # marker appended
+    k6_err = k7_err = k8_err = 0
     c_data, c_lens = pad_rows(blocks, dev)
     for parse in ("lazy", "optimal"):
         if parse == "lazy":
@@ -2123,25 +2200,46 @@ def main():
         err, _ = check_classify(_classify_rows(*eos_tok[1:]))
         k6_err = max(k6_err, err)
         meta = classify_tokens(c_data, *eos_tok)
-        err, _ = check_lower((tuple(m.long() for m in meta), *eos_tok,
-                              params.lc, params.lp, params.pb,
-                              10 * c_data.shape[1] + 128, 0))
+        c_args = (tuple(m.long() for m in meta), *eos_tok, params.lc,
+                  params.lp, params.pb, 10 * c_data.shape[1] + 128, 0)
+        err, _ = check_lower(c_args)
         k7_err = max(k7_err, err)
-        log(f"[K6, K7 vs plain] {CMP_LANES}x{CMP_BYTES}, {parse} parse with "
-            f"the EOS marker ({eos_tok[0].shape[1]} token rows, "
+        err, _ = check_counts(c_args)
+        k8_err = max(k8_err, err)
+        log(f"[K6, K7, K8 vs plain] {CMP_LANES}x{CMP_BYTES}, {parse} parse "
+            f"with the EOS marker ({eos_tok[0].shape[1]} token rows, "
             f"{int(eos_tok[3].sum(1).max())} valid in the longest lane): case, "
-            "state and r0 equal; ctx, bits and total equal")
-    # K7 at lc8 lp4 pb4 on a preset-primed batch (coded positions from
-    # pos_base), as the port's own encoder lowers it
+            "state and r0 equal; ctx, bits and total equal; n, n1 and total "
+            "equal")
+    # K7 and K8 at lc8 lp4 pb4 on a preset-primed batch (coded positions
+    # from pos_base), as the port's own encoder lowers it: K8 counts its
+    # 3,147,574 slots a lane in device memory, lc3 lp0's in shared memory
+    big_slots = ProbLayout(8, 4, 4, pos_bits=4).size
+    placed = (cuda_lower.count_placement(arena, limit),
+              cuda_lower.count_placement(big_slots, limit))
+    if placed != ("shared", "device"):
+        raise AssertionError(f"K8 placements {placed} for {arena} and "
+                             f"{big_slots} slots under {limit} B")
     with probing() as l_probe:
         encode_batch(p_blocks, LzmaParams(lc=8, lp=4, pb=4), preset=preset,
                      device=dev)
     err, _ = check_lower(l_probe["lower_args"])
     k7_err = max(k7_err, err)
-    log(f"[K7 vs plain] lc8 lp4 pb4, {len(p_blocks)} lanes primed with a "
+    err, _ = check_counts(l_probe["lower_args"])
+    k8_err = max(k8_err, err)
+    log(f"[K7, K8 vs plain] lc8 lp4 pb4, {len(p_blocks)} lanes primed with a "
         f"{len(preset)} B preset (pos_base {l_probe['lower_args'][-1]}): ctx, "
-        "bits and total equal")
+        f"bits and total equal; n, n1 and total equal ({big_slots} slots a "
+        "lane in device memory)")
     del l_probe
+    # K8 on one MAIN_BLOCK lane of literals only (the hot slots)
+    lit_args = literal_args(pad_rows([text_part()[:MAIN_BLOCK]], dev)[0],
+                            params.lc, params.lp, params.pb)
+    err, _ = check_counts(lit_args)
+    k8_err = max(k8_err, err)
+    log(f"[K8 vs plain] one lane of {MAIN_BLOCK} literals (text): n, n1 and "
+        f"total equal ({arena} slots a lane in shared memory)")
+    del lit_args
     done("small shapes")
 
     # ---- 4. the pinned containers (card vs the JAX reference) ----
@@ -2192,7 +2290,8 @@ def main():
                                                        "lazy", dev)
     lazy_launches = launches
     if launches["rc_serialize"] < 1 or launches["ring_decode"] < 1 \
-            or launches["classify"] != 1 or launches["lower"] != 1:
+            or launches["classify"] != 1 or launches["lower"] != 1 \
+            or launches["lower_counts"] != 0:
         raise AssertionError(f"a kernel did not run on the lazy path: {launches}")
     log(f"[lazy] {len(data)} B in {len(data) // MAIN_BLOCK} lanes of {MAIN_BLOCK} B "
         f"on {card}: encode {t_enc:.3f} s = {mb / t_enc:.3f} MB/s, decode "
@@ -2205,9 +2304,11 @@ def main():
     # ---- 7. the main path: 8 MiB, optimal parse ----
     blob, t_enc, t_dec, launches, peak, (offsets, bsizes) = drive(
         api, data, params, "optimal", dev)
+    # the two rounds count their pairs (K8), the final tokens are lowered
+    # (K7)
     if launches["dp_parse"] < 2 or launches["rc_serialize"] < 1 \
             or launches["ring_decode"] < 1 or launches["classify"] != 3 \
-            or launches["lower"] != 3:
+            or launches["lower"] != 1 or launches["lower_counts"] != 2:
         raise AssertionError(f"a kernel did not run on the main path: {launches}")
     if len(blob) >= len(lazy_blob):
         raise AssertionError(f"optimal container {len(blob)} B is not smaller "
@@ -2321,6 +2422,35 @@ def main():
         f"operations, bound {k7_whole_bound[0]:.4f} ms by {k7_whole_bound[1]} "
         f"({k7_whole / k7_whole_bound[0]:.1f}x); "
         f"{k7_whole * 1e6 / n_tok_valid:.2f} ns a token")
+    # K8 on the last round's tokens (its lower_counts arguments), and the
+    # route it replaced there, by CUDA events a call each: K7's planes of
+    # the same tokens, then pair_counts' scatter-adds of them
+    c_args = probe.pop("count_args")
+    k8_out = cuda_lower.lower_counts_cuda(*c_args)
+    r_planes = cuda_lower.lower_tokens_cuda(*c_args)
+    if not (all(torch.equal(a, b) for a, b in zip(
+            k8_out[:2], pair_counts(*r_planes, arena)))
+            and torch.equal(k8_out[2], r_planes[2])):
+        raise AssertionError("K8 on the round's tokens differs from "
+                             "pair_counts of K7's planes")
+    k8_whole = event_ms(lambda: cuda_lower.lower_counts_cuda(*c_args), 5)
+    k8_planes = event_ms(lambda: cuda_lower.lower_tokens_cuda(*c_args), 3)
+    k8_scatter = event_ms(lambda: pair_counts(*r_planes, arena), 3)
+    k8_work = count_work(c_args, k8_out[2])
+    k8_whole_bound = bound(*k8_work)
+    n_round = int(c_args[4].sum())
+    log(f"[K8 whole lanes] the last round's {L} lanes x "
+        f"{c_args[1].shape[1]} token slots ({n_round} valid tokens, "
+        f"{int(k8_out[2].sum())} pairs, {arena} slots a lane, "
+        f"{cuda_lower.count_placement(arena, limit)} memory) on {card}: "
+        f"lower_counts {k8_whole:.3f} ms a call (CUDA events, the wrapper "
+        f"with its status readback), {k8_work[0]} B read and written, "
+        f"{k8_work[1]} operations, bound {k8_whole_bound[0]:.4f} ms by "
+        f"{k8_whole_bound[1]} ({k8_whole / k8_whole_bound[0]:.1f}x); the "
+        f"route it replaced: K7's planes {k8_planes:.3f} ms + pair_counts "
+        f"{k8_scatter:.3f} ms = {k8_planes + k8_scatter:.3f} ms; n, n1 and "
+        "total equal to it")
+    del k8_out, r_planes
     log(f"[K2, K1 whole lanes] {L} lanes on {card}, CUDA events: rc_serialize "
         f"{k2_whole:.3f} ms a call ({n_bits} pairs, "
         f"{k2_whole * 1e6 / int(totals.max()):.1f} ns a pair of the longest "
@@ -2424,6 +2554,13 @@ def main():
     del l_args
     log(f"[K7 vs plain] main path's final tokens, whole: ctx, bits and total "
         f"equal; kernel {k7_whole:.3f} ms vs plain {k7_plain:.1f} ms on {card}")
+    # K8: the last round's whole arguments, uncut (one plain call)
+    err, k8_plain = check_counts(c_args)
+    k8_err = max(k8_err, err)
+    del c_args
+    log(f"[K8 vs plain] main path's last round's tokens, whole: n, n1 and "
+        f"total equal; kernel {k8_whole:.3f} ms vs plain {k8_plain:.1f} ms on "
+        f"{card}")
     log(f"[times] main path's shapes ({len(bsizes)} lanes x {MAIN_BLOCK} B) on "
         f"{card}: dp_parse kernel {k3_ms:.3f} ms, dp_parse2 kernel "
         f"{k4_ms:.3f} ms vs plain {k3_plain:.1f} ms ({CMP_POS} positions a "
@@ -2686,7 +2823,23 @@ def main():
                bench_launches=bench_launches["tpu"]["lower"],
                file_launches={k: v["lower"]
                               for k, v in file_launches.items()},
-               design="tile sums, a lane scan, a thread a token, a fill"),
+               design="tile sums, a lane scan, a fill of 16-byte words, "
+                      "each round's pairs staged in shared memory and "
+                      "written as 16-byte words"),
+        record("lower_counts", "lzma_tpu_torch/csrc/lower.cu",
+               "lzma_tpu/ops/device_parser.py:1669", launches["lower_counts"],
+               k8_err, k8_whole, k8_plain, k8_whole_bound, whole_ms=k8_whole,
+               whole_bound_ms=k8_whole_bound[0],
+               route_ms=k8_planes + k8_scatter, route_planes_ms=k8_planes,
+               route_pair_counts_ms=k8_scatter,
+               lazy_launches=lazy_launches["lower_counts"],
+               mesh_launches=mesh_enc["lower_counts"],
+               bench_launches=bench_launches["tpu"]["lower_counts"],
+               file_launches={k: v["lower_counts"]
+                              for k, v in file_launches.items()},
+               design="persistent blocks a lane, a shared-memory histogram "
+                      "of 64-bit words (device memory past the opt-in "
+                      "limit), a warp's equal slots summed first"),
     ] + probe_records
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,21 +1,33 @@
 """Time the kernels of this checkout against those of another checkout, on
 one card, in turns: the DP scans (K3, K4), the range encoder (K2), the
-decoders (K1, K5) and the classify carry (K6).
+decoders (K1, K5), the classify carry (K6), the bit lowering (K7) and
+its slot counts (K8).
 
     python -m lzma_tpu_torch.bench.kernel_ab OTHER_CHECKOUT [KERNEL ...]
 
 KERNEL picks among dp_parse, dp_parse2, rc_serialize, ring_decode,
-ring_input, classify, classify_stream, ring_decode_champion,
-block_decode_champion and ring_input_champion (default: all).  The
+ring_input, classify, lower, lower_counts, classify_stream,
+lower_stream, ring_decode_champion, block_decode_champion and
+ring_input_champion (default: all).  The
 inputs are chip_smoke.py's: the main path is text_part() +
 generate_bench_data(5 << 20), LzmaParams() defaults (lc3 lp0 pb2, fb
 32), parse="optimal", 32 lanes of 256 KiB; an encode inside
 device_encoder.probing() records the last DP round's packed rows, tables
-and lens, the final (ctx, bit) streams and the final tokens' classify
-rows (K3, K4, K2, K6 as classify), and its container's streams are K1's
-(ring_decode).  classify_stream is K6 on the rows of the same 8 MiB as
+and lens, the final (ctx, bit) streams, the final tokens' classify
+rows, the final lowering's arguments and the last round's slot counts'
+arguments (K3, K4, K2, K6 as classify, K7 as lower, K8 as
+lower_counts), and its container's streams are K1's
+(ring_decode).  lower_counts is K8 (``ops.cuda_lower.
+lower_counts_cuda``) on both sides where the other checkout has it;
+where it has not, the other side is the route K8 replaced: the other
+checkout's K7 on the same arguments, then this checkout's
+``device_encoder.pair_counts`` of its planes.  classify_stream and
+lower_stream are K6 and K7 on the same 8 MiB as
 ONE `.lzma` stream (ops.api.encode_alone, lazy, the EOS marker): one
-lane of 8,388,609 token rows.  The champion shape
+lane of 8,388,609 token rows.  For K7 and K8 (lower, lower_counts,
+lower_stream) it also splits this checkout's call by its device
+operations (``utils.profiling``: torch.profiler over three calls, each
+operation's microseconds a call).  The champion shape
 (bench.py:344-390) is 128 lanes of 16 KiB of bench data, lc0, dict 4
 KiB, fb 8, lazy: K1 and K5 decode its streams.  OTHER_CHECKOUT's package
 is loaded under another name and its kernels are built by its own
@@ -23,7 +35,8 @@ runtime/build.py and called through its own wrappers
 (``ops.cuda_parser.dp_parse_cuda``, ``dp_parse2_cuda``,
 ``ops.cuda_serializer.serialize_cuda``, ``ops.cuda_ring.decode_cuda``,
 ``ops.cuda_decoder.decode_resident``,
-``ops.cuda_classify.classify_carry_cuda``), whose signatures both
+``ops.cuda_classify.classify_carry_cuda``,
+``ops.cuda_lower.lower_tokens_cuda``), whose signatures both
 checkouts share.  ring_input and ring_input_champion compare no checkouts: on
 K1's main-path and champion streams they time this checkout's K1 body
 with its input staged in the shared-memory ring ("this",
@@ -50,13 +63,14 @@ import torch
 
 from ..core.layout import ProbLayout
 from ..format.properties import LzmaParams
-from ..ops import (api, cuda_classify, cuda_decoder, cuda_parser, cuda_ring,
-                   cuda_serializer)
+from ..ops import (api, cuda_classify, cuda_decoder, cuda_lower, cuda_parser,
+                   cuda_ring, cuda_serializer)
 from ..ops.device_decoder import pad_rows
-from ..ops.device_encoder import encode_batch, probing
+from ..ops.device_encoder import encode_batch, pair_counts, probing
 from ..parallel import blocks as blk
 from ..probes import probe_ring_ablate
 from ..probes._cuda import card, event_ms
+from ..utils.profiling import device_busy, profiler_trace
 from .corpus import text_part
 from .datagen import generate_bench_data
 
@@ -65,15 +79,17 @@ OTHER = "_kernel_ab_other"
 #: the champion shape (chip_smoke CH_*)
 CH_LANES, CH_BLOCK, CH_DICT = 128, 1 << 14, 1 << 12
 KERNELS = ("dp_parse", "dp_parse2", "rc_serialize", "ring_decode",
-           "ring_input", "classify", "classify_stream", "ring_decode_champion",
+           "ring_input", "classify", "lower", "lower_counts",
+           "classify_stream", "lower_stream", "ring_decode_champion",
            "block_decode_champion", "ring_input_champion")
-MAIN_PATH = KERNELS[:6]
+MAIN_PATH = KERNELS[:8]
+STREAM = ("classify_stream", "lower_stream")
 
 
 def other_wrappers(root: str):
     """OTHER_CHECKOUT's ops.cuda_parser, ops.cuda_serializer,
-    ops.cuda_ring, ops.cuda_decoder and ops.cuda_classify, its package
-    loaded as OTHER."""
+    ops.cuda_ring, ops.cuda_decoder, ops.cuda_classify and
+    ops.cuda_lower, its package loaded as OTHER."""
     pkg = os.path.join(os.path.abspath(root), "lzma_tpu_torch")
     spec = importlib.util.spec_from_file_location(
         OTHER, os.path.join(pkg, "__init__.py"), submodule_search_locations=[pkg])
@@ -82,7 +98,7 @@ def other_wrappers(root: str):
     spec.loader.exec_module(mod)
     return tuple(importlib.import_module(f"{OTHER}.ops.{name}") for name in
                  ("cuda_parser", "cuda_serializer", "cuda_ring", "cuda_decoder",
-                  "cuda_classify"))
+                  "cuda_classify", "cuda_lower"))
 
 
 def main_data():
@@ -91,9 +107,10 @@ def main_data():
 
 def main_path_inputs(dev):
     """(packed, tables, lens) of the last DP round, (ctx, bits, totals)
-    of the final lowering, K1's arguments over the container's streams
-    and the final tokens' classify rows, from one probed optimal encode
-    of main8M."""
+    of the final lowering, K1's arguments over the container's streams,
+    the final tokens' classify rows, the final lowering's arguments and
+    the last round's slot counts' arguments, from one probed optimal
+    encode of main8M."""
     data = main_data()
     params = LzmaParams()
     with probing() as probe:
@@ -108,15 +125,27 @@ def main_path_inputs(dev):
     decode = (comp, comp_lens, sizes, params.dict_size, params.lc, params.lp,
               params.pb, BLOCK)
     return probe["dp_inputs"], (ctx, bits, totals), decode, \
-        probe["classify_rows"]
+        probe["classify_rows"], probe["lower_args"], probe["count_args"]
 
 
-def stream_rows(dev):
-    """The classify rows of main8M as one `.lzma` stream with the EOS
-    marker (one lane)."""
+def stream_inputs(dev):
+    """The classify rows and the lowering's arguments of main8M as one
+    `.lzma` stream with the EOS marker (one lane)."""
     with probing() as probe:
         api.encode_alone(main_data(), LzmaParams(write_eos=True), device=dev)
-    return probe["classify_rows"]
+    return probe["classify_rows"], probe["lower_args"]
+
+
+def counts_route(o_lower, args, arena):
+    """The other side of lower_counts: the other checkout's K8, or where
+    it has none the route K8 replaced (its K7, then pair_counts)."""
+    if hasattr(o_lower, "lower_counts_cuda"):
+        return lambda: o_lower.lower_counts_cuda(*args)
+
+    def route():
+        ctx, bits, total = o_lower.lower_tokens_cuda(*args)
+        return (*pair_counts(ctx, bits, total, arena), total)
+    return route
 
 
 def champion_inputs(dev):
@@ -149,6 +178,21 @@ def ring_input(args):
     return {"other": lambda: run("ldgin"), "this": lambda: run("realrow")}
 
 
+def grid_split(fn, calls: int = 3) -> list:
+    """fn's device operations over `calls` traced calls after a warm one:
+    (name, microseconds a call, launches a call), heaviest first."""
+    import tempfile
+
+    fn()
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiler_trace(tmp) as prof:
+            for _ in range(calls):
+                fn()
+        busy = device_busy(prof.trace_path, top=8)
+    return [(name, round(us / calls, 3), n / calls)
+            for name, us, n in busy["top"]]
+
+
 def main(argv=None) -> None:
     argv = sys.argv[1:] if argv is None else argv
     if len(argv) < 1 or any(k not in KERNELS for k in argv[1:]):
@@ -159,7 +203,7 @@ def main(argv=None) -> None:
     name = card().splitlines()[0]
     print(name, flush=True)
     dev = torch.device("cuda", 0)
-    o_parser, o_serializer, o_ring, o_decoder, o_classify = \
+    o_parser, o_serializer, o_ring, o_decoder, o_classify, o_lower = \
         other_wrappers(argv[0])
     result = {"card": name}
     kernels = {}
@@ -167,8 +211,8 @@ def main(argv=None) -> None:
         params = LzmaParams()
         fb, pb = params.fast_bytes, params.pb
         arena = ProbLayout(params.lc, params.lp, pb, pos_bits=pb).size
-        (packed, tables, lens), (ctx, bits, totals), dec, c_rows = \
-            main_path_inputs(dev)
+        (packed, tables, lens), (ctx, bits, totals), dec, c_rows, l_args, \
+            n_args = main_path_inputs(dev)
         L, N, _ = packed.shape
         max_out = BLOCK + BLOCK // 4 + 128
         scan = (packed, tables, lens, fb, pb)
@@ -190,15 +234,28 @@ def main(argv=None) -> None:
             "classify": {
                 "other": lambda: o_classify.classify_carry_cuda(*c_rows),
                 "this": lambda: cuda_classify.classify_carry_cuda(*c_rows)},
+            "lower": {"other": lambda: o_lower.lower_tokens_cuda(*l_args),
+                      "this": lambda: cuda_lower.lower_tokens_cuda(*l_args)},
+            "lower_counts": {
+                "other": counts_route(o_lower, n_args, arena),
+                "this": lambda: cuda_lower.lower_counts_cuda(*n_args)},
         })
         result["classify_rows"] = list(c_rows[0].shape)
+        result["lower_tokens"] = int(l_args[4].sum())
+        result["lower_counts_tokens"] = int(n_args[4].sum())
+        result["lower_counts_other"] = (
+            "K8" if hasattr(o_lower, "lower_counts_cuda")
+            else "K7 + pair_counts")
         if "ring_decode" in chosen:
             result["ring_decode_longest_lane"] = decoded_work(dec)
-    if "classify_stream" in chosen:
-        s_rows = stream_rows(dev)
+    if any(k in STREAM for k in chosen):
+        s_rows, s_args = stream_inputs(dev)
         kernels["classify_stream"] = {
             "other": lambda: o_classify.classify_carry_cuda(*s_rows),
             "this": lambda: cuda_classify.classify_carry_cuda(*s_rows)}
+        kernels["lower_stream"] = {
+            "other": lambda: o_lower.lower_tokens_cuda(*s_args),
+            "this": lambda: cuda_lower.lower_tokens_cuda(*s_args)}
         result["classify_stream_rows"] = list(s_rows[0].shape)
     if any(k.endswith("champion") for k in chosen):
         ch = champion_inputs(dev)
@@ -219,12 +276,15 @@ def main(argv=None) -> None:
                                  "from the other's")
         del outs
         reps = 3 if kernel in ("rc_serialize", "ring_decode", "ring_input") else 2
-        if kernel.endswith("champion") or kernel.startswith("classify"):
+        if kernel.endswith("champion") or kernel.startswith(("classify",
+                                                             "lower")):
             reps = 5
         times = {k: [] for k in fns}
         for k in ("other", "this", "this", "other"):
             times[k].append(event_ms(fns[k], reps))
         result[kernel] = times
+        if kernel.startswith("lower"):
+            result[kernel + "_grids"] = grid_split(fns["this"])
     print(json.dumps(result), flush=True)
 
 

@@ -1,7 +1,7 @@
-// The bit lowering (K7): every valid token's (ctx, bit) pairs written at
-// its offset in flat per-lane streams, the rest of each stream filled.
+// The bit lowering (K7) and its slot counts (K8), both from the per-token
+// closed forms of lower_token.cuh.
 //
-// Replaces lzma_tpu/ops/device_encoder.py lower_tokens, a jax.jit
+// K7 replaces lzma_tpu/ops/device_encoder.py lower_tokens, a jax.jit
 // function that XLA compiles for the device (it has no pallas_call): the
 // same contract as the plain version lzma_tpu_torch/ops/device_encoder.py
 // _lower_tokens_plain -- ctx and bit (n_lanes, max_bits) int32, a lane's
@@ -11,21 +11,47 @@
 // than T / 2 + 2, sets a status bit instead (the wrapper raises the plain
 // version's ValueError); such a lane's streams are not written at all.
 //
-// What bounds it on this card: the bytes -- the token and meta planes
-// read (int64, ~80 B a token), the two int32 planes written over every
-// slot (8 B a slot, ~10 slots a position) -- once each token's offset is
-// known, and a token's offset is an exclusive sum of the bit counts
-// before it in its lane.  Four grids, one call; a block takes a tile of
+// K8 replaces what the optimal parse's rounds make of it:
+// lzma_tpu/ops/device_parser.py empirical_probs(lower_tokens(...))
+// (device_parser.py:1669-1671 and :88) up to the probabilities -- the
+// contract of _lower_counts_plain: for each lane and probability slot
+// s < S, n (the lowered pairs with ctx == s) and n1 (those of them with
+// bit 1), (n_lanes, S) int32; the direct bits (ctx -1) are not counted;
+// total and the status bits as K7's.  The counts depend on a pair's slot
+// and bit only, never on its offset, so K8 needs no scan and writes no
+// stream.
+//
+// What bounds them on this card.  K7: the bytes -- the token and meta
+// planes read (int64, ~80 B a token), the two int32 planes written over
+// every slot (8 B a slot, ~10 slots a position, most of them fill).  K8:
+// not the bytes (the planes read once, n and n1 written once) but the
+// pairs' atomic adds, and on the hot slots (is_match, the literal trees'
+// top nodes, is_rep) their contention.
+//
+// K7, four grids, one call; a block of grids 1 and 4 takes a tile of
 // kTile tokens of one lane, kRounds rounds of one token a thread:
 //   1. tile_sums: each token's bit count and long flag from the closed
-//      forms (lower_token.cuh), summed over the tile;
+//      forms (only the planes they read), summed over the tile;
 //   2. lane_scan: each lane's tile sums, exclusive (a block a lane); the
 //      lane's total and long count, and the status bits;
-//   3. emit: each token's count again, scanned across the block round by
-//      round, and its pairs written at tile offset + scan, a thread a
-//      token: neighbouring threads write neighbouring tokens' pairs;
-//   4. fill: [total, max_bits) of each lane, a block a 4,096-slot chunk.
-// Recomputing a token's geometry in grid 3 costs registers, not bytes.
+//   3. fill: [total, max_bits) of each lane, a block a kFillChunk-slot
+//      chunk, consecutive threads on consecutive 16-byte words;
+//   4. emit: each round's counts scanned across the block, each token's
+//      pairs put into a shared-memory stage at its scanned offset (kStage
+//      pairs at a time), and the stage written out by consecutive threads
+//      to consecutive 16-byte words of the rows; a tile with no pairs
+//      (past its lane's last valid token) ends at once.
+// K8, two grids, one call:
+//   1. count: a few blocks a lane (as many as the card holds at once,
+//      spread over the lanes), each persistent over a round of kThreads
+//      tokens in every `parts`; each pair added into the block's
+//      histogram -- in shared memory, one 64-bit word a slot,
+//      (count << 32) | ones, where S words fit the block's opt-in shared
+//      memory, else straight into n and n1 in device memory -- after a
+//      warp's pairs of one slot are summed (__match_any_sync); a shared
+//      histogram's nonzero slots are added into n and n1 once, at the
+//      end; each block's bit and long counts into its lane's sums;
+//   2. count_finish: the lanes' totals and the status bits.
 // Blocks run lanes fastest, so a tile's neighbours in the other lanes
 // run beside it: the classify finish's transposed planes (a lane's
 // tokens N elements apart) are read through the same L2 sectors.  Every
@@ -47,8 +73,9 @@ using lower_token::Token;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRounds = 4;
-constexpr int kTile = kThreads * kRounds;   // tokens of a lane a block
-constexpr int kFillChunk = kThreads * 16;   // slots a fill block
+constexpr int kTile = kThreads * kRounds;   // tokens of a lane a K7 block
+constexpr int kStage = 4096;                // pairs a K7 block stages at once
+constexpr int kFillChunk = kThreads * 64;   // slots a K7 fill block
 constexpr int kPlanes = 10;                 // int64 planes, then valid
 
 // kind, rep_idx, state, match_mode, match_byte, prev_byte, lit_byte (the
@@ -62,16 +89,16 @@ struct Planes {
 };
 
 __device__ __forceinline__ long long at(const Planes& in, int i, int lane,
-                                        int t) {
+                                        long long t) {
   return __ldg(in.p[i] + lane * in.s0[i] + t * in.s1[i]);
 }
 
-__device__ __forceinline__ bool valid_at(const Planes& in, int lane, int t,
-                                         int n_tok) {
+__device__ __forceinline__ bool valid_at(const Planes& in, int lane,
+                                         long long t, int n_tok) {
   return t < n_tok && __ldg(in.valid + lane * in.v0 + t * in.v1) != 0;
 }
 
-__device__ __forceinline__ Token load(const Planes& in, int lane, int t,
+__device__ __forceinline__ Token load(const Planes& in, int lane, long long t,
                                       long long pos_base) {
   Token k;
   k.kind = static_cast<int>(at(in, 0, lane, t));
@@ -82,6 +109,18 @@ __device__ __forceinline__ Token load(const Planes& in, int lane, int t,
   k.prev_byte = static_cast<int>(at(in, 5, lane, t));
   k.lit_byte = static_cast<int>(at(in, 6, lane, t));
   k.coded_pos = static_cast<int>(at(in, 7, lane, t) - pos_base);
+  k.len = static_cast<int>(at(in, 8, lane, t));
+  k.dist = static_cast<int>(at(in, 9, lane, t));
+  return k;
+}
+
+// The planes lower_token::geometry reads (kind, rep_idx, len, dist); the
+// rest stay 0.
+__device__ __forceinline__ Token load_geo(const Planes& in, int lane,
+                                          long long t) {
+  Token k{};
+  k.kind = static_cast<int>(at(in, 0, lane, t));
+  k.rep_idx = static_cast<int>(at(in, 1, lane, t));
   k.len = static_cast<int>(at(in, 8, lane, t));
   k.dist = static_cast<int>(at(in, 9, lane, t));
   return k;
@@ -117,10 +156,10 @@ __device__ T block_excl_scan(T x, T* ws, T* total) {
   return before + incl - x;
 }
 
-// ---------------------------------------------------------------- grid 1
+// ------------------------------------------------------------- K7 grid 1
 __global__ void __launch_bounds__(kThreads)
-    tile_sums_kernel(Planes in, long long pos_base, int n_lanes, int n_tok,
-                     int n_tiles, long long* __restrict__ tile_bits,
+    tile_sums_kernel(Planes in, int n_lanes, int n_tok, int n_tiles,
+                     long long* __restrict__ tile_bits,
                      int* __restrict__ tile_long) {
   __shared__ int ws[kWarps];
   const int lane = static_cast<int>(blockIdx.x % n_lanes);
@@ -130,7 +169,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int r = 0; r < kRounds; ++r) {
     const int t = tile * kTile + r * kThreads + threadIdx.x;
     if (valid_at(in, lane, t, n_tok)) {
-      const Geo g = lower_token::geometry(load(in, lane, t, pos_base));
+      const Geo g = lower_token::geometry(load_geo(in, lane, t));
       bits += g.nbits;
       longs += lower_token::is_long(g) ? 1 : 0;
     }
@@ -144,7 +183,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ---------------------------------------------------------------- grid 2
+// ------------------------------------------------------------- K7 grid 2
 // Each lane's tile sums replaced by their exclusive prefix; the lane's
 // total (int64 and the int32 output) and the status bits: 1 a total past
 // max_bits, 2 more long tokens than long_cap.
@@ -182,7 +221,57 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ---------------------------------------------------------------- grid 3
+// ---------------------------------------------------------- K7 grids 3-4
+// The block writes n pairs at element `off` of the rows c_row and b_row
+// (16-byte aligned alike): the stage's s_ctx[0, n) and s_bit[0, n), or
+// where s_ctx is null the fill (kCtxDirect, 0).  Consecutive threads
+// write consecutive 16-byte words; the elements before the first aligned
+// word and after the last, an element a thread.
+__device__ void store_run(int* c_row, int* b_row, long long off, long long n,
+                          const int* s_ctx, const int* s_bit) {
+  constexpr int kFillCtx = lower_token::kCtxDirect;
+  int* c = c_row + off;
+  int* b = b_row + off;
+  const long long head =
+      min(n, static_cast<long long>(
+                 (0 - (reinterpret_cast<uintptr_t>(c) >> 2)) & 3u));
+  const long long n4 = (n - head) >> 2;
+  const long long tail = head + 4 * n4;  // at most 3 elements past it
+  auto one = [&](long long i) {
+    c[i] = s_ctx ? s_ctx[i] : kFillCtx;
+    b[i] = s_ctx ? s_bit[i] : 0;
+  };
+  if (threadIdx.x < head) one(threadIdx.x);
+  if (tail + threadIdx.x < n) one(tail + threadIdx.x);
+  int4* c4 = reinterpret_cast<int4*>(c + head);
+  int4* b4 = reinterpret_cast<int4*>(b + head);
+  for (long long w = threadIdx.x; w < n4; w += kThreads) {
+    if (s_ctx) {
+      const int i = static_cast<int>(head + 4 * w);
+      c4[w] = make_int4(s_ctx[i], s_ctx[i + 1], s_ctx[i + 2], s_ctx[i + 3]);
+      b4[w] = make_int4(s_bit[i], s_bit[i + 1], s_bit[i + 2], s_bit[i + 3]);
+    } else {
+      c4[w] = make_int4(kFillCtx, kFillCtx, kFillCtx, kFillCtx);
+      b4[w] = make_int4(0, 0, 0, 0);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    fill_kernel(int n_chunks, long long max_bits,
+                const long long* __restrict__ lane_total,
+                int* __restrict__ ctx, int* __restrict__ bits) {
+  const int lane = static_cast<int>(blockIdx.x / n_chunks);
+  const long long chunk = blockIdx.x % n_chunks;
+  const long long total = lane_total[lane];
+  const long long start = max(chunk * kFillChunk, total);
+  const long long end = min((chunk + 1) * kFillChunk, max_bits);
+  if (total > max_bits || start >= end) return;
+  store_run(ctx + static_cast<long long>(lane) * max_bits,
+            bits + static_cast<long long>(lane) * max_bits, start,
+            end - start, nullptr, nullptr);
+}
+
 __global__ void __launch_bounds__(kThreads)
     emit_kernel(Planes in, Layout L, long long pos_base, int n_lanes,
                 int n_tok, int n_tiles, long long max_bits,
@@ -190,10 +279,15 @@ __global__ void __launch_bounds__(kThreads)
                 const long long* __restrict__ lane_total,
                 int* __restrict__ ctx, int* __restrict__ bits) {
   __shared__ int ws[kWarps];
+  __shared__ __align__(16) int s_ctx[kStage];
+  __shared__ __align__(16) int s_bit[kStage];
   const int lane = static_cast<int>(blockIdx.x % n_lanes);
   const int tile = static_cast<int>(blockIdx.x / n_lanes);
-  if (lane_total[lane] > max_bits) return;  // the whole block: it raises
-  long long base = tile_off[static_cast<long long>(lane) * n_tiles + tile];
+  const long long total = lane_total[lane];
+  if (total > max_bits) return;  // the whole block: it raises
+  const long long* offs = tile_off + static_cast<long long>(lane) * n_tiles;
+  long long base = offs[tile];
+  if ((tile + 1 < n_tiles ? offs[tile + 1] : total) == base) return;
   int* c_row = ctx + static_cast<long long>(lane) * max_bits;
   int* b_row = bits + static_cast<long long>(lane) * max_bits;
 #pragma unroll 1
@@ -208,34 +302,124 @@ __global__ void __launch_bounds__(kThreads)
     }
     int round_bits;
     const int ex = block_excl_scan(v ? g.nbits : 0, ws, &round_bits);
-    if (v) {
-      const long long off = base + ex;
-      lower_token::emit(k, g, L, [&](int j, int c, int b) {
-        c_row[off + j] = c;
-        b_row[off + j] = b;
-      });
+    // the round's pairs [lo, lo + kStage) at a time (most rounds: once)
+#pragma unroll 1
+    for (int lo = 0; lo < round_bits; lo += kStage) {
+      if (v && ex < lo + kStage && ex + g.nbits > lo) {
+        lower_token::emit(k, g, L, [&](int j, int c, int b) {
+          const int i = ex + j - lo;
+          if (i >= 0 && i < kStage) {
+            s_ctx[i] = c;
+            s_bit[i] = b;
+          }
+        });
+      }
+      __syncthreads();
+      store_run(c_row, b_row, base + lo, min(kStage, round_bits - lo), s_ctx,
+                s_bit);
+      __syncthreads();
     }
     base += round_bits;
   }
 }
 
-// ---------------------------------------------------------------- grid 4
+// ------------------------------------------------------------- K8 grid 1
+// A K8 histogram: one lane's S slots in shared memory, a 64-bit word a
+// slot, (count << 32) | ones; or that lane's rows of n and n1 themselves.
+template <bool kShared>
+struct Hist {
+  unsigned long long* words;
+  int* n;
+  int* n1;
+
+  __device__ __forceinline__ void add(int s, unsigned cnt,
+                                      unsigned ones) const {
+    if constexpr (kShared) {
+      atomicAdd(words + s, (static_cast<unsigned long long>(cnt) << 32) | ones);
+    } else {
+      atomicAdd(n + s, static_cast<int>(cnt));
+      if (ones) atomicAdd(n1 + s, static_cast<int>(ones));
+    }
+  }
+};
+
+// One pair (ctx c, bit b) into the histogram; ctx < 0 (a direct bit) is
+// not counted.  The threads of the warp that put a pair together (every
+// one of them calls this) are grouped by slot, and one thread of each
+// group adds the group's count and ones: the hot slots take one add a
+// warp, not one a thread (measured faster than an add a pair, PERF.md).
+template <bool kShared>
+__device__ __forceinline__ void count_pair(const Hist<kShared>& h, int c,
+                                           int b) {
+  const unsigned active = __activemask();
+  const unsigned peers = __match_any_sync(active, c);
+  const unsigned ones = __ballot_sync(active, b != 0) & peers;
+  if (c >= 0 && static_cast<int>(threadIdx.x & 31) == __ffs(peers) - 1) {
+    h.add(c, __popc(peers), __popc(ones));
+  }
+}
+
+template <bool kShared>
 __global__ void __launch_bounds__(kThreads)
-    fill_kernel(int n_lanes, long long max_bits,
-                const long long* __restrict__ lane_total,
-                int* __restrict__ ctx, int* __restrict__ bits) {
+    count_kernel(Planes in, Layout L, long long pos_base, int n_lanes,
+                 int n_tok, int parts, int S,
+                 unsigned long long* __restrict__ lane_sums,
+                 int* __restrict__ n_out, int* __restrict__ n1_out) {
+  extern __shared__ __align__(16) unsigned long long words[];
+  __shared__ long long ws[kWarps];
   const int lane = static_cast<int>(blockIdx.x % n_lanes);
-  const long long chunk = blockIdx.x / n_lanes;
-  const long long total = lane_total[lane];
-  const long long start = chunk * kFillChunk;
-  const long long end = min(start + kFillChunk, max_bits);
-  if (total > max_bits || end <= total) return;
-  int* c_row = ctx + static_cast<long long>(lane) * max_bits;
-  int* b_row = bits + static_cast<long long>(lane) * max_bits;
-  for (long long i = start + threadIdx.x; i < end; i += kThreads) {
-    if (i >= total) {
-      c_row[i] = lower_token::kCtxDirect;
-      b_row[i] = 0;
+  const int part = static_cast<int>(blockIdx.x / n_lanes);
+  const Hist<kShared> h{words, n_out + static_cast<long long>(lane) * S,
+                        n1_out + static_cast<long long>(lane) * S};
+  if constexpr (kShared) {
+    for (int s = threadIdx.x; s < S; s += kThreads) words[s] = 0;
+    __syncthreads();
+  }
+  long long n_bits = 0, n_long = 0;
+  const long long step = static_cast<long long>(parts) * kThreads;
+#pragma unroll 1
+  for (long long t = static_cast<long long>(part) * kThreads + threadIdx.x;
+       t - threadIdx.x < n_tok; t += step) {
+    if (!valid_at(in, lane, t, n_tok)) continue;
+    const Token k = load(in, lane, t, pos_base);
+    const Geo g = lower_token::geometry(k);
+    n_bits += g.nbits;
+    n_long += lower_token::is_long(g) ? 1 : 0;
+    lower_token::emit(k, g, L,
+                      [&](int, int c, int b) { count_pair(h, c, b); });
+  }
+  long long sum_bits, sum_long;
+  block_excl_scan(n_bits, ws, &sum_bits);  // its syncs end the adds too
+  block_excl_scan(n_long, ws, &sum_long);
+  if (threadIdx.x == 0) {
+    atomicAdd(lane_sums + 2 * lane, static_cast<unsigned long long>(sum_bits));
+    atomicAdd(lane_sums + 2 * lane + 1,
+              static_cast<unsigned long long>(sum_long));
+  }
+  if constexpr (kShared) {
+    for (int s = threadIdx.x; s < S; s += kThreads) {
+      const unsigned long long w = words[s];
+      if (w >> 32) {
+        atomicAdd(h.n + s, static_cast<int>(w >> 32));
+        const int ones = static_cast<int>(w & 0xFFFFFFFFu);
+        if (ones) atomicAdd(h.n1 + s, ones);
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------- K8 grid 2
+__global__ void __launch_bounds__(kThreads)
+    count_finish_kernel(const unsigned long long* __restrict__ lane_sums,
+                        int n_lanes, long long max_bits, long long long_cap,
+                        int* __restrict__ total_out, int* __restrict__ status) {
+  for (int lane = blockIdx.x * kThreads + threadIdx.x; lane < n_lanes;
+       lane += gridDim.x * kThreads) {
+    const long long total = static_cast<long long>(lane_sums[2 * lane]);
+    total_out[lane] = static_cast<int>(total);
+    if (total > max_bits) atomicOr(status, 1);
+    if (static_cast<long long>(lane_sums[2 * lane + 1]) > long_cap) {
+      atomicOr(status, 2);
     }
   }
 }
@@ -264,6 +448,52 @@ long long scratch_layout(int n_lanes, int n_tiles, void* base, Scratch* out) {
 
 int tiles_of(int n_tok) { return (n_tok + kTile - 1) / kTile; }
 
+Planes planes_of(const void* const* planes, const long long* strides) {
+  Planes in;
+  for (int i = 0; i < kPlanes; ++i) {
+    in.p[i] = static_cast<const long long*>(planes[i]);
+    in.s0[i] = strides[2 * i];
+    in.s1[i] = strides[2 * i + 1];
+  }
+  in.valid = static_cast<const uint8_t*>(planes[kPlanes]);
+  in.v0 = strides[2 * kPlanes];
+  in.v1 = strides[2 * kPlanes + 1];
+  return in;
+}
+
+Layout layout_of(const int* layout) {
+  Layout L;
+  static_assert(sizeof(Layout) == lower_token::kLayoutInts * sizeof(int),
+                "Layout is kLayoutInts ints");
+  std::memcpy(&L, layout, sizeof(Layout));
+  return L;
+}
+
+// K8's blocks a lane: as many blocks as the card runs at once, spread
+// over the lanes, at least one a lane and at most one a round of tokens.
+int count_parts(const void* kernel, int smem_bytes, int n_lanes, int n_tok,
+                cudaError_t* err) {
+  int device = 0, sms = 0, per_sm = 0;
+  *err = cudaGetDevice(&device);
+  if (*err == cudaSuccess) {
+    *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (*err == cudaSuccess) {
+    *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                         kThreads, smem_bytes);
+  }
+  if (*err != cudaSuccess) return 0;
+  if (per_sm < 1) {
+    *err = cudaErrorInvalidConfiguration;
+    return 0;
+  }
+  const long long rounds = (static_cast<long long>(n_tok) + kThreads - 1) /
+                           kThreads;
+  const long long want =
+      (static_cast<long long>(sms) * per_sm + n_lanes - 1) / n_lanes;
+  return static_cast<int>(want < 1 ? 1 : want < rounds ? want : rounds);
+}
+
 }  // namespace
 
 // Bytes of the scratch lzt_lower takes for (n_lanes, n_tok) tokens; the
@@ -277,44 +507,33 @@ extern "C" long long lzt_lower_scratch(int n_lanes, int n_tok) {
 // valid's (bytes 0/1); strides: their element strides (s0, s1), 2 a
 // plane, valid's last; layout: lower_token::kLayoutInts ints; scratch:
 // lzt_lower_scratch bytes, 16-byte aligned; ctx, bits: (n_lanes,
-// max_bits) int32; total: (n_lanes,) int32.  Returns the first CUDA
-// error of the launches (0 on success); the status word says whether
-// the lowering fits (0) or which check failed (bits 1, 2).
+// max_bits) int32, 16-byte aligned; total: (n_lanes,) int32.  Returns the
+// first CUDA error of the launches (0 on success); the status word says
+// whether the lowering fits (0) or which check failed (bits 1, 2).
 extern "C" int lzt_lower(const void* const* planes, const long long* strides,
                          const int* layout, long long pos_base, int n_lanes,
                          int n_tok, long long max_bits, void* scratch,
                          int* ctx, int* bits, int* total, void* stream) {
-  if (n_lanes <= 0 || n_tok <= 0 || max_bits < 0) {
+  if (n_lanes <= 0 || n_tok <= 0 || max_bits < 0 ||
+      (reinterpret_cast<uintptr_t>(ctx) | reinterpret_cast<uintptr_t>(bits)) &
+          15u) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  Planes in;
-  for (int i = 0; i < kPlanes; ++i) {
-    in.p[i] = static_cast<const long long*>(planes[i]);
-    in.s0[i] = strides[2 * i];
-    in.s1[i] = strides[2 * i + 1];
-  }
-  in.valid = static_cast<const uint8_t*>(planes[kPlanes]);
-  in.v0 = strides[2 * kPlanes];
-  in.v1 = strides[2 * kPlanes + 1];
-  Layout L;
-  static_assert(sizeof(Layout) == lower_token::kLayoutInts * sizeof(int),
-                "Layout is kLayoutInts ints");
-  std::memcpy(&L, layout, sizeof(Layout));
-
+  const Planes in = planes_of(planes, strides);
+  const Layout L = layout_of(layout);
   const int n_tiles = tiles_of(n_tok);
   Scratch w;
   scratch_layout(n_lanes, n_tiles, scratch, &w);
   const long long blocks = static_cast<long long>(n_tiles) * n_lanes;
-  const long long fill_blocks =
-      (max_bits + kFillChunk - 1) / kFillChunk * n_lanes;
-  if (blocks > INT_MAX || fill_blocks > INT_MAX) {
+  const long long n_chunks = (max_bits + kFillChunk - 1) / kFillChunk;
+  if (blocks > INT_MAX || n_chunks * n_lanes > INT_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaMemsetAsync(w.status, 0, sizeof(int), s);
   if (err != cudaSuccess) return static_cast<int>(err);
   tile_sums_kernel<<<static_cast<int>(blocks), kThreads, 0, s>>>(
-      in, pos_base, n_lanes, n_tok, n_tiles, w.tile_bits, w.tile_long);
+      in, n_lanes, n_tok, n_tiles, w.tile_bits, w.tile_long);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   lane_scan_kernel<<<n_lanes, kThreads, 0, s>>>(
@@ -322,15 +541,78 @@ extern "C" int lzt_lower(const void* const* planes, const long long* strides,
       w.lane_total, total, w.status);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (n_chunks > 0) {
+    fill_kernel<<<static_cast<int>(n_chunks * n_lanes), kThreads, 0, s>>>(
+        static_cast<int>(n_chunks), max_bits, w.lane_total, ctx, bits);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   emit_kernel<<<static_cast<int>(blocks), kThreads, 0, s>>>(
       in, L, pos_base, n_lanes, n_tok, n_tiles, max_bits, w.tile_bits,
       w.lane_total, ctx, bits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Bytes of the scratch lzt_lower_counts takes for n_lanes lanes: the
+// status word (16 bytes), then each lane's bit and long sums (uint64).
+extern "C" long long lzt_lower_counts_scratch(int n_lanes) {
+  return 16 + 16LL * (n_lanes > 0 ? n_lanes : 0);
+}
+
+// planes, strides, layout, pos_base, n_tok, max_bits: as lzt_lower's;
+// arena_size: S, the slots a lane; smem_bytes: 0 to count in device
+// memory, else the shared bytes of a block's histogram (8 S rounded up to
+// 16: ops/cuda_lower.py count_smem_bytes); scratch:
+// lzt_lower_counts_scratch bytes, 16-byte aligned; n, n1: (n_lanes, S)
+// int32; total: (n_lanes,) int32.  Returns the first CUDA error (0 on
+// success); the status word as lzt_lower's.
+extern "C" int lzt_lower_counts(const void* const* planes,
+                                const long long* strides, const int* layout,
+                                long long pos_base, int n_lanes, int n_tok,
+                                long long max_bits, int arena_size,
+                                int smem_bytes, void* scratch, int* n, int* n1,
+                                int* total, void* stream) {
+  const bool shared = smem_bytes > 0;
+  if (n_lanes <= 0 || n_tok <= 0 || max_bits < 0 || arena_size <= 0 ||
+      (shared && smem_bytes != (8 * arena_size + 15) / 16 * 16)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Planes in = planes_of(planes, strides);
+  const Layout L = layout_of(layout);
+  int* status = static_cast<int*>(scratch);
+  auto* lane_sums = reinterpret_cast<unsigned long long*>(
+      static_cast<char*>(scratch) + 16);
+  const size_t out_bytes = sizeof(int) * static_cast<size_t>(n_lanes) *
+                           static_cast<size_t>(arena_size);
+  cudaError_t err = cudaMemsetAsync(
+      scratch, 0, static_cast<size_t>(lzt_lower_counts_scratch(n_lanes)), s);
+  if (err == cudaSuccess) err = cudaMemsetAsync(n, 0, out_bytes, s);
+  if (err == cudaSuccess) err = cudaMemsetAsync(n1, 0, out_bytes, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const void* kernel = shared ? reinterpret_cast<const void*>(count_kernel<true>)
+                              : reinterpret_cast<const void*>(count_kernel<false>);
+  if (shared) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem_bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int parts = count_parts(kernel, smem_bytes, n_lanes, n_tok, &err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks = static_cast<long long>(parts) * n_lanes;
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  if (shared) {
+    count_kernel<true><<<static_cast<int>(blocks), kThreads, smem_bytes, s>>>(
+        in, L, pos_base, n_lanes, n_tok, parts, arena_size, lane_sums, n, n1);
+  } else {
+    count_kernel<false><<<static_cast<int>(blocks), kThreads, 0, s>>>(
+        in, L, pos_base, n_lanes, n_tok, parts, arena_size, lane_sums, n, n1);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (fill_blocks > 0) {
-    fill_kernel<<<static_cast<int>(fill_blocks), kThreads, 0, s>>>(
-        n_lanes, max_bits, w.lane_total, ctx, bits);
-    err = cudaGetLastError();
-  }
-  return static_cast<int>(err);
+  const int finish_blocks = (n_lanes + kThreads - 1) / kThreads;
+  count_finish_kernel<<<finish_blocks, kThreads, 0, s>>>(
+      lane_sums, n_lanes, max_bits, n_tok / 2 + 2, total, status);
+  return static_cast<int>(cudaGetLastError());
 }

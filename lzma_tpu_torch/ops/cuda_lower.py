@@ -1,16 +1,30 @@
-"""The bit lowering as a CUDA kernel (``csrc/lower.cu``, K7).
+"""The bit lowering (K7) and its slot counts (K8) as CUDA kernels
+(``csrc/lower.cu``, both on the closed forms of ``csrc/lower_token.cuh``).
 
-Counterpart of ``lzma_tpu/ops/device_encoder.py`` ``lower_tokens``, a
-``jax.jit`` function that XLA compiles for the device (it has no
-``pallas_call``).  ``lower_tokens_cuda`` replaces
+K7 is the counterpart of ``lzma_tpu/ops/device_encoder.py``
+``lower_tokens``, a ``jax.jit`` function that XLA compiles for the device
+(it has no ``pallas_call``).  ``lower_tokens_cuda`` replaces
 ``device_encoder._lower_tokens_plain``: every valid token's (ctx, bit)
 pairs at its offset in flat per-lane streams, the rest of each stream
-filled with the direct ctx and bit 0, and each lane's total.  A CUDA
-tensor launches the kernel (or the wrapper raises); a CPU tensor takes
-the plain version.  A token's offset is an exclusive sum of the bit
-counts before it, so the kernel spreads every lane's tokens over the
-card in tiles (four grids, one call; the source says how), and reads
-each input plane through its own strides, in place.
+filled with the direct ctx and bit 0, and each lane's total.  A token's
+offset is an exclusive sum of the bit counts before it, so the kernel
+spreads every lane's tokens over the card in tiles and writes each
+round's pairs through a shared-memory stage (four grids, one call; the
+source says how).
+
+K8 is the counterpart of what the optimal parse's rounds make of that
+lowering, ``lzma_tpu/ops/device_parser.py`` ``empirical_probs(
+lower_tokens(...))`` up to the probabilities: ``lower_counts_cuda``
+replaces ``device_encoder._lower_counts_plain``, each lane's count of
+pairs a probability slot (n) and of those with bit 1 (n1), and its
+total.  It writes no stream: every pair goes into a histogram, in the
+block's shared memory where a lane's slots fit it (``count_placement``),
+else in device memory.
+
+A CUDA tensor launches the kernel (or the wrapper raises); a CPU tensor
+takes the plain version.  Both read each input plane through its own
+strides, in place, and raise the plain version's ValueError where a
+lane's bits pass max_bits or its long tokens pass T // 2 + 2.
 """
 
 from __future__ import annotations
@@ -22,11 +36,15 @@ import torch
 
 from ..core.layout import ProbLayout
 from ..runtime import build
-from .device_encoder import _lower_tokens_plain
+from ..runtime.card import smem_limit
+from .device_encoder import _lower_counts_plain, _lower_tokens_plain
 
-#: kernel launches made through lower_tokens_cuda since the count was
-#: last set
+#: kernel launches made through lower_tokens_cuda (K7) since the count
+#: was last set
 LAUNCHES = 0
+#: kernel launches made through lower_counts_cuda (K8) since the count
+#: was last set
+COUNT_LAUNCHES = 0
 
 #: ProbLayout's offsets in the order of csrc/lower_token.cuh's Layout,
 #: which ends with lc, lp, pb
@@ -35,7 +53,7 @@ LAYOUT_FIELDS = ("is_match", "is_rep", "is_rep_g0", "is_rep_g1", "is_rep_g2",
                  "rep_len_coder", "literal", "len_choice", "len_choice2",
                  "len_low", "len_mid", "len_high")
 
-#: the status bits the kernel sets, and the plain version's errors
+#: the status bits the kernels set, and the plain version's errors
 _TOTAL_OVER, _LONG_OVER = 1, 2
 
 
@@ -53,11 +71,38 @@ def _kernel():
     return fn, size
 
 
+@functools.cache
+def _count_kernel():
+    lib = build.load()
+    fn = lib.lzt_lower_counts
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+                   + [ctypes.c_int] * 2 + [ctypes.c_longlong]
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5)
+    fn.restype = ctypes.c_int
+    size = lib.lzt_lower_counts_scratch
+    size.argtypes = [ctypes.c_int]
+    size.restype = ctypes.c_longlong
+    return fn, size
+
+
 def scratch_bytes(N: int, T: int) -> int:
     """Bytes of the kernel's scratch for N lanes of T tokens: the status
     word, the tiles' bit sums and long counts and the lanes' totals
     (csrc/lower.cu's layout)."""
     return int(_kernel()[1](N, T))
+
+
+def count_smem_bytes(arena_size: int) -> int:
+    """Shared bytes of a K8 block whose histogram is in shared memory: a
+    64-bit word a slot, rounded up to 16 B."""
+    return (8 * arena_size + 15) // 16 * 16
+
+
+def count_placement(arena_size: int, limit: int) -> str:
+    """Where K8 keeps a lane's histogram of `arena_size` slots on a card
+    that gives a block `limit` bytes of shared memory: "shared" when it
+    fits, else "device" (global atomics into n and n1)."""
+    return "shared" if count_smem_bytes(arena_size) <= limit else "device"
 
 
 def layout_ints(lc: int, lp: int, pb: int) -> list[int]:
@@ -111,11 +156,8 @@ def lower_tokens_cuda(meta, t_pos, t_len, t_dist, t_valid, lc: int, lp: int,
         return (torch.full((N, max_bits), -1, dtype=torch.int32, device=dev),
                 torch.zeros((N, max_bits), dtype=torch.int32, device=dev),
                 torch.zeros((N,), dtype=torch.int32, device=dev))
-    planes = (*meta, t_pos, t_len, t_dist, t_valid)
-    ptrs = (ctypes.c_void_p * len(planes))(*(t.data_ptr() for t in planes))
-    strides = (ctypes.c_longlong * (2 * len(planes)))(
-        *(s for t in planes for s in t.stride()))
-    layout = (ctypes.c_int * (len(LAYOUT_FIELDS) + 3))(*layout_ints(lc, lp, pb))
+    ptrs, strides, layout = _arguments(meta, t_pos, t_len, t_dist, t_valid,
+                                       lc, lp, pb)
     ctx = torch.empty((N, max_bits), dtype=torch.int32, device=dev)
     bits = torch.empty((N, max_bits), dtype=torch.int32, device=dev)
     total = torch.empty((N,), dtype=torch.int32, device=dev)
@@ -128,9 +170,72 @@ def lower_tokens_cuda(meta, t_pos, t_len, t_dist, t_valid, lc: int, lp: int,
     if err:
         raise RuntimeError(f"lower launch failed: CUDA error {err}")
     LAUNCHES += 1
+    _raise_on_status(scratch, max_bits)
+    return ctx, bits, total
+
+
+def lower_counts_cuda(meta, t_pos, t_len, t_dist, t_valid, lc: int, lp: int,
+                      pb: int, max_bits: int, pos_base: int = 0):
+    """The slot counts of the lowering of (N, T) tokens (arguments as
+    ``lower_tokens_cuda``'s).  Returns n (N, S) int32, n1 (N, S) int32
+    and total (N,) int32, S = ProbLayout(lc, lp, pb).size: for each slot
+    the lowered pairs with that ctx and those of them with bit 1 (the
+    direct bits, ctx -1, are not counted), as ``_lower_counts_plain``;
+    raises its ValueError where a lane's bits pass max_bits or its long
+    tokens pass T // 2 + 2."""
+    global COUNT_LAUNCHES
+    if t_pos.device.type == "cpu":
+        return _lower_counts_plain(meta, t_pos, t_len, t_dist, t_valid, lc,
+                                   lp, pb, max_bits, pos_base)
+    if t_pos.device.type != "cuda":
+        raise ValueError(f"lower_counts_cuda takes CPU or CUDA tensors, "
+                         f"got {t_pos.device}")
+    _check(meta, t_pos, t_len, t_dist, t_valid)
+    if max_bits < 0:
+        raise ValueError(f"max_bits must be >= 0, got {max_bits}")
+    N, T = t_pos.shape
+    dev = t_pos.device
+    S = ProbLayout(lc, lp, pb, pos_bits=pb).size
+    # the kernel zeroes n and n1 itself
+    new = torch.zeros if T == 0 or N == 0 else torch.empty
+    n = new((N, S), dtype=torch.int32, device=dev)
+    n1 = new((N, S), dtype=torch.int32, device=dev)
+    total = new((N,), dtype=torch.int32, device=dev)
+    if T == 0 or N == 0:
+        return n, n1, total
+    ptrs, strides, layout = _arguments(meta, t_pos, t_len, t_dist, t_valid,
+                                       lc, lp, pb)
+    limit = smem_limit(dev.index if dev.index is not None
+                       else torch.cuda.current_device())
+    smem = count_smem_bytes(S) if count_placement(S, limit) == "shared" else 0
+    fn, size = _count_kernel()
+    scratch = torch.empty((int(size(N)),), dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        err = fn(ptrs, strides, layout, int(pos_base), N, T, int(max_bits), S,
+                 smem, scratch.data_ptr(), n.data_ptr(), n1.data_ptr(),
+                 total.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"lower_counts launch failed: CUDA error {err}")
+    COUNT_LAUNCHES += 1
+    _raise_on_status(scratch, max_bits)
+    return n, n1, total
+
+
+def _arguments(meta, t_pos, t_len, t_dist, t_valid, lc, lp, pb):
+    """The C entries' plane pointers, element strides and layout ints."""
+    planes = (*meta, t_pos, t_len, t_dist, t_valid)
+    ptrs = (ctypes.c_void_p * len(planes))(*(t.data_ptr() for t in planes))
+    strides = (ctypes.c_longlong * (2 * len(planes)))(
+        *(s for t in planes for s in t.stride()))
+    layout = (ctypes.c_int * (len(LAYOUT_FIELDS) + 3))(*layout_ints(lc, lp, pb))
+    return ptrs, strides, layout
+
+
+def _raise_on_status(scratch, max_bits: int):
+    """The plain version's ValueError for the status word the kernel left
+    in the scratch's first 4 bytes (one readback)."""
     status = int(scratch[:4].view(torch.int32).item())
     if status & _TOTAL_OVER:
         raise ValueError(f"token bits exceed the {max_bits}-entry stream")
     if status & _LONG_OVER:
         raise ValueError("long tokens overflow the compacted lowering buffer")
-    return ctx, bits, total

@@ -14,7 +14,9 @@ range coder is fully determined, so the encoder splits into
                                        cuda_classify)
   C. bit lowering                     (lower_tokens: every token's
                                        (ctx, bit) pairs from closed forms,
-                                       scattered into a flat stream)
+                                       scattered into a flat stream; the
+                                       optimal parse's rounds take only
+                                       their slot counts, lower_counts)
   D. range-coder serialization        (serialize, the plain version of
                                        the CUDA kernel in cuda_serializer)
 
@@ -451,6 +453,52 @@ def _lower_tokens_plain(meta, t_pos, t_len, t_dist, t_valid, lc, lp, pb,
     return ctx_out >> 1, ctx_out & 1, total.to(torch.int32)
 
 
+def lower_counts(meta, t_pos, t_len, t_dist, t_valid, lc, lp, pb, max_bits,
+                 pos_base: int = 0):
+    """The slot counts of the lowering of these tokens, without the
+    streams: n and n1 (N, S) int32 (S = ProbLayout(lc, lp, pb).size),
+    for each probability slot the pairs ``lower_tokens`` would write with
+    that ctx and those of them with bit 1 (the direct bits are not
+    counted), and total (N,) int32.  It raises where ``lower_tokens``
+    raises.
+
+    ``cuda_lower.lower_counts_cuda``: the CUDA kernel (K8) for CUDA
+    tensors, the plain ``_lower_counts_plain`` for CPU ones."""
+    from .cuda_lower import lower_counts_cuda
+
+    return lower_counts_cuda(tuple(m.long() for m in meta), t_pos.long(),
+                             t_len.long(), t_dist.long(), t_valid.bool(), lc,
+                             lp, pb, max_bits, pos_base)
+
+
+def _lower_counts_plain(meta, t_pos, t_len, t_dist, t_valid, lc, lp, pb,
+                        max_bits, pos_base: int = 0):
+    """The plain version of ``cuda_lower.lower_counts_cuda``: the plain
+    lowering, then ``pair_counts`` of its streams (arguments and result
+    as ``lower_counts``)."""
+    ctx, bits, total = _lower_tokens_plain(meta, t_pos, t_len, t_dist,
+                                           t_valid, lc, lp, pb, max_bits,
+                                           pos_base)
+    size = ProbLayout(lc, lp, pb, pos_bits=pb).size
+    return (*pair_counts(ctx, bits, total, size), total)
+
+
+def pair_counts(ctx, bits, totals, arena_size: int):
+    """Each lane's count of the pairs of its lowered (ctx, bit) stream a
+    probability slot, and of those with bit 1, by scatter-add (the counts
+    of lzma_tpu's device_parser.empirical_probs): pairs at [0, total)
+    with ctx >= 0.  ctx, bits (L, B); totals (L,).  Returns (n, n1), each
+    (L, arena_size) int32."""
+    L, B = ctx.shape
+    j = torch.arange(B, device=ctx.device)
+    valid = (j < totals.long()[:, None]) & (ctx >= 0)
+    cix = _w(valid, ctx.long(), arena_size)
+    zeros = torch.zeros((L, arena_size + 1), dtype=torch.int64, device=ctx.device)
+    n = zeros.scatter_add(1, cix, valid.long())[:, :arena_size]
+    n1 = zeros.scatter_add(1, cix, _w(valid, bits.long(), 0))[:, :arena_size]
+    return n.to(torch.int32), n1.to(torch.int32)
+
+
 # ---------------------------------------------------------------- phase D
 #: iterations between the any-lane-unfinished checks; a finished lane's
 #: step changes nothing, so the extra steps are harmless
@@ -559,8 +607,10 @@ def probing():
     are reset at each stage's start), the
     last DP round's inputs under "dp_inputs", the last classify call's
     token rows under "classify_rows", the final tokens and (ctx, bit)
-    streams under "lowered" and the final lowering's arguments
-    (``cuda_lower.lower_tokens_cuda``'s) under "lower_args", all held by
+    streams under "lowered", the final lowering's arguments
+    (``cuda_lower.lower_tokens_cuda``'s) under "lower_args" and the last
+    optimal round's slot counts' arguments (``cuda_lower.
+    lower_counts_cuda``'s) under "count_args", all held by
     reference.  For
     diagnostics; an encode outside such a block records nothing."""
     global _PROBE

@@ -6,8 +6,9 @@ Port of the ``parse="optimal"`` route of ``lzma_tpu/ops/device_parser.py``:
            (device_matcher._rmq_search), the first M_DP ascending pairs
            per position kept for the DP (_select_dp_pairs)
   seed     a lazy parse over the lists' longest entries (_seed_from_lists)
-  model    the block's own (ctx, bit) statistics (classify + lower of the
-           current token stream) -> empirical probabilities -> every price
+  model    the block's own (ctx, bit) statistics (classify + the slot
+           counts of the current token stream's lowering, lower_counts:
+           K8 on the card) -> empirical probabilities -> every price
            table the DP needs (build_price_model, _pair_dist_cost), the
            rep0-by-position trace and its match lengths
   DP       the scan over positions: K3 or K4, the CUDA kernels in
@@ -33,7 +34,8 @@ import torch
 from ..core.layout import LITERAL_CODER_SIZE, POS_SLOT_TREE_SIZE, ProbLayout
 from ..core.prices import BIT_MODEL_TOTAL, PRICE_TABLE
 from .device_decoder import _next_lit, _next_longrep, _next_match, _wrap_i32
-from .device_encoder import classify_tokens, keep, lower_tokens, stage
+from .device_encoder import (classify_tokens, keep, lower_counts,
+                             pair_counts, stage)
 from .device_matcher import (_bit_length, _compact, _rmq_search, greedy_path,
                              rep_match_lens_rmq)
 
@@ -58,19 +60,20 @@ _w = torch.where
 # ------------------------------------------------------------- model
 def empirical_probs(ctx, bits, totals, arena_size: int):
     """Per-slot probabilities from a lowered (ctx, bit) stream
-    (device_parser.empirical_probs): counts by scatter-add, EMP_ALPHA
-    pseudo-counts toward 1/2, clamped to the coder's reachable band;
-    unseen slots keep 1024.  ctx, bits (L, B); totals (L,).  Returns
-    (L, arena_size) int64.  The numerator wraps in int32 as in the
-    reference."""
-    L, B = ctx.shape
-    j = torch.arange(B, device=ctx.device)
-    valid = (j < totals.long()[:, None]) & (ctx >= 0)
-    cix = _w(valid, ctx.long(), arena_size)
-    zeros = torch.zeros((L, arena_size + 1), dtype=torch.int64, device=ctx.device)
-    n = zeros.scatter_add(1, cix, valid.long())[:, :arena_size]
-    n1 = zeros.scatter_add(1, cix, _w(valid, bits.long(), 0))[:, :arena_size]
-    n0 = n - n1
+    (device_parser.empirical_probs): the counts of ``pair_counts``, then
+    ``probs_from_counts``.  ctx, bits (L, B); totals (L,).  Returns (L,
+    arena_size) int64."""
+    return probs_from_counts(*pair_counts(ctx, bits, totals, arena_size))
+
+
+def probs_from_counts(n, n1):
+    """Per-slot probabilities from the slot counts n and n1 (L, S) of a
+    lowered stream (the arithmetic of device_parser.empirical_probs after
+    its scatter-adds): EMP_ALPHA pseudo-counts toward 1/2, clamped to the
+    coder's reachable band; unseen slots keep 1024.  Returns (L, S)
+    int64.  The numerator wraps in int32 as in the reference."""
+    n = n.long()
+    n0 = n - n1.long()
     num = _wrap_i32(BIT_MODEL_TOTAL * (2 * n0 + EMP_ALPHA))
     p = _w(n > 0, torch.div(num, 2 * n + 2 * EMP_ALPHA, rounding_mode="floor"),
            1024)
@@ -644,24 +647,27 @@ def _lists_and_seed(data, lens, dict_size: int, fb: int):
 
 def _round_inputs(data, lens, tokens, ld, dd, suffix, lc: int, lp: int,
                   pb: int, fb: int):
-    """One round's DP inputs from the current tokens: classify + lower
-    -> empirical probabilities; the rep0 trace and its match lengths;
-    the price model -> dp_inputs.  Returns (packed, tables)."""
+    """One round's DP inputs from the current tokens: classify + the
+    lowering's slot counts -> empirical probabilities; the rep0 trace and
+    its match lengths; the price model -> dp_inputs.  Returns (packed,
+    tables)."""
     N = data.shape[1]
     device = data.device
     tp, tl, td, tv = tokens
     with stage("classify", device):
         meta = classify_tokens(data, tp, tl, td, tv)
-    with stage("lower", device):
-        ctx, bits, totals = lower_tokens(data, meta, tp, tl, td, tv, lc, lp,
-                                         pb, 10 * N + 128)
+    count_args = (tuple(m.long() for m in meta), tp.long(), tl.long(),
+                  td.long(), tv.bool(), lc, lp, pb, 10 * N + 128, 0)
+    keep("count_args", count_args)
     del meta
+    with stage("lower", device):
+        n, n1, _ = lower_counts(*count_args)
+    del count_args
     # the price model's parts, each its own stage (MODEL_STAGES; not
     # nested: a stage resets the card's peak statistics)
     with stage("empirical_probs", device):
-        layout = ProbLayout(lc, lp, pb, pos_bits=pb)
-        probs = empirical_probs(ctx, bits, totals, layout.size)
-        del ctx, bits
+        probs = probs_from_counts(n, n1)
+        del n, n1
     with stage("rep0_trace", device):
         r0pos = rep0_trace(tp, td, tv, N)
     with stage("rep_match_lens_rmq", device):

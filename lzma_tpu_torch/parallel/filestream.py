@@ -173,7 +173,7 @@ def decode_batch_blocks(params: LzmaParams, block_size: int, max_comp: int,
 
 def _launches() -> dict:
     """The kernels' launch counts (K1 ring_decode, K2 rc_serialize, K3
-    dp_parse, K6 classify, K7 lower)."""
+    dp_parse, K6 classify, K7 lower, K8 lower_counts)."""
     from ..ops import (cuda_classify, cuda_lower, cuda_parser, cuda_ring,
                        cuda_serializer)
 
@@ -181,7 +181,8 @@ def _launches() -> dict:
             "rc_serialize": cuda_serializer.LAUNCHES,
             "dp_parse": cuda_parser.LAUNCHES,
             "classify": cuda_classify.LAUNCHES,
-            "lower": cuda_lower.LAUNCHES}
+            "lower": cuda_lower.LAUNCHES,
+            "lower_counts": cuda_lower.COUNT_LAUNCHES}
 
 
 class _BatchLog:

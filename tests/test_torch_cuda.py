@@ -28,6 +28,7 @@ from lzma_tpu_torch.ops.device_decoder import _decode_fsm, pad_rows
 from lzma_tpu_torch.ops.device_encoder import (EOS_DIST, K_MATCH,
                                                _append_eos_tokens,
                                                _classify_carry, _classify_rows,
+                                               _lower_counts_plain,
                                                _lower_lanes,
                                                _lower_tokens_plain,
                                                classify_tokens, lower_tokens,
@@ -744,6 +745,169 @@ def test_lower_wrapper_rejects_bad_dtype_device_and_layout(card):
         cuda_lower.lower_tokens_cuda(tuple(m.int() for m in args[0]), *args[1:])
     with pytest.raises(ValueError):
         cuda_lower.lower_tokens_cuda(args[0][:6], *args[1:])
+
+
+# ------------------------------------- K8: the lowering's slot counts
+def _counts_on_card(args):
+    """K8 on the card against the plain version on the same card tensors;
+    one launch, no launch of K7."""
+    before = cuda_lower.COUNT_LAUNCHES, cuda_lower.LAUNCHES
+    got = cuda_lower.lower_counts_cuda(*args)
+    torch.cuda.synchronize()
+    assert (cuda_lower.COUNT_LAUNCHES, cuda_lower.LAUNCHES) == (
+        before[0] + 1, before[1])
+    want = _lower_counts_plain(*args)
+    for name, g, w in zip(("n", "n1", "total"), got, want):
+        assert g.dtype == w.dtype == torch.int32, name
+        assert torch.equal(g, w), name
+    return got
+
+
+# K8 at its round and lane edges: lanes of a round (kThreads tokens) - 1,
+# + 0, + 1, four and nine rounds and some, of 0 and 1 token, and one lane
+# far longer than the rest; N = 1, 3 and 33 (blocks run lanes fastest)
+@pytest.mark.parametrize("N", [1, 3, 33])
+def test_lower_counts_kernel_at_round_and_lane_edges(card, N):
+    R = _lower_constant("kThreads")
+    sizes = [0, 1, R - 1, R, R + 1, 4 * R + 3, 9 * R + 5]
+    counts = [sizes[(i * 3 + N) % len(sizes)] for i in range(N)]
+    counts[-1] = 100 * R + 7 if N > 1 else R - 1
+    _counts_on_card(_lower_inputs(counts, 40 + N, card))
+
+
+def test_lower_counts_kernel_in_both_placements(card):
+    """lc3 lp0 pb2's slots in shared memory, lc8 lp4 pb4's (3,147,574 a
+    lane) in device memory, on the same tokens; and the port's encoder's
+    own preset-primed lc8 lp4 pb4 lowering (pos_base)."""
+    from lzma_tpu_torch.ops.device_encoder import encode_batch, probing
+
+    limit = smem_limit(0)
+    for (lc, lp, pb), where in (((3, 0, 2), "shared"), ((8, 4, 4), "device")):
+        S = ProbLayout(lc, lp, pb, pos_bits=pb).size
+        assert cuda_lower.count_placement(S, limit) == where
+        n, _, _ = _counts_on_card(_lower_inputs([900, 40, 2500], 29, card,
+                                                lc=lc, lp=lp, pb=pb,
+                                                pos_base=333))
+        assert n.shape == (3, S)
+    blocks = _blocks(3, 2048, 31)
+    with probing() as probe:
+        encode_batch(blocks, LzmaParams(lc=8, lp=4, pb=4),
+                     preset=blocks[0][:500], device=card)
+    _counts_on_card(probe["lower_args"])
+
+
+def test_lower_counts_kernel_on_a_lane_of_literals(card):
+    """Every pair on is_match and the literal trees (the hot slots): 64
+    KiB of text as literals, and a lane of one repeated byte."""
+    from lzma_tpu_torch.bench.corpus import text_part
+
+    n = 1 << 16
+    rows = [text_part()[:n], b"a" * n]
+    data, _ = pad_rows(rows, card)
+    t_pos = torch.arange(n, device=card).expand(2, n).contiguous()
+    tok = (t_pos, torch.ones_like(t_pos), torch.full_like(t_pos, -1),
+           torch.ones_like(t_pos, dtype=torch.bool))
+    meta = tuple(m.long() for m in classify_tokens(data, *tok))
+    n_slot, _, total = _counts_on_card((meta, *tok, 3, 0, 2, 10 * n + 128, 0))
+    assert total.tolist() == [9 * n] * 2
+    # the literal tree's nodes of "a" after "a", n - 1 times each
+    assert int(n_slot[1].max()) == n - 1
+
+
+@pytest.mark.parametrize("parse", ["lazy", "optimal"])
+def test_lower_counts_kernel_on_both_parses_with_eos_tokens(card, parse):
+    """Both parses' tokens of 4 lanes, the EOS marker appended: K8 = the
+    plain version = pair_counts of K7's planes, and = the CPU's counts."""
+    from lzma_tpu_torch.ops.device_encoder import pair_counts
+
+    blocks = _blocks(4, 4096, 6)
+    data, lens = pad_rows(blocks, card)
+    if parse == "lazy":
+        tok = tokenize(data, lens, 4096, 32, 4)
+    else:
+        from lzma_tpu_torch.ops.device_parser import tokenize_optimal
+
+        tok = tokenize_optimal(data, lens, 4096, lc=3, lp=0, pb=2, fb=32)
+    toks = _append_eos_tokens(*tok[:4], tok[4], lens)
+    meta = tuple(m.long() for m in classify_tokens(data, *toks))
+    args = (meta, *toks, 3, 0, 2, 10 * data.shape[1] + 128, 0)
+    got = _counts_on_card(args)
+    S = ProbLayout(3, 0, 2, pos_bits=2).size
+    ctx, bits, total = cuda_lower.lower_tokens_cuda(*args)
+    for g, w in zip(got, (*pair_counts(ctx, bits, total, S), total)):
+        assert torch.equal(g, w)
+    cpu = cuda_lower.lower_counts_cuda(tuple(m.cpu() for m in meta),
+                                       *(t.cpu() for t in toks), *args[5:])
+    for g, w in zip(got, cpu):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_lower_counts_kernel_raises_where_the_plain_version_raises(card):
+    """max_bits one below the longest lane's total, then below a middle
+    lane's only; more long tokens than T // 2 + 2: the plain version's
+    ValueError, after one launch; a total equal to max_bits passes."""
+    args = list(_lower_inputs([700, 1300, 40], 14, card))
+    total = _counts_on_card(tuple(args))[2]
+    for cap, lane in ((int(total.max()), None), (int(total[1]), 1)):
+        args[8] = cap
+        if lane is None:
+            _counts_on_card(tuple(args))             # exactly full: fits
+        args[8] = cap - 1
+        before = cuda_lower.COUNT_LAUNCHES
+        for fn in (cuda_lower.lower_counts_cuda, _lower_counts_plain):
+            with pytest.raises(ValueError, match="exceed"):
+                fn(*args)
+        assert cuda_lower.COUNT_LAUNCHES == before + 1
+    args = list(_lower_inputs([600], 18, card))
+    T = args[1].shape[1]
+    args[0] = tuple(torch.full_like(m, K_MATCH) if k == 0 else m
+                    for k, m in enumerate(args[0]))
+    args[2] = torch.full_like(args[2], 3)           # every token a match
+    args[4] = torch.arange(T, device=card)[None] < T // 2 + 3
+    for fn in (cuda_lower.lower_counts_cuda, _lower_counts_plain):
+        with pytest.raises(ValueError, match="long tokens"):
+            fn(*args)
+
+
+def test_lower_counts_kernel_reads_strided_planes_and_empty_shapes(card):
+    """Planes transposed and sliced out of wider rows give the contiguous
+    planes' counts; no token slots or no lanes: zero counts, no launch."""
+    args = _lower_inputs([500, 900, 20, 1100], 20, card)
+    want = _counts_on_card(args)
+    meta, t_pos, t_len, t_dist, t_valid = args[:5]
+    strided = [x.T.contiguous().T if k % 2 else
+               torch.cat([x, x[:, :5]], dim=1)[:, :x.shape[1]]
+               for k, x in enumerate((*meta, t_pos, t_len, t_dist))]
+    got = _counts_on_card((tuple(strided[:7]), *strided[7:],
+                           t_valid.T.contiguous().T, *args[5:]))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for N, T in ((3, 0), (0, 7)):
+        z = torch.zeros((N, T), dtype=torch.int64, device=card)
+        e_args = (tuple(z for _ in range(7)), z, z + 1, z - 1, z.bool(), 3, 0,
+                  2, 64, 0)
+        before = cuda_lower.COUNT_LAUNCHES
+        got = cuda_lower.lower_counts_cuda(*e_args)
+        assert cuda_lower.COUNT_LAUNCHES == before
+        for g, w in zip(got, _lower_counts_plain(*e_args)):
+            assert torch.equal(g, w)
+
+
+def test_tokenize_optimal_rounds_launch_k8_not_k7(card):
+    """The optimal parse's two rounds launch K8 once each and K7 not at
+    all; its tokens are the CPU's."""
+    from lzma_tpu_torch.ops.device_parser import tokenize_optimal
+
+    blocks = _blocks(3, 2048, 8)
+    data, lens = pad_rows(blocks, card)
+    before = cuda_lower.COUNT_LAUNCHES, cuda_lower.LAUNCHES
+    got = tokenize_optimal(data, lens, 2048, lc=3, lp=0, pb=2, fb=32)
+    assert (cuda_lower.COUNT_LAUNCHES, cuda_lower.LAUNCHES) == (
+        before[0] + 2, before[1])
+    want = tokenize_optimal(data.cpu(), lens.cpu(), 2048, lc=3, lp=0, pb=2,
+                            fb=32)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
 
 
 def test_eos_cap_grows_on_the_card(card, monkeypatch):

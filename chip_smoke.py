@@ -33,7 +33,12 @@ prints its seconds):
      (K3, K4: K4 the carried band on K3's row tiles, a literal warp beside
      its relax warps) on the first round's inputs of 8 lanes x 2 KiB at fb
      8, 32 (both relax a length on 4 lanes) and 273 (on one thread a
-     length)
+     length); the search's kernels (K9 keys, K10 suffix table, K11 match
+     lists, ops/cuda_search.py) through device_matcher._rmq_search on the
+     same 8 lanes (one all zeros, two of 0 and 3 bytes) at fb 5, 32 and
+     273 (K10 given the prefix doubling's LCP), DP_TIERS cut to 12 "rr"
+     and "near" and DEFAULT_TIERS uncapped: each against its plain version
+     on the arguments the route gave it
   4. the card against the JAX reference: the 8-lane containers of
      generate_bench_data(64 KiB) must hash to PIN_SHA256 (lazy) and
      PIN_OPT_SHA256 (optimal), which tests/test_torch_api.py pins to the
@@ -44,16 +49,18 @@ prints its seconds):
      block decoded by the stdlib lzma module
   6. the lazy path at 8 MiB (text corpus + bench data, LzmaParams()
      defaults, 256 KiB blocks = 32 lanes): encode, decode, round trip,
-     stdlib lzma, K6 and K7 launched once, K8 not at all, K1 and K2
+     stdlib lzma, K6, K7 and K10 (the 273-deep suffix table) launched
+     once, K8, K9 and K11 not at all, K1 and K2
   7. the main path: the same 8 MiB with parse="optimal": encode, decode,
      round trip, stdlib lzma, smaller than the lazy container; K3
      launched at least twice, K6 three times, K8 twice (the two rounds
-     count their pairs), K7 once (the final tokens), K2 and K1 at least
-     once; MB/s, ratio, peak
+     count their pairs), K7 once (the final tokens), K9, K10 and K11 once
+     (one lane group's search), K2 and K1 at least once; MB/s, ratio, peak
      device memory; then the same encode again inside probing(), which
      must give the same container: its stage breakdown (the device
      synchronized around each stage; the price model's five stages also
-     summed as "model"), its whole-lane kernel stages
+     summed as "model", the search's five as "search"), its whole-lane
+     kernel stages
      beside their bounds (K3's by bytes and operations), K2 on the whole
      lanes' (ctx, bit) streams, K1 on the whole container's streams and
      K6 on the final tokens' rows timed by CUDA events (K6 beside its
@@ -61,8 +68,10 @@ prints its seconds):
      lowering's arguments (equal to the encode's streams) beside its
      bound, K8 on the last round's lower_counts arguments beside its
      bound and beside the route it replaced (K7's planes of the same
-     tokens, then pair_counts, whose counts K8's equal), and the
-     inputs phases 8 and 9 take
+     tokens, then pair_counts, whose counts K8's equal), K9, K10 and K11
+     on the main path's whole lanes through _rmq_search (each call timed
+     alone by CUDA events beside its bound), and the inputs phases 8 and
+     9 take
   8. the K4 path: tokenize_optimal(scan="band2") on phase 5's 32 x 16 KiB
      gives the tokens of the default scan, K4 launched (its count); K4 on
      the main path's whole last DP round (32 x 262,144 positions) gives
@@ -74,8 +83,9 @@ prints its seconds):
      token boundary at or past CMP_OUT bytes), all timed on those inputs;
      K6 (the scan) against its plain carry on the whole final tokens,
      uncut, K7 against its plain lowering on the whole final
-     lowering's arguments, uncut, and K8 against its plain counts on the
-     whole last round's arguments, uncut
+     lowering's arguments, uncut, K8 against its plain counts on the
+     whole last round's arguments, uncut, and K9, K10 and K11 against
+     their plain versions on phase 7's whole-lane search, uncut
  10. the K5 path: phase 5's 32 streams through decode_batch_resident
      equal the input and K1 (K5 launched, its count); K1's champion shape
      (128 x 16 KiB, lc0, dict 4 KiB, fb 8) through K5 and K1, both timed,
@@ -101,8 +111,8 @@ prints its seconds):
  14. the `.lzma` path at full size: the 8 MiB of phase 6 as ONE stream
      through ops.api.encode_alone, with a known size and with the EOS
      marker, and decode_alone: the stdlib and the port read both back,
-     K6, K7, K2 and K1 launched once a stream (counts set to 0 just
-     before each), MB/s and peak memory, the EOS encode again inside
+     K6, K7, K10, K2 and K1 launched once a stream and K3, K8, K9 and
+     K11 not at all (counts set to 0 just before each), MB/s and peak memory, the EOS encode again inside
      probing() for its stages and K6's time on its rows and K7's on its
      tokens (one lane: the scan spreads its 8,388,609 rows over 2,049
      tiles, K7 its tokens over 8,193); K6, K7, K2 and K1 against their
@@ -126,8 +136,9 @@ prints its seconds):
      256 KiB, DEFAULT_TIERS, all host threads: the candidate lists on the
      card, the optimal parse on the host; wall time and MB/s split by a
      PhaseTimer (search on the card, transfer, flatten, host parse), the
-     host's CPU count, ratio beside main8M-opt's, peak device memory; the
-     container round-trips through K1 (counted from 0) and the stdlib
+     host's CPU count, ratio beside main8M-opt's, peak device memory; K9,
+     K10 and K11 launched once a lane group, K11's lists 29 wide, "near";
+     the container round-trips through K1 (counted from 0) and the stdlib
      reads every block
  17. hybrid8M-lazy: the same input through the lazy hybrid; its container
      equals phase 6's main8M-lazy container byte for byte; its time
@@ -172,9 +183,10 @@ prints its seconds):
      lzma_tpu_torch/_build): the "tuned:" line, the file equal to
      api.encode_blocks (the lazy parse) with phase 22's choices, read back
  24. the benchmark `b` in this process through cli.main: `b 2`
-     (-backendtpu: dict 2 MiB, 4 MiB a pass, one lane; K6, K7 and K2
-     launch once a pass, K1 twice) and `b 1 -backendhybrid` (K1 twice a
-     pass, no K6, K7 or K2); the harness CRC-checks every decode; the
+     (-backendtpu: dict 2 MiB, 4 MiB a pass, one lane; K6, K7, K10 and K2
+     launch once a pass, K1 twice) and `b 1 -backendhybrid` (K9, K10 and
+     K11 once a pass, K1 twice, no K6, K7 or K2); the harness CRC-checks
+     every decode; the
      report lines (KB/s, MIPS) and the wall time
  25. dp ratio: bench.py:556-563's device_dp_ratio, text_part()[:256 KiB]
      in 64 KiB blocks, dict 64 KiB, fb 32, optimal: 61,535 B, ratio 4.260
@@ -192,15 +204,20 @@ prints its seconds):
      the round trip hashes to the input's SHA-256; each batch's peak
      device memory (reset before it) is at or below the sizer's model plus
      10% and, with what was allocated before it, at or below 80% of the
-     card; K1, K2, K6 and K7 (and K3 under the optimal parse) launch;
+     card; K1, K2, K6, K7 and K10 (and K3, K8, K9 and K11 under the
+     optimal parse) launch;
      batches, blocks a batch, peaks beside the model, seconds and MB/s
      are printed.
      Then an open("wb") writer fed 1 MiB writes over the first 16 MiB
      writes compress_file's container of those bytes, and open("rb")
      reads it back in 1 MiB reads
  27. no module of jax, jaxlib or lzma_tpu was loaded
-The last three lines are the card, the kernels' JSON record (K1-K8 and
-P1-P15, 23 records; K1's carries its launches in phase 16's decode, K6's
+The last three lines are the card, the kernels' JSON record (K1-K11 and
+P1-P15, 26 records; K9-K11's `jax_ref` names the jitted JAX code each
+restates, their `ms` is the whole-lane call's and `plain_ms` the plain
+version's on the same arguments, uncut, their launches are main8M-opt's
+and beside them main8M-lazy's, hybrid8M-opt's, the NCCL mesh's, `b`'s
+and the file configurations'; K1's carries its launches in phase 16's decode, K6's
 in phase 19's dumps, K1, K2, K3, K6, K7 and K8 theirs in phase 20's mesh
 calls, K1, K2, K6, K7 and K8 theirs in phase 24's `b -backendtpu` and K1
 in `b -backendhybrid`, and K1, K2, K3, K6, K7 and K8 theirs in phase
@@ -687,19 +704,162 @@ def literal_args(data, lc, lp, pb):
             lp, pb, 10 * n + 128, 0)
 
 
+#: the search's kernels: name -> (cuda_search wrapper, device_matcher plain
+#: version)
+SEARCH_KERNELS = {"search_keys": ("search_keys_cuda", "_search_keys_plain"),
+                  "suffix_table": ("suffix_table_cuda", "_suffix_table_plain"),
+                  "match_lists": ("match_lists_cuda", "_match_lists_plain")}
+#: each search kernel's TPU-side counterpart (file:line), the jitted JAX
+#: code it restates, and its design
+_JIT = ("under jax.jit at lzma_tpu/ops/device_parser.py:1595 "
+        "(tokenize_optimal) and lzma_tpu/ops/device_matcher.py:550 "
+        "(find_match_lists_rmq)")
+SEARCH_REPLACES = {
+    "search_keys": (
+        "lzma_tpu/ops/device_matcher.py:309",
+        "lzma_tpu/ops/device_matcher.py:309-342 (_tier_candidates' hashes) "
+        "and :436-448 (_suffix_rank_lcp's prefix words), " + _JIT,
+        "a thread a position, the block's bytes staged in shared memory"),
+    "suffix_table": (
+        "lzma_tpu/ops/device_matcher.py:420",
+        "lzma_tpu/ops/device_matcher.py:420-525 (_suffix_rank_lcp after its "
+        "lexsort), " + _JIT,
+        "rank and T[0] a thread a place; levels 1-11 in 2,048-place tiles "
+        "of shared memory; a pass a wider level"),
+    "match_lists": (
+        "lzma_tpu/ops/device_matcher.py:578",
+        "lzma_tpu/ops/device_matcher.py:286-306 (_neighbor_candidates), "
+        ":578-681 (_rmq_search's dedup, cap and merge), :528-547 "
+        "(_lcp_query), " + _JIT,
+        "the tiers' inverse orders, then a thread a position with its kept "
+        "candidates in registers (a dists row past 32)"),
+}
+#: the search's cases at the small shapes: (fb, tier ks or None for
+#: DP_TIERS, m_cap, m_cap_order)
+SEARCH_CASES = [(5, None, 12, "rr"), (32, None, 12, "rr"),
+                (273, None, 12, "rr"), (32, "hybrid", 0, "near"),
+                (32, None, 12, "near")]
+
+
+def _fresh(args):
+    """`args` with each list copied (K11 empties the lists it is given)."""
+    return tuple(list(a) if isinstance(a, list) else a for a in args)
+
+
+def spied_search(fn):
+    """fn() (a call that reaches device_matcher._rmq_search or
+    _suffix_rank_lcp) with the search kernels' wrappers spied.  Returns
+    (fn's result, {kernel: (its arguments, its result)}), the last call
+    of each."""
+    from lzma_tpu_torch.ops import cuda_search
+
+    seen = {}
+    kept = {k: getattr(cuda_search, w) for k, (w, _) in SEARCH_KERNELS.items()}
+
+    def spy(name, wrapper):
+        def call(*args):
+            copied = _fresh(args)
+            out = wrapper(*args)
+            seen[name] = (copied, _fresh(out))   # the route empties lists
+            return out
+        return call
+
+    for k, (w, _) in SEARCH_KERNELS.items():
+        setattr(cuda_search, w, spy(k, kept[k]))
+    try:
+        out = fn()
+    finally:
+        for k, (w, _) in SEARCH_KERNELS.items():
+            setattr(cuda_search, w, kept[k])
+    return out, seen
+
+
+def _flat(out):
+    return [t for x in out for t in (x if isinstance(x, list) else [x])]
+
+
+def check_search(seen):
+    """Each spied search kernel against its plain version on the same card
+    tensors (tolerance zero; dtypes and shapes equal).  Returns ({kernel:
+    max |diff|}, {kernel: plain version's ms})."""
+    from lzma_tpu_torch.ops import device_matcher
+
+    errs, plain_ms = {}, {}
+    for name, (args, got) in seen.items():
+        plain = getattr(device_matcher, SEARCH_KERNELS[name][1])
+        box = {}
+        plain_ms[name] = wall_ms(lambda: box.update(p=plain(*_fresh(args))))
+        g, w = _flat(got), _flat(box["p"])
+        if [(t.dtype, t.shape) for t in g] != [(t.dtype, t.shape) for t in w]:
+            raise AssertionError(f"{name}: outputs {[(t.dtype, t.shape) for t in g]}"
+                                 f" against the plain {[(t.dtype, t.shape) for t in w]}")
+        errs[name] = max([int((a.long() - b.long()).abs().max()) if a.numel()
+                          else 0 for a, b in zip(g, w)] + [0])
+        if errs[name]:
+            raise AssertionError(f"{name} differs from its plain version by "
+                                 f"{errs[name]}")
+        del box
+    return errs, plain_ms
+
+
+def search_work(seen):
+    """(bytes, operations) a search kernel's call must move and do, by
+    kernel, from its spied arguments and results.  K9: each lane byte read
+    and each key written; 8 operations a byte of the suffix words, 3 a
+    hashed byte of the widest span, 2 a key.  K10: the order read, each
+    lane byte read where the LCP is compared (else the given LCP), rank
+    and every table level written; an operation a level and 8 a prefix
+    word a place.  K11: each used tier's sort values and indices and rank
+    read, two table entries a kept pair (what the lists need of the
+    table), lens, dists and counts written; 12 operations a candidate
+    column, 2 a list slot a column, 20 a kept pair."""
+    out = {}
+    if "search_keys" in seen:
+        (data, n, depth, spans), (suffix, tiers) = seen["search_keys"]
+        P = data.numel()
+        keys = sum(t.numel() * t.element_size() for t in suffix + tiers)
+        nw = -(-depth // 4) if depth <= 32 else 0
+        out["search_keys"] = (P + n.numel() * 8 + keys,
+                              P * (8 * 4 * nw + 3 * max([0, *spans])
+                                   + 2 * (len(suffix) + len(tiers))))
+    if "suffix_table" in seen:
+        (data, n, order, depth, *given), (rank, T) = seen["suffix_table"]
+        cl = given[0] if given else None
+        P = order.numel()
+        lcp_in = P * 8 if cl is not None else data.numel()
+        nw = 0 if cl is not None else -(-min(depth, 32) // 4)
+        out["suffix_table"] = (P * 8 + lcp_in + rank.numel() * 8
+                               + T.numel() * 4,
+                               T.numel() + 8 * nw * P)
+    if "match_lists" in seen:
+        (sk, so, ranks, rank, T, n, *_), (lens, dists, counts) = \
+            seen["match_lists"]
+        P = rank.numel()
+        pairs = int(counts.sum())
+        M = sum(len(r) for _, r in ranks)
+        read = sum(t.numel() * t.element_size() for t in sk + so) + P * 8
+        out["match_lists"] = (read + 8 * pairs + lens.numel() * 16 + P * 8,
+                              P * M * (12 + 2 * lens.shape[2]) + 20 * pairs)
+    return out
+
+
 def counters():
     """The kernels whose launches a main-path run counts, by name: K3
     dp_parse, K6 classify, K7 lower, K8 lower_counts, K2 rc_serialize, K1
-    ring_decode; each the (module, attribute) of its wrapper's count."""
+    ring_decode, K9 search_keys, K10 suffix_table, K11 match_lists; each
+    the (module, attribute) of its wrapper's count."""
     from lzma_tpu_torch.ops import (cuda_classify, cuda_lower, cuda_parser,
-                                    cuda_ring, cuda_serializer)
+                                    cuda_ring, cuda_search, cuda_serializer)
 
     return {"dp_parse": (cuda_parser, "LAUNCHES"),
             "classify": (cuda_classify, "LAUNCHES"),
             "lower": (cuda_lower, "LAUNCHES"),
             "lower_counts": (cuda_lower, "COUNT_LAUNCHES"),
             "rc_serialize": (cuda_serializer, "LAUNCHES"),
-            "ring_decode": (cuda_ring, "LAUNCHES")}
+            "ring_decode": (cuda_ring, "LAUNCHES"),
+            "search_keys": (cuda_search, "KEYS_LAUNCHES"),
+            "suffix_table": (cuda_search, "TABLE_LAUNCHES"),
+            "match_lists": (cuda_search, "LIST_LAUNCHES")}
 
 
 def zero_counts():
@@ -1100,9 +1260,11 @@ def alone_phase(dev, card, data):
         if lzma.decompress(blob, format=lzma.FORMAT_ALONE) != data:
             raise AssertionError(f"stdlib lzma disagrees on the .lzma stream "
                                  f"(eos {eos})")
+        # the lazy stream's 273-deep suffix table is K10's
         if launches != {"dp_parse": 0, "classify": 1, "lower": 1,
                         "lower_counts": 0, "rc_serialize": 1,
-                        "ring_decode": 1}:
+                        "ring_decode": 1, "search_keys": 0,
+                        "suffix_table": 1, "match_lists": 0}:
             raise AssertionError(f"the .lzma path's launches: {launches}")
         blobs[eos] = blob
         log(f"[lzma stream] {len(data)} B as one stream, "
@@ -1244,12 +1406,14 @@ def hybrid_phase(dev, card, data, params, opt_blob, lazy_blob):
     hybrid-optimal encode (the search split from the host's parse by a
     PhaseTimer; K1 decodes the container, counted from 0; the stdlib reads
     every block) and through the lazy hybrid, whose container must be
-    main8M-lazy's.  Returns K1's launches in the hybrid-optimal decode and
-    hybrid8M-opt's container."""
+    main8M-lazy's.  Returns K1's launches in the hybrid-optimal decode, the
+    search kernels' (K9-K11) in its encode, and hybrid8M-opt's
+    container."""
     import os
 
     import torch
-    from lzma_tpu_torch.ops import api, cuda_ring, hybrid
+    from lzma_tpu_torch.ops import (api, cuda_ring, cuda_search,
+                                    device_matcher, hybrid)
     from lzma_tpu_torch.utils.profiling import PhaseTimer
 
     cpus = os.cpu_count()
@@ -1273,6 +1437,7 @@ def hybrid_phase(dev, card, data, params, opt_blob, lazy_blob):
     group = hybrid._group_lanes(len(data) // MAIN_BLOCK, MAIN_BLOCK, 29, dev)
     torch.cuda.reset_peak_memory_stats()
     timer = PhaseTimer()
+    zero_counts()
     t = time.perf_counter()
     blob = opt8 = hybrid.encode_blocks_hybrid_optimal(
         data, params, block_size=MAIN_BLOCK, num_threads=0, device=dev,
@@ -1280,6 +1445,15 @@ def hybrid_phase(dev, card, data, params, opt_blob, lazy_blob):
     torch.cuda.synchronize()
     t_enc = time.perf_counter() - t
     peak = torch.cuda.max_memory_allocated()
+    # the search's kernels once a lane group, K11 with DEFAULT_TIERS' 29
+    # candidates a position, uncapped, "near"
+    searched = {k: v for k, v in read_counts().items() if k in SEARCH_KERNELS}
+    groups = -(-(len(data) // MAIN_BLOCK) // group)
+    width = cuda_search.list_columns(
+        device_matcher.tier_ranks(hybrid.DEFAULT_TIERS), 0, "near")[2]
+    if set(searched.values()) != {groups} or width != 29:
+        raise AssertionError(f"the hybrid's search launched {searched} in "
+                             f"{groups} lane groups, lists of {width}")
     cuda_ring.LAUNCHES = 0
     t = time.perf_counter()
     back = api.decode_blocks(blob, device=dev)
@@ -1300,7 +1474,8 @@ def hybrid_phase(dev, card, data, params, opt_blob, lazy_blob):
         f"{len(opt_blob) / len(data):.4f}, {len(blob)} against "
         f"{len(opt_blob)} B), peak device memory {peak / 2**20:.1f} MiB; "
         f"decode {t_dec:.3f} s = {mb / t_dec:.3f} MB/s, K1 launched {k1}; "
-        "round trip, every block decodes with the stdlib lzma module")
+        "round trip, every block decodes with the stdlib lzma module; the "
+        f"search's launches {searched} (K11's lists {width} wide, 'near')")
 
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -1320,7 +1495,7 @@ def hybrid_phase(dev, card, data, params, opt_blob, lazy_blob):
         f"{len(lazy)} B = "
         f"main8M-lazy's container byte for byte (the same tokens, the host's "
         f"serializer), peak device memory {peak / 2**20:.1f} MiB")
-    return k1, opt8
+    return k1, searched, opt8
 
 
 def profile_phase(dev, card, data, params, blob, stage_peaks):
@@ -1577,7 +1752,8 @@ def mesh_nccl_phase(dev, card, data, params, lazy_blob, opt_blob, hybrid_blob):
         finally:
             dist.destroy_process_group()
     if min(enc["rc_serialize"], enc["dp_parse"], enc["classify"], enc["lower"],
-           enc["lower_counts"], dec["ring_decode"]) < 1:
+           enc["lower_counts"], enc["search_keys"], enc["suffix_table"],
+           enc["match_lists"], dec["ring_decode"]) < 1:
         raise AssertionError(f"[mesh] a kernel did not run: encodes {enc}, "
                              f"decodes {dec}")
     log(f"[mesh NCCL world 1] {len(data)} B in {len(data) // MAIN_BLOCK} lanes "
@@ -1628,9 +1804,11 @@ def mesh_gloo_phase(card, data, lazy_blob, opt_blob, hybrid_blob, kept):
         for r, rec in enumerate(recs):
             for parse in ("lazy", "optimal"):
                 got = rec[parse]["launches"]
-                if min(got["rc_serialize"], got["classify"]) < 1 or (
-                        parse == "optimal" and min(got["dp_parse"],
-                                                   got["lower_counts"]) < 1):
+                if min(got["rc_serialize"], got["classify"],
+                       got["suffix_table"]) < 1 or (
+                        parse == "optimal" and min(
+                            got["dp_parse"], got["lower_counts"],
+                            got["search_keys"], got["match_lists"]) < 1):
                     raise AssertionError(f"[mesh] rank {r} {parse}: {got}")
             if not rec["decode"]["equal"] or \
                     rec["decode"]["launches"]["ring_decode"] < 1:
@@ -1703,8 +1881,11 @@ def auto_phase(dev, card, data):
         if back != part:
             raise AssertionError(f"[auto] compress({what}) does not round-trip")
         if min(auto_launches["rc_serialize"], auto_launches["classify"],
+               auto_launches["suffix_table"],
                dec_launches["ring_decode"]) < 1 or (
-                   not want_kw and auto_launches["dp_parse"] < 1):
+                   not want_kw and min(auto_launches["dp_parse"],
+                                       auto_launches["search_keys"],
+                                       auto_launches["match_lists"]) < 1):
             raise AssertionError(f"[auto] a kernel did not run: {auto_launches}, "
                                  f"decode {dec_launches}")
         lines.append(
@@ -1943,7 +2124,8 @@ def file_phase(dev, card, data, lazy_blob, opt_blob):
                               t_dec, size)
         launches["ring_decode"] += dec_launches["ring_decode"]
         if min(v for k, v in launches.items()
-               if k not in ("dp_parse", "lower_counts")) < 1:
+               if k not in ("dp_parse", "lower_counts", "search_keys",
+                            "match_lists")) < 1:
             raise AssertionError(f"a kernel did not run: {launches}")
         found["file256M-lazy"] = launches
         for x in (src, enc, back):
@@ -1981,9 +2163,10 @@ def bench_phase(card):
     """Phase 24: the benchmark `b` in this process through cli.main, so
     that the launch counts can be read: `b {BENCH_PASSES_TPU}`
     (-backendtpu: ops.api.encode_stream and decode_stream, one lane, dict
-    2 MiB, 4 MiB a pass) launches K6, K7 and K2 once a pass and K1 twice;
-    `b {BENCH_PASSES_HYBRID} -backendhybrid` (the hybrid's stream, decoded
-    on the card) K1 twice a pass and none of K6, K7 and K2.  The harness
+    2 MiB, 4 MiB a pass) launches K6, K7, K10 and K2 once a pass and K1
+    twice; `b {BENCH_PASSES_HYBRID} -backendhybrid` (the hybrid's stream,
+    decoded on the card) K9, K10 and K11 once a pass, K1 twice and none of
+    K6, K7 and K2.  The harness
     CRC-checks every decode.  Returns the launches {backend: {kernel: n}}."""
     import contextlib
     import io
@@ -1999,10 +2182,15 @@ def bench_phase(card):
                 lambda: cli.main(["b", str(passes), f"-backend{backend}"]))
         report = [ln.strip() for ln in out.getvalue().splitlines()
                   if "KB/s" in ln]
+        tpu = backend == "tpu"
+        # the lazy stream's 273-deep table is K10's; the hybrid's list
+        # search K9, K10 and K11 once a pass
         want = dict(ring_decode=2 * passes, dp_parse=0,
-                    classify=passes if backend == "tpu" else 0,
-                    lower=passes if backend == "tpu" else 0, lower_counts=0,
-                    rc_serialize=passes if backend == "tpu" else 0)
+                    classify=passes if tpu else 0,
+                    lower=passes if tpu else 0, lower_counts=0,
+                    rc_serialize=passes if tpu else 0,
+                    search_keys=0 if tpu else passes, suffix_table=passes,
+                    match_lists=0 if tpu else passes)
         if rc != 0 or launches != want or len(report) != passes + 1:
             raise AssertionError(f"[b -backend{backend}] rc {rc}, launches "
                                  f"{launches} (want {want})\n{out.getvalue()}")
@@ -2075,7 +2263,10 @@ def main():
                                                    encode_batch,
                                                    pair_counts, probing,
                                                    tokenize)
-    from lzma_tpu_torch.ops.device_parser import MODEL_STAGES, tokenize_optimal
+    from lzma_tpu_torch.ops import cuda_search, device_matcher
+    from lzma_tpu_torch.ops.device_parser import (MODEL_STAGES, SEARCH_STAGES,
+                                                  tokenize_optimal)
+    from lzma_tpu_torch.ops.hybrid import DEFAULT_TIERS
     from lzma_tpu_torch.parallel import blocks as blk
     from lzma_tpu_torch.probes._cuda import event_ms
     from lzma_tpu_torch.runtime import build
@@ -2240,6 +2431,28 @@ def main():
     log(f"[K8 vs plain] one lane of {MAIN_BLOCK} literals (text): n, n1 and "
         f"total equal ({arena} slots a lane in shared memory)")
     del lit_args
+    # K9, K10 and K11 through _rmq_search on the same 8 lanes, lane 0 all
+    # zeros (one hash group), lanes 1 and 2 of 0 and 3 bytes
+    s_data, s_lens = pad_rows(blocks, dev)
+    s_data[0] = 0
+    s_lens[1], s_lens[2] = 0, 3
+    search_err = dict.fromkeys(SEARCH_KERNELS, 0)
+    for fb_s, tiers, cap, order in SEARCH_CASES:
+        tiers = DEFAULT_TIERS if tiers == "hybrid" else tiers
+        _, seen = spied_search(lambda: device_matcher._rmq_search(
+            s_data, s_lens, s_data.shape[1], fb_s, tiers, cap, order))
+        if set(seen) != set(SEARCH_KERNELS):
+            raise AssertionError(f"the search at fb {fb_s} ran {sorted(seen)}")
+        errs, _ = check_search(seen)
+        for k, v in errs.items():
+            search_err[k] = max(search_err[k], v)
+        width = seen["match_lists"][1][0].shape[2]
+        log(f"[K9, K10, K11 vs plain] {CMP_LANES}x{CMP_BYTES} (an all-zero "
+            f"lane, lanes of 0 and 3 bytes), fb {fb_s}, "
+            f"{'DEFAULT_TIERS' if tiers else 'DP_TIERS'}, cap {cap} {order!r} "
+            f"({width} a list; K10 {'given' if fb_s > 32 else 'computing'} "
+            "the consecutive LCP): keys, rank, T, lens, dists and counts equal")
+    del seen, s_data, s_lens
     done("small shapes")
 
     # ---- 4. the pinned containers (card vs the JAX reference) ----
@@ -2291,7 +2504,8 @@ def main():
     lazy_launches = launches
     if launches["rc_serialize"] < 1 or launches["ring_decode"] < 1 \
             or launches["classify"] != 1 or launches["lower"] != 1 \
-            or launches["lower_counts"] != 0:
+            or launches["lower_counts"] != 0 or launches["search_keys"] != 0 \
+            or launches["suffix_table"] != 1 or launches["match_lists"] != 0:
         raise AssertionError(f"a kernel did not run on the lazy path: {launches}")
     log(f"[lazy] {len(data)} B in {len(data) // MAIN_BLOCK} lanes of {MAIN_BLOCK} B "
         f"on {card}: encode {t_enc:.3f} s = {mb / t_enc:.3f} MB/s, decode "
@@ -2306,9 +2520,11 @@ def main():
         api, data, params, "optimal", dev)
     # the two rounds count their pairs (K8), the final tokens are lowered
     # (K7)
+    # the search (K9, K10, K11) once: one lane group
     if launches["dp_parse"] < 2 or launches["rc_serialize"] < 1 \
             or launches["ring_decode"] < 1 or launches["classify"] != 3 \
-            or launches["lower"] != 1 or launches["lower_counts"] != 2:
+            or launches["lower"] != 1 or launches["lower_counts"] != 2 \
+            or any(launches[k] != 1 for k in SEARCH_KERNELS):
         raise AssertionError(f"a kernel did not run on the main path: {launches}")
     if len(blob) >= len(lazy_blob):
         raise AssertionError(f"optimal container {len(blob)} B is not smaller "
@@ -2334,6 +2550,7 @@ def main():
     stage_peaks = probe["peak_bytes"]
     t_pos, t_len, t_valid, ctx, bits, totals = probe["lowered"]
     model_s = [sum(x) for x in zip(*(secs[k] for k in MODEL_STAGES))]
+    search_s = sum(sum(secs[k]) for k in SEARCH_STAGES)
     log(f"[stages] probed optimal encode {t_probed:.3f} s (unprobed "
         f"{t_enc:.3f} s), max tokens/lane {int(t_valid.sum(1).max())}, "
         f"max coded bits/lane {int(totals.max())}: "
@@ -2345,7 +2562,8 @@ def main():
         + f"; model (the sum of {', '.join(MODEL_STAGES)}) "
         f"{sum(model_s) * 1e3:.1f} ms ({len(model_s)} calls: "
         + " + ".join(f"{x * 1e3:.1f}" for x in model_s)
-        + f"); decode {t_dec * 1e3:.1f} ms")
+        + f"); search (the sum of {', '.join(SEARCH_STAGES)}) "
+        f"{search_s * 1e3:.1f} ms; decode {t_dec * 1e3:.1f} ms")
     # the whole-lane kernel stages beside their bounds at the main path's
     # full shapes (K3's work counted on the last round's inputs)
     L, N = t_pos.shape
@@ -2451,6 +2669,30 @@ def main():
         f"{k8_scatter:.3f} ms = {k8_planes + k8_scatter:.3f} ms; n, n1 and "
         "total equal to it")
     del k8_out, r_planes
+    # K9, K10 and K11 on the main path's whole lanes: the probed encode's
+    # lanes through _rmq_search at the optimal route's statics, each
+    # kernel's call timed alone by CUDA events
+    m_data, m_lens = pad_rows([data[i:i + MAIN_BLOCK]
+                               for i in range(0, len(data), MAIN_BLOCK)], dev)
+    m_out, seen_main = spied_search(lambda: device_matcher._rmq_search(
+        m_data, m_lens, min(params.dict_size, m_data.shape[1]),
+        params.fast_bytes))
+    del m_out
+    search_whole = {}
+    for name, (s_args, _) in seen_main.items():
+        s_fn = getattr(cuda_search, SEARCH_KERNELS[name][0])
+        search_whole[name] = event_ms(
+            lambda f=s_fn, a=s_args: f(*_fresh(a)), 3)
+    search_w = search_work(seen_main)
+    search_bounds = {k: bound(*w) for k, w in search_w.items()}
+    log(f"[K9, K10, K11 whole lanes] {L} lanes x {N} positions, DP_TIERS cut "
+        f"to 12 'rr', fb {params.fast_bytes}, on {card}: " + "; ".join(
+            f"{k} {search_whole[k]:.3f} ms a call (CUDA events, the wrapper), "
+            f"{search_w[k][0]} B read and written, {search_w[k][1]} "
+            f"operations, bound {search_bounds[k][0]:.4f} ms by "
+            f"{search_bounds[k][1]} ({search_whole[k] / search_bounds[k][0]:.1f}x)"
+            for k in SEARCH_KERNELS)
+        + f"; {int(seen_main['match_lists'][1][2].sum())} pairs kept")
     log(f"[K2, K1 whole lanes] {L} lanes on {card}, CUDA events: rc_serialize "
         f"{k2_whole:.3f} ms a call ({n_bits} pairs, "
         f"{k2_whole * 1e6 / int(totals.max()):.1f} ns a pair of the longest "
@@ -2561,6 +2803,17 @@ def main():
     log(f"[K8 vs plain] main path's last round's tokens, whole: n, n1 and "
         f"total equal; kernel {k8_whole:.3f} ms vs plain {k8_plain:.1f} ms on "
         f"{card}")
+    # K9, K10 and K11: the main path's whole lanes, uncut (one plain call
+    # each)
+    errs, search_plain = check_search(seen_main)
+    for k, v in errs.items():
+        search_err[k] = max(search_err[k], v)
+    del seen_main
+    log(f"[K9, K10, K11 vs plain] main path's whole lanes: keys, rank, T, "
+        f"lens, dists and counts equal; " + ", ".join(
+            f"{k} kernel {search_whole[k]:.3f} ms vs plain "
+            f"{search_plain[k]:.1f} ms" for k in SEARCH_KERNELS)
+        + f" on {card}")
     log(f"[times] main path's shapes ({len(bsizes)} lanes x {MAIN_BLOCK} B) on "
         f"{card}: dp_parse kernel {k3_ms:.3f} ms, dp_parse2 kernel "
         f"{k4_ms:.3f} ms vs plain {k3_plain:.1f} ms ({CMP_POS} positions a "
@@ -2718,8 +2971,8 @@ def main():
     done("lzma stream")
 
     # ---- 15-17. the hybrid: pins, hybrid8M-opt, hybrid8M-lazy ----
-    hybrid_k1, hybrid_blob = hybrid_phase(dev, card, data, params, blob,
-                                          lazy_blob)
+    hybrid_k1, hybrid_search, hybrid_blob = hybrid_phase(
+        dev, card, data, params, blob, lazy_blob)
     done("hybrid")
 
     # ---- 18. main8M-opt under the profiler; peak memory by stage ----
@@ -2840,7 +3093,22 @@ def main():
                design="persistent blocks a lane, a shared-memory histogram "
                       "of 64-bit words (device memory past the opt-in "
                       "limit), a warp's equal slots summed first"),
-    ] + probe_records
+    ] + [
+        record(name, "lzma_tpu_torch/csrc/search.cu", SEARCH_REPLACES[name][0],
+               launches[name], search_err[name], search_whole[name],
+               search_plain[name], search_bounds[name],
+               jax_ref=SEARCH_REPLACES[name][1], whole_ms=search_whole[name],
+               whole_bound_ms=search_bounds[name][0],
+               lazy_launches=lazy_launches[name],
+               hybrid_launches=hybrid_search[name],
+               mesh_launches=mesh_enc[name],
+               bench_launches=bench_launches["tpu"][name],
+               bench_hybrid_launches=bench_launches["hybrid"][name],
+               file_launches={k: v[name] for k, v in file_launches.items()},
+               design=SEARCH_REPLACES[name][2])
+        for name in SEARCH_KERNELS] + probe_records
+    if len(kernels) != 26:
+        raise AssertionError(f"{len(kernels)} kernel records, not 26")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,288 @@
+// The per-position closed forms of the optimal parse's candidate search
+// (csrc/search.cu, K9-K11), in the order of
+// lzma_tpu_torch/ops/device_matcher.py's plain versions:
+//   K9  a position's sort keys from its 32-byte window: the suffix
+//       order's packed prefix words (_search_keys_plain, as _pack_keys
+//       packs them) and the tier hashes (_tier_hashes) as int32 keys;
+//   K10 the consecutive LCP of two suffixes by their prefix words
+//       (_suffix_table_plain at depth <= 32);
+//   K11 a position's candidates at each tier's ranks (_neighbor_step),
+//       their dedup and cap (_dedup_cap: "rr" keep-first in round-robin
+//       tier order, else the nearest), the exact lengths by two reads of
+//       the sparse min table (_lcp_query), and the merge that keeps
+//       strictly increasing lengths at ascending distance
+//       (_match_lists_plain).
+//
+// Plain C++ under LZT_HD, so that a host compiler can build it too (the
+// CPU tests hold it to the plain versions through a g++ build).  Hash
+// arithmetic is uint32_t, as the reference's; positions and lane offsets
+// are int64_t (a lane's table passes 2^31 entries at 8 Mi positions).
+
+#pragma once
+
+#include <cstdint>
+
+#ifndef LZT_HD
+#if defined(__CUDACC__)
+#define LZT_HD __host__ __device__ __forceinline__
+#else
+#define LZT_HD inline
+#endif
+#endif
+
+#if defined(__CUDACC__)
+#define LZT_UNROLL _Pragma("unroll")
+#else
+#define LZT_UNROLL
+#endif
+
+namespace search_list {
+
+constexpr int kSpans = 7;          // device_matcher.TIER_SPANS: 2 3 4 6 8 16 32
+constexpr int kWindow = 32;        // bytes a position's keys read
+constexpr uint32_t kMark = 0x80000000u;
+constexpr int64_t kBig = 1LL << 30;
+constexpr int kMinMatch = 2;       // device_matcher.MIN_MATCH
+constexpr uint32_t kMul0 = 2654435761u, kMul1 = 2246822519u,
+                   kMul2 = 3266489917u, kMul3 = 668265263u;
+
+LZT_HD int span_of(int i) {
+  return i < 3 ? i + 2 : i == 3 ? 6 : i == 4 ? 8 : i == 5 ? 16 : 32;
+}
+
+LZT_HD int clz32(uint32_t x) {  // x != 0
+#if defined(__CUDA_ARCH__)
+  return __clz(static_cast<int>(x));
+#else
+  return __builtin_clz(x);
+#endif
+}
+
+// ------------------------------------------------------------------ K9
+// w: the kWindow bytes at pos, pos + 1, ... (wrapping at the lane's
+// max_n, as the reference's rolls do).
+
+// Big-endian word k of the window.
+LZT_HD uint32_t word_at(const uint8_t* w, int k) {
+  return (static_cast<uint32_t>(w[4 * k]) << 24) |
+         (static_cast<uint32_t>(w[4 * k + 1]) << 16) |
+         (static_cast<uint32_t>(w[4 * k + 2]) << 8) |
+         static_cast<uint32_t>(w[4 * k + 3]);
+}
+
+// Word k of the suffix order's keys: word 0 marked 0x80000000 ^ pos
+// where pos >= n.
+LZT_HD uint32_t suffix_word(const uint8_t* w, int k, int64_t pos, int64_t n) {
+  return k == 0 && pos >= n ? kMark ^ static_cast<uint32_t>(pos)
+                            : word_at(w, k);
+}
+
+// Packed key k of nw words: (w[2k] - 2^31) * 2^32 + w[2k + 1], or
+// w[2k] alone where 2k + 1 == nw.
+LZT_HD int64_t suffix_key(const uint8_t* w, int k, int nw, int64_t pos,
+                          int64_t n) {
+  const int64_t hi = suffix_word(w, 2 * k, pos, n);
+  if (2 * k + 1 >= nw) return hi;
+  return (hi - (1LL << 31)) * (1LL << 32) +
+         static_cast<int64_t>(suffix_word(w, 2 * k + 1, pos, n));
+}
+
+// The tier hashes of the spans in `mask` (bit i: span_of(i)), each
+// marked 0x80000000 ^ pos where pos + span - 1 >= n, as int32 keys h ^
+// 0x80000000 (h - 2^31, whose signed order is h's unsigned order), into
+// out[i]; the other entries of out are 0.
+LZT_HD void tier_keys(const uint8_t* w, int64_t pos, int64_t n, int mask,
+                      int32_t* out) {
+  uint32_t h[kSpans];
+  h[0] = w[0] | (static_cast<uint32_t>(w[1]) << 8);
+  h[1] = h[0] | (static_cast<uint32_t>(w[2]) << 16);
+  h[2] = w[0] * kMul0 ^ w[1] * kMul1 ^ w[2] * kMul2 ^ w[3] * kMul3;
+  // the longer hashes extend the 4-, 8- and 16-byte ones byte by byte
+  uint32_t x = h[2];
+  for (int i = 4; i < 6; ++i) x = x * kMul0 ^ w[i] * kMul1;
+  h[3] = x;
+  for (int i = 6; i < 8; ++i) x = x * kMul0 ^ w[i] * kMul1;
+  h[4] = x;
+  h[5] = h[6] = 0;
+  if (mask & 0x60) {
+    for (int i = 8; i < 16; ++i) x = x * kMul0 ^ w[i] * kMul1;
+    h[5] = x;
+    if (mask & 0x40) {
+      for (int i = 16; i < 32; ++i) x = x * kMul0 ^ w[i] * kMul1;
+      h[6] = x;
+    }
+  }
+LZT_UNROLL
+  for (int i = 0; i < kSpans; ++i) {
+    const uint32_t v = pos + span_of(i) - 1 < n
+                           ? h[i] : kMark ^ static_cast<uint32_t>(pos);
+    out[i] = mask >> i & 1 ? static_cast<int32_t>(v ^ kMark) : 0;
+  }
+}
+
+// ----------------------------------------------------------------- K10
+// The equal leading bytes of two suffixes' nw prefix words (word 0
+// marked past n), clamped to depth.  wa, wb: their windows.
+LZT_HD int consecutive_lcp(const uint8_t* wa, int64_t pa, const uint8_t* wb,
+                           int64_t pb, int64_t n, int nw, int depth) {
+  int cl = 0;
+  for (int k = 0; k < nw; ++k) {
+    const uint32_t x = suffix_word(wa, k, pa, n) ^ suffix_word(wb, k, pb, n);
+    if (x != 0) {
+      cl += clz32(x) >> 3;
+      break;
+    }
+    cl += 4;
+  }
+  return cl < depth ? cl : depth;
+}
+
+// ----------------------------------------------------------------- K11
+// One lane's planes: each used tier's stable sort (values as int32
+// keys, indices), the suffix rank and the (levels, max_n) min table; n
+// and the dictionary size.
+struct Lane {
+  const int32_t* sorted[kSpans];
+  const int64_t* order[kSpans];
+  const int64_t* rank;
+  const int32_t* T;
+  int64_t max_n, n, dict_size;
+};
+
+// The candidate of a position at place r of tier t's order, rank j:
+// order[r - j] where r >= j and the key there is the position's own,
+// else -1 (roll semantics: the place wraps at max_n).
+LZT_HD int64_t candidate(const Lane& ln, int t, int64_t r, int64_t j) {
+  if (r < j) return -1;
+  int64_t i = r - j;
+  if (i >= ln.max_n) i %= ln.max_n;
+  return ln.sorted[t][i] == ln.sorted[t][r] ? ln.order[t][i] : -1;
+}
+
+// A list of candidate positions kept in descending order.  RegList's
+// entries are registers when every loop over them unrolls (kCap a
+// constant); RowList keeps them in a caller's int64 row.
+template <int kCap>
+struct RegList {
+  static constexpr int kBound = kCap;
+  int32_t a[kCap] = {};
+  LZT_HD int64_t get(int i) const { return a[i]; }
+  LZT_HD void set(int i, int64_t v) { a[i] = static_cast<int32_t>(v); }
+};
+
+struct RowList {
+  static constexpr int kBound = 0;  // loops run to the list's length
+  int64_t* a;
+  LZT_HD int64_t get(int i) const { return a[i]; }
+  LZT_HD void set(int i, int64_t v) { a[i] = v; }
+};
+
+// Insert v >= 0 into the descending list of `len` entries, at most cap:
+// a value already there is skipped, and a full list drops its smallest
+// (v itself where it is the smallest).
+template <class L>
+LZT_HD void insert(L& list, int& len, int cap, int64_t v) {
+  const int bound = L::kBound ? L::kBound : len;
+  int at = 0;
+  bool seen = false;
+LZT_UNROLL
+  for (int i = 0; i < bound; ++i) {
+    if (i < len) {
+      const int64_t x = list.get(i);
+      seen = seen || x == v;
+      at += x > v;
+    }
+  }
+  if (seen || at >= cap) return;
+  const int last = len < cap ? len : cap - 1;  // the slot that gets filled
+  if (L::kBound) {
+LZT_UNROLL
+    for (int i = L::kBound - 1; i > 0; --i) {
+      if (i <= last && i > at) list.set(i, list.get(i - 1));
+    }
+LZT_UNROLL
+    for (int i = 0; i < L::kBound; ++i) {
+      if (i == at) list.set(i, v);
+    }
+  } else {
+    for (int i = last; i > at; --i) list.set(i, list.get(i - 1));
+    list.set(at, v);
+  }
+  if (len < cap) ++len;
+}
+
+// The kept candidates of position p, descending, into `list`; returns
+// their count.  cols: the (tier, rank) pairs of the m columns in the
+// order they are taken (the round-robin order for "rr", else the
+// column order); r: p's place in each tier's order.  rr: keep-first
+// until cap are kept; otherwise the cap largest of all.
+template <class L>
+LZT_HD int gather(const Lane& ln, const int32_t* cols, int m, bool rr,
+                  int cap, const int64_t* r, L& list) {
+  int len = 0;
+  for (int c = 0; c < m; ++c) {
+    const int t = cols[2 * c];
+    const int64_t v = candidate(ln, t, r[t], cols[2 * c + 1]);
+    if (v < 0) continue;
+    insert(list, len, cap, v);
+    if (rr && len == cap) break;
+  }
+  return len;
+}
+
+// Exact LCP of suffix p (rank rp) and candidate c >= 0 by two reads of
+// the sparse min table (_lcp_query); 0 where c's rank is p's.
+LZT_HD int64_t lcp_query(const Lane& ln, int64_t rp, int64_t c) {
+  const int64_t rq = ln.rank[c < ln.max_n ? c : ln.max_n - 1];
+  const int64_t a = (rp < rq ? rp : rq) + 1;
+  const int64_t b = rp < rq ? rq : rp;
+  const int64_t w = b - a + 1;
+  if (w < 1) return 0;
+  const int k = 31 - clz32(static_cast<uint32_t>(w));
+  const int32_t* Tk = ln.T + static_cast<int64_t>(k) * ln.max_n;
+  int64_t a2 = a + (1LL << k) - 1;
+  if (a2 > ln.max_n - 1) a2 = ln.max_n - 1;
+  const int32_t v1 = Tk[b], v2 = Tk[a2];
+  return v1 < v2 ? v1 : v2;
+}
+
+// Position p's merged list from its `len` kept candidates: each one in
+// the dictionary window gets its exact length (at most n - p) and
+// distance p - c - 1; a pair is kept where its length is at least
+// kMinMatch and longer than every nearer candidate's.  Writes the kept
+// pairs to lens and dists [0, count) and zeros to [count, width);
+// returns count.  A RowList may be dists itself: a pair is written at or
+// before the entry it was read from.
+template <class L>
+LZT_HD int merge(const Lane& ln, int64_t p, const L& list, int len, int width,
+                 int64_t* lens, int64_t* dists) {
+  const int64_t rp = ln.rank[p];
+  const int64_t room = ln.n - p > 0 ? ln.n - p : 0;
+  int64_t runmax = 0;
+  int count = 0;
+  const int bound = L::kBound ? L::kBound : len;
+LZT_UNROLL
+  for (int j = 0; j < bound; ++j) {
+    if (j < len) {
+      const int64_t c = list.get(j);
+      if (c < p && p - c <= ln.dict_size) {
+        int64_t l = lcp_query(ln, rp, c);
+        if (l > room) l = room;
+        const int64_t d = p - c - 1;
+        if (l >= kMinMatch && l > runmax && d < kBig) {
+          lens[count] = l;
+          dists[count] = d;
+          ++count;
+        }
+        if (l > runmax) runmax = l;
+      }
+    }
+  }
+  for (int j = count; j < width; ++j) {
+    lens[j] = 0;
+    dists[j] = 0;
+  }
+  return count;
+}
+
+}  // namespace search_list

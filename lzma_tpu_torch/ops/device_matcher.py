@@ -9,6 +9,12 @@ its defaults, the hybrid's uncapped through ``find_match_lists_rmq``),
 their flattening on the device (``pack_match_lists``) and the rep0 match
 lengths (``rep_match_lens_rmq``).
 
+The multi-tier search runs on the card as three CUDA kernels around
+its sorts (``ops/cuda_search.py``): K9 the sort keys
+(``_search_keys_plain``), K10 the suffix rank and min table
+(``_suffix_table_plain``), K11 the lists (``_match_lists_plain``); each
+wrapper takes the plain version here for CPU tensors.
+
 The JAX functions run on one lane under ``jax.vmap``; here the lane axis
 is written out: every tensor is (N, max_n, ...) and rolls, sorts,
 gathers and scatters run along dim 1.  Hashes, packed words and the
@@ -91,11 +97,11 @@ def _scatter_rows(order, values, fill=0):
     return out.scatter_(1, order, values)
 
 
-def _lexsort_rows(keys):
-    """Stable lexicographic sort of each row by `keys` (last key is the
-    primary one, as in jnp.lexsort); ties keep position order.  Keys are
-    nonnegative int64 below 2**32.  Adjacent key pairs are packed into
-    one int64, (hi - 2**31) * 2**32 + lo, which keeps their order."""
+def _pack_keys(keys):
+    """The int64 sort keys of ``_lexsort_rows``: `keys` (nonnegative
+    int64 below 2**32, last key primary) packed two at a time into (hi -
+    2**31) * 2**32 + lo, which keeps their order; an odd key left over
+    stands alone.  The first packed key is the primary one."""
     keys = list(keys)
     packed = []
     while keys:
@@ -105,7 +111,13 @@ def _lexsort_rows(keys):
             packed.append((hi - (1 << 31)) * (1 << 32) + lo)
         else:
             packed.append(hi)
-    # packed[0] is primary: sort by the least significant key first
+    return packed
+
+
+def _sort_packed(packed):
+    """The stable lexicographic order of each row by ``_pack_keys``'
+    packed keys (the first primary): one stable sort a key, from the
+    least significant."""
     order = None
     for key in reversed(packed):
         if order is None:
@@ -114,6 +126,14 @@ def _lexsort_rows(keys):
             k = key.gather(1, order)
             order = order.gather(1, torch.sort(k, dim=1, stable=True).indices)
     return order
+
+
+def _lexsort_rows(keys):
+    """Stable lexicographic sort of each row by `keys` (last key is the
+    primary one, as in jnp.lexsort); ties keep position order.  Keys are
+    nonnegative int64 below 2**32.  Adjacent key pairs are packed into
+    one int64, (hi - 2**31) * 2**32 + lo, which keeps their order."""
+    return _sort_packed(_pack_keys(keys))
 
 
 def _hash4(d, pos, n):
@@ -133,89 +153,122 @@ def _wrap_once(i, max_n: int):
     return torch.clamp(torch.where(i >= max_n, i - max_n, i), max=max_n - 1)
 
 
-def _suffix_rank_lcp(data, n, pos, max_n: int, depth: int):
-    """Suffix order by the `depth`-byte prefix, ranks, and the
-    consecutive-LCP sparse min table (device_matcher._suffix_rank_lcp).
-    data (N, max_n) uint8, n (N,).  Returns (rank (N, max_n) int64,
-    T (N, levels, max_n) int32)."""
-    N = data.shape[0]
-    d = data.long()
-    base = min(depth, 32)
-    nw = -(-base // 4)
-    b = [torch.roll(d, -i, dims=1) for i in range(nw * 4)]
+def _prefix_words(b, nw: int):
+    """The `nw` big-endian 4-byte words of every position's prefix, from
+    its rolled byte planes b[i] (byte pos + i, wrapping at max_n)."""
     words = []
     for w in range(nw):
-        ww = torch.zeros_like(d)
+        ww = torch.zeros_like(b[0])
         for j in range(4):
             ww = ((ww << 8) | (b[w * 4 + j] & 0xFF)) & _M32
         words.append(ww)
-    uniq = (0x80000000 ^ pos).expand(N, max_n)
+    return words
+
+
+def _suffix_words(data, n, pos, depth: int):
+    """The suffix order's prefix words (device_matcher._suffix_rank_lcp):
+    ceil(min(depth, 32) / 4) of them, word 0 marked 0x80000000 ^ pos past
+    each lane's n.  Returns (words, word 0 unmarked)."""
+    nw = -(-min(depth, 32) // 4)
+    d = data.long()
+    words = _prefix_words([torch.roll(d, -i, dims=1) for i in range(nw * 4)], nw)
     w0_unmarked = words[0]
-    words[0] = torch.where(pos < n[:, None], words[0], uniq)
+    words[0] = torch.where(pos < n[:, None], words[0], 0x80000000 ^ pos)
+    return words, w0_unmarked
 
-    # lexsort((pos, *words[::-1])): words[0] primary, position last
-    order = _lexsort_rows(words[::-1])
-    arange = pos.expand(N, max_n).contiguous()
-    rank = _scatter_rows(order, arange)
 
-    if depth <= 32:
+def _tier_hashes(b, n, pos, spans):
+    """Each of `spans`' tier hash (device_matcher._tier_candidates): exact
+    2/3-byte values, 4/6/8/16/32-byte multiplicative hashes (the longer
+    ones extend the 4-, 8- and 16-byte ones), each marked 0x80000000 ^
+    pos where pos + span - 1 >= n.  b: the rolled byte planes, as many as
+    the widest span.  Returns {span: (N, max_n) int64 below 2**32}."""
+    deepest = max(spans, default=0)
+    out = {}
+
+    def put(span, h):
+        if span in spans:
+            out[span] = torch.where(pos + span - 1 < n[:, None], h,
+                                    0x80000000 ^ pos)
+
+    def extend(h, lo, hi):
+        for i in range(lo, hi):
+            h = _mul32(h, _HASH_MULS[0]) ^ ((b[i] * _HASH_MULS[1]) & _M32)
+        return h
+
+    if deepest >= 2:
+        put(2, b[0] | (b[1] << 8))
+    if deepest >= 3:
+        put(3, b[0] | (b[1] << 8) | (b[2] << 16))
+    if deepest >= 4:
+        # the reference extends the marked shorter hash; a mark there
+        # implies the longer one's, so the result is the same
+        h = ((b[0] * _HASH_MULS[0]) ^ (b[1] * _HASH_MULS[1])
+             ^ (b[2] * _HASH_MULS[2]) ^ (b[3] * _HASH_MULS[3])) & _M32
+        put(4, h)
+        if 6 in spans:
+            put(6, extend(h, 4, 6))
+        for lo, hi in ((4, 8), (8, 16), (16, 32)):
+            if deepest < hi:
+                break
+            h = extend(h, lo, hi)
+            put(hi, h)
+    return out
+
+
+def _search_keys_plain(data, n, depth: int, spans):
+    """The plain version of ``cuda_search.search_keys_cuda`` (K9): the sort
+    keys of the search.  For depth <= 32, the suffix order's packed keys,
+    as ``_lexsort_rows`` packs the prefix words (word 0 marked past n):
+    ceil(nw / 2) int64 planes, nw = ceil(depth / 4), the first primary;
+    none past 32 (the prefix doubling makes its own).  For each of `spans`
+    (tier spans, the column order), its hash as an int32 key h - 2**31,
+    whose signed order is the hash's unsigned order.  data (N, max_n)
+    uint8, n (N,).  Returns (suffix keys, tier keys), lists of (N, max_n)
+    planes."""
+    max_n = data.shape[1]
+    pos = torch.arange(max_n, dtype=torch.int64, device=data.device)
+    n = n.long()
+    nw = -(-depth // 4) if depth <= 32 else 0
+    d = data.long()
+    b = [torch.roll(d, -i, dims=1) for i in range(max([4 * nw, *spans]))]
+    suffix = []
+    if nw:
+        words = _prefix_words(b, nw)
+        words[0] = torch.where(pos < n[:, None], words[0], 0x80000000 ^ pos)
+        suffix = _pack_keys(words[::-1])
+        del words
+    h = _tier_hashes(b, n, pos, spans)
+    del b
+    return suffix, [(h.pop(span) - (1 << 31)).to(torch.int32) for span in spans]
+
+
+def _suffix_table_plain(data, n, order, depth: int, cl=None):
+    """The plain version of ``cuda_search.suffix_table_cuda`` (K10): from
+    the suffix order, each position's rank and the consecutive-LCP sparse
+    min table (device_matcher._suffix_rank_lcp after its sort).  `cl`, the
+    consecutive LCP, is given past depth 32 (``_suffix_rank_lcp``'s); at or
+    below it, the equal leading bytes of the prefix words of each suffix
+    and the one before it in the order, word 0 marked past n, clamped to
+    depth, 0 for the first.  T[k][j] = min(cl[j - 2^k + 1 .. j]), indices
+    wrapping at max_n, levels = max(1, bit_length(max_n - 1)).  data (N,
+    max_n) uint8, n (N,), order (N, max_n) int64.  Returns (rank (N,
+    max_n) int64, T (N, levels, max_n) int32)."""
+    N, max_n = order.shape
+    pos = torch.arange(max_n, dtype=torch.int64, device=order.device)
+    rank = _scatter_rows(order, pos.expand(N, max_n).contiguous())
+    if cl is None:
+        words, _ = _suffix_words(data, n.long(), pos, depth)
         sw = [w.gather(1, order) for w in words]
-        cl = torch.zeros_like(d)
-        still = torch.ones_like(d, dtype=torch.bool)
-        for w in range(nw):
+        del words
+        cl = torch.zeros_like(order)
+        still = torch.ones_like(order, dtype=torch.bool)
+        for w in range(len(sw)):
             x = sw[w] ^ torch.roll(sw[w], 1, dims=1)
             eqb = torch.where(x == 0, 4, _lead_zero_bytes(x))
             cl = cl + torch.where(still, torch.clamp(eqb, max=4), 0)
             still = still & (x == 0)
         cl = torch.clamp(cl, max=depth)
-        cl[:, 0] = 0
-    else:
-        # prefix doubling: group ids equal <=> (32 << t)-byte prefixes equal
-        sw = [w.gather(1, order) for w in words]
-        newg = torch.zeros_like(d, dtype=torch.bool)
-        for w in range(nw):
-            newg = newg | (sw[w] != torch.roll(sw[w], 1, dims=1))
-        newg[:, 0] = True
-        grp0 = _scatter_rows(order, torch.cumsum(newg.long(), dim=1) - 1)
-        grps = [grp0]
-        span = 32
-        while span < depth:
-            g_hi = grps[-1]
-            g_lo = torch.roll(g_hi, -span, dims=1)   # group of suffix i+span
-            # lexsort((pos, g_lo, g_hi)): group ids < max_n, one packed key
-            order = torch.sort(g_hi * max_n + g_lo, dim=1, stable=True).indices
-            sh = g_hi.gather(1, order)
-            sl = g_lo.gather(1, order)
-            newg = ((sh != torch.roll(sh, 1, dims=1))
-                    | (sl != torch.roll(sl, 1, dims=1)))
-            newg[:, 0] = True
-            grps.append(_scatter_rows(order, torch.cumsum(newg.long(), dim=1) - 1))
-            span *= 2
-        rank = _scatter_rows(order, arange)
-
-        # consecutive LCP at full depth: binary descent over the levels
-        a = order
-        ap = torch.roll(order, 1, dims=1)
-        l = torch.zeros_like(d)
-        for t in range(len(grps) - 2, -1, -1):
-            step = 32 << t
-            ia = _wrap_once(a + l, max_n)
-            ib = _wrap_once(ap + l, max_n)
-            eq = grps[t].gather(1, ia) == grps[t].gather(1, ib)
-            l = l + torch.where(eq, step, 0)
-        # <=32-byte refinement; the first word of each block is the
-        # marked one, the rest plain data words
-        rem = torch.zeros_like(d)
-        still = torch.ones_like(d, dtype=torch.bool)
-        for w in range(8):
-            src = words[0] if w == 0 else w0_unmarked
-            ia = _wrap_once(a + l + 4 * w, max_n)
-            ib = _wrap_once(ap + l + 4 * w, max_n)
-            x = src.gather(1, ia) ^ src.gather(1, ib)
-            eqb = torch.where(x == 0, 4, _lead_zero_bytes(x))
-            rem = rem + torch.where(still, torch.clamp(eqb, max=4), 0)
-            still = still & (x == 0)
-        cl = torch.clamp(l + rem, max=depth)
         cl[:, 0] = 0
 
     # sparse min table: T[k][j] = min(cl[j - 2^k + 1 .. j]) (wrapping)
@@ -225,6 +278,77 @@ def _suffix_rank_lcp(data, n, pos, max_n: int, depth: int):
     for k in range(levels - 1):
         T.append(torch.minimum(T[-1], torch.roll(T[-1], 1 << k, dims=1)))
     return rank, torch.stack(T, dim=1)
+
+
+def _suffix_rank_lcp(data, n, pos, max_n: int, depth: int):
+    """Suffix order by the `depth`-byte prefix, ranks, and the
+    consecutive-LCP sparse min table (device_matcher._suffix_rank_lcp).
+    Up to depth 32: K9's packed keys, their stable sorts, K10.  Past it:
+    prefix doubling from the 32-byte words, the consecutive LCP at full
+    depth by a binary descent over its group levels, then K10 from that
+    LCP.  data (N, max_n) uint8, n (N,).  Returns (rank (N, max_n) int64,
+    T (N, levels, max_n) int32)."""
+    from .cuda_search import search_keys_cuda, suffix_table_cuda
+
+    if depth <= 32:
+        order = _sort_packed(search_keys_cuda(data, n, depth, [])[0])
+        return suffix_table_cuda(data, n, order, depth)
+    d = data.long()
+    b = [torch.roll(d, -i, dims=1) for i in range(32)]
+    words = _prefix_words(b, 8)
+    uniq = (0x80000000 ^ pos).expand(data.shape[0], max_n)
+    w0_unmarked = words[0]
+    words[0] = torch.where(pos < n[:, None], words[0], uniq)
+
+    # lexsort((pos, *words[::-1])): words[0] primary, position last
+    order = _lexsort_rows(words[::-1])
+    # prefix doubling: group ids equal <=> (32 << t)-byte prefixes equal
+    sw = [w.gather(1, order) for w in words]
+    newg = torch.zeros_like(d, dtype=torch.bool)
+    for w in range(8):
+        newg = newg | (sw[w] != torch.roll(sw[w], 1, dims=1))
+    newg[:, 0] = True
+    grp0 = _scatter_rows(order, torch.cumsum(newg.long(), dim=1) - 1)
+    grps = [grp0]
+    span = 32
+    while span < depth:
+        g_hi = grps[-1]
+        g_lo = torch.roll(g_hi, -span, dims=1)   # group of suffix i+span
+        # lexsort((pos, g_lo, g_hi)): group ids < max_n, one packed key
+        order = torch.sort(g_hi * max_n + g_lo, dim=1, stable=True).indices
+        sh = g_hi.gather(1, order)
+        sl = g_lo.gather(1, order)
+        newg = ((sh != torch.roll(sh, 1, dims=1))
+                | (sl != torch.roll(sl, 1, dims=1)))
+        newg[:, 0] = True
+        grps.append(_scatter_rows(order, torch.cumsum(newg.long(), dim=1) - 1))
+        span *= 2
+
+    # consecutive LCP at full depth: binary descent over the levels
+    a = order
+    ap = torch.roll(order, 1, dims=1)
+    l = torch.zeros_like(d)
+    for t in range(len(grps) - 2, -1, -1):
+        step = 32 << t
+        ia = _wrap_once(a + l, max_n)
+        ib = _wrap_once(ap + l, max_n)
+        eq = grps[t].gather(1, ia) == grps[t].gather(1, ib)
+        l = l + torch.where(eq, step, 0)
+    # <=32-byte refinement; the first word of each block is the marked
+    # one, the rest plain data words
+    rem = torch.zeros_like(d)
+    still = torch.ones_like(d, dtype=torch.bool)
+    for w in range(8):
+        src = words[0] if w == 0 else w0_unmarked
+        ia = _wrap_once(a + l + 4 * w, max_n)
+        ib = _wrap_once(ap + l + 4 * w, max_n)
+        x = src.gather(1, ia) ^ src.gather(1, ib)
+        eqb = torch.where(x == 0, 4, _lead_zero_bytes(x))
+        rem = rem + torch.where(still, torch.clamp(eqb, max=4), 0)
+        still = still & (x == 0)
+    cl = torch.clamp(l + rem, max=depth)
+    cl[:, 0] = 0
+    return suffix_table_cuda(data, n, order, depth, cl)
 
 
 def _lcp_query(rank, T, q, max_n: int, p=None):
@@ -304,8 +428,16 @@ def _neighbor_candidates(h, pos, k):
     if not ranks:
         return []
     # lexsort((pos, h)): a stable sort of h keeps position order in ties
-    order = torch.sort(h, dim=1, stable=True).indices
-    sorted_h = h.gather(1, order)
+    s = torch.sort(h, dim=1, stable=True)
+    return _neighbor_step(s.values, s.indices, ranks)
+
+
+def _neighbor_step(sorted_h, order, ranks):
+    """`_neighbor_candidates` after its sort: the position `order[r - j]`
+    where r is a position's place in the stable order of its hashes,
+    r >= j and the hash there is its own, else -1, for each rank j of
+    `ranks`.  sorted_h, order (N, max_n): the sort's values and indices."""
+    pos = torch.arange(order.shape[1], dtype=torch.int64, device=order.device)
     cands = []
     for j in ranks:
         prev = torch.roll(order, j, dims=1)
@@ -333,43 +465,6 @@ def tier_ranks(tiers=None):
         raise ValueError(f"unknown tiers {unknown}: the tiers are "
                          f"{sorted(TIER_DEFAULTS)}")
     return [(span, _ranks(ks[f"k{span}"])) for span in TIER_SPANS]
-
-
-def _tier_candidates(data, n, pos, ranks):
-    """The multi-tier candidate build (device_matcher._tier_candidates):
-    exact 2/3-byte values and 4/6/8/16/32-byte multiplicative hashes, each
-    tier's candidates at its ranks.  data (N, max_n) uint8, n (N,),
-    `ranks` from tier_ranks.  Returns cand (N, max_n, M), tier by tier,
-    M the number of ranks in all; -1 = no candidate."""
-    d = data.long()
-    deepest = max([8] + [span for span, r in ranks if r])
-    b = [torch.roll(d, -i, dims=1) for i in range(deepest)]
-    uniq = 0x80000000 ^ pos
-    n2 = n[:, None]
-
-    def mark(h, span):
-        return torch.where(pos + span - 1 < n2, h, uniq)
-
-    def extend(h, lo, hi):
-        for i in range(lo, hi):
-            h = _mul32(h, _HASH_MULS[0]) ^ ((b[i] * _HASH_MULS[1]) & _M32)
-        return mark(h, hi)
-
-    used = {span for span, r in ranks if r}
-    h = {2: mark(b[0] | (b[1] << 8), 2),
-         3: mark(b[0] | (b[1] << 8) | (b[2] << 16), 3),
-         4: mark(((b[0] * _HASH_MULS[0]) ^ (b[1] * _HASH_MULS[1])
-                  ^ (b[2] * _HASH_MULS[2]) ^ (b[3] * _HASH_MULS[3])) & _M32, 4)}
-    h[8] = extend(h[4], 4, 8)
-    if 6 in used:
-        h[6] = extend(h[4], 4, 6)
-    if deepest > 8:
-        h[16] = extend(h[8], 8, 16)
-    if 32 in used:
-        h[32] = extend(h[16], 16, 32)
-    return torch.stack([c for span, r in ranks if r
-                        for c in _neighbor_candidates(h[span], pos, r)],
-                       dim=2)
 
 
 def _dedup_cap(cand, ranks, m_cap: int, m_cap_order: str):
@@ -408,26 +503,31 @@ def _dedup_cap(cand, ranks, m_cap: int, m_cap_order: str):
     return cand[:, :, :m_cap] if 0 < m_cap < M else cand
 
 
-def _rmq_search(data, n, dict_size: int, fb: int, tiers=None,
-                m_cap: int = DP_M_CAP, m_cap_order: str = "rr"):
-    """Ascending (len, dist) candidate lists per position, every lane at
-    once (device_matcher._rmq_search): tier candidates at `tiers` (keyword
-    ks, as tier_ranks takes them; None is DP_TIERS), deduplicated across
-    tiers and cut to `m_cap` by `m_cap_order` (m_cap 0 keeps them all),
-    exact lengths from the fb-deep suffix table, then the merge that
-    keeps strictly increasing lengths at ascending distance.  The
-    defaults are the optimal parse's search (DP_TIERS, DP_M_CAP, "rr").
-    data (N, max_n) uint8, n (N,).  Returns (lens (N, max_n, M), dists
-    (N, max_n, M), counts (N, max_n), rank, T); the suffix rank and min
-    table come back for the rep0 length queries."""
-    N, max_n = data.shape
-    device = data.device
+def _match_lists_plain(sorted_keys, orders, ranks, rank, T, n,
+                       dict_size: int, m_cap: int, m_cap_order: str):
+    """The plain version of ``cuda_search.match_lists_cuda`` (K11): each
+    position's tier candidates (``_neighbor_step`` on each used tier's
+    stable sort), deduplicated and cut by ``_dedup_cap``, their exact
+    lengths by ``_lcp_query`` capped at n - pos, out of the dictionary
+    window dropped, then the merge that keeps strictly increasing lengths
+    at ascending distance (device_matcher._rmq_search after
+    _suffix_rank_lcp and _tier_candidates).  sorted_keys, orders: the sort
+    values and indices of each tier that has ranks, in `ranks`' order
+    (``tier_ranks``'); the planes are dropped from the lists as they are
+    read.  Returns (lens (N, max_n, M), dists (N, max_n, M), counts (N,
+    max_n)), int64, M the candidates kept a position, each row's pairs at
+    its front and zeros past them."""
+    N, max_n = rank.shape
+    device = rank.device
     pos = torch.arange(max_n, dtype=torch.int64, device=device)
     n = n.long()
-    rank, T = _suffix_rank_lcp(data, n, pos, max_n, fb)
-    ranks = tier_ranks(DP_TIER_KS if tiers is None else tiers)
-    cand = _dedup_cap(_tier_candidates(data, n, pos, ranks), ranks, m_cap,
-                      m_cap_order)
+    cands = []
+    for _, r in ranks:
+        if r:
+            cands += _neighbor_step(sorted_keys.pop(0), orders.pop(0), r)
+    cand = torch.stack(cands, dim=2)
+    del cands
+    cand = _dedup_cap(cand, ranks, m_cap, m_cap_order)
     M = cand.shape[2]
     big = 1 << 30
 
@@ -452,7 +552,57 @@ def _rmq_search(data, n, dict_size: int, fb: int, tiers=None,
         out = torch.zeros((N, max_n, M + 1), dtype=torch.int64, device=device)
         return out.scatter_(2, tgt, values)[:, :, :M]
 
-    return put(length), put(dist), keep.long().sum(dim=2), rank, T
+    return put(length), put(dist), keep.long().sum(dim=2)
+
+
+def _rmq_search(data, n, dict_size: int, fb: int, tiers=None,
+                m_cap: int = DP_M_CAP, m_cap_order: str = "rr"):
+    """Ascending (len, dist) candidate lists per position, every lane at
+    once (device_matcher._rmq_search): tier candidates at `tiers` (keyword
+    ks, as tier_ranks takes them; None is DP_TIERS), deduplicated across
+    tiers and cut to `m_cap` by `m_cap_order` (m_cap 0 keeps them all),
+    exact lengths from the fb-deep suffix table, then the merge that
+    keeps strictly increasing lengths at ascending distance.  The
+    defaults are the optimal parse's search (DP_TIERS, DP_M_CAP, "rr").
+    data (N, max_n) uint8, n (N,).  Returns (lens (N, max_n, M), dists
+    (N, max_n, M), counts (N, max_n), rank, T); the suffix rank and min
+    table come back for the rep0 length queries.
+
+    Four probed stages (``device_encoder.stage``): K9's keys, their sorts
+    (``torch.sort``), K10's rank and table (past fb 32 after the suffix
+    order's prefix doubling, ``_suffix_rank_lcp``), K11's lists; each
+    kernel's wrapper takes its plain version for CPU tensors."""
+    from .cuda_search import (match_lists_cuda, search_keys_cuda,
+                              suffix_table_cuda)
+    from .device_encoder import stage
+
+    device = data.device
+    n = n.long()
+    ranks = tier_ranks(DP_TIER_KS if tiers is None else tiers)
+    with stage("search_keys", device):
+        suffix_keys, tier_keys = search_keys_cuda(
+            data, n, fb, [span for span, r in ranks if r])
+    with stage("search_sort", device):
+        order = _sort_packed(suffix_keys) if fb <= 32 else None
+        del suffix_keys
+        sorted_keys, orders = [], []
+        while tier_keys:
+            s = torch.sort(tier_keys.pop(0), dim=1, stable=True)
+            sorted_keys.append(s.values)
+            orders.append(s.indices)
+            del s
+    with stage("suffix_table", device):
+        if order is None:   # past fb 32: the prefix doubling, then K10
+            pos = torch.arange(data.shape[1], dtype=torch.int64, device=device)
+            rank, T = _suffix_rank_lcp(data, n, pos, data.shape[1], fb)
+        else:
+            rank, T = suffix_table_cuda(data, n, order, fb)
+        del order
+    with stage("match_lists", device):
+        lens, dists, counts = match_lists_cuda(
+            sorted_keys, orders, ranks, rank, T, n, dict_size, m_cap,
+            m_cap_order)
+    return lens, dists, counts, rank, T
 
 
 def find_match_lists_rmq(data, n, dict_size: int, fb: int, k4=4, k8=2, k2=1,

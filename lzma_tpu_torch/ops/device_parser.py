@@ -3,8 +3,10 @@
 Port of the ``parse="optimal"`` route of ``lzma_tpu/ops/device_parser.py``:
 
   search   tier candidate lists with exact RMQ lengths
-           (device_matcher._rmq_search), the first M_DP ascending pairs
-           per position kept for the DP (_select_dp_pairs)
+           (device_matcher._rmq_search: K9's keys, their sorts, K10's
+           suffix table and K11's lists on the card), the first M_DP
+           ascending pairs per position kept for the DP
+           (_select_dp_pairs); stages SEARCH_STAGES
   seed     a lazy parse over the lists' longest entries (_seed_from_lists)
   model    the block's own (ctx, bit) statistics (classify + the slot
            counts of the current token stream's lowering, lower_counts:
@@ -637,8 +639,10 @@ def _lists_and_seed(data, lens, dict_size: int, fb: int):
     """The search and seed stages of tokenize_optimal: the (ld, dd) DP
     pairs, the seed tokens (t_pos, t_len, t_dist, t_valid) and the
     suffix (rank, T) kept for the rep0 length queries."""
-    with stage("search", data.device):
-        cl, cd, counts, s_rank, s_T = _rmq_search(data, lens, dict_size, fb)
+    # the search's stages (SEARCH_STAGES; the first four inside
+    # _rmq_search, not nested: a stage resets the card's peak statistics)
+    cl, cd, counts, s_rank, s_T = _rmq_search(data, lens, dict_size, fb)
+    with stage("select_pairs", data.device):
         ld, dd = _select_dp_pairs(cl, cd, counts)
     with stage("seed", data.device):
         tok = _seed_from_lists(cl, cd, counts, lens)
@@ -677,6 +681,12 @@ def _round_inputs(data, lens, tokens, ld, dd, suffix, lc: int, lp: int,
     with stage("dp_inputs", device):
         return dp_inputs(data, ld, dd, model, fb, r0pos, replen)
 
+
+#: the stages of _lists_and_seed's search, in order: K9's keys, their
+#: sorts, K10's table, K11's lists (device_matcher._rmq_search) and the DP
+#: pairs; their sum is the one "search" stage of earlier breakdowns
+SEARCH_STAGES = ("search_keys", "search_sort", "suffix_table", "match_lists",
+                 "select_pairs")
 
 #: the stages of _round_inputs' price model, in order; their sum is the
 #: one "model" stage of earlier breakdowns

@@ -50,8 +50,9 @@ DEFAULT_BATCH_BYTES = 64 << 20
 # live at once (int64 unless named), per parse, as A + B x levels, where
 # levels = bit_length(width - 1) is the depth of the suffix table and
 # width the lane's pow2 bucket plus its preset.
-# - optimal, at _rmq_search's tier candidates and their dedup (the stage
-#   "search", the encode's peak): the 29 candidate columns of DP_TIERS
+# - optimal, at the plain _rmq_search's tier candidates and their dedup
+#   (the stage "match_lists", the plain encode's peak): the 29 candidate
+#   columns of DP_TIERS
 #   held twice, as _neighbor_candidates' list and its stack (2 x 29 x 8
 #   = 464 B), the 32 rolled byte planes of the tier hashes (256 B) and
 #   the 7 hash planes (56 B), the dedup's permuted copy, its priority
@@ -66,11 +67,18 @@ DEFAULT_BATCH_BYTES = 64 << 20
 #   binary descent's gathers, then the sparse min table (int32, a plane
 #   a level, held twice while it is stacked); lower peaks just below.
 # Fitted to the peaks a storage-tracking run of the plain versions
-# measures (python -m lzma_tpu_torch.bench.memory_model; the CUDA
-# versions allocate the same tensors): optimal 1,251 B a position at 12
-# levels (1,255 at fb 273), lazy 632, 652 and 668 B at 10, 12 and 14; on
-# the card, main8M (18 levels) peaked at 1,270 and 693 B a position
-# (PERF.md section 5).  The model lies 4-6% above each of these.
+# measures (python -m lzma_tpu_torch.bench.memory_model): optimal 1,251 B
+# a position at 12 levels (1,255 at fb 273), lazy 632, 652 and 668 B at
+# 10, 12 and 14; the model lies 4-6% above each of these.  On the card
+# the search no longer allocates the plain versions' tensors: its
+# kernels (K9-K11, ops/cuda_search.py) write int32 tier keys, the sorts'
+# values and indices, the table once, in place, and the lists.  main8M's
+# optimal encode (18 levels) peaks at 6,834.6-6,840.1 MiB, 854-855 B a
+# position, at dp_inputs' price planes (10,175.4 MiB before the
+# kernels), and its lazy encode at 4,969.4 MiB, 621 B (5,544.6 MiB, 693
+# B, before K10; PERF.md sections 5 and 6).  So the model is ~1.5x the
+# card's optimal peak and ~1.2x its lazy one until it is refitted to the
+# card (ROADMAP.md).
 ENC_BYTES_A = {"optimal": 1264, "lazy": 592}
 ENC_BYTES_B = {"optimal": 4, "lazy": 8}
 #: the share of the card's available memory a batch may take
@@ -173,16 +181,20 @@ def decode_batch_blocks(params: LzmaParams, block_size: int, max_comp: int,
 
 def _launches() -> dict:
     """The kernels' launch counts (K1 ring_decode, K2 rc_serialize, K3
-    dp_parse, K6 classify, K7 lower, K8 lower_counts)."""
+    dp_parse, K6 classify, K7 lower, K8 lower_counts, K9 search_keys, K10
+    suffix_table, K11 match_lists)."""
     from ..ops import (cuda_classify, cuda_lower, cuda_parser, cuda_ring,
-                       cuda_serializer)
+                       cuda_search, cuda_serializer)
 
     return {"ring_decode": cuda_ring.LAUNCHES,
             "rc_serialize": cuda_serializer.LAUNCHES,
             "dp_parse": cuda_parser.LAUNCHES,
             "classify": cuda_classify.LAUNCHES,
             "lower": cuda_lower.LAUNCHES,
-            "lower_counts": cuda_lower.COUNT_LAUNCHES}
+            "lower_counts": cuda_lower.COUNT_LAUNCHES,
+            "search_keys": cuda_search.KEYS_LAUNCHES,
+            "suffix_table": cuda_search.TABLE_LAUNCHES,
+            "match_lists": cuda_search.LIST_LAUNCHES}
 
 
 class _BatchLog:

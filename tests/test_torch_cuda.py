@@ -1310,9 +1310,9 @@ def test_ablation_knockouts_run_to_their_bound_twice_alike(card):
 # ------------------------------------------------ the hybrid, profiling
 @pytest.mark.parametrize("tiers,fb", [(None, 32), (dict(k4=(1, 3), k8=1), 128)])
 def test_hybrid_search_on_the_card_matches_the_cpu(card, tiers, fb):
-    """The hybrid's list search and its packing (no kernel of its own:
-    plain PyTorch on the card) give the CPU's lists, pair buffers and
-    counts, the clamped ones at a small cap included."""
+    """The hybrid's list search (K9, K10 and K11 around torch.sort) and
+    its packing (plain PyTorch on the card) give the CPU's lists, pair
+    buffers and counts, the clamped ones at a small cap included."""
     from lzma_tpu_torch.ops import device_matcher as dm
     from lzma_tpu_torch.ops.hybrid import DEFAULT_TIERS
 
@@ -1484,3 +1484,148 @@ def test_nccl_takes_one_card_a_rank_on_the_card(card, tmp_path):
     assert not dist.is_initialized()
     with pytest.raises(ValueError, match="NCCL takes one card a rank"):
         entry.dryrun_multichip(n, device="cuda")
+
+
+# ---------------------------------------------- K9-K11, the list search
+def _search_lanes(widths, seed):
+    """Lanes of bench data padded to the widest, with lengths of 0, 3, the
+    width and the width less a few; one lane all zeros (one hash group)."""
+    rng = np.random.default_rng(seed)
+    max_n = max(widths)
+    data = np.frombuffer(generate_bench_data(len(widths) * max_n),
+                         np.uint8).reshape(len(widths), max_n).copy()
+    data[0] = 0
+    lens = np.array([w if i % 3 == 0 else max(0, w - int(rng.integers(0, 9)))
+                     for i, w in enumerate(widths)], np.int64)
+    lens[-1] = min(lens[-1], 3)
+    if len(widths) > 2:
+        lens[1] = 0
+    return torch.from_numpy(data), torch.from_numpy(lens)
+
+
+def _search_launches():
+    from lzma_tpu_torch.ops import cuda_search
+
+    return (cuda_search.KEYS_LAUNCHES, cuda_search.TABLE_LAUNCHES,
+            cuda_search.LIST_LAUNCHES)
+
+
+# widths at K9's and K10's tile edges (256 positions a K9 block; 2,048 a
+# K10 tile with 11 levels in it, past 4,096 a level a pass)
+@pytest.mark.parametrize("widths", [[1, 1], [3, 2, 3], [255, 256, 257],
+                                    [2047, 2048, 2049, 100], [8193, 5000, 7]],
+                         ids=lambda w: f"max_n{max(w)}")
+@pytest.mark.parametrize("depth", [5, 13, 32, 273])
+def test_search_keys_and_suffix_table_kernels_match_plain(card, widths, depth):
+    from lzma_tpu_torch.ops import cuda_search
+    from lzma_tpu_torch.ops import device_matcher as dm
+
+    data, n = _search_lanes(widths, depth)
+    d, k = data.to(card), n.to(card)
+    spans = list(dm.TIER_SPANS) if depth != 13 else [3, 6, 16]
+    got = cuda_search.search_keys_cuda(d, k, depth, spans)
+    want = dm._search_keys_plain(d, k, depth, spans)
+    assert len(got[0]) == len(want[0]) and len(got[1]) == len(want[1])
+    assert all(torch.equal(a, b) for a, b in zip(got[0] + got[1],
+                                                  want[0] + want[1]))
+    max_n = data.shape[1]
+    pos = torch.arange(max_n, device=card)
+    if depth <= 32:
+        order = dm._sort_packed(got[0])
+        rank, T = cuda_search.suffix_table_cuda(d, k, order, depth)
+        w_rank, w_T = dm._suffix_table_plain(d, k, order, depth)
+    else:
+        rank, T = dm._suffix_rank_lcp(d, k, pos, max_n, depth)
+        w_rank, w_T = dm._suffix_rank_lcp(data, n, pos.cpu(), max_n, depth)
+    torch.cuda.synchronize()
+    assert torch.equal(rank.cpu(), w_rank.cpu())
+    assert torch.equal(T.cpu(), w_T.cpu())
+
+
+#: (tier ks, m_cap, m_cap_order): the optimal route's (rr 12), the
+#: hybrid's (near, uncapped, 29), near cut at 12, tuple ranks, and past
+#: 32 candidates (the list in the dists row) cut and uncut
+LIST_CASES = {
+    "dp-rr12": (None, 12, "rr"),
+    "hybrid-near": (dict(k4=12, k6=4, k8=6, k16=3, k32=2), 0, "near"),
+    "dp-near12": (None, 12, "near"),
+    "tuples-rr5": (dict(k2=2, k3=0, k4=(1, 2, 4, 8), k8=(1, 3), k16=(2,),
+                        k32=1), 5, "rr"),
+    "wide-near": (dict(k4=20, k8=10, k16=5), 0, "near"),
+    "wide-rr34": (dict(k4=20, k8=10, k16=5), 34, "rr"),
+    "wide-near17": (dict(k4=20, k8=10, k16=5), 17, "near"),
+}
+
+
+@pytest.mark.parametrize("name", list(LIST_CASES))
+@pytest.mark.parametrize("fb", [5, 32, 273])
+def test_match_lists_kernel_matches_plain(card, name, fb):
+    """_rmq_search on the card (K9, K10 and K11, each launched once) gives
+    the CPU's lists, rank and table, and K11 on the card's sorted tiers
+    gives its plain version's lists on the same tensors."""
+    from lzma_tpu_torch.ops import cuda_search
+    from lzma_tpu_torch.ops import device_matcher as dm
+
+    tiers, m_cap, order = LIST_CASES[name]
+    data, n = _search_lanes([2048, 2048, 1500, 2048, 2040, 2048, 2048, 5],
+                            fb)
+    want = dm._rmq_search(data, n, 1800, fb, tiers, m_cap, order)
+    before = _search_launches()
+    got = dm._rmq_search(data.to(card), n.to(card), 1800, fb, tiers, m_cap,
+                         order)
+    torch.cuda.synchronize()
+    after = _search_launches()
+    assert [b - a for a, b in zip(before, after)] == [1, 1, 1]
+    for w, g in zip(want, got):
+        assert w.dtype == g.dtype and torch.equal(w, g.cpu())
+    # K11 alone against its plain version on the card's own tensors
+    ranks = dm.tier_ranks(dm.DP_TIER_KS if tiers is None else tiers)
+    d, k = data.to(card), n.to(card)
+    keys = cuda_search.search_keys_cuda(d, k, 32, [s for s, r in ranks if r])[1]
+    sorts = [torch.sort(x, dim=1, stable=True) for x in keys]
+    args = ([s.values for s in sorts], [s.indices for s in sorts])
+    rank, T = got[3], got[4]
+    k11 = cuda_search.match_lists_cuda(list(args[0]), list(args[1]), ranks,
+                                       rank, T, k, 1800, m_cap, order)
+    plain = dm._match_lists_plain(list(args[0]), list(args[1]), ranks, rank,
+                                  T, k, 1800, m_cap, order)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(k11, plain))
+
+
+def test_search_kernels_launch_on_every_route(card):
+    """An optimal encode launches K9, K10 and K11 once a lane group; a
+    lazy encode K10 only (its 273-deep table); the hybrid's search each
+    once."""
+    from lzma_tpu_torch.format.properties import LzmaParams as TParams
+    from lzma_tpu_torch.ops import hybrid
+
+    data = b"".join(_blocks(4, 4096, 3))
+    p = TParams(dict_size=1 << 13, fast_bytes=32)
+    for parse, want in (("optimal", [1, 1, 1]), ("lazy", [0, 1, 0])):
+        before = _search_launches()
+        api.encode_blocks(data, p, block_size=4096, parse=parse, device=card)
+        after = _search_launches()
+        assert [b - a for a, b in zip(before, after)] == want, parse
+    before = _search_launches()
+    hybrid.encode_blocks_hybrid_optimal(data, p, block_size=4096, device=card)
+    after = _search_launches()
+    assert [b - a for a, b in zip(before, after)] == [1, 1, 1]
+
+
+def test_search_wrappers_check_their_inputs(card):
+    from lzma_tpu_torch.ops import cuda_search
+
+    data, n = _search_lanes([64, 64], 1)
+    d, k = data.to(card), n.to(card)
+    with pytest.raises(ValueError):
+        cuda_search.search_keys_cuda(d, k, 32, [8, 4])
+    with pytest.raises(ValueError):
+        cuda_search.search_keys_cuda(d, k, 32, [5])
+    with pytest.raises(ValueError):
+        cuda_search.search_keys_cuda(d.long(), k, 32, [4])
+    order = torch.argsort(d.long(), dim=1, stable=True)
+    with pytest.raises(ValueError):
+        cuda_search.suffix_table_cuda(d, k, order, 64)
+    empty = cuda_search.search_keys_cuda(d[:0], k[:0], 32, [4])
+    assert [tuple(x.shape) for x in empty[0] + empty[1]] == [(0, 64)] * 5

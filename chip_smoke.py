@@ -38,7 +38,13 @@ prints its seconds):
      same 8 lanes (one all zeros, two of 0 and 3 bytes) at fb 5, 32 and
      273 (K10 given the prefix doubling's LCP), DP_TIERS cut to 12 "rr"
      and "near" and DEFAULT_TIERS uncapped: each against its plain version
-     on the arguments the route gave it
+     on the arguments the route gave it; the DP rows (K12,
+     ops/cuda_inputs.py) and the path's marking and compaction (K13, K14,
+     ops/cuda_path.py) through tokenize_optimal on the same lanes at fb
+     5, 32 and 273 and at lc8 lp4 pb4 (K12's literal slots in device
+     memory, lc3 lp0's in shared memory), K13 and K14 also through the
+     lazy tokenize from position 0 and from 256: each against its plain
+     version on the arguments the route gave it
   4. the card against the JAX reference: the 8-lane containers of
      generate_bench_data(64 KiB) must hash to PIN_SHA256 (lazy) and
      PIN_OPT_SHA256 (optimal), which tests/test_torch_api.py pins to the
@@ -49,13 +55,15 @@ prints its seconds):
      block decoded by the stdlib lzma module
   6. the lazy path at 8 MiB (text corpus + bench data, LzmaParams()
      defaults, 256 KiB blocks = 32 lanes): encode, decode, round trip,
-     stdlib lzma, K6, K7 and K10 (the 273-deep suffix table) launched
-     once, K8, K9 and K11 not at all, K1 and K2
+     stdlib lzma, K6, K7, K10 (the 273-deep suffix table), K13 and K14
+     launched once, K8, K9, K11 and K12 not at all, K1 and K2
   7. the main path: the same 8 MiB with parse="optimal": encode, decode,
      round trip, stdlib lzma, smaller than the lazy container; K3
      launched at least twice, K6 three times, K8 twice (the two rounds
      count their pairs), K7 once (the final tokens), K9, K10 and K11 once
-     (one lane group's search), K2 and K1 at least once; MB/s, ratio, peak
+     (one lane group's search), K12 twice (a round each), K13 and K14
+     three times (the seed's lazy path and each round's DP path), K2 and
+     K1 at least once; MB/s, ratio, peak
      device memory; then the same encode again inside probing(), which
      must give the same container: its stage breakdown (the device
      synchronized around each stage; the price model's five stages also
@@ -70,8 +78,10 @@ prints its seconds):
      bound and beside the route it replaced (K7's planes of the same
      tokens, then pair_counts, whose counts K8's equal), K9, K10 and K11
      on the main path's whole lanes through _rmq_search (each call timed
-     alone by CUDA events beside its bound), and the inputs phases 8 and
-     9 take
+     alone by CUDA events beside its bound), K12, K13 and K14 on the
+     probed encode's last calls (spied: the last round's rows and DP
+     path, the seed's lazy path; each call timed alone by CUDA events
+     beside its bound), and the inputs phases 8 and 9 take
   8. the K4 path: tokenize_optimal(scan="band2") on phase 5's 32 x 16 KiB
      gives the tokens of the default scan, K4 launched (its count); K4 on
      the main path's whole last DP round (32 x 262,144 positions) gives
@@ -84,8 +94,9 @@ prints its seconds):
      K6 (the scan) against its plain carry on the whole final tokens,
      uncut, K7 against its plain lowering on the whole final
      lowering's arguments, uncut, K8 against its plain counts on the
-     whole last round's arguments, uncut, and K9, K10 and K11 against
-     their plain versions on phase 7's whole-lane search, uncut
+     whole last round's arguments, uncut, K9, K10 and K11 against
+     their plain versions on phase 7's whole-lane search, uncut, and K12,
+     K13 and K14 against theirs on phase 7's last calls, uncut
  10. the K5 path: phase 5's 32 streams through decode_batch_resident
      equal the input and K1 (K5 launched, its count); K1's champion shape
      (128 x 16 KiB, lc0, dict 4 KiB, fb 8) through K5 and K1, both timed,
@@ -111,8 +122,8 @@ prints its seconds):
  14. the `.lzma` path at full size: the 8 MiB of phase 6 as ONE stream
      through ops.api.encode_alone, with a known size and with the EOS
      marker, and decode_alone: the stdlib and the port read both back,
-     K6, K7, K10, K2 and K1 launched once a stream and K3, K8, K9 and
-     K11 not at all (counts set to 0 just before each), MB/s and peak memory, the EOS encode again inside
+     K6, K7, K10, K13, K14, K2 and K1 launched once a stream and K3,
+     K8, K9, K11 and K12 not at all (counts set to 0 just before each), MB/s and peak memory, the EOS encode again inside
      probing() for its stages and K6's time on its rows and K7's on its
      tokens (one lane: the scan spreads its 8,388,609 rows over 2,049
      tiles, K7 its tokens over 8,193); K6, K7, K2 and K1 against their
@@ -183,9 +194,10 @@ prints its seconds):
      lzma_tpu_torch/_build): the "tuned:" line, the file equal to
      api.encode_blocks (the lazy parse) with phase 22's choices, read back
  24. the benchmark `b` in this process through cli.main: `b 2`
-     (-backendtpu: dict 2 MiB, 4 MiB a pass, one lane; K6, K7, K10 and K2
-     launch once a pass, K1 twice) and `b 1 -backendhybrid` (K9, K10 and
-     K11 once a pass, K1 twice, no K6, K7 or K2); the harness CRC-checks
+     (-backendtpu: dict 2 MiB, 4 MiB a pass, one lane; K6, K7, K10, K13,
+     K14 and K2 launch once a pass, K1 twice) and `b 1 -backendhybrid`
+     (K9, K10 and K11 once a pass, K1 twice, no K6, K7, K13, K14 or K2);
+     the harness CRC-checks
      every decode; the
      report lines (KB/s, MIPS) and the wall time
  25. dp ratio: bench.py:556-563's device_dp_ratio, text_part()[:256 KiB]
@@ -204,20 +216,22 @@ prints its seconds):
      the round trip hashes to the input's SHA-256; each batch's peak
      device memory (reset before it) is at or below the sizer's model plus
      10% and, with what was allocated before it, at or below 80% of the
-     card; K1, K2, K6, K7 and K10 (and K3, K8, K9 and K11 under the
-     optimal parse) launch;
+     card; K1, K2, K6, K7, K10, K13 and K14 (and K3, K8, K9, K11 and K12
+     under the optimal parse) launch;
      batches, blocks a batch, peaks beside the model, seconds and MB/s
      are printed.
      Then an open("wb") writer fed 1 MiB writes over the first 16 MiB
      writes compress_file's container of those bytes, and open("rb")
      reads it back in 1 MiB reads
  27. no module of jax, jaxlib or lzma_tpu was loaded
-The last three lines are the card, the kernels' JSON record (K1-K11 and
-P1-P15, 26 records; K9-K11's `jax_ref` names the jitted JAX code each
+The last three lines are the card, the kernels' JSON record (K1-K14 and
+P1-P15, 29 records; K9-K14's `jax_ref` names the jitted JAX code each
 restates, their `ms` is the whole-lane call's and `plain_ms` the plain
 version's on the same arguments, uncut, their launches are main8M-opt's
-and beside them main8M-lazy's, hybrid8M-opt's, the NCCL mesh's, `b`'s
-and the file configurations'; K1's carries its launches in phase 16's decode, K6's
+and beside them main8M-lazy's, hybrid8M-opt's (K9-K11), the NCCL
+mesh's, `b`'s and the file configurations'; K13's and K14's `ms` is the
+last round's DP path's call and `seed_ms` the seed's lazy path's; K1's
+carries its launches in phase 16's decode, K6's
 in phase 19's dumps, K1, K2, K3, K6, K7 and K8 theirs in phase 20's mesh
 calls, K1, K2, K6, K7 and K8 theirs in phase 24's `b -backendtpu` and K1
 in `b -backendhybrid`, and K1, K2, K3, K6, K7 and K8 theirs in phase
@@ -843,13 +857,161 @@ def search_work(seen):
     return out
 
 
+#: the DP rows' and the path's kernels (ops/cuda_inputs.py, ops/cuda_path.py):
+#: K12 dp_inputs, K13 path_mark, K14 path_compact; each kernel's wrappers
+#: -> (the wrapper's module, its plain version's module and name)
+ROW_KERNELS = {
+    "dp_inputs": {"dp_inputs_cuda": ("cuda_inputs", "device_parser",
+                                     "_dp_inputs_plain")},
+    "path_mark": {"extract_mark_cuda": ("cuda_path", "device_parser",
+                                        "_extract_mark"),
+                  "greedy_mark_cuda": ("cuda_path", "device_matcher",
+                                       "_greedy_mark")},
+    "path_compact": {"extract_compact_cuda": ("cuda_path", "device_parser",
+                                              "_extract_compact"),
+                     "greedy_compact_cuda": ("cuda_path", "device_matcher",
+                                             "_compact_taken")},
+}
+#: each of them: its TPU-side counterpart (file:line), the jitted JAX code
+#: it restates, its design
+_JIT_OPT = "under jax.jit at lzma_tpu/ops/device_parser.py:1595 (tokenize_optimal)"
+ROW_REPLACES = {
+    "dp_inputs": (
+        "lzma_tpu/ops/device_parser.py:774",
+        "lzma_tpu/ops/device_parser.py:154 (build_price_model's lit_cost), "
+        ":1500 (matched_lit_cost), :272 (_pair_dist_cost), :774 "
+        "(_pack_inputs); lzma_tpu/ops/device_matcher.py:684 "
+        "(rep_match_lens_rmq, _lcp_query :528), " + _JIT_OPT,
+        "a block a lane's 8,192 positions: the distance tables and, where "
+        "they fit, both planes' literal slots in shared memory; a thread a "
+        "position, its int32 row staged in shared memory, the tile's rows "
+        "written by consecutive threads"),
+    "path_mark": (
+        "lzma_tpu/ops/device_parser.py:1417",
+        "lzma_tpu/ops/device_parser.py:1417 (extract_tokens' pointer "
+        "doubling), lzma_tpu/ops/device_matcher.py:217 (greedy_path), "
+        + _JIT_OPT + " and in device_matcher.tokenize",
+        "tiles of 4,096 nodes: each node's exit by pointer doubling in "
+        "shared memory; a thread a lane follows the exits; each entered "
+        "tile doubles again from its entry and writes its marks"),
+    "path_compact": (
+        "lzma_tpu/ops/device_parser.py:1417",
+        "lzma_tpu/ops/device_parser.py:1417 (extract_tokens' compaction), "
+        "lzma_tpu/ops/device_matcher.py:269 (_compact), " + _JIT_OPT
+        + " and in device_matcher.tokenize",
+        "tile counts, a lane scan, then a block a tile scans its marks, "
+        "writes its tokens at their slots and fills its range past the "
+        "lane's count"),
+}
+
+
+def _row_module(name):
+    import importlib
+
+    return importlib.import_module(f"lzma_tpu_torch.ops.{name}")
+
+
+def spied_rows(fn):
+    """fn() with the wrappers of K12, K13 and K14 spied.  Returns (fn's
+    result, {wrapper: (its arguments, its result)}), the last call of
+    each."""
+    seen = {}
+    kept = {}
+    for wrappers in ROW_KERNELS.values():
+        for w, (mod, _, _) in wrappers.items():
+            kept[w] = (_row_module(mod), getattr(_row_module(mod), w))
+
+    def spy(name, wrapper):
+        def call(*args, **kw):
+            out = wrapper(*args, **kw)
+            seen[name] = ((*args, *kw.values()), out)
+            return out
+        return call
+
+    for w, (mod, wrapper) in kept.items():
+        setattr(mod, w, spy(w, wrapper))
+    try:
+        out = fn()
+    finally:
+        for w, (mod, wrapper) in kept.items():
+            setattr(mod, w, wrapper)
+    return out, seen
+
+
+def row_kernel(wrapper):
+    """The kernel (a ROW_KERNELS key) a wrapper launches."""
+    return next(k for k, ws in ROW_KERNELS.items() if wrapper in ws)
+
+
+def check_rows(seen):
+    """Each spied wrapper's call against its plain version on the same card
+    tensors (tolerance zero; dtypes and shapes equal).  Returns ({kernel:
+    max |diff|}, {wrapper: plain version's ms})."""
+    errs, plain_ms = {}, {}
+    for w, (args, got) in seen.items():
+        _, mod, name = ROW_KERNELS[row_kernel(w)][w]
+        plain = getattr(_row_module(mod), name)
+        box = {}
+        plain_ms[w] = wall_ms(lambda: box.update(p=plain(*args)))
+        g = got if isinstance(got, tuple) else (got,)
+        p = box["p"] if isinstance(box["p"], tuple) else (box["p"],)
+        if [(t.dtype, t.shape) for t in g] != [(t.dtype, t.shape) for t in p]:
+            raise AssertionError(f"{w}: outputs {[(t.dtype, t.shape) for t in g]}"
+                                 f" against the plain {[(t.dtype, t.shape) for t in p]}")
+        err = max([int((a.long() - b.long()).abs().max()) if a.numel() else 0
+                   for a, b in zip(g, p)] + [0])
+        if err:
+            raise AssertionError(f"{w} differs from its plain version by {err}")
+        k = row_kernel(w)
+        errs[k] = max(errs.get(k, 0), err)
+        del box
+    return errs, plain_ms
+
+
+def row_work(wrapper, args, out):
+    """(bytes, operations) a K12-K14 call must move and do, from its
+    arguments and result.  K12: each row written (4C B), data, ld, dd,
+    r0pos and rank read once a position, two table entries and the
+    source's rank a position whose rep0 source is in the block, both
+    planes' literal slots and the distance tables once a lane; 16 steps
+    of the literal walks at 4 operations, 4M distance prices at 8 and 20
+    for the rest, a position.  K13: the pointers read once (int32 from,
+    or int64 adv) and the marks written once; 2 operations a node.
+    K14: the marks read once, the two values a marked node's token is
+    made of (from and choice, or best_len, best_dist and take) read once,
+    the three token planes, t_valid and ntok written once; 4 operations
+    a node."""
+    import torch
+    from lzma_tpu_torch.core.layout import ProbLayout
+    from lzma_tpu_torch.ops.cuda_inputs import lit_slots
+
+    if wrapper == "dp_inputs_cuda":
+        data, ld, dd, r0pos, suffix, lens, planes, tables, lc, lp, pb, _ = args
+        L, N, M = ld.shape
+        pos = torch.arange(N, device=data.device)
+        inside = int(((pos - r0pos.long() - 1) >= 0).sum())
+        read = (L * N * (1 + 16 * M + 8 + 8) + 16 * inside
+                + L * (2 * 4 * lit_slots(lc, lp) + 4 * 784 + 8))
+        return out.numel() * 4 + read, L * N * (64 + 32 * M + 20)
+    if wrapper.endswith("_mark_cuda"):
+        ptr = args[0]
+        return ptr.numel() * ptr.element_size() + out.numel(), 2 * ptr.numel()
+    mark = args[2] if wrapper == "extract_compact_cuda" else args[3]
+    marked = int(mark.sum())
+    per = 8 if wrapper == "extract_compact_cuda" else 17
+    return (mark.numel() + per * marked + 25 * mark.numel()
+            + 8 * mark.shape[0], 4 * mark.numel())
+
+
 def counters():
     """The kernels whose launches a main-path run counts, by name: K3
     dp_parse, K6 classify, K7 lower, K8 lower_counts, K2 rc_serialize, K1
-    ring_decode, K9 search_keys, K10 suffix_table, K11 match_lists; each
-    the (module, attribute) of its wrapper's count."""
-    from lzma_tpu_torch.ops import (cuda_classify, cuda_lower, cuda_parser,
-                                    cuda_ring, cuda_search, cuda_serializer)
+    ring_decode, K9 search_keys, K10 suffix_table, K11 match_lists, K12
+    dp_inputs, K13 path_mark, K14 path_compact; each the (module,
+    attribute) of its wrapper's count."""
+    from lzma_tpu_torch.ops import (cuda_classify, cuda_inputs, cuda_lower,
+                                    cuda_parser, cuda_path, cuda_ring,
+                                    cuda_search, cuda_serializer)
 
     return {"dp_parse": (cuda_parser, "LAUNCHES"),
             "classify": (cuda_classify, "LAUNCHES"),
@@ -859,7 +1021,10 @@ def counters():
             "ring_decode": (cuda_ring, "LAUNCHES"),
             "search_keys": (cuda_search, "KEYS_LAUNCHES"),
             "suffix_table": (cuda_search, "TABLE_LAUNCHES"),
-            "match_lists": (cuda_search, "LIST_LAUNCHES")}
+            "match_lists": (cuda_search, "LIST_LAUNCHES"),
+            "dp_inputs": (cuda_inputs, "LAUNCHES"),
+            "path_mark": (cuda_path, "MARK_LAUNCHES"),
+            "path_compact": (cuda_path, "COMPACT_LAUNCHES")}
 
 
 def zero_counts():
@@ -1220,9 +1385,9 @@ def alone_phase(dev, card, data):
     set to 0 before each; the stage breakdown of the EOS encode; the
     `.lzma` pins; the front door; the command line; the lane entry.
     Returns K6's ms on the stream's token rows and K7's on its tokens
-    ({"classify": ms, "lower": ms}), their bounds (likewise), and the max
+    ({"classify": ms, "lower": ms}), their bounds (likewise), the max
     |diff| of K6, K7, K2 and K1 against their plain versions on the
-    stream's tensors, cut."""
+    stream's tensors, cut, and the EOS encode's launches by kernel."""
     import os
     import tempfile
 
@@ -1264,7 +1429,8 @@ def alone_phase(dev, card, data):
         if launches != {"dp_parse": 0, "classify": 1, "lower": 1,
                         "lower_counts": 0, "rc_serialize": 1,
                         "ring_decode": 1, "search_keys": 0,
-                        "suffix_table": 1, "match_lists": 0}:
+                        "suffix_table": 1, "match_lists": 0,
+                        "dp_inputs": 0, "path_mark": 1, "path_compact": 1}:
             raise AssertionError(f"the .lzma path's launches: {launches}")
         blobs[eos] = blob
         log(f"[lzma stream] {len(data)} B as one stream, "
@@ -1390,7 +1556,7 @@ def alone_phase(dev, card, data):
     log(f"[entry] lzma_tpu_torch.entry: fn(*args) on {args[0].device}, "
         f"{tuple(out.shape)}, lens {lens.tolist()}: sha256 = the JAX "
         "reference's __graft_entry__.entry()")
-    return ms, bounds, errs
+    return ms, bounds, errs, launches
 
 
 def hybrid_pin_input():
@@ -1753,7 +1919,8 @@ def mesh_nccl_phase(dev, card, data, params, lazy_blob, opt_blob, hybrid_blob):
             dist.destroy_process_group()
     if min(enc["rc_serialize"], enc["dp_parse"], enc["classify"], enc["lower"],
            enc["lower_counts"], enc["search_keys"], enc["suffix_table"],
-           enc["match_lists"], dec["ring_decode"]) < 1:
+           enc["match_lists"], enc["dp_inputs"], enc["path_mark"],
+           enc["path_compact"], dec["ring_decode"]) < 1:
         raise AssertionError(f"[mesh] a kernel did not run: encodes {enc}, "
                              f"decodes {dec}")
     log(f"[mesh NCCL world 1] {len(data)} B in {len(data) // MAIN_BLOCK} lanes "
@@ -1805,10 +1972,12 @@ def mesh_gloo_phase(card, data, lazy_blob, opt_blob, hybrid_blob, kept):
             for parse in ("lazy", "optimal"):
                 got = rec[parse]["launches"]
                 if min(got["rc_serialize"], got["classify"],
-                       got["suffix_table"]) < 1 or (
+                       got["suffix_table"], got["path_mark"],
+                       got["path_compact"]) < 1 or (
                         parse == "optimal" and min(
                             got["dp_parse"], got["lower_counts"],
-                            got["search_keys"], got["match_lists"]) < 1):
+                            got["search_keys"], got["match_lists"],
+                            got["dp_inputs"]) < 1):
                     raise AssertionError(f"[mesh] rank {r} {parse}: {got}")
             if not rec["decode"]["equal"] or \
                     rec["decode"]["launches"]["ring_decode"] < 1:
@@ -1881,11 +2050,13 @@ def auto_phase(dev, card, data):
         if back != part:
             raise AssertionError(f"[auto] compress({what}) does not round-trip")
         if min(auto_launches["rc_serialize"], auto_launches["classify"],
-               auto_launches["suffix_table"],
+               auto_launches["suffix_table"], auto_launches["path_mark"],
+               auto_launches["path_compact"],
                dec_launches["ring_decode"]) < 1 or (
                    not want_kw and min(auto_launches["dp_parse"],
                                        auto_launches["search_keys"],
-                                       auto_launches["match_lists"]) < 1):
+                                       auto_launches["match_lists"],
+                                       auto_launches["dp_inputs"]) < 1):
             raise AssertionError(f"[auto] a kernel did not run: {auto_launches}, "
                                  f"decode {dec_launches}")
         lines.append(
@@ -2125,7 +2296,7 @@ def file_phase(dev, card, data, lazy_blob, opt_blob):
         launches["ring_decode"] += dec_launches["ring_decode"]
         if min(v for k, v in launches.items()
                if k not in ("dp_parse", "lower_counts", "search_keys",
-                            "match_lists")) < 1:
+                            "match_lists", "dp_inputs")) < 1:
             raise AssertionError(f"a kernel did not run: {launches}")
         found["file256M-lazy"] = launches
         for x in (src, enc, back):
@@ -2190,7 +2361,9 @@ def bench_phase(card):
                     lower=passes if tpu else 0, lower_counts=0,
                     rc_serialize=passes if tpu else 0,
                     search_keys=0 if tpu else passes, suffix_table=passes,
-                    match_lists=0 if tpu else passes)
+                    match_lists=0 if tpu else passes, dp_inputs=0,
+                    path_mark=passes if tpu else 0,
+                    path_compact=passes if tpu else 0)
         if rc != 0 or launches != want or len(report) != passes + 1:
             raise AssertionError(f"[b -backend{backend}] rc {rc}, launches "
                                  f"{launches} (want {want})\n{out.getvalue()}")
@@ -2263,7 +2436,8 @@ def main():
                                                    encode_batch,
                                                    pair_counts, probing,
                                                    tokenize)
-    from lzma_tpu_torch.ops import cuda_search, device_matcher
+    from lzma_tpu_torch.ops import (cuda_inputs, cuda_search, device_matcher,
+                                    device_parser)
     from lzma_tpu_torch.ops.device_parser import (MODEL_STAGES, SEARCH_STAGES,
                                                   tokenize_optimal)
     from lzma_tpu_torch.ops.hybrid import DEFAULT_TIERS
@@ -2452,6 +2626,43 @@ def main():
             f"{'DEFAULT_TIERS' if tiers else 'DP_TIERS'}, cap {cap} {order!r} "
             f"({width} a list; K10 {'given' if fb_s > 32 else 'computing'} "
             "the consecutive LCP): keys, rank, T, lens, dists and counts equal")
+    del seen
+    # K12, K13 and K14 through tokenize_optimal (and K13 and K14 through
+    # the lazy tokenize, from position 0 and from a preset's end) on the
+    # same lanes at fb 5, 32 and 273, and at lc8 lp4 pb4, whose literal
+    # slots K12 reads from device memory (lc3 lp0's from shared memory)
+    placed = tuple(cuda_inputs.input_placement(
+        device_parser.M_DP, cuda_inputs.lit_slots(lc, lp), limit)
+        for lc, lp in ((params.lc, params.lp), (big.lc, big.lp)))
+    if placed != ("shared", "device"):
+        raise AssertionError(f"K12 placements {placed} under {limit} B")
+    row_err = dict.fromkeys(ROW_KERNELS, 0)
+    row_cases = [(fb_s, params) for fb_s in (5, 32, 273)] + [
+        (32, LzmaParams(lc=8, lp=4, pb=4))]
+    for fb_s, r_params in row_cases:
+        _, seen = spied_rows(lambda: tokenize_optimal(
+            s_data, s_lens, s_data.shape[1], lc=r_params.lc, lp=r_params.lp,
+            pb=r_params.pb, fb=fb_s))
+        if set(seen) != {w for ws in ROW_KERNELS.values() for w in ws}:
+            raise AssertionError(f"tokenize_optimal at fb {fb_s} ran "
+                                 f"{sorted(seen)}")
+        errs, _ = check_rows(seen)
+        for k, v in errs.items():
+            row_err[k] = max(row_err[k], v)
+        log(f"[K12, K13, K14 vs plain] {CMP_LANES}x{CMP_BYTES} (an all-zero "
+            f"lane, lanes of 0 and 3 bytes), fb {fb_s}, lc{r_params.lc} "
+            f"lp{r_params.lp} pb{r_params.pb} (K12's literal slots in "
+            f"{cuda_inputs.input_placement(device_parser.M_DP, cuda_inputs.lit_slots(r_params.lc, r_params.lp), limit)}"
+            " memory): the DP rows, the seed's and the last round's marks "
+            "and tokens equal")
+    for start in (0, CMP_BYTES // 8):
+        _, seen = spied_rows(lambda: device_matcher.tokenize(
+            s_data, s_lens, s_data.shape[1], params.fast_bytes, start=start))
+        errs, _ = check_rows(seen)
+        for k, v in errs.items():
+            row_err[k] = max(row_err[k], v)
+    log(f"[K13, K14 vs plain] the lazy tokenize of the same lanes from "
+        f"position 0 and {CMP_BYTES // 8}: marks and tokens equal")
     del seen, s_data, s_lens
     done("small shapes")
 
@@ -2505,7 +2716,9 @@ def main():
     if launches["rc_serialize"] < 1 or launches["ring_decode"] < 1 \
             or launches["classify"] != 1 or launches["lower"] != 1 \
             or launches["lower_counts"] != 0 or launches["search_keys"] != 0 \
-            or launches["suffix_table"] != 1 or launches["match_lists"] != 0:
+            or launches["suffix_table"] != 1 or launches["match_lists"] != 0 \
+            or launches["dp_inputs"] != 0 or launches["path_mark"] != 1 \
+            or launches["path_compact"] != 1:
         raise AssertionError(f"a kernel did not run on the lazy path: {launches}")
     log(f"[lazy] {len(data)} B in {len(data) // MAIN_BLOCK} lanes of {MAIN_BLOCK} B "
         f"on {card}: encode {t_enc:.3f} s = {mb / t_enc:.3f} MB/s, decode "
@@ -2524,7 +2737,9 @@ def main():
     if launches["dp_parse"] < 2 or launches["rc_serialize"] < 1 \
             or launches["ring_decode"] < 1 or launches["classify"] != 3 \
             or launches["lower"] != 1 or launches["lower_counts"] != 2 \
-            or any(launches[k] != 1 for k in SEARCH_KERNELS):
+            or any(launches[k] != 1 for k in SEARCH_KERNELS) \
+            or launches["dp_inputs"] != 2 or launches["path_mark"] != 3 \
+            or launches["path_compact"] != 3:
         raise AssertionError(f"a kernel did not run on the main path: {launches}")
     if len(blob) >= len(lazy_blob):
         raise AssertionError(f"optimal container {len(blob)} B is not smaller "
@@ -2538,10 +2753,11 @@ def main():
         "with the stdlib lzma module")
     # the same encode inside probing(): the stage breakdown and the
     # tensors phase 8 cuts (its launches are not the main path's)
+    # (and K12-K14's last calls, spied: their whole-lane arguments)
     with probing() as probe:
         t = time.perf_counter()
-        again = api.encode_blocks(data, params, block_size=MAIN_BLOCK,
-                                  parse="optimal", device=dev)
+        again, seen_rows = spied_rows(lambda: api.encode_blocks(
+            data, params, block_size=MAIN_BLOCK, parse="optimal", device=dev))
         torch.cuda.synchronize()
         t_probed = time.perf_counter() - t
     if again != blob:
@@ -2693,6 +2909,23 @@ def main():
             f"{search_bounds[k][1]} ({search_whole[k] / search_bounds[k][0]:.1f}x)"
             for k in SEARCH_KERNELS)
         + f"; {int(seen_main['match_lists'][1][2].sum())} pairs kept")
+    # K12 on the last round's rows, K13 and K14 on the last round's DP
+    # path and the seed's lazy path, each call timed alone by CUDA events
+    row_whole, row_bounds = {}, {}
+    for w, (r_args, r_out) in seen_rows.items():
+        mod = _row_module(ROW_KERNELS[row_kernel(w)][w][0])
+        row_whole[w] = event_ms(lambda f=getattr(mod, w), a=r_args: f(*a), 3)
+        row_bounds[w] = (row_work(w, r_args, r_out),
+                         bound(*row_work(w, r_args, r_out)))
+    log(f"[K12, K13, K14 whole lanes] {L} lanes x {N} positions on {card}: "
+        + "; ".join(f"{w} {row_whole[w]:.3f} ms a call (CUDA events, the "
+                    f"wrapper{' with its status readback' if 'mark' in w else ''}"
+                    f"), {b[0][0]} B read and written, {b[0][1]} operations, "
+                    f"bound {b[1][0]:.4f} ms by {b[1][1]} "
+                    f"({row_whole[w] / b[1][0]:.1f}x)"
+                    for w, b in row_bounds.items())
+        + f"; {int(seen_rows['extract_compact_cuda'][1][4].sum())} DP tokens, "
+        f"{int(seen_rows['greedy_compact_cuda'][1][4].sum())} seed tokens")
     log(f"[K2, K1 whole lanes] {L} lanes on {card}, CUDA events: rc_serialize "
         f"{k2_whole:.3f} ms a call ({n_bits} pairs, "
         f"{k2_whole * 1e6 / int(totals.max()):.1f} ns a pair of the longest "
@@ -2814,6 +3047,17 @@ def main():
             f"{k} kernel {search_whole[k]:.3f} ms vs plain "
             f"{search_plain[k]:.1f} ms" for k in SEARCH_KERNELS)
         + f" on {card}")
+    # K12, K13 and K14: the main path's last calls, uncut (one plain call
+    # each)
+    errs, row_plain = check_rows(seen_rows)
+    for k, v in errs.items():
+        row_err[k] = max(row_err[k], v)
+    del seen_rows
+    log(f"[K12, K13, K14 vs plain] main path's whole lanes (the last round's "
+        f"rows, its DP path and the seed's lazy path): rows, marks and tokens "
+        f"equal; " + ", ".join(
+            f"{w} kernel {row_whole[w]:.3f} ms vs plain {row_plain[w]:.1f} ms"
+            for w in row_whole) + f" on {card}")
     log(f"[times] main path's shapes ({len(bsizes)} lanes x {MAIN_BLOCK} B) on "
         f"{card}: dp_parse kernel {k3_ms:.3f} ms, dp_parse2 kernel "
         f"{k4_ms:.3f} ms vs plain {k3_plain:.1f} ms ({CMP_POS} positions a "
@@ -2963,7 +3207,8 @@ def main():
     done("probes")
 
     # ---- 14. the .lzma path at full size, front door, CLI, entry ----
-    stream_ms, stream_bounds, stream_errs = alone_phase(dev, card, data)
+    stream_ms, stream_bounds, stream_errs, stream_launches = alone_phase(
+        dev, card, data)
     k6_err = max(k6_err, stream_errs["classify"])
     k7_err = max(k7_err, stream_errs["lower"])
     k2_err = max(k2_err, stream_errs["rc_serialize"])
@@ -3072,7 +3317,8 @@ def main():
                whole_bound_ms=k7_whole_bound[0], stream_ms=stream_ms["lower"],
                stream_bound_ms=stream_bounds["lower"][0],
                lazy_launches=lazy_launches["lower"],
-               stream_launches=1, mesh_launches=mesh_enc["lower"],
+               stream_launches=stream_launches["lower"],
+               mesh_launches=mesh_enc["lower"],
                bench_launches=bench_launches["tpu"]["lower"],
                file_launches={k: v["lower"]
                               for k, v in file_launches.items()},
@@ -3106,9 +3352,30 @@ def main():
                bench_hybrid_launches=bench_launches["hybrid"][name],
                file_launches={k: v[name] for k, v in file_launches.items()},
                design=SEARCH_REPLACES[name][2])
-        for name in SEARCH_KERNELS] + probe_records
-    if len(kernels) != 26:
-        raise AssertionError(f"{len(kernels)} kernel records, not 26")
+        for name in SEARCH_KERNELS] + [
+        record(name, f"lzma_tpu_torch/csrc/{'dp_inputs' if name == 'dp_inputs' else 'path'}.cu",
+               ROW_REPLACES[name][0], launches[name], row_err[name],
+               row_whole[main_w], row_plain[main_w], row_bounds[main_w][1],
+               jax_ref=ROW_REPLACES[name][1], whole_ms=row_whole[main_w],
+               whole_bound_ms=row_bounds[main_w][1][0],
+               lazy_launches=lazy_launches[name],
+               stream_launches=stream_launches[name],
+               mesh_launches=mesh_enc[name],
+               bench_launches=bench_launches["tpu"][name],
+               file_launches={k: v[name] for k, v in file_launches.items()},
+               design=ROW_REPLACES[name][2],
+               **({} if name == "dp_inputs" else {
+                   "ms_of": f"{main_w} (the last round's DP path)",
+                   "seed_ms": row_whole[seed_w],
+                   "seed_plain_ms": row_plain[seed_w],
+                   "seed_bound_ms": row_bounds[seed_w][1][0]}))
+        for name, main_w, seed_w in (
+            ("dp_inputs", "dp_inputs_cuda", None),
+            ("path_mark", "extract_mark_cuda", "greedy_mark_cuda"),
+            ("path_compact", "extract_compact_cuda", "greedy_compact_cuda"))
+    ] + probe_records
+    if len(kernels) != 29:
+        raise AssertionError(f"{len(kernels)} kernel records, not 29")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,160 @@
+"""The optimal parse's DP rows as a CUDA kernel (K12, ``csrc/dp_inputs.cu``,
+on the per-position closed form of ``csrc/dp_input_row.cuh``).
+
+K12 is the counterpart of the per-position half of the price model in
+``lzma_tpu/ops/device_parser.py``'s ``tokenize_optimal``, jitted JAX
+device code (no ``pallas_call``) that XLA compiles for the device:
+``build_price_model``'s ``lit_cost`` and ``matched_lit_cost``,
+``_pair_dist_cost``, ``device_matcher.rep_match_lens_rmq`` and
+``_pack_inputs``.  ``dp_inputs_cuda`` replaces
+``device_parser._dp_inputs_plain``: each position's int32 row of 6M + 5
+entries, written once (no int64 row on the card).  A lane's literal
+coders' price slots go to shared memory where two blocks still fit an
+SM with them (``input_placement``), else the kernel reads them from
+device memory.
+
+A CUDA tensor launches the kernel (or the wrapper raises); a CPU tensor
+takes the plain version.  The rows are the plain version's, bit for bit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..core.layout import LITERAL_CODER_SIZE, ProbLayout
+from ..runtime import build
+from ..runtime.card import smem_limit
+from .device_parser import _dp_inputs_plain
+
+#: kernel launches made through dp_inputs_cuda (K12) since the count was
+#: last set
+LAUNCHES = 0
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: a lane's distance tables as the kernel reads them: ps_price (4, 64),
+#: dfull (4, 128), align_price (16)
+_TABLE_SHAPES = ((4, 64), (4, 128), (16,))
+
+
+@functools.cache
+def _lib():
+    lib = build.load()
+    lib.lzt_dp_inputs.argtypes = [_P] * 6 + [_I] + [_P] * 3 + [_L] * 3 + [
+        _P, _I, _L, _I, _I, _I, _I, _P, _P]
+    lib.lzt_dp_inputs.restype = ctypes.c_int
+    lib.lzt_dp_inputs_smem.argtypes = [_I, _L, _I]
+    lib.lzt_dp_inputs_smem.restype = ctypes.c_longlong
+    return lib
+
+
+def lit_slots(lc: int, lp: int) -> int:
+    """A lane's literal coders' slots: LITERAL_CODER_SIZE << (lc + lp)."""
+    return LITERAL_CODER_SIZE << (lc + lp)
+
+
+#: K12's block: positions a tile (its threads) and the distance tables'
+#: int32 entries (csrc/dp_inputs.cu kThreads, dp_input_row.cuh kTableInts)
+TILE_ROWS, TABLE_INTS = 256, 4 * 64 + 4 * 128 + 16
+
+
+def smem_bytes(m: int, slots: int, shared: bool) -> int:
+    """Shared bytes of a K12 block for rows of m pairs: the row stage, the
+    distance tables and, staged in shared memory, both planes' `slots`
+    literal slots (lzt_dp_inputs_smem's count)."""
+    return 4 * (TILE_ROWS * (6 * m + 5) + TABLE_INTS + (2 * slots if shared
+                                                        else 0))
+
+
+def input_placement(m: int, slots: int, limit: int) -> str:
+    """Where K12 reads a lane's `slots` literal price slots from, on a card
+    that gives a block `limit` bytes of shared memory, for rows of m
+    pairs: "shared" when two blocks that stage both planes' slots beside
+    the row stage and the distance tables still fit that limit, else
+    "device".  On the H100 that is lc + lp <= 3 at m 4; staged at lc + lp
+    4 and 5, where one block holds an SM's shared memory, K12 was slower
+    than reading device memory (bench/row_placement.py)."""
+    return "shared" if 2 * smem_bytes(m, slots, True) <= limit else "device"
+
+
+def _check(data, ld, dd, r0pos, suffix, lens, planes, dist_tables):
+    if data.dim() != 2 or data.dtype != torch.uint8:
+        raise ValueError(f"data must be (L, N) uint8, got "
+                         f"{tuple(data.shape)} {data.dtype}")
+    L, N = data.shape
+    dev = data.device
+    if ld.dim() != 3 or ld.shape[2] < 1:
+        raise ValueError(f"ld must be (L, N, M), M >= 1, got {tuple(ld.shape)}")
+    rank, T = suffix
+    M = ld.shape[2]
+    S = planes[0].shape[-1]
+    want = [("ld", ld, (L, N, M)), ("dd", dd, (L, N, M)),
+            ("r0pos", r0pos, (L, N)), ("rank", rank, (L, N)),
+            ("lens", lens, (L,)), ("EP0", planes[0], (L, S)),
+            ("EP1", planes[1], (L, S))]
+    want += [(name, t, (L, *shape)) for name, t, shape in zip(
+        ("ps_price", "dfull", "align_price"), dist_tables, _TABLE_SHAPES)]
+    for name, t, shape in want:
+        if tuple(t.shape) != shape or t.device != dev:
+            raise ValueError(f"{name} must be {shape} on {dev}, got "
+                             f"{tuple(t.shape)} on {t.device}")
+        if t.is_floating_point() or t.dtype == torch.bool:
+            raise TypeError(f"{name} must be an integer tensor, got {t.dtype}")
+    if T.dim() != 3 or T.shape[0] != L or T.shape[2] != N or T.shape[1] < 1 \
+            or T.dtype != torch.int32 or T.device != dev:
+        raise ValueError(f"T must be ({L}, levels, {N}) int32 on {dev}, got "
+                         f"{tuple(T.shape)} {T.dtype} on {T.device}")
+
+
+def dp_inputs_cuda(data, ld, dd, r0pos, suffix, lens, planes, dist_tables,
+                   lc: int, lp: int, pb: int, fb: int):
+    """The DP scan's rows (K12): data (L, N) uint8; ld, dd (L, N, M) the
+    candidate pairs; r0pos (L, N) the rep0 trace; suffix = (rank (L, N),
+    T (L, levels, N) int32), the search's suffix table; lens (L,); planes
+    = (EP0, EP1) (L, S), the price of a 0 and of a 1 at each slot;
+    dist_tables = (ps_price (L, 4, 64), dfull (L, 4, 128), align_price
+    (L, 16)).  Returns packed (L, N, 6M + 5) int32, as
+    ``_dp_inputs_plain``."""
+    global LAUNCHES
+    if data.device.type == "cpu":
+        return _dp_inputs_plain(data, ld, dd, r0pos, suffix, lens, planes,
+                                dist_tables, lc, lp, pb, fb)
+    if data.device.type != "cuda":
+        raise ValueError(f"dp_inputs_cuda takes CPU or CUDA tensors, got "
+                         f"{data.device}")
+    _check(data, ld, dd, r0pos, suffix, lens, planes, dist_tables)
+    L, N, M = ld.shape
+    dev = data.device
+    out = torch.empty((L, N, 6 * M + 5), dtype=torch.int32, device=dev)
+    if L == 0 or N == 0:
+        return out
+    layout = ProbLayout(lc, lp, pb, pos_bits=pb)
+    slots = lit_slots(lc, lp)
+    S = planes[0].shape[1]
+    if layout.literal + slots > S:
+        raise ValueError(f"the planes hold {S} slots, lc{lc} lp{lp} pb{pb}'s "
+                         f"literal coders end at {layout.literal + slots}")
+    limit = smem_limit(dev.index if dev.index is not None
+                       else torch.cuda.current_device())
+    shared = input_placement(M, slots, limit) == "shared"
+    rank, T = suffix
+    i64 = [t.to(torch.int64).contiguous() for t in (ld, dd, r0pos, rank, lens)]
+    ep = [t.to(torch.int32).contiguous() for t in planes]
+    tables = torch.cat([t.reshape(L, -1) for t in dist_tables],
+                       dim=1).to(torch.int32).contiguous()
+    data = data.contiguous()
+    T = T.contiguous()
+    with torch.cuda.device(dev):
+        err = _lib().lzt_dp_inputs(
+            data.data_ptr(), i64[0].data_ptr(), i64[1].data_ptr(),
+            i64[2].data_ptr(), i64[3].data_ptr(), T.data_ptr(), T.shape[1],
+            i64[4].data_ptr(), ep[0].data_ptr(), ep[1].data_ptr(), S,
+            layout.literal, slots, tables.data_ptr(), L, N, M, lc, lp,
+            int(shared), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"dp_inputs launch failed: CUDA error {err}")
+    LAUNCHES += 1
+    return out

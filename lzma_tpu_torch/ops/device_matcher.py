@@ -12,8 +12,11 @@ lengths (``rep_match_lens_rmq``).
 The multi-tier search runs on the card as three CUDA kernels around
 its sorts (``ops/cuda_search.py``): K9 the sort keys
 (``_search_keys_plain``), K10 the suffix rank and min table
-(``_suffix_table_plain``), K11 the lists (``_match_lists_plain``); each
-wrapper takes the plain version here for CPU tensors.
+(``_suffix_table_plain``), K11 the lists (``_match_lists_plain``); the
+path's marking and compaction as two (``ops/cuda_path.py``): K13
+(``_greedy_mark``, under ``greedy_path``) and K14 (``_compact_taken``,
+under ``_compact``).  Each wrapper takes the plain version here for CPU
+tensors.
 
 The JAX functions run on one lane under ``jax.vmap``; here the lane axis
 is written out: every tensor is (N, max_n, ...) and rolls, sorts,
@@ -655,15 +658,18 @@ def rep_match_lens_rmq(rank, T, r0pos, n, fb: int):
     return torch.minimum(lcp[:, :, 0], torch.clamp(n.long()[:, None] - pos, min=0))
 
 
-def greedy_path(best_len, best_dist, n, max_n: int, start: int = 0,
-                lazy: bool = False):
-    """Mark the greedy/lazy parse path with pointer doubling
-    (device_matcher.greedy_path).  advance(i) = best_len[i] when the
-    match is worth taking, else 1.  Returns on_path (N, max_n) bool."""
-    N = best_len.shape[0]
-    device = best_len.device
+def _greedy_mark(adv, n, start: int = 0):
+    """K13's plain version on the lazy path (``cuda_path.greedy_mark_cuda``):
+    the nodes reached from `start` by pointer doubling over pos -> min(pos
+    + adv, max_n), the sentinel node max_n pointing to itself, kept below
+    n.  adv (N, max_n), n (N,).  Returns on_path (N, max_n) bool.
+
+    Any advance is taken here.  K13 on the card takes only a walk that
+    runs one way (every advance on it >= 1, as _decide's are) and a start
+    in [0, max_n], and raises ValueError otherwise."""
+    N, max_n = adv.shape
+    device = adv.device
     pos = torch.arange(max_n, dtype=torch.int64, device=device)
-    _, adv = _decide(best_len, best_dist, lazy)
     nxt = torch.clamp(pos + adv, max=max_n)        # sentinel node max_n
     steps = max(1, max_n.bit_length())
     f = torch.cat([nxt, torch.full((N, 1), max_n, dtype=torch.int64,
@@ -678,13 +684,29 @@ def greedy_path(best_len, best_dist, n, max_n: int, start: int = 0,
     return (reach[:, :max_n] > 0) & (pos < n[:, None])
 
 
-def _compact(best_len, best_dist, on_path, n, lazy: bool = False):
-    """Token stream by prefix-sum compaction (device_matcher._compact).
+def greedy_path(best_len, best_dist, n, max_n: int, start: int = 0,
+                lazy: bool = False):
+    """Mark the greedy/lazy parse path with pointer doubling
+    (device_matcher.greedy_path).  advance(i) = best_len[i] when the
+    match is worth taking, else 1.  Returns on_path (N, max_n) bool.
+
+    ``cuda_path.greedy_mark_cuda``: K13 for CUDA tensors, the plain
+    ``_greedy_mark`` for CPU ones."""
+    from .cuda_path import greedy_mark_cuda
+
+    adv = _decide(best_len, best_dist, lazy)[1]
+    return greedy_mark_cuda(adv, n, start)
+
+
+def _compact_taken(best_len, best_dist, take, on_path):
+    """K14's plain version in _compact's form (``cuda_path.
+    greedy_compact_cuda``): the on-path positions in order, each the token
+    (pos, best_len, best_dist) where `take` (_decide's) holds, else the
+    literal (pos, 1, -1); (pos 0, len 1, dist -1) past num_tokens.
     Returns (t_pos, t_len, t_dist, t_valid, num_tokens)."""
     N, max_n = best_len.shape
     device = best_len.device
     pos = torch.arange(max_n, dtype=torch.int64, device=device).expand(N, max_n)
-    take, _ = _decide(best_len, best_dist, lazy)
     is_match = on_path & take
     t_len = torch.where(is_match, best_len, 1)
     t_dist = torch.where(is_match, best_dist, -1)
@@ -698,6 +720,19 @@ def _compact(best_len, best_dist, on_path, n, lazy: bool = False):
     num_tokens = on_path.long().sum(dim=1)
     t_valid = torch.arange(max_n, device=device)[None, :] < num_tokens[:, None]
     return put(pos, 0), put(t_len, 1), put(t_dist, -1), t_valid, num_tokens
+
+
+def _compact(best_len, best_dist, on_path, n, lazy: bool = False):
+    """Token stream by prefix-sum compaction (device_matcher._compact).
+    Returns (t_pos, t_len, t_dist, t_valid, num_tokens).
+
+    ``cuda_path.greedy_compact_cuda``: K14 for CUDA tensors, the plain
+    ``_compact_taken`` for CPU ones."""
+    from .cuda_path import greedy_compact_cuda
+
+    # the advance is not kept: it would live through the compaction
+    take = _decide(best_len, best_dist, lazy)[0]
+    return greedy_compact_cuda(best_len, best_dist, take, on_path)
 
 
 def tokenize(data, n, dict_size: int, fb: int, num_candidates: int = 4,

@@ -7,18 +7,23 @@ Port of the ``parse="optimal"`` route of ``lzma_tpu/ops/device_parser.py``:
            suffix table and K11's lists on the card), the first M_DP
            ascending pairs per position kept for the DP
            (_select_dp_pairs); stages SEARCH_STAGES
-  seed     a lazy parse over the lists' longest entries (_seed_from_lists)
+  seed     a lazy parse over the lists' longest entries (_seed_from_lists;
+           its path and tokens K13 and K14 on the card, cuda_path)
   model    the block's own (ctx, bit) statistics (classify + the slot
            counts of the current token stream's lowering, lower_counts:
-           K8 on the card) -> empirical probabilities -> every price
-           table the DP needs (build_price_model, _pair_dist_cost), the
-           rep0-by-position trace and its match lengths
+           K8 on the card) -> empirical probabilities -> the price planes
+           and the tables that do not depend on the position
+           (price_tables), the rep0-by-position trace, then each
+           position's row (K12 on the card, cuda_inputs.dp_inputs_cuda,
+           whose plain version _dp_inputs_plain is lit_cost,
+           matched_lit_cost, _pair_dist_cost, rep_match_lens_rmq and the
+           packing)
   DP       the scan over positions: K3 or K4, the CUDA kernels in
            cuda_parser (dp_parse_pallas and dp_parse_pallas2 on the TPU),
            whose plain version is dp_parse_band, or the naive plane scan
            dp_parse
-  extract  the backward path by pointer doubling + compaction
-           (extract_tokens)
+  extract  the backward path's marks + compaction (extract_tokens; K13
+           and K14 on the card, cuda_path)
 
 Model, DP and extract run N_ITER times, each round pricing against the
 previous round's tokens.  The route's settings are fixed as the JAX
@@ -155,36 +160,45 @@ def matched_lit_cost(data, probs_ep, r0pos, layout, lc: int, lp: int):
     return cost
 
 
-def build_price_model(data, probs, lc: int, lp: int, pb: int, r0pos):
-    """Every DP price table from per-lane empirical probabilities
-    (device_parser.build_price_model with r0pos given).  data (L, N)
-    uint8, probs (L, S), r0pos (L, N), the rep0 trace that prices the
-    matched-mode literals.
-    Returns a dict of int64 tensors: lit_cost, mlit_cost (L, N);
-    lt_match, lt_rep (L, n_ps, 272); ps_price (L, 4, 64); dfull
-    (L, 4, 128); align_price (L, 16); im0, im1, r0l0, r0l1 (L, 12, n_ps);
-    ir0, ir1 (L, 12); rep_sel (L, 4, 12)."""
-    device = data.device
+def _price_planes(probs, dtype=torch.int64):
+    """The per-slot bit prices (EP0, EP1), each (L, S) of `dtype`, of
+    per-lane probabilities (L, S): the price of a 0 and of a 1 at every
+    slot.  A price fits int32, which the card's route asks for: K12 reads
+    int32 planes, and lc8 lp4's are 3.1 M slots a lane."""
+    PT = torch.as_tensor(PRICE_TABLE, dtype=dtype, device=probs.device)
+    probs = probs.long() if dtype == torch.int64 else probs.int()
+    return PT[probs >> 2], PT[(BIT_MODEL_TOTAL - probs) >> 2]
+
+
+def lit_cost(data, probs_ep, layout, lc: int, lp: int):
+    """Normal-mode literal price per position (L, N): the 8-step tree walk
+    of build_price_model's lit_cost."""
+    EP0, EP1 = probs_ep
+    sub = _lit_sub(data, layout, lc, lp)
+    byte = data.long()
+    m = torch.ones_like(byte)
+    cost = torch.zeros_like(byte)
+    for k in range(8):
+        b = (byte >> (7 - k)) & 1
+        cx = sub + m
+        cost = cost + _w(b == 1, EP1.gather(1, cx), EP0.gather(1, cx))
+        m = (m << 1) | b
+    return cost
+
+
+def price_tables(EP0, EP1, lc: int, lp: int, pb: int):
+    """build_price_model's tables that do not depend on the position,
+    from the price planes of ``_price_planes``: lt_match, lt_rep (L, n_ps,
+    272); ps_price (L, 4, 64); dfull (L, 4, 128); align_price (L, 16);
+    im0, im1, r0l0, r0l1 (L, 12, n_ps); ir0, ir1 (L, 12); rep_sel
+    (L, 4, 12), int64 (the lookups int32 from int32 planes, the same
+    values)."""
+    device = EP0.device
     layout = ProbLayout(lc, lp, pb, pos_bits=pb)
-    PT = torch.as_tensor(PRICE_TABLE, dtype=torch.int64, device=device)
-    probs = probs.long()
-    EP0 = PT[probs >> 2]
-    EP1 = PT[(BIT_MODEL_TOTAL - probs) >> 2]
     n_ps = 1 << pb
 
     def ar(n):
         return torch.arange(n, dtype=torch.int64, device=device)
-
-    # ---- literal cost per position (normal mode) ----
-    sub = _lit_sub(data, layout, lc, lp)
-    byte = data.long()
-    m = torch.ones_like(byte)
-    lit_cost = torch.zeros_like(byte)
-    for k in range(8):
-        b = (byte >> (7 - k)) & 1
-        cx = sub + m
-        lit_cost = lit_cost + _w(b == 1, EP1.gather(1, cx), EP0.gather(1, cx))
-        m = (m << 1) | b
 
     # ---- length tables (L, n_ps, 272), match + rep ----
     def len_table(base):
@@ -244,15 +258,26 @@ def build_price_model(data, probs, lc: int, lp: int, pb: int, r0pos):
     # rep-selector price per rep index: the is_rep_g0/g1/g2 bit chain
     rep_sel = torch.stack([g00, g01 + g10, g01 + g11 + g20, g01 + g11 + g21],
                           dim=1)
-
-    mlit_cost = matched_lit_cost(data, (EP0, EP1), r0pos, layout, lc, lp)
     return dict(
-        lit_cost=lit_cost, mlit_cost=mlit_cost, lt_match=lt_match,
-        lt_rep=lt_rep, ps_price=ps_price, dfull=dfull,
+        lt_match=lt_match, lt_rep=lt_rep, ps_price=ps_price, dfull=dfull,
         align_price=align_price, im0=EP0[:, im_ctx], im1=EP1[:, im_ctx],
         ir0=EP0[:, layout.is_rep + s12], ir1=EP1[:, layout.is_rep + s12],
         rep_sel=rep_sel, r0l0=EP0[:, r0l_ctx], r0l1=EP1[:, r0l_ctx],
     )
+
+
+def build_price_model(data, probs, lc: int, lp: int, pb: int, r0pos):
+    """Every DP price table from per-lane empirical probabilities
+    (device_parser.build_price_model with r0pos given).  data (L, N)
+    uint8, probs (L, S), r0pos (L, N), the rep0 trace that prices the
+    matched-mode literals.
+    Returns a dict of int64 tensors: lit_cost, mlit_cost (L, N) and
+    ``price_tables``' tables."""
+    layout = ProbLayout(lc, lp, pb, pos_bits=pb)
+    planes = _price_planes(probs)
+    return dict(lit_cost=lit_cost(data, planes, layout, lc, lp),
+                mlit_cost=matched_lit_cost(data, planes, r0pos, layout, lc, lp),
+                **price_tables(*planes, lc, lp, pb))
 
 
 def _pair_dist_cost(model, dd, valid):
@@ -324,12 +349,11 @@ def table_size(pb: int, fb: int) -> int:
     return 2 * n_ps * (fb - 1) + 4 * n_ps * 12 + 72
 
 
-def dp_inputs(data, ld, dd, model, fb: int, r0pos, replen):
-    """The scan's inputs (device_parser._pack_inputs, lanes first).
-    Returns (packed (L, N, C) int32, tables (L, T) int32), C = 6M + 5: a
-    position's row holds ld (M), dd (M), the distance prices (M x 4,
-    pair-major), lit, mlit, r0pos, replen and sr_eq, the shortRep byte
-    equality against the rep0 trace."""
+def _pack_rows(data, ld, dd, model, r0pos, replen):
+    """The scan's per-position rows (device_parser._pack_inputs, lanes
+    first), (L, N, C) int32, C = 6M + 5: a position's row holds ld (M), dd
+    (M), the distance prices (M x 4, pair-major), lit, mlit, r0pos, replen
+    and sr_eq, the shortRep byte equality against the rep0 trace."""
     L, N = data.shape
     M = ld.shape[2]
     dcost = _pair_dist_cost(model, dd, (ld >= 2) & (dd >= 0))
@@ -337,12 +361,36 @@ def dp_inputs(data, ld, dd, model, fb: int, r0pos, replen):
     src = pos - r0pos.long() - 1
     sbyte = data.gather(1, torch.clamp(src, 0, N - 1))
     sr_eq = ((data == sbyte) & (src >= 0)).long()
-    packed = torch.cat([
+    return torch.cat([
         ld.long(), dd.long(), dcost.reshape(L, N, 4 * M),
         model["lit_cost"][:, :, None], model["mlit_cost"][:, :, None],
         r0pos.long()[:, :, None], replen.long()[:, :, None], sr_eq[:, :, None],
     ], dim=2).to(torch.int32)
-    return packed, _dp_tables(model, fb)
+
+
+def dp_inputs(data, ld, dd, model, fb: int, r0pos, replen):
+    """The scan's inputs (device_parser._pack_inputs, lanes first) from a
+    ``build_price_model`` dict and the rep0 lengths.  Returns (packed
+    (L, N, C) int32 as ``_pack_rows``, tables (L, T) int32)."""
+    return _pack_rows(data, ld, dd, model, r0pos, replen), _dp_tables(model, fb)
+
+
+def _dp_inputs_plain(data, ld, dd, r0pos, suffix, lens, planes, dist_tables,
+                     lc: int, lp: int, pb: int, fb: int):
+    """K12's plain version (``cuda_inputs.dp_inputs_cuda``): the scan's
+    per-position rows (L, N, 6M + 5) int32, as ``_pack_rows``, from what
+    they depend on -- the per-position literal prices (lit_cost,
+    matched_lit_cost) from the price planes (EP0, EP1), the rep0 lengths
+    (rep_match_lens_rmq) from the suffix table (rank, T) and lens, the
+    pairs' distance prices (_pair_dist_cost) from dist_tables (ps_price,
+    dfull, align_price), and r0pos.  Today's arithmetic, in int64."""
+    layout = ProbLayout(lc, lp, pb, pos_bits=pb)
+    replen = rep_match_lens_rmq(*suffix, r0pos, lens, fb)
+    model = dict(zip(("ps_price", "dfull", "align_price"), dist_tables),
+                 lit_cost=lit_cost(data, planes, layout, lc, lp),
+                 mlit_cost=matched_lit_cost(data, planes, r0pos, layout, lc,
+                                            lp))
+    return _pack_rows(data, ld, dd, model, r0pos, replen)
 
 
 def _node(st_prev, r_prev, k_i, c_i):
@@ -572,12 +620,15 @@ def dp_parse_band(packed, tables, lens, fb: int, pb: int):
 
 
 # ------------------------------------------------------------- extract
-def extract_tokens(from_, choice, lens):
-    """DP path -> compacted (pos, len, dist) token stream
-    (device_parser.extract_tokens): pointer doubling marks the path from
-    node lens back to 0; each marked node j > 0 is the token (from[j],
-    j - from[j], choice[j]).  Returns (t_pos, t_len, t_dist, t_valid,
-    ntok), the layout of device_matcher.tokenize."""
+def _extract_mark(from_, lens):
+    """K13's plain version on the DP path (``cuda_path.extract_mark_cuda``):
+    pointer doubling marks the nodes reached from node lens over from_,
+    kept in 1..lens.  from_ (L, NP), lens (L,).  Returns mark (L, NP)
+    bool.
+
+    Any pointers in the lane are taken here.  K13 on the card takes only
+    a walk that runs one way (each from_[j] < j on it, as the DP's are)
+    and pointers and lens in [0, NP), and raises ValueError otherwise."""
     L, NP = from_.shape
     device = from_.device
     lens = lens.long()
@@ -590,7 +641,17 @@ def extract_tokens(from_, choice, lens):
                                      include_self=True)
         h = h.gather(1, h)
     node = torch.arange(NP, dtype=torch.int64, device=device)
-    mark = (reach > 0) & (node > 0) & (node <= lens[:, None])
+    return (reach > 0) & (node > 0) & (node <= lens[:, None])
+
+
+def _extract_compact(from_, choice, mark):
+    """K14's plain version in extract's form (``cuda_path.
+    extract_compact_cuda``): each marked node j, in order, is the token
+    (from[j], j - from[j], choice[j]); (0, 1, -1) past ntok.  Returns
+    (t_pos, t_len, t_dist, t_valid, ntok)."""
+    L, NP = from_.shape
+    device = from_.device
+    node = torch.arange(NP, dtype=torch.int64, device=device)
     tgt = _w(mark, torch.cumsum(mark.long(), dim=1) - 1, NP)
 
     def put(values, fill):
@@ -601,6 +662,21 @@ def extract_tokens(from_, choice, lens):
     t_valid = node[None, :] < ntok[:, None]
     return (put(from_.long(), 0), put(node - from_.long(), 1),
             put(choice.long(), -1), t_valid, ntok)
+
+
+def extract_tokens(from_, choice, lens):
+    """DP path -> compacted (pos, len, dist) token stream
+    (device_parser.extract_tokens): pointer doubling marks the path from
+    node lens back to 0; each marked node j > 0 is the token (from[j],
+    j - from[j], choice[j]).  Returns (t_pos, t_len, t_dist, t_valid,
+    ntok), the layout of device_matcher.tokenize.
+
+    ``cuda_path.extract_mark_cuda`` (K13) then ``extract_compact_cuda``
+    (K14) for CUDA tensors, their plain ``_extract_mark`` and
+    ``_extract_compact`` for CPU ones."""
+    from .cuda_path import extract_compact_cuda, extract_mark_cuda
+
+    return extract_compact_cuda(from_, choice, extract_mark_cuda(from_, lens))
 
 
 # ------------------------------------------------------------- pipeline
@@ -652,9 +728,12 @@ def _lists_and_seed(data, lens, dict_size: int, fb: int):
 def _round_inputs(data, lens, tokens, ld, dd, suffix, lc: int, lp: int,
                   pb: int, fb: int):
     """One round's DP inputs from the current tokens: classify + the
-    lowering's slot counts -> empirical probabilities; the rep0 trace and
-    its match lengths; the price model -> dp_inputs.  Returns (packed,
-    tables)."""
+    lowering's slot counts -> empirical probabilities; the rep0 trace; the
+    price planes and tables; the rows (K12, dp_inputs_cuda: the rep0
+    lengths, the per-position literal prices and the pairs' distance
+    prices).  Returns (packed, tables)."""
+    from .cuda_inputs import dp_inputs_cuda
+
     N = data.shape[1]
     device = data.device
     tp, tl, td, tv = tokens
@@ -674,12 +753,24 @@ def _round_inputs(data, lens, tokens, ld, dd, suffix, lc: int, lp: int,
         del n, n1
     with stage("rep0_trace", device):
         r0pos = rep0_trace(tp, td, tv, N)
+    # the rep0 lengths are K12's (dp_inputs_cuda), in stage "dp_inputs";
+    # the stage keeps its place in MODEL_STAGES, empty
     with stage("rep_match_lens_rmq", device):
-        replen = rep_match_lens_rmq(*suffix, r0pos, lens, fb)
+        pass
     with stage("build_price_model", device):
-        model = build_price_model(data, probs, lc, lp, pb, r0pos)
+        # int32 planes on the card (no int64 plane there); the CPU keeps
+        # the int64 ones the sizer's memory model was fitted to
+        planes = _price_planes(probs, torch.int32 if device.type == "cuda"
+                               else torch.int64)
+        del probs
+        model = price_tables(*planes, lc, lp, pb)
+        tables = _dp_tables(model, fb)
     with stage("dp_inputs", device):
-        return dp_inputs(data, ld, dd, model, fb, r0pos, replen)
+        packed = dp_inputs_cuda(
+            data, ld, dd, r0pos, suffix, lens, planes,
+            (model["ps_price"], model["dfull"], model["align_price"]),
+            lc, lp, pb, fb)
+    return packed, tables
 
 
 #: the stages of _lists_and_seed's search, in order: K9's keys, their

@@ -72,13 +72,15 @@ DEFAULT_BATCH_BYTES = 64 << 20
 # 10, 12 and 14; the model lies 4-6% above each of these.  On the card
 # the search no longer allocates the plain versions' tensors: its
 # kernels (K9-K11, ops/cuda_search.py) write int32 tier keys, the sorts'
-# values and indices, the table once, in place, and the lists.  main8M's
-# optimal encode (18 levels) peaks at 6,834.6-6,840.1 MiB, 854-855 B a
-# position, at dp_inputs' price planes (10,175.4 MiB before the
-# kernels), and its lazy encode at 4,969.4 MiB, 621 B (5,544.6 MiB, 693
-# B, before K10; PERF.md sections 5 and 6).  So the model is ~1.5x the
-# card's optimal peak and ~1.2x its lazy one until it is refitted to the
-# card (ROADMAP.md).
+# values and indices, the table once, in place, and the lists; K12
+# (ops/cuda_inputs.py) writes the DP rows once in int32, where the plain
+# version builds them in int64 and casts.  main8M's optimal encode (18
+# levels) peaks at 3,181.1 MiB, 398 B a position (6,840.1 MiB, 855 B,
+# before K12; 10,175.4 MiB before K9-K11), and file128M-opt's 116-block
+# batches at 11,513.0 MiB against this model's 38,744.0; its lazy encode
+# at 4,968.9 MiB, 621 B (PERF.md sections 5 and 6).  So the model is
+# ~3.4x the card's optimal peak and ~1.2x its lazy one until it is
+# refitted to the card (ROADMAP.md).
 ENC_BYTES_A = {"optimal": 1264, "lazy": 592}
 ENC_BYTES_B = {"optimal": 4, "lazy": 8}
 #: the share of the card's available memory a batch may take
@@ -182,9 +184,10 @@ def decode_batch_blocks(params: LzmaParams, block_size: int, max_comp: int,
 def _launches() -> dict:
     """The kernels' launch counts (K1 ring_decode, K2 rc_serialize, K3
     dp_parse, K6 classify, K7 lower, K8 lower_counts, K9 search_keys, K10
-    suffix_table, K11 match_lists)."""
-    from ..ops import (cuda_classify, cuda_lower, cuda_parser, cuda_ring,
-                       cuda_search, cuda_serializer)
+    suffix_table, K11 match_lists, K12 dp_inputs, K13 path_mark, K14
+    path_compact)."""
+    from ..ops import (cuda_classify, cuda_inputs, cuda_lower, cuda_parser,
+                       cuda_path, cuda_ring, cuda_search, cuda_serializer)
 
     return {"ring_decode": cuda_ring.LAUNCHES,
             "rc_serialize": cuda_serializer.LAUNCHES,
@@ -194,7 +197,10 @@ def _launches() -> dict:
             "lower_counts": cuda_lower.COUNT_LAUNCHES,
             "search_keys": cuda_search.KEYS_LAUNCHES,
             "suffix_table": cuda_search.TABLE_LAUNCHES,
-            "match_lists": cuda_search.LIST_LAUNCHES}
+            "match_lists": cuda_search.LIST_LAUNCHES,
+            "dp_inputs": cuda_inputs.LAUNCHES,
+            "path_mark": cuda_path.MARK_LAUNCHES,
+            "path_compact": cuda_path.COMPACT_LAUNCHES}
 
 
 class _BatchLog:

@@ -1629,3 +1629,234 @@ def test_search_wrappers_check_their_inputs(card):
         cuda_search.suffix_table_cuda(d, k, order, 64)
     empty = cuda_search.search_keys_cuda(d[:0], k[:0], 32, [4])
     assert [tuple(x.shape) for x in empty[0] + empty[1]] == [(0, 64)] * 5
+
+
+# --------------------------------------------------- K12, K13, K14
+def _row_args(widths, lc, lp, pb, fb, seed, dev):
+    """dp_inputs_cuda's arguments for lanes of max(widths) positions, lane
+    i of length widths[i] (the last one 0 where there are three or more):
+    random bytes, pairs (invalid, near and far), a rep0 trace with sources
+    before the block, a random rank permutation and table, probabilities
+    in the coder's band."""
+    from lzma_tpu_torch.ops import device_parser as tp
+
+    rng = np.random.default_rng(seed)
+    L, N = len(widths), max(widths)
+    lens = np.array(widths, np.int64)
+    if L > 2:
+        lens[-1] = 0
+    data = rng.integers(0, 4, (L, N)).astype(np.uint8)
+    ld = rng.integers(0, fb + 1, (L, N, 4))
+    dd = np.where(rng.random((L, N, 4)) < 0.5, rng.integers(-1, 128, (L, N, 4)),
+                  rng.integers(128, 1 << 30, (L, N, 4)))
+    r0pos = rng.integers(0, N + 50, (L, N))
+    rank = np.stack([rng.permutation(N) for _ in range(L)])
+    levels = max(1, (N - 1).bit_length())
+    T = rng.integers(0, fb + 1, (L, levels, N)).astype(np.int32)
+    S = ProbLayout(lc, lp, pb, pos_bits=pb).size
+    probs = torch.from_numpy(rng.integers(32, 2017, (L, S))).to(dev)
+    planes = tp._price_planes(probs)
+    tables = tp.price_tables(*planes, lc, lp, pb)
+
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+
+    return (t(data), t(ld), t(dd), t(r0pos), (t(rank), t(T)), t(lens), planes,
+            (tables["ps_price"], tables["dfull"], tables["align_price"]), lc,
+            lp, pb, fb)
+
+
+# max_n at K12's tile (256 positions) and block (8,192) edges
+@pytest.mark.parametrize("widths", [[1, 1], [255, 3, 0], [256, 255, 1],
+                                    [257, 256, 9], [8191, 100, 0],
+                                    [8193, 8192, 7]],
+                         ids=lambda w: f"max_n{max(w)}")
+@pytest.mark.parametrize("lc,lp,pb,fb", [(3, 0, 2, 32), (0, 2, 0, 5),
+                                         (8, 4, 4, 273)])
+def test_dp_inputs_kernel_matches_plain(card, widths, lc, lp, pb, fb):
+    from lzma_tpu_torch.ops import cuda_inputs
+    from lzma_tpu_torch.ops import device_parser as tp
+
+    args = _row_args(widths, lc, lp, pb, fb, sum(widths) + lc, card)
+    before = cuda_inputs.LAUNCHES
+    got = cuda_inputs.dp_inputs_cuda(*args)
+    want = tp._dp_inputs_plain(*args)
+    torch.cuda.synchronize()
+    assert cuda_inputs.LAUNCHES == before + 1
+    assert got.dtype == want.dtype == torch.int32 and torch.equal(got, want)
+
+
+def test_dp_inputs_placements_and_shared_bytes(card):
+    """lc3 lp0's literal slots go to shared memory, lc8 lp4's to device
+    memory; the wrapper's count of a block's shared bytes is the C
+    entry's."""
+    from lzma_tpu_torch.ops import cuda_inputs
+
+    limit = smem_limit(card.index or 0)
+    slots = [cuda_inputs.lit_slots(lc, lp) for lc, lp in ((3, 0), (8, 4))]
+    assert [cuda_inputs.input_placement(4, s, limit) for s in slots] == \
+        ["shared", "device"]
+    for m in (1, 4, 6):
+        for s in slots:
+            for shared in (0, 1):
+                assert cuda_inputs._lib().lzt_dp_inputs_smem(m, s, shared) == \
+                    cuda_inputs.smem_bytes(m, s, bool(shared))
+
+
+def _path_graph(max_n, seed, dev):
+    """A DP's (from, choice) over max_n + 1 nodes in four lanes (hops of
+    1..273, one all-literal lane; lens max_n, max_n // 2, 0, max_n) and a
+    lazy parse's best (len, dist) over max_n positions with n max_n,
+    max_n // 3, 0, max_n."""
+    rng = np.random.default_rng(seed)
+    NP = max_n + 1
+    node = np.arange(NP)
+    frm = np.maximum(node - rng.integers(1, 274, (4, NP)), 0)
+    frm[1] = np.maximum(node - 1, 0)
+    frm[:, 0] = 0
+    half = max_n // 2
+    frm[1, half + 1:] = node[half + 1:]
+    lens = np.array([max_n, half, 0, max_n])
+    choice = rng.integers(-1, 1 << 20, (4, NP))
+    bl = np.where(rng.random((4, max_n)) < 0.5, rng.integers(0, 4, (4, max_n)),
+                  rng.integers(2, 274, (4, max_n)))
+    bd = rng.integers(0, 1 << 17, (4, max_n))
+    n = np.array([max_n, max_n // 3, 0, max_n])
+
+    def t(a, dtype):
+        return torch.from_numpy(a).to(device=dev, dtype=dtype)
+
+    return (t(frm, torch.int32), t(choice, torch.int32), t(lens, torch.int64),
+            t(bl, torch.int64), t(bd, torch.int64), t(n, torch.int32))
+
+
+def _path_launches():
+    from lzma_tpu_torch.ops import cuda_path
+
+    return cuda_path.MARK_LAUNCHES, cuda_path.COMPACT_LAUNCHES
+
+
+# max_n at K13's and K14's tile edges (4,096 nodes a tile)
+@pytest.mark.parametrize("max_n", [1, 2, 4095, 4096, 4097, 8193, 20000])
+def test_path_kernels_match_plain(card, max_n):
+    from lzma_tpu_torch.ops import cuda_path
+    from lzma_tpu_torch.ops import device_matcher as dm
+    from lzma_tpu_torch.ops import device_parser as tp
+
+    frm, choice, lens, bl, bd, n = _path_graph(max_n, max_n, card)
+    before = _path_launches()
+    mark = cuda_path.extract_mark_cuda(frm, lens)
+    assert torch.equal(mark, tp._extract_mark(frm, lens))
+    got = cuda_path.extract_compact_cuda(frm, choice, mark)
+    want = tp._extract_compact(frm, choice, mark)
+    assert all(g.dtype == w.dtype and torch.equal(g, w)
+               for g, w in zip(got, want))
+    for lazy in (True, False):
+        take, adv = dm._decide(bl, bd, lazy)
+        for start in sorted({0, min(5, max_n), max_n}):
+            on = cuda_path.greedy_mark_cuda(adv, n, start)
+            assert torch.equal(on, dm._greedy_mark(adv, n, start)), start
+            got = cuda_path.greedy_compact_cuda(bl, bd, take, on)
+            want = dm._compact_taken(bl, bd, take, on)
+            assert all(g.dtype == w.dtype and torch.equal(g, w)
+                       for g, w in zip(got, want))
+    after = _path_launches()
+    k = 1 + 2 * len({0, min(5, max_n), max_n})
+    assert [b - a for a, b in zip(before, after)] == [k, k]
+
+
+def test_path_names_launch_the_kernels_on_the_card(card):
+    """extract_tokens, greedy_path and _compact go through K13 and K14 on
+    CUDA tensors: one launch each, the plain halves' tokens."""
+    from lzma_tpu_torch.ops import device_matcher as dm
+    from lzma_tpu_torch.ops import device_parser as tp
+
+    frm, choice, lens, bl, bd, n = _path_graph(8193, 3, card)
+    before = _path_launches()
+    got = tp.extract_tokens(frm, choice, lens)
+    assert [b - a for a, b in zip(before, _path_launches())] == [1, 1]
+    want = tp._extract_compact(frm, choice, tp._extract_mark(frm, lens))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    before = _path_launches()
+    on = dm.greedy_path(bl, bd, n, 8193, 5, True)
+    got = dm._compact(bl, bd, on, n, True)
+    assert [b - a for a, b in zip(before, _path_launches())] == [1, 1]
+    take, adv = dm._decide(bl, bd, True)
+    assert torch.equal(on, dm._greedy_mark(adv, n, 5))
+    want = dm._compact_taken(bl, bd, take, on)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_path_mark_raises_where_the_kernel_cannot_follow(card):
+    """A walk back into a tile it has left, a pointer or an end node
+    outside the lane: ValueError after the launch."""
+    from lzma_tpu_torch.ops import cuda_path
+
+    frm = torch.arange(9000, dtype=torch.int32)
+    frm[8500], frm[100] = 100, 8800            # tile 2 -> 0 -> 2
+    frm[8800] = 8500
+    with pytest.raises(ValueError, match="back into a tile"):
+        cuda_path.extract_mark_cuda(frm[None].to(card),
+                                    torch.tensor([8800], device=card))
+    with pytest.raises(ValueError, match="outside the lane"):
+        cuda_path.extract_mark_cuda(frm[None].to(card),
+                                    torch.tensor([9000], device=card))
+    frm[5] = 9005
+    with pytest.raises(ValueError, match="outside the lane"):
+        cuda_path.extract_mark_cuda(frm[None].to(card),
+                                    torch.tensor([3], device=card))
+
+
+def test_row_and_path_kernels_launch_on_every_route(card):
+    """An optimal encode of one lane group launches K12 twice (a round
+    each), K13 and K14 three times (the seed's lazy path, then each
+    round's DP path); a lazy encode K13 and K14 once and K12 never."""
+    from lzma_tpu_torch.format.properties import LzmaParams as TParams
+    from lzma_tpu_torch.ops import cuda_inputs
+
+    data = b"".join(_blocks(4, 4096, 3))
+    p = TParams(dict_size=1 << 13, fast_bytes=32)
+    for parse, want in (("optimal", [2, 3, 3]), ("lazy", [0, 1, 1])):
+        before = [cuda_inputs.LAUNCHES, *_path_launches()]
+        blob = api.encode_blocks(data, p, block_size=4096, parse=parse,
+                                 device=card)
+        after = [cuda_inputs.LAUNCHES, *_path_launches()]
+        assert [b - a for a, b in zip(before, after)] == want, parse
+        assert blob == api.encode_blocks(data, p, block_size=4096,
+                                         parse=parse, device="cpu")
+
+
+def test_row_and_path_wrappers_check_their_inputs(card):
+    from lzma_tpu_torch.ops import cuda_inputs, cuda_path
+
+    args = list(_row_args([64, 64], 3, 0, 2, 32, 1, card))
+    bad = list(args)
+    bad[0] = args[0].long()
+    with pytest.raises(ValueError):
+        cuda_inputs.dp_inputs_cuda(*bad)
+    bad = list(args)
+    bad[3] = args[3][:, :10]
+    with pytest.raises(ValueError):
+        cuda_inputs.dp_inputs_cuda(*bad)
+    bad = list(args)
+    bad[4] = (args[4][0], args[4][1].long())
+    with pytest.raises(ValueError):
+        cuda_inputs.dp_inputs_cuda(*bad)
+    bad = list(args)
+    bad[5] = args[5].cpu()
+    with pytest.raises(ValueError):
+        cuda_inputs.dp_inputs_cuda(*bad)
+    frm, choice, lens, bl, bd, n = _path_graph(64, 1, card)
+    with pytest.raises(TypeError):
+        cuda_path.extract_mark_cuda(frm.float(), lens)
+    with pytest.raises(ValueError):
+        cuda_path.extract_mark_cuda(frm, lens[:2])
+    mark = cuda_path.extract_mark_cuda(frm, lens)
+    with pytest.raises(TypeError):
+        cuda_path.extract_compact_cuda(frm, choice, mark.int())
+    with pytest.raises(ValueError):
+        cuda_path.greedy_mark_cuda(bl, n, 65)
+    with pytest.raises(ValueError):
+        cuda_path.greedy_compact_cuda(bl, bd, mark[:, :64].cpu(), mark[:, :64])
+    empty = cuda_path.extract_compact_cuda(frm[:0], choice[:0], mark[:0])
+    assert [tuple(x.shape) for x in empty] == [(0, 65)] * 4 + [(0,)]

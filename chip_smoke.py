@@ -44,7 +44,11 @@ prints its seconds):
      5, 32 and 273 and at lc8 lp4 pb4 (K12's literal slots in device
      memory, lc3 lp0's in shared memory), K13 and K14 also through the
      lazy tokenize from position 0 and from 256: each against its plain
-     version on the arguments the route gave it
+     version on the arguments the route gave it; the lazy search's
+     kernels (K15 a prefix-doubling level's group ids and the next sort's
+     key, K16 the descent's consecutive LCP, K17 the best matches,
+     ops/cuda_lazy.py) through the same lazy tokenizes, K15 and K16 also
+     through _rmq_search at fb 273: each call against its plain version
   4. the card against the JAX reference: the 8-lane containers of
      generate_bench_data(64 KiB) must hash to PIN_SHA256 (lazy) and
      PIN_OPT_SHA256 (optimal), which tests/test_torch_api.py pins to the
@@ -55,8 +59,13 @@ prints its seconds):
      block decoded by the stdlib lzma module
   6. the lazy path at 8 MiB (text corpus + bench data, LzmaParams()
      defaults, 256 KiB blocks = 32 lanes): encode, decode, round trip,
-     stdlib lzma, K6, K7, K10 (the 273-deep suffix table), K13 and K14
-     launched once, K8, K9, K11 and K12 not at all, K1 and K2
+     stdlib lzma, K6, K7, K9 (the 32-byte suffix keys and the hash key),
+     K10 (the 273-deep suffix table), K13, K14, K16 and K17 launched
+     once, K15 five times (the 32-byte level and each doubling), K8, K11
+     and K12 not at all, K1 and K2; the same encode again inside
+     probing(): its tokenize split by device_matcher.LAZY_STAGES (summed
+     as "tokenize"), and K15-K17's calls (spied, whole lanes) timed by
+     CUDA events beside lazy_work's bounds
   7. the main path: the same 8 MiB with parse="optimal": encode, decode,
      round trip, stdlib lzma, smaller than the lazy container; K3
      launched at least twice, K6 three times, K8 twice (the two rounds
@@ -95,8 +104,9 @@ prints its seconds):
      uncut, K7 against its plain lowering on the whole final
      lowering's arguments, uncut, K8 against its plain counts on the
      whole last round's arguments, uncut, K9, K10 and K11 against
-     their plain versions on phase 7's whole-lane search, uncut, and K12,
-     K13 and K14 against theirs on phase 7's last calls, uncut
+     their plain versions on phase 7's whole-lane search, uncut, K12,
+     K13 and K14 against theirs on phase 7's last calls, uncut, and
+     K15, K16 and K17 against theirs on phase 6's whole-lane calls, uncut
  10. the K5 path: phase 5's 32 streams through decode_batch_resident
      equal the input and K1 (K5 launched, its count); K1's champion shape
      (128 x 16 KiB, lc0, dict 4 KiB, fb 8) through K5 and K1, both timed,
@@ -122,15 +132,18 @@ prints its seconds):
  14. the `.lzma` path at full size: the 8 MiB of phase 6 as ONE stream
      through ops.api.encode_alone, with a known size and with the EOS
      marker, and decode_alone: the stdlib and the port read both back,
-     K6, K7, K10, K13, K14, K2 and K1 launched once a stream and K3,
-     K8, K9, K11 and K12 not at all (counts set to 0 just before each), MB/s and peak memory, the EOS encode again inside
-     probing() for its stages and K6's time on its rows and K7's on its
+     K6, K7, K9, K10, K13, K14, K16, K17, K2 and K1 launched once a
+     stream, K15 five times, and K3, K8, K11 and K12 not at all (counts
+     set to 0 just before each), MB/s and peak memory, the EOS encode
+     again inside probing() for its stages (LAZY_STAGES summed as
+     "tokenize") and K6's time on its rows and K7's on its
      tokens (one lane: the scan spreads its 8,388,609 rows over 2,049
      tiles, K7 its tokens over 8,193); K6, K7, K2 and K1 against their
      plain versions on that stream's tensors, cut as in phase 9 (K6 and
      K7 on the first CMP_POS token rows, K7's doubled by invalid ones,
      and on the rows from CMP_POS before the EOS token to the end, the
-     whole tail); the `.lzma` pins
+     whole tail), and K15, K16 and K17 (spied in the probed encode)
+     against theirs on that stream's own calls, uncut; the `.lzma` pins
      (PIN_ALONE_SHA256, PIN_ALONE_EOS_SHA256 = the JAX package's
      encode_alone of 64 KiB of bench data); the front door
      (lzma_tpu_torch.compress -> decompress on 2 MiB); the command line
@@ -224,8 +237,11 @@ prints its seconds):
      writes compress_file's container of those bytes, and open("rb")
      reads it back in 1 MiB reads
  27. no module of jax, jaxlib or lzma_tpu was loaded
-The last three lines are the card, the kernels' JSON record (K1-K14 and
-P1-P15, 29 records; K9-K14's `jax_ref` names the jitted JAX code each
+The last three lines are the card, the kernels' JSON record (K1-K17 and
+P1-P15, 32 records; K15-K17's launches are main8M-lazy's, their `ms`
+the sum of their calls in its search and `calls_ms` each call's, beside
+main8M-opt's, the stream's, hybrid8M-lazy's, the mesh's, `b`'s and the
+file configurations' launches; K9-K17's `jax_ref` names the jitted JAX code each
 restates, their `ms` is the whole-lane call's and `plain_ms` the plain
 version's on the same arguments, uncut, their launches are main8M-opt's
 and beside them main8M-lazy's, hybrid8M-opt's (K9-K11), the NCCL
@@ -242,6 +258,7 @@ launches too, K7's its stream launches, K8's the route it replaced,
 
 from __future__ import annotations
 
+import gc
 import hashlib
 import json
 import lzma
@@ -1003,15 +1020,181 @@ def row_work(wrapper, args, out):
             + 8 * mark.shape[0], 4 * mark.numel())
 
 
+#: the lazy search's kernels (ops/cuda_lazy.py): name -> (wrapper, plain
+#: version in device_matcher)
+LAZY_KERNELS = {"doubling_groups": ("doubling_groups_cuda",
+                                    "_doubling_groups_plain"),
+                "descent_lcp": ("descent_lcp_cuda", "_descent_lcp_plain"),
+                "best_matches": ("best_matches_cuda", "_best_matches_plain")}
+#: each lazy kernel's TPU-side counterpart (file:line), the jitted JAX code
+#: it restates, and its design
+_JIT_LAZY = ("under jax.jit at lzma_tpu/ops/device_matcher.py:151 "
+             "(find_best_matches_rmq, under jax.vmap in device_encoder) and "
+             "inside _rmq_search past fb 32")
+LAZY_REPLACES = {
+    "doubling_groups": (
+        "lzma_tpu/ops/device_matcher.py:465",
+        "lzma_tpu/ops/device_matcher.py:465-490 (_suffix_rank_lcp's prefix "
+        "doubling: newg, cumsum, the scatter to order, the next lexsort's "
+        "keys), " + _JIT_LAZY,
+        "K14's shape: tiles of 1,024 places flag a new group against the "
+        "place before (each thread's window or pair of ids staged in shared "
+        "memory), a lane scan of the tile counts, a scatter of the ids to "
+        "their positions, then the next key a thread a place"),
+    "descent_lcp": (
+        "lzma_tpu/ops/device_matcher.py:491",
+        "lzma_tpu/ops/device_matcher.py:491-518 (the binary descent and the "
+        "<=32-byte refinement), " + _JIT_LAZY,
+        "a thread a sorted place: two ids a level, then 8 words a pair, "
+        "each index wrapped once and clamped"),
+    "best_matches": (
+        "lzma_tpu/ops/device_matcher.py:171",
+        "lzma_tpu/ops/device_matcher.py:171-213 (find_best_matches_rmq after "
+        "its lexsort), :528 (_lcp_query), " + _JIT_LAZY,
+        "a thread a place of the hash key's sort: its k neighbours, their "
+        "ranks and two table entries each, the selection, the pair written "
+        "at its position"),
+}
+
+
+def _to(dev, obj):
+    """obj with every tensor in it (dicts, tuples, lists) moved to
+    `dev`."""
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return obj.to(dev)
+    if isinstance(obj, dict):
+        return {k: _to(dev, v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to(dev, x) for x in obj)
+    return obj
+
+
+def spied_lazy(fn):
+    """fn() (a call that reaches device_matcher._suffix_rank_lcp past
+    depth 32 or find_best_matches_rmq) with the lazy kernels' wrappers
+    spied.  Returns (fn's result, {kernel: [(its arguments, its result)
+    a call]}; the route passes every argument by position."""
+    from lzma_tpu_torch.ops import cuda_lazy
+
+    seen = {}
+    kept = {k: getattr(cuda_lazy, w) for k, (w, _) in LAZY_KERNELS.items()}
+
+    def spy(name, wrapper):
+        def call(*args):
+            out = wrapper(*args)
+            seen.setdefault(name, []).append((args, out))
+            return out
+        return call
+
+    for k, (w, _) in LAZY_KERNELS.items():
+        setattr(cuda_lazy, w, spy(k, kept[k]))
+    try:
+        out = fn()
+    finally:
+        for k, (w, _) in LAZY_KERNELS.items():
+            setattr(cuda_lazy, w, kept[k])
+    return out, seen
+
+
+def check_lazy(seen):
+    """Every spied lazy kernel call against its plain version on the same
+    card tensors (tolerance zero; dtypes and shapes equal).  Returns
+    ({kernel: max |diff|}, {kernel: the plain versions' ms, summed over
+    its calls})."""
+    from lzma_tpu_torch.ops import device_matcher
+
+    errs, plain_ms = {}, {}
+    for name, calls in seen.items():
+        plain = getattr(device_matcher, LAZY_KERNELS[name][1])
+        errs[name], plain_ms[name] = 0, 0.0
+        for args, got in calls:
+            box = {}
+            plain_ms[name] += wall_ms(lambda: box.update(p=plain(*args)))
+            g = [t for t in (got if isinstance(got, tuple) else (got,))
+                 if t is not None]
+            w = [t for t in (box["p"] if isinstance(box["p"], tuple)
+                             else (box["p"],)) if t is not None]
+            if [(t.dtype, t.shape) for t in g] != [(t.dtype, t.shape) for t in w]:
+                raise AssertionError(
+                    f"{name}: outputs {[(t.dtype, t.shape) for t in g]} against "
+                    f"the plain {[(t.dtype, t.shape) for t in w]}")
+            err = max([int((a - b).abs().max()) if a.numel() else 0
+                       for a, b in zip(g, w)] + [0])
+            if err:
+                raise AssertionError(f"{name} differs from its plain version "
+                                     f"by {err}")
+            del box
+    return errs, plain_ms
+
+
+def lazy_work(name, args, out):
+    """(bytes, operations) a lazy kernel's call must move and do, from its
+    arguments and result.  K15: the order read, the lane's bytes at the
+    32-byte level (else the previous level's ids) read once, the ids and
+    the next key written; 8 operations a word compare (8 words) or 12 a
+    pair of ids, and 8 for the scan and the scatter, a place.  K16: the
+    order, the levels it descends and the lane's bytes read once, the LCP
+    written; 6 operations a level and 10 a refinement word, a place.
+    K17: the sort's values and indices and rank read once, two table
+    entries a candidate in the window, the pair written; 6 operations a
+    candidate looked at and 20 a candidate in the window."""
+    import torch
+    from lzma_tpu_torch.ops import device_matcher
+
+    if name == "doubling_groups":
+        order, data, n, g, span, next_span = args
+        P = order.numel()
+        src = data.numel() if g is None else g.numel() * 8
+        written = sum(t.numel() * 8 for t in out if t is not None)
+        return (P * 8 + src + n.numel() * 8 + written,
+                P * ((64 if g is None else 12) + 8))
+    if name == "descent_lcp":
+        order, grps, data, n, _ = args
+        P = order.numel()
+        levels = len(grps) - 1
+        return (P * 8 * (1 + levels) + data.numel() + n.numel() * 8
+                + out.numel() * 8, P * (6 * levels + 80))
+    sorted_key, order, rank, T, n, dict_size, _, k = args
+    P = order.numel()
+    cand = torch.stack(device_matcher._neighbor_step(
+        sorted_key, order, device_matcher._ranks(k)), dim=2)
+    pos = torch.arange(order.shape[1], device=order.device)[None, :, None]
+    inside = int(((cand >= 0) & (pos - cand <= dict_size)
+                  & (cand < pos)).sum())
+    del cand
+    return (P * (4 + 8 + 8) + n.numel() * 8 + 8 * inside
+            + sum(t.numel() * 8 for t in out), P * 6 * k + 20 * inside)
+
+
+def lazy_times(seen):
+    """Each spied lazy kernel call (spied_lazy's) timed alone by CUDA
+    events, and each kernel's calls' work summed with its bound.  Returns
+    ({kernel: [ms a call]}, {kernel: ((bytes, operations), bound)})."""
+    from lzma_tpu_torch.ops import cuda_lazy
+    from lzma_tpu_torch.probes._cuda import event_ms
+
+    times, bounds = {}, {}
+    for name, calls in seen.items():
+        wrapper = getattr(cuda_lazy, LAZY_KERNELS[name][0])
+        times[name] = [event_ms(lambda a=a: wrapper(*a), 3) for a, _ in calls]
+        work = [lazy_work(name, a, o) for a, o in calls]
+        work = (sum(w[0] for w in work), sum(w[1] for w in work))
+        bounds[name] = (work, bound(*work))
+    return times, bounds
+
+
 def counters():
     """The kernels whose launches a main-path run counts, by name: K3
     dp_parse, K6 classify, K7 lower, K8 lower_counts, K2 rc_serialize, K1
     ring_decode, K9 search_keys, K10 suffix_table, K11 match_lists, K12
-    dp_inputs, K13 path_mark, K14 path_compact; each the (module,
-    attribute) of its wrapper's count."""
-    from lzma_tpu_torch.ops import (cuda_classify, cuda_inputs, cuda_lower,
-                                    cuda_parser, cuda_path, cuda_ring,
-                                    cuda_search, cuda_serializer)
+    dp_inputs, K13 path_mark, K14 path_compact, K15 doubling_groups, K16
+    descent_lcp, K17 best_matches; each the (module, attribute) of its
+    wrapper's count."""
+    from lzma_tpu_torch.ops import (cuda_classify, cuda_inputs, cuda_lazy,
+                                    cuda_lower, cuda_parser, cuda_path,
+                                    cuda_ring, cuda_search, cuda_serializer)
 
     return {"dp_parse": (cuda_parser, "LAUNCHES"),
             "classify": (cuda_classify, "LAUNCHES"),
@@ -1024,7 +1207,10 @@ def counters():
             "match_lists": (cuda_search, "LIST_LAUNCHES"),
             "dp_inputs": (cuda_inputs, "LAUNCHES"),
             "path_mark": (cuda_path, "MARK_LAUNCHES"),
-            "path_compact": (cuda_path, "COMPACT_LAUNCHES")}
+            "path_compact": (cuda_path, "COMPACT_LAUNCHES"),
+            "doubling_groups": (cuda_lazy, "GROUP_LAUNCHES"),
+            "descent_lcp": (cuda_lazy, "DESCENT_LAUNCHES"),
+            "best_matches": (cuda_lazy, "BEST_LAUNCHES")}
 
 
 def zero_counts():
@@ -1387,7 +1573,8 @@ def alone_phase(dev, card, data):
     Returns K6's ms on the stream's token rows and K7's on its tokens
     ({"classify": ms, "lower": ms}), their bounds (likewise), the max
     |diff| of K6, K7, K2 and K1 against their plain versions on the
-    stream's tensors, cut, and the EOS encode's launches by kernel."""
+    stream's tensors, cut, and of K15, K16 and K17 on its calls, uncut
+    (by kernel name), and the EOS encode's launches by kernel."""
     import os
     import tempfile
 
@@ -1400,6 +1587,7 @@ def alone_phase(dev, card, data):
     from lzma_tpu_torch.ops import api, cuda_classify, cuda_lower
     from lzma_tpu_torch.ops.device_decoder import _pow2_at_least, pad_rows
     from lzma_tpu_torch.ops.device_encoder import probing
+    from lzma_tpu_torch.ops.device_matcher import LAZY_STAGES
     from lzma_tpu_torch.probes._cuda import event_ms
 
     mb = len(data) / 1e6
@@ -1425,12 +1613,15 @@ def alone_phase(dev, card, data):
         if lzma.decompress(blob, format=lzma.FORMAT_ALONE) != data:
             raise AssertionError(f"stdlib lzma disagrees on the .lzma stream "
                                  f"(eos {eos})")
-        # the lazy stream's 273-deep suffix table is K10's
+        # the lazy stream's search: K9, K15 a doubling level, K16, K10,
+        # K17
         if launches != {"dp_parse": 0, "classify": 1, "lower": 1,
                         "lower_counts": 0, "rc_serialize": 1,
-                        "ring_decode": 1, "search_keys": 0,
+                        "ring_decode": 1, "search_keys": 1,
                         "suffix_table": 1, "match_lists": 0,
-                        "dp_inputs": 0, "path_mark": 1, "path_compact": 1}:
+                        "dp_inputs": 0, "path_mark": 1, "path_compact": 1,
+                        "doubling_groups": 5, "descent_lcp": 1,
+                        "best_matches": 1}:
             raise AssertionError(f"the .lzma path's launches: {launches}")
         blobs[eos] = blob
         log(f"[lzma stream] {len(data)} B as one stream, "
@@ -1439,13 +1630,23 @@ def alone_phase(dev, card, data):
             f"{t_enc:.3f} s = {mb / t_enc:.3f} MB/s, decode {t_dec:.3f} s = "
             f"{mb / t_dec:.3f} MB/s, peak device memory {peak / 2**20:.1f} "
             f"MiB, launches {launches}; the stdlib and decode_alone read it")
+    # the probed rerun spies K15-K17 too: their calls on the stream's one
+    # lane of 8,388,608 places (K15 over 8,192 tiles, its lane scan in 8
+    # passes of 1,024) wait in host memory for the check below
     with probing() as probe:
         t = time.perf_counter()
-        again = api.encode_alone(data, LzmaParams(write_eos=True), device=dev)
+        again, seen_lazy = spied_lazy(lambda: api.encode_alone(
+            data, LzmaParams(write_eos=True), device=dev))
         torch.cuda.synchronize()
         t_probed = time.perf_counter() - t
     if again != blobs[True]:
         raise AssertionError("the probed .lzma encode wrote another stream")
+    if {k: len(v) for k, v in seen_lazy.items()} != dict(
+            doubling_groups=5, descent_lcp=1, best_matches=1):
+        raise AssertionError(f"the probed .lzma encode ran the lazy kernels "
+                             f"{ {k: len(v) for k, v in seen_lazy.items()} }")
+    lazy_stash = _to("cpu", seen_lazy)
+    del seen_lazy
     rows = probe["classify_rows"]
     l_args = probe["lower_args"]
     ms = {"classify": event_ms(
@@ -1458,6 +1659,8 @@ def alone_phase(dev, card, data):
     log(f"[lzma stream stages] probed EOS encode {t_probed:.3f} s, "
         f"{n_tok} tokens, {int(probe['lowered'][5].sum())} coded pairs: "
         + ", ".join(f"{k} {sum(v) * 1e3:.1f} ms" for k, v in probe["seconds"].items())
+        + f"; tokenize (the sum of {', '.join(LAZY_STAGES)}) "
+        f"{sum(sum(probe['seconds'][k]) for k in LAZY_STAGES) * 1e3:.1f} ms"
         + f"; K6 on its rows {ms['classify']:.3f} ms (CUDA events, "
         f"{ms['classify'] * 1e6 / n_tok:.1f} ns a token), bound "
         f"{bounds['classify'][0]:.4f} ms by {bounds['classify'][1]}; the "
@@ -1507,6 +1710,17 @@ def alone_phase(dev, card, data):
         f"in a {_pow2_at_least(cap, 16)}-byte bucket max |diff| "
         f"{errs['ring_decode']}")
     del probe, rows, l_args, t_pos, t_len, t_valid, ctx, bits, totals, d_out
+    # K15, K16 and K17 against their plain versions on the stream's own
+    # calls, uncut (one plain call a kernel call)
+    width = lazy_stash["doubling_groups"][0][0][0].shape[1]
+    lazy_errs, lazy_plain = check_lazy(_to(dev, lazy_stash))
+    errs.update(lazy_errs)
+    del lazy_stash
+    log(f"[lzma stream K15, K16, K17 vs plain] on {card}, tolerance 0: the "
+        f"stream's one lane of {width} places ({-(-width // 1024)} K15 "
+        "tiles), uncut (the doubling's five levels, the descent, the best "
+        "matches): ids, keys, LCPs and matches equal; plain " + ", ".join(
+            f"{k} {v:.1f} ms" for k, v in lazy_plain.items()))
 
     small = generate_bench_data(ALONE_PIN_SIZE)
     for eos, pin in ((False, PIN_ALONE_SHA256), (True, PIN_ALONE_EOS_SHA256)):
@@ -1573,8 +1787,8 @@ def hybrid_phase(dev, card, data, params, opt_blob, lazy_blob):
     PhaseTimer; K1 decodes the container, counted from 0; the stdlib reads
     every block) and through the lazy hybrid, whose container must be
     main8M-lazy's.  Returns K1's launches in the hybrid-optimal decode, the
-    search kernels' (K9-K11) in its encode, and hybrid8M-opt's
-    container."""
+    search kernels' (K9-K11) in its encode, hybrid8M-opt's container, and
+    the lazy search kernels' (K15-K17) in the lazy hybrid's encode."""
     import os
 
     import torch
@@ -1647,21 +1861,28 @@ def hybrid_phase(dev, card, data, params, opt_blob, lazy_blob):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     timer = PhaseTimer()
+    zero_counts()
     t = time.perf_counter()
     lazy = hybrid.encode_blocks_hybrid(data, params, block_size=MAIN_BLOCK,
                                        num_threads=0, device=dev, timer=timer)
     torch.cuda.synchronize()
     t_lazy = time.perf_counter() - t
     peak = torch.cuda.max_memory_allocated()
+    # the lazy tokenizer's search on the card: K15-K17 once a lane group
+    lazy_searched = {k: v for k, v in read_counts().items()
+                     if k in LAZY_KERNELS}
     if lazy != lazy_blob:
         raise AssertionError("hybrid8M-lazy's container differs from main8M-lazy's")
+    if min(lazy_searched.values()) < 1:
+        raise AssertionError(f"hybrid8M-lazy's search launched {lazy_searched}")
     split = ", ".join(f"{k} {v:.3f} s" for k, v in timer.totals.items())
     log(f"[hybrid8M-lazy] the same input and params on {card} with {cpus} host "
         f"CPUs: encode {t_lazy:.3f} s = {mb / t_lazy:.3f} MB/s ({split}), "
         f"{len(lazy)} B = "
         f"main8M-lazy's container byte for byte (the same tokens, the host's "
-        f"serializer), peak device memory {peak / 2**20:.1f} MiB")
-    return k1, searched, opt8
+        f"serializer), peak device memory {peak / 2**20:.1f} MiB; the lazy "
+        f"search's launches {lazy_searched}")
+    return k1, searched, opt8, lazy_searched
 
 
 def profile_phase(dev, card, data, params, blob, stage_peaks):
@@ -1920,7 +2141,8 @@ def mesh_nccl_phase(dev, card, data, params, lazy_blob, opt_blob, hybrid_blob):
     if min(enc["rc_serialize"], enc["dp_parse"], enc["classify"], enc["lower"],
            enc["lower_counts"], enc["search_keys"], enc["suffix_table"],
            enc["match_lists"], enc["dp_inputs"], enc["path_mark"],
-           enc["path_compact"], dec["ring_decode"]) < 1:
+           enc["path_compact"], enc["doubling_groups"], enc["descent_lcp"],
+           enc["best_matches"], dec["ring_decode"]) < 1:
         raise AssertionError(f"[mesh] a kernel did not run: encodes {enc}, "
                              f"decodes {dec}")
     log(f"[mesh NCCL world 1] {len(data)} B in {len(data) // MAIN_BLOCK} lanes "
@@ -1972,12 +2194,14 @@ def mesh_gloo_phase(card, data, lazy_blob, opt_blob, hybrid_blob, kept):
             for parse in ("lazy", "optimal"):
                 got = rec[parse]["launches"]
                 if min(got["rc_serialize"], got["classify"],
-                       got["suffix_table"], got["path_mark"],
-                       got["path_compact"]) < 1 or (
+                       got["search_keys"], got["suffix_table"],
+                       got["path_mark"], got["path_compact"]) < 1 or (
                         parse == "optimal" and min(
                             got["dp_parse"], got["lower_counts"],
-                            got["search_keys"], got["match_lists"],
-                            got["dp_inputs"]) < 1):
+                            got["match_lists"], got["dp_inputs"]) < 1) or (
+                        parse == "lazy" and min(
+                            got["doubling_groups"], got["descent_lcp"],
+                            got["best_matches"]) < 1):
                     raise AssertionError(f"[mesh] rank {r} {parse}: {got}")
             if not rec["decode"]["equal"] or \
                     rec["decode"]["launches"]["ring_decode"] < 1:
@@ -2262,7 +2486,8 @@ def file_phase(dev, card, data, lazy_blob, opt_blob):
         dec_launches = report("file128M-opt", batches(log_path, "decode"),
                               t_dec, size)
         launches["ring_decode"] += dec_launches["ring_decode"]
-        if min(launches.values()) < 1:
+        # the optimal parse at fb 32 runs no prefix doubling (K15-K17)
+        if min(v for k, v in launches.items() if k not in LAZY_KERNELS) < 1:
             raise AssertionError(f"a kernel did not run: {launches}")
         found["file128M-opt"] = launches
         for x in (src, enc, back, log_path):
@@ -2354,16 +2579,20 @@ def bench_phase(card):
         report = [ln.strip() for ln in out.getvalue().splitlines()
                   if "KB/s" in ln]
         tpu = backend == "tpu"
-        # the lazy stream's 273-deep table is K10's; the hybrid's list
-        # search K9, K10 and K11 once a pass
+        # the lazy stream's search K9, K15 five times, K16, K10 and K17 a
+        # pass; the hybrid's list search (fb 32) K9, K10 and K11 once a
+        # pass
         want = dict(ring_decode=2 * passes, dp_parse=0,
                     classify=passes if tpu else 0,
                     lower=passes if tpu else 0, lower_counts=0,
                     rc_serialize=passes if tpu else 0,
-                    search_keys=0 if tpu else passes, suffix_table=passes,
+                    search_keys=passes, suffix_table=passes,
                     match_lists=0 if tpu else passes, dp_inputs=0,
                     path_mark=passes if tpu else 0,
-                    path_compact=passes if tpu else 0)
+                    path_compact=passes if tpu else 0,
+                    doubling_groups=5 * passes if tpu else 0,
+                    descent_lcp=passes if tpu else 0,
+                    best_matches=passes if tpu else 0)
         if rc != 0 or launches != want or len(report) != passes + 1:
             raise AssertionError(f"[b -backend{backend}] rc {rc}, launches "
                                  f"{launches} (want {want})\n{out.getvalue()}")
@@ -2436,8 +2665,9 @@ def main():
                                                    encode_batch,
                                                    pair_counts, probing,
                                                    tokenize)
-    from lzma_tpu_torch.ops import (cuda_inputs, cuda_search, device_matcher,
-                                    device_parser)
+    from lzma_tpu_torch.ops import (cuda_inputs, cuda_lazy, cuda_search,
+                                    device_matcher, device_parser)
+    from lzma_tpu_torch.ops.device_matcher import LAZY_STAGES
     from lzma_tpu_torch.ops.device_parser import (MODEL_STAGES, SEARCH_STAGES,
                                                   tokenize_optimal)
     from lzma_tpu_torch.ops.hybrid import DEFAULT_TIERS
@@ -2611,15 +2841,24 @@ def main():
     s_data[0] = 0
     s_lens[1], s_lens[2] = 0, 3
     search_err = dict.fromkeys(SEARCH_KERNELS, 0)
+    lazy_err = dict.fromkeys(LAZY_KERNELS, 0)
     for fb_s, tiers, cap, order in SEARCH_CASES:
         tiers = DEFAULT_TIERS if tiers == "hybrid" else tiers
-        _, seen = spied_search(lambda: device_matcher._rmq_search(
-            s_data, s_lens, s_data.shape[1], fb_s, tiers, cap, order))
+        (_, seen), seen_l = spied_lazy(lambda: spied_search(
+            lambda: device_matcher._rmq_search(
+                s_data, s_lens, s_data.shape[1], fb_s, tiers, cap, order)))
         if set(seen) != set(SEARCH_KERNELS):
             raise AssertionError(f"the search at fb {fb_s} ran {sorted(seen)}")
         errs, _ = check_search(seen)
         for k, v in errs.items():
             search_err[k] = max(search_err[k], v)
+        # past fb 32 the prefix doubling: K15 five times, K16 once
+        want = {"doubling_groups": 5, "descent_lcp": 1} if fb_s > 32 else {}
+        if {k: len(v) for k, v in seen_l.items()} != want:
+            raise AssertionError(f"the search at fb {fb_s} ran the lazy "
+                                 f"kernels {sorted(seen_l)}")
+        for k, v in check_lazy(seen_l)[0].items():
+            lazy_err[k] = max(lazy_err[k], v)
         width = seen["match_lists"][1][0].shape[2]
         log(f"[K9, K10, K11 vs plain] {CMP_LANES}x{CMP_BYTES} (an all-zero "
             f"lane, lanes of 0 and 3 bytes), fb {fb_s}, "
@@ -2656,14 +2895,23 @@ def main():
             " memory): the DP rows, the seed's and the last round's marks "
             "and tokens equal")
     for start in (0, CMP_BYTES // 8):
-        _, seen = spied_rows(lambda: device_matcher.tokenize(
-            s_data, s_lens, s_data.shape[1], params.fast_bytes, start=start))
+        (_, seen), seen_l = spied_lazy(lambda: spied_rows(
+            lambda: device_matcher.tokenize(
+                s_data, s_lens, s_data.shape[1], params.fast_bytes,
+                start=start)))
         errs, _ = check_rows(seen)
         for k, v in errs.items():
             row_err[k] = max(row_err[k], v)
-    log(f"[K13, K14 vs plain] the lazy tokenize of the same lanes from "
-        f"position 0 and {CMP_BYTES // 8}: marks and tokens equal")
-    del seen, s_data, s_lens
+        if {k: len(v) for k, v in seen_l.items()} != dict(
+                doubling_groups=5, descent_lcp=1, best_matches=1):
+            raise AssertionError(f"the lazy tokenize ran {sorted(seen_l)}")
+        for k, v in check_lazy(seen_l)[0].items():
+            lazy_err[k] = max(lazy_err[k], v)
+    log(f"[K13, K14, K15, K16, K17 vs plain] the lazy tokenize of the same "
+        f"lanes from position 0 and {CMP_BYTES // 8}: the doubling's five "
+        "levels (ids and keys), the descent's LCP, the best matches, marks "
+        "and tokens equal; K15 and K16 in the search at fb 273 too")
+    del seen, seen_l, s_data, s_lens
     done("small shapes")
 
     # ---- 4. the pinned containers (card vs the JAX reference) ----
@@ -2713,12 +2961,16 @@ def main():
     lazy_blob, t_enc, t_dec, launches, peak, _ = drive(api, data, params,
                                                        "lazy", dev)
     lazy_launches = launches
+    # the lazy search: K9 its keys, K15 its five doubling levels, K16 the
+    # descent, K10 the table, K17 the best matches; its path K13, K14
     if launches["rc_serialize"] < 1 or launches["ring_decode"] < 1 \
             or launches["classify"] != 1 or launches["lower"] != 1 \
-            or launches["lower_counts"] != 0 or launches["search_keys"] != 0 \
+            or launches["lower_counts"] != 0 or launches["search_keys"] != 1 \
             or launches["suffix_table"] != 1 or launches["match_lists"] != 0 \
             or launches["dp_inputs"] != 0 or launches["path_mark"] != 1 \
-            or launches["path_compact"] != 1:
+            or launches["path_compact"] != 1 \
+            or launches["doubling_groups"] != 5 \
+            or launches["descent_lcp"] != 1 or launches["best_matches"] != 1:
         raise AssertionError(f"a kernel did not run on the lazy path: {launches}")
     log(f"[lazy] {len(data)} B in {len(data) // MAIN_BLOCK} lanes of {MAIN_BLOCK} B "
         f"on {card}: encode {t_enc:.3f} s = {mb / t_enc:.3f} MB/s, decode "
@@ -2726,9 +2978,47 @@ def main():
         f"{len(lazy_blob) / len(data):.4f}, peak device memory "
         f"{peak / 2**20:.1f} MiB, launches {launches}; every block decodes "
         "with the stdlib lzma module")
+    # the same encode inside probing(): the lazy tokenize's stages, and
+    # K15-K17's calls (spied: their whole-lane arguments), each timed
+    # alone by CUDA events beside its bound
+    with probing() as probe:
+        t = time.perf_counter()
+        again, seen_lazy = spied_lazy(lambda: api.encode_blocks(
+            data, params, block_size=MAIN_BLOCK, parse="lazy", device=dev))
+        torch.cuda.synchronize()
+        t_probed = time.perf_counter() - t
+    if again != lazy_blob:
+        raise AssertionError("the probed lazy encode wrote another container")
+    secs, l_peaks = probe["seconds"], probe["peak_bytes"]
+    lazy_tok_ms = sum(sum(secs[k]) for k in LAZY_STAGES) * 1e3
+    log(f"[lazy stages] probed lazy encode {t_probed:.3f} s (unprobed "
+        f"{t_enc:.3f} s), ms / peak MiB above the stage's start: "
+        + ", ".join(f"{k} {sum(v) * 1e3:.1f}"
+                    + (f" ({len(v)} calls)" if len(v) > 1 else "")
+                    + f" / {max(l_peaks[k]) / 2**20:.1f}"
+                    for k, v in secs.items())
+        + f"; tokenize (the sum of {', '.join(LAZY_STAGES)}) "
+        f"{lazy_tok_ms:.1f} ms")
+    lazy_calls, lazy_bounds = lazy_times(seen_lazy)
+    lazy_whole = {k: sum(v) for k, v in lazy_calls.items()}
+    log(f"[K15, K16, K17 whole lanes] main8M-lazy's {len(data) // MAIN_BLOCK} "
+        f"lanes x {MAIN_BLOCK} positions on {card}, each kernel's calls of "
+        "one search summed: " + "; ".join(
+            f"{k} {lazy_whole[k]:.3f} ms in {len(seen_lazy[k])} call"
+            f"{'s' if len(seen_lazy[k]) > 1 else ''} (CUDA events, the "
+            f"wrapper), {b[0][0]} B read and written, {b[0][1]} operations, "
+            f"bound {b[1][0]:.4f} ms by {b[1][1]} "
+            f"({lazy_whole[k] / b[1][0]:.1f}x)"
+            for k, b in lazy_bounds.items()))
+    # phase 9 holds them to their plain versions; the arguments wait in
+    # host memory so that they take no room from phase 7's peak
+    lazy_stash = _to("cpu", seen_lazy)
+    del seen_lazy, probe, again
+    gc.collect()
     done("lazy 8 MiB")
 
     # ---- 7. the main path: 8 MiB, optimal parse ----
+    held = torch.cuda.memory_allocated(dev)
     blob, t_enc, t_dec, launches, peak, (offsets, bsizes) = drive(
         api, data, params, "optimal", dev)
     # the two rounds count their pairs (K8), the final tokens are lowered
@@ -2739,7 +3029,8 @@ def main():
             or launches["lower"] != 1 or launches["lower_counts"] != 2 \
             or any(launches[k] != 1 for k in SEARCH_KERNELS) \
             or launches["dp_inputs"] != 2 or launches["path_mark"] != 3 \
-            or launches["path_compact"] != 3:
+            or launches["path_compact"] != 3 \
+            or any(launches[k] for k in LAZY_KERNELS):
         raise AssertionError(f"a kernel did not run on the main path: {launches}")
     if len(blob) >= len(lazy_blob):
         raise AssertionError(f"optimal container {len(blob)} B is not smaller "
@@ -2749,8 +3040,9 @@ def main():
         f"{t_dec:.3f} s = {mb / t_dec:.3f} MB/s, round trip "
         f"{mb / (t_enc + t_dec):.3f} MB/s, ratio {len(blob) / len(data):.4f} "
         f"(lazy {len(lazy_blob) / len(data):.4f}), peak device memory "
-        f"{peak / 2**20:.1f} MiB, launches {launches}; every block decodes "
-        "with the stdlib lzma module")
+        f"{peak / 2**20:.1f} MiB ({held / 2**20:.1f} MiB allocated before it "
+        f"began), launches {launches}; every block decodes with the stdlib "
+        "lzma module")
     # the same encode inside probing(): the stage breakdown and the
     # tensors phase 8 cuts (its launches are not the main path's)
     # (and K12-K14's last calls, spied: their whole-lane arguments)
@@ -3047,6 +3339,17 @@ def main():
             f"{k} kernel {search_whole[k]:.3f} ms vs plain "
             f"{search_plain[k]:.1f} ms" for k in SEARCH_KERNELS)
         + f" on {card}")
+    # K15, K16 and K17: main8M-lazy's whole-lane calls (phase 6), uncut
+    # (one plain call a kernel call)
+    errs, lazy_plain = check_lazy(_to(dev, lazy_stash))
+    for k, v in errs.items():
+        lazy_err[k] = max(lazy_err[k], v)
+    del lazy_stash
+    log(f"[K15, K16, K17 vs plain] main8M-lazy's whole lanes (the doubling's "
+        f"five levels, the descent, the best matches): ids, keys, LCPs and "
+        f"matches equal; " + ", ".join(
+            f"{k} kernel {lazy_whole[k]:.3f} ms vs plain {lazy_plain[k]:.1f} ms"
+            for k in LAZY_KERNELS) + f" on {card}")
     # K12, K13 and K14: the main path's last calls, uncut (one plain call
     # each)
     errs, row_plain = check_rows(seen_rows)
@@ -3213,10 +3516,12 @@ def main():
     k7_err = max(k7_err, stream_errs["lower"])
     k2_err = max(k2_err, stream_errs["rc_serialize"])
     k1_err = max(k1_err, stream_errs["ring_decode"])
+    for k in LAZY_KERNELS:
+        lazy_err[k] = max(lazy_err[k], stream_errs[k])
     done("lzma stream")
 
     # ---- 15-17. the hybrid: pins, hybrid8M-opt, hybrid8M-lazy ----
-    hybrid_k1, hybrid_search, hybrid_blob = hybrid_phase(
+    hybrid_k1, hybrid_search, hybrid_blob, hybrid_lazy = hybrid_phase(
         dev, card, data, params, blob, lazy_blob)
     done("hybrid")
 
@@ -3373,9 +3678,25 @@ def main():
             ("dp_inputs", "dp_inputs_cuda", None),
             ("path_mark", "extract_mark_cuda", "greedy_mark_cuda"),
             ("path_compact", "extract_compact_cuda", "greedy_compact_cuda"))
+    ] + [
+        record(name, "lzma_tpu_torch/csrc/lazy_search.cu",
+               LAZY_REPLACES[name][0], lazy_launches[name], lazy_err[name],
+               lazy_whole[name], lazy_plain[name], lazy_bounds[name][1],
+               jax_ref=LAZY_REPLACES[name][1], whole_ms=lazy_whole[name],
+               whole_bound_ms=lazy_bounds[name][1][0],
+               ms_of="main8M-lazy's search, its calls summed",
+               calls=len(lazy_calls[name]), calls_ms=lazy_calls[name],
+               main_launches=launches[name],
+               stream_launches=stream_launches[name],
+               hybrid_launches=hybrid_lazy[name],
+               mesh_launches=mesh_enc[name],
+               bench_launches=bench_launches["tpu"][name],
+               file_launches={k: v[name] for k, v in file_launches.items()},
+               design=LAZY_REPLACES[name][2])
+        for name in LAZY_KERNELS
     ] + probe_records
-    if len(kernels) != 29:
-        raise AssertionError(f"{len(kernels)} kernel records, not 29")
+    if len(kernels) != 32:
+        raise AssertionError(f"{len(kernels)} kernel records, not 32")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,8 @@ its slot counts (K8).
 KERNEL picks among dp_parse, dp_parse2, rc_serialize, ring_decode,
 ring_input, classify, lower, lower_counts, classify_stream,
 lower_stream, ring_decode_champion, block_decode_champion and
-ring_input_champion (default: all).  The
+ring_input_champion, tokenize_lazy and tokenize_stream (default:
+all).  The
 inputs are chip_smoke.py's: the main path is text_part() +
 generate_bench_data(5 << 20), LzmaParams() defaults (lc3 lp0 pb2, fb
 32), parse="optimal", 32 lanes of 256 KiB; an encode inside
@@ -29,7 +30,11 @@ lower_stream) it also splits this checkout's call by its device
 operations (``utils.profiling``: torch.profiler over three calls, each
 operation's microseconds a call).  The champion shape
 (bench.py:344-390) is 128 lanes of 16 KiB of bench data, lc0, dict 4
-KiB, fb 8, lazy: K1 and K5 decode its streams.  OTHER_CHECKOUT's package
+KiB, fb 8, lazy: K1 and K5 decode its streams.  tokenize_lazy and
+tokenize_stream are each checkout's whole lazy tokenize
+(``ops.device_matcher.tokenize``: its search, path and compaction, the
+status readbacks included) on the main path's 32 lanes and on the 8 MiB
+as one lane, LzmaParams() defaults, 4 candidates.  OTHER_CHECKOUT's package
 is loaded under another name and its kernels are built by its own
 runtime/build.py and called through its own wrappers
 (``ops.cuda_parser.dp_parse_cuda``, ``dp_parse2_cuda``,
@@ -81,9 +86,11 @@ CH_LANES, CH_BLOCK, CH_DICT = 128, 1 << 14, 1 << 12
 KERNELS = ("dp_parse", "dp_parse2", "rc_serialize", "ring_decode",
            "ring_input", "classify", "lower", "lower_counts",
            "classify_stream", "lower_stream", "ring_decode_champion",
-           "block_decode_champion", "ring_input_champion")
+           "block_decode_champion", "ring_input_champion", "tokenize_lazy",
+           "tokenize_stream")
 MAIN_PATH = KERNELS[:8]
 STREAM = ("classify_stream", "lower_stream")
+TOKENIZE = ("tokenize_lazy", "tokenize_stream")
 
 
 def other_wrappers(root: str):
@@ -98,7 +105,7 @@ def other_wrappers(root: str):
     spec.loader.exec_module(mod)
     return tuple(importlib.import_module(f"{OTHER}.ops.{name}") for name in
                  ("cuda_parser", "cuda_serializer", "cuda_ring", "cuda_decoder",
-                  "cuda_classify", "cuda_lower"))
+                  "cuda_classify", "cuda_lower", "device_matcher"))
 
 
 def main_data():
@@ -203,8 +210,8 @@ def main(argv=None) -> None:
     name = card().splitlines()[0]
     print(name, flush=True)
     dev = torch.device("cuda", 0)
-    o_parser, o_serializer, o_ring, o_decoder, o_classify, o_lower = \
-        other_wrappers(argv[0])
+    o_parser, o_serializer, o_ring, o_decoder, o_classify, o_lower, \
+        o_matcher = other_wrappers(argv[0])
     result = {"card": name}
     kernels = {}
     if any(k in MAIN_PATH for k in chosen):
@@ -268,6 +275,22 @@ def main(argv=None) -> None:
             "ring_input_champion": ring_input(ch),
         })
         result["champion_longest_lane"] = decoded_work(ch)
+    if any(k in TOKENIZE for k in chosen):
+        from ..ops import device_matcher
+
+        data = main_data()
+        params = LzmaParams()
+        for kernel, blocks in (
+                ("tokenize_lazy", [data[i:i + BLOCK]
+                                   for i in range(0, len(data), BLOCK)]),
+                ("tokenize_stream", [data])):
+            lanes, lens = pad_rows(blocks, dev)
+            args = (lanes, lens, min(params.dict_size, lanes.shape[1]),
+                    params.fast_bytes, 4)
+            kernels[kernel] = {
+                "other": lambda a=args: o_matcher.tokenize(*a),
+                "this": lambda a=args: device_matcher.tokenize(*a)}
+            result[kernel + "_lanes"] = list(lanes.shape)
     for kernel in chosen:
         fns = kernels[kernel]
         outs = {k: fn() for k, fn in fns.items()}
@@ -279,6 +302,8 @@ def main(argv=None) -> None:
         if kernel.endswith("champion") or kernel.startswith(("classify",
                                                              "lower")):
             reps = 5
+        if kernel in TOKENIZE:
+            reps = 3
         times = {k: [] for k in fns}
         for k in ("other", "this", "this", "other"):
             times[k].append(event_ms(fns[k], reps))

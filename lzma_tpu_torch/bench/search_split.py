@@ -1,6 +1,7 @@
-"""The optimal parse's candidate search on the card, split by stage.
+"""The search on the card, split by stage: the optimal parse's candidate
+search, or the lazy parse's.
 
-    python -m lzma_tpu_torch.bench.search_split [plain|kernels] ...
+    python -m lzma_tpu_torch.bench.search_split [lazy] [plain|kernels] ...
 
 For each route named (default: both, plain first), main8M-opt (text_part()
 + generate_bench_data(5 << 20), LzmaParams() defaults, parse="optimal",
@@ -13,12 +14,19 @@ SEARCH_STAGES) and their sum as "search", then the encode's other
 stages; then hybrid8M-opt's search (the same lanes at
 hybrid.DEFAULT_TIERS, uncapped, "near": device_matcher._rmq_search as
 hybrid._match_lists_grouped calls it, all 32 lanes at once) likewise.
-"kernels" is the port as it runs (K9-K11, ops.cuda_search); "plain" puts
-the three kernels' plain versions (device_matcher._search_keys_plain,
-_suffix_table_plain, _match_lists_plain) in their place, on the same card
-tensors, and checks that the containers are the same.  Needs a CUDA
-device.  Prints the card (nvidia-smi name, power limit), one line a route
-and workload, then one JSON line.
+With "lazy" first, main8M-lazy (the same lanes, parse="lazy") is encoded
+likewise and its tokenize split by device_matcher.LAZY_STAGES (summed
+as "tokenize"), then lzma8M-stream (the same 8 MiB as one .lzma stream,
+api.encode_alone) likewise.
+"kernels" is the port as it runs (K9-K11 and K15-K17, ops.cuda_search
+and ops.cuda_lazy); "plain" puts those kernels' plain versions
+(device_matcher._search_keys_plain, _suffix_table_plain,
+_match_lists_plain, _doubling_groups_plain, _descent_lcp_plain,
+_best_matches_plain) in their place, on the same card tensors, and
+checks that the containers are the same; on the lazy path that is the
+arithmetic the port ran before K9 and K15-K17 took it over (K10, K13 and
+K14 stay kernels).  Needs a CUDA device.  Prints the card (nvidia-smi
+name, power limit), one line a route and workload, then one JSON line.
 """
 
 from __future__ import annotations
@@ -35,24 +43,37 @@ ROUTES = ("plain", "kernels")
 BLOCK = 1 << 18
 
 
+#: the wrappers the "plain" route replaces: (module, wrapper, plain
+#: version in device_matcher)
+SWAPPED = (("cuda_search", "search_keys_cuda", "_search_keys_plain"),
+           ("cuda_search", "suffix_table_cuda", "_suffix_table_plain"),
+           ("cuda_search", "match_lists_cuda", "_match_lists_plain"),
+           ("cuda_lazy", "doubling_groups_cuda", "_doubling_groups_plain"),
+           ("cuda_lazy", "descent_lcp_cuda", "_descent_lcp_plain"),
+           ("cuda_lazy", "best_matches_cuda", "_best_matches_plain"))
+
+
 @contextlib.contextmanager
 def _route(name: str):
     """The search's kernel wrappers as they are ("kernels") or replaced by
     their plain versions ("plain") inside the block."""
-    from ..ops import cuda_search as cs
+    import importlib
+
     from ..ops import device_matcher as dm
 
     if name not in ROUTES:
         raise ValueError(f"route must be one of {ROUTES}, got {name!r}")
-    kept = (cs.search_keys_cuda, cs.suffix_table_cuda, cs.match_lists_cuda)
+    mods = [importlib.import_module(f"lzma_tpu_torch.ops.{m}")
+            for m, _, _ in SWAPPED]
+    kept = [getattr(m, w) for m, (_, w, _) in zip(mods, SWAPPED)]
     if name == "plain":
-        cs.search_keys_cuda = dm._search_keys_plain
-        cs.suffix_table_cuda = dm._suffix_table_plain
-        cs.match_lists_cuda = dm._match_lists_plain
+        for m, (_, w, plain) in zip(mods, SWAPPED):
+            setattr(m, w, getattr(dm, plain))
     try:
         yield
     finally:
-        cs.search_keys_cuda, cs.suffix_table_cuda, cs.match_lists_cuda = kept
+        for m, (_, w, _), f in zip(mods, SWAPPED, kept):
+            setattr(m, w, f)
 
 
 def _split(probe, names):
@@ -78,31 +99,10 @@ def run(route: str, dev):
     params = LzmaParams()
     out = {}
     with _route(route):
-        api.encode_blocks(data, params, block_size=BLOCK, parse="optimal",
-                          device=dev)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        t = time.perf_counter()
-        blob = api.encode_blocks(data, params, block_size=BLOCK,
-                                 parse="optimal", device=dev)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t
-        peak = torch.cuda.max_memory_allocated(dev) / 2**20
-        with probing() as probe:
-            t = time.perf_counter()
-            again = api.encode_blocks(data, params, block_size=BLOCK,
-                                      parse="optimal", device=dev)
-            torch.cuda.synchronize()
-            probed = time.perf_counter() - t
-        if again != blob:
-            raise AssertionError("the probed encode wrote another container")
-        split = _split(probe, SEARCH_STAGES)
-        rest = _split(probe, [k for k in probe["seconds"]
-                              if k not in SEARCH_STAGES])
-        out["main8M-opt"] = dict(
-            encode_s=secs, peak_mib=peak, probed_s=probed,
-            search_ms=sum(v[0] for v in split.values()), split=split, rest=rest,
-            container=len(blob))
+        out["main8M-opt"], blob = _encode_split(
+            lambda: api.encode_blocks(data, params, block_size=BLOCK,
+                                      parse="optimal", device=dev),
+            SEARCH_STAGES, "search_ms")
         lanes, lens = pad_rows([data[i:i + BLOCK]
                                 for i in range(0, len(data), BLOCK)], dev)
         for _ in range(2):
@@ -121,8 +121,65 @@ def run(route: str, dev):
     return out, blob
 
 
+def _encode_split(encode, stages, total: str):
+    """A warm-up, an encode (its seconds and peak device memory), then one
+    inside probing(), which must write the same bytes: its `stages` split
+    and their sum (under `total`), and its other stages."""
+    from ..ops.device_encoder import probing
+
+    dev = torch.device("cuda", 0)
+    encode()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    blob = encode()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated(dev) / 2**20
+    with probing() as probe:
+        t = time.perf_counter()
+        again = encode()
+        torch.cuda.synchronize()
+        probed = time.perf_counter() - t
+    if again != blob:
+        raise AssertionError("the probed encode wrote another container")
+    split = _split(probe, stages)
+    rest = _split(probe, [k for k in probe["seconds"] if k not in stages])
+    return {"encode_s": secs, "peak_mib": peak, "probed_s": probed,
+            total: sum(v[0] for v in split.values()), "split": split,
+            "rest": rest, "container": len(blob)}, blob
+
+
+def run_lazy(route: str, dev):
+    """One route's main8M-lazy and lzma8M-stream encodes, split by
+    LAZY_STAGES."""
+    from ..bench.corpus import text_part
+    from ..bench.datagen import generate_bench_data
+    from ..format.properties import LzmaParams
+    from ..ops import api
+    from ..ops.device_matcher import LAZY_STAGES
+
+    data = text_part() + generate_bench_data(5 << 20)
+    params = LzmaParams()
+    out, blobs = {}, []
+    with _route(route):
+        out["main8M-lazy"], blob = _encode_split(
+            lambda: api.encode_blocks(data, params, block_size=BLOCK,
+                                      parse="lazy", device=dev), LAZY_STAGES,
+            "tokenize_ms")
+        blobs.append(blob)
+        out["lzma8M-stream"], blob = _encode_split(
+            lambda: api.encode_alone(data, LzmaParams(write_eos=True),
+                                     device=dev), LAZY_STAGES, "tokenize_ms")
+        blobs.append(blob)
+    return out, b"".join(blobs)
+
+
 def main(argv=None) -> int:
-    routes = (sys.argv[1:] if argv is None else argv) or list(ROUTES)
+    args = list(sys.argv[1:] if argv is None else argv)
+    lazy = bool(args) and args[0] == "lazy"
+    routes = args[1:] if lazy else args
+    routes = routes or list(ROUTES)
     if not torch.cuda.is_available():
         raise SystemExit("search_split: no CUDA device")
     card = subprocess.run(
@@ -133,7 +190,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     result, blobs = {"card": card}, {}
     for route in routes:
-        result[route], blobs[route] = run(route, dev)
+        result[route], blobs[route] = (run_lazy if lazy else run)(route, dev)
         for work, v in result[route].items():
             print(f"[{route}] {work}: " + ", ".join(
                 f"{k} {x:.3f}" if isinstance(x, float) else f"{k} {x}"

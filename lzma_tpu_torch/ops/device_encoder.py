@@ -695,9 +695,8 @@ def _lower_lanes(data, lens, dict_size, lc, lp, pb, fb, num_candidates,
         tok = tokenize_optimal(data, lens, dict_size, lc=lc, lp=lp, pb=pb,
                                fb=fb)
     else:
-        with stage("tokenize", device):
-            tok = tokenize(data, lens, dict_size, fb, num_candidates,
-                           start=plen)
+        # the stages of device_matcher.LAZY_STAGES, inside tokenize
+        tok = tokenize(data, lens, dict_size, fb, num_candidates, start=plen)
     t_pos, t_len, t_dist, t_valid, ntok = tok
     if write_eos:
         t_pos, t_len, t_dist, t_valid = _append_eos_tokens(

@@ -13,10 +13,15 @@ The multi-tier search runs on the card as three CUDA kernels around
 its sorts (``ops/cuda_search.py``): K9 the sort keys
 (``_search_keys_plain``), K10 the suffix rank and min table
 (``_suffix_table_plain``), K11 the lists (``_match_lists_plain``); the
-path's marking and compaction as two (``ops/cuda_path.py``): K13
-(``_greedy_mark``, under ``greedy_path``) and K14 (``_compact_taken``,
-under ``_compact``).  Each wrapper takes the plain version here for CPU
-tensors.
+lazy search's prefix doubling and best matches as three
+(``ops/cuda_lazy.py``): K15 a doubling level's group ids
+(``_doubling_groups_plain``), K16 the descent's consecutive LCP
+(``_descent_lcp_plain``), K17 each position's best match
+(``_best_matches_plain``); the path's marking and compaction as two
+(``ops/cuda_path.py``): K13 (``_greedy_mark``, under ``greedy_path``)
+and K14 (``_compact_taken``, under ``_compact``).  Each wrapper takes the
+plain version here for CPU tensors.  The lazy tokenize runs in the
+stages of LAZY_STAGES (``device_encoder.stage``).
 
 The JAX functions run on one lane under ``jax.vmap``; here the lane axis
 is written out: every tensor is (N, max_n, ...) and rolls, sorts,
@@ -51,6 +56,14 @@ TIER_SPANS = (2, 3, 4, 6, 8, 16, 32)
 TIER_DEFAULTS = dict(k2=1, k3=1, k4=4, k6=0, k8=2, k16=0, k32=0)
 #: DP_TIERS as keyword ks
 DP_TIER_KS = {f"k{span}": k for span, k in DP_TIERS}
+
+#: the lazy tokenize's stages, in order: K9's keys, the sorts (the hash
+#: key's, the 32-byte suffix keys', each doubling level's), the doubling
+#: levels (K15), the descent's LCP (K16), K10's table, the best matches
+#: (K17), the path (K13) and its compaction (K14); their sum is the one
+#: "tokenize" stage of earlier breakdowns
+LAZY_STAGES = ("lazy_keys", "lazy_sort", "lazy_groups", "lazy_lcp",
+               "suffix_table", "best_matches", "path", "compact")
 
 
 def _take(best_len, best_dist):
@@ -137,16 +150,6 @@ def _lexsort_rows(keys):
     nonnegative int64 below 2**32.  Adjacent key pairs are packed into
     one int64, (hi - 2**31) * 2**32 + lo, which keeps their order."""
     return _sort_packed(_pack_keys(keys))
-
-
-def _hash4(d, pos, n):
-    """The 4-byte multiplicative hash of every window, invalid tails given
-    unique sentinels (device_matcher.find_best_matches step 1)."""
-    h = torch.zeros_like(d)
-    for i, mul in enumerate(_HASH_MULS):
-        h = h ^ ((torch.roll(d, -i, dims=1) * mul) & _M32)
-    valid = pos + 3 < n[:, None]
-    return torch.where(valid, h, (0x80000000 ^ pos).expand_as(h))
 
 
 def _wrap_once(i, max_n: int):
@@ -283,54 +286,63 @@ def _suffix_table_plain(data, n, order, depth: int, cl=None):
     return rank, torch.stack(T, dim=1)
 
 
-def _suffix_rank_lcp(data, n, pos, max_n: int, depth: int):
-    """Suffix order by the `depth`-byte prefix, ranks, and the
-    consecutive-LCP sparse min table (device_matcher._suffix_rank_lcp).
-    Up to depth 32: K9's packed keys, their stable sorts, K10.  Past it:
-    prefix doubling from the 32-byte words, the consecutive LCP at full
-    depth by a binary descent over its group levels, then K10 from that
-    LCP.  data (N, max_n) uint8, n (N,).  Returns (rank (N, max_n) int64,
-    T (N, levels, max_n) int32)."""
-    from .cuda_search import search_keys_cuda, suffix_table_cuda
-
-    if depth <= 32:
-        order = _sort_packed(search_keys_cuda(data, n, depth, [])[0])
-        return suffix_table_cuda(data, n, order, depth)
-    d = data.long()
-    b = [torch.roll(d, -i, dims=1) for i in range(32)]
-    words = _prefix_words(b, 8)
-    uniq = (0x80000000 ^ pos).expand(data.shape[0], max_n)
-    w0_unmarked = words[0]
-    words[0] = torch.where(pos < n[:, None], words[0], uniq)
-
-    # lexsort((pos, *words[::-1])): words[0] primary, position last
-    order = _lexsort_rows(words[::-1])
-    # prefix doubling: group ids equal <=> (32 << t)-byte prefixes equal
-    sw = [w.gather(1, order) for w in words]
-    newg = torch.zeros_like(d, dtype=torch.bool)
-    for w in range(8):
-        newg = newg | (sw[w] != torch.roll(sw[w], 1, dims=1))
-    newg[:, 0] = True
-    grp0 = _scatter_rows(order, torch.cumsum(newg.long(), dim=1) - 1)
-    grps = [grp0]
-    span = 32
-    while span < depth:
-        g_hi = grps[-1]
-        g_lo = torch.roll(g_hi, -span, dims=1)   # group of suffix i+span
-        # lexsort((pos, g_lo, g_hi)): group ids < max_n, one packed key
-        order = torch.sort(g_hi * max_n + g_lo, dim=1, stable=True).indices
-        sh = g_hi.gather(1, order)
+def _doubling_groups_plain(order, data, n, g=None, span: int = 0,
+                           next_span: int = 0):
+    """The plain version of ``cuda_lazy.doubling_groups_cuda`` (K15): one
+    level of the prefix doubling (device_matcher._suffix_rank_lcp past
+    depth 32).  The suffixes in `order`, the stable order of this level's
+    sort, get group ids: a new group where its keys differ from the
+    suffix before it in the order, equal ids for equal keys (ties kept:
+    the descent needs real equality, not a strict rank).  `g` None: the
+    keys are the 8 prefix words (word 0 marked 0x80000000 ^ pos past n),
+    the 32-byte level; else (g[i], g[(i + span) mod max_n]), the
+    previous level's ids, which doubles the prefix.  `next_span` > 0 also
+    gives the next sort's key g' * max_n + g'[(i + next_span) mod max_n]
+    (int64: up to 2**46 on an 8 MiB lane).  order (N, max_n) int64, data
+    (N, max_n) uint8, n (N,).  Returns (ids (N, max_n) int64, key or
+    None)."""
+    if g is None:
+        max_n = data.shape[1]
+        pos = torch.arange(max_n, dtype=torch.int64, device=data.device)
+        d = data.long()
+        b = [torch.roll(d, -i, dims=1) for i in range(32)]
+        words = _prefix_words(b, 8)
+        uniq = (0x80000000 ^ pos).expand(data.shape[0], max_n)
+        words[0] = torch.where(pos < n.long()[:, None], words[0], uniq)
+        sw = [w.gather(1, order) for w in words]
+        newg = torch.zeros_like(order, dtype=torch.bool)
+        for w in range(8):
+            newg = newg | (sw[w] != torch.roll(sw[w], 1, dims=1))
+    else:
+        g_lo = torch.roll(g, -span, dims=1)   # group of suffix i + span
+        sh = g.gather(1, order)
         sl = g_lo.gather(1, order)
         newg = ((sh != torch.roll(sh, 1, dims=1))
                 | (sl != torch.roll(sl, 1, dims=1)))
-        newg[:, 0] = True
-        grps.append(_scatter_rows(order, torch.cumsum(newg.long(), dim=1) - 1))
-        span *= 2
+    newg[:, 0] = True
+    ids = _scatter_rows(order, torch.cumsum(newg.long(), dim=1) - 1)
+    if not next_span:
+        return ids, None
+    return ids, ids * order.shape[1] + torch.roll(ids, -next_span, dims=1)
 
-    # consecutive LCP at full depth: binary descent over the levels
+
+def _descent_lcp_plain(order, grps, data, n, depth: int):
+    """The plain version of ``cuda_lazy.descent_lcp_cuda`` (K16): the
+    consecutive LCP at full depth in the final order
+    (device_matcher._suffix_rank_lcp past depth 32): a binary descent over
+    the group levels but the last (the 256-, 128-, 64- and 32-byte
+    groups at depth 273: equal ids advance the level's bytes), then the
+    <=32-byte refinement by prefix words.  Every index wraps once past the
+    end, then clamps (``_wrap_once``).  The refinement's word 0 is the
+    marked one at its own index, words 1-7 unmarked, each at its own
+    index.  Clamped to depth, 0 at place 0.  order (N, max_n) int64, grps
+    the levels' (N, max_n) ids (``_doubling_groups_plain``'s), data (N,
+    max_n) uint8, n (N,).  Returns cl (N, max_n) int64."""
+    max_n = data.shape[1]
+    pos = torch.arange(max_n, dtype=torch.int64, device=data.device)
     a = order
     ap = torch.roll(order, 1, dims=1)
-    l = torch.zeros_like(d)
+    l = torch.zeros_like(order)
     for t in range(len(grps) - 2, -1, -1):
         step = 32 << t
         ia = _wrap_once(a + l, max_n)
@@ -339,10 +351,15 @@ def _suffix_rank_lcp(data, n, pos, max_n: int, depth: int):
         l = l + torch.where(eq, step, 0)
     # <=32-byte refinement; the first word of each block is the marked
     # one, the rest plain data words
-    rem = torch.zeros_like(d)
-    still = torch.ones_like(d, dtype=torch.bool)
+    d = data.long()
+    w0_unmarked = _prefix_words([torch.roll(d, -i, dims=1) for i in range(4)],
+                                1)[0]
+    uniq = (0x80000000 ^ pos).expand(data.shape[0], max_n)
+    w0 = torch.where(pos < n.long()[:, None], w0_unmarked, uniq)
+    rem = torch.zeros_like(order)
+    still = torch.ones_like(order, dtype=torch.bool)
     for w in range(8):
-        src = words[0] if w == 0 else w0_unmarked
+        src = w0 if w == 0 else w0_unmarked
         ia = _wrap_once(a + l + 4 * w, max_n)
         ib = _wrap_once(ap + l + 4 * w, max_n)
         x = src.gather(1, ia) ^ src.gather(1, ib)
@@ -351,7 +368,50 @@ def _suffix_rank_lcp(data, n, pos, max_n: int, depth: int):
         still = still & (x == 0)
     cl = torch.clamp(l + rem, max=depth)
     cl[:, 0] = 0
-    return suffix_table_cuda(data, n, order, depth, cl)
+    return cl
+
+
+def _suffix_rank_lcp(data, n, depth: int, keys):
+    """Suffix order by the `depth`-byte prefix (depth > 32), ranks, and
+    the consecutive-LCP sparse min table (device_matcher._suffix_rank_lcp
+    past depth 32; at or below it the callers sort K9's keys at that
+    depth and run K10 themselves): the stable sort of K9's 32-byte keys
+    (`keys`, ``search_keys_cuda``'s suffix keys at depth 32, a list
+    emptied once sorted), the prefix doubling (K15 a level, a stable sort
+    of its key between levels), the consecutive LCP at full depth by the
+    binary descent (K16), then K10 from that LCP, each piece in its stage
+    of LAZY_STAGES.  data (N, max_n) uint8, n (N,).  Returns (rank (N,
+    max_n) int64, T (N, levels, max_n) int32)."""
+    from .cuda_lazy import descent_lcp_cuda, doubling_groups_cuda
+    from .cuda_search import suffix_table_cuda
+    from .device_encoder import stage
+
+    device = data.device
+    # lexsort((pos, *words[::-1])): words[0] primary, position last
+    with stage("lazy_sort", device):
+        order = _sort_packed(keys)
+        keys.clear()
+    # prefix doubling: group ids equal <=> (32 << t)-byte prefixes equal
+    with stage("lazy_groups", device):
+        g, key = doubling_groups_cuda(order, data, n, None, 0, 32)
+    grps = [g]
+    span = 32
+    while span < depth:
+        # lexsort((pos, g_lo, g_hi)): group ids < max_n, one packed key
+        with stage("lazy_sort", device):
+            order = torch.sort(key, dim=1, stable=True).indices
+            del key
+        with stage("lazy_groups", device):
+            g, key = doubling_groups_cuda(
+                order, data, n, grps[-1], span,
+                2 * span if 2 * span < depth else 0)
+        grps.append(g)
+        span *= 2
+    with stage("lazy_lcp", device):
+        cl = descent_lcp_cuda(order, grps, data, n, depth)
+        del grps
+    with stage("suffix_table", device):
+        return suffix_table_cuda(data, n, order, depth, cl)
 
 
 def _lcp_query(rank, T, q, max_n: int, p=None):
@@ -378,23 +438,25 @@ def _lcp_query(rank, T, q, max_n: int, p=None):
     return torch.where((q >= 0) & (w >= 1), lcp, 0)
 
 
-def find_best_matches_rmq(data, n, dict_size: int, fb: int,
-                          num_candidates: int = 4):
-    """Best (length, distance) per position, every lane at once
-    (device_matcher.find_best_matches_rmq).  data (N, max_n) uint8, n
-    (N,) lengths.  Candidates are the 4-byte-hash sort neighbours; lengths
-    are exact LCPs against a 273-deep suffix order.  Selection ranks by
-    min(LCP, fb) with nearest-distance tie-break; the chosen length is
-    min(LCP, 273, n - pos).  Returns (best_len, best_dist) (N, max_n)
+def _best_matches_plain(sorted_key, order, rank, T, n, dict_size: int,
+                        fb: int, num_candidates: int):
+    """The plain version of ``cuda_lazy.best_matches_cuda`` (K17): each
+    position's best (length, distance) among its 4-byte-hash sort
+    neighbours (device_matcher.find_best_matches_rmq after its lexsort):
+    the candidates ``_neighbor_step`` gives at ranks 1..num_candidates,
+    their exact lengths by ``_lcp_query`` capped at n - pos, a candidate
+    out of the window or not before pos giving none.  Selection ranks by
+    min(LCP, fb) with the nearest distance on ties; the chosen length is
+    the uncapped LCP (up to the table's 273 and n - pos); below
+    MIN_MATCH it is 0; the distance is clamped at 0.  sorted_key, order
+    (N, max_n): the hash key's stable sort values and indices; rank, T the
+    suffix table's; n (N,).  Returns (best_len, best_dist) (N, max_n)
     int64; dist is the LZMA wire distance (actual - 1)."""
-    N, max_n = data.shape
-    device = data.device
-    pos = torch.arange(max_n, dtype=torch.int64, device=device)
+    max_n = order.shape[1]
+    pos = torch.arange(max_n, dtype=torch.int64, device=order.device)
     n = n.long()
-    rank, T = _suffix_rank_lcp(data, n, pos, max_n, MATCH_MAX)
-
-    h = _hash4(data.long(), pos, n)
-    cand = torch.stack(_neighbor_candidates(h, pos, num_candidates), dim=2)
+    cand = torch.stack(_neighbor_step(sorted_key, order,
+                                      _ranks(num_candidates)), dim=2)
 
     p3 = pos[None, :, None]
     in_window = (cand >= 0) & (p3 - cand <= dict_size) & (cand < p3)
@@ -414,6 +476,43 @@ def find_best_matches_rmq(data, n, dict_size: int, fb: int,
     return best_len, torch.clamp(best_dist, min=0)
 
 
+def find_best_matches_rmq(data, n, dict_size: int, fb: int,
+                          num_candidates: int = 4):
+    """Best (length, distance) per position, every lane at once
+    (device_matcher.find_best_matches_rmq).  data (N, max_n) uint8, n
+    (N,) lengths.  Candidates are the 4-byte-hash sort neighbours; lengths
+    are exact LCPs against a 273-deep suffix order.  Selection ranks by
+    min(LCP, fb) with nearest-distance tie-break; the chosen length is
+    min(LCP, 273, n - pos).  Returns (best_len, best_dist) (N, max_n)
+    int64; dist is the LZMA wire distance (actual - 1).
+
+    One K9 call gives the suffix order's 32-byte keys and the hash key
+    (the 4-byte tier's: the same marks, as an int32 h - 2**31 whose order
+    and equality are the hash's); then the prefix doubling
+    (``_suffix_rank_lcp``: K15, K16, K10), the hash key's sort (after the
+    doubling, whose planes it would sit beside) and K17, each piece in
+    its stage of LAZY_STAGES.  Each kernel's wrapper takes its plain
+    version for CPU tensors."""
+    from .cuda_lazy import best_matches_cuda
+    from .cuda_search import search_keys_cuda
+    from .device_encoder import stage
+
+    device = data.device
+    n = n.long()
+    with stage("lazy_keys", device):
+        keys, (h,) = search_keys_cuda(data, n, 32, [4])
+    # the table is always 273 deep, whatever fb: the chosen pair's length
+    # runs past fb to the LZMA cap
+    rank, T = _suffix_rank_lcp(data, n, MATCH_MAX, keys)
+    # lexsort((pos, h)): a stable sort of h keeps position order in ties
+    with stage("lazy_sort", device):
+        s = torch.sort(h, dim=1, stable=True)
+        del h
+    with stage("best_matches", device):
+        return best_matches_cuda(s.values, s.indices, rank, T, n, dict_size,
+                                 fb, num_candidates)
+
+
 def _ranks(k):
     """A tier's ranks: an int k is ranks 1..k (the k nearest), a tuple
     lists them (rank-spaced sampling reaches deeper into crowded hash
@@ -421,25 +520,13 @@ def _ranks(k):
     return tuple(range(1, k + 1)) if isinstance(k, int) else tuple(k)
 
 
-def _neighbor_candidates(h, pos, k):
-    """The previous positions with the same hash at ranks `k` (an int or
-    a tuple, as `_ranks`; device_matcher._neighbor_candidates): one stable
-    sort groups equal hashes, and rank j's candidate is the sort neighbour
-    j back.  h (N, max_n).  Returns one (N, max_n) tensor a rank, -1 =
-    none."""
-    ranks = _ranks(k)
-    if not ranks:
-        return []
-    # lexsort((pos, h)): a stable sort of h keeps position order in ties
-    s = torch.sort(h, dim=1, stable=True)
-    return _neighbor_step(s.values, s.indices, ranks)
-
-
 def _neighbor_step(sorted_h, order, ranks):
-    """`_neighbor_candidates` after its sort: the position `order[r - j]`
-    where r is a position's place in the stable order of its hashes,
-    r >= j and the hash there is its own, else -1, for each rank j of
-    `ranks`.  sorted_h, order (N, max_n): the sort's values and indices."""
+    """The previous positions with the same hash at `ranks`
+    (device_matcher._neighbor_candidates after its sort): the position
+    `order[r - j]` where r is a position's place in the stable order of
+    its hashes, r >= j and the hash there is its own, else -1, for each
+    rank j of `ranks`.  sorted_h, order (N, max_n): the sort's values and
+    indices."""
     pos = torch.arange(order.shape[1], dtype=torch.int64, device=order.device)
     cands = []
     for j in ranks:
@@ -572,9 +659,11 @@ def _rmq_search(data, n, dict_size: int, fb: int, tiers=None,
     table come back for the rep0 length queries.
 
     Four probed stages (``device_encoder.stage``): K9's keys, their sorts
-    (``torch.sort``), K10's rank and table (past fb 32 after the suffix
-    order's prefix doubling, ``_suffix_rank_lcp``), K11's lists; each
-    kernel's wrapper takes its plain version for CPU tensors."""
+    (``torch.sort``), K10's rank and table, K11's lists; past fb 32 the
+    suffix order's prefix doubling from K9's 32-byte keys
+    (``_suffix_rank_lcp``) runs in the stages of LAZY_STAGES in place of
+    "suffix_table".  Each kernel's wrapper takes its plain version for
+    CPU tensors."""
     from .cuda_search import (match_lists_cuda, search_keys_cuda,
                               suffix_table_cuda)
     from .device_encoder import stage
@@ -583,24 +672,26 @@ def _rmq_search(data, n, dict_size: int, fb: int, tiers=None,
     n = n.long()
     ranks = tier_ranks(DP_TIER_KS if tiers is None else tiers)
     with stage("search_keys", device):
+        # past fb 32 the prefix doubling starts from the 32-byte keys
         suffix_keys, tier_keys = search_keys_cuda(
-            data, n, fb, [span for span, r in ranks if r])
+            data, n, min(fb, 32), [span for span, r in ranks if r])
     with stage("search_sort", device):
-        order = _sort_packed(suffix_keys) if fb <= 32 else None
-        del suffix_keys
+        order = None
+        if fb <= 32:
+            order = _sort_packed(suffix_keys)
+            suffix_keys.clear()
         sorted_keys, orders = [], []
         while tier_keys:
             s = torch.sort(tier_keys.pop(0), dim=1, stable=True)
             sorted_keys.append(s.values)
             orders.append(s.indices)
             del s
-    with stage("suffix_table", device):
-        if order is None:   # past fb 32: the prefix doubling, then K10
-            pos = torch.arange(data.shape[1], dtype=torch.int64, device=device)
-            rank, T = _suffix_rank_lcp(data, n, pos, data.shape[1], fb)
-        else:
+    if order is None:   # past fb 32: the prefix doubling in its own stages
+        rank, T = _suffix_rank_lcp(data, n, fb, suffix_keys)
+    else:
+        with stage("suffix_table", device):
             rank, T = suffix_table_cuda(data, n, order, fb)
-        del order
+    del order, suffix_keys
     with stage("match_lists", device):
         lens, dists, counts = match_lists_cuda(
             sorted_keys, orders, ranks, rank, T, n, dict_size, m_cap,
@@ -742,8 +833,12 @@ def tokenize(data, n, dict_size: int, fb: int, num_candidates: int = 4,
     data[:, :start] a preset dictionary: searched, never emitted.
     Returns (t_pos, t_len, t_dist, t_valid, ntok); token i covers
     data[t_pos[i] : t_pos[i] + t_len[i]]; t_dist < 0 marks a literal."""
+    from .device_encoder import stage
+
     max_n = data.shape[1]
     best_len, best_dist = find_best_matches_rmq(data, n, dict_size, fb,
                                                 num_candidates)
-    on_path = greedy_path(best_len, best_dist, n, max_n, start, lazy)
-    return _compact(best_len, best_dist, on_path, n, lazy)
+    with stage("path", data.device):
+        on_path = greedy_path(best_len, best_dist, n, max_n, start, lazy)
+    with stage("compact", data.device):
+        return _compact(best_len, best_dist, on_path, n, lazy)

@@ -60,28 +60,36 @@ DEFAULT_BATCH_BYTES = 64 << 20
 #   beside the suffix rank (8 B) and the sparse min table (int32, 4 B a
 #   level, held twice while it is stacked).  Then model (price planes)
 #   and lower (the bit slots) peak lower.
-# - lazy, at find_best_matches_rmq's suffix order, always 273 deep
-#   (ADVICE.md:5): the prefix doubling's group ids (one plane a
-#   doubling, 4 to reach 273 from 32), the 32 rolled byte planes and
-#   8 words of the 32-byte keys, the sort's order and ranks, and the
-#   binary descent's gathers, then the sparse min table (int32, a plane
-#   a level, held twice while it is stacked); lower peaks just below.
+# - lazy, at the lowering (the stage "lower": the bit slots), since the
+#   search's plain pieces (K9's keys, a doubling level at a time, the
+#   descent; device_matcher._suffix_rank_lcp) no longer hold the 32
+#   rolled byte planes across the 273-deep table: its stages peak below
+#   it, the first doubling level highest (the 32 planes and 8 words while
+#   its ids are made), the table's levels (int32, held twice while
+#   stacked) in the suffix_table and best_matches stages.
 # Fitted to the peaks a storage-tracking run of the plain versions
 # measures (python -m lzma_tpu_torch.bench.memory_model): optimal 1,251 B
-# a position at 12 levels (1,255 at fb 273), lazy 632, 652 and 668 B at
-# 10, 12 and 14; the model lies 4-6% above each of these.  On the card
+# a position at 12 levels (1,255 at fb 273), the model 4-6% above; lazy
+# 547.3, 545.9, 544.9 and 544.6 B at 9, 10, 12 and 14 levels (632, 652
+# and 668 at 10, 12 and 14 before its search's kernels), the model 8-16%
+# above, its B term kept for the table's levels and its A high enough
+# that a preset lane (lazy, twice as wide) still sizes a batch of
+# 256 KiB optimal blocks.  On the card
 # the search no longer allocates the plain versions' tensors: its
 # kernels (K9-K11, ops/cuda_search.py) write int32 tier keys, the sorts'
 # values and indices, the table once, in place, and the lists; K12
 # (ops/cuda_inputs.py) writes the DP rows once in int32, where the plain
-# version builds them in int64 and casts.  main8M's optimal encode (18
-# levels) peaks at 3,181.1 MiB, 398 B a position (6,840.1 MiB, 855 B,
-# before K12; 10,175.4 MiB before K9-K11), and file128M-opt's 116-block
-# batches at 11,513.0 MiB against this model's 38,744.0; its lazy encode
-# at 4,968.9 MiB, 621 B (PERF.md sections 5 and 6).  So the model is
-# ~3.4x the card's optimal peak and ~1.2x its lazy one until it is
-# refitted to the card (ROADMAP.md).
-ENC_BYTES_A = {"optimal": 1264, "lazy": 592}
+# version builds them in int64 and casts; the lazy search's kernels
+# (K15-K17, ops/cuda_lazy.py) hold no rolled planes.  main8M's optimal
+# encode (18 levels) peaks at 3,181.1 MiB, 398 B a position (6,840.1 MiB,
+# 855 B, before K12; 10,175.4 MiB before K9-K11), and file128M-opt's
+# 116-block batches at 11,513.0 MiB against this model's 38,744.0; its
+# lazy encode at 1,301.0 MiB, 163 B (4,968.9 MiB, 621 B, before
+# K15-K17), and file256M-lazy's 226-block batches at 9,153.9 MiB
+# against 37,516.0 (PERF.md sections 5 and 6).  So the model is ~3.4x
+# the card's optimal peak and ~4.1x its lazy one until it is refitted
+# to the card (ROADMAP.md).
+ENC_BYTES_A = {"optimal": 1264, "lazy": 520}
 ENC_BYTES_B = {"optimal": 4, "lazy": 8}
 #: the share of the card's available memory a batch may take
 MEM_SHARE = 0.5
@@ -185,9 +193,11 @@ def _launches() -> dict:
     """The kernels' launch counts (K1 ring_decode, K2 rc_serialize, K3
     dp_parse, K6 classify, K7 lower, K8 lower_counts, K9 search_keys, K10
     suffix_table, K11 match_lists, K12 dp_inputs, K13 path_mark, K14
-    path_compact)."""
-    from ..ops import (cuda_classify, cuda_inputs, cuda_lower, cuda_parser,
-                       cuda_path, cuda_ring, cuda_search, cuda_serializer)
+    path_compact, K15 doubling_groups, K16 descent_lcp, K17
+    best_matches)."""
+    from ..ops import (cuda_classify, cuda_inputs, cuda_lazy, cuda_lower,
+                       cuda_parser, cuda_path, cuda_ring, cuda_search,
+                       cuda_serializer)
 
     return {"ring_decode": cuda_ring.LAUNCHES,
             "rc_serialize": cuda_serializer.LAUNCHES,
@@ -200,7 +210,10 @@ def _launches() -> dict:
             "match_lists": cuda_search.LIST_LAUNCHES,
             "dp_inputs": cuda_inputs.LAUNCHES,
             "path_mark": cuda_path.MARK_LAUNCHES,
-            "path_compact": cuda_path.COMPACT_LAUNCHES}
+            "path_compact": cuda_path.COMPACT_LAUNCHES,
+            "doubling_groups": cuda_lazy.GROUP_LAUNCHES,
+            "descent_lcp": cuda_lazy.DESCENT_LAUNCHES,
+            "best_matches": cuda_lazy.BEST_LAUNCHES}
 
 
 class _BatchLog:

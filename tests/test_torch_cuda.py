@@ -1528,15 +1528,15 @@ def test_search_keys_and_suffix_table_kernels_match_plain(card, widths, depth):
     assert len(got[0]) == len(want[0]) and len(got[1]) == len(want[1])
     assert all(torch.equal(a, b) for a, b in zip(got[0] + got[1],
                                                   want[0] + want[1]))
-    max_n = data.shape[1]
-    pos = torch.arange(max_n, device=card)
     if depth <= 32:
         order = dm._sort_packed(got[0])
         rank, T = cuda_search.suffix_table_cuda(d, k, order, depth)
         w_rank, w_T = dm._suffix_table_plain(d, k, order, depth)
     else:
-        rank, T = dm._suffix_rank_lcp(d, k, pos, max_n, depth)
-        w_rank, w_T = dm._suffix_rank_lcp(data, n, pos.cpu(), max_n, depth)
+        rank, T = dm._suffix_rank_lcp(
+            d, k, depth, cuda_search.search_keys_cuda(d, k, 32, [])[0])
+        w_rank, w_T = dm._suffix_rank_lcp(
+            data, n, depth, cuda_search.search_keys_cuda(data, n, 32, [])[0])
     torch.cuda.synchronize()
     assert torch.equal(rank.cpu(), w_rank.cpu())
     assert torch.equal(T.cpu(), w_T.cpu())
@@ -1595,14 +1595,14 @@ def test_match_lists_kernel_matches_plain(card, name, fb):
 
 def test_search_kernels_launch_on_every_route(card):
     """An optimal encode launches K9, K10 and K11 once a lane group; a
-    lazy encode K10 only (its 273-deep table); the hybrid's search each
-    once."""
+    lazy encode K9 (its 32-byte suffix keys and hash key) and K10 (its
+    273-deep table); the hybrid's search each once."""
     from lzma_tpu_torch.format.properties import LzmaParams as TParams
     from lzma_tpu_torch.ops import hybrid
 
     data = b"".join(_blocks(4, 4096, 3))
     p = TParams(dict_size=1 << 13, fast_bytes=32)
-    for parse, want in (("optimal", [1, 1, 1]), ("lazy", [0, 1, 0])):
+    for parse, want in (("optimal", [1, 1, 1]), ("lazy", [1, 1, 0])):
         before = _search_launches()
         api.encode_blocks(data, p, block_size=4096, parse=parse, device=card)
         after = _search_launches()
@@ -1860,3 +1860,140 @@ def test_row_and_path_wrappers_check_their_inputs(card):
         cuda_path.greedy_compact_cuda(bl, bd, mark[:, :64].cpu(), mark[:, :64])
     empty = cuda_path.extract_compact_cuda(frm[:0], choice[:0], mark[:0])
     assert [tuple(x.shape) for x in empty] == [(0, 65)] * 4 + [(0,)]
+
+
+# --------------------------------------------------- K15, K16, K17
+def _lazy_lanes(widths, seed):
+    """Lanes of max(widths) bytes, lane i of length widths[i]: bench data,
+    runs of one byte past 273, a period-20 pattern, and a data word equal
+    to the mark of position n (80 00 00 n) followed by the bytes after
+    n + 4, so that a data suffix and a marked one share their 32-byte
+    key."""
+    rng = np.random.default_rng(seed)
+    L, max_n = len(widths), max(widths)
+    data = np.frombuffer(generate_bench_data(L * max_n), np.uint8).reshape(
+        L, max_n).copy()
+    lens = np.array(widths, np.int64)
+    for i in range(L):
+        kind = i % 4
+        if kind == 1:
+            data[i, : max_n // 2] = 97
+        elif kind == 2:
+            data[i] = np.tile(rng.integers(0, 256, 20), max_n // 20 + 1)[:max_n]
+        elif kind == 3 and 8 <= lens[i] < 256 and lens[i] + 36 <= max_n:
+            m = int(lens[i])
+            data[i, :4] = (0x80, 0, 0, m)
+            data[i, 4:32] = data[i, m + 4:m + 32]
+    return torch.from_numpy(data), torch.from_numpy(lens)
+
+
+def _lazy_launches():
+    from lzma_tpu_torch.ops import cuda_lazy
+
+    return (cuda_lazy.GROUP_LAUNCHES, cuda_lazy.DESCENT_LAUNCHES,
+            cuda_lazy.BEST_LAUNCHES)
+
+
+# max_n 1-3 and 33 (the descent's indices wrap and clamp), K15's tile
+# edges (1,024 places a tile), a lane of 1,537 tiles (its lane scan in two
+# passes of 1,024, the second partial), lanes of n below max_n and of 0
+@pytest.mark.parametrize("widths", [[1, 1], [2, 1, 0], [3, 3, 2, 1],
+                                    [33, 20, 33, 0], [1023, 1024, 1025, 300],
+                                    [4096, 4000, 4096, 100, 0],
+                                    [20000, 19000, 20000, 40],
+                                    [(3 << 19) + 1, 5000]],
+                         ids=lambda w: f"max_n{max(w)}x{len(w)}")
+def test_lazy_kernels_match_plain(card, widths):
+    """K15 at every doubling level, K16 and K17 (fb 5, 32 and 273; 1, 4
+    and 16 candidates) against their plain versions on the same card
+    tensors, through the route's own chain of sorts."""
+    from lzma_tpu_torch.ops import cuda_lazy, cuda_search
+    from lzma_tpu_torch.ops import device_matcher as dm
+
+    data, n = _lazy_lanes(widths, sum(widths))
+    d, k = data.to(card), n.to(card)
+    max_n = d.shape[1]
+    keys, (h,) = cuda_search.search_keys_cuda(d, k, 32, [4])
+    order = dm._sort_packed(keys)
+    got = cuda_lazy.doubling_groups_cuda(order, d, k, next_span=32)
+    want = dm._doubling_groups_plain(order, d, k, next_span=32)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    grps, span = [got[0]], 32
+    while span < 273:
+        order = torch.sort(got[1], dim=1, stable=True).indices
+        nxt = 2 * span if 2 * span < 273 else 0
+        got = cuda_lazy.doubling_groups_cuda(order, d, k, grps[-1], span, nxt)
+        want = dm._doubling_groups_plain(order, d, k, grps[-1], span, nxt)
+        assert torch.equal(got[0], want[0]), span
+        assert (got[1] is None) == (want[1] is None) == (nxt == 0)
+        assert nxt == 0 or torch.equal(got[1], want[1])
+        grps.append(got[0])
+        span *= 2
+    cl = cuda_lazy.descent_lcp_cuda(order, grps, d, k, 273)
+    assert torch.equal(cl, dm._descent_lcp_plain(order, grps, d, k, 273))
+    rank, T = cuda_search.suffix_table_cuda(d, k, order, 273, cl)
+    s = torch.sort(h, dim=1, stable=True)
+    for fb, cands in ((5, 4), (32, 4), (273, 1), (273, 16)):
+        args = (s.values, s.indices, rank, T, k, min(1800, max_n), fb, cands)
+        got = cuda_lazy.best_matches_cuda(*args)
+        want = dm._best_matches_plain(*args)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), (fb, cands)
+    # and the whole search, JAX's semantics on the CPU
+    w_rank, w_T = dm._suffix_rank_lcp(
+        data, n, 273, cuda_search.search_keys_cuda(data, n, 32, [])[0])
+    assert torch.equal(rank.cpu(), w_rank) and torch.equal(T.cpu(), w_T)
+
+
+def test_lazy_kernels_launch_on_every_route(card):
+    """A lazy encode launches K9 once, K15 five times (the 32-byte level
+    and each doubling), K16 and K17 once; the optimal encode at fb 32
+    none of K15-K17, at fb 273 K15 five times and K16 once (its suffix
+    table); the tokens equal the CPU's."""
+    from lzma_tpu_torch.format.properties import LzmaParams as TParams
+    from lzma_tpu_torch.ops import cuda_search
+
+    data = b"".join(_blocks(4, 4096, 3))
+    for parse, fb, want in (("lazy", 32, [1, 5, 1, 1]),
+                            ("optimal", 32, [1, 0, 0, 0]),
+                            ("optimal", 273, [1, 5, 1, 0])):
+        p = TParams(dict_size=1 << 13, fast_bytes=fb)
+        before = [cuda_search.KEYS_LAUNCHES, *_lazy_launches()]
+        blob = api.encode_blocks(data, p, block_size=4096, parse=parse,
+                                 device=card)
+        after = [cuda_search.KEYS_LAUNCHES, *_lazy_launches()]
+        assert [b - a for a, b in zip(before, after)] == want, (parse, fb)
+        assert blob == api.encode_blocks(data, p, block_size=4096,
+                                         parse=parse, device="cpu")
+
+
+def test_lazy_wrappers_check_their_inputs(card):
+    from lzma_tpu_torch.ops import cuda_lazy, cuda_search
+
+    data, n = _lazy_lanes([64, 64], 1)
+    d, k = data.to(card), n.to(card)
+    keys, (h,) = cuda_search.search_keys_cuda(d, k, 32, [4])
+    order = torch.sort(keys[0], dim=1, stable=True).indices
+    with pytest.raises(ValueError):
+        cuda_lazy.doubling_groups_cuda(order, d.long(), k)
+    with pytest.raises(ValueError):
+        cuda_lazy.doubling_groups_cuda(order[:, :10], d, k)
+    g, key = cuda_lazy.doubling_groups_cuda(order, d, k, next_span=32)
+    with pytest.raises(ValueError):
+        cuda_lazy.doubling_groups_cuda(order, d, k, g, 0)
+    with pytest.raises(ValueError):
+        cuda_lazy.descent_lcp_cuda(order, [g] * 10, d, k, 273)
+    cl = cuda_lazy.descent_lcp_cuda(order, [g, g], d, k, 273)
+    rank, T = cuda_search.suffix_table_cuda(d, k, order, 273, cl)
+    s = torch.sort(h, dim=1, stable=True)
+    with pytest.raises(ValueError):
+        cuda_lazy.best_matches_cuda(s.values, s.indices, rank, T.long(), k, 64,
+                                    32, 4)
+    with pytest.raises(ValueError):
+        cuda_lazy.best_matches_cuda(s.values, s.indices, rank, T, k, 64, 32, 17)
+    with pytest.raises(ValueError):
+        cuda_lazy.best_matches_cuda(s.values, s.indices, rank, T, k.cpu(), 64,
+                                    32, 4)
+    empty = cuda_lazy.doubling_groups_cuda(order[:0], d[:0], k[:0],
+                                           next_span=32)
+    assert [tuple(x.shape) for x in empty] == [(0, 64)] * 2

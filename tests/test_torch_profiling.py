@@ -11,6 +11,7 @@ import torch
 from lzma_tpu_torch.bench.datagen import generate_bench_data
 from lzma_tpu_torch.format.properties import LzmaParams
 from lzma_tpu_torch.ops import device_encoder
+from lzma_tpu_torch.ops.device_matcher import LAZY_STAGES
 from lzma_tpu_torch.utils.profiling import PhaseTimer, device_busy, profiler_trace
 
 
@@ -90,6 +91,6 @@ def test_probed_stages_on_the_cpu_record_seconds_only():
     with device_encoder.probing() as probe:
         device_encoder.encode_batch([data], LzmaParams(dict_size=1 << 12),
                                     device="cpu")
-    assert {"tokenize", "classify", "lower", "rc_serialize"} <= \
+    assert {*LAZY_STAGES, "classify", "lower", "rc_serialize"} <= \
         set(probe["seconds"])
     assert "peak_bytes" not in probe

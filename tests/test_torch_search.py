@@ -93,7 +93,8 @@ def _plain(fb, ks, m_cap, order):
         rank, T = tm._suffix_table_plain(data, n, order_, fb)
     else:
         assert skeys == []
-        rank, T = tm._suffix_rank_lcp(data, n, torch.arange(W), W, fb)
+        rank, T = tm._suffix_rank_lcp(
+            data, n, fb, cuda_search.search_keys_cuda(data, n, 32, [])[0])
     sorts = [torch.sort(k, dim=1, stable=True) for k in tkeys]
     sk, so = [s.values for s in sorts], [s.indices for s in sorts]
     lists = tm._match_lists_plain(list(sk), list(so), ranks, rank, T, n, DICT,
@@ -127,7 +128,8 @@ def test_suffix_keys_give_the_suffix_order(case):
     assert tiers == []
     if fb > 32:
         assert keys == []
-        rank, T = tm._suffix_rank_lcp(data, n, torch.arange(W), W, fb)
+        rank, T = tm._suffix_rank_lcp(
+            data, n, fb, cuda_search.search_keys_cuda(data, n, 32, [])[0])
     else:
         nw = -(-fb // 4)
         assert len(keys) == -(-nw // 2)

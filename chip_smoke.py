@@ -87,7 +87,11 @@ prints its seconds):
      bound and beside the route it replaced (K7's planes of the same
      tokens, then pair_counts, whose counts K8's equal), K9, K10 and K11
      on the main path's whole lanes through _rmq_search (each call timed
-     alone by CUDA events beside its bound), K12, K13 and K14 on the
+     alone by CUDA events beside its bound; K8's and these lines are
+     printed after phase 18 with each call's grids, torch.profiler over
+     three calls after a warm one, the arguments kept in host memory
+     till then, so that phase 18's traces are the process's first); K12,
+     K13 and K14 on the
      probed encode's last calls (spied: the last round's rows and DP
      path, the seed's lazy path; each call timed alone by CUDA events
      beside its bound), and the inputs phases 8 and 9 take
@@ -162,8 +166,9 @@ prints its seconds):
      PhaseTimer (search on the card, transfer, flatten, host parse), the
      host's CPU count, ratio beside main8M-opt's, peak device memory; K9,
      K10 and K11 launched once a lane group, K11's lists 29 wide, "near";
-     the container round-trips through K1 (counted from 0) and the stdlib
-     reads every block
+     K9, K10 and K11 on its whole lanes against their plain versions
+     (tolerance zero); the container round-trips through K1 (counted from
+     0) and the stdlib reads every block
  17. hybrid8M-lazy: the same input through the lazy hybrid; its container
      equals phase 6's main8M-lazy container byte for byte; its time
  18. the profile: phase 7's encode and decode again under
@@ -455,6 +460,23 @@ def bound(n_bytes, n_ops):
     b_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     o_ms = n_ops / SCALAR_OPS_PER_S * 1e3
     return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+
+def grid_split(fn):
+    """fn's device operations over three traced calls after a warm one
+    (torch.profiler): [(name, microseconds a launch, launches a call)],
+    heaviest first (bench/kernel_ab.py's split)."""
+    from lzma_tpu_torch.bench.kernel_ab import grid_split as split
+
+    return [[name, us, n] for name, us, n in split(fn)]
+
+
+def grid_text(grids):
+    """The split's operations as "name us xN", names cut to the kernel's."""
+    def short(name):
+        name = name.replace("(anonymous namespace)::", "")
+        return name.removeprefix("void ").split("(")[0]
+    return ", ".join(f"{short(name)} {us:.1f} us x{n:g}" for name, us, n in grids)
 
 
 def record(name, source, replaces, n, err, ms, plain, bnd, library=None,
@@ -762,8 +784,12 @@ SEARCH_REPLACES = {
         "lzma_tpu/ops/device_matcher.py:286-306 (_neighbor_candidates), "
         ":578-681 (_rmq_search's dedup, cap and merge), :528-547 "
         "(_lcp_query), " + _JIT,
-        "the tiers' inverse orders, then a thread a position with its kept "
-        "candidates in registers (a dists row past 32)"),
+        "each tier's inverse words (a place, and packed above it the run "
+        "of equal keys before it); then a thread a position: its "
+        "candidate row in shared memory, tier by tier, the dedup and cap "
+        "in registers (a dists row past 32), two table reads a candidate, "
+        "the merge into the block's lens and dists rows staged in shared "
+        "memory, copied out coalesced"),
 }
 #: the search's cases at the small shapes: (fb, tier ks or None for
 #: DP_TIERS, m_cap, m_cap_order)
@@ -1794,6 +1820,7 @@ def hybrid_phase(dev, card, data, params, opt_blob, lazy_blob):
     import torch
     from lzma_tpu_torch.ops import (api, cuda_ring, cuda_search,
                                     device_matcher, hybrid)
+    from lzma_tpu_torch.ops.device_decoder import pad_rows
     from lzma_tpu_torch.utils.profiling import PhaseTimer
 
     cpus = os.cpu_count()
@@ -1834,6 +1861,16 @@ def hybrid_phase(dev, card, data, params, opt_blob, lazy_blob):
     if set(searched.values()) != {groups} or width != 29:
         raise AssertionError(f"the hybrid's search launched {searched} in "
                              f"{groups} lane groups, lists of {width}")
+    # K9, K10 and K11 on its whole lanes at DEFAULT_TIERS (29 wide, "near",
+    # uncapped) against their plain versions on the same card tensors
+    h_lanes, h_lens = pad_rows([data[i:i + MAIN_BLOCK]
+                                for i in range(0, len(data), MAIN_BLOCK)], dev)
+    _, h_seen = spied_search(lambda: device_matcher._rmq_search(
+        h_lanes, h_lens, min(params.dict_size, h_lanes.shape[1]),
+        params.fast_bytes, hybrid.DEFAULT_TIERS, 0, "near"))
+    h_err, h_plain = check_search(h_seen)
+    del h_seen, h_lanes, h_lens
+    torch.cuda.empty_cache()
     cuda_ring.LAUNCHES = 0
     t = time.perf_counter()
     back = api.decode_blocks(blob, device=dev)
@@ -1855,7 +1892,9 @@ def hybrid_phase(dev, card, data, params, opt_blob, lazy_blob):
         f"{len(opt_blob)} B), peak device memory {peak / 2**20:.1f} MiB; "
         f"decode {t_dec:.3f} s = {mb / t_dec:.3f} MB/s, K1 launched {k1}; "
         "round trip, every block decodes with the stdlib lzma module; the "
-        f"search's launches {searched} (K11's lists {width} wide, 'near')")
+        f"search's launches {searched} (K11's lists {width} wide, 'near'); "
+        f"on its whole lanes K9-K11 equal their plain versions (max |diff| "
+        f"{h_err}; plain K11 {h_plain['match_lists']:.1f} ms)")
 
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -3165,7 +3204,10 @@ def main():
     k8_work = count_work(c_args, k8_out[2])
     k8_whole_bound = bound(*k8_work)
     n_round = int(c_args[4].sum())
-    log(f"[K8 whole lanes] the last round's {L} lanes x "
+    # printed after phase 18 with the call's grids: torch.profiler runs
+    # there first, so that its traces are the first of the process
+    k8_line = (
+        f"[K8 whole lanes] the last round's {L} lanes x "
         f"{c_args[1].shape[1]} token slots ({n_round} valid tokens, "
         f"{int(k8_out[2].sum())} pairs, {arena} slots a lane, "
         f"{cuda_lower.count_placement(arena, limit)} memory) on {card}: "
@@ -3175,7 +3217,8 @@ def main():
         f"{k8_whole_bound[1]} ({k8_whole / k8_whole_bound[0]:.1f}x); the "
         f"route it replaced: K7's planes {k8_planes:.3f} ms + pair_counts "
         f"{k8_scatter:.3f} ms = {k8_planes + k8_scatter:.3f} ms; n, n1 and "
-        "total equal to it")
+        f"total equal to it; its device operations (torch.profiler, us a "
+        f"launch x launches a call): ")
     del k8_out, r_planes
     # K9, K10 and K11 on the main path's whole lanes: the probed encode's
     # lanes through _rmq_search at the optimal route's statics, each
@@ -3193,14 +3236,20 @@ def main():
             lambda f=s_fn, a=s_args: f(*_fresh(a)), 3)
     search_w = search_work(seen_main)
     search_bounds = {k: bound(*w) for k, w in search_w.items()}
-    log(f"[K9, K10, K11 whole lanes] {L} lanes x {N} positions, DP_TIERS cut "
-        f"to 12 'rr', fb {params.fast_bytes}, on {card}: " + "; ".join(
-            f"{k} {search_whole[k]:.3f} ms a call (CUDA events, the wrapper), "
-            f"{search_w[k][0]} B read and written, {search_w[k][1]} "
-            f"operations, bound {search_bounds[k][0]:.4f} ms by "
-            f"{search_bounds[k][1]} ({search_whole[k] / search_bounds[k][0]:.1f}x)"
-            for k in SEARCH_KERNELS)
-        + f"; {int(seen_main['match_lists'][1][2].sum())} pairs kept")
+    search_lines = {
+        k: f"{k} {search_whole[k]:.3f} ms a call (CUDA events, the wrapper), "
+           f"{search_w[k][0]} B read and written, {search_w[k][1]} "
+           f"operations, bound {search_bounds[k][0]:.4f} ms by "
+           f"{search_bounds[k][1]} ({search_whole[k] / search_bounds[k][0]:.1f}x), "
+           f"its device operations (torch.profiler, us a launch x launches "
+           f"a call): " for k in SEARCH_KERNELS}
+    search_head = (f"[K9, K10, K11 whole lanes] {L} lanes x {N} positions, "
+                   f"DP_TIERS cut to 12 'rr', fb {params.fast_bytes}, on "
+                   f"{card}: ")
+    search_tail = f"; {int(seen_main['match_lists'][1][2].sum())} pairs kept"
+    # the calls' arguments wait in host memory for their grids' traces
+    grid_stash = _to("cpu", {"lower_counts": c_args, **{
+        name: s_args for name, (s_args, _) in seen_main.items()}})
     # K12 on the last round's rows, K13 and K14 on the last round's DP
     # path and the seed's lazy path, each call timed alone by CUDA events
     row_whole, row_bounds = {}, {}
@@ -3527,6 +3576,20 @@ def main():
 
     # ---- 18. main8M-opt under the profiler; peak memory by stage ----
     profile_phase(dev, card, data, params, blob, stage_peaks)
+    # phase 7's K8 and K9-K11 lines, with each call's grids
+    grids = {}
+    for name, g_args in _to(dev, grid_stash).items():
+        fn = getattr(cuda_lower if name == "lower_counts" else cuda_search,
+                     "lower_counts_cuda" if name == "lower_counts"
+                     else SEARCH_KERNELS[name][0])
+        grids[name] = grid_split(lambda f=fn, a=g_args: f(*_fresh(a)))
+    del grid_stash
+    k8_grids = grids.pop("lower_counts")
+    search_grids = grids
+    log(k8_line + grid_text(k8_grids))
+    log(search_head + "; ".join(search_lines[k] + grid_text(search_grids[k])
+                                for k in SEARCH_KERNELS) + search_tail)
+    torch.cuda.empty_cache()
     done("profile")
 
     # ---- 19. the trace dump on the card ----
@@ -3641,9 +3704,13 @@ def main():
                bench_launches=bench_launches["tpu"]["lower_counts"],
                file_launches={k: v["lower_counts"]
                               for k, v in file_launches.items()},
-               design="persistent blocks a lane, a shared-memory histogram "
-                      "of 64-bit words (device memory past the opt-in "
-                      "limit), a warp's equal slots summed first"),
+               grids=k8_grids,
+               design="a block a tile of 1,024 tokens (empty tiles end at "
+                      "once), each round's counted pairs scanned and staged "
+                      "in shared memory, the block walking the stage "
+                      "converged into a shared-memory histogram of 32-bit "
+                      "words, (count << 16) | ones, an add a pair (device "
+                      "memory past the opt-in limit)"),
     ] + [
         record(name, "lzma_tpu_torch/csrc/search.cu", SEARCH_REPLACES[name][0],
                launches[name], search_err[name], search_whole[name],
@@ -3656,7 +3723,7 @@ def main():
                bench_launches=bench_launches["tpu"][name],
                bench_hybrid_launches=bench_launches["hybrid"][name],
                file_launches={k: v[name] for k, v in file_launches.items()},
-               design=SEARCH_REPLACES[name][2])
+               grids=search_grids[name], design=SEARCH_REPLACES[name][2])
         for name in SEARCH_KERNELS] + [
         record(name, f"lzma_tpu_torch/csrc/{'dp_inputs' if name == 'dp_inputs' else 'path'}.cu",
                ROW_REPLACES[name][0], launches[name], row_err[name],

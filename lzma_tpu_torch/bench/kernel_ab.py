@@ -1,15 +1,15 @@
 """Time the kernels of this checkout against those of another checkout, on
 one card, in turns: the DP scans (K3, K4), the range encoder (K2), the
-decoders (K1, K5), the classify carry (K6), the bit lowering (K7) and
-its slot counts (K8).
+decoders (K1, K5), the classify carry (K6), the bit lowering (K7), its
+slot counts (K8) and the optimal search's match lists (K11).
 
     python -m lzma_tpu_torch.bench.kernel_ab OTHER_CHECKOUT [KERNEL ...]
 
 KERNEL picks among dp_parse, dp_parse2, rc_serialize, ring_decode,
 ring_input, classify, lower, lower_counts, classify_stream,
 lower_stream, ring_decode_champion, block_decode_champion and
-ring_input_champion, tokenize_lazy and tokenize_stream (default:
-all).  The
+ring_input_champion, tokenize_lazy, tokenize_stream, match_lists and
+match_lists_hybrid (default: all).  The
 inputs are chip_smoke.py's: the main path is text_part() +
 generate_bench_data(5 << 20), LzmaParams() defaults (lc3 lp0 pb2, fb
 32), parse="optimal", 32 lanes of 256 KiB; an encode inside
@@ -28,20 +28,27 @@ ONE `.lzma` stream (ops.api.encode_alone, lazy, the EOS marker): one
 lane of 8,388,609 token rows.  For K7 and K8 (lower, lower_counts,
 lower_stream) it also splits this checkout's call by its device
 operations (``utils.profiling``: torch.profiler over three calls, each
-operation's microseconds a call).  The champion shape
+operation's microseconds a launch and launches a call).  The champion shape
 (bench.py:344-390) is 128 lanes of 16 KiB of bench data, lc0, dict 4
 KiB, fb 8, lazy: K1 and K5 decode its streams.  tokenize_lazy and
 tokenize_stream are each checkout's whole lazy tokenize
 (``ops.device_matcher.tokenize``: its search, path and compaction, the
 status readbacks included) on the main path's 32 lanes and on the 8 MiB
-as one lane, LzmaParams() defaults, 4 candidates.  OTHER_CHECKOUT's package
+as one lane, LzmaParams() defaults, 4 candidates.  match_lists is
+K11 (``ops.cuda_search.match_lists_cuda``, the wrapper) on the arguments
+the main path's ``device_matcher._rmq_search`` gives it (spied) on the
+same 32 lanes: DP_TIERS cut to 12 "rr" at fb 32; match_lists_hybrid on
+the hybrid's (``hybrid.DEFAULT_TIERS``, 29 columns uncapped, "near").
+For K7, K8 and K11 it also splits this checkout's call by its device
+operations.  OTHER_CHECKOUT's package
 is loaded under another name and its kernels are built by its own
 runtime/build.py and called through its own wrappers
 (``ops.cuda_parser.dp_parse_cuda``, ``dp_parse2_cuda``,
 ``ops.cuda_serializer.serialize_cuda``, ``ops.cuda_ring.decode_cuda``,
 ``ops.cuda_decoder.decode_resident``,
 ``ops.cuda_classify.classify_carry_cuda``,
-``ops.cuda_lower.lower_tokens_cuda``), whose signatures both
+``ops.cuda_lower.lower_tokens_cuda``, ``lower_counts_cuda``,
+``ops.cuda_search.match_lists_cuda``), whose signatures both
 checkouts share.  ring_input and ring_input_champion compare no checkouts: on
 K1's main-path and champion streams they time this checkout's K1 body
 with its input staged in the shared-memory ring ("this",
@@ -87,25 +94,30 @@ KERNELS = ("dp_parse", "dp_parse2", "rc_serialize", "ring_decode",
            "ring_input", "classify", "lower", "lower_counts",
            "classify_stream", "lower_stream", "ring_decode_champion",
            "block_decode_champion", "ring_input_champion", "tokenize_lazy",
-           "tokenize_stream")
+           "tokenize_stream", "match_lists", "match_lists_hybrid")
 MAIN_PATH = KERNELS[:8]
 STREAM = ("classify_stream", "lower_stream")
 TOKENIZE = ("tokenize_lazy", "tokenize_stream")
+LISTS = ("match_lists", "match_lists_hybrid")
+#: the wrappers a split by device operations is printed for
+SPLIT = ("lower", "lower_counts", "lower_stream", *LISTS)
 
 
-def other_wrappers(root: str):
+def other_wrappers(root: str, name: str = OTHER):
     """OTHER_CHECKOUT's ops.cuda_parser, ops.cuda_serializer,
-    ops.cuda_ring, ops.cuda_decoder, ops.cuda_classify and
-    ops.cuda_lower, its package loaded as OTHER."""
+    ops.cuda_ring, ops.cuda_decoder, ops.cuda_classify, ops.cuda_lower,
+    ops.device_matcher and ops.cuda_search, its package loaded as
+    `name`."""
     pkg = os.path.join(os.path.abspath(root), "lzma_tpu_torch")
     spec = importlib.util.spec_from_file_location(
-        OTHER, os.path.join(pkg, "__init__.py"), submodule_search_locations=[pkg])
+        name, os.path.join(pkg, "__init__.py"), submodule_search_locations=[pkg])
     mod = importlib.util.module_from_spec(spec)
-    sys.modules[OTHER] = mod
+    sys.modules[name] = mod
     spec.loader.exec_module(mod)
-    return tuple(importlib.import_module(f"{OTHER}.ops.{name}") for name in
+    return tuple(importlib.import_module(f"{name}.ops.{m}") for m in
                  ("cuda_parser", "cuda_serializer", "cuda_ring", "cuda_decoder",
-                  "cuda_classify", "cuda_lower", "device_matcher"))
+                  "cuda_classify", "cuda_lower", "device_matcher",
+                  "cuda_search"))
 
 
 def main_data():
@@ -141,6 +153,43 @@ def stream_inputs(dev):
     with probing() as probe:
         api.encode_alone(main_data(), LzmaParams(write_eos=True), device=dev)
     return probe["classify_rows"], probe["lower_args"]
+
+
+def list_inputs(dev, hybrid_tiers: bool = False):
+    """match_lists_cuda's arguments as the main path's _rmq_search gives
+    them (spied) on main8M's 32 lanes: DP_TIERS cut to 12 "rr", or the
+    hybrid's DEFAULT_TIERS uncapped, "near"."""
+    from ..ops import cuda_search, device_matcher
+    from ..ops.hybrid import DEFAULT_TIERS
+
+    data = main_data()
+    params = LzmaParams()
+    lanes, lens = pad_rows([data[i:i + BLOCK]
+                            for i in range(0, len(data), BLOCK)], dev)
+    search = (DEFAULT_TIERS, 0, "near") if hybrid_tiers else ()
+    seen = {}
+    kept = cuda_search.match_lists_cuda
+
+    def spy(*args):
+        seen["args"] = tuple(list(a) if isinstance(a, list) else a
+                             for a in args)
+        return kept(*args)
+
+    cuda_search.match_lists_cuda = spy
+    try:
+        device_matcher._rmq_search(lanes, lens,
+                                   min(params.dict_size, lanes.shape[1]),
+                                   params.fast_bytes, *search)
+    finally:
+        cuda_search.match_lists_cuda = kept
+    return seen["args"]
+
+
+def lists_call(search_mod, args):
+    """A call of search_mod's K11 wrapper on fresh copies of the lists
+    in `args` (the wrapper empties the lists it is given)."""
+    return lambda: search_mod.match_lists_cuda(list(args[0]), list(args[1]),
+                                               *args[2:])
 
 
 def counts_route(o_lower, args, arena):
@@ -187,7 +236,9 @@ def ring_input(args):
 
 def grid_split(fn, calls: int = 3) -> list:
     """fn's device operations over `calls` traced calls after a warm one:
-    (name, microseconds a call, launches a call), heaviest first."""
+    (name, microseconds a launch, launches a call), heaviest first (the
+    trace may keep fewer than every call's launches: launches a call then
+    reads below the call's own)."""
     import tempfile
 
     fn()
@@ -196,8 +247,7 @@ def grid_split(fn, calls: int = 3) -> list:
             for _ in range(calls):
                 fn()
         busy = device_busy(prof.trace_path, top=8)
-    return [(name, round(us / calls, 3), n / calls)
-            for name, us, n in busy["top"]]
+    return [(name, round(us / n, 3), n / calls) for name, us, n in busy["top"]]
 
 
 def main(argv=None) -> None:
@@ -211,7 +261,7 @@ def main(argv=None) -> None:
     print(name, flush=True)
     dev = torch.device("cuda", 0)
     o_parser, o_serializer, o_ring, o_decoder, o_classify, o_lower, \
-        o_matcher = other_wrappers(argv[0])
+        o_matcher, o_search = other_wrappers(argv[0])
     result = {"card": name}
     kernels = {}
     if any(k in MAIN_PATH for k in chosen):
@@ -291,6 +341,16 @@ def main(argv=None) -> None:
                 "other": lambda a=args: o_matcher.tokenize(*a),
                 "this": lambda a=args: device_matcher.tokenize(*a)}
             result[kernel + "_lanes"] = list(lanes.shape)
+    if any(k in LISTS for k in chosen):
+        from ..ops import cuda_search
+
+        for kernel in LISTS:
+            if kernel in chosen:
+                args = list_inputs(dev, kernel == "match_lists_hybrid")
+                kernels[kernel] = {"other": lists_call(o_search, args),
+                                   "this": lists_call(cuda_search, args)}
+                result[kernel + "_columns"] = sum(len(r) for _, r in args[2])
+                result[kernel + "_cap"] = args[7]
     for kernel in chosen:
         fns = kernels[kernel]
         outs = {k: fn() for k, fn in fns.items()}
@@ -300,7 +360,8 @@ def main(argv=None) -> None:
         del outs
         reps = 3 if kernel in ("rc_serialize", "ring_decode", "ring_input") else 2
         if kernel.endswith("champion") or kernel.startswith(("classify",
-                                                             "lower")):
+                                                             "lower",
+                                                             "match")):
             reps = 5
         if kernel in TOKENIZE:
             reps = 3
@@ -308,8 +369,10 @@ def main(argv=None) -> None:
         for k in ("other", "this", "this", "other"):
             times[k].append(event_ms(fns[k], reps))
         result[kernel] = times
-        if kernel.startswith("lower"):
+        if kernel in SPLIT:
             result[kernel + "_grids"] = grid_split(fns["this"])
+        del fns
+        kernels.pop(kernel)
     print(json.dumps(result), flush=True)
 
 

@@ -25,8 +25,10 @@
 // planes read (int64, ~80 B a token), the two int32 planes written over
 // every slot (8 B a slot, ~10 slots a position, most of them fill).  K8:
 // not the bytes (the planes read once, n and n1 written once) but the
-// pairs' atomic adds, and on the hot slots (is_match, the literal trees'
-// top nodes, is_rep) their contention.
+// latency of each tile's rounds (load, classify, scan: most of its time
+// on the main path, PERF.md), then the pairs' shared adds, and on the hot
+// slots (is_match, the literal trees' top nodes, is_rep) their
+// contention.
 //
 // K7, four grids, one call; a block of grids 1 and 4 takes a tile of
 // kTile tokens of one lane, kRounds rounds of one token a thread:
@@ -42,15 +44,19 @@
 //      to consecutive 16-byte words of the rows; a tile with no pairs
 //      (past its lane's last valid token) ends at once.
 // K8, two grids, one call:
-//   1. count: a few blocks a lane (as many as the card holds at once,
-//      spread over the lanes), each persistent over a round of kThreads
-//      tokens in every `parts`; each pair added into the block's
-//      histogram -- in shared memory, one 64-bit word a slot,
-//      (count << 32) | ones, where S words fit the block's opt-in shared
-//      memory, else straight into n and n1 in device memory -- after a
-//      warp's pairs of one slot are summed (__match_any_sync); a shared
-//      histogram's nonzero slots are added into n and n1 once, at the
-//      end; each block's bit and long counts into its lane's sums;
+//   1. count: a block a tile of kTile tokens of one lane, as K7's (a
+//      tile with no valid token ends at once); each of its kRounds
+//      rounds' counted pairs (the direct bits left out) scanned across
+//      the block, each token's pairs packed (slot << 1 | bit) into a
+//      shared-memory stage at its scanned offset (kStage at a time),
+//      then the whole block walks the stage stride 1, converged, adding
+//      each pair into the tile's histogram -- in shared memory, one
+//      32-bit word a slot, (count << 16) | ones, where S words fit beside
+//      the stage in the block's opt-in shared memory, else straight into
+//      n and n1 in device memory -- a pair at a time (a warp's equal
+//      slots summed first was slower); a shared histogram's nonzero
+//      slots are added into n and n1 at the tile's end; each tile's bit
+//      and long counts into its lane's sums;
 //   2. count_finish: the lanes' totals and the status bits.
 // Blocks run lanes fastest, so a tile's neighbours in the other lanes
 // run beside it: the classify finish's transposed planes (a lane's
@@ -76,6 +82,7 @@ constexpr int kRounds = 4;
 constexpr int kTile = kThreads * kRounds;   // tokens of a lane a K7 block
 constexpr int kStage = 4096;                // pairs a K7 block stages at once
 constexpr int kFillChunk = kThreads * 64;   // slots a K7 fill block
+constexpr int kCountBlocks = 4;             // K8 count blocks an SM holds
 constexpr int kPlanes = 10;                 // int64 planes, then valid
 
 // kind, rep_idx, state, match_mode, match_byte, prev_byte, lit_byte (the
@@ -324,18 +331,21 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ------------------------------------------------------------- K8 grid 1
-// A K8 histogram: one lane's S slots in shared memory, a 64-bit word a
-// slot, (count << 32) | ones; or that lane's rows of n and n1 themselves.
+// A K8 histogram: one tile's S slots in shared memory, a 32-bit word a
+// slot, (count << 16) | ones (a tile's pairs, at most kTile * kMaxB, fit
+// 16 bits); or its lane's rows of n and n1 themselves.
+static_assert(kTile * lower_token::kMaxB < (1 << 16),
+              "a tile's pairs of one slot fit a 16-bit count");
 template <bool kShared>
 struct Hist {
-  unsigned long long* words;
+  unsigned* words;
   int* n;
   int* n1;
 
   __device__ __forceinline__ void add(int s, unsigned cnt,
                                       unsigned ones) const {
     if constexpr (kShared) {
-      atomicAdd(words + s, (static_cast<unsigned long long>(cnt) << 32) | ones);
+      atomicAdd(words + s, (cnt << 16) | ones);
     } else {
       atomicAdd(n + s, static_cast<int>(cnt));
       if (ones) atomicAdd(n1 + s, static_cast<int>(ones));
@@ -343,32 +353,33 @@ struct Hist {
   }
 };
 
-// One pair (ctx c, bit b) into the histogram; ctx < 0 (a direct bit) is
-// not counted.  The threads of the warp that put a pair together (every
-// one of them calls this) are grouped by slot, and one thread of each
-// group adds the group's count and ones: the hot slots take one add a
-// warp, not one a thread (measured faster than an add a pair, PERF.md).
+// A staged pair (its word w) into the histogram, an add a pair (a warp's
+// equal slots summed first, __match_any_sync, was slower once the walk is
+// converged: PERF.md, bench/kernel_split.py k8_warp_sum).
 template <bool kShared>
-__device__ __forceinline__ void count_pair(const Hist<kShared>& h, int c,
-                                           int b) {
-  const unsigned active = __activemask();
-  const unsigned peers = __match_any_sync(active, c);
-  const unsigned ones = __ballot_sync(active, b != 0) & peers;
-  if (c >= 0 && static_cast<int>(threadIdx.x & 31) == __ffs(peers) - 1) {
-    h.add(c, __popc(peers), __popc(ones));
-  }
+__device__ __forceinline__ void count_pair(const Hist<kShared>& h, uint32_t w) {
+  h.add(lower_token::pair_slot(w), 1, lower_token::pair_bit(w));
 }
 
 template <bool kShared>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kCountBlocks)
     count_kernel(Planes in, Layout L, long long pos_base, int n_lanes,
-                 int n_tok, int parts, int S,
-                 unsigned long long* __restrict__ lane_sums,
+                 int n_tok, int S, unsigned long long* __restrict__ lane_sums,
                  int* __restrict__ n_out, int* __restrict__ n1_out) {
-  extern __shared__ __align__(16) unsigned long long words[];
+  extern __shared__ __align__(16) unsigned words[];
   __shared__ long long ws[kWarps];
+  __shared__ int wsi[kWarps];
+  __shared__ uint32_t stage[kStage];
   const int lane = static_cast<int>(blockIdx.x % n_lanes);
-  const int part = static_cast<int>(blockIdx.x / n_lanes);
+  const long long t0 = static_cast<long long>(blockIdx.x / n_lanes) * kTile;
+  unsigned live = 0;  // bit r: this thread's token of round r is valid
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r) {
+    if (valid_at(in, lane, t0 + r * kThreads + threadIdx.x, n_tok)) {
+      live |= 1u << r;
+    }
+  }
+  if (!__syncthreads_or(live != 0)) return;  // no valid token: no pair
   const Hist<kShared> h{words, n_out + static_cast<long long>(lane) * S,
                         n1_out + static_cast<long long>(lane) * S};
   if constexpr (kShared) {
@@ -376,17 +387,34 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
   }
   long long n_bits = 0, n_long = 0;
-  const long long step = static_cast<long long>(parts) * kThreads;
 #pragma unroll 1
-  for (long long t = static_cast<long long>(part) * kThreads + threadIdx.x;
-       t - threadIdx.x < n_tok; t += step) {
-    if (!valid_at(in, lane, t, n_tok)) continue;
-    const Token k = load(in, lane, t, pos_base);
-    const Geo g = lower_token::geometry(k);
-    n_bits += g.nbits;
-    n_long += lower_token::is_long(g) ? 1 : 0;
-    lower_token::emit(k, g, L,
-                      [&](int, int c, int b) { count_pair(h, c, b); });
+  for (int r = 0; r < kRounds; ++r) {
+    const bool v = live >> r & 1u;
+    Token k{};
+    Geo g{};
+    if (v) {
+      k = load(in, lane, t0 + r * kThreads + threadIdx.x, pos_base);
+      g = lower_token::geometry(k);
+      n_bits += g.nbits;
+      n_long += lower_token::is_long(g) ? 1 : 0;
+    }
+    const int mine = v ? lower_token::counted(g) : 0;
+    int round_pairs;
+    const int ex = block_excl_scan(mine, wsi, &round_pairs);
+    // the round's counted pairs kStage at a time (most rounds: once):
+    // staged at their scanned offsets, then walked by the whole block
+#pragma unroll 1
+    for (int lo = 0; lo < round_pairs; lo += kStage) {
+      if (mine && ex < lo + kStage && ex + mine > lo) {
+        lower_token::stage_counted(k, g, L, ex, lo, kStage, stage);
+      }
+      __syncthreads();
+      const int n_staged = min(kStage, round_pairs - lo);
+      for (int i = threadIdx.x; i < n_staged; i += kThreads) {
+        count_pair(h, stage[i]);
+      }
+      __syncthreads();
+    }
   }
   long long sum_bits, sum_long;
   block_excl_scan(n_bits, ws, &sum_bits);  // its syncs end the adds too
@@ -398,10 +426,10 @@ __global__ void __launch_bounds__(kThreads)
   }
   if constexpr (kShared) {
     for (int s = threadIdx.x; s < S; s += kThreads) {
-      const unsigned long long w = words[s];
-      if (w >> 32) {
-        atomicAdd(h.n + s, static_cast<int>(w >> 32));
-        const int ones = static_cast<int>(w & 0xFFFFFFFFu);
+      const unsigned w = words[s];
+      if (w >> 16) {
+        atomicAdd(h.n + s, static_cast<int>(w >> 16));
+        const int ones = static_cast<int>(w & 0xFFFFu);
         if (ones) atomicAdd(h.n1 + s, ones);
       }
     }
@@ -467,31 +495,6 @@ Layout layout_of(const int* layout) {
                 "Layout is kLayoutInts ints");
   std::memcpy(&L, layout, sizeof(Layout));
   return L;
-}
-
-// K8's blocks a lane: as many blocks as the card runs at once, spread
-// over the lanes, at least one a lane and at most one a round of tokens.
-int count_parts(const void* kernel, int smem_bytes, int n_lanes, int n_tok,
-                cudaError_t* err) {
-  int device = 0, sms = 0, per_sm = 0;
-  *err = cudaGetDevice(&device);
-  if (*err == cudaSuccess) {
-    *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  }
-  if (*err == cudaSuccess) {
-    *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                         kThreads, smem_bytes);
-  }
-  if (*err != cudaSuccess) return 0;
-  if (per_sm < 1) {
-    *err = cudaErrorInvalidConfiguration;
-    return 0;
-  }
-  const long long rounds = (static_cast<long long>(n_tok) + kThreads - 1) /
-                           kThreads;
-  const long long want =
-      (static_cast<long long>(sms) * per_sm + n_lanes - 1) / n_lanes;
-  return static_cast<int>(want < 1 ? 1 : want < rounds ? want : rounds);
 }
 
 }  // namespace
@@ -561,7 +564,7 @@ extern "C" long long lzt_lower_counts_scratch(int n_lanes) {
 
 // planes, strides, layout, pos_base, n_tok, max_bits: as lzt_lower's;
 // arena_size: S, the slots a lane; smem_bytes: 0 to count in device
-// memory, else the shared bytes of a block's histogram (8 S rounded up to
+// memory, else the shared bytes of a block's histogram (4 S rounded up to
 // 16: ops/cuda_lower.py count_smem_bytes); scratch:
 // lzt_lower_counts_scratch bytes, 16-byte aligned; n, n1: (n_lanes, S)
 // int32; total: (n_lanes,) int32.  Returns the first CUDA error (0 on
@@ -574,7 +577,7 @@ extern "C" int lzt_lower_counts(const void* const* planes,
                                 int* total, void* stream) {
   const bool shared = smem_bytes > 0;
   if (n_lanes <= 0 || n_tok <= 0 || max_bits < 0 || arena_size <= 0 ||
-      (shared && smem_bytes != (8 * arena_size + 15) / 16 * 16)) {
+      (shared && smem_bytes != (4 * arena_size + 15) / 16 * 16)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -590,24 +593,18 @@ extern "C" int lzt_lower_counts(const void* const* planes,
   if (err == cudaSuccess) err = cudaMemsetAsync(n, 0, out_bytes, s);
   if (err == cudaSuccess) err = cudaMemsetAsync(n1, 0, out_bytes, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const void* kernel = shared ? reinterpret_cast<const void*>(count_kernel<true>)
-                              : reinterpret_cast<const void*>(count_kernel<false>);
+  const long long blocks = static_cast<long long>(tiles_of(n_tok)) * n_lanes;
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
   if (shared) {
-    err = cudaFuncSetAttribute(kernel,
+    err = cudaFuncSetAttribute(count_kernel<true>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem_bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int parts = count_parts(kernel, smem_bytes, n_lanes, n_tok, &err);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long blocks = static_cast<long long>(parts) * n_lanes;
-  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  if (shared) {
     count_kernel<true><<<static_cast<int>(blocks), kThreads, smem_bytes, s>>>(
-        in, L, pos_base, n_lanes, n_tok, parts, arena_size, lane_sums, n, n1);
+        in, L, pos_base, n_lanes, n_tok, arena_size, lane_sums, n, n1);
   } else {
     count_kernel<false><<<static_cast<int>(blocks), kThreads, 0, s>>>(
-        in, L, pos_base, n_lanes, n_tok, parts, arena_size, lane_sums, n, n1);
+        in, L, pos_base, n_lanes, n_tok, arena_size, lane_sums, n, n1);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);

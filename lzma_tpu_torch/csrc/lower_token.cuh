@@ -113,6 +113,19 @@ LZT_HD Geo geometry(const Token& k) {
 // plain version's "long" class, at most T // 2 + 2 a lane).
 LZT_HD bool is_long(const Geo& g) { return !(g.lit || g.srep); }
 
+// The pairs of a valid token that have a probability slot (K8 counts
+// them): all but a huge match's footer - 4 direct bits.
+LZT_HD int counted(const Geo& g) {
+  return g.nbits - (g.huge ? g.footer - 4 : 0);
+}
+
+// A counted pair (ctx c >= 0, bit b) as one word, and back.
+LZT_HD uint32_t pack_pair(int c, int b) {
+  return (static_cast<uint32_t>(c) << 1) | static_cast<uint32_t>(b & 1);
+}
+LZT_HD int pair_slot(uint32_t w) { return static_cast<int>(w >> 1); }
+LZT_HD int pair_bit(uint32_t w) { return static_cast<int>(w & 1u); }
+
 // Every (ctx, bit) pair of a valid token, in slot order: put(j, ctx, bit)
 // for j = 0 .. nbits - 1.  Slots at or past kMaxB keep the direct ctx
 // and bit 0, as the plain version's cap leaves them (no token reaches
@@ -208,6 +221,20 @@ LZT_HD void emit(const Token& k, const Geo& g, const Layout& L, Put&& put) {
           static_cast<int>((av >> ja) & 1u));
     }
   }
+}
+
+// Token k's counted pairs, packed, at stage[q - lo] for the q-th of them
+// (q from `first`, the token's offset among the round's counted pairs)
+// where lo <= q < lo + n: the part of the round's pairs that a stage of
+// n words holds.
+LZT_HD void stage_counted(const Token& k, const Geo& g, const Layout& L,
+                          int first, int lo, int n, uint32_t* stage) {
+  int q = first - lo;
+  emit(k, g, L, [&](int, int c, int b) {
+    if (c < 0) return;
+    if (q >= 0 && q < n) stage[q] = pack_pair(c, b);
+    ++q;
+  });
 }
 
 }  // namespace lower_token

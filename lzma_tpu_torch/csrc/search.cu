@@ -27,10 +27,10 @@
 // What bounds them on this card: the bytes.  K9 reads each lane's bytes
 // once and writes its keys (60 B a position at fb 32 and the optimal
 // parse's seven tiers); K10 reads the order and writes rank and the
-// table's levels (4 B a level a position); K11 reads a few planes a tier
-// at each position's place in the tier's order (the sort's values and
-// indices near it), rank and two table entries a candidate at random,
-// and writes the lists (16 B a list slot).  What the designs do:
+// table's levels (4 B a level a position); K11 reads each tier's planes
+// and a few indices near each position's place in the tier's order,
+// rank and two table entries a candidate at random, and writes the lists
+// (16 B a list slot); its inverse orders are 4-B stores at random.  What the designs do:
 //   K9  a block stages its positions' bytes and the 31 after them in
 //       shared memory once; every thread reads its window there;
 //   K10 grid 1 scatters rank and writes T[0], a thread a place of the
@@ -39,10 +39,18 @@
 //       tile of kTile places from T[0] and a window of kHalo before it
 //       in shared memory (one pass over T[0], the levels written once);
 //       each wider level is one pass of its own;
-//   K11 grid 1 writes each tier's inverse order (a position's place);
-//       grid 2 runs a thread a position with its kept candidates in
-//       registers (a list of at most 16 or 32), or, past 32, in its
-//       dists row, which the merge then overwrites in place.
+//   K11 grid 1 writes each tier's inverse order (a position's place,
+//       and packed above it the run of equal keys just before that
+//       place), a (tier, lane) at a time so its scattered stores meet in
+//       L2; grid 2 runs a thread a position, lane by lane: tier by tier
+//       its place and the candidates just before it (the few indices its
+//       run says are there, in L2) into a candidate row in shared memory
+//       at each column's take-order index; its kept candidates in registers (a
+//       list of at most 16 or 32) with compile-time indices, two table
+//       reads a candidate, the merge into the block's lens and dists rows
+//       staged in shared memory, which the block writes out by
+//       consecutive threads; past 32 the list lives in the position's
+//       dists row.
 
 #include <climits>
 #include <cstdint>
@@ -190,66 +198,136 @@ table_level_kernel(int64_t max_n, int n_tiles, int levels, int k,
 }
 
 // ----------------------------------------------------------------- K11
+// Each used tier's sort values and indices (a lane's at lane * max_n),
+// where its (rank, column) pairs start in the grouped column list, its
+// largest rank; the inverse words' place bits and whether they are packed
+// (search_list::inverse_word).
 struct Tiers {
   const int* sorted[kSpans];
   const int64_t* order[kSpans];
+  int start[kSpans + 1];
+  int max_rank[kSpans];
+  int rbits;
+  bool packed;
 };
 
-// Grid 1: inv[t][lane][order_t[lane][i]] = i.
+// Grid 1: inv[t][lane][order_t[lane][i]] = the inverse word of place i
+// (i, and packed above it the run of equal keys just before i), tiers
+// slowest: the scattered stores of one (tier, lane) land in its 4 max_n
+// bytes, which stay in L2 while they are written.
 __global__ void __launch_bounds__(kThreads)
 inverse_kernel(Tiers tiers, int n_lanes, int64_t max_n, int n_tiles,
                int* __restrict__ inv) {
+  __shared__ Tiers s_tiers;  // a copy indexed at run time (no local copy)
+  if (threadIdx.x == 0) s_tiers = tiers;
+  __syncthreads();
   const int g = blockIdx.x / n_tiles;  // tier * n_lanes + lane
   const int t = g / n_lanes, lane = g % n_lanes;
   const int64_t i = static_cast<int64_t>(blockIdx.x % n_tiles) * kThreads +
                       threadIdx.x;
   if (i >= max_n) return;
-  const int64_t at = lane * max_n;
-  inv[static_cast<int64_t>(g) * max_n + tiers.order[t][at + i]] =
-      static_cast<int>(i);
+  const int64_t at0 = lane * max_n;
+  inv[static_cast<int64_t>(g) * max_n + s_tiers.order[t][at0 + i]] =
+      static_cast<int>(search_list::inverse_word(
+          s_tiers.sorted[t] + at0, i, s_tiers.max_rank[t], s_tiers.rbits,
+          s_tiers.packed));
 }
 
-// Grid 2: a thread a position; kCap > 0: the kept candidates in a
-// RegList of kCap, else in the position's dists row.
+// Grid 2: a block kListThreads positions of a lane (lanes slowest: one
+// lane's tier planes, rank and table stay in L2), a thread a position.
+// Tier by tier, its inverse word (read by consecutive threads) and its
+// candidates at that tier's ranks (the indices just before its place;
+// the keys too where the words are not packed) into its candidate row in
+// shared memory, at each column's index in the take order; the dedup and cap from that row in the take order,
+// with compile-time indices; the merge.  kCap > 0: the list in registers,
+// the block's lens and dists rows staged in shared memory (`pitch` words
+// a position: its lens row, then its dists row `stride` words on), the
+// candidate row in the position's own staged rows where m int32 fit them,
+// and the block's rows written out by consecutive threads on consecutive
+// words; kCap 0: the list in the position's dists row, the merge straight
+// into its rows.
 template <int kCap>
 __global__ void __launch_bounds__(kListThreads)
 lists_kernel(Tiers tiers, int n_tiers, const int* __restrict__ inv,
-             const int* __restrict__ cols, int m, int rr, int cap,
+             const int* __restrict__ tcols, int m, int rr, int width,
              const int64_t* __restrict__ rank, const int* __restrict__ T,
              int levels, const int64_t* __restrict__ n, int64_t dict_size,
-             int n_lanes, int64_t max_n, int n_tiles, int width,
+             int n_lanes, int64_t max_n, int n_tiles,
              int64_t* __restrict__ lens, int64_t* __restrict__ dists,
              int64_t* __restrict__ counts) {
+  extern __shared__ int64_t s_rows[];
+  __shared__ Tiers s_tiers;  // a copy indexed at run time (no local copy)
+  if (threadIdx.x == 0) s_tiers = tiers;
+  __syncthreads();
   const int lane = blockIdx.x / n_tiles;
-  const int64_t p = static_cast<int64_t>(blockIdx.x % n_tiles) *
-                      kListThreads + threadIdx.x;
-  if (p >= max_n) return;
-  const int64_t at = lane * max_n;
-  Lane ln;
-  int64_t r[kSpans];
-  for (int t = 0; t < n_tiers; ++t) {
-    ln.sorted[t] = tiers.sorted[t] + at;
-    ln.order[t] = tiers.order[t] + at;
-    r[t] = inv[(static_cast<int64_t>(t) * n_lanes + lane) * max_n + p];
-  }
-  ln.rank = rank + at;
-  ln.T = T + lane * static_cast<int64_t>(levels) * max_n;
-  ln.max_n = max_n;
-  ln.n = n[lane];
-  ln.dict_size = dict_size;
-  int64_t* lrow = lens + (at + p) * width;
-  int64_t* drow = dists + (at + p) * width;
-  int count;
+  const int64_t p0 = static_cast<int64_t>(blockIdx.x % n_tiles) * kListThreads;
+  const int np = static_cast<int>(min(static_cast<int64_t>(kListThreads),
+                                      max_n - p0));
+  const int64_t at0 = lane * max_n + p0;
+  const int tid = threadIdx.x;
+  const int stride = width | 1, pitch = 2 * stride + 1;
+  int32_t* row;
   if constexpr (kCap > 0) {
-    search_list::RegList<kCap> list;
-    const int len = search_list::gather(ln, cols, m, rr != 0, cap, r, list);
-    count = search_list::merge(ln, p, list, len, width, lrow, drow);
+    row = 2 * pitch >= m ? reinterpret_cast<int32_t*>(s_rows + tid * pitch)
+                         : reinterpret_cast<int32_t*>(
+                               s_rows + kListThreads * pitch) + tid * m;
   } else {
-    search_list::RowList list{drow};
-    const int len = search_list::gather(ln, cols, m, rr != 0, cap, r, list);
-    count = search_list::merge(ln, p, list, len, width, lrow, drow);
+    row = reinterpret_cast<int32_t*>(s_rows) + tid * m;
   }
-  counts[at + p] = count;
+  if (tid < np) {
+    const int64_t p = p0 + tid;
+    for (int t = 0; t < n_tiers; ++t) {
+      const uint32_t word = static_cast<uint32_t>(
+          inv[(static_cast<int64_t>(t) * n_lanes + lane) * max_n + p]);
+      const int c0 = s_tiers.start[t];
+      search_list::tier_candidates(
+          s_tiers.sorted[t] + lane * max_n, s_tiers.order[t] + lane * max_n,
+          word, s_tiers.rbits, s_tiers.packed, tcols + 2 * c0,
+          s_tiers.start[t + 1] - c0, row);
+    }
+    const search_list::Lane ln{rank + lane * max_n,
+                               T + lane * static_cast<int64_t>(levels) * max_n,
+                               max_n, n[lane], dict_size};
+    int64_t* lrow = kCap > 0 ? s_rows + tid * pitch : lens + (at0 + tid) * width;
+    int64_t* drow = kCap > 0 ? lrow + stride : dists + (at0 + tid) * width;
+    counts[at0 + tid] = search_list::list_position<kCap>(
+        ln, p, row, m, rr != 0, width, width, lrow, drow);
+  }
+  if constexpr (kCap > 0) {
+    __syncthreads();
+    search_list::copy_rows(s_rows, pitch, lens + at0 * width, width, np,
+                           width, tid, kListThreads);
+    search_list::copy_rows(s_rows + stride, pitch, dists + at0 * width, width,
+                           np, width, tid, kListThreads);
+  }
+}
+
+// Shared bytes of a K11 list block: kCap > 0 the staged rows, and the
+// candidate rows where they do not fit them; kCap 0 the candidate rows.
+int list_smem_bytes(int cap_bound, int m, int width) {
+  const int pitch = 2 * (width | 1) + 1;
+  const int rows = cap_bound > 0 ? kListThreads * pitch * 8 : 0;
+  const bool own = cap_bound > 0 && 2 * pitch >= m;
+  return rows + (own ? 0 : kListThreads * m * 4);
+}
+
+template <int kCap>
+int launch_lists(const Tiers& tiers, int n_tiers, const int* inv,
+                 const int* tcols, int m, int rr, int width,
+                 const int64_t* rank, const int* T, int levels,
+                 const int64_t* n, int64_t dict_size, int n_lanes,
+                 int64_t max_n, int n_tiles, int blocks, int64_t* lens,
+                 int64_t* dists, int64_t* counts, cudaStream_t s) {
+  const int smem = list_smem_bytes(kCap, m, width);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        lists_kernel<kCap>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  lists_kernel<kCap><<<blocks, kListThreads, smem, s>>>(
+      tiers, n_tiers, inv, tcols, m, rr, width, rank, T, levels, n, dict_size,
+      n_lanes, max_n, n_tiles, lens, dists, counts);
+  return static_cast<int>(cudaGetLastError());
 }
 
 int blocks_of(int64_t items, int per, int groups, int* n_tiles) {
@@ -257,16 +335,6 @@ int blocks_of(int64_t items, int per, int groups, int* n_tiles) {
   if (tiles * groups > INT_MAX) return -1;
   *n_tiles = static_cast<int>(tiles);
   return static_cast<int>(tiles * groups);
-}
-
-Tiers tiers_of(const void* const* sorted, const void* const* order,
-               int n_tiers) {
-  Tiers t{};
-  for (int i = 0; i < n_tiers; ++i) {
-    t.sorted[i] = static_cast<const int*>(sorted[i]);
-    t.order[i] = static_cast<const int64_t*>(order[i]);
-  }
-  return t;
 }
 
 }  // namespace
@@ -332,46 +400,53 @@ extern "C" int lzt_suffix_table(const uint8_t* data, const int64_t* n,
 
 // K11.  sorted, order: n_tiers device pointers to each used tier's sort
 // values (int32) and indices (int64), (n_lanes, max_n) each; inv:
-// scratch (n_tiers, n_lanes, max_n) int32; cols: (m, 2) int32 device
-// pairs (tier, rank) in the order candidates are taken; rr: keep-first
-// until cap (the round-robin cut), else the cap largest; width: the
-// lists' width (cap); rank, T, levels: K10's; n: (n_lanes,) int64; lens,
-// dists: (n_lanes, max_n, width) int64; counts: (n_lanes, max_n) int64.
-// Returns the first CUDA error of the launches (0 on success).
+// scratch (n_tiers, n_lanes, max_n) int32; tcols: m (rank, column) int32
+// device pairs grouped by tier, the column a pair's index in the order
+// candidates are taken, tier t's at [start[t], start[t + 1]) (start:
+// n_tiers + 1 host ints; max_rank: each tier's largest rank, n_tiers host
+// ints); rr: keep-first until cap (the round-robin cut),
+// else the cap largest; width: the lists' width (cap); rank, T, levels:
+// K10's; n: (n_lanes,) int64; lens, dists: (n_lanes, max_n, width) int64;
+// counts: (n_lanes, max_n) int64.  Returns the first CUDA error of the
+// launches (0 on success).
 extern "C" int lzt_match_lists(const void* const* sorted,
                                const void* const* order, int n_tiers,
-                               int* inv, const int* cols, int m, int rr,
-                               int width, const int64_t* rank, const int* T,
-                               int levels, const int64_t* n,
-                               int64_t dict_size, int n_lanes,
-                               int64_t max_n, int64_t* lens,
-                               int64_t* dists, int64_t* counts,
+                               int* inv, const int* tcols, const int* start,
+                               const int* max_rank, int m, int rr, int width, const int64_t* rank,
+                               const int* T, int levels, const int64_t* n,
+                               int64_t dict_size, int n_lanes, int64_t max_n,
+                               int64_t* lens, int64_t* dists, int64_t* counts,
                                void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   int n_tiles = 0, n_list = 0;
   const int blocks = blocks_of(max_n, kThreads, n_tiers * n_lanes, &n_tiles);
   const int list_blocks = blocks_of(max_n, kListThreads, n_lanes, &n_list);
-  if (n_lanes <= 0 || max_n <= 0 || n_tiers <= 0 || n_tiers > kSpans ||
-      m <= 0 || width <= 0 || width > m || levels < 1 || blocks < 0 ||
-      list_blocks < 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
+  bool ok = n_lanes > 0 && max_n > 0 && max_n <= INT_MAX && n_tiers > 0 &&
+            n_tiers <= kSpans && m > 0 && width > 0 && width <= m &&
+            levels >= 1 && blocks >= 0 && list_blocks >= 0 &&
+            start[0] == 0 && start[n_tiers] == m;
+  Tiers tiers{};
+  int top = 0;
+  for (int i = 0; ok && i < n_tiers; ++i) {
+    tiers.sorted[i] = static_cast<const int*>(sorted[i]);
+    tiers.order[i] = static_cast<const int64_t*>(order[i]);
+    tiers.start[i] = start[i];
+    tiers.max_rank[i] = max_rank[i];
+    top = max_rank[i] > top ? max_rank[i] : top;
+    ok = start[i] <= start[i + 1] && max_rank[i] >= 0;
   }
-  const Tiers tiers = tiers_of(sorted, order, n_tiers);
-  inverse_kernel<<<blocks, kThreads, 0, s>>>(tiers, n_lanes, max_n, n_tiles, inv);
-  cudaError_t err = cudaGetLastError();
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  tiers.start[n_tiers] = m;
+  tiers.rbits = search_list::place_bits(max_n);
+  tiers.packed = search_list::inverse_packed(max_n, top);
+  inverse_kernel<<<blocks, kThreads, 0, s>>>(tiers, n_lanes, max_n, n_tiles,
+                                             inv);
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (width <= 16) {
-    lists_kernel<16><<<list_blocks, kListThreads, 0, s>>>(
-        tiers, n_tiers, inv, cols, m, rr, width, rank, T, levels, n,
-        dict_size, n_lanes, max_n, n_list, width, lens, dists, counts);
-  } else if (width <= 32) {
-    lists_kernel<32><<<list_blocks, kListThreads, 0, s>>>(
-        tiers, n_tiers, inv, cols, m, rr, width, rank, T, levels, n,
-        dict_size, n_lanes, max_n, n_list, width, lens, dists, counts);
-  } else {
-    lists_kernel<0><<<list_blocks, kListThreads, 0, s>>>(
-        tiers, n_tiers, inv, cols, m, rr, width, rank, T, levels, n,
-        dict_size, n_lanes, max_n, n_list, width, lens, dists, counts);
-  }
-  return static_cast<int>(cudaGetLastError());
+  auto* launch = width <= 16   ? &launch_lists<16>
+                 : width <= 32 ? &launch_lists<32>
+                               : &launch_lists<0>;
+  return launch(tiers, n_tiers, inv, tcols, m, rr, width, rank, T, levels, n,
+                dict_size, n_lanes, max_n, n_list, list_blocks, lens, dists,
+                counts, s);
 }

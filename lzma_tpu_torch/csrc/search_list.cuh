@@ -6,12 +6,12 @@
 //       packs them) and the tier hashes (_tier_hashes) as int32 keys;
 //   K10 the consecutive LCP of two suffixes by their prefix words
 //       (_suffix_table_plain at depth <= 32);
-//   K11 a position's candidates at each tier's ranks (_neighbor_step),
-//       their dedup and cap (_dedup_cap: "rr" keep-first in round-robin
-//       tier order, else the nearest), the exact lengths by two reads of
-//       the sparse min table (_lcp_query), and the merge that keeps
-//       strictly increasing lengths at ascending distance
-//       (_match_lists_plain).
+//   K11 a position's candidates at each tier's ranks (_neighbor_step)
+//       into its candidate row, their dedup and cap (_dedup_cap: "rr"
+//       keep-first in round-robin tier order, else the nearest), the
+//       exact lengths by two reads of the sparse min table (_lcp_query),
+//       and the merge that keeps strictly increasing lengths at ascending
+//       distance (_match_lists_plain).
 //
 // Plain C++ under LZT_HD, so that a host compiler can build it too (the
 // CPU tests hold it to the plain versions through a g++ build).  Hash
@@ -138,34 +138,101 @@ LZT_HD int consecutive_lcp(const uint8_t* wa, int64_t pa, const uint8_t* wb,
 }
 
 // ----------------------------------------------------------------- K11
-// One lane's planes: each used tier's stable sort (values as int32
-// keys, indices), the suffix rank and the (levels, max_n) min table; n
-// and the dictionary size.
+// One lane's suffix rank and (levels, max_n) min table; n and the
+// dictionary size.
 struct Lane {
-  const int32_t* sorted[kSpans];
-  const int64_t* order[kSpans];
   const int64_t* rank;
   const int32_t* T;
   int64_t max_n, n, dict_size;
 };
 
-// The candidate of a position at place r of tier t's order, rank j:
-// order[r - j] where r >= j and the key there is the position's own,
-// else -1 (roll semantics: the place wraps at max_n).
-LZT_HD int64_t candidate(const Lane& ln, int t, int64_t r, int64_t j) {
-  if (r < j) return -1;
-  int64_t i = r - j;
-  if (i >= ln.max_n) i %= ln.max_n;
-  return ln.sorted[t][i] == ln.sorted[t][r] ? ln.order[t][i] : -1;
+// A tier's inverse word for place i of its stable order (key: the tier's
+// sort values): i, and where packed, from bit rbits up, d = how many of
+// the places just before i hold i's key, at most dmax (the tier's largest
+// rank): its candidate at rank j <= dmax is there iff j <= d.
+LZT_HD uint32_t inverse_word(const int32_t* key, int64_t i, int dmax,
+                             int rbits, bool packed) {
+  if (!packed) return static_cast<uint32_t>(i);
+  const int32_t own = key[i];
+  int d = 0;
+  while (d < dmax && d < i && key[i - d - 1] == own) ++d;
+  return static_cast<uint32_t>(i) | (static_cast<uint32_t>(d) << rbits);
+}
+
+// The candidates of the position whose inverse word in a tier is `word`
+// (its place r; key, ord: the tier's sort values and indices), one for
+// each of the tier's k (rank j, column c) pairs in tcols: the position
+// at place r - j where r >= j and the key there is r's, else -1
+// (_neighbor_step's roll: a rank past max_n has r < j everywhere), into
+// row[c].  Packed, the word's d says which ranks are there, and no key
+// is read.
+LZT_HD void tier_candidates(const int32_t* key, const int64_t* ord,
+                            uint32_t word, int rbits, bool packed,
+                            const int32_t* tcols, int k, int32_t* row) {
+  if (packed) {
+    const int64_t r = word & ((uint64_t{1} << rbits) - 1);
+    const int64_t d = word >> rbits;
+    for (int i = 0; i < k; ++i) {
+      const int j = tcols[2 * i];
+      row[tcols[2 * i + 1]] = j <= d ? static_cast<int32_t>(ord[r - j]) : -1;
+    }
+    return;
+  }
+  const int64_t r = word;
+  const int32_t own = key[r];
+  for (int i = 0; i < k; ++i) {
+    const int j = tcols[2 * i];
+    row[tcols[2 * i + 1]] =
+        r >= j && key[r - j] == own ? static_cast<int32_t>(ord[r - j]) : -1;
+  }
+}
+
+// The inverse words' layout for lanes of max_n places and ranks up to
+// max_rank: the place's bits, and whether the run counts fit above them.
+// The program's tiers (DP_TIERS', the hybrid's) have ranks of at most
+// 12, packed in lanes of up to 2^28 places; the unpacked form keeps the
+// contract, which takes any ranks, as the plain version does.
+LZT_HD int place_bits(int64_t max_n) {
+  int b = 1;
+  while ((int64_t{1} << b) < max_n) ++b;
+  return b;
+}
+LZT_HD bool inverse_packed(int64_t max_n, int max_rank) {
+  int dbits = 1;
+  while ((int64_t{1} << dbits) <= max_rank) ++dbits;
+  return place_bits(max_n) + dbits <= 32;
+}
+
+// Rows [0, n) of e int64 words: row i's words from src + i * s_stride
+// into dst + i * d_stride, the words k = first, first + step, ... of the
+// n * e (a block's threads: first its thread, step its size).
+LZT_HD void copy_rows(const int64_t* src, int64_t s_stride, int64_t* dst,
+                      int64_t d_stride, int n, int e, int first, int step) {
+  if (e <= 0) return;
+  const int di = step / e, dw = step - di * e;  // a step in rows and words
+  int i = first / e, w = first - i * e;
+  for (int k = first; k < n * e; k += step) {
+    dst[i * d_stride + w] = src[i * s_stride + w];
+    i += di;
+    w += dw;
+    if (w >= e) {
+      w -= e;
+      ++i;
+    }
+  }
 }
 
 // A list of candidate positions kept in descending order.  RegList's
 // entries are registers when every loop over them unrolls (kCap a
-// constant); RowList keeps them in a caller's int64 row.
+// constant), -1 where unused; RowList keeps them in a caller's int64 row.
 template <int kCap>
 struct RegList {
   static constexpr int kBound = kCap;
-  int32_t a[kCap] = {};
+  int32_t a[kCap];
+  LZT_HD RegList() {
+LZT_UNROLL
+    for (int i = 0; i < kCap; ++i) a[i] = -1;
+  }
   LZT_HD int64_t get(int i) const { return a[i]; }
   LZT_HD void set(int i, int64_t v) { a[i] = static_cast<int32_t>(v); }
 };
@@ -211,22 +278,62 @@ LZT_UNROLL
   if (len < cap) ++len;
 }
 
-// The kept candidates of position p, descending, into `list`; returns
-// their count.  cols: the (tier, rank) pairs of the m columns in the
-// order they are taken (the round-robin order for "rr", else the
-// column order); r: p's place in each tier's order.  rr: keep-first
-// until cap are kept; otherwise the cap largest of all.
+// A register list kept in arrival order (every value kept until cap,
+// none dropped by value): v >= 0 joins at the front unless it is there
+// already (the unused entries are -1) or the list holds cap.
 template <class L>
-LZT_HD int gather(const Lane& ln, const int32_t* cols, int m, bool rr,
-                  int cap, const int64_t* r, L& list) {
+LZT_HD void push(L& list, int& len, int cap, int64_t v) {
+  bool seen = false;
+LZT_UNROLL
+  for (int i = 0; i < L::kBound; ++i) seen = seen || list.get(i) == v;
+  if (seen || len >= cap) return;
+LZT_UNROLL
+  for (int i = L::kBound - 1; i > 0; --i) list.set(i, list.get(i - 1));
+  if (L::kBound) list.set(0, v);
+  ++len;
+}
+
+// A register list's entries in descending order (a bitonic network; the
+// unused -1 entries go last).
+template <class L>
+LZT_HD void sort_desc(L& list) {
+LZT_UNROLL
+  for (int k = 2; k <= L::kBound; k <<= 1) {
+LZT_UNROLL
+    for (int j = k >> 1; j > 0; j >>= 1) {
+LZT_UNROLL
+      for (int i = 0; i < L::kBound; ++i) {
+        const int l = i ^ j;
+        if (l > i) {
+          const int64_t x = list.get(i), y = list.get(l);
+          if ((x < y) == ((i & k) == 0)) {
+            list.set(i, y);
+            list.set(l, x);
+          }
+        }
+      }
+    }
+  }
+}
+
+// The kept candidates of a position, descending, into `list` from its row
+// of m candidates in the take order (the round-robin order for "rr",
+// else the column order); returns their count.  rr: keep-first until cap
+// are kept; otherwise the cap largest of all.  A register list that
+// drops none by value (rr, or cap >= m) takes them in arrival order and
+// sorts once at the end (faster than `insert` alone: PERF.md,
+// bench/kernel_split.py k11_insert_only).
+template <class L>
+LZT_HD int gather_row(const int32_t* row, int m, bool rr, int cap, L& list) {
+  const bool arrival = L::kBound > 0 && (rr || cap >= m);
   int len = 0;
   for (int c = 0; c < m; ++c) {
-    const int t = cols[2 * c];
-    const int64_t v = candidate(ln, t, r[t], cols[2 * c + 1]);
+    const int32_t v = row[c];
     if (v < 0) continue;
-    insert(list, len, cap, v);
+    if (arrival) push(list, len, cap, v); else insert(list, len, cap, v);
     if (rr && len == cap) break;
   }
+  if (arrival) sort_desc(list);
   return len;
 }
 
@@ -283,6 +390,26 @@ LZT_UNROLL
     dists[j] = 0;
   }
   return count;
+}
+
+// Position p's list from its candidate row: the kept candidates, then
+// the merge into lens and dists (width entries each).  kCap > 0: the
+// list in registers (kCap >= cap); 0: in dists itself.  The row may share
+// memory with lens and dists (it is read before they are written) where
+// kCap > 0.  Returns the count.
+template <int kCap>
+LZT_HD int list_position(const Lane& ln, int64_t p, const int32_t* row,
+                         int m, bool rr, int cap, int width, int64_t* lens,
+                         int64_t* dists) {
+  if constexpr (kCap > 0) {
+    RegList<kCap> list;
+    const int len = gather_row(row, m, rr, cap, list);
+    return merge(ln, p, list, len, width, lens, dists);
+  } else {
+    RowList list{dists};
+    const int len = gather_row(row, m, rr, cap, list);
+    return merge(ln, p, list, len, width, lens, dists);
+  }
 }
 
 }  // namespace search_list

@@ -17,9 +17,11 @@ lowering, ``lzma_tpu/ops/device_parser.py`` ``empirical_probs(
 lower_tokens(...))`` up to the probabilities: ``lower_counts_cuda``
 replaces ``device_encoder._lower_counts_plain``, each lane's count of
 pairs a probability slot (n) and of those with bit 1 (n1), and its
-total.  It writes no stream: every pair goes into a histogram, in the
-block's shared memory where a lane's slots fit it (``count_placement``),
-else in device memory.
+total.  It writes no stream: each round's pairs are staged in shared
+memory at their scanned offsets, as K7 stages them, and the block walks
+the stage converged, adding every pair into a histogram, in the block's
+shared memory where a lane's slots fit it (``count_placement``), else in
+device memory.
 
 A CUDA tensor launches the kernel (or the wrapper raises); a CPU tensor
 takes the plain version.  Both read each input plane through its own
@@ -94,22 +96,36 @@ def scratch_bytes(N: int, T: int) -> int:
 
 def count_smem_bytes(arena_size: int) -> int:
     """Shared bytes of a K8 block whose histogram is in shared memory: a
-    64-bit word a slot, rounded up to 16 B."""
-    return (8 * arena_size + 15) // 16 * 16
+    32-bit word a slot, rounded up to 16 B."""
+    return (4 * arena_size + 15) // 16 * 16
+
+
+#: shared bytes a K8 block holds beside its histogram, at most: its pair
+#: stage (csrc/lower.cu kStage 32-bit words) and its scans' slots
+COUNT_STAGE_BYTES = 4 * 4096 + 256
 
 
 def count_placement(arena_size: int, limit: int) -> str:
     """Where K8 keeps a lane's histogram of `arena_size` slots on a card
     that gives a block `limit` bytes of shared memory: "shared" when it
-    fits, else "device" (global atomics into n and n1)."""
-    return "shared" if count_smem_bytes(arena_size) <= limit else "device"
+    fits beside the block's pair stage, else "device" (global atomics
+    into n and n1)."""
+    fits = count_smem_bytes(arena_size) + COUNT_STAGE_BYTES <= limit
+    return "shared" if fits else "device"
 
 
+@functools.cache
 def layout_ints(lc: int, lp: int, pb: int) -> list[int]:
     """The kernel's layout argument: ProbLayout(lc, lp, pb, pos_bits=pb)'s
-    offsets in LAYOUT_FIELDS order, then lc, lp, pb."""
+    offsets in LAYOUT_FIELDS order, then lc, lp, pb (cached: every
+    wrapper call asks for it)."""
     layout = ProbLayout(lc, lp, pb, pos_bits=pb)
     return [getattr(layout, f) for f in LAYOUT_FIELDS] + [lc, lp, pb]
+
+
+@functools.cache
+def _slots(lc: int, lp: int, pb: int) -> int:
+    return ProbLayout(lc, lp, pb, pos_bits=pb).size
 
 
 def _check(meta, t_pos, t_len, t_dist, t_valid):
@@ -195,7 +211,7 @@ def lower_counts_cuda(meta, t_pos, t_len, t_dist, t_valid, lc: int, lp: int,
         raise ValueError(f"max_bits must be >= 0, got {max_bits}")
     N, T = t_pos.shape
     dev = t_pos.device
-    S = ProbLayout(lc, lp, pb, pos_bits=pb).size
+    S = _slots(lc, lp, pb)
     # the kernel zeroes n and n1 itself
     new = torch.zeros if T == 0 or N == 0 else torch.empty
     n = new((N, S), dtype=torch.int32, device=dev)

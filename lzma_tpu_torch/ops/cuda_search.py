@@ -16,8 +16,9 @@ call these wrappers:
 - ``suffix_table_cuda`` (K10) replaces ``_suffix_table_plain``: rank and
   the (N, levels, max_n) table, written in place level by level;
 - ``match_lists_cuda`` (K11) replaces ``_match_lists_plain``: the tiers'
-  inverse orders, then a thread a position for its candidates, their
-  dedup and cap, exact lengths and merge.
+  inverse orders, then a thread a position gathers its candidates tier
+  by tier into a row in shared memory, then takes their dedup and cap,
+  exact lengths and merge.
 
 A CUDA tensor launches the kernel (or the wrapper raises); a CPU tensor
 takes the plain version.  Every output is the plain version's, bit for
@@ -52,8 +53,9 @@ def _lib():
     lib.lzt_search_keys.argtypes = [_P, _P, _I, _L, _I, _I, _P, _P, _P]
     lib.lzt_suffix_table.argtypes = [_P, _P, _P, _P, _I, _L, _I, _I, _P, _P,
                                      _P]
-    lib.lzt_match_lists.argtypes = [_P, _P, _I, _P, _P, _I, _I, _I, _P, _P,
-                                    _I, _P, _L, _I, _L, _P, _P, _P, _P]
+    lib.lzt_match_lists.argtypes = [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I,
+                                    _P, _P, _I, _P, _L, _I, _L, _P, _P, _P,
+                                    _P]
     for fn in (lib.lzt_search_keys, lib.lzt_suffix_table, lib.lzt_match_lists):
         fn.restype = ctypes.c_int
     return lib
@@ -184,6 +186,21 @@ def list_columns(ranks, m_cap: int, m_cap_order: str):
     return cols, rr, m_cap if 0 < m_cap < M else M
 
 
+def tier_columns(cols, n_tiers: int):
+    """K11's columns as its gather takes them, tier by tier: the (rank,
+    column) pairs of ``list_columns``' cols grouped by tier, the column a
+    pair's index in cols, where each tier's pairs start (n_tiers + 1
+    offsets) and each tier's largest rank."""
+    grouped = [(j, c) for t in range(n_tiers)
+               for c, (tt, j) in enumerate(cols) if tt == t]
+    start = [0]
+    for t in range(n_tiers):
+        start.append(start[-1] + sum(1 for tt, _ in cols if tt == t))
+    top = [max((j for tt, j in cols if tt == t), default=0)
+           for t in range(n_tiers)]
+    return grouped, start, top
+
+
 def match_lists_cuda(sorted_keys, orders, ranks, rank, T, n, dict_size: int,
                      m_cap: int, m_cap_order: str):
     """Each position's ascending (len, dist) list (K11), as
@@ -225,15 +242,19 @@ def match_lists_cuda(sorted_keys, orders, ranks, rank, T, n, dict_size: int,
         T = T.contiguous()
         n = n.to(device=dev, dtype=torch.int64).contiguous()
         inv = torch.empty((nt, N, max_n), dtype=torch.int32, device=dev)
-        col_t = torch.tensor(cols, dtype=torch.int32).reshape(-1).to(dev)
+        grouped, start, top = tier_columns(cols, nt)
+        col_t = torch.tensor(grouped, dtype=torch.int32).reshape(-1).to(dev)
+        starts = (ctypes.c_int * (nt + 1))(*start)
+        tops = (ctypes.c_int * nt)(*top)
         ptrs = (ctypes.c_void_p * nt)(*(p.data_ptr() for p in planes))
         optrs = (ctypes.c_void_p * nt)(*(o.data_ptr() for o in idx))
         with torch.cuda.device(dev):
             err = _lib().lzt_match_lists(
-                ptrs, optrs, nt, inv.data_ptr(), col_t.data_ptr(), len(cols),
-                int(rr), width, rank.data_ptr(), T.data_ptr(), levels,
-                n.data_ptr(), int(dict_size), N, max_n, lens.data_ptr(),
-                dists.data_ptr(), counts.data_ptr(), _stream(dev))
+                ptrs, optrs, nt, inv.data_ptr(), col_t.data_ptr(), starts,
+                tops, len(cols), int(rr), width, rank.data_ptr(), T.data_ptr(),
+                levels, n.data_ptr(), int(dict_size), N, max_n,
+                lens.data_ptr(), dists.data_ptr(), counts.data_ptr(),
+                _stream(dev))
         _raise("match_lists", err)
         LIST_LAUNCHES += 1
     return lens, dists, counts

@@ -765,14 +765,44 @@ def _counts_on_card(args):
 
 # K8 at its round and lane edges: lanes of a round (kThreads tokens) - 1,
 # + 0, + 1, four and nine rounds and some, of 0 and 1 token, and one lane
-# far longer than the rest; N = 1, 3 and 33 (blocks run lanes fastest)
+# far longer than the rest; N = 1, 3 and 33 (blocks run lanes fastest);
+# the histogram in shared memory (lc3 lp0 pb2) and in device memory (lc8
+# lp4 pb4)
+@pytest.mark.parametrize("lc, lp, pb", [(3, 0, 2), (8, 4, 4)],
+                         ids=["shared", "device"])
 @pytest.mark.parametrize("N", [1, 3, 33])
-def test_lower_counts_kernel_at_round_and_lane_edges(card, N):
+def test_lower_counts_kernel_at_round_and_lane_edges(card, N, lc, lp, pb):
     R = _lower_constant("kThreads")
     sizes = [0, 1, R - 1, R, R + 1, 4 * R + 3, 9 * R + 5]
     counts = [sizes[(i * 3 + N) % len(sizes)] for i in range(N)]
     counts[-1] = 100 * R + 7 if N > 1 else R - 1
-    _counts_on_card(_lower_inputs(counts, 40 + N, card))
+    S = ProbLayout(lc, lp, pb, pos_bits=pb).size
+    assert cuda_lower.count_placement(S, smem_limit(0)) == (
+        "shared" if lc == 3 else "device")
+    _counts_on_card(_lower_inputs(counts, 40 + N, card, lc=lc, lp=lp, pb=pb))
+
+
+@pytest.mark.parametrize("lc, lp, pb", [(3, 0, 2), (8, 4, 4)],
+                         ids=["shared", "device"])
+def test_lower_counts_kernel_stages_a_round_in_parts(card, lc, lp, pb):
+    """Lanes of long matches at spec_pos distances: every round of kThreads
+    tokens has more counted pairs than the kStage-word stage holds, so
+    each round is staged and counted in parts."""
+    R, K = _lower_constant("kThreads"), _lower_constant("kStage")
+    rng = np.random.default_rng(12)
+    N, n_tok = 3, 3 * R + 7
+    T = 2 * n_tok + 8         # the long tokens fit T // 2 + 2
+    t_len = np.full((N, T), 273, np.int64)
+    t_pos = np.cumsum(t_len, axis=1) - t_len
+    t_dist = rng.integers(4, 128, (N, T))
+    t_valid = np.arange(T)[None, :].repeat(N, 0) < n_tok
+    data = torch.from_numpy(rng.integers(0, 256, (N, int(t_pos[0, -1]) + 300),
+                                         dtype=np.uint8)).to(card)
+    tok = [torch.from_numpy(a).to(card) for a in
+           (t_pos, t_len, t_dist, t_valid)]
+    meta = tuple(m.long() for m in classify_tokens(data, *tok))
+    n, _, _ = _counts_on_card((meta, *tok, lc, lp, pb, 50 * T, 0))
+    assert int(n.sum()) // N // n_tok * R > K
 
 
 def test_lower_counts_kernel_in_both_placements(card):
@@ -1543,8 +1573,10 @@ def test_search_keys_and_suffix_table_kernels_match_plain(card, widths, depth):
 
 
 #: (tier ks, m_cap, m_cap_order): the optimal route's (rr 12), the
-#: hybrid's (near, uncapped, 29), near cut at 12, tuple ranks, and past
-#: 32 candidates (the list in the dists row) cut and uncut
+#: hybrid's (near, uncapped, 29), near cut at 12, tuple ranks, past 32
+#: candidates (the list in the dists row) cut and uncut, DP_TIERS' 29
+#: columns cut to 5 (the candidate row past the block's staged rows), and
+#: a rank too far for the inverse words to pack their runs (keys compared)
 LIST_CASES = {
     "dp-rr12": (None, 12, "rr"),
     "hybrid-near": (dict(k4=12, k6=4, k8=6, k16=3, k32=2), 0, "near"),
@@ -1554,6 +1586,8 @@ LIST_CASES = {
     "wide-near": (dict(k4=20, k8=10, k16=5), 0, "near"),
     "wide-rr34": (dict(k4=20, k8=10, k16=5), 34, "rr"),
     "wide-near17": (dict(k4=20, k8=10, k16=5), 17, "near"),
+    "dp-rr5-own-row": (None, 5, "rr"),
+    "far-rank-keys": (dict(k4=(1, 2, 1 << 26), k8=2), 12, "rr"),
 }
 
 
@@ -1591,6 +1625,39 @@ def test_match_lists_kernel_matches_plain(card, name, fb):
                                   T, k, 1800, m_cap, order)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(k11, plain))
+
+
+# K11 at its edges: lanes of 1, 2 and 3 places, and lanes one place either
+# side of its 128-position list blocks and 256-place inverse tiles (lane 0
+# all zeros: one run of equal keys)
+@pytest.mark.parametrize("widths", [[1], [2, 1], [3, 2, 3],
+                                    [2049, 1023, 1025, 1024]],
+                         ids=lambda w: f"max_n{max(w)}")
+@pytest.mark.parametrize("name", ["dp-rr12", "hybrid-near", "wide-rr34",
+                                  "wide-near17", "dp-rr5-own-row",
+                                  "far-rank-keys"])
+def test_match_lists_kernel_at_its_edges(card, widths, name):
+    from lzma_tpu_torch.ops import cuda_search
+    from lzma_tpu_torch.ops import device_matcher as dm
+
+    tiers, m_cap, order = LIST_CASES[name]
+    data, n = _search_lanes(widths, 3)
+    d, k = data.to(card), n.to(card)
+    ranks = dm.tier_ranks(dm.DP_TIER_KS if tiers is None else tiers)
+    skeys, tkeys = cuda_search.search_keys_cuda(d, k, 32,
+                                                [s for s, r in ranks if r])
+    rank, T = cuda_search.suffix_table_cuda(d, k, dm._sort_packed(skeys), 32)
+    sorts = [torch.sort(x, dim=1, stable=True) for x in tkeys]
+    args = ([s.values for s in sorts], [s.indices for s in sorts])
+    before = cuda_search.LIST_LAUNCHES
+    got = cuda_search.match_lists_cuda(list(args[0]), list(args[1]), ranks,
+                                       rank, T, k, 1800, m_cap, order)
+    torch.cuda.synchronize()
+    assert cuda_search.LIST_LAUNCHES == before + 1
+    want = dm._match_lists_plain(list(args[0]), list(args[1]), ranks, rank, T,
+                                 k, 1800, m_cap, order)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == torch.int64 and torch.equal(g, w)
 
 
 def test_search_kernels_launch_on_every_route(card):

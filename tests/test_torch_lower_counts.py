@@ -14,10 +14,12 @@ of 8 lanes of 1 KiB at lc3 lp0 pb2 with the EOS marker appended.  They
 raise where the plain lowering raises.  ``tokenize_optimal`` routes its
 rounds through ``lower_counts`` and still gives JAX's tokens.
 
-The kernel's count ``put`` over ``csrc/lower_token.cuh`` (each pair of
-ctx >= 0 counted under its slot, the direct bits not) is built by g++
-into a serial host count and held to the plain counts; those tests skip
-without g++.  The kernel itself is held to the plain version on the card
+The kernel's staged count over ``csrc/lower_token.cuh`` (each round's
+counted pairs, the direct bits left out, scanned and staged at their
+offsets, a stage at a time, then each staged pair counted under its
+slot) is built by g++ into a serial host count and held to the plain
+counts at the kernel's round and stage sizes and at small ones; those
+tests skip without g++.  ``count_placement`` leaves room for the stage.  The kernel itself is held to the plain version on the card
 (tests/test_torch_cuda.py, chip_smoke.py).
 """
 
@@ -242,53 +244,78 @@ def test_tokenize_optimal_counts_its_rounds_and_equals_jax(monkeypatch):
 HOST_DRIVER = r"""
 #include <cstdint>
 #include <cstring>
+#include <vector>
 
 #include "lower_token.cuh"
 
-// K8's counts serially on the host, token by token, on contiguous
-// (n_lanes, n_tok) int64 planes: each pair of ctx >= 0 counted under its
-// slot (n) and, with bit 1, in n1, as the kernel's put counts it; the
-// totals and status bits as the kernel's.  Status bit 4: a pair's slot
-// past the arena (never counted).
+// K8's staged count serially on the host, on contiguous (n_lanes, n_tok)
+// int64 planes: each round of `round` tokens, every valid token's counted
+// pairs (lower_token::counted) scanned in token order, staged
+// (stage_counted) `stage_n` words at a time and counted from the stage
+// (n; n1 with bit 1), as the kernel's block walks it; the totals and
+// status bits as the kernel's.  Status bit 4: a staged slot past the
+// arena; 8: a stage word the round's tokens did not write.
 extern "C" int lzt_counts_host(const long long* const* p,
                                const uint8_t* valid, const int* layout,
                                long long pos_base, int n_lanes, int n_tok,
-                               long long max_bits, int S, int* n, int* n1,
-                               int* total) {
+                               long long max_bits, int S, int round,
+                               int stage_n, int* n, int* n1, int* total) {
   using namespace lower_token;
   Layout L;
   std::memcpy(&L, layout, sizeof(Layout));
   int status = 0;
+  std::vector<uint32_t> stage(stage_n);
   for (int lane = 0; lane < n_lanes; ++lane) {
     long long sum = 0, longs = 0;
     int* n_row = n + static_cast<long long>(lane) * S;
     int* n1_row = n1 + static_cast<long long>(lane) * S;
-    for (int t = 0; t < n_tok; ++t) {
-      const long long e = static_cast<long long>(lane) * n_tok + t;
-      if (!valid[e]) continue;
-      Token k;
-      k.kind = static_cast<int>(p[0][e]);
-      k.rep_idx = static_cast<int>(p[1][e]);
-      k.state = static_cast<int>(p[2][e]);
-      k.match_mode = static_cast<int>(p[3][e]);
-      k.match_byte = static_cast<int>(p[4][e]);
-      k.prev_byte = static_cast<int>(p[5][e]);
-      k.lit_byte = static_cast<int>(p[6][e]);
-      k.coded_pos = static_cast<int>(p[7][e] - pos_base);
-      k.len = static_cast<int>(p[8][e]);
-      k.dist = static_cast<int>(p[9][e]);
-      const Geo g = geometry(k);
-      sum += g.nbits;
-      longs += is_long(g) ? 1 : 0;
-      emit(k, g, L, [&](int, int c, int b) {
-        if (c < 0) return;
-        if (c >= S) {
-          status |= 4;
-          return;
+    for (int t0 = 0; t0 < n_tok; t0 += round) {
+      std::vector<Token> ks(round);
+      std::vector<Geo> gs(round);
+      std::vector<int> ex(round), mine(round, 0);
+      int pairs = 0;
+      for (int i = 0; i < round && t0 + i < n_tok; ++i) {
+        const long long e = static_cast<long long>(lane) * n_tok + t0 + i;
+        if (!valid[e]) continue;
+        Token& k = ks[i];
+        k.kind = static_cast<int>(p[0][e]);
+        k.rep_idx = static_cast<int>(p[1][e]);
+        k.state = static_cast<int>(p[2][e]);
+        k.match_mode = static_cast<int>(p[3][e]);
+        k.match_byte = static_cast<int>(p[4][e]);
+        k.prev_byte = static_cast<int>(p[5][e]);
+        k.lit_byte = static_cast<int>(p[6][e]);
+        k.coded_pos = static_cast<int>(p[7][e] - pos_base);
+        k.len = static_cast<int>(p[8][e]);
+        k.dist = static_cast<int>(p[9][e]);
+        gs[i] = geometry(k);
+        sum += gs[i].nbits;
+        longs += is_long(gs[i]) ? 1 : 0;
+        mine[i] = counted(gs[i]);
+        ex[i] = pairs;
+        pairs += mine[i];
+      }
+      for (int lo = 0; lo < pairs; lo += stage_n) {
+        std::fill(stage.begin(), stage.end(), 0xFFFFFFFFu);
+        for (int i = 0; i < round; ++i) {
+          if (mine[i] && ex[i] < lo + stage_n && ex[i] + mine[i] > lo)
+            stage_counted(ks[i], gs[i], L, ex[i], lo, stage_n, stage.data());
         }
-        n_row[c] += 1;
-        n1_row[c] += b != 0 ? 1 : 0;
-      });
+        const int staged = pairs - lo < stage_n ? pairs - lo : stage_n;
+        for (int q = 0; q < staged; ++q) {
+          if (stage[q] == 0xFFFFFFFFu) {
+            status |= 8;
+            continue;
+          }
+          const int c = pair_slot(stage[q]);
+          if (c >= S) {
+            status |= 4;
+            continue;
+          }
+          n_row[c] += 1;
+          n1_row[c] += pair_bit(stage[q]);
+        }
+      }
     }
     total[lane] = static_cast<int>(sum);
     if (sum > max_bits) status |= 1;
@@ -312,12 +339,12 @@ def host_counts(tmp_path_factory):
                     "-fPIC", "-I", CSRC, "-o", str(lib), str(src)], check=True)
     fn = ctypes.CDLL(str(lib)).lzt_counts_host
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong]
-                   + [ctypes.c_int] * 2 + [ctypes.c_longlong] + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 3)
+                   + [ctypes.c_int] * 2 + [ctypes.c_longlong]
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3)
     fn.restype = ctypes.c_int
 
     def run(meta, t_pos, t_len, t_dist, t_valid, lc, lp, pb, max_bits,
-            pos_base=0):
+            pos_base=0, stage=(256, 4096)):
         planes = [np.ascontiguousarray(a, dtype=np.int64)
                   for a in (*meta, t_pos, t_len, t_dist)]
         valid = np.ascontiguousarray(t_valid, dtype=np.uint8)
@@ -329,21 +356,52 @@ def host_counts(tmp_path_factory):
         n1 = np.zeros((N, S), np.int32)
         total = np.zeros(N, np.int32)
         status = fn(ptrs, valid.ctypes.data, layout.ctypes.data, pos_base, N,
-                    T, max_bits, S, n.ctypes.data, n1.ctypes.data,
+                    T, max_bits, S, *stage, n.ctypes.data, n1.ctypes.data,
                     total.ctypes.data)
         return status, n, n1, total
 
     return run
 
 
-def test_kernel_count_put_equals_the_plain_counts(case, host_counts):
+#: (tokens a round, stage words) of the host's staged count: K8's own
+#: (kThreads, kStage), and small ones whose stage cuts most tokens' pairs
+#: and most rounds into several passes
+STAGES = {"kernel": (256, 4096), "small": (5, 7), "one": (3, 1)}
+
+
+@pytest.mark.parametrize("stage", list(STAGES))
+def test_kernel_count_put_equals_the_plain_counts(case, host_counts, stage):
+    """lower_token.cuh's staged count (each round's counted pairs scanned,
+    staged at their offsets and counted from the stage) gives the plain
+    counts; the status bits as the plain version's raises."""
     args = (case["meta"], *case["tok"], case["lc"], case["lp"], case["pb"])
-    status, *got = host_counts(*args, case["max_bits"], case["pos_base"])
+    st = STAGES[stage]
+    status, *got = host_counts(*args, case["max_bits"], case["pos_base"], st)
     assert status == 0
     for g, w in zip(got, _counts(case)):
         np.testing.assert_array_equal(g, w.numpy())
-    status, *_ = host_counts(*args, case["max_bits"] - 1, case["pos_base"])
+    status, *_ = host_counts(*args, case["max_bits"] - 1, case["pos_base"], st)
     assert status == 1
     meta, *tok = _long_overflow()
     assert host_counts(meta, *tok, case["lc"], case["lp"], case["pb"],
-                       1000)[0] == 2
+                       1000, 0, st)[0] == 2
+
+
+def test_count_placement_leaves_room_for_the_stage():
+    """K8's histogram goes to shared memory only where it fits beside the
+    block's pair stage (csrc/lower.cu kStage words): lc3 lp0 pb2's on the
+    H100's 232,448 bytes, not lc8 lp4 pb4's; the boundary is the stage's."""
+    import pathlib
+    import re
+
+    src = (pathlib.Path(CSRC) / "lower.cu").read_text()
+    k_stage = int(re.search(r"constexpr int kStage = (\d+);", src).group(1))
+    assert 4 * k_stage < cuda_lower.COUNT_STAGE_BYTES <= 4 * k_stage + 256
+    limit = 232448
+    assert cuda_lower.count_placement(JLayout(3, 0, 2, pos_bits=2).size,
+                                      limit) == "shared"
+    assert cuda_lower.count_placement(JLayout(8, 4, 4, pos_bits=4).size,
+                                      limit) == "device"
+    S = (limit - cuda_lower.COUNT_STAGE_BYTES) // 4
+    assert cuda_lower.count_placement(S, limit) == "shared"
+    assert cuda_lower.count_placement(S + 4, limit) == "device"

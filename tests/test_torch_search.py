@@ -254,45 +254,73 @@ extern "C" void cl_host(const uint8_t* data, const int64_t* n,
   }
 }
 
+// K11's two grids serially: each tier's inverse words (inverse_word;
+// packed as the kernel packs them unless unpacked is set), then blocks of
+// `block` positions, each position's candidates gathered tier by tier
+// (tier_candidates) into its row, its list and merge (list_position).  A
+// register list's lens and dists rows are staged `pitch` words apart, the
+// candidate row in the position's own staged rows where m int32 fit them
+// (else in a row of its own), and the staged rows are written back as
+// the block's `block` threads write them;
 // row_list: the kept candidates in each position's dists row even where a
-// register list would hold them
+// register list would hold them.
 extern "C" void lists_host(const int32_t* const* sorted,
                            const int64_t* const* order, int nt,
-                           const int32_t* cols, int m, int rr, int width,
+                           const int32_t* tcols, const int32_t* start,
+                           const int32_t* max_rank, int m, int rr, int width,
                            const int64_t* rank, const int32_t* T, int levels,
                            const int64_t* n, int64_t dict_size, int lanes,
-                           int64_t max_n, int row_list, int64_t* lens,
-                           int64_t* dists, int64_t* counts) {
+                           int64_t max_n, int block, int row_list,
+                           int unpacked, int64_t* lens, int64_t* dists,
+                           int64_t* counts) {
+  const int stride = width | 1, pitch = 2 * stride + 1;
+  const bool own = !row_list && 2 * pitch >= m;
+  int top = 0;
+  for (int t = 0; t < nt; ++t) top = max_rank[t] > top ? max_rank[t] : top;
+  const int rbits = place_bits(max_n);
+  const bool packed = !unpacked && inverse_packed(max_n, top);
   for (int l = 0; l < lanes; ++l) {
-    const int64_t at = l * max_n;
-    Lane ln;
-    std::vector<std::vector<int64_t>> inv(nt, std::vector<int64_t>(max_n));
-    for (int t = 0; t < nt; ++t) {
-      ln.sorted[t] = sorted[t] + at;
-      ln.order[t] = order[t] + at;
-      for (int64_t i = 0; i < max_n; ++i) inv[t][ln.order[t][i]] = i;
-    }
-    ln.rank = rank + at;
-    ln.T = T + at * levels;
-    ln.max_n = max_n;
-    ln.n = n[l];
-    ln.dict_size = dict_size;
-    for (int64_t p = 0; p < max_n; ++p) {
-      int64_t r[kSpans];
-      for (int t = 0; t < nt; ++t) r[t] = inv[t][p];
-      int64_t* lrow = lens + (at + p) * width;
-      int64_t* drow = dists + (at + p) * width;
-      int count;
-      if (!row_list && width <= 32) {
-        RegList<32> list;
-        const int len = gather(ln, cols, m, rr != 0, width, r, list);
-        count = merge(ln, p, list, len, width, lrow, drow);
-      } else {
-        RowList list{drow};
-        const int len = gather(ln, cols, m, rr != 0, width, r, list);
-        count = merge(ln, p, list, len, width, lrow, drow);
+    const int64_t at0 = l * max_n;
+    std::vector<std::vector<uint32_t>> inv(nt, std::vector<uint32_t>(max_n));
+    for (int t = 0; t < nt; ++t)
+      for (int64_t i = 0; i < max_n; ++i)
+        inv[t][order[t][at0 + i]] =
+            inverse_word(sorted[t] + at0, i, max_rank[t], rbits, packed);
+    const Lane ln{rank + at0, T + at0 * levels, max_n, n[l], dict_size};
+    for (int64_t p0 = 0; p0 < max_n; p0 += block) {
+      const int np = static_cast<int>(max_n - p0 < block ? max_n - p0 : block);
+      const int64_t at = at0 + p0;
+      std::vector<int64_t> staged(block * pitch, -5);
+      std::vector<int32_t> rows(block * m, -6);
+      for (int i = 0; i < np; ++i) {
+        int32_t* row = own ? reinterpret_cast<int32_t*>(&staged[i * pitch])
+                           : &rows[i * m];
+        for (int t = 0; t < nt; ++t)
+          tier_candidates(sorted[t] + at0, order[t] + at0, inv[t][p0 + i],
+                          rbits, packed, tcols + 2 * start[t],
+                          start[t + 1] - start[t], row);
+        if (row_list) {
+          counts[at + i] = list_position<0>(ln, p0 + i, row, m, rr != 0,
+                                            width, width,
+                                            lens + (at + i) * width,
+                                            dists + (at + i) * width);
+          continue;
+        }
+        int64_t* lrow = &staged[i * pitch];
+        counts[at + i] =
+            width <= 16
+                ? list_position<16>(ln, p0 + i, row, m, rr != 0, width, width,
+                                    lrow, lrow + stride)
+                : list_position<32>(ln, p0 + i, row, m, rr != 0, width, width,
+                                    lrow, lrow + stride);
       }
-      counts[at + p] = count;
+      if (row_list) continue;
+      for (int first = 0; first < block; ++first) {  // as a block's threads
+        copy_rows(staged.data(), pitch, lens + at * width, width, np, width,
+                  first, block);
+        copy_rows(staged.data() + stride, pitch, dists + at * width, width, np,
+                  width, first, block);
+      }
     }
   }
 }
@@ -350,32 +378,107 @@ def test_host_consecutive_lcp_equals_the_plain_table(host_search, depth):
     np.testing.assert_array_equal(cl, T[:, 0].numpy())
 
 
-@pytest.mark.parametrize("row_list", [0, 1], ids=["registers", "row"])
-def test_host_lists_equal_the_plain_lists(case, host_search, row_list):
-    """search_list.cuh's gather and merge, fed the plain version's sorted
-    tiers, rank and T, give _match_lists_plain's lists (a register list
-    where it fits, and the row list everywhere)."""
-    skeys, tkeys, rank, T, lens, dists, counts, (sk, so) = _plain(
-        case["fb"], case["ks"], case["m_cap"], case["order"])
-    ranks = tm.tier_ranks(case["ks"])
-    cols, rr, width = cuda_search.list_columns(ranks, case["m_cap"],
-                                               case["order"])
+#: positions a list block of the host's passes: K11's own (kListThreads
+#: 128), and a small one that cuts the lanes into many blocks
+HOST_BLOCKS = {"kernel": 128, "small": 5}
+
+
+def _host_lists(host_search, sk, so, ranks, rank, T, n, m_cap, order,
+                row_list, block, unpacked=0):
+    """search_list.cuh's closed forms in K11's two grids (lists_host) on
+    the sorted tiers sk, so, rank and T: (lens, dists, counts)."""
+    cols, rr, width = cuda_search.list_columns(ranks, m_cap, order)
+    grouped, start, top = cuda_search.tier_columns(cols, len(sk))
     N, max_n = rank.shape
     sorted_np = [np.ascontiguousarray(s.numpy()) for s in sk]
     order_np = [np.ascontiguousarray(o.numpy()) for o in so]
     ptrs = (ctypes.c_void_p * len(sk))(*(a.ctypes.data for a in sorted_np))
     optrs = (ctypes.c_void_p * len(so))(*(a.ctypes.data for a in order_np))
-    col_np = np.ascontiguousarray(np.array(cols, np.int32).reshape(-1))
+    col_np = np.ascontiguousarray(np.array(grouped, np.int32).reshape(-1))
+    start_np = np.array(start, np.int32)
+    top_np = np.array(top, np.int32)
     rank_np = np.ascontiguousarray(rank.numpy())
     T_np = np.ascontiguousarray(T.numpy())
-    n = LENS.astype(np.int64)
+    n_np = np.ascontiguousarray(n.numpy().astype(np.int64))
     got = [np.full((N, max_n, width), -7, np.int64) for _ in range(2)]
     got_counts = np.zeros((N, max_n), np.int64)
-    host_search.lists_host(ptrs, optrs, len(sk), _ptr(col_np), len(cols),
-                           int(rr), width, _ptr(rank_np), _ptr(T_np),
-                           T.shape[1], _ptr(n), ctypes.c_longlong(DICT), N,
-                           ctypes.c_longlong(max_n), row_list, _ptr(got[0]),
-                           _ptr(got[1]), _ptr(got_counts))
-    np.testing.assert_array_equal(got[0], lens.numpy())
-    np.testing.assert_array_equal(got[1], dists.numpy())
-    np.testing.assert_array_equal(got_counts, counts.numpy())
+    host_search.lists_host(
+        ptrs, optrs, len(sk), _ptr(col_np), _ptr(start_np), _ptr(top_np),
+        len(cols), int(rr), width, _ptr(rank_np), _ptr(T_np), T.shape[1],
+        _ptr(n_np), ctypes.c_longlong(DICT), N, ctypes.c_longlong(max_n),
+        block, row_list, unpacked, _ptr(got[0]), _ptr(got[1]),
+        _ptr(got_counts))
+    return got[0], got[1], got_counts
+
+
+@pytest.mark.parametrize("unpacked", [0, 1], ids=["packed", "keys"])
+@pytest.mark.parametrize("block", list(HOST_BLOCKS))
+@pytest.mark.parametrize("row_list", [0, 1], ids=["registers", "row"])
+def test_host_lists_equal_the_plain_lists(case, host_search, row_list, block,
+                                          unpacked):
+    """search_list.cuh's inverse words (each place's run of equal keys
+    packed above it, or its place alone), gather (tier by tier into a
+    candidate row, which shares the staged lens and dists rows where it
+    fits; from the packed runs, or comparing keys), dedup and cap (a
+    register list where it fits and the row list everywhere) and merge,
+    fed the plain version's sorted tiers, rank and T, give
+    _match_lists_plain's lists."""
+    skeys, tkeys, rank, T, lens, dists, counts, (sk, so) = _plain(
+        case["fb"], case["ks"], case["m_cap"], case["order"])
+    got = _host_lists(host_search, sk, so, tm.tier_ranks(case["ks"]), rank, T,
+                      torch.from_numpy(LENS).long(), case["m_cap"],
+                      case["order"], row_list, HOST_BLOCKS[block], unpacked)
+    for g, w in zip(got, (lens, dists, counts)):
+        np.testing.assert_array_equal(g, w.numpy())
+
+
+#: the list cases at K11's edges: (tier ks, m_cap, m_cap_order): 35
+#: columns cut "rr" past 32 (the row list) and "near" at 17, DP_TIERS' 29
+#: columns cut to 5 (the candidate row past the staged rows), and a rank
+#: too far for the inverse words to pack their runs
+EDGE_LISTS = {
+    "wide-rr34": (dict(k4=20, k8=10, k16=5), 34, "rr"),
+    "wide-near17": (dict(k4=20, k8=10, k16=5), 17, "near"),
+    "dp-rr5-own-row": (None, 5, "rr"),
+    "far-rank-keys": (dict(k4=(1, 2, 1 << 26), k8=2), 12, "rr"),
+}
+
+
+@pytest.mark.parametrize("name", list(EDGE_LISTS))
+@pytest.mark.parametrize("widths", [[1], [2, 1], [3, 3, 2], [W] * 3],
+                         ids=lambda w: f"max_n{max(w)}")
+def test_host_lists_at_the_kernel_edges(host_search, name, widths):
+    """Lanes of 1, 2 and 3 places (and of W), past 32 columns and a
+    candidate row of its own: the host's grids at both block sizes equal
+    _match_lists_plain."""
+    ks, m_cap, order = EDGE_LISTS[name]
+    ks = tm.DP_TIER_KS if ks is None else ks
+    max_n = max(widths)
+    data = torch.from_numpy(np.ascontiguousarray(
+        DATA[[0, 5, 1][:len(widths)], :max_n]))
+    n = torch.tensor(widths, dtype=torch.int64)
+    n[0] = min(int(n[0]), max_n)
+    ranks = tm.tier_ranks(ks)
+    spans = [s for s, r in ranks if r]
+    skeys, tkeys = tm._search_keys_plain(data, n, 32, spans)
+    rank, T = tm._suffix_table_plain(data, n, tm._sort_packed(skeys), 32)
+    sorts = [torch.sort(k, dim=1, stable=True) for k in tkeys]
+    sk, so = [x.values for x in sorts], [x.indices for x in sorts]
+    want = tm._match_lists_plain(list(sk), list(so), ranks, rank, T, n, DICT,
+                                 m_cap, order)
+    for block in HOST_BLOCKS.values():
+        for row_list, unpacked in ((0, 0), (1, 0), (0, 1)):
+            got = _host_lists(host_search, sk, so, ranks, rank, T, n, m_cap,
+                              order, row_list, block, unpacked)
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g, w.numpy())
+
+
+def test_k11_tier_columns():
+    """Each tier's (rank, column) pairs keep the take order's index."""
+    ranks = tm.tier_ranks(dict(k2=2, k3=0, k4=(1, 5), k8=1))
+    cols, _, _ = cuda_search.list_columns(ranks, 3, "rr")
+    grouped, start, top = cuda_search.tier_columns(cols, 3)
+    assert grouped == [(1, 0), (2, 3), (1, 1), (5, 4), (1, 2)]
+    assert start == [0, 2, 4, 5]
+    assert top == [2, 5, 1]

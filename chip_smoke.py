@@ -42,7 +42,7 @@ prints its seconds):
      ops/cuda_inputs.py) and the path's marking and compaction (K13, K14,
      ops/cuda_path.py) through tokenize_optimal on the same lanes at fb
      5, 32 and 273 and at lc8 lp4 pb4 (K12's literal slots in device
-     memory, lc3 lp0's in shared memory), K13 and K14 also through the
+     memory, as at every lc and lp), K13 and K14 also through the
      lazy tokenize from position 0 and from 256: each against its plain
      version on the arguments the route gave it; the lazy search's
      kernels (K15 a prefix-doubling level's group ids and the next sort's
@@ -90,11 +90,14 @@ prints its seconds):
      alone by CUDA events beside its bound; K8's and these lines are
      printed after phase 18 with each call's grids, torch.profiler over
      three calls after a warm one, the arguments kept in host memory
-     till then, so that phase 18's traces are the process's first); K12,
-     K13 and K14 on the
+     till then, so that phase 18's traces are the process's first; K10's
+     levels past its tiles by their route at these lanes, column
+     stripes, and again with a pass a level forced, timed and equal);
+     K12, K13 and K14 on the
      probed encode's last calls (spied: the last round's rows and DP
      path, the seed's lazy path; each call timed alone by CUDA events
-     beside its bound), and the inputs phases 8 and 9 take
+     beside its bound; K12's grids traced after phase 18), and the inputs
+     phases 8 and 9 take
   8. the K4 path: tokenize_optimal(scan="band2") on phase 5's 32 x 16 KiB
      gives the tokens of the default scan, K4 launched (its count); K4 on
      the main path's whole last DP round (32 x 262,144 positions) gives
@@ -147,7 +150,9 @@ prints its seconds):
      K7 on the first CMP_POS token rows, K7's doubled by invalid ones,
      and on the rows from CMP_POS before the EOS token to the end, the
      whole tail), and K15, K16 and K17 (spied in the probed encode)
-     against theirs on that stream's own calls, uncut; the `.lzma` pins
+     against theirs on that stream's own calls, uncut, and K10 likewise
+     (its one lane of places no multiple of its tile: the levels past
+     the tile a pass a level), timed by CUDA events; the `.lzma` pins
      (PIN_ALONE_SHA256, PIN_ALONE_EOS_SHA256 = the JAX package's
      encode_alone of 64 KiB of bench data); the front door
      (lzma_tpu_torch.compress -> decompress on 2 MiB); the command line
@@ -481,6 +486,11 @@ def grid_text(grids):
 
 def record(name, source, replaces, n, err, ms, plain, bnd, library=None,
            **extra):
+    base = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    if base & set(extra):
+        raise AssertionError(f"{name}'s extra keys {sorted(base & set(extra))} "
+                             "would replace the record's own")
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": n, "max_abs_err": err,
             "ms": ms, "plain_ms": plain, "bound_ms": bnd[0],
@@ -777,8 +787,11 @@ SEARCH_REPLACES = {
         "lzma_tpu/ops/device_matcher.py:420",
         "lzma_tpu/ops/device_matcher.py:420-525 (_suffix_rank_lcp after its "
         "lexsort), " + _JIT,
-        "rank and T[0] a thread a place; levels 1-11 in 2,048-place tiles "
-        "of shared memory; a pass a wider level"),
+        "rank and T[0] a thread a place, its window staged as 32-bit words "
+        "(16-byte aligned loads and a funnel shift); levels 1-11 in 2,048-place "
+        "tiles of shared memory; the wider levels by column stripes in "
+        "shared memory where max_n is a multiple of 2,048 (each written "
+        "once), else a pass a level (cuda_search.upper_route)"),
     "match_lists": (
         "lzma_tpu/ops/device_matcher.py:578",
         "lzma_tpu/ops/device_matcher.py:286-306 (_neighbor_candidates), "
@@ -925,10 +938,12 @@ ROW_REPLACES = {
         ":1500 (matched_lit_cost), :272 (_pair_dist_cost), :774 "
         "(_pack_inputs); lzma_tpu/ops/device_matcher.py:684 "
         "(rep_match_lens_rmq, _lcp_query :528), " + _JIT_OPT,
-        "a block a lane's 8,192 positions: the distance tables and, where "
-        "they fit, both planes' literal slots in shared memory; a thread a "
-        "position, its int32 row staged in shared memory, the tile's rows "
-        "written by consecutive threads"),
+        "a grid of two blocks an SM walking chunks of 2,048 positions, "
+        "the SM's shared memory carved to what they need (the rest L1); "
+        "the distance tables staged, the literal slots read through L1; a "
+        "thread a position, its rep0 reads issued before its prices, its "
+        "int32 row staged in shared memory, the tile's rows written as "
+        "16-byte words"),
     "path_mark": (
         "lzma_tpu/ops/device_parser.py:1417",
         "lzma_tpu/ops/device_parser.py:1417 (extract_tokens' pointer "
@@ -1600,7 +1615,9 @@ def alone_phase(dev, card, data):
     ({"classify": ms, "lower": ms}), their bounds (likewise), the max
     |diff| of K6, K7, K2 and K1 against their plain versions on the
     stream's tensors, cut, and of K15, K16 and K17 on its calls, uncut
-    (by kernel name), and the EOS encode's launches by kernel."""
+    (by kernel name), the EOS encode's launches by kernel, and K10 on
+    the stream's call ({"places", "route", "ms", "bound", "err",
+    "plain_ms"})."""
     import os
     import tempfile
 
@@ -1610,11 +1627,12 @@ def alone_phase(dev, card, data):
     from lzma_tpu_torch.entry import entry
     from lzma_tpu_torch.core.layout import ProbLayout
     from lzma_tpu_torch.format.properties import LzmaParams
-    from lzma_tpu_torch.ops import api, cuda_classify, cuda_lower
+    from lzma_tpu_torch.ops import api, cuda_classify, cuda_lower, cuda_search
     from lzma_tpu_torch.ops.device_decoder import _pow2_at_least, pad_rows
     from lzma_tpu_torch.ops.device_encoder import probing
     from lzma_tpu_torch.ops.device_matcher import LAZY_STAGES
     from lzma_tpu_torch.probes._cuda import event_ms
+    from lzma_tpu_torch.runtime.card import smem_limit
 
     mb = len(data) / 1e6
     blobs = {}
@@ -1661,8 +1679,9 @@ def alone_phase(dev, card, data):
     # passes of 1,024) wait in host memory for the check below
     with probing() as probe:
         t = time.perf_counter()
-        again, seen_lazy = spied_lazy(lambda: api.encode_alone(
-            data, LzmaParams(write_eos=True), device=dev))
+        (again, seen_search), seen_lazy = spied_lazy(lambda: spied_search(
+            lambda: api.encode_alone(data, LzmaParams(write_eos=True),
+                                     device=dev)))
         torch.cuda.synchronize()
         t_probed = time.perf_counter() - t
     if again != blobs[True]:
@@ -1673,6 +1692,27 @@ def alone_phase(dev, card, data):
                              f"{ {k: len(v) for k, v in seen_lazy.items()} }")
     lazy_stash = _to("cpu", seen_lazy)
     del seen_lazy
+    # K10 on the stream's one lane (the LCP given past depth 32; a width
+    # that is no multiple of its tile: a pass a level past the tile),
+    # timed by CUDA events and held to its plain version, uncut
+    k10_args, _ = seen_search.pop("suffix_table")
+    del seen_search
+    k10 = {"places": k10_args[0].shape[1], "route": cuda_search.upper_route(
+        k10_args[0].shape[1], smem_limit(dev.index or 0))[0]}
+    k10["ms"] = event_ms(lambda: cuda_search.suffix_table_cuda(*k10_args), 3)
+    k10_out = cuda_search.suffix_table_cuda(*k10_args)
+    k10["bound"] = bound(*search_work({"suffix_table": (k10_args, k10_out)})[
+        "suffix_table"])
+    k10_errs, k10_plain = check_search({"suffix_table": (k10_args, k10_out)})
+    k10["err"], k10["plain_ms"] = k10_errs["suffix_table"], k10_plain["suffix_table"]
+    del k10_args, k10_out
+    torch.cuda.empty_cache()
+    log(f"[lzma stream K10] on {card}: the stream's one lane of "
+        f"{k10['places']} places, depth 273 (the LCP given), levels past the "
+        f"tile by {k10['route']}: {k10['ms']:.3f} ms (CUDA events, the "
+        f"wrapper), bound {k10['bound'][0]:.4f} ms by {k10['bound'][1]} "
+        f"({k10['ms'] / k10['bound'][0]:.1f}x); rank and T equal to the plain "
+        f"version's, uncut (plain {k10['plain_ms']:.1f} ms)")
     rows = probe["classify_rows"]
     l_args = probe["lower_args"]
     ms = {"classify": event_ms(
@@ -1796,7 +1836,7 @@ def alone_phase(dev, card, data):
     log(f"[entry] lzma_tpu_torch.entry: fn(*args) on {args[0].device}, "
         f"{tuple(out.shape)}, lens {lens.tolist()}: sha256 = the JAX "
         "reference's __graft_entry__.entry()")
-    return ms, bounds, errs, launches
+    return ms, bounds, errs, launches, k10
 
 
 def hybrid_pin_input():
@@ -2907,20 +2947,15 @@ def main():
     del seen
     # K12, K13 and K14 through tokenize_optimal (and K13 and K14 through
     # the lazy tokenize, from position 0 and from a preset's end) on the
-    # same lanes at fb 5, 32 and 273, and at lc8 lp4 pb4, whose literal
-    # slots K12 reads from device memory (lc3 lp0's from shared memory)
-    placed = tuple(cuda_inputs.input_placement(
-        device_parser.M_DP, cuda_inputs.lit_slots(lc, lp), limit)
-        for lc, lp in ((params.lc, params.lp), (big.lc, big.lp)))
-    if placed != ("shared", "device"):
-        raise AssertionError(f"K12 placements {placed} under {limit} B")
+    # same lanes at fb 5, 32 and 273 and at lc8 lp4 pb4, K12's literal
+    # slots read from device memory (as at every lc and lp)
     row_err = dict.fromkeys(ROW_KERNELS, 0)
     row_cases = [(fb_s, params) for fb_s in (5, 32, 273)] + [
         (32, LzmaParams(lc=8, lp=4, pb=4))]
     for fb_s, r_params in row_cases:
         _, seen = spied_rows(lambda: tokenize_optimal(
-            s_data, s_lens, s_data.shape[1], lc=r_params.lc, lp=r_params.lp,
-            pb=r_params.pb, fb=fb_s))
+            s_data, s_lens, s_data.shape[1], lc=r_params.lc,
+            lp=r_params.lp, pb=r_params.pb, fb=fb_s))
         if set(seen) != {w for ws in ROW_KERNELS.values() for w in ws}:
             raise AssertionError(f"tokenize_optimal at fb {fb_s} ran "
                                  f"{sorted(seen)}")
@@ -2929,10 +2964,8 @@ def main():
             row_err[k] = max(row_err[k], v)
         log(f"[K12, K13, K14 vs plain] {CMP_LANES}x{CMP_BYTES} (an all-zero "
             f"lane, lanes of 0 and 3 bytes), fb {fb_s}, lc{r_params.lc} "
-            f"lp{r_params.lp} pb{r_params.pb} (K12's literal slots in "
-            f"{cuda_inputs.input_placement(device_parser.M_DP, cuda_inputs.lit_slots(r_params.lc, r_params.lp), limit)}"
-            " memory): the DP rows, the seed's and the last round's marks "
-            "and tokens equal")
+            f"lp{r_params.lp} pb{r_params.pb}: the DP rows, the seed's and "
+            "the last round's marks and tokens equal")
     for start in (0, CMP_BYTES // 8):
         (_, seen), seen_l = spied_lazy(lambda: spied_rows(
             lambda: device_matcher.tokenize(
@@ -3236,6 +3269,23 @@ def main():
             lambda f=s_fn, a=s_args: f(*_fresh(a)), 3)
     search_w = search_work(seen_main)
     search_bounds = {k: bound(*w) for k, w in search_w.items()}
+    # K10's levels past its tiles: the route the wrapper takes at these
+    # lanes (column stripes), and the same call with the other route (a
+    # pass a level) forced, timed beside it and equal to it
+    t_args, t_out = seen_main["suffix_table"]
+    k10_route = cuda_search.upper_route(N, limit)[0]
+    kept_route = cuda_search.upper_route
+    cuda_search.upper_route = lambda max_n, lim: ("levels", 0)
+    try:
+        k10_levels_ms = event_ms(
+            lambda: cuda_search.suffix_table_cuda(*t_args), 3)
+        k10_levels_out = cuda_search.suffix_table_cuda(*t_args)
+    finally:
+        cuda_search.upper_route = kept_route
+    if not all(torch.equal(a, b) for a, b in zip(k10_levels_out, t_out)):
+        raise AssertionError("K10's per-level route differs from its "
+                             "column stripes on the main path's lanes")
+    del t_args, t_out, k10_levels_out
     search_lines = {
         k: f"{k} {search_whole[k]:.3f} ms a call (CUDA events, the wrapper), "
            f"{search_w[k][0]} B read and written, {search_w[k][1]} "
@@ -3246,10 +3296,14 @@ def main():
     search_head = (f"[K9, K10, K11 whole lanes] {L} lanes x {N} positions, "
                    f"DP_TIERS cut to 12 'rr', fb {params.fast_bytes}, on "
                    f"{card}: ")
-    search_tail = f"; {int(seen_main['match_lists'][1][2].sum())} pairs kept"
+    search_tail = (f"; {int(seen_main['match_lists'][1][2].sum())} pairs "
+                   f"kept; K10's levels past its tiles by {k10_route} "
+                   f"(the per-level passes forced: {k10_levels_ms:.3f} ms, "
+                   "the same rank and T)")
     # the calls' arguments wait in host memory for their grids' traces
     grid_stash = _to("cpu", {"lower_counts": c_args, **{
-        name: s_args for name, (s_args, _) in seen_main.items()}})
+        name: s_args for name, (s_args, _) in seen_main.items()},
+        "dp_inputs": seen_rows["dp_inputs_cuda"][0]})
     # K12 on the last round's rows, K13 and K14 on the last round's DP
     # path and the seed's lazy path, each call timed alone by CUDA events
     row_whole, row_bounds = {}, {}
@@ -3258,6 +3312,8 @@ def main():
         row_whole[w] = event_ms(lambda f=getattr(mod, w), a=r_args: f(*a), 3)
         row_bounds[w] = (row_work(w, r_args, r_out),
                          bound(*row_work(w, r_args, r_out)))
+    k12_blocks = cuda_inputs.occupancy(
+        seen_rows["dp_inputs_cuda"][0][1].shape[2])
     log(f"[K12, K13, K14 whole lanes] {L} lanes x {N} positions on {card}: "
         + "; ".join(f"{w} {row_whole[w]:.3f} ms a call (CUDA events, the "
                     f"wrapper{' with its status readback' if 'mark' in w else ''}"
@@ -3266,7 +3322,8 @@ def main():
                     f"({row_whole[w] / b[1][0]:.1f}x)"
                     for w, b in row_bounds.items())
         + f"; {int(seen_rows['extract_compact_cuda'][1][4].sum())} DP tokens, "
-        f"{int(seen_rows['greedy_compact_cuda'][1][4].sum())} seed tokens")
+        f"{int(seen_rows['greedy_compact_cuda'][1][4].sum())} seed tokens; "
+        f"K12 {k12_blocks} blocks an SM")
     log(f"[K2, K1 whole lanes] {L} lanes on {card}, CUDA events: rc_serialize "
         f"{k2_whole:.3f} ms a call ({n_bits} pairs, "
         f"{k2_whole * 1e6 / int(totals.max()):.1f} ns a pair of the longest "
@@ -3559,8 +3616,10 @@ def main():
     done("probes")
 
     # ---- 14. the .lzma path at full size, front door, CLI, entry ----
-    stream_ms, stream_bounds, stream_errs, stream_launches = alone_phase(
-        dev, card, data)
+    stream_ms, stream_bounds, stream_errs, stream_launches, stream_k10 = \
+        alone_phase(dev, card, data)
+    search_err["suffix_table"] = max(search_err["suffix_table"],
+                                     stream_k10["err"])
     k6_err = max(k6_err, stream_errs["classify"])
     k7_err = max(k7_err, stream_errs["lower"])
     k2_err = max(k2_err, stream_errs["rc_serialize"])
@@ -3579,14 +3638,18 @@ def main():
     # phase 7's K8 and K9-K11 lines, with each call's grids
     grids = {}
     for name, g_args in _to(dev, grid_stash).items():
-        fn = getattr(cuda_lower if name == "lower_counts" else cuda_search,
-                     "lower_counts_cuda" if name == "lower_counts"
-                     else SEARCH_KERNELS[name][0])
+        fn = (cuda_lower.lower_counts_cuda if name == "lower_counts"
+              else cuda_inputs.dp_inputs_cuda if name == "dp_inputs"
+              else getattr(cuda_search, SEARCH_KERNELS[name][0]))
         grids[name] = grid_split(lambda f=fn, a=g_args: f(*_fresh(a)))
     del grid_stash
     k8_grids = grids.pop("lower_counts")
+    k12_grids = grids.pop("dp_inputs")
     search_grids = grids
     log(k8_line + grid_text(k8_grids))
+    log(f"[K12 grids] the last round's rows on {card}, its device operations "
+        f"(torch.profiler, us a launch x launches a call): "
+        + grid_text(k12_grids))
     log(search_head + "; ".join(search_lines[k] + grid_text(search_grids[k])
                                 for k in SEARCH_KERNELS) + search_tail)
     torch.cuda.empty_cache()
@@ -3723,7 +3786,16 @@ def main():
                bench_launches=bench_launches["tpu"][name],
                bench_hybrid_launches=bench_launches["hybrid"][name],
                file_launches={k: v[name] for k, v in file_launches.items()},
-               grids=search_grids[name], design=SEARCH_REPLACES[name][2])
+               grids=search_grids[name], design=SEARCH_REPLACES[name][2],
+               **({} if name != "suffix_table" else {
+                   "upper_route": k10_route,
+                   "levels_route_ms": k10_levels_ms,
+                   "stream_places": stream_k10["places"],
+                   "stream_upper_route": stream_k10["route"],
+                   "stream_ms": stream_k10["ms"],
+                   "stream_bound_ms": stream_k10["bound"][0],
+                   "stream_plain_ms": stream_k10["plain_ms"],
+                   "stream_max_abs_err": stream_k10["err"]}))
         for name in SEARCH_KERNELS] + [
         record(name, f"lzma_tpu_torch/csrc/{'dp_inputs' if name == 'dp_inputs' else 'path'}.cu",
                ROW_REPLACES[name][0], launches[name], row_err[name],
@@ -3736,7 +3808,8 @@ def main():
                bench_launches=bench_launches["tpu"][name],
                file_launches={k: v[name] for k, v in file_launches.items()},
                design=ROW_REPLACES[name][2],
-               **({} if name == "dp_inputs" else {
+               **({"blocks_per_sm": k12_blocks, "grids": k12_grids}
+                  if name == "dp_inputs" else {
                    "ms_of": f"{main_w} (the last round's DP path)",
                    "seed_ms": row_whole[seed_w],
                    "seed_plain_ms": row_plain[seed_w],

@@ -1,15 +1,17 @@
 """Time the kernels of this checkout against those of another checkout, on
 one card, in turns: the DP scans (K3, K4), the range encoder (K2), the
 decoders (K1, K5), the classify carry (K6), the bit lowering (K7), its
-slot counts (K8) and the optimal search's match lists (K11).
+slot counts (K8), the suffix table (K10), the optimal search's match
+lists (K11) and the DP rows (K12).
 
     python -m lzma_tpu_torch.bench.kernel_ab OTHER_CHECKOUT [KERNEL ...]
 
 KERNEL picks among dp_parse, dp_parse2, rc_serialize, ring_decode,
 ring_input, classify, lower, lower_counts, classify_stream,
 lower_stream, ring_decode_champion, block_decode_champion and
-ring_input_champion, tokenize_lazy, tokenize_stream, match_lists and
-match_lists_hybrid (default: all).  The
+ring_input_champion, tokenize_lazy, tokenize_stream, match_lists,
+match_lists_hybrid, suffix_table, suffix_table_stream and dp_inputs
+(default: all).  The
 inputs are chip_smoke.py's: the main path is text_part() +
 generate_bench_data(5 << 20), LzmaParams() defaults (lc3 lp0 pb2, fb
 32), parse="optimal", 32 lanes of 256 KiB; an encode inside
@@ -39,8 +41,15 @@ K11 (``ops.cuda_search.match_lists_cuda``, the wrapper) on the arguments
 the main path's ``device_matcher._rmq_search`` gives it (spied) on the
 same 32 lanes: DP_TIERS cut to 12 "rr" at fb 32; match_lists_hybrid on
 the hybrid's (``hybrid.DEFAULT_TIERS``, 29 columns uncapped, "near").
-For K7, K8 and K11 it also splits this checkout's call by its device
-operations.  OTHER_CHECKOUT's package
+suffix_table is K10 (``ops.cuda_search.suffix_table_cuda``) on the
+arguments the same ``_rmq_search`` gives it (the 32 lanes' suffix
+order at depth 32: the column-stripe route of its upper levels);
+suffix_table_stream on those of the lazy `.lzma` stream of the 8 MiB
+with the EOS marker (``api.encode_alone``; one lane of 8,388,609
+places, the consecutive LCP given: the per-level route); dp_inputs is
+K12 (``ops.cuda_inputs.dp_inputs_cuda``) on the main path's last DP
+round's arguments (``api.encode_blocks``, spied).  For K7, K8, K10, K11
+and K12 it also splits this checkout's call by its device operations.  OTHER_CHECKOUT's package
 is loaded under another name and its kernels are built by its own
 runtime/build.py and called through its own wrappers
 (``ops.cuda_parser.dp_parse_cuda``, ``dp_parse2_cuda``,
@@ -48,7 +57,8 @@ runtime/build.py and called through its own wrappers
 ``ops.cuda_decoder.decode_resident``,
 ``ops.cuda_classify.classify_carry_cuda``,
 ``ops.cuda_lower.lower_tokens_cuda``, ``lower_counts_cuda``,
-``ops.cuda_search.match_lists_cuda``), whose signatures both
+``ops.cuda_search.match_lists_cuda``, ``suffix_table_cuda``,
+``ops.cuda_inputs.dp_inputs_cuda``), whose signatures both
 checkouts share.  ring_input and ring_input_champion compare no checkouts: on
 K1's main-path and champion streams they time this checkout's K1 body
 with its input staged in the shared-memory ring ("this",
@@ -94,20 +104,22 @@ KERNELS = ("dp_parse", "dp_parse2", "rc_serialize", "ring_decode",
            "ring_input", "classify", "lower", "lower_counts",
            "classify_stream", "lower_stream", "ring_decode_champion",
            "block_decode_champion", "ring_input_champion", "tokenize_lazy",
-           "tokenize_stream", "match_lists", "match_lists_hybrid")
+           "tokenize_stream", "match_lists", "match_lists_hybrid",
+           "suffix_table", "suffix_table_stream", "dp_inputs")
 MAIN_PATH = KERNELS[:8]
 STREAM = ("classify_stream", "lower_stream")
 TOKENIZE = ("tokenize_lazy", "tokenize_stream")
 LISTS = ("match_lists", "match_lists_hybrid")
+TABLE = ("suffix_table", "suffix_table_stream", "dp_inputs")
 #: the wrappers a split by device operations is printed for
-SPLIT = ("lower", "lower_counts", "lower_stream", *LISTS)
+SPLIT = ("lower", "lower_counts", "lower_stream", *LISTS, *TABLE)
 
 
 def other_wrappers(root: str, name: str = OTHER):
     """OTHER_CHECKOUT's ops.cuda_parser, ops.cuda_serializer,
     ops.cuda_ring, ops.cuda_decoder, ops.cuda_classify, ops.cuda_lower,
-    ops.device_matcher and ops.cuda_search, its package loaded as
-    `name`."""
+    ops.device_matcher, ops.cuda_search and ops.cuda_inputs, its package
+    loaded as `name`."""
     pkg = os.path.join(os.path.abspath(root), "lzma_tpu_torch")
     spec = importlib.util.spec_from_file_location(
         name, os.path.join(pkg, "__init__.py"), submodule_search_locations=[pkg])
@@ -117,7 +129,7 @@ def other_wrappers(root: str, name: str = OTHER):
     return tuple(importlib.import_module(f"{name}.ops.{m}") for m in
                  ("cuda_parser", "cuda_serializer", "cuda_ring", "cuda_decoder",
                   "cuda_classify", "cuda_lower", "device_matcher",
-                  "cuda_search"))
+                  "cuda_search", "cuda_inputs"))
 
 
 def main_data():
@@ -155,34 +167,70 @@ def stream_inputs(dev):
     return probe["classify_rows"], probe["lower_args"]
 
 
-def list_inputs(dev, hybrid_tiers: bool = False):
-    """match_lists_cuda's arguments as the main path's _rmq_search gives
-    them (spied) on main8M's 32 lanes: DP_TIERS cut to 12 "rr", or the
-    hybrid's DEFAULT_TIERS uncapped, "near"."""
-    from ..ops import cuda_search, device_matcher
-    from ..ops.hybrid import DEFAULT_TIERS
-
-    data = main_data()
-    params = LzmaParams()
-    lanes, lens = pad_rows([data[i:i + BLOCK]
-                            for i in range(0, len(data), BLOCK)], dev)
-    search = (DEFAULT_TIERS, 0, "near") if hybrid_tiers else ()
+def spied_args(module, wrapper: str, fn):
+    """The arguments of the last call fn() makes to module.wrapper (lists
+    in them copied: K11 empties the lists it is given)."""
     seen = {}
-    kept = cuda_search.match_lists_cuda
+    kept = getattr(module, wrapper)
 
     def spy(*args):
         seen["args"] = tuple(list(a) if isinstance(a, list) else a
                              for a in args)
         return kept(*args)
 
-    cuda_search.match_lists_cuda = spy
+    setattr(module, wrapper, spy)
     try:
-        device_matcher._rmq_search(lanes, lens,
-                                   min(params.dict_size, lanes.shape[1]),
-                                   params.fast_bytes, *search)
+        fn()
     finally:
-        cuda_search.match_lists_cuda = kept
+        setattr(module, wrapper, kept)
     return seen["args"]
+
+
+def _main_search(dev, *search):
+    """main8M's 32 lanes through _rmq_search (fb 32, LzmaParams())."""
+    from ..ops import device_matcher
+
+    data = main_data()
+    params = LzmaParams()
+    lanes, lens = pad_rows([data[i:i + BLOCK]
+                            for i in range(0, len(data), BLOCK)], dev)
+    return lambda: device_matcher._rmq_search(
+        lanes, lens, min(params.dict_size, lanes.shape[1]),
+        params.fast_bytes, *search)
+
+
+def list_inputs(dev, hybrid_tiers: bool = False):
+    """match_lists_cuda's arguments as the main path's _rmq_search gives
+    them (spied) on main8M's 32 lanes: DP_TIERS cut to 12 "rr", or the
+    hybrid's DEFAULT_TIERS uncapped, "near"."""
+    from ..ops import cuda_search
+    from ..ops.hybrid import DEFAULT_TIERS
+
+    search = (DEFAULT_TIERS, 0, "near") if hybrid_tiers else ()
+    return spied_args(cuda_search, "match_lists_cuda", _main_search(dev, *search))
+
+
+def table_inputs(dev, stream: bool = False):
+    """suffix_table_cuda's arguments (K10): main8M's 32 lanes through the
+    main path's _rmq_search, or the 8 MiB as one lazy `.lzma` stream with
+    the EOS marker (one lane, the consecutive LCP given)."""
+    from ..ops import cuda_search
+
+    if stream:
+        return spied_args(cuda_search, "suffix_table_cuda", lambda: (
+            api.encode_alone(main_data(), LzmaParams(write_eos=True),
+                             device=dev)))
+    return spied_args(cuda_search, "suffix_table_cuda", _main_search(dev))
+
+
+def row_inputs(dev):
+    """dp_inputs_cuda's arguments (K12) in the main path's last DP round:
+    main8M's optimal api.encode_blocks, spied."""
+    from ..ops import cuda_inputs
+
+    return spied_args(cuda_inputs, "dp_inputs_cuda", lambda: api.encode_blocks(
+        main_data(), LzmaParams(), block_size=BLOCK, parse="optimal",
+        device=dev))
 
 
 def lists_call(search_mod, args):
@@ -261,7 +309,7 @@ def main(argv=None) -> None:
     print(name, flush=True)
     dev = torch.device("cuda", 0)
     o_parser, o_serializer, o_ring, o_decoder, o_classify, o_lower, \
-        o_matcher, o_search = other_wrappers(argv[0])
+        o_matcher, o_search, o_inputs = other_wrappers(argv[0])
     result = {"card": name}
     kernels = {}
     if any(k in MAIN_PATH for k in chosen):
@@ -351,6 +399,23 @@ def main(argv=None) -> None:
                                    "this": lists_call(cuda_search, args)}
                 result[kernel + "_columns"] = sum(len(r) for _, r in args[2])
                 result[kernel + "_cap"] = args[7]
+    if any(k in TABLE for k in chosen):
+        from ..ops import cuda_inputs, cuda_search
+
+        for kernel in TABLE:
+            if kernel not in chosen:
+                continue
+            if kernel == "dp_inputs":
+                args = row_inputs(dev)
+                kernels[kernel] = {
+                    "other": lambda a=args: o_inputs.dp_inputs_cuda(*a),
+                    "this": lambda a=args: cuda_inputs.dp_inputs_cuda(*a)}
+            else:
+                args = table_inputs(dev, kernel == "suffix_table_stream")
+                kernels[kernel] = {
+                    "other": lambda a=args: o_search.suffix_table_cuda(*a),
+                    "this": lambda a=args: cuda_search.suffix_table_cuda(*a)}
+            result[kernel + "_shape"] = list(args[0].shape)
     for kernel in chosen:
         fns = kernels[kernel]
         outs = {k: fn() for k, fn in fns.items()}
@@ -361,7 +426,8 @@ def main(argv=None) -> None:
         reps = 3 if kernel in ("rc_serialize", "ring_decode", "ring_input") else 2
         if kernel.endswith("champion") or kernel.startswith(("classify",
                                                              "lower",
-                                                             "match")):
+                                                             "match")) \
+                or kernel in TABLE:
             reps = 5
         if kernel in TOKENIZE:
             reps = 3

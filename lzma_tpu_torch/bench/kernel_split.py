@@ -1,25 +1,38 @@
-"""K11's and K8's calls split on the card: by grid (torch.profiler) and by
-bench-side variants of a checkout's own sources.
+"""K11's, K8's, K10's and K12's calls split on the card: by grid
+(torch.profiler) and by bench-side variants of a checkout's own sources.
 
     python -m lzma_tpu_torch.bench.kernel_split [CHECKOUT] [VARIANT ...]
 
 CHECKOUT (default: this one) is copied under ``lzma_tpu_torch/_build/
 variants/``, once as it is and once a variant, each variant's source
-edited as VARIANTS says (a variant whose anchor the checkout's source
-lacks stops the run: the anchors are this tree's sources); each copy's
+edited as VARIANTS says (a variant whose anchors the checkout's source
+lacks stops the run; a variant may name alternative edits, the first
+whose anchors are all there is made: k10_no_levels and k12_no_replen
+carry the anchors of the sources before and after their redesign,
+k12_blocks goes either way, and k12_direct_rows applies to the sources
+before the redesign only); each copy's
 package is loaded under a name of its own and builds its kernels with
 its own runtime/build.py.  The inputs are kernel_ab's: K11
 (``match_lists``) on the arguments ``_rmq_search`` gives it on main8M's
 32 lanes of 256 KiB, main8M-opt's (DP_TIERS cut to 12 "rr", fb 32) and
 hybrid8M-opt's (``hybrid.DEFAULT_TIERS``, 29 columns uncapped, "near"),
 K8 (``lower_counts``) on the last optimal round's slot counts'
-arguments.  Each variant is timed on each of its kernel's inputs by
+arguments, K10 (``suffix_table``) on main8M-opt's suffix order (32
+lanes of 262,144 places, depth 32), K12 (``dp_inputs``) on main8M-opt's
+last DP round's arguments.  Each variant is timed on each of its kernel's inputs by
 CUDA events in turns with the checkout as it is (as it is, variant,
 variant, as it is), and each side's device operations by torch.profiler
 (three calls after a warm one).  A variant that keeps the kernel's output must give the same
 tensors; an ablation (``"keeps": False``) gives other numbers by design
-and is only timed.  Needs a CUDA device and nvcc.  Prints the card
-(nvidia-smi name, power limit), then one JSON line.
+and is only timed.  For K10 and K12 the JSON line also holds ptxas -v's
+report of the checkout's search.cu and dp_inputs.cu (registers, stack,
+spills a kernel) and K12's blocks an SM, from those registers and the
+block's shared bytes (lzt_dp_inputs_smem) at main8M-opt's M and lc3
+lp0 ("computed"; the sources before the redesign staged that setting's
+literal slots), and from cudaOccupancyMaxActiveBlocksPerMultiprocessor
+where the checkout's library has lzt_dp_inputs_occupancy ("runtime").
+Needs a CUDA device and nvcc.  Prints the card (nvidia-smi name, power
+limit), then one JSON line.
 """
 
 from __future__ import annotations
@@ -32,8 +45,9 @@ import sys
 import torch
 
 #: name -> (kernel, source file under csrc/, anchor: the line after which
-#: the text goes (or, with "replace", a list of (text, its replacement)),
-#: text, whether the output is kept, what it removes or adds)
+#: the text goes (or, with "replace", a list of (text, its replacement);
+#: with "any", a list of such lists, the first that applies), text,
+#: whether the output is kept, what it removes or adds)
 VARIANTS = {
     "k11_no_lcp": (
         "match_lists", "search_list.cuh",
@@ -84,7 +98,88 @@ VARIANTS = {
           "if (i < 0 && stage[i] == 0u) count_pair(h, stage[i]);")],
         False, "the staging and the adds (the token loads, geometry and "
         "scans stay)"),
+    "k10_no_window": (
+        "suffix_table", "search.cu", "any",
+        [[("  if (cl != nullptr) {\n"
+           "    if (live) T0[i] = static_cast<int>(cl[lane * max_n + i]);",
+           "  if (true) {  // variant: no window reads\n"
+           "    if (live) T0[i] = cl != nullptr ? static_cast<int>(cl[lane * max_n + i])"
+           " : static_cast<int>(o & 31);")]],
+        False, "the base grid's window reads and LCPs (T[0] written from "
+        "the place, as the given-LCP path writes it)"),
+    "k10_no_levels": (
+        "suffix_table", "search.cu", "any",
+        [[("  if (top >= levels - 1) return 0;",
+           "  if (top >= 0) return 0;  // variant: no levels past the tile")],
+         [("  for (int k = top; k < levels - 1; ++k) {",
+           "  for (int k = levels; k < levels - 1; ++k) {  // variant")]],
+        False, "the levels past the tile (before the stripes: the per-level "
+        "passes)"),
+    "k12_no_replen": (
+        "dp_inputs", "dp_input_row.cuh", "any",
+        [[("search_list::lcp_query(ln.sfx, ln.sfx.rank[i], src) : 0;",
+           "(src & 7) : 0;  // variant: no lcp_query")],
+         [("    replen = search_list::lcp_query(ln.sfx, ln.sfx.rank[i], src);",
+           "    replen = src & 7;  // variant: no lcp_query")]],
+        False, "the rep0 length's rank and table reads (lcp_query)"),
+    "k12_no_lit": (
+        "dp_inputs", "dp_input_row.cuh", "replace",
+        [("  tail[0] = lit_price(ln.ep0, ln.ep1, sub, byte);\n"
+          "  tail[1] = matched_lit_price(ln.ep0, ln.ep1, sub, byte, mbyte);",
+          "  tail[0] = static_cast<int32_t>(sub) + byte;  // variant: no walks\n"
+          "  tail[1] = mbyte;")],
+        False, "the literal walks (their price-slot reads)"),
+    "k12_direct_rows": (
+        "dp_inputs", "dp_inputs.cu", "replace",
+        [("    if (tid < rows) dp_input_row::row(ln, p0 + tid, stage + tid * C);\n"
+          "    __syncthreads();\n"
+          "    int* dst = a.out + (base + p0) * C;\n"
+          "    for (int k = tid; k < rows * C; k += kThreads) dst[k] = stage[k];\n"
+          "    __syncthreads();",
+          "    if (tid < rows) dp_input_row::row(ln, p0 + tid, a.out + (base + p0 + tid) * C);"),
+         ("  int* tab = stage + kThreads * C;", "  int* tab = smem;  // variant"),
+         ("  return 4LL * (kThreads * (6LL * m + 5) + kTableInts +",
+          "  return 4LL * (kTableInts +  // variant: no stage")],
+        True, "the row stage: each thread stores its own row (the stage's "
+        "shared bytes too; on the sources before the grid of blocks an SM)"),
+    "k12_blocks": (
+        "dp_inputs", "dp_inputs.cu", "any",
+        [[("constexpr int kBlocksPerSM = 4;",
+           "constexpr int kBlocksPerSM = 2;  // variant")],
+         [("constexpr int kBlocksPerSM = 2;",
+           "constexpr int kBlocksPerSM = 4;  // variant")]],
+        True, "nothing: a grid of 2 blocks an SM where the source has 4, "
+        "of 4 where it has 2 (the rest of the SM's shared memory L1)"),
+    "k12_staged_slots": (
+        "dp_inputs", "dp_inputs.cu", "replace",
+        [("  int* out;                 // (n_lanes, n_pos, 6m + 5)\n",
+          "  int* out;                 // (n_lanes, n_pos, 6m + 5)\n"
+          "  int64_t lit_slots;        // variant\n"),
+         ("  int* tab = smem + stage_words(a.m);\n",
+          "  int* tab = smem + stage_words(a.m);\n"
+          "  int* lit = tab + kTableInts;  // variant: both planes' slots\n"),
+         ("  for (int k = tid; k < kTableInts; k += kThreads) tab[k] = __ldg(tsrc + k);\n",
+          "  for (int k = tid; k < kTableInts; k += kThreads) tab[k] = __ldg(tsrc + k);\n"
+          "  for (int64_t k = tid; k < a.lit_slots; k += kThreads) {\n"
+          "    lit[k] = __ldg(a.ep0 + lane * a.S + a.lit_base + k);\n"
+          "    lit[a.lit_slots + k] = __ldg(a.ep1 + lane * a.S + a.lit_base + k);\n"
+          "  }\n"),
+         ("  ln.ep0 = a.ep0 + lane * a.S + a.lit_base;\n"
+          "  ln.ep1 = a.ep1 + lane * a.S + a.lit_base;\n",
+          "  ln.ep0 = lit;\n"
+          "  ln.ep1 = lit + a.lit_slots;\n"),
+         ("  const long long smem = lzt_dp_inputs_smem(m);\n  int dev",
+          "  a.lit_slots = lit_slots;\n"
+          "  const long long smem = lzt_dp_inputs_smem(m) + 8 * lit_slots;\n"
+          "  int dev")],
+        True, "nothing: both planes' literal slots staged in shared memory "
+        "(int32, beside the tables) and read there, the carve-out grown "
+        "for them"),
 }
+#: the kernels whose ptxas report and (K12) blocks an SM are recorded,
+#: their source and the names of their grids
+PTXAS = {"suffix_table": ("search.cu", ("table_",)),
+         "dp_inputs": ("dp_inputs.cu", ("rows_kernel",))}
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 WORK = os.path.join(ROOT, "lzma_tpu_torch", "_build", "variants")
@@ -92,8 +187,14 @@ WORK = os.path.join(ROOT, "lzma_tpu_torch", "_build", "variants")
 
 def edit(src: str, anchor: str, text) -> str | None:
     """src with `text` after the line `anchor` (or, for anchor "replace",
-    each (old, new) pair of `text` replaced); None where an anchor is
+    each (old, new) pair of `text` replaced; for "any", the first list
+    of pairs of `text` whose olds are all there); None where an anchor is
     missing."""
+    if anchor == "any":
+        for pairs in text:
+            if all(old in src for old, _ in pairs):
+                return edit(src, "replace", pairs)
+        return None
     if anchor == "replace":
         for old, new in text:
             if old not in src:
@@ -126,10 +227,75 @@ def copy(checkout: str, name: str, variant=None):
     return dst
 
 
+def ptxas(root: str, pkg: str, source: str, names) -> dict:
+    """ptxas -v's report of csrc/`source` of the package `pkg` (loaded,
+    copied at root): {kernel's mangled name: its "Used ..." and stack
+    lines}, for the kernels whose names hold one of `names`."""
+    import importlib
+    import re
+    import subprocess
+    import tempfile
+
+    build = importlib.import_module(f"{pkg}.runtime.build")
+    with tempfile.TemporaryDirectory(dir=WORK) as tmp:
+        res = subprocess.run(
+            [build.nvcc(), *build.NVCC_FLAGS, "-Xptxas=-v", "-c", "-o",
+             os.path.join(tmp, "k.o"),
+             os.path.join(root, "lzma_tpu_torch", "csrc", source)],
+            capture_output=True, text=True, check=True)
+    out, fn = {}, None
+    for line in (res.stdout + res.stderr).splitlines():
+        m = re.search(r"(?:entry function|Function properties for) '?([\w$]+)", line)
+        if m:
+            fn = m.group(1)
+        elif fn and any(n in fn for n in names) and (
+                "Used" in line or "stack" in line):
+            out.setdefault(fn, []).append(line.strip())
+    return out
+
+
+def blocks_per_sm(regs: int, threads: int, smem: int) -> int:
+    """Blocks of `threads` threads, `regs` registers a thread and `smem`
+    shared bytes that an H100 SM holds: 65,536 registers (256 a warp at
+    a time), 233,472 shared bytes (1,024 more a block), 64 warps, 32
+    blocks."""
+    warps = -(-threads // 32)
+    by_regs = 65536 // (warps * (-(-regs * 32 // 256) * 256)) if regs else 32
+    return min(by_regs, 233472 // (smem + 1024), 64 // warps, 32)
+
+
+def occupancy(root: str, pkg: str, report: dict) -> dict:
+    """K12's blocks an SM at main8M-opt's M 4, lc3 lp0: computed from
+    ptxas' registers, and the runtime's where the checkout's library can
+    say (its lzt_dp_inputs_smem takes M alone there; before, M, the
+    literal slots and whether they are staged, as lc3 lp0's were)."""
+    import ctypes
+    import importlib
+    import re
+
+    inputs = importlib.import_module(f"{pkg}.ops.cuda_inputs")
+    lib = inputs._lib()
+    runtime = hasattr(lib, "lzt_dp_inputs_occupancy")
+    smem = (lib.lzt_dp_inputs_smem(4) if runtime else
+            lib.lzt_dp_inputs_smem(4, inputs.lit_slots(3, 0), 1))
+    out = {"smem_bytes": smem}
+    for fn, lines in report.items():
+        regs = [int(m.group(1)) for line in lines
+                for m in [re.search(r"Used (\d+) registers", line)] if m]
+        if regs:
+            out[fn] = {"registers": regs[0],
+                       "computed": blocks_per_sm(regs[0], 256, smem)}
+    if runtime:
+        lib.lzt_dp_inputs_occupancy.argtypes = [ctypes.c_int]
+        out["runtime"] = lib.lzt_dp_inputs_occupancy(4)
+    return out
+
+
 def main(argv=None) -> None:
     from ..probes._cuda import card, event_ms
     from .kernel_ab import (grid_split, lists_call, list_inputs,
-                            main_path_inputs, other_wrappers)
+                            main_path_inputs, other_wrappers, row_inputs,
+                            table_inputs)
 
     argv = sys.argv[1:] if argv is None else argv
     checkout = ROOT
@@ -150,10 +316,18 @@ def main(argv=None) -> None:
                                  "hybrid8M-opt": list_inputs(dev, True)}
     if "lower_counts" in kernels:
         inputs["lower_counts"] = {"main8M-opt": main_path_inputs(dev)[5]}
+    if "suffix_table" in kernels:
+        inputs["suffix_table"] = {"main8M-opt": table_inputs(dev)}
+    if "dp_inputs" in kernels:
+        inputs["dp_inputs"] = {"main8M-opt": row_inputs(dev)}
 
     def call(mods, kernel, args):
         if kernel == "match_lists":
             return lists_call(mods[7], args)
+        if kernel == "suffix_table":
+            return lambda: mods[7].suffix_table_cuda(*args)
+        if kernel == "dp_inputs":
+            return lambda: mods[8].dp_inputs_cuda(*args)
         return lambda: mods[5].lower_counts_cuda(*args)
 
     copies = {v: copy(checkout, v, VARIANTS[v]) for v in chosen}
@@ -161,8 +335,16 @@ def main(argv=None) -> None:
     if missing:
         raise SystemExit(f"kernel_split: {checkout}'s sources lack the "
                          f"anchors of {missing}")
-    base = other_wrappers(copy(checkout, "base"), "_split_base")
+    base_dir = copy(checkout, "base")
+    base = other_wrappers(base_dir, "_split_base")
     result = {"card": name, "checkout": checkout}
+    for k in sorted(kernels & set(PTXAS)):
+        report = ptxas(base_dir, "_split_base", *PTXAS[k])
+        result[f"{k} ptxas"] = report
+        if k == "dp_inputs":
+            result[f"{k} blocks_per_sm"] = occupancy(base_dir, "_split_base",
+                                                     report)
+        print(f"{k} ptxas: {report}", flush=True)
     for k in sorted(kernels):
         for work, args in inputs[k].items():
             fn = call(base, k, args)

@@ -21,6 +21,11 @@
 //                                   0 for a source before the block;
 //   sr_eq                           the shortRep byte equality.
 //
+// replen's reads are a chain of three dependent random reads (the trace,
+// then the source's rank and byte, then two table entries); row() issues
+// them first, so that they are in flight while the pairs and the literal
+// walks are priced.
+//
 // Plain C++ under LZT_HD, so that a host compiler can build it too (the
 // CPU tests hold it to the plain version through a g++ build).  The
 // plain version's int64 arithmetic fits int32 for every price (a price
@@ -43,7 +48,8 @@ constexpr int kTableInts = kAlign + 16;
 
 // What one lane's rows read.  ep0 and ep1 point at the price of a 0 and
 // of a 1 at the literal coders' first slot (layout.literal) of the
-// lane's planes, in whatever memory holds them.
+// lane's planes, tables at its distance tables, in whatever memory holds
+// them.
 struct Lane {
   const uint8_t* data;     // (n_pos,)
   const int64_t* ld;       // (n_pos, m)
@@ -55,6 +61,7 @@ struct Lane {
   search_list::Lane sfx;   // rank, T and max_n = n_pos (lcp_query's)
   int64_t n_pos, len;
   int m, lc, lp;
+  bool pairs16;            // ld, dd 16-byte aligned and m even: 16-byte loads
 };
 
 // The price of the pair (ld, dd) at len-to-pos state lps.
@@ -107,36 +114,48 @@ LZT_HD int32_t matched_lit_price(const int32_t* ep0, const int32_t* ep1,
   return cost;
 }
 
+// Pair j of a row of m pairs: its length, distance and four prices.
+LZT_HD void pair(const int32_t* tables, int64_t ld, int64_t dd, int m, int j,
+                 int32_t* out) {
+  out[j] = static_cast<int32_t>(ld);
+  out[m + j] = static_cast<int32_t>(dd);
+  for (int lps = 0; lps < 4; ++lps) {
+    out[2 * m + 4 * j + lps] = dist_price(tables, ld, dd, lps);
+  }
+}
+
 // Position i's row, 6m + 5 int32, into out.
 LZT_HD void row(const Lane& ln, int64_t i, int32_t* out) {
   const int m = ln.m;
-  const int64_t* ld = ln.ld + i * m;
-  const int64_t* dd = ln.dd + i * m;
-  for (int j = 0; j < m; ++j) {
-    out[j] = static_cast<int32_t>(ld[j]);
-    out[m + j] = static_cast<int32_t>(dd[j]);
-    for (int lps = 0; lps < 4; ++lps) {
-      out[2 * m + 4 * j + lps] = dist_price(ln.tables, ld[j], dd[j], lps);
-    }
-  }
-  const int byte = ln.data[i];
-  const int prev = i > 0 ? ln.data[i - 1] : 0;
   const int64_t r0 = ln.r0pos[i];
   const int64_t src = i - r0 - 1;
   const int64_t at = src < 0 ? 0 : src > ln.n_pos - 1 ? ln.n_pos - 1 : src;
   const int mbyte = ln.data[at];
-  const int64_t sub = lit_sub(i, prev, ln.lc, ln.lp);
-  int64_t replen = 0;
-  if (src >= 0) {
-    replen = search_list::lcp_query(ln.sfx, ln.sfx.rank[i], src);
-    const int64_t room = ln.len - i > 0 ? ln.len - i : 0;
-    if (replen > room) replen = room;
+  const int64_t lcp =
+      src >= 0 ? search_list::lcp_query(ln.sfx, ln.sfx.rank[i], src) : 0;
+  const int byte = ln.data[i];
+  const int prev = i > 0 ? ln.data[i - 1] : 0;
+  const int64_t* ld = ln.ld + i * m;
+  const int64_t* dd = ln.dd + i * m;
+  int j = 0;
+#if defined(__CUDA_ARCH__)
+  if (ln.pairs16) {
+    for (; j < m; j += 2) {
+      const longlong2 lv = __ldg(reinterpret_cast<const longlong2*>(ld + j));
+      const longlong2 dv = __ldg(reinterpret_cast<const longlong2*>(dd + j));
+      pair(ln.tables, lv.x, dv.x, m, j, out);
+      pair(ln.tables, lv.y, dv.y, m, j + 1, out);
+    }
   }
+#endif
+  for (; j < m; ++j) pair(ln.tables, ld[j], dd[j], m, j, out);
+  const int64_t sub = lit_sub(i, prev, ln.lc, ln.lp);
   int32_t* tail = out + 6 * m;
   tail[0] = lit_price(ln.ep0, ln.ep1, sub, byte);
   tail[1] = matched_lit_price(ln.ep0, ln.ep1, sub, byte, mbyte);
   tail[2] = static_cast<int32_t>(r0);
-  tail[3] = static_cast<int32_t>(replen);
+  const int64_t room = ln.len - i > 0 ? ln.len - i : 0;
+  tail[3] = static_cast<int32_t>(lcp < room ? lcp : room);
   tail[4] = src >= 0 && byte == mbyte;
 }
 

@@ -27,18 +27,30 @@
 // What bounds them on this card: the bytes.  K9 reads each lane's bytes
 // once and writes its keys (60 B a position at fb 32 and the optimal
 // parse's seven tiers); K10 reads the order and writes rank and the
-// table's levels (4 B a level a position); K11 reads each tier's planes
+// table's levels (4 B a level a position: 18 levels, 604 MB of its 747
+// at main8M's 32 lanes of 256 KiB); K11 reads each tier's planes
 // and a few indices near each position's place in the tier's order,
 // rank and two table entries a candidate at random, and writes the lists
 // (16 B a list slot); its inverse orders are 4-B stores at random.  What the designs do:
 //   K9  a block stages its positions' bytes and the 31 after them in
 //       shared memory once; every thread reads its window there;
 //   K10 grid 1 scatters rank and writes T[0], a thread a place of the
-//       order, each window read once into shared memory and compared
-//       with the one before it; grid 2 builds levels 1..kTileLevels of a
+//       order: its window staged in shared memory as big-endian words
+//       (16-byte aligned loads, words joined by a funnel shift; only a window
+//       that crosses max_n goes byte by byte, with a running index, so
+//       no per-byte remainder is left) and compared word by word with
+//       the one before it; grid 2 builds levels 1..kTileLevels of a
 //       tile of kTile places from T[0] and a window of kHalo before it
 //       in shared memory (one pass over T[0], the levels written once);
-//       each wider level is one pass of its own;
+//       the levels past the tile, where max_n is a multiple of kTile,
+//       are a sparse table over the max_n / kTile rows of each column
+//       (level k's stride 2^k is a whole number of rows): grid 3 takes
+//       a stripe of up to 32 adjacent columns of level 11 into shared
+//       memory once and builds and writes every wider level there
+//       (coalesced rows, each level written once); other widths, and
+//       lanes whose stripe of 8 columns passes the shared memory, take
+//       a pass a wider level (each reading the level below twice);
+//       the route is cuda_search.upper_route's, chosen by shape;
 //   K11 grid 1 writes each tier's inverse order (a position's place,
 //       and packed above it the run of equal keys just before that
 //       place), a (tier, lane) at a time so its scattered stores meet in
@@ -66,10 +78,11 @@ using search_list::Lane;
 
 constexpr int kThreads = 256;
 constexpr int kListThreads = 128;
-constexpr int kTile = 2048;      // K10: places a block builds in shared memory
+constexpr int kTile = search_list::kTableTile;  // K10: places a tile block builds
 constexpr int kHalo = 2048;      // and the places before them it reads
-constexpr int kTileLevels = 11;  // levels 1..11 there: 2^11 - 1 <= kHalo
+constexpr int kTileLevels = search_list::kTableTileLevels;  // 2^11 - 1 <= kHalo
 constexpr int kTileThreads = 512;
+constexpr int kStripeThreads = 256;
 
 __device__ __forceinline__ int64_t wrap(int64_t i, int64_t m) {
   i %= m;
@@ -113,7 +126,11 @@ keys_kernel(const uint8_t* __restrict__ data, const int64_t* __restrict__ n,
 
 // ----------------------------------------------------------------- K10
 // Grid 1: rank[order[i]] = i and T[0][i], a thread a place i.  cl (the
-// consecutive LCP, int64) where given, else from the prefix words.
+// consecutive LCP, int64) where given, else from the prefix words: each
+// thread's window as nw big-endian words in shared memory (thread 0 also
+// stages its predecessor's, in the last row), compared with the one
+// before it.  A row's pitch of kWords + 1 words keeps a warp's stores on
+// distinct banks.
 __global__ void __launch_bounds__(kThreads)
 table_base_kernel(const uint8_t* __restrict__ data,
                   const int64_t* __restrict__ n,
@@ -121,7 +138,7 @@ table_base_kernel(const uint8_t* __restrict__ data,
                   const int64_t* __restrict__ cl, int64_t max_n,
                   int n_tiles, int nw, int depth, int levels,
                   int64_t* __restrict__ rank, int* __restrict__ T) {
-  __shared__ uint8_t win[kThreads][kWindow];
+  __shared__ uint32_t win[kThreads + 1][search_list::kWords + 1];
   const int lane = blockIdx.x / n_tiles;
   const int64_t i = static_cast<int64_t>(blockIdx.x % n_tiles) * kThreads +
                       threadIdx.x;
@@ -135,24 +152,18 @@ table_base_kernel(const uint8_t* __restrict__ data,
     return;
   }
   const uint8_t* row = data + lane * max_n;
-  if (live) {
-    for (int b = 0; b < 4 * nw; ++b) win[threadIdx.x][b] = row[wrap(o + b, max_n)];
+  const int64_t q = live && i > 0 ? ord[i - 1] : 0;
+  if (live) search_list::window_words(row, max_n, o, nw, win[threadIdx.x]);
+  if (threadIdx.x == 0 && live && i > 0) {
+    search_list::window_words(row, max_n, q, nw, win[kThreads]);
   }
   __syncthreads();
   if (!live) return;
-  int c = 0;
-  if (i > 0) {
-    const int64_t q = ord[i - 1];
-    uint8_t own[kWindow];
-    const uint8_t* prev = win[threadIdx.x > 0 ? threadIdx.x - 1 : 0];
-    if (threadIdx.x == 0) {
-      for (int b = 0; b < 4 * nw; ++b) own[b] = row[wrap(q + b, max_n)];
-      prev = own;
-    }
-    c = search_list::consecutive_lcp(win[threadIdx.x], o, prev, q, n[lane], nw,
-                                     depth);
-  }
-  T0[i] = c;
+  T0[i] = i > 0 ? search_list::consecutive_lcp_words(
+                      win[threadIdx.x], o,
+                      win[threadIdx.x > 0 ? threadIdx.x - 1 : kThreads], q,
+                      n[lane], nw, depth)
+                : 0;
 }
 
 // Grid 2: levels 1..top of a tile of kTile places, from T[0] over the
@@ -165,7 +176,14 @@ table_tile_kernel(int64_t max_n, int n_tiles, int levels, int top,
   const int64_t j0 = static_cast<int64_t>(blockIdx.x % n_tiles) * kTile;
   int* TL = T + lane * static_cast<int64_t>(levels) * max_n;
   for (int i = threadIdx.x; i < kTile + kHalo; i += kTileThreads) {
-    buf[0][i] = TL[wrap(j0 - kHalo + i, max_n)];
+    // one wrap at most where max_n >= kHalo (j0 < max_n)
+    int64_t j = j0 - kHalo + i;
+    if (max_n >= kHalo) {
+      j = j < 0 ? j + max_n : j >= max_n ? j - max_n : j;
+    } else {
+      j = wrap(j, max_n);
+    }
+    buf[0][i] = TL[j];
   }
   __syncthreads();
   int cur = 0;
@@ -184,7 +202,44 @@ table_tile_kernel(int64_t max_n, int n_tiles, int levels, int top,
   }
 }
 
-// Grid 3: level k + 1 from level k, a thread a place.
+// Grid 3a (max_n = rows * kTile): levels kTileLevels + 1 .. levels - 1 of
+// a stripe of `cols` (a power of two) adjacent columns, all rows: level
+// kTileLevels's stripe into shared memory once, then each wider level
+// from the one below it there (search_list::stripe_entry), each written
+// once as it is made (a warp's stores on consecutive columns).
+__global__ void __launch_bounds__(kStripeThreads)
+table_stripe_kernel(int64_t max_n, int rows, int cols_log, int n_stripes,
+                    int levels, int* __restrict__ T) {
+  extern __shared__ int stripe[];  // two levels of rows x cols
+  const int cols = 1 << cols_log;
+  const int lane = blockIdx.x / n_stripes;
+  const int c0 = (blockIdx.x % n_stripes) << cols_log;
+  int* TL = T + lane * static_cast<int64_t>(levels) * max_n + c0;
+  const int cells = rows << cols_log;
+  int* cur = stripe;
+  int* nxt = stripe + cells;
+  const int* Tb = TL + kTileLevels * max_n;
+  for (int e = threadIdx.x; e < cells; e += kStripeThreads) {
+    cur[e] = Tb[static_cast<int64_t>(e >> cols_log) * kTile + (e & (cols - 1))];
+  }
+  __syncthreads();
+  for (int k = kTileLevels + 1; k < levels; ++k) {
+    int* Tk = TL + k * max_n;
+    const int step = search_list::stripe_step(k, rows);
+    for (int e = threadIdx.x; e < cells; e += kStripeThreads) {
+      const int t = e >> cols_log, c = e & (cols - 1);
+      const int v = search_list::stripe_entry(cur, cols, t, c, step, rows);
+      nxt[e] = v;
+      Tk[static_cast<int64_t>(t) * kTile + c] = v;
+    }
+    __syncthreads();
+    int* was = cur;
+    cur = nxt;
+    nxt = was;
+  }
+}
+
+// Grid 3b (other widths): level k + 1 from level k, a thread a place.
 __global__ void __launch_bounds__(kThreads)
 table_level_kernel(int64_t max_n, int n_tiles, int levels, int k,
                    int* __restrict__ T) {
@@ -193,8 +248,7 @@ table_level_kernel(int64_t max_n, int n_tiles, int levels, int k,
                       threadIdx.x;
   if (j >= max_n) return;
   int* Tk = T + (lane * static_cast<int64_t>(levels) + k) * max_n;
-  const int a = Tk[j], b = Tk[wrap(j - (1LL << k), max_n)];
-  Tk[max_n + j] = min(a, b);
+  Tk[max_n + j] = search_list::level_entry(Tk, j, k, max_n);
 }
 
 // ----------------------------------------------------------------- K11
@@ -363,20 +417,32 @@ extern "C" int lzt_search_keys(const uint8_t* data, const int64_t* n,
 // K10.  data, n: as K9's; order: (n_lanes, max_n) int64, the suffix
 // order; cl: (n_lanes, max_n) int64 consecutive LCP by place, or null to
 // compute it from nw = ceil(min(depth, 32) / 4) prefix words clamped to
-// depth; levels = max(1, bit_length(max_n - 1)); rank: (n_lanes, max_n)
-// int64; T: (n_lanes, levels, max_n) int32.  Returns the first CUDA
-// error of the launches (0 on success).
+// depth; levels = max(1, bit_length(max_n - 1)); stripe_cols: the levels
+// past the tile's by column stripes of that many columns (a power of two,
+// 8..32, max_n a multiple of kTile; stripe_smem bytes of shared memory a
+// block), or 0 by a pass a level (cuda_search.upper_route); rank:
+// (n_lanes, max_n) int64; T: (n_lanes, levels, max_n) int32.  Returns
+// the first CUDA error of the launches (0 on success).
 extern "C" int lzt_suffix_table(const uint8_t* data, const int64_t* n,
                                 const int64_t* order, const int64_t* cl,
                                 int n_lanes, int64_t max_n, int depth,
-                                int levels, int64_t* rank, int* T,
-                                void* stream) {
+                                int levels, int stripe_cols, int64_t* rank,
+                                int* T, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   int n_tiles = 0, n_big = 0;
   const int blocks = blocks_of(max_n, kThreads, n_lanes, &n_tiles);
   const int big = blocks_of(max_n, kTile, n_lanes, &n_big);
+  const int top = levels - 1 < kTileLevels ? levels - 1 : kTileLevels;
+  const bool stripes = stripe_cols > 0;
+  int cols_log = 0;
+  while ((1 << cols_log) < stripe_cols) ++cols_log;
   if (n_lanes <= 0 || max_n <= 0 || depth <= 0 || levels < 1 || blocks < 0 ||
-      big < 0) {
+      big < 0 || (stripes && ((1 << cols_log) != stripe_cols ||
+                              stripe_cols < 8 || stripe_cols > 32 ||
+                              max_n % kTile != 0 ||
+                              max_n / kTile * stripe_cols > INT_MAX / 8 ||
+                              static_cast<int64_t>(kTile / stripe_cols) *
+                                      n_lanes > INT_MAX))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int nw = ((depth < 32 ? depth : 32) + 3) / 4;
@@ -384,11 +450,25 @@ extern "C" int lzt_suffix_table(const uint8_t* data, const int64_t* n,
       data, n, order, cl, max_n, n_tiles, nw, depth, levels, rank, T);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int top = levels - 1 < kTileLevels ? levels - 1 : kTileLevels;
   if (top > 0) {
     table_tile_kernel<<<big, kTileThreads, 0, s>>>(max_n, n_big, levels, top, T);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (top >= levels - 1) return 0;
+  if (stripes) {
+    const int rows = static_cast<int>(max_n / kTile);
+    const int per_lane = kTile >> cols_log;
+    const int smem = 2 * rows * stripe_cols * 4;
+    if (smem > 48 * 1024) {
+      err = cudaFuncSetAttribute(table_stripe_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    table_stripe_kernel<<<per_lane * n_lanes, kStripeThreads, smem, s>>>(
+        max_n, rows, cols_log, per_lane, levels, T);
+    return static_cast<int>(cudaGetLastError());
   }
   for (int k = top; k < levels - 1; ++k) {
     table_level_kernel<<<blocks, kThreads, 0, s>>>(max_n, n_tiles, levels, k, T);

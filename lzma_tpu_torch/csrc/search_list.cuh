@@ -4,8 +4,15 @@
 //   K9  a position's sort keys from its 32-byte window: the suffix
 //       order's packed prefix words (_search_keys_plain, as _pack_keys
 //       packs them) and the tier hashes (_tier_hashes) as int32 keys;
-//   K10 the consecutive LCP of two suffixes by their prefix words
-//       (_suffix_table_plain at depth <= 32);
+//   K10 each place's window as big-endian 32-bit words (16-byte aligned
+//       chunks of the lane's row, their words joined by a funnel shift; a
+//       window that crosses max_n byte by byte with a running index),
+//       the consecutive LCP of
+//       two suffixes by those words (_suffix_table_plain at depth <= 32),
+//       and an entry of a table level wider than the tile: from the
+//       level below at j and j - 2^k (one wrap), or, where max_n is a
+//       multiple of kTableTile, from the same column of the level below
+//       (its column-stripe form);
 //   K11 a position's candidates at each tier's ranks (_neighbor_step)
 //       into its candidate row, their dedup and cap (_dedup_cap: "rr"
 //       keep-first in round-robin tier order, else the nearest), the
@@ -21,6 +28,7 @@
 #pragma once
 
 #include <cstdint>
+#include <cstring>
 
 #ifndef LZT_HD
 #if defined(__CUDACC__)
@@ -121,20 +129,147 @@ LZT_UNROLL
 }
 
 // ----------------------------------------------------------------- K10
-// The equal leading bytes of two suffixes' nw prefix words (word 0
-// marked past n), clamped to depth.  wa, wb: their windows.
-LZT_HD int consecutive_lcp(const uint8_t* wa, int64_t pa, const uint8_t* wb,
-                           int64_t pb, int64_t n, int nw, int depth) {
+constexpr int kWords = kWindow / 4;   // a window's prefix words
+constexpr int kTableTile = 2048;      // places a tile of levels 1..11
+constexpr int kTableTileLevels = 11;  // 2^11 - 1 <= the tile's halo
+
+// The equal leading bytes of two suffixes' nw prefix words
+// (window_words', big-endian: word 0 is marked past n here), clamped to
+// depth.
+LZT_HD int consecutive_lcp_words(const uint32_t* wa, int64_t pa,
+                                 const uint32_t* wb, int64_t pb, int64_t n,
+                                 int nw, int depth) {
   int cl = 0;
-  for (int k = 0; k < nw; ++k) {
-    const uint32_t x = suffix_word(wa, k, pa, n) ^ suffix_word(wb, k, pb, n);
-    if (x != 0) {
-      cl += clz32(x) >> 3;
-      break;
+LZT_UNROLL
+  for (int k = 0; k < kWords; ++k) {
+    if (k < nw) {
+      uint32_t a = wa[k], b = wb[k];
+      if (k == 0) {
+        if (pa >= n) a = kMark ^ static_cast<uint32_t>(pa);
+        if (pb >= n) b = kMark ^ static_cast<uint32_t>(pb);
+      }
+      const uint32_t x = a ^ b;
+      if (x != 0) {
+        cl += clz32(x) >> 3;
+        break;
+      }
+      cl += 4;
     }
-    cl += 4;
   }
   return cl < depth ? cl : depth;
+}
+
+// The four little-endian words of the 16-byte aligned chunk at p.
+LZT_HD void aligned_chunk(const uint8_t* p, uint32_t* w) {
+#if defined(__CUDA_ARCH__)
+  const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+  w[0] = v.x;
+  w[1] = v.y;
+  w[2] = v.z;
+  w[3] = v.w;
+#else
+  memcpy(w, p, 16);
+#endif
+}
+
+// Bytes s / 8 .. s / 8 + 3 of the little-endian pair (lo, hi), s in 0..31.
+LZT_HD uint32_t funnel_r(uint32_t lo, uint32_t hi, int s) {
+#if defined(__CUDA_ARCH__)
+  return __funnelshift_r(lo, hi, s);
+#else
+  return static_cast<uint32_t>(((static_cast<uint64_t>(hi) << 32) | lo) >> s);
+#endif
+}
+
+LZT_HD uint32_t bswap32(uint32_t x) {
+#if defined(__CUDA_ARCH__)
+  return __byte_perm(x, 0, 0x0123);
+#else
+  return __builtin_bswap32(x);
+#endif
+}
+
+// The nw big-endian words (word_at's) of the window at place o < max_n
+// of a lane's row, wrapping at max_n, into out.  A window that ends
+// within the row reads the 16-byte aligned chunks that hold its bytes
+// (no chunk past the one holding its last byte), shifts them down to its
+// first word and joins each pair of words by a funnel shift; one that
+// crosses max_n takes its bytes one by one with a running index.
+LZT_HD void window_words(const uint8_t* row, int64_t max_n, int64_t o, int nw,
+                         uint32_t* out) {
+  if (o + 4 * nw <= max_n) {
+    const uintptr_t at = reinterpret_cast<uintptr_t>(row + o);
+    const uint8_t* base =
+        reinterpret_cast<const uint8_t*>(at & ~uintptr_t{15});
+    const int off = static_cast<int>(at & 15);
+    const int chunks = (off + 4 * nw + 15) >> 4;
+    uint32_t w[13];
+LZT_UNROLL
+    for (int c = 0; c < 3; ++c) {
+      if (c < chunks) {
+        aligned_chunk(base + 16 * c, w + 4 * c);
+      } else {
+        w[4 * c] = w[4 * c + 1] = w[4 * c + 2] = w[4 * c + 3] = 0;
+      }
+    }
+    w[12] = 0;
+    // down by off / 4 words, by selects on fixed indices
+LZT_UNROLL
+    for (int j = 0; j < 12; ++j) {
+      if (off & 4) w[j] = w[j + 1];
+    }
+LZT_UNROLL
+    for (int j = 0; j < 11; ++j) {
+      if (off & 8) w[j] = w[j + 2];
+    }
+    const int s = (off & 3) * 8;
+LZT_UNROLL
+    for (int k = 0; k < kWords; ++k) {
+      if (k < nw) out[k] = bswap32(funnel_r(w[k], w[k + 1], s));
+    }
+    return;
+  }
+  int64_t q = o;
+  for (int k = 0; k < nw; ++k) {
+    uint32_t x = 0;
+    for (int b = 0; b < 4; ++b) {
+      x = (x << 8) | row[q];
+      if (++q == max_n) q = 0;
+    }
+    out[k] = x;
+  }
+}
+
+// Level k + 1's entry j of a lane's table from level k (Tk): the min of
+// Tk at j and at j - 2^k, wrapped once (2^k < max_n below the top
+// level).
+LZT_HD int32_t level_entry(const int32_t* Tk, int64_t j, int k,
+                           int64_t max_n) {
+  int64_t q = j - (int64_t{1} << k);
+  if (q < 0) q += max_n;
+  const int32_t a = Tk[j], b = Tk[q];
+  return a < b ? a : b;
+}
+
+// The column-stripe form past the tile, where max_n = rows * kTableTile:
+// level k > kTableTileLevels's entry at place t * kTableTile + c is the
+// min of level k - 1's at rows t and t - 2^(k - 12) (mod rows) of the
+// same column c.  The rows a level steps back (2^(k - 12) mod rows):
+LZT_HD int stripe_step(int k, int rows) {
+  int64_t s = 1;
+  for (int i = kTableTileLevels + 1; i < k; ++i) s = (2 * s) % rows;
+  return static_cast<int>(s % rows);
+}
+
+// The entry at row t, column c of a stripe of `cols` columns from the
+// level below's stripe `prev` (row-major, rows x cols), stepping back
+// `step` rows.
+LZT_HD int32_t stripe_entry(const int32_t* prev, int cols, int t, int c,
+                            int step, int rows) {
+  int u = t - step;
+  if (u < 0) u += rows;
+  const int32_t a = prev[t * cols + c], b = prev[u * cols + c];
+  return a < b ? a : b;
 }
 
 // ----------------------------------------------------------------- K11

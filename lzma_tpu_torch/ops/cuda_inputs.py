@@ -8,10 +8,11 @@ device code (no ``pallas_call``) that XLA compiles for the device:
 ``_pair_dist_cost``, ``device_matcher.rep_match_lens_rmq`` and
 ``_pack_inputs``.  ``dp_inputs_cuda`` replaces
 ``device_parser._dp_inputs_plain``: each position's int32 row of 6M + 5
-entries, written once (no int64 row on the card).  A lane's literal
-coders' price slots go to shared memory where two blocks still fit an
-SM with them (``input_placement``), else the kernel reads them from
-device memory.
+entries, written once (no int64 row on the card).  A block stages the
+lane's distance tables in shared memory and reads the literal coders'
+price slots of the two planes through L1 (staged in shared memory as
+well, they were no faster: a block's shared bytes come out of the SM's
+L1, which holds the rows' other reads; PERF.md, section 6).
 
 A CUDA tensor launches the kernel (or the wrapper raises); a CPU tensor
 takes the plain version.  The rows are the plain version's, bit for bit.
@@ -26,7 +27,6 @@ import torch
 
 from ..core.layout import LITERAL_CODER_SIZE, ProbLayout
 from ..runtime import build
-from ..runtime.card import smem_limit
 from .device_parser import _dp_inputs_plain
 
 #: kernel launches made through dp_inputs_cuda (K12) since the count was
@@ -43,10 +43,12 @@ _TABLE_SHAPES = ((4, 64), (4, 128), (16,))
 def _lib():
     lib = build.load()
     lib.lzt_dp_inputs.argtypes = [_P] * 6 + [_I] + [_P] * 3 + [_L] * 3 + [
-        _P, _I, _L, _I, _I, _I, _I, _P, _P]
+        _P, _I, _L, _I, _I, _I, _P, _P]
     lib.lzt_dp_inputs.restype = ctypes.c_int
-    lib.lzt_dp_inputs_smem.argtypes = [_I, _L, _I]
+    lib.lzt_dp_inputs_smem.argtypes = [_I]
     lib.lzt_dp_inputs_smem.restype = ctypes.c_longlong
+    lib.lzt_dp_inputs_occupancy.argtypes = [_I]
+    lib.lzt_dp_inputs_occupancy.restype = ctypes.c_int
     return lib
 
 
@@ -55,28 +57,26 @@ def lit_slots(lc: int, lp: int) -> int:
     return LITERAL_CODER_SIZE << (lc + lp)
 
 
-#: K12's block: positions a tile (its threads) and the distance tables'
-#: int32 entries (csrc/dp_inputs.cu kThreads, dp_input_row.cuh kTableInts)
-TILE_ROWS, TABLE_INTS = 256, 4 * 64 + 4 * 128 + 16
+#: K12's block: positions a tile (its threads; csrc/dp_inputs.cu kThreads)
+TILE_ROWS = 256
 
 
-def smem_bytes(m: int, slots: int, shared: bool) -> int:
-    """Shared bytes of a K12 block for rows of m pairs: the row stage, the
-    distance tables and, staged in shared memory, both planes' `slots`
-    literal slots (lzt_dp_inputs_smem's count)."""
-    return 4 * (TILE_ROWS * (6 * m + 5) + TABLE_INTS + (2 * slots if shared
-                                                        else 0))
+#: a lane's distance tables: ps_price (4 x 64), dfull (4 x 128),
+#: align_price (16) entries
+TABLE_ENTRIES = 4 * 64 + 4 * 128 + 16
 
 
-def input_placement(m: int, slots: int, limit: int) -> str:
-    """Where K12 reads a lane's `slots` literal price slots from, on a card
-    that gives a block `limit` bytes of shared memory, for rows of m
-    pairs: "shared" when two blocks that stage both planes' slots beside
-    the row stage and the distance tables still fit that limit, else
-    "device".  On the H100 that is lc + lp <= 3 at m 4; staged at lc + lp
-    4 and 5, where one block holds an SM's shared memory, K12 was slower
-    than reading device memory (bench/row_placement.py)."""
-    return "shared" if 2 * smem_bytes(m, slots, True) <= limit else "device"
+def smem_bytes(m: int) -> int:
+    """Shared bytes of a K12 block for rows of m pairs: the row stage (and
+    4 words to align it) and the distance tables, int32
+    (lzt_dp_inputs_smem's count)."""
+    return 4 * (TILE_ROWS * (6 * m + 5) + 4 + TABLE_ENTRIES)
+
+
+def occupancy(m: int) -> int:
+    """K12's blocks an SM on this card for rows of m pairs: its grid's
+    four, or fewer where the runtime's occupancy query fits fewer."""
+    return _lib().lzt_dp_inputs_occupancy(m)
 
 
 def _check(data, ld, dd, r0pos, suffix, lens, planes, dist_tables):
@@ -136,9 +136,6 @@ def dp_inputs_cuda(data, ld, dd, r0pos, suffix, lens, planes, dist_tables,
     if layout.literal + slots > S:
         raise ValueError(f"the planes hold {S} slots, lc{lc} lp{lp} pb{pb}'s "
                          f"literal coders end at {layout.literal + slots}")
-    limit = smem_limit(dev.index if dev.index is not None
-                       else torch.cuda.current_device())
-    shared = input_placement(M, slots, limit) == "shared"
     rank, T = suffix
     i64 = [t.to(torch.int64).contiguous() for t in (ld, dd, r0pos, rank, lens)]
     ep = [t.to(torch.int32).contiguous() for t in planes]
@@ -152,8 +149,7 @@ def dp_inputs_cuda(data, ld, dd, r0pos, suffix, lens, planes, dist_tables,
             i64[2].data_ptr(), i64[3].data_ptr(), T.data_ptr(), T.shape[1],
             i64[4].data_ptr(), ep[0].data_ptr(), ep[1].data_ptr(), S,
             layout.literal, slots, tables.data_ptr(), L, N, M, lc, lp,
-            int(shared), out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"dp_inputs launch failed: CUDA error {err}")
     LAUNCHES += 1

@@ -14,7 +14,9 @@ call these wrappers:
 - ``search_keys_cuda`` (K9) replaces ``_search_keys_plain``: the suffix
   lexsort's packed int64 keys and each used tier's int32 hash key;
 - ``suffix_table_cuda`` (K10) replaces ``_suffix_table_plain``: rank and
-  the (N, levels, max_n) table, written in place level by level;
+  the (N, levels, max_n) table: T[0] from each place's window in 32-bit
+  words, levels 1-11 in 2,048-place tiles, the wider ones by column
+  stripes or a pass a level (``upper_route``);
 - ``match_lists_cuda`` (K11) replaces ``_match_lists_plain``: the tiers'
   inverse orders, then a thread a position gathers its candidates tier
   by tier into a row in shared memory, then takes their dedup and cap,
@@ -33,6 +35,7 @@ import functools
 import torch
 
 from ..runtime import build
+from ..runtime.card import smem_limit
 from .device_matcher import (TIER_SPANS, _match_lists_plain,
                              _search_keys_plain, _suffix_table_plain)
 
@@ -51,8 +54,8 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 def _lib():
     lib = build.load()
     lib.lzt_search_keys.argtypes = [_P, _P, _I, _L, _I, _I, _P, _P, _P]
-    lib.lzt_suffix_table.argtypes = [_P, _P, _P, _P, _I, _L, _I, _I, _P, _P,
-                                     _P]
+    lib.lzt_suffix_table.argtypes = [_P, _P, _P, _P, _I, _L, _I, _I, _I, _P,
+                                     _P, _P]
     lib.lzt_match_lists.argtypes = [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I,
                                     _P, _P, _I, _P, _L, _I, _L, _P, _P, _P,
                                     _P]
@@ -91,6 +94,29 @@ def _raise(name: str, err: int):
 def levels_of(max_n: int) -> int:
     """The sparse min table's levels for lanes of max_n positions."""
     return max(1, (max_n - 1).bit_length())
+
+
+#: K10's tiles (csrc/search.cu kTile): places a block of levels 1..TILE_LEVELS
+TILE, TILE_LEVELS = 2048, 11
+#: a stripe's shared bytes K10 keeps to while it can take fewer columns
+STRIPE_BYTES = 64 * 1024
+
+
+def upper_route(max_n: int, limit: int):
+    """How K10 builds the levels past its tiles' for lanes of max_n
+    places on a card that gives a block `limit` shared bytes: ("tile",
+    0) where there are none; ("stripes", cols) where max_n is a multiple
+    of TILE, its rows max_n / TILE of a stripe of cols columns (32, or 16
+    or 8 to keep two levels of the stripe within STRIPE_BYTES) fitting
+    `limit`; else ("levels", 0), a pass a level."""
+    if levels_of(max_n) - 1 <= TILE_LEVELS:
+        return "tile", 0
+    if max_n % TILE:
+        return "levels", 0
+    rows, cols = max_n // TILE, 32
+    while cols > 8 and 8 * rows * cols > STRIPE_BYTES:
+        cols //= 2
+    return ("stripes", cols) if 8 * rows * cols <= limit else ("levels", 0)
 
 
 def search_keys_cuda(data, n, depth: int, spans):
@@ -153,6 +179,8 @@ def suffix_table_cuda(data, n, order, depth: int, cl=None):
     rank = torch.empty((N, max_n), dtype=torch.int64, device=dev)
     T = torch.empty((N, levels, max_n), dtype=torch.int32, device=dev)
     if N and max_n:
+        _, cols = upper_route(max_n, smem_limit(
+            dev.index if dev.index is not None else torch.cuda.current_device()))
         data = data.contiguous()
         n = n.to(torch.int64).contiguous()
         order = order.to(torch.int64).contiguous()
@@ -162,7 +190,7 @@ def suffix_table_cuda(data, n, order, depth: int, cl=None):
             err = _lib().lzt_suffix_table(
                 data.data_ptr(), n.data_ptr(), order.data_ptr(),
                 None if cl is None else cl.data_ptr(), N, max_n, depth,
-                levels, rank.data_ptr(), T.data_ptr(), _stream(dev))
+                levels, cols, rank.data_ptr(), T.data_ptr(), _stream(dev))
         _raise("suffix_table", err)
         TABLE_LAUNCHES += 1
     return rank, T

@@ -1572,6 +1572,37 @@ def test_search_keys_and_suffix_table_kernels_match_plain(card, widths, depth):
     assert torch.equal(T.cpu(), w_T.cpu())
 
 
+# K10's two routes past its tiles: column stripes (max_n a multiple of
+# 2,048: rows 3, 8 and 128; 32, 16 and 8 columns, forced by a smaller
+# STRIPE_BYTES) and a pass a level (8,193, 6,000), with the LCP computed
+# (depth 32) and given (the lazy search's, depth 273)
+@pytest.mark.parametrize("max_n,stripe_bytes,route", [
+    (6144, None, ("stripes", 32)), (16384, None, ("stripes", 32)),
+    (16384, 512, ("stripes", 8)), (1 << 18, 64 * 1024, ("stripes", 32)),
+    (1 << 18, 16 * 1024, ("stripes", 16)), (8193, None, ("levels", 0)),
+    (6000, None, ("levels", 0))], ids=lambda v: str(v))
+def test_suffix_table_routes_match_plain(card, monkeypatch, max_n,
+                                         stripe_bytes, route):
+    from lzma_tpu_torch.ops import cuda_search
+    from lzma_tpu_torch.ops import device_matcher as dm
+
+    if stripe_bytes is not None:
+        monkeypatch.setattr(cuda_search, "STRIPE_BYTES", stripe_bytes)
+    assert cuda_search.upper_route(max_n, smem_limit(card.index or 0)) == route
+    data, n = _search_lanes([max_n, max_n - 5, max_n // 2], 5)
+    d, k = data.to(card), n.to(card)
+    order = dm._sort_packed(cuda_search.search_keys_cuda(d, k, 32, [])[0])
+    rng = np.random.default_rng(max_n)
+    cl = torch.from_numpy(rng.integers(0, 274, (3, max_n))).to(card)
+    for depth, given in ((32, None), (273, cl)):
+        before = cuda_search.TABLE_LAUNCHES
+        rank, T = cuda_search.suffix_table_cuda(d, k, order, depth, given)
+        w_rank, w_T = dm._suffix_table_plain(d, k, order, depth, given)
+        torch.cuda.synchronize()
+        assert cuda_search.TABLE_LAUNCHES == before + 1
+        assert torch.equal(rank, w_rank) and torch.equal(T, w_T), depth
+
+
 #: (tier ks, m_cap, m_cap_order): the optimal route's (rr 12), the
 #: hybrid's (near, uncapped, 29), near cut at 12, tuple ranks, past 32
 #: candidates (the list in the dists row) cut and uncut, DP_TIERS' 29
@@ -1754,20 +1785,49 @@ def test_dp_inputs_kernel_matches_plain(card, widths, lc, lp, pb, fb):
 
 
 def test_dp_inputs_placements_and_shared_bytes(card):
-    """lc3 lp0's literal slots go to shared memory, lc8 lp4's to device
-    memory; the wrapper's count of a block's shared bytes is the C
-    entry's."""
+    """K12 reads the literal slots from device memory at every lc and lp,
+    so a block's shared bytes (the row stage and the distance tables) do
+    not depend on them; the wrapper's count is the C entry's, and the
+    grid's four blocks an SM run at M 1 to 6 (three at 8)."""
     from lzma_tpu_torch.ops import cuda_inputs
 
-    limit = smem_limit(card.index or 0)
-    slots = [cuda_inputs.lit_slots(lc, lp) for lc, lp in ((3, 0), (8, 4))]
-    assert [cuda_inputs.input_placement(4, s, limit) for s in slots] == \
-        ["shared", "device"]
-    for m in (1, 4, 6):
-        for s in slots:
-            for shared in (0, 1):
-                assert cuda_inputs._lib().lzt_dp_inputs_smem(m, s, shared) == \
-                    cuda_inputs.smem_bytes(m, s, bool(shared))
+    for m, blocks in ((1, 4), (4, 4), (6, 4), (8, 3)):
+        assert cuda_inputs._lib().lzt_dp_inputs_smem(m) == \
+            cuda_inputs.smem_bytes(m)
+        assert cuda_inputs.occupancy(m) == blocks, m
+
+
+# K12 at lc3 lp0, lc4 lp0 and lc0 lp2 on lanes across its chunk and tile
+# edges (8,193, 8,192 and 257 positions)
+@pytest.mark.parametrize("lc,lp", [(3, 0), (4, 0), (0, 2)])
+def test_dp_inputs_literal_settings_match_plain(card, lc, lp):
+    from lzma_tpu_torch.ops import cuda_inputs
+    from lzma_tpu_torch.ops import device_parser as tp
+
+    args = _row_args([8193, 8192, 257], lc, lp, 2, 32, 7 + lc, card)
+    got = cuda_inputs.dp_inputs_cuda(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tp._dp_inputs_plain(*args))
+
+
+def test_dp_inputs_prices_past_16_bits_match_plain(card):
+    """A literal slot's price of 2^16 in lane 1 and a distance table's
+    price of 70,000 in lane 2: K12 reads both as int32 and prices them as
+    the plain version does."""
+    from lzma_tpu_torch.ops import cuda_inputs
+    from lzma_tpu_torch.ops import device_parser as tp
+
+    args = list(_row_args([600, 600, 600], 3, 0, 2, 32, 3, card))
+    ep1 = args[6][1].clone()
+    ep1[1, ProbLayout(3, 0, 2, pos_bits=2).literal + 300] = 1 << 16
+    args[6] = (args[6][0], ep1)
+    assert torch.equal(cuda_inputs.dp_inputs_cuda(*args),
+                       tp._dp_inputs_plain(*args))
+    dfull = args[7][1].clone()
+    dfull[2, 1, 5] = 70_000
+    args[7] = (args[7][0], dfull, args[7][2])
+    assert torch.equal(cuda_inputs.dp_inputs_cuda(*args),
+                       tp._dp_inputs_plain(*args))
 
 
 def _path_graph(max_n, seed, dev):

@@ -149,21 +149,17 @@ def test_int32_planes_give_the_same_tables_and_rows(preset):
 
 
 def test_placements_on_the_h100():
-    """lc3 lp0's literal slots (both planes) fit two blocks in a block's
-    227 KB beside their row stages; lc4 lp0's, lc4 lp1's (one block an SM)
-    and lc8 lp4's go to device memory."""
-    limit = 232_448
-    assert cuda_inputs.input_placement(M, cuda_inputs.lit_slots(3, 0),
-                                       limit) == "shared"
-    assert cuda_inputs.input_placement(M, cuda_inputs.lit_slots(0, 2),
-                                       limit) == "shared"
-    for lc, lp in ((4, 0), (4, 1)):
-        assert cuda_inputs.input_placement(M, cuda_inputs.lit_slots(lc, lp),
-                                           limit) == "device"
-    assert cuda_inputs.input_placement(M, cuda_inputs.lit_slots(8, 4),
-                                       limit) == "device"
-    assert cuda_inputs.smem_bytes(M, cuda_inputs.lit_slots(3, 0), True) == \
-        4 * (256 * 29 + 784 + 2 * 6144)
+    """K12 stages only the row stage and the distance tables (the literal
+    slots are read from device memory at every lc and lp): its shared
+    bytes do not depend on lc and lp, and its grid's four blocks fit an
+    H100 SM's 228 KB (1 KB more a block) at M 1 to 6, the DP's M_DP 4
+    among them."""
+    sm = 233_472
+    assert cuda_inputs.smem_bytes(M) == 4 * (256 * 29 + 4 + 784)
+    for m in (1, 2, 4, 6, 8):
+        assert cuda_inputs.smem_bytes(m) == 4 * (256 * (6 * m + 5) + 4 + 784)
+        assert (4 * (cuda_inputs.smem_bytes(m) + 1024) <= sm) == (m <= 6)
+    assert tp.M_DP == M
 
 
 # ------------------------------------------------ the closed form by g++
@@ -197,6 +193,7 @@ extern "C" void rows_host(const uint8_t* data, const int64_t* ld,
     ln.m = m;
     ln.lc = lc;
     ln.lp = lp;
+    ln.pairs16 = false;
     for (int64_t i = 0; i < n_pos; ++i) dp_input_row::row(ln, i, out + (base + i) * C);
   }
 }

@@ -244,10 +244,10 @@ extern "C" void cl_host(const uint8_t* data, const int64_t* n,
     for (int64_t i = 0; i < max_n; ++i) {
       int c = 0;
       if (i > 0) {
-        uint8_t a[kWindow], b[kWindow];
-        window(data + l * max_n, max_n, o[i], a);
-        window(data + l * max_n, max_n, o[i - 1], b);
-        c = consecutive_lcp(a, o[i], b, o[i - 1], n[l], nw, depth);
+        uint32_t a[kWords], b[kWords];
+        window_words(data + l * max_n, max_n, o[i], nw, a);
+        window_words(data + l * max_n, max_n, o[i - 1], nw, b);
+        c = consecutive_lcp_words(a, o[i], b, o[i - 1], n[l], nw, depth);
       }
       cl[l * max_n + i] = c;
     }

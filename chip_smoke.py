@@ -96,7 +96,8 @@ prints its seconds):
      K12, K13 and K14 on the
      probed encode's last calls (spied: the last round's rows and DP
      path, the seed's lazy path; each call timed alone by CUDA events
-     beside its bound; K12's grids traced after phase 18), and the inputs
+     beside its bound; K12's, K13's and K14's grids traced after phase
+     18, K13's and K14's blocks an SM), and the inputs
      phases 8 and 9 take
   8. the K4 path: tokenize_optimal(scan="band2") on phase 5's 32 x 16 KiB
      gives the tokens of the default scan, K4 launched (its count); K4 on
@@ -152,7 +153,9 @@ prints its seconds):
      whole tail), and K15, K16 and K17 (spied in the probed encode)
      against theirs on that stream's own calls, uncut, and K10 likewise
      (its one lane of places no multiple of its tile: the levels past
-     the tile a pass a level), timed by CUDA events; the `.lzma` pins
+     the tile a pass a level), and K13 and K14 (spied there too: one lane
+     of 8,388,609 nodes, 2,049 tiles, the door maps composed in groups of
+     128), timed by CUDA events beside row_work's bounds; the `.lzma` pins
      (PIN_ALONE_SHA256, PIN_ALONE_EOS_SHA256 = the JAX package's
      encode_alone of 64 KiB of bench data); the front door
      (lzma_tpu_torch.compress -> decompress on 2 MiB); the command line
@@ -256,7 +259,10 @@ restates, their `ms` is the whole-lane call's and `plain_ms` the plain
 version's on the same arguments, uncut, their launches are main8M-opt's
 and beside them main8M-lazy's, hybrid8M-opt's (K9-K11), the NCCL
 mesh's, `b`'s and the file configurations'; K13's and K14's `ms` is the
-last round's DP path's call and `seed_ms` the seed's lazy path's; K1's
+last round's DP path's call and `seed_ms` the seed's lazy path's, their
+`stream_ms` the `.lzma` stream's call (phase 14, beside its bound and
+plain version), `grids` each main-path call's device operations (after
+phase 18) and `blocks_per_sm` their grids'; K1's
 carries its launches in phase 16's decode, K6's
 in phase 19's dumps, K1, K2, K3, K6, K7 and K8 theirs in phase 20's mesh
 calls, K1, K2, K6, K7 and K8 theirs in phase 24's `b -backendtpu` and K1
@@ -928,6 +934,9 @@ ROW_KERNELS = {
                      "greedy_compact_cuda": ("cuda_path", "device_matcher",
                                              "_compact_taken")},
 }
+#: K13's and K14's wrappers: the DP path's, then the lazy path's
+PATH_WRAPPERS = ("extract_mark_cuda", "greedy_mark_cuda",
+                 "extract_compact_cuda", "greedy_compact_cuda")
 #: each of them: its TPU-side counterpart (file:line), the jitted JAX code
 #: it restates, its design
 _JIT_OPT = "under jax.jit at lzma_tpu/ops/device_parser.py:1595 (tokenize_optimal)"
@@ -949,17 +958,28 @@ ROW_REPLACES = {
         "lzma_tpu/ops/device_parser.py:1417 (extract_tokens' pointer "
         "doubling), lzma_tpu/ops/device_matcher.py:217 (greedy_path), "
         + _JIT_OPT + " and in device_matcher.tokenize",
-        "tiles of 4,096 nodes: each node's exit by pointer doubling in "
-        "shared memory; a thread a lane follows the exits; each entered "
-        "tile doubles again from its entry and writes its marks"),
+        "tiles of 4,096 nodes, a warp a segment of 512 going up it in "
+        "windows of 32 (a pointer into its own window by shuffle jumps): "
+        "each tile's door map, where the walk leaves it from each of the "
+        "288 nodes it can enter by, 288 ints in device memory, and each "
+        "segment's door exits; the maps "
+        "composed along the lane in shared memory (in groups of 128 tiles "
+        "past 128) to each tile's entry; each entered tile finds its "
+        "segments' entries from the segment door exits kept by the first "
+        "grid and a lane walks each segment; status flags in mapped pinned "
+        "host memory, read after the stream's synchronise"),
     "path_compact": (
         "lzma_tpu/ops/device_parser.py:1417",
         "lzma_tpu/ops/device_parser.py:1417 (extract_tokens' compaction), "
         "lzma_tpu/ops/device_matcher.py:269 (_compact), " + _JIT_OPT
         + " and in device_matcher.tokenize",
-        "tile counts, a lane scan, then a block a tile scans its marks, "
-        "writes its tokens at their slots and fills its range past the "
-        "lane's count"),
+        "one grid: tiles of 4,096 slots take tickets in lane-major order, "
+        "count their marks from 16-byte chunks, find their first slot by "
+        "decoupled look-back (a warp reads 32 predecessors), stage their "
+        "tokens in shared memory a plane at a time and write each plane's "
+        "run as 16-byte stores; each block then fills the previous lane's "
+        "slots of its range (t_valid, and (0, 1, -1) past that lane's "
+        "count) as 16-byte stores, extra blocks the last lane's"),
 }
 
 
@@ -1615,9 +1635,10 @@ def alone_phase(dev, card, data):
     ({"classify": ms, "lower": ms}), their bounds (likewise), the max
     |diff| of K6, K7, K2 and K1 against their plain versions on the
     stream's tensors, cut, and of K15, K16 and K17 on its calls, uncut
-    (by kernel name), the EOS encode's launches by kernel, and K10 on
-    the stream's call ({"places", "route", "ms", "bound", "err",
-    "plain_ms"})."""
+    (by kernel name), the EOS encode's launches by kernel, K10 on the
+    stream's call ({"places", "route", "ms", "bound", "err",
+    "plain_ms"}) and K13 and K14 on theirs ({kernel: {"nodes", "bytes",
+    "bound", "ms", "err", "plain_ms"}})."""
     import os
     import tempfile
 
@@ -1679,9 +1700,10 @@ def alone_phase(dev, card, data):
     # passes of 1,024) wait in host memory for the check below
     with probing() as probe:
         t = time.perf_counter()
-        (again, seen_search), seen_lazy = spied_lazy(lambda: spied_search(
-            lambda: api.encode_alone(data, LzmaParams(write_eos=True),
-                                     device=dev)))
+        ((again, seen_search), seen_lazy), seen_path = spied_rows(
+            lambda: spied_lazy(lambda: spied_search(
+                lambda: api.encode_alone(data, LzmaParams(write_eos=True),
+                                         device=dev))))
         torch.cuda.synchronize()
         t_probed = time.perf_counter() - t
     if again != blobs[True]:
@@ -1706,6 +1728,34 @@ def alone_phase(dev, card, data):
     k10_errs, k10_plain = check_search({"suffix_table": (k10_args, k10_out)})
     k10["err"], k10["plain_ms"] = k10_errs["suffix_table"], k10_plain["suffix_table"]
     del k10_args, k10_out
+    # K13 and K14 on the stream's one lane (2,049 tiles of 4,096 nodes:
+    # the door maps composed in groups of 128 tiles), each call timed
+    # alone by CUDA events beside row_work's bounds and held to its plain
+    # version, uncut
+    if sorted(seen_path) != ["greedy_compact_cuda", "greedy_mark_cuda"]:
+        raise AssertionError(f"the probed .lzma encode's path calls: "
+                             f"{sorted(seen_path)}")
+    path = {}
+    for w, (p_args, p_out) in seen_path.items():
+        work = row_work(w, p_args, p_out)
+        path[row_kernel(w)] = {
+            "nodes": p_args[0].shape[1] + 1, "bytes": work[0],
+            "bound": bound(*work),
+            "ms": event_ms(lambda f=getattr(_row_module("cuda_path"), w),
+                           a=p_args: f(*a), 3)}
+    p_errs, p_plain = check_rows(seen_path)
+    for w in seen_path:
+        path[row_kernel(w)].update(err=p_errs[row_kernel(w)],
+                                   plain_ms=p_plain[w])
+    del seen_path
+    log(f"[lzma stream K13, K14] on {card}: the stream's one lane of "
+        f"{path['path_mark']['nodes']} nodes, tolerance 0: " + "; ".join(
+            f"{k} {v['ms']:.3f} ms (CUDA events, the wrapper"
+            f"{' with its status readback' if k == 'path_mark' else ''}), "
+            f"{v['bytes']} B read and written, bound {v['bound'][0]:.4f} ms "
+            f"by {v['bound'][1]} ({v['ms'] / v['bound'][0]:.1f}x), max |diff| "
+            f"{v['err']} against the plain version ({v['plain_ms']:.1f} ms)"
+            for k, v in path.items()))
     torch.cuda.empty_cache()
     log(f"[lzma stream K10] on {card}: the stream's one lane of "
         f"{k10['places']} places, depth 273 (the LCP given), levels past the "
@@ -1836,7 +1886,7 @@ def alone_phase(dev, card, data):
     log(f"[entry] lzma_tpu_torch.entry: fn(*args) on {args[0].device}, "
         f"{tuple(out.shape)}, lens {lens.tolist()}: sha256 = the JAX "
         "reference's __graft_entry__.entry()")
-    return ms, bounds, errs, launches, k10
+    return ms, bounds, errs, launches, k10, path
 
 
 def hybrid_pin_input():
@@ -2744,8 +2794,9 @@ def main():
                                                    encode_batch,
                                                    pair_counts, probing,
                                                    tokenize)
-    from lzma_tpu_torch.ops import (cuda_inputs, cuda_lazy, cuda_search,
-                                    device_matcher, device_parser)
+    from lzma_tpu_torch.ops import (cuda_inputs, cuda_lazy, cuda_path,
+                                    cuda_search, device_matcher,
+                                    device_parser)
     from lzma_tpu_torch.ops.device_matcher import LAZY_STAGES
     from lzma_tpu_torch.ops.device_parser import (MODEL_STAGES, SEARCH_STAGES,
                                                   tokenize_optimal)
@@ -3303,7 +3354,8 @@ def main():
     # the calls' arguments wait in host memory for their grids' traces
     grid_stash = _to("cpu", {"lower_counts": c_args, **{
         name: s_args for name, (s_args, _) in seen_main.items()},
-        "dp_inputs": seen_rows["dp_inputs_cuda"][0]})
+        "dp_inputs": seen_rows["dp_inputs_cuda"][0], **{
+            w: seen_rows[w][0] for w in PATH_WRAPPERS}})
     # K12 on the last round's rows, K13 and K14 on the last round's DP
     # path and the seed's lazy path, each call timed alone by CUDA events
     row_whole, row_bounds = {}, {}
@@ -3312,6 +3364,7 @@ def main():
         row_whole[w] = event_ms(lambda f=getattr(mod, w), a=r_args: f(*a), 3)
         row_bounds[w] = (row_work(w, r_args, r_out),
                          bound(*row_work(w, r_args, r_out)))
+    path_blocks = cuda_path.occupancy()
     k12_blocks = cuda_inputs.occupancy(
         seen_rows["dp_inputs_cuda"][0][1].shape[2])
     log(f"[K12, K13, K14 whole lanes] {L} lanes x {N} positions on {card}: "
@@ -3616,8 +3669,10 @@ def main():
     done("probes")
 
     # ---- 14. the .lzma path at full size, front door, CLI, entry ----
-    stream_ms, stream_bounds, stream_errs, stream_launches, stream_k10 = \
-        alone_phase(dev, card, data)
+    stream_ms, stream_bounds, stream_errs, stream_launches, stream_k10, \
+        stream_path = alone_phase(dev, card, data)
+    for k, v in stream_path.items():
+        row_err[k] = max(row_err[k], v["err"])
     search_err["suffix_table"] = max(search_err["suffix_table"],
                                      stream_k10["err"])
     k6_err = max(k6_err, stream_errs["classify"])
@@ -3640,11 +3695,14 @@ def main():
     for name, g_args in _to(dev, grid_stash).items():
         fn = (cuda_lower.lower_counts_cuda if name == "lower_counts"
               else cuda_inputs.dp_inputs_cuda if name == "dp_inputs"
+              else getattr(_row_module("cuda_path"), name)
+              if name in PATH_WRAPPERS
               else getattr(cuda_search, SEARCH_KERNELS[name][0]))
         grids[name] = grid_split(lambda f=fn, a=g_args: f(*_fresh(a)))
     del grid_stash
     k8_grids = grids.pop("lower_counts")
     k12_grids = grids.pop("dp_inputs")
+    path_grids = {w: grids.pop(w) for w in PATH_WRAPPERS}
     search_grids = grids
     log(k8_line + grid_text(k8_grids))
     log(f"[K12 grids] the last round's rows on {card}, its device operations "
@@ -3652,6 +3710,11 @@ def main():
         + grid_text(k12_grids))
     log(search_head + "; ".join(search_lines[k] + grid_text(search_grids[k])
                                 for k in SEARCH_KERNELS) + search_tail)
+    log(f"[K13, K14 grids] the last round's DP path and the seed's lazy path "
+        f"on {card}, each call's device operations (torch.profiler, us a "
+        f"launch x launches a call; blocks an SM by csrc/path.cu's "
+        f"lzt_path_occupancy: {path_blocks}): "
+        + "; ".join(f"{w} " + grid_text(g) for w, g in path_grids.items()))
     torch.cuda.empty_cache()
     done("profile")
 
@@ -3813,7 +3876,15 @@ def main():
                    "ms_of": f"{main_w} (the last round's DP path)",
                    "seed_ms": row_whole[seed_w],
                    "seed_plain_ms": row_plain[seed_w],
-                   "seed_bound_ms": row_bounds[seed_w][1][0]}))
+                   "seed_bound_ms": row_bounds[seed_w][1][0],
+                   "grids": {"dp": path_grids[main_w],
+                             "seed": path_grids[seed_w]},
+                   "blocks_per_sm": path_blocks,
+                   "stream_nodes": stream_path[name]["nodes"],
+                   "stream_ms": stream_path[name]["ms"],
+                   "stream_bound_ms": stream_path[name]["bound"][0],
+                   "stream_plain_ms": stream_path[name]["plain_ms"],
+                   "stream_max_abs_err": stream_path[name]["err"]}))
         for name, main_w, seed_w in (
             ("dp_inputs", "dp_inputs_cuda", None),
             ("path_mark", "extract_mark_cuda", "greedy_mark_cuda"),

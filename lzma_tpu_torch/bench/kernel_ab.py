@@ -2,7 +2,8 @@
 one card, in turns: the DP scans (K3, K4), the range encoder (K2), the
 decoders (K1, K5), the classify carry (K6), the bit lowering (K7), its
 slot counts (K8), the suffix table (K10), the optimal search's match
-lists (K11) and the DP rows (K12).
+lists (K11), the DP rows (K12) and the parse path's marking and
+compaction (K13, K14).
 
     python -m lzma_tpu_torch.bench.kernel_ab OTHER_CHECKOUT [KERNEL ...]
 
@@ -10,8 +11,9 @@ KERNEL picks among dp_parse, dp_parse2, rc_serialize, ring_decode,
 ring_input, classify, lower, lower_counts, classify_stream,
 lower_stream, ring_decode_champion, block_decode_champion and
 ring_input_champion, tokenize_lazy, tokenize_stream, match_lists,
-match_lists_hybrid, suffix_table, suffix_table_stream and dp_inputs
-(default: all).  The
+match_lists_hybrid, suffix_table, suffix_table_stream, dp_inputs,
+path_mark, path_compact, path_mark_stream, path_compact_stream and
+path_mark_tile (default: all).  The
 inputs are chip_smoke.py's: the main path is text_part() +
 generate_bench_data(5 << 20), LzmaParams() defaults (lc3 lp0 pb2, fb
 32), parse="optimal", 32 lanes of 256 KiB; an encode inside
@@ -48,8 +50,17 @@ suffix_table_stream on those of the lazy `.lzma` stream of the 8 MiB
 with the EOS marker (``api.encode_alone``; one lane of 8,388,609
 places, the consecutive LCP given: the per-level route); dp_inputs is
 K12 (``ops.cuda_inputs.dp_inputs_cuda``) on the main path's last DP
-round's arguments (``api.encode_blocks``, spied).  For K7, K8, K10, K11
-and K12 it also splits this checkout's call by its device operations.  OTHER_CHECKOUT's package
+round's arguments (``api.encode_blocks``, spied).  path_mark is K13
+(``ops.cuda_path.extract_mark_cuda`` and ``greedy_mark_cuda``, with
+their status readback) and path_compact K14 (``extract_compact_cuda``,
+``greedy_compact_cuda``) on the last calls the same encode makes
+(spied): "dp" the last round's DP path, "seed" the seed's lazy path;
+path_mark_stream and path_compact_stream on the calls of the lazy
+`.lzma` stream of the 8 MiB with the EOS marker (one lane of 8,388,609
+nodes); path_mark_tile is K13 on the first 4,097 nodes of one lane of
+that DP path (one tile: the call's fixed cost, its launches and
+readback).  For K7, K8 and K10-K14 it also splits this checkout's call by
+its device operations.  OTHER_CHECKOUT's package
 is loaded under another name and its kernels are built by its own
 runtime/build.py and called through its own wrappers
 (``ops.cuda_parser.dp_parse_cuda``, ``dp_parse2_cuda``,
@@ -58,7 +69,7 @@ runtime/build.py and called through its own wrappers
 ``ops.cuda_classify.classify_carry_cuda``,
 ``ops.cuda_lower.lower_tokens_cuda``, ``lower_counts_cuda``,
 ``ops.cuda_search.match_lists_cuda``, ``suffix_table_cuda``,
-``ops.cuda_inputs.dp_inputs_cuda``), whose signatures both
+``ops.cuda_inputs.dp_inputs_cuda``, ``ops.cuda_path``'s four), whose signatures both
 checkouts share.  ring_input and ring_input_champion compare no checkouts: on
 K1's main-path and champion streams they time this checkout's K1 body
 with its input staged in the shared-memory ring ("this",
@@ -105,21 +116,28 @@ KERNELS = ("dp_parse", "dp_parse2", "rc_serialize", "ring_decode",
            "classify_stream", "lower_stream", "ring_decode_champion",
            "block_decode_champion", "ring_input_champion", "tokenize_lazy",
            "tokenize_stream", "match_lists", "match_lists_hybrid",
-           "suffix_table", "suffix_table_stream", "dp_inputs")
+           "suffix_table", "suffix_table_stream", "dp_inputs", "path_mark",
+           "path_compact", "path_mark_stream", "path_compact_stream",
+           "path_mark_tile")
 MAIN_PATH = KERNELS[:8]
 STREAM = ("classify_stream", "lower_stream")
 TOKENIZE = ("tokenize_lazy", "tokenize_stream")
 LISTS = ("match_lists", "match_lists_hybrid")
 TABLE = ("suffix_table", "suffix_table_stream", "dp_inputs")
+PATH = ("path_mark", "path_compact", "path_mark_stream", "path_compact_stream",
+        "path_mark_tile")
+#: K13's and K14's wrappers (ops.cuda_path): the DP path's, the lazy path's
+MARK_WRAPPERS = ("extract_mark_cuda", "greedy_mark_cuda")
+COMPACT_WRAPPERS = ("extract_compact_cuda", "greedy_compact_cuda")
 #: the wrappers a split by device operations is printed for
-SPLIT = ("lower", "lower_counts", "lower_stream", *LISTS, *TABLE)
+SPLIT = ("lower", "lower_counts", "lower_stream", *LISTS, *TABLE, *PATH)
 
 
 def other_wrappers(root: str, name: str = OTHER):
     """OTHER_CHECKOUT's ops.cuda_parser, ops.cuda_serializer,
     ops.cuda_ring, ops.cuda_decoder, ops.cuda_classify, ops.cuda_lower,
-    ops.device_matcher, ops.cuda_search and ops.cuda_inputs, its package
-    loaded as `name`."""
+    ops.device_matcher, ops.cuda_search, ops.cuda_inputs and
+    ops.cuda_path, its package loaded as `name`."""
     pkg = os.path.join(os.path.abspath(root), "lzma_tpu_torch")
     spec = importlib.util.spec_from_file_location(
         name, os.path.join(pkg, "__init__.py"), submodule_search_locations=[pkg])
@@ -129,7 +147,7 @@ def other_wrappers(root: str, name: str = OTHER):
     return tuple(importlib.import_module(f"{name}.ops.{m}") for m in
                  ("cuda_parser", "cuda_serializer", "cuda_ring", "cuda_decoder",
                   "cuda_classify", "cuda_lower", "device_matcher",
-                  "cuda_search", "cuda_inputs"))
+                  "cuda_search", "cuda_inputs", "cuda_path"))
 
 
 def main_data():
@@ -167,23 +185,33 @@ def stream_inputs(dev):
     return probe["classify_rows"], probe["lower_args"]
 
 
-def spied_args(module, wrapper: str, fn):
-    """The arguments of the last call fn() makes to module.wrapper (lists
-    in them copied: K11 empties the lists it is given)."""
+def spied_calls(module, wrappers, fn) -> dict:
+    """{wrapper: the arguments of the last call fn() makes to
+    module.wrapper} (lists in them copied: K11 empties the lists it is
+    given)."""
     seen = {}
-    kept = getattr(module, wrapper)
+    kept = {w: getattr(module, w) for w in wrappers}
 
-    def spy(*args):
-        seen["args"] = tuple(list(a) if isinstance(a, list) else a
-                             for a in args)
-        return kept(*args)
+    def spy(w):
+        def call(*args):
+            seen[w] = tuple(list(a) if isinstance(a, list) else a
+                            for a in args)
+            return kept[w](*args)
+        return call
 
-    setattr(module, wrapper, spy)
+    for w in wrappers:
+        setattr(module, w, spy(w))
     try:
         fn()
     finally:
-        setattr(module, wrapper, kept)
-    return seen["args"]
+        for w, f in kept.items():
+            setattr(module, w, f)
+    return seen
+
+
+def spied_args(module, wrapper: str, fn):
+    """The arguments of the last call fn() makes to module.wrapper."""
+    return spied_calls(module, (wrapper,), fn)[wrapper]
 
 
 def _main_search(dev, *search):
@@ -231,6 +259,29 @@ def row_inputs(dev):
     return spied_args(cuda_inputs, "dp_inputs_cuda", lambda: api.encode_blocks(
         main_data(), LzmaParams(), block_size=BLOCK, parse="optimal",
         device=dev))
+
+
+def path_inputs(dev, stream: bool = False) -> dict:
+    """{wrapper: its last call's arguments} of K13's and K14's wrappers
+    (ops.cuda_path): main8M-opt's optimal api.encode_blocks (extract_*:
+    the last round's DP path; greedy_*: the seed's lazy path), or the 8
+    MiB as one lazy `.lzma` stream with the EOS marker (greedy_*)."""
+    from ..ops import cuda_path
+
+    if stream:
+        def fn():
+            api.encode_alone(main_data(), LzmaParams(write_eos=True),
+                             device=dev)
+    else:
+        def fn():
+            api.encode_blocks(main_data(), LzmaParams(), block_size=BLOCK,
+                              parse="optimal", device=dev)
+    return spied_calls(cuda_path, MARK_WRAPPERS + COMPACT_WRAPPERS, fn)
+
+
+def outputs(x) -> tuple:
+    """A wrapper's result as a tuple of tensors."""
+    return x if isinstance(x, tuple) else (x,)
 
 
 def lists_call(search_mod, args):
@@ -308,8 +359,9 @@ def main(argv=None) -> None:
     name = card().splitlines()[0]
     print(name, flush=True)
     dev = torch.device("cuda", 0)
+    other = other_wrappers(argv[0])
     o_parser, o_serializer, o_ring, o_decoder, o_classify, o_lower, \
-        o_matcher, o_search, o_inputs = other_wrappers(argv[0])
+        o_matcher, o_search, o_inputs = other[:9]
     result = {"card": name}
     kernels = {}
     if any(k in MAIN_PATH for k in chosen):
@@ -416,29 +468,58 @@ def main(argv=None) -> None:
                     "other": lambda a=args: o_search.suffix_table_cuda(*a),
                     "this": lambda a=args: cuda_search.suffix_table_cuda(*a)}
             result[kernel + "_shape"] = list(args[0].shape)
+    if any(k in PATH for k in chosen):
+        o_path = other[9]
+        from ..ops import cuda_path
+
+        for stream, names in ((False, PATH[:2]), (True, PATH[2:4])):
+            if not any(k in chosen for k in names + PATH[4:] * (not stream)):
+                continue
+            seen = path_inputs(dev, stream)
+            works = (("stream", 1),) if stream else (("dp", 0), ("seed", 1))
+            for kernel, ws in zip(names, (MARK_WRAPPERS, COMPACT_WRAPPERS)):
+                if kernel not in chosen:
+                    continue
+                kernels[kernel] = {work: {
+                    "other": lambda w=ws[i], a=seen[ws[i]]: getattr(o_path, w)(*a),
+                    "this": lambda w=ws[i], a=seen[ws[i]]: getattr(cuda_path, w)(*a)}
+                    for work, i in works}
+            result["path_stream_nodes" if stream else "path_nodes"] = list(
+                seen[MARK_WRAPPERS[1]][0].shape)
+            if not stream and "path_mark_tile" in chosen:
+                # one lane's first tile of the DP path: the call's fixed cost
+                frm, lens = seen[MARK_WRAPPERS[0]]
+                a = (frm[:1, :4097].contiguous(), lens[:1].clamp(max=4096))
+                kernels["path_mark_tile"] = {
+                    "other": lambda: o_path.extract_mark_cuda(*a),
+                    "this": lambda: cuda_path.extract_mark_cuda(*a)}
     for kernel in chosen:
-        fns = kernels[kernel]
-        outs = {k: fn() for k, fn in fns.items()}
-        if not all(torch.equal(a, b) for a, b in zip(outs["other"], outs["this"])):
-            raise AssertionError(f"{kernel}: this checkout's output differs "
-                                 "from the other's")
-        del outs
+        cases = kernels.pop(kernel)
+        if "this" in cases:
+            cases = {None: cases}
         reps = 3 if kernel in ("rc_serialize", "ring_decode", "ring_input") else 2
         if kernel.endswith("champion") or kernel.startswith(("classify",
                                                              "lower",
                                                              "match")) \
-                or kernel in TABLE:
+                or kernel in TABLE or kernel in PATH:
             reps = 5
         if kernel in TOKENIZE:
             reps = 3
-        times = {k: [] for k in fns}
-        for k in ("other", "this", "this", "other"):
-            times[k].append(event_ms(fns[k], reps))
-        result[kernel] = times
-        if kernel in SPLIT:
-            result[kernel + "_grids"] = grid_split(fns["this"])
-        del fns
-        kernels.pop(kernel)
+        for work, fns in cases.items():
+            key = kernel if work is None else f"{kernel} {work}"
+            outs = {k: outputs(fn()) for k, fn in fns.items()}
+            if not all(torch.equal(a, b)
+                       for a, b in zip(outs["other"], outs["this"])):
+                raise AssertionError(f"{key}: this checkout's output differs "
+                                     "from the other's")
+            del outs
+            times = {k: [] for k in fns}
+            for k in ("other", "this", "this", "other"):
+                times[k].append(event_ms(fns[k], reps))
+            result[key] = times
+            if kernel in SPLIT:
+                result[key + "_grids"] = grid_split(fns["this"])
+        del cases
     print(json.dumps(result), flush=True)
 
 

@@ -1,5 +1,6 @@
-"""K11's, K8's, K10's and K12's calls split on the card: by grid
-(torch.profiler) and by bench-side variants of a checkout's own sources.
+"""K11's, K8's, K10's, K12's, K13's and K14's calls split on the card: by
+grid (torch.profiler) and by bench-side variants of a checkout's own
+sources.
 
     python -m lzma_tpu_torch.bench.kernel_split [CHECKOUT] [VARIANT ...]
 
@@ -7,10 +8,13 @@ CHECKOUT (default: this one) is copied under ``lzma_tpu_torch/_build/
 variants/``, once as it is and once a variant, each variant's source
 edited as VARIANTS says (a variant whose anchors the checkout's source
 lacks stops the run; a variant may name alternative edits, the first
-whose anchors are all there is made: k10_no_levels and k12_no_replen
+whose anchors are all there is made (an alternative may name a file of
+its own): k10_no_levels and k12_no_replen
 carry the anchors of the sources before and after their redesign,
-k12_blocks goes either way, and k12_direct_rows applies to the sources
-before the redesign only); each copy's
+as do k13_no_status, k13_no_walk and k14_no_fill, k12_blocks goes either
+way, and k12_direct_rows, k13_rounds_half and k14_one_read apply to the
+sources before the redesign only, the split that chose K13's and K14's
+designs: run them with a checkout of those sources as CHECKOUT); each copy's
 package is loaded under a name of its own and builds its kernels with
 its own runtime/build.py.  The inputs are kernel_ab's: K11
 (``match_lists``) on the arguments ``_rmq_search`` gives it on main8M's
@@ -19,14 +23,18 @@ hybrid8M-opt's (``hybrid.DEFAULT_TIERS``, 29 columns uncapped, "near"),
 K8 (``lower_counts``) on the last optimal round's slot counts'
 arguments, K10 (``suffix_table``) on main8M-opt's suffix order (32
 lanes of 262,144 places, depth 32), K12 (``dp_inputs``) on main8M-opt's
-last DP round's arguments.  Each variant is timed on each of its kernel's inputs by
+last DP round's arguments, K13 and K14 (``path_mark``,
+``path_compact``) on main8M-opt's last DP path, its seed's lazy path
+and lzma8M-stream's lane.  Each variant is timed on each of its kernel's inputs by
 CUDA events in turns with the checkout as it is (as it is, variant,
 variant, as it is), and each side's device operations by torch.profiler
 (three calls after a warm one).  A variant that keeps the kernel's output must give the same
 tensors; an ablation (``"keeps": False``) gives other numbers by design
 and is only timed.  For K10 and K12 the JSON line also holds ptxas -v's
-report of the checkout's search.cu and dp_inputs.cu (registers, stack,
-spills a kernel) and K12's blocks an SM, from those registers and the
+report of the checkout's search.cu, dp_inputs.cu and (K13, K14)
+path.cu (registers, stack, spills a kernel), K13's and K14's grids'
+blocks an SM where the checkout's library says
+(``lzt_path_occupancy``), and K12's blocks an SM, from those registers and the
 block's shared bytes (lzt_dp_inputs_smem) at main8M-opt's M and lc3
 lp0 ("computed"; the sources before the redesign staged that setting's
 literal slots), and from cudaOccupancyMaxActiveBlocksPerMultiprocessor
@@ -175,11 +183,107 @@ VARIANTS = {
         True, "nothing: both planes' literal slots staged in shared memory "
         "(int32, beside the tables) and read there, the carve-out grown "
         "for them"),
+    "k13_no_status": (
+        "path_mark", "../ops/cuda_path.py", "any",
+        [[("    status = int(scratch[:4].view(torch.int32).item())",
+           "    status = 0  # variant: no readback")],
+         ("path.cu",
+          [("  if (err == cudaSuccess) err = cudaStreamSynchronize(s);\n",
+            "  // variant: no readback\n")])],
+        True, "the status readback (before the redesign .item(): the "
+        "drain of the stream and a copy; after, the stream's synchronise "
+        "in the C entry)"),
+    "k13_device_status": (
+        "path_mark", "path.cu", "replace",
+        [("  int *gmap, *gentry, *entry;\n};",
+          "  int *gmap, *gentry, *entry;\n"
+          "  int* word;  // variant: the status in device memory\n};"),
+         ("  m.entry = take(n_lanes * nt);\n",
+          "  m.entry = take(n_lanes * nt);\n  m.word = take(2);  // variant\n"),
+         ("  const Graph g{from, lens, adv, n, status, start,",
+          "  int* mapped = status;  // variant: a device word, zeroed, copied\n"
+          "  status = m.word;\n"
+          "  cudaMemsetAsync(status, 0, 2 * sizeof(int),\n"
+          "                  static_cast<cudaStream_t>(stream));\n"
+          "  const Graph g{from, lens, adv, n, status, start,"),
+         ("  if (err == cudaSuccess) err = cudaStreamSynchronize(s);\n",
+          "  if (err == cudaSuccess) err = cudaStreamSynchronize(s);\n"
+          "  if (err == cudaSuccess) {  // variant\n"
+          "    err = cudaMemcpy(mapped, status, 2 * sizeof(int), cudaMemcpyDefault);\n"
+          "  }\n")],
+        True, "nothing: the status flags in device memory (a fill launch, "
+        "then a copy to the mapped page after the synchronise) in place of "
+        "the kernels writing the mapped page"),
+    "k13_no_walk": (
+        "path_mark", "path.cu", "any",
+        [[("  if (threadIdx.x == 0) entry[lane * g.n_tiles + t] = -1;",
+           "  if (threadIdx.x == 0) entry[lane * g.n_tiles + t] = static_cast<int>(lo);"
+           "  // variant: entries given"),
+          ("  walk_kernel<<<(n_lanes + kWalkThreads - 1) / kWalkThreads, kWalkThreads, 0,\n"
+           "                s>>>(g, exits, entry, status);",
+           "  // variant: no walk grid")],
+         [("  const int e = entry[tile];",
+           "  const int e = node_at<F>(t, kTile - 1) < g.n_nodes"
+           " ? node_at<F>(t, kTile - 1) : lo;  // variant: entries given"),
+          ("  if (ng > 1) {\n"
+           "    group_kernel<F><<<ng * L, kGroupThreads, map_bytes, s>>>(\n"
+           "        g, m.door, m.start_exit, m.gmap, m.gexit);\n"
+           "    lane_kernel<F><<<L, kWalkThreads, map_bytes, s>>>(g, m.door, m.gmap,\n"
+           "                                                      m.gexit, m.gentry);\n"
+           "  }\n"
+           "  entry_kernel<F><<<ng * L, kWalkThreads, map_bytes, s>>>(\n"
+           "      g, m.door, m.start_exit, m.gentry, m.entry);",
+           "  // variant: no walk grids")]],
+        False, "the walk (before the redesign its grid; after, the group, "
+        "lane and entry grids): each tile's entry given, the first node of "
+        "its door, so every tile marks"),
+    "k13_rounds_half": (
+        "path_mark", "path.cu", "replace",
+        [("constexpr int kRounds = kTileLog + 1;",
+          "constexpr int kRounds = 6;  // variant: half the rounds")],
+        False, "half the doubling rounds in the exits and mark grids (6 of "
+        "13: wrong exits, so the walk stops early; the sources before the "
+        "redesign only)"),
+    "k14_one_read": (
+        "path_compact", "path.cu", "replace",
+        [("  int total;\n"
+          "  int64_t slot = offsets[lane * k.n_tiles + t] + block_scan(v, sums, &total);",
+          "  int64_t slot = offsets[lane * k.n_tiles + t] + first;"
+          "  // variant: no second count or scan")],
+        False, "the scatter's second count and block scan of its marks "
+        "(each thread's slots from its first node; the sources before the "
+        "redesign only)"),
+    "k14_no_fill": (
+        "path_compact", "path.cu", "any",
+        [[("    k.t_valid[row + s] = valid;\n    if (!valid) {",
+           "    if (s < 0) k.t_valid[row + s] = valid;  // variant: no fill\n"
+           "    if (s < 0) {")],
+         [("  if (lane >= 1) {  // the previous lane's fill over this tile's slots",
+           "  if (lane < 0) {  // variant: no fill")]],
+        False, "the fill past ntok (t_valid and the three planes' fill)"),
+    "k14_no_tokens": (
+        "path_compact", "path.cu", "replace",
+        [("    for (int plane = 0; plane < 3; ++plane) {",
+          "    for (int plane = 0; plane < 0; ++plane) {  // variant: no tokens")],
+        False, "the tokens' staging and writes (the count, scan, look-back "
+        "and fill stay)"),
+    "k14_no_lookback": (
+        "path_compact", "path.cu", "replace",
+        [("        for (int64_t q = t - 1;; q -= 32) {",
+          "        for (int64_t q = t - 1; q < 0; q -= 32) {  // variant: no look-back")],
+        False, "the look-back (each tile's first slot taken as 0; it still "
+        "publishes its sum for the fill)"),
 }
 #: the kernels whose ptxas report and (K12) blocks an SM are recorded,
 #: their source and the names of their grids
 PTXAS = {"suffix_table": ("search.cu", ("table_",)),
-         "dp_inputs": ("dp_inputs.cu", ("rows_kernel",))}
+         "dp_inputs": ("dp_inputs.cu", ("rows_kernel",)),
+         "path_mark": ("path.cu", ("kernel",)),
+         "path_compact": ("path.cu", ("kernel",))}
+#: K13's and K14's workloads: name -> (the wrappers' index in
+#: kernel_ab.MARK_WRAPPERS / COMPACT_WRAPPERS, stream or main8M-opt)
+PATH_WORK = {"main8M-opt dp": (0, False), "main8M-opt seed": (1, False),
+             "lzma8M-stream": (1, True)}
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 WORK = os.path.join(ROOT, "lzma_tpu_torch", "_build", "variants")
@@ -217,13 +321,19 @@ def copy(checkout: str, name: str, variant=None):
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
     if variant is not None:
         _, fname, anchor, text = variant[:4]
-        path = os.path.join(dst, "lzma_tpu_torch", "csrc", fname)
-        with open(path) as f:
-            out = edit(f.read(), anchor, text)
-        if out is None:
-            return None
-        with open(path, "w") as f:
-            f.write(out)
+        # "any" alternatives may name a file of their own: (file, pairs)
+        tries = ([(fname, [pairs]) if isinstance(pairs, list) else
+                  (pairs[0], [pairs[1]]) for pairs in text]
+                 if anchor == "any" else [(fname, text)])
+        for f_name, f_text in tries:
+            path = os.path.join(dst, "lzma_tpu_torch", "csrc", f_name)
+            with open(path) as f:
+                out = edit(f.read(), anchor, f_text)
+            if out is not None:
+                with open(path, "w") as f:
+                    f.write(out)
+                return dst
+        return None
     return dst
 
 
@@ -291,10 +401,20 @@ def occupancy(root: str, pkg: str, report: dict) -> dict:
     return out
 
 
+def path_occupancy(pkg: str) -> dict:
+    """K13's and K14's grids' blocks an SM (ops.cuda_path.occupancy),
+    where the checkout has it."""
+    import importlib
+
+    path = importlib.import_module(f"{pkg}.ops.cuda_path")
+    return path.occupancy() if hasattr(path, "occupancy") else {}
+
+
 def main(argv=None) -> None:
     from ..probes._cuda import card, event_ms
-    from .kernel_ab import (grid_split, lists_call, list_inputs,
-                            main_path_inputs, other_wrappers, row_inputs,
+    from .kernel_ab import (COMPACT_WRAPPERS, MARK_WRAPPERS, grid_split,
+                            lists_call, list_inputs, main_path_inputs,
+                            other_wrappers, outputs, path_inputs, row_inputs,
                             table_inputs)
 
     argv = sys.argv[1:] if argv is None else argv
@@ -320,8 +440,17 @@ def main(argv=None) -> None:
         inputs["suffix_table"] = {"main8M-opt": table_inputs(dev)}
     if "dp_inputs" in kernels:
         inputs["dp_inputs"] = {"main8M-opt": row_inputs(dev)}
+    if kernels & {"path_mark", "path_compact"}:
+        seen = {s: path_inputs(dev, s) for s in (False, True)}
+        for kernel, ws in (("path_mark", MARK_WRAPPERS),
+                           ("path_compact", COMPACT_WRAPPERS)):
+            if kernel in kernels:
+                inputs[kernel] = {work: (ws[i], seen[s][ws[i]])
+                                  for work, (i, s) in PATH_WORK.items()}
 
     def call(mods, kernel, args):
+        if kernel.startswith("path_"):
+            return lambda: getattr(mods[9], args[0])(*args[1])
         if kernel == "match_lists":
             return lists_call(mods[7], args)
         if kernel == "suffix_table":
@@ -338,12 +467,18 @@ def main(argv=None) -> None:
     base_dir = copy(checkout, "base")
     base = other_wrappers(base_dir, "_split_base")
     result = {"card": name, "checkout": checkout}
+    reported = set()
     for k in sorted(kernels & set(PTXAS)):
+        if PTXAS[k] in reported:
+            continue
+        reported.add(PTXAS[k])
         report = ptxas(base_dir, "_split_base", *PTXAS[k])
         result[f"{k} ptxas"] = report
         if k == "dp_inputs":
             result[f"{k} blocks_per_sm"] = occupancy(base_dir, "_split_base",
                                                      report)
+        if k.startswith("path_"):
+            result[f"{k} blocks_per_sm"] = path_occupancy("_split_base")
         print(f"{k} ptxas: {report}", flush=True)
     for k in sorted(kernels):
         for work, args in inputs[k].items():
@@ -357,7 +492,7 @@ def main(argv=None) -> None:
         for work, args in inputs[kernel].items():
             fns = {"base": call(base, kernel, args),
                    "variant": call(mods, kernel, args)}
-            outs = {s: fn() for s, fn in fns.items()}
+            outs = {s: outputs(fn()) for s, fn in fns.items()}
             same = all(torch.equal(a, b)
                        for a, b in zip(outs["base"], outs["variant"]))
             del outs

@@ -11,15 +11,27 @@ path, then each round's DP path) and every lazy tokenize once:
 - ``extract_mark_cuda`` (K13) replaces ``device_parser._extract_mark``
   and ``greedy_mark_cuda`` (K13) ``device_matcher._greedy_mark``: the
   nodes a lane's walk reaches from its start node, backward over the DP's
-  from pointers or forward over pos + adv.  The kernel walks tiles of
-  nodes, not doubling rounds over the whole lane; it takes pointers that
-  run one way (each route's do) and raises ValueError where a walk goes
-  back into a tile it has left, or a pointer or start lies outside the
-  lane;
+  from pointers or forward over pos + adv.  What holds it on the card is
+  the walk's dependence, not its bytes: the kernel gives each tile of
+  4,096 nodes a door map (where the walk leaves the tile from each of the
+  288 nodes it can enter by, a hop being at most 273 long, from each
+  node's segment exit found in windows of 32 nodes a warp, with no
+  doubling rounds), composes the maps along the lane for each tile's
+  entry (in groups of 128 tiles on the stream's long lane) and marks each
+  tile from its entry, a lane walking each segment of 512 nodes.  It takes
+  pointers that run one way (each route's do) and raises ValueError where
+  the walk steps against its way (back into a tile it has left), or a
+  pointer or start lies outside the lane.  Its status flags are in
+  pinned host memory the kernels write through their mapping: the one
+  readback before the wrapper returns is the stream's synchronise, in
+  the C entry, with no copy;
 - ``extract_compact_cuda`` (K14) replaces ``device_parser.
   _extract_compact`` and ``greedy_compact_cuda`` (K14) ``device_matcher.
   _compact_taken``: the marked nodes' tokens in order, filled past each
-  lane's count.
+  lane's count.  Its bytes bound it (25 B a slot written): one grid whose
+  tiles find their first slot by decoupled look-back along the lane,
+  stage their tokens in shared memory and write each plane's slots, the
+  fill and t_valid as 16-byte stores.
 
 A CUDA tensor launches the kernel (or the wrapper raises); a CPU tensor
 takes the plain version.  Every output is the plain version's, bit for
@@ -30,6 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -45,18 +58,21 @@ MARK_LAUNCHES = 0
 COMPACT_LAUNCHES = 0
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-#: K13's status bits (csrc/path.cu)
-_OUT_OF_RANGE, _PASSED = 1, 2
+#: K13's and K14's grids, in lzt_path_occupancy's order (csrc/path.cu)
+GRIDS = ("door", "group", "lane", "entry", "mark", "compact")
 
 
 @functools.cache
 def _lib():
     lib = build.load()
-    lib.lzt_path_mark.argtypes = [_P] * 4 + [_L, _I, _I, _L, _P, _P, _P]
+    lib.lzt_path_mark.argtypes = [_P] * 4 + [_L, _I, _I, _L] + [_P] * 4
+    lib.lzt_path_mapped.argtypes = [_P, ctypes.POINTER(_P)]
     lib.lzt_path_compact.argtypes = [_P] * 6 + [_I, _I, _L] + [_P] * 7
     lib.lzt_path_mark_scratch.argtypes = [_I, _L]
     lib.lzt_path_compact_scratch.argtypes = [_I, _L]
-    for fn in (lib.lzt_path_mark, lib.lzt_path_compact):
+    lib.lzt_path_occupancy.argtypes = [_I]
+    for fn in (lib.lzt_path_mark, lib.lzt_path_compact, lib.lzt_path_mapped,
+               lib.lzt_path_occupancy):
         fn.restype = ctypes.c_int
     for fn in (lib.lzt_path_mark_scratch, lib.lzt_path_compact_scratch):
         fn.restype = ctypes.c_longlong
@@ -88,6 +104,28 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+_PINNED = threading.local()
+
+
+def _status(lib):
+    """K13's two status flags, zeroed, in pinned host memory that the
+    kernels write through its mapping, and their device pointer (looked
+    up once): the calling thread's own pair (a call reads them back
+    before it returns)."""
+    pair = getattr(_PINNED, "pair", None)
+    if pair is None:
+        flags = torch.zeros((2,), dtype=torch.int32, pin_memory=True)
+        mapped = _P()
+        err = lib.lzt_path_mapped(flags.data_ptr(), ctypes.byref(mapped))
+        if err:
+            raise RuntimeError(f"path_mark: no mapping of the status flags: "
+                               f"CUDA error {err}")
+        pair = _PINNED.pair = (flags, mapped.value)
+    else:
+        pair[0].zero_()
+    return pair
+
+
 def _mark(from_, lens, adv, n, start: int, L: int, n_nodes: int, width: int,
           dev):
     global MARK_LAUNCHES
@@ -98,23 +136,31 @@ def _mark(from_, lens, adv, n, start: int, L: int, n_nodes: int, width: int,
     scratch = torch.empty((int(lib.lzt_path_mark_scratch(L, n_nodes)),),
                           dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
+        status, mapped = _status(lib)
         err = lib.lzt_path_mark(
             None if from_ is None else from_.data_ptr(),
             None if lens is None else lens.data_ptr(),
             None if adv is None else adv.data_ptr(),
             None if n is None else n.data_ptr(), int(start),
-            int(adv is not None), L, n_nodes, scratch.data_ptr(),
+            int(adv is not None), L, n_nodes, scratch.data_ptr(), mapped,
             mark.data_ptr(), _stream(dev))
     if err:
         raise RuntimeError(f"path_mark launch failed: CUDA error {err}")
     MARK_LAUNCHES += 1
-    status = int(scratch[:4].view(torch.int32).item())
-    if status & _OUT_OF_RANGE:
+    out_of_range, passed = status.tolist()
+    if out_of_range:
         raise ValueError("a pointer or the start node lies outside the lane")
-    if status & _PASSED:
+    if passed:
         raise ValueError("the walk goes back into a tile it has left: the "
                          "pointers must run one way")
     return mark
+
+
+def occupancy() -> dict:
+    """{grid: blocks an SM on this card} for K13's and K14's grids (the
+    walk grids with a whole group's door maps in shared memory)."""
+    lib = _lib()
+    return {name: lib.lzt_path_occupancy(i) for i, name in enumerate(GRIDS)}
 
 
 def extract_mark_cuda(from_, lens):
@@ -158,9 +204,9 @@ def _compact(mark, from_, choice, best_len, best_dist, take, dev):
     out = [torch.empty((L, W), dtype=torch.int64, device=dev)
            for _ in range(3)]
     t_valid = torch.empty((L, W), dtype=torch.bool, device=dev)
-    ntok = torch.zeros((L,), dtype=torch.int64, device=dev)
     if L == 0 or W == 0:
-        return (*out, t_valid, ntok)
+        return (*out, t_valid, torch.zeros((L,), dtype=torch.int64, device=dev))
+    ntok = torch.empty((L,), dtype=torch.int64, device=dev)
     lib = _lib()
     scratch = torch.empty((int(lib.lzt_path_compact_scratch(L, W)),),
                           dtype=torch.uint8, device=dev)

@@ -1892,6 +1892,37 @@ def test_path_kernels_match_plain(card, max_n):
     assert [b - a for a, b in zip(before, after)] == [k, k]
 
 
+@pytest.mark.parametrize("lane", [0, 1])
+def test_path_kernels_on_a_lane_of_2049_tiles(card, lane):
+    """K13 and K14 on one lane of 2,048 x 4,096 + 1 nodes (the `.lzma`
+    stream's shape: 2,049 tiles, the door maps composed in groups of 128
+    tiles), DP hops of 1..273 (lane 0) and all literals (lane 1), the
+    lazy path from 0 and from 5, against the plain versions."""
+    from lzma_tpu_torch.ops import cuda_path
+    from lzma_tpu_torch.ops import device_matcher as dm
+    from lzma_tpu_torch.ops import device_parser as tp
+
+    max_n = 2048 * 4096
+    frm, choice, lens, bl, bd, n = (t[lane:lane + 1]
+                                    for t in _path_graph(max_n, 5, card))
+    mark = cuda_path.extract_mark_cuda(frm, lens)
+    assert torch.equal(mark, tp._extract_mark(frm, lens))
+    got = cuda_path.extract_compact_cuda(frm, choice, mark)
+    want = tp._extract_compact(frm, choice, mark)
+    assert all(g.dtype == w.dtype and torch.equal(g, w)
+               for g, w in zip(got, want))
+    del frm, choice, mark, got, want
+    take, adv = dm._decide(bl, bd, True)
+    n = torch.full_like(n, max_n)
+    for start in (0, 5):
+        on = cuda_path.greedy_mark_cuda(adv, n, start)
+        assert torch.equal(on, dm._greedy_mark(adv, n, start)), start
+        got = cuda_path.greedy_compact_cuda(bl, bd, take, on)
+        want = dm._compact_taken(bl, bd, take, on)
+        assert all(g.dtype == w.dtype and torch.equal(g, w)
+                   for g, w in zip(got, want))
+
+
 def test_path_names_launch_the_kernels_on_the_card(card):
     """extract_tokens, greedy_path and _compact go through K13 and K14 on
     CUDA tensors: one launch each, the plain halves' tokens."""

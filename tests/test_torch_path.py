@@ -7,11 +7,11 @@ The plain versions the kernels are held to on the card
 the JAX package's ``extract_tokens``, ``greedy_path`` and ``_compact``,
 exactly: an all-literal path, a path of 273-long matches, random DP
 paths at fb 5 and 273, lanes of length 0 and 1, a preset start > 0, lazy
-and greedy.  Then K13's and K14's tile designs (``csrc/path.cu``)
-restated in numpy -- each tile's exits by pointer doubling, the walk over
-the tiles' exits, each entered tile's marks by doubling again from its
-entry; the tiles' counts, their scan and each tile's scatter -- give the
-plain versions' marks and tokens at tiles of 4, 16 and 4,096 nodes.
+and greedy.  Then K13's and K14's tile designs (``csrc/path.cu``, restated
+in numpy in tests/test_torch_path_tiles.py: the tiles' door maps composed
+along the lane, each entered tile marked from its entry; the tickets,
+look-back and staged writes) give the plain versions' marks and tokens
+at tiles of 4, 16 and 4,096 nodes.
 """
 
 import numpy as np
@@ -114,87 +114,34 @@ def test_greedy_path_and_compact_match_jax(start, lazy):
 
 
 # ------------------------------------------------ the kernels' tile designs
-def _jump(p):
-    """One synchronous doubling of a tile's relative pointers."""
-    inside = (p >= 0) & (p < len(p))
-    return np.where(inside, p[np.clip(p, 0, len(p) - 1)], p)
+# K13's and K14's designs restated in numpy (tests/test_torch_path_tiles.py)
+from test_torch_path_tiles import (SMALL, design_compact, design_mark,  # noqa: E402
+                                   dp_values, greedy_values)
 
-
-def tile_mark(f, start, tile, forward):
-    """K13's three grids on one lane, restated: f (n_nodes,) pointers that
-    run forward (the lazy path) or backward (the DP's).  Returns the
-    reached set (n_nodes,) bool; raises where the walk goes back into a
-    tile it has left (the kernel's status bit)."""
-    n_nodes = len(f)
-    n_tiles = -(-n_nodes // tile)
-    rounds = (tile - 1).bit_length() + 1
-    exits = np.empty(n_nodes, np.int64)
-    for t in range(n_tiles):                                # grid 1
-        lo = t * tile
-        p = f[lo:lo + tile] - lo
-        for _ in range(rounds):
-            p = _jump(p)
-        exits[lo:lo + tile] = p + lo
-    entry = np.full(n_tiles, -1)                            # grid 2
-    cur = start
-    t = cur // tile
-    while True:
-        entry[t] = cur
-        nx = exits[cur]
-        if nx // tile == t:
-            break
-        if (nx // tile < t) if forward else (nx // tile > t):
-            raise ValueError("back into a passed tile")
-        cur, t = nx, nx // tile
-    reach = np.zeros(n_nodes, bool)
-    for t in np.nonzero(entry >= 0)[0]:                     # grid 3
-        lo = t * tile
-        p = f[lo:lo + tile] - lo
-        r = np.zeros(len(p), bool)
-        r[entry[t] - lo] = True
-        for _ in range(rounds):
-            q = p[r & (p >= 0) & (p < len(p))]
-            r[q] = True
-            p = _jump(p)
-        reach[lo:lo + tile] = r
-    return reach
-
-
-def tile_compact(mark, tile):
-    """K14's slots on one lane, restated: each tile's count, their
-    exclusive scan, then each tile's own scan.  Returns (the slot of each
-    marked node, ntok)."""
-    counts = [int(mark[lo:lo + tile].sum()) for lo in range(0, len(mark), tile)]
-    offsets = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int64)
-    slot = np.full(len(mark), -1)
-    for t, lo in enumerate(range(0, len(mark), tile)):
-        m = mark[lo:lo + tile]
-        slot[lo:lo + tile][m] = offsets[t] + np.arange(int(m.sum()))
-    return slot, int(sum(counts))
+TILES = {4: "tile4", 16: "tile16", 4096: "tile4096"}
 
 
 @pytest.mark.parametrize("tile", [4, 16, 4096])
 def test_tile_designs_equal_the_plain_extract(tile):
+    sz = SMALL[TILES[tile]]
     for fb in (5, 273):
         frm, choice, lens = _dp_graph(fb, seed=fb + 1)
         mark = tp._extract_mark(T(frm), T(lens)).numpy()
         got = tp._extract_compact(T(frm), T(choice), T(mark))
         node = np.arange(frm.shape[1])
         for lane in range(frm.shape[0]):
-            reach = tile_mark(frm[lane].astype(np.int64), int(lens[lane]), tile,
-                              False)
+            reach, status = design_mark(frm[lane], lens[lane], False, sz)
+            assert status == [0, 0]
             kept = reach & (node > 0) & (node <= lens[lane])
             eq(kept, mark[lane], f"fb {fb} lane {lane} marks")
-            slot, ntok = tile_compact(kept, tile)
-            assert ntok == int(got[4][lane])
-            on = slot >= 0
-            eq(got[0][lane, slot[on]], frm[lane, on])
-            eq(got[1][lane, slot[on]], node[on] - frm[lane, on])
-            eq(got[2][lane, slot[on]], choice[lane, on])
+        for g, w in zip(design_compact(mark, dp_values(frm, choice), sz,
+                                       seed=fb), got):
+            eq(g, w, f"fb {fb} tokens")
 
 
 @pytest.mark.parametrize("tile", [4, 16, 4096])
 def test_tile_designs_equal_the_plain_greedy(tile):
+    sz = SMALL[TILES[tile]]
     bl, bd, n = _lazy_lists(seed=tile)
     tbl, tbd = T(bl).long(), T(bd).long()
     take, adv = tm._decide(tbl, tbd, True)
@@ -204,15 +151,13 @@ def test_tile_designs_equal_the_plain_greedy(tile):
         got = tm._compact_taken(tbl, tbd, take, T(on))
         for lane in range(bl.shape[0]):
             f = np.append(np.minimum(pos + adv[lane].numpy(), N), N)
-            reach = tile_mark(f, start, tile, True)[:N]
-            kept = reach & (pos < n[lane])
+            reach, status = design_mark(f, start, True, sz)
+            assert status == [0, 0]
+            kept = reach[:N] & (pos < n[lane])
             eq(kept, on[lane], f"start {start} lane {lane} marks")
-            slot, ntok = tile_compact(kept, tile)
-            assert ntok == int(got[4][lane])
-            tk = take[lane].numpy() & kept
-            eq(got[0][lane, slot[kept]], pos[kept])
-            eq(got[1][lane, slot[kept]], np.where(tk, bl[lane], 1)[kept])
-            eq(got[2][lane, slot[kept]], np.where(tk, bd[lane], -1)[kept])
+        for g, w in zip(design_compact(on, greedy_values(bl, bd, take.numpy()),
+                                       sz, seed=start), got):
+            eq(g, w, f"start {start} tokens")
 
 
 def test_tile_walk_refuses_a_walk_back_into_a_passed_tile():
@@ -220,8 +165,7 @@ def test_tile_walk_refuses_a_walk_back_into_a_passed_tile():
     f[40] = 3            # tile 10 -> tile 0, then 3 -> 50 (tile 12): back
     f[3] = 50
     f[50] = 40
-    with pytest.raises(ValueError):
-        tile_mark(f, 50, 4, False)
+    assert design_mark(f, 50, False, SMALL["tile4"])[1] == [0, 1]
     # the plain version takes any pointers: the reached set
     reach = tp._extract_mark(torch.from_numpy(f[None].astype(np.int32)),
                              torch.tensor([50]))

@@ -151,7 +151,8 @@ prints its seconds):
      K7 on the first CMP_POS token rows, K7's doubled by invalid ones,
      and on the rows from CMP_POS before the EOS token to the end, the
      whole tail), and K15, K16 and K17 (spied in the probed encode)
-     against theirs on that stream's own calls, uncut, and K10 likewise
+     against theirs on that stream's own calls, uncut, each kernel's
+     calls also timed by CUDA events beside lazy_work's bounds, and K10 likewise
      (its one lane of places no multiple of its tile: the levels past
      the tile a pass a level), and K13 and K14 (spied there too: one lane
      of 8,388,609 nodes, 2,049 tiles, the door maps composed in groups of
@@ -1098,10 +1099,14 @@ LAZY_REPLACES = {
         "lzma_tpu/ops/device_matcher.py:465-490 (_suffix_rank_lcp's prefix "
         "doubling: newg, cumsum, the scatter to order, the next lexsort's "
         "keys), " + _JIT_LAZY,
-        "K14's shape: tiles of 1,024 places flag a new group against the "
-        "place before (each thread's window or pair of ids staged in shared "
-        "memory), a lane scan of the tile counts, a scatter of the ids to "
-        "their positions, then the next key a thread a place"),
+        "two grids a level: grid A a block a tile of 512 places (tickets in "
+        "lane-major order), each thread's flag against the place before "
+        "(the 32-byte level's marked words from 16-byte loads, shuffled "
+        "from the lane below; a doubling level's sorted key, read "
+        "coalesced, no read of the previous ids), the block's scan, a "
+        "decoupled look-back along the lane for the tile's first id, the "
+        "ids scattered to their positions; grid B the next key a thread a "
+        "place; 32-bit places, every wrap a conditional subtract"),
     "descent_lcp": (
         "lzma_tpu/ops/device_matcher.py:491",
         "lzma_tpu/ops/device_matcher.py:491-518 (the binary descent and the "
@@ -1112,9 +1117,12 @@ LAZY_REPLACES = {
         "lzma_tpu/ops/device_matcher.py:171",
         "lzma_tpu/ops/device_matcher.py:171-213 (find_best_matches_rmq after "
         "its lexsort), :528 (_lcp_query), " + _JIT_LAZY,
-        "a thread a place of the hash key's sort: its k neighbours, their "
-        "ranks and two table entries each, the selection, the pair written "
-        "at its position"),
+        "a block a tile of 256 places of the hash key's sort and the k "
+        "before it, their keys, positions and the positions' ranks staged "
+        "in shared memory (a rank read once a place), then a thread a "
+        "place: its run of equal keys up to k back, two table entries a "
+        "candidate in the window, one pass of the selection, the pair "
+        "written at its position"),
 }
 
 
@@ -1136,16 +1144,24 @@ def spied_lazy(fn):
     """fn() (a call that reaches device_matcher._suffix_rank_lcp past
     depth 32 or find_best_matches_rmq) with the lazy kernels' wrappers
     spied.  Returns (fn's result, {kernel: [(its arguments, its result)
-    a call]}; the route passes every argument by position."""
+    a call]}); the arguments are every parameter of the wrapper by
+    position, defaults filled in (K15's sorted_key, which the route
+    passes by name, last)."""
+    import inspect
+
     from lzma_tpu_torch.ops import cuda_lazy
 
     seen = {}
     kept = {k: getattr(cuda_lazy, w) for k, (w, _) in LAZY_KERNELS.items()}
 
     def spy(name, wrapper):
-        def call(*args):
-            out = wrapper(*args)
-            seen.setdefault(name, []).append((args, out))
+        sig = inspect.signature(wrapper)
+
+        def call(*args, **kw):
+            out = wrapper(*args, **kw)
+            bound = sig.bind(*args, **kw)
+            bound.apply_defaults()
+            seen.setdefault(name, []).append((bound.args, out))
             return out
         return call
 
@@ -1205,7 +1221,7 @@ def lazy_work(name, args, out):
     from lzma_tpu_torch.ops import device_matcher
 
     if name == "doubling_groups":
-        order, data, n, g, span, next_span = args
+        order, data, n, g = args[:4]
         P = order.numel()
         src = data.numel() if g is None else g.numel() * 8
         written = sum(t.numel() * 8 for t in out if t is not None)
@@ -1648,7 +1664,8 @@ def alone_phase(dev, card, data):
     from lzma_tpu_torch.entry import entry
     from lzma_tpu_torch.core.layout import ProbLayout
     from lzma_tpu_torch.format.properties import LzmaParams
-    from lzma_tpu_torch.ops import api, cuda_classify, cuda_lower, cuda_search
+    from lzma_tpu_torch.ops import (api, cuda_classify, cuda_lazy, cuda_lower,
+                                    cuda_search)
     from lzma_tpu_torch.ops.device_decoder import _pow2_at_least, pad_rows
     from lzma_tpu_torch.ops.device_encoder import probing
     from lzma_tpu_torch.ops.device_matcher import LAZY_STAGES
@@ -1696,8 +1713,8 @@ def alone_phase(dev, card, data):
             f"{mb / t_dec:.3f} MB/s, peak device memory {peak / 2**20:.1f} "
             f"MiB, launches {launches}; the stdlib and decode_alone read it")
     # the probed rerun spies K15-K17 too: their calls on the stream's one
-    # lane of 8,388,608 places (K15 over 8,192 tiles, its lane scan in 8
-    # passes of 1,024) wait in host memory for the check below
+    # lane of 8,388,608 places (K15 over 16,384 tiles, each looking back
+    # along the lane) wait in host memory for the check below
     with probing() as probe:
         t = time.perf_counter()
         ((again, seen_search), seen_lazy), seen_path = spied_rows(
@@ -1826,17 +1843,29 @@ def alone_phase(dev, card, data):
         f"in a {_pow2_at_least(cap, 16)}-byte bucket max |diff| "
         f"{errs['ring_decode']}")
     del probe, rows, l_args, t_pos, t_len, t_valid, ctx, bits, totals, d_out
-    # K15, K16 and K17 against their plain versions on the stream's own
-    # calls, uncut (one plain call a kernel call)
+    # K15, K16 and K17 on the stream's own calls, uncut: each call timed
+    # by CUDA events beside lazy_work's bounds, then against its plain
+    # version (one plain call a kernel call)
     width = lazy_stash["doubling_groups"][0][0][0].shape[1]
-    lazy_errs, lazy_plain = check_lazy(_to(dev, lazy_stash))
-    errs.update(lazy_errs)
+    on_card = _to(dev, lazy_stash)
     del lazy_stash
+    s_calls, s_bounds = lazy_times(on_card)
+    lazy_errs, lazy_plain = check_lazy(on_card)
+    errs.update(lazy_errs)
+    del on_card
     log(f"[lzma stream K15, K16, K17 vs plain] on {card}, tolerance 0: the "
-        f"stream's one lane of {width} places ({-(-width // 1024)} K15 "
-        "tiles), uncut (the doubling's five levels, the descent, the best "
-        "matches): ids, keys, LCPs and matches equal; plain " + ", ".join(
-            f"{k} {v:.1f} ms" for k, v in lazy_plain.items()))
+        f"stream's one lane of {width} places "
+        f"({-(-width // cuda_lazy.TILE)} K15 tiles), uncut (the doubling's "
+        "five levels, the descent, the best matches): ids, keys, LCPs and "
+        "matches equal; kernels (CUDA events, the wrapper) " + "; ".join(
+            f"{k} {sum(s_calls[k]):.3f} ms in {len(s_calls[k])} call"
+            + (f"s ({', '.join(f'{x:.3f}' for x in s_calls[k])})"
+               if len(s_calls[k]) > 1 else "")
+            + f", {b[0][0]} B read and written, bound {b[1][0]:.4f} ms by "
+            f"{b[1][1]} ({sum(s_calls[k]) / b[1][0]:.1f}x)"
+            for k, b in s_bounds.items())
+        + "; plain " + ", ".join(f"{k} {v:.1f} ms"
+                                 for k, v in lazy_plain.items()))
 
     small = generate_bench_data(ALONE_PIN_SIZE)
     for eos, pin in ((False, PIN_ALONE_SHA256), (True, PIN_ALONE_EOS_SHA256)):
@@ -3128,7 +3157,9 @@ def main():
         f"lanes x {MAIN_BLOCK} positions on {card}, each kernel's calls of "
         "one search summed: " + "; ".join(
             f"{k} {lazy_whole[k]:.3f} ms in {len(seen_lazy[k])} call"
-            f"{'s' if len(seen_lazy[k]) > 1 else ''} (CUDA events, the "
+            + (f"s ({', '.join(f'{x:.3f}' for x in lazy_calls[k])})"
+               if len(seen_lazy[k]) > 1 else "")
+            + " (CUDA events, the "
             f"wrapper), {b[0][0]} B read and written, {b[0][1]} operations, "
             f"bound {b[1][0]:.4f} ms by {b[1][1]} "
             f"({lazy_whole[k] / b[1][0]:.1f}x)"

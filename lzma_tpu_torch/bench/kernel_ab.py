@@ -2,8 +2,9 @@
 one card, in turns: the DP scans (K3, K4), the range encoder (K2), the
 decoders (K1, K5), the classify carry (K6), the bit lowering (K7), its
 slot counts (K8), the suffix table (K10), the optimal search's match
-lists (K11), the DP rows (K12) and the parse path's marking and
-compaction (K13, K14).
+lists (K11), the DP rows (K12), the parse path's marking and
+compaction (K13, K14) and the lazy search's doubling groups and best
+matches (K15, K17).
 
     python -m lzma_tpu_torch.bench.kernel_ab OTHER_CHECKOUT [KERNEL ...]
 
@@ -12,8 +13,9 @@ ring_input, classify, lower, lower_counts, classify_stream,
 lower_stream, ring_decode_champion, block_decode_champion and
 ring_input_champion, tokenize_lazy, tokenize_stream, match_lists,
 match_lists_hybrid, suffix_table, suffix_table_stream, dp_inputs,
-path_mark, path_compact, path_mark_stream, path_compact_stream and
-path_mark_tile (default: all).  The
+path_mark, path_compact, path_mark_stream, path_compact_stream,
+path_mark_tile, doubling_groups, best_matches, doubling_groups_stream
+and best_matches_stream (default: all).  The
 inputs are chip_smoke.py's: the main path is text_part() +
 generate_bench_data(5 << 20), LzmaParams() defaults (lc3 lp0 pb2, fb
 32), parse="optimal", 32 lanes of 256 KiB; an encode inside
@@ -59,8 +61,17 @@ path_mark_stream and path_compact_stream on the calls of the lazy
 `.lzma` stream of the 8 MiB with the EOS marker (one lane of 8,388,609
 nodes); path_mark_tile is K13 on the first 4,097 nodes of one lane of
 that DP path (one tile: the call's fixed cost, its launches and
-readback).  For K7, K8 and K10-K14 it also splits this checkout's call by
-its device operations.  OTHER_CHECKOUT's package
+readback).  doubling_groups is K15 (``ops.cuda_lazy.
+doubling_groups_cuda``) and best_matches K17 (``best_matches_cuda``) on
+every call one lazy search makes (spied in main8M-lazy's
+``api.encode_blocks(parse="lazy")``: 32 lanes of 262,144 places; K15's
+five calls, the 32-byte level and the doublings at spans 32-256, timed
+as one run and each alone), doubling_groups_stream and
+best_matches_stream on those of the 8 MiB as one lazy `.lzma` stream
+with the EOS marker (one lane of 8,388,608 places); a keyword the other
+checkout's wrapper does not take (``sorted_key``) is left out of its
+calls.  For K7, K8 and K10-K15, K17 it also splits this checkout's call
+by its device operations.  OTHER_CHECKOUT's package
 is loaded under another name and its kernels are built by its own
 runtime/build.py and called through its own wrappers
 (``ops.cuda_parser.dp_parse_cuda``, ``dp_parse2_cuda``,
@@ -69,7 +80,8 @@ runtime/build.py and called through its own wrappers
 ``ops.cuda_classify.classify_carry_cuda``,
 ``ops.cuda_lower.lower_tokens_cuda``, ``lower_counts_cuda``,
 ``ops.cuda_search.match_lists_cuda``, ``suffix_table_cuda``,
-``ops.cuda_inputs.dp_inputs_cuda``, ``ops.cuda_path``'s four), whose signatures both
+``ops.cuda_inputs.dp_inputs_cuda``, ``ops.cuda_path``'s four,
+``ops.cuda_lazy``'s K15 and K17), whose signatures both
 checkouts share.  ring_input and ring_input_champion compare no checkouts: on
 K1's main-path and champion streams they time this checkout's K1 body
 with its input staged in the shared-memory ring ("this",
@@ -88,6 +100,7 @@ from __future__ import annotations
 
 import importlib
 import importlib.util
+import inspect
 import json
 import os
 import sys
@@ -118,7 +131,8 @@ KERNELS = ("dp_parse", "dp_parse2", "rc_serialize", "ring_decode",
            "tokenize_stream", "match_lists", "match_lists_hybrid",
            "suffix_table", "suffix_table_stream", "dp_inputs", "path_mark",
            "path_compact", "path_mark_stream", "path_compact_stream",
-           "path_mark_tile")
+           "path_mark_tile", "doubling_groups", "best_matches",
+           "doubling_groups_stream", "best_matches_stream")
 MAIN_PATH = KERNELS[:8]
 STREAM = ("classify_stream", "lower_stream")
 TOKENIZE = ("tokenize_lazy", "tokenize_stream")
@@ -126,18 +140,24 @@ LISTS = ("match_lists", "match_lists_hybrid")
 TABLE = ("suffix_table", "suffix_table_stream", "dp_inputs")
 PATH = ("path_mark", "path_compact", "path_mark_stream", "path_compact_stream",
         "path_mark_tile")
+LAZY = ("doubling_groups", "best_matches", "doubling_groups_stream",
+        "best_matches_stream")
 #: K13's and K14's wrappers (ops.cuda_path): the DP path's, the lazy path's
 MARK_WRAPPERS = ("extract_mark_cuda", "greedy_mark_cuda")
 COMPACT_WRAPPERS = ("extract_compact_cuda", "greedy_compact_cuda")
+#: K15's and K17's wrappers (ops.cuda_lazy), by kernel
+LAZY_WRAPPERS = {"doubling_groups": "doubling_groups_cuda",
+                 "best_matches": "best_matches_cuda"}
 #: the wrappers a split by device operations is printed for
-SPLIT = ("lower", "lower_counts", "lower_stream", *LISTS, *TABLE, *PATH)
+SPLIT = ("lower", "lower_counts", "lower_stream", *LISTS, *TABLE, *PATH,
+         *LAZY)
 
 
 def other_wrappers(root: str, name: str = OTHER):
     """OTHER_CHECKOUT's ops.cuda_parser, ops.cuda_serializer,
     ops.cuda_ring, ops.cuda_decoder, ops.cuda_classify, ops.cuda_lower,
-    ops.device_matcher, ops.cuda_search, ops.cuda_inputs and
-    ops.cuda_path, its package loaded as `name`."""
+    ops.device_matcher, ops.cuda_search, ops.cuda_inputs, ops.cuda_path
+    and ops.cuda_lazy, its package loaded as `name`."""
     pkg = os.path.join(os.path.abspath(root), "lzma_tpu_torch")
     spec = importlib.util.spec_from_file_location(
         name, os.path.join(pkg, "__init__.py"), submodule_search_locations=[pkg])
@@ -147,7 +167,7 @@ def other_wrappers(root: str, name: str = OTHER):
     return tuple(importlib.import_module(f"{name}.ops.{m}") for m in
                  ("cuda_parser", "cuda_serializer", "cuda_ring", "cuda_decoder",
                   "cuda_classify", "cuda_lower", "device_matcher",
-                  "cuda_search", "cuda_inputs", "cuda_path"))
+                  "cuda_search", "cuda_inputs", "cuda_path", "cuda_lazy"))
 
 
 def main_data():
@@ -279,6 +299,54 @@ def path_inputs(dev, stream: bool = False) -> dict:
     return spied_calls(cuda_path, MARK_WRAPPERS + COMPACT_WRAPPERS, fn)
 
 
+def lazy_inputs(dev, stream: bool = False) -> dict:
+    """{wrapper: [(args, kwargs) a call]} of K15's and K17's wrappers
+    (ops.cuda_lazy) in one lazy encode: main8M-lazy's api.encode_blocks
+    (32 lanes of 256 KiB), or the 8 MiB as one lazy `.lzma` stream with
+    the EOS marker."""
+    from ..ops import cuda_lazy
+
+    seen = {}
+    kept = {w: getattr(cuda_lazy, w) for w in LAZY_WRAPPERS.values()}
+
+    def spy(w):
+        def call(*args, **kw):
+            seen.setdefault(w, []).append((args, kw))
+            return kept[w](*args, **kw)
+        return call
+
+    for w in kept:
+        setattr(cuda_lazy, w, spy(w))
+    try:
+        if stream:
+            api.encode_alone(main_data(), LzmaParams(write_eos=True),
+                             device=dev)
+        else:
+            api.encode_blocks(main_data(), LzmaParams(), block_size=BLOCK,
+                              parse="lazy", device=dev)
+    finally:
+        for w, f in kept.items():
+            setattr(cuda_lazy, w, f)
+    return seen
+
+
+def lazy_call(lazy_mod, wrapper: str, calls, only=None):
+    """A run of lazy_mod.`wrapper` over the spied `calls` (or the one
+    call at index `only`), each with the keywords that wrapper takes;
+    returns every output tensor of the run."""
+    fn = getattr(lazy_mod, wrapper)
+    takes = inspect.signature(fn).parameters
+    run = calls if only is None else calls[only:only + 1]
+
+    def call():
+        out = []
+        for args, kw in run:
+            res = fn(*args, **{k: v for k, v in kw.items() if k in takes})
+            out.extend(t for t in outputs(res) if t is not None)
+        return tuple(out)
+    return call
+
+
 def outputs(x) -> tuple:
     """A wrapper's result as a tuple of tensors."""
     return x if isinstance(x, tuple) else (x,)
@@ -364,6 +432,7 @@ def main(argv=None) -> None:
         o_matcher, o_search, o_inputs = other[:9]
     result = {"card": name}
     kernels = {}
+    calls = {}  # kernel -> {side: [a run of one call of the kernel's]}
     if any(k in MAIN_PATH for k in chosen):
         params = LzmaParams()
         fb, pb = params.fast_bytes, params.pb
@@ -493,6 +562,29 @@ def main(argv=None) -> None:
                 kernels["path_mark_tile"] = {
                     "other": lambda: o_path.extract_mark_cuda(*a),
                     "this": lambda: cuda_path.extract_mark_cuda(*a)}
+    if any(k in LAZY for k in chosen):
+        from ..ops import cuda_lazy
+
+        o_lazy = other[10]
+        for stream, names in ((False, LAZY[:2]), (True, LAZY[2:])):
+            if not any(k in chosen for k in names):
+                continue
+            seen = lazy_inputs(dev, stream)
+            for kernel, w in zip(names, LAZY_WRAPPERS.values()):
+                if kernel not in chosen:
+                    continue
+                kernels[kernel] = {"other": lazy_call(o_lazy, w, seen[w]),
+                                   "this": lazy_call(cuda_lazy, w, seen[w])}
+                if w == "doubling_groups_cuda":
+                    # each level alone: the 32-byte level, then the doublings
+                    calls[kernel] = {side: [
+                        lazy_call(mod, w, seen[w], i)
+                        for i in range(len(seen[w]))]
+                        for side, mod in (("other", o_lazy),
+                                          ("this", cuda_lazy))}
+            result["lazy_stream_places" if stream else "lazy_places"] = list(
+                seen["best_matches_cuda"][0][0][1].shape)
+            del seen
     for kernel in chosen:
         cases = kernels.pop(kernel)
         if "this" in cases:
@@ -501,7 +593,7 @@ def main(argv=None) -> None:
         if kernel.endswith("champion") or kernel.startswith(("classify",
                                                              "lower",
                                                              "match")) \
-                or kernel in TABLE or kernel in PATH:
+                or kernel in TABLE or kernel in PATH or kernel in LAZY:
             reps = 5
         if kernel in TOKENIZE:
             reps = 3
@@ -519,6 +611,11 @@ def main(argv=None) -> None:
             result[key] = times
             if kernel in SPLIT:
                 result[key + "_grids"] = grid_split(fns["this"])
+        if kernel in calls:
+            by_call = calls.pop(kernel)
+            per = result[kernel + "_calls"] = {"other": [], "this": []}
+            for side in ("other", "this", "this", "other"):
+                per[side].append([event_ms(fn, reps) for fn in by_call[side]])
         del cases
     print(json.dumps(result), flush=True)
 

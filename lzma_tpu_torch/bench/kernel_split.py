@@ -1,6 +1,6 @@
-"""K11's, K8's, K10's, K12's, K13's and K14's calls split on the card: by
-grid (torch.profiler) and by bench-side variants of a checkout's own
-sources.
+"""K11's, K8's, K10's, K12's, K13's, K14's, K15's and K17's calls split on
+the card: by grid (torch.profiler) and by bench-side variants of a
+checkout's own sources.
 
     python -m lzma_tpu_torch.bench.kernel_split [CHECKOUT] [VARIANT ...]
 
@@ -9,12 +9,21 @@ variants/``, once as it is and once a variant, each variant's source
 edited as VARIANTS says (a variant whose anchors the checkout's source
 lacks stops the run; a variant may name alternative edits, the first
 whose anchors are all there is made (an alternative may name a file of
-its own): k10_no_levels and k12_no_replen
-carry the anchors of the sources before and after their redesign,
-as do k13_no_status, k13_no_walk and k14_no_fill, k12_blocks goes either
-way, and k12_direct_rows, k13_rounds_half and k14_one_read apply to the
-sources before the redesign only, the split that chose K13's and K14's
-designs: run them with a checkout of those sources as CHECKOUT); each copy's
+its own): k10_no_levels and k12_no_replen carry the anchors of the
+sources before and after their redesign, as do k13_no_status,
+k13_no_walk and k14_no_fill, and k12_blocks goes either way).  The K15
+and K17 variants are the split that chose their redesign, on the
+sources before it (commit 185a482's: run them with a checkout of
+those sources as CHECKOUT): k15_window_words (the 32-byte level's
+window read as words by search_list::window_words, no 64-bit remainder
+a byte), k15_wrap32 (every wrap a 32-bit conditional subtract, the span
+below max_n as on both inputs), k15_no_pair_reads (the doubling levels
+without their two random id reads), k15_no_flag_trip (no flag plane
+written and read back) and k17_no_rank (no rank read a candidate);
+k17_no_table (no table reads) and k17_no_scatter (the pair written at
+its sorted place, not its position) carry the anchors of the sources
+before and after the redesign, and k15_no_scatter (grid A's ids
+written at their places) applies to the redesign's.  Each copy's
 package is loaded under a name of its own and builds its kernels with
 its own runtime/build.py.  The inputs are kernel_ab's: K11
 (``match_lists``) on the arguments ``_rmq_search`` gives it on main8M's
@@ -25,14 +34,18 @@ arguments, K10 (``suffix_table``) on main8M-opt's suffix order (32
 lanes of 262,144 places, depth 32), K12 (``dp_inputs``) on main8M-opt's
 last DP round's arguments, K13 and K14 (``path_mark``,
 ``path_compact``) on main8M-opt's last DP path, its seed's lazy path
-and lzma8M-stream's lane.  Each variant is timed on each of its kernel's inputs by
+and lzma8M-stream's lane, K15 and K17 (``doubling_groups``,
+``best_matches``) on every call of main8M-lazy's search (32 lanes of
+262,144 places; K15's five calls as one run, and each alone) and of
+lzma8M-stream's (one lane of 8,388,608 places).  Each variant is timed
+on each of its kernel's inputs by
 CUDA events in turns with the checkout as it is (as it is, variant,
 variant, as it is), and each side's device operations by torch.profiler
 (three calls after a warm one).  A variant that keeps the kernel's output must give the same
 tensors; an ablation (``"keeps": False``) gives other numbers by design
-and is only timed.  For K10 and K12 the JSON line also holds ptxas -v's
-report of the checkout's search.cu, dp_inputs.cu and (K13, K14)
-path.cu (registers, stack, spills a kernel), K13's and K14's grids'
+and is only timed.  For K10 and K12-K17 the JSON line also holds ptxas -v's
+report of the checkout's search.cu, dp_inputs.cu, path.cu and
+lazy_search.cu (registers, stack, spills a kernel), K13's and K14's grids'
 blocks an SM where the checkout's library says
 (``lzt_path_occupancy``), and K12's blocks an SM, from those registers and the
 block's shared bytes (lzt_dp_inputs_smem) at main8M-opt's M and lc3
@@ -54,7 +67,8 @@ import torch
 
 #: name -> (kernel, source file under csrc/, anchor: the line after which
 #: the text goes (or, with "replace", a list of (text, its replacement);
-#: with "any", a list of such lists, the first that applies), text,
+#: with "any", a list of such lists, the first that applies; with
+#: "files", a list of (file, such a list), every one applied), text,
 #: whether the output is kept, what it removes or adds)
 VARIANTS = {
     "k11_no_lcp": (
@@ -137,19 +151,6 @@ VARIANTS = {
           "  tail[0] = static_cast<int32_t>(sub) + byte;  // variant: no walks\n"
           "  tail[1] = mbyte;")],
         False, "the literal walks (their price-slot reads)"),
-    "k12_direct_rows": (
-        "dp_inputs", "dp_inputs.cu", "replace",
-        [("    if (tid < rows) dp_input_row::row(ln, p0 + tid, stage + tid * C);\n"
-          "    __syncthreads();\n"
-          "    int* dst = a.out + (base + p0) * C;\n"
-          "    for (int k = tid; k < rows * C; k += kThreads) dst[k] = stage[k];\n"
-          "    __syncthreads();",
-          "    if (tid < rows) dp_input_row::row(ln, p0 + tid, a.out + (base + p0 + tid) * C);"),
-         ("  int* tab = stage + kThreads * C;", "  int* tab = smem;  // variant"),
-         ("  return 4LL * (kThreads * (6LL * m + 5) + kTableInts +",
-          "  return 4LL * (kTableInts +  // variant: no stage")],
-        True, "the row stage: each thread stores its own row (the stage's "
-        "shared bytes too; on the sources before the grid of blocks an SM)"),
     "k12_blocks": (
         "dp_inputs", "dp_inputs.cu", "any",
         [[("constexpr int kBlocksPerSM = 4;",
@@ -237,22 +238,6 @@ VARIANTS = {
         False, "the walk (before the redesign its grid; after, the group, "
         "lane and entry grids): each tile's entry given, the first node of "
         "its door, so every tile marks"),
-    "k13_rounds_half": (
-        "path_mark", "path.cu", "replace",
-        [("constexpr int kRounds = kTileLog + 1;",
-          "constexpr int kRounds = 6;  // variant: half the rounds")],
-        False, "half the doubling rounds in the exits and mark grids (6 of "
-        "13: wrong exits, so the walk stops early; the sources before the "
-        "redesign only)"),
-    "k14_one_read": (
-        "path_compact", "path.cu", "replace",
-        [("  int total;\n"
-          "  int64_t slot = offsets[lane * k.n_tiles + t] + block_scan(v, sums, &total);",
-          "  int64_t slot = offsets[lane * k.n_tiles + t] + first;"
-          "  // variant: no second count or scan")],
-        False, "the scatter's second count and block scan of its marks "
-        "(each thread's slots from its first node; the sources before the "
-        "redesign only)"),
     "k14_no_fill": (
         "path_compact", "path.cu", "any",
         [[("    k.t_valid[row + s] = valid;\n    if (!valid) {",
@@ -273,13 +258,99 @@ VARIANTS = {
           "        for (int64_t q = t - 1; q < 0; q -= 32) {  // variant: no look-back")],
         False, "the look-back (each tile's first slot taken as 0; it still "
         "publishes its sum for the fill)"),
+    "k15_window_words": (
+        "doubling_groups", "lazy_search.cu", "replace",
+        [("      for (int b = 0; b < kWindow; ++b) win[threadIdx.x][b] = row[wrap(o + b, v.max_n)];",
+          "      uint32_t w8[lazy_search::kWords];  // variant: the window as words\n"
+          "      search_list::window_words(row, v.max_n, o, lazy_search::kWords, w8);\n"
+          "      for (int b = 0; b < kWindow; ++b) win[threadIdx.x][b] = w8[b >> 2] >> (24 - 8 * (b & 3));"),
+         ("        for (int b = 0; b < kWindow; ++b) own[b] = row[wrap(q + b, v.max_n)];",
+          "        uint32_t w8[lazy_search::kWords];  // variant\n"
+          "        search_list::window_words(row, v.max_n, q, lazy_search::kWords, w8);\n"
+          "        for (int b = 0; b < kWindow; ++b) own[b] = w8[b >> 2] >> (24 - 8 * (b & 3));")],
+        True, "nothing: the 32-byte level's windows read by search_list::"
+        "window_words (16-byte loads, a funnel shift) in place of a byte "
+        "and a 64-bit remainder at a time"),
+    "k15_wrap32": (
+        "doubling_groups", "lazy_search.cu", "files",
+        [("lazy_search.cu",
+          [("  i %= m;\n  return i < 0 ? i + m : i;",
+            "  int x = static_cast<int>(i);  // variant: -m <= i < 2m\n"
+            "  const int mm = static_cast<int>(m);\n"
+            "  x += x < 0 ? mm : 0;\n"
+            "  return x >= mm ? x - mm : x;")]),
+         ("lazy_search.cuh",
+          [("  return Pair{g[i], g[(i + span) % max_n]};",
+            "  int64_t j = i + span;  // variant: span < max_n\n"
+            "  if (j >= max_n) j -= max_n;\n"
+            "  return Pair{g[i], g[j]};"),
+           ("  return ids[i] * max_n + ids[(i + span) % max_n];",
+            "  int64_t j = i + span;  // variant: span < max_n\n"
+            "  if (j >= max_n) j -= max_n;\n"
+            "  return ids[i] * max_n + ids[j];")])],
+        True, "nothing: every wrap (the windows' bytes, the place before "
+        "the tile, the pairs' and the next key's i + span) a conditional "
+        "subtract in place of a 64-bit remainder (span < max_n and max_n "
+        ">= 32 on both inputs)"),
+    "k15_no_pair_reads": (
+        "doubling_groups", "lazy_search.cu", "replace",
+        [("    if (live) pairs[threadIdx.x] = lazy_search::pair_at(g, v.max_n, v.span, o);",
+          "    if (live) pairs[threadIdx.x] = lazy_search::Pair{o >> 4, o & 1};"
+          "  // variant: no id reads"),
+         ("                          : lazy_search::pair_at(g, v.max_n, v.span, q);",
+          "                          : lazy_search::Pair{q >> 4, q & 1};")],
+        False, "the doubling levels' two random reads of the previous ids a "
+        "place (each place's pair made from its position)"),
+    "k15_no_flag_trip": (
+        "doubling_groups", "lazy_search.cu", "replace",
+        [("  if (live) v.flags[lane * v.max_n + i] = fresh;",
+          "  if (live && v.span < 0) v.flags[lane * v.max_n + i] = fresh;"
+          "  // variant: no flag stored"),
+         ("  const int f = live ? v.flags[at + i] : 0;",
+          "  const int f = live ? static_cast<int>(i & 1) : 0;"
+          "  // variant: no flag read")],
+        False, "the flags' round trip through device memory (grid 1 "
+        "stores none, grid 3 reads none)"),
+    "k17_no_rank": (
+        "best_matches", "search_list.cuh", "replace",
+        [("  const int64_t rq = ln.rank[c < ln.max_n ? c : ln.max_n - 1];",
+          "  const int64_t rq = c;  // variant: no rank read")],
+        False, "each candidate's rank read (its position taken as its "
+        "rank)"),
+    "k17_no_table": (
+        "best_matches", "search_list.cuh", "any",
+        [("lazy_search.cuh",
+          [("  const int32_t v1 = Tk[b], v2 = Tk[a2];",
+            "  const int32_t v1 = (b & 15) + (Tk == nullptr), v2 = a2 & 15;"
+            "  // variant: no table read")]),
+         [("  const int32_t v1 = Tk[b], v2 = Tk[a2];",
+           "  const int32_t v1 = static_cast<int32_t>(b & 15) + (Tk == nullptr),\n"
+           "                v2 = static_cast<int32_t>(a2 & 15);  // variant: no table read")]],
+        False, "the two table reads a candidate (a length made from the "
+        "indices)"),
+    "k17_no_scatter": (
+        "best_matches", "lazy_search.cu", "replace",
+        [("  best_len[at + p] = bl;\n  best_dist[at + p] = bd;",
+          "  best_len[at + j] = bl;  // variant: at the sorted place\n"
+          "  best_dist[at + j] = bd;")],
+        False, "the pair's scatter to its position (written at its place "
+        "of the hash sort, coalesced)"),
+    "k15_no_scatter": (
+        "doubling_groups", "lazy_search.cu", "replace",
+        [("  if (live) v.ids[at + o] = static_cast<int64_t>(shared_base + excl + f - 1);",
+          "  if (live) v.ids[at + i] = static_cast<int64_t>(shared_base + excl + f - 1)"
+          " + (o < 0);  // variant: at the place")],
+        False, "grid A's scatter of the ids to their positions (each written "
+        "at its place, coalesced)"),
 }
 #: the kernels whose ptxas report and (K12) blocks an SM are recorded,
 #: their source and the names of their grids
 PTXAS = {"suffix_table": ("search.cu", ("table_",)),
          "dp_inputs": ("dp_inputs.cu", ("rows_kernel",)),
          "path_mark": ("path.cu", ("kernel",)),
-         "path_compact": ("path.cu", ("kernel",))}
+         "path_compact": ("path.cu", ("kernel",)),
+         "doubling_groups": ("lazy_search.cu", ("kernel",)),
+         "best_matches": ("lazy_search.cu", ("kernel",))}
 #: K13's and K14's workloads: name -> (the wrappers' index in
 #: kernel_ab.MARK_WRAPPERS / COMPACT_WRAPPERS, stream or main8M-opt)
 PATH_WORK = {"main8M-opt dp": (0, False), "main8M-opt seed": (1, False),
@@ -321,6 +392,16 @@ def copy(checkout: str, name: str, variant=None):
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
     if variant is not None:
         _, fname, anchor, text = variant[:4]
+        if anchor == "files":
+            for f_name, pairs in text:
+                path = os.path.join(dst, "lzma_tpu_torch", "csrc", f_name)
+                with open(path) as f:
+                    out = edit(f.read(), "replace", pairs)
+                if out is None:
+                    return None
+                with open(path, "w") as f:
+                    f.write(out)
+            return dst
         # "any" alternatives may name a file of their own: (file, pairs)
         tries = ([(fname, [pairs]) if isinstance(pairs, list) else
                   (pairs[0], [pairs[1]]) for pairs in text]
@@ -412,10 +493,10 @@ def path_occupancy(pkg: str) -> dict:
 
 def main(argv=None) -> None:
     from ..probes._cuda import card, event_ms
-    from .kernel_ab import (COMPACT_WRAPPERS, MARK_WRAPPERS, grid_split,
-                            lists_call, list_inputs, main_path_inputs,
-                            other_wrappers, outputs, path_inputs, row_inputs,
-                            table_inputs)
+    from .kernel_ab import (COMPACT_WRAPPERS, LAZY_WRAPPERS, MARK_WRAPPERS,
+                            grid_split, lazy_call, lazy_inputs, lists_call,
+                            list_inputs, main_path_inputs, other_wrappers,
+                            outputs, path_inputs, row_inputs, table_inputs)
 
     argv = sys.argv[1:] if argv is None else argv
     checkout = ROOT
@@ -447,8 +528,18 @@ def main(argv=None) -> None:
             if kernel in kernels:
                 inputs[kernel] = {work: (ws[i], seen[s][ws[i]])
                                   for work, (i, s) in PATH_WORK.items()}
+    if kernels & set(LAZY_WRAPPERS):
+        seen = {work: lazy_inputs(dev, stream) for work, stream in
+                (("main8M-lazy", False), ("lzma8M-stream", True))}
+        for kernel in kernels & set(LAZY_WRAPPERS):
+            w = LAZY_WRAPPERS[kernel]
+            inputs[kernel] = {work: (w, calls[w])
+                              for work, calls in seen.items()}
+        del seen
 
-    def call(mods, kernel, args):
+    def call(mods, kernel, args, only=None):
+        if kernel in LAZY_WRAPPERS:
+            return lazy_call(mods[10], *args, only)
         if kernel.startswith("path_"):
             return lambda: getattr(mods[9], args[0])(*args[1])
         if kernel == "match_lists":
@@ -485,6 +576,10 @@ def main(argv=None) -> None:
             fn = call(base, k, args)
             result[f"{k} {work}"] = {"ms": event_ms(fn, 5),
                                      "grids": grid_split(fn)}
+            if k == "doubling_groups":  # each level alone
+                result[f"{k} {work}"]["calls_ms"] = [
+                    event_ms(call(base, k, args, i), 5)
+                    for i in range(len(args[1]))]
     for v in chosen:
         kernel, *_, keeps, removes = VARIANTS[v]
         mods = other_wrappers(copies[v], f"_split_{v}")
@@ -504,6 +599,11 @@ def main(argv=None) -> None:
                 times[s].append(event_ms(fns[s], 5))
             result[v][work] = {"same": same, "ms": times,
                                "grids": grid_split(fns["variant"])}
+            if kernel == "doubling_groups":
+                result[v][work]["calls_ms"] = {s: [
+                    event_ms(call(m, kernel, args, i), 5)
+                    for i in range(len(args[1]))]
+                    for s, m in (("base", base), ("variant", mods))}
             print(f"{v} on {work}: {times}", flush=True)
     print(json.dumps(result), flush=True)
 

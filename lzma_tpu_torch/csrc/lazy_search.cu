@@ -26,19 +26,38 @@
 //
 // What bounds them on this card: the bytes, most of them at random.  K15
 // reads the order and, at the 32-byte level, each suffix's 32-byte
-// window, else the previous ids at two places a suffix; it writes a flag
-// a place, the ids (scattered to the positions) and the key.  K16 reads
-// two ids a level and 8 words a suffix pair at indices the order gives.
-// K17 reads k neighbours' keys and positions beside its own, their
-// ranks and two table entries a candidate, and writes two values a
+// window (the lane's bytes stay in L2), else the level's sorted key; it
+// writes the ids (scattered to the positions) and the next key.  K16
+// reads two ids a level and 8 words a suffix pair at indices the order
+// gives.  K17 reads k neighbours' keys and positions beside its own,
+// their ranks and two table entries a candidate, and writes two values a
 // position.  What the designs do:
-//   K15 K14's shape (path.cu): grid 1 a block a tile of kTile places,
-//       each thread's suffix keys (its window, or its pair of ids) staged
-//       in shared memory for the next thread, writes each place's flag
-//       and the tile's count; grid 2 a block a lane scans the counts into
-//       offsets; grid 3 a block a tile scans its flags and scatters each
-//       place's id to its position; grid 4 the next key, a thread a place;
-//   K16, K17 a thread a sorted place.
+//   K15 two grids a level.  Grid A, decoupled look-back (Merrill and
+//       Garland, 2016; K14's in path.cu): a block takes a ticket in
+//       lane-major order, so a tile's predecessors have always started,
+//       and its tile of kTile places, a thread each.  Each thread reads
+//       its place of the order once and flags a new group: at the
+//       32-byte level by its suffix's 8 marked words, read as words from
+//       16-byte loads (window_words; byte by byte only for a window that
+//       crosses max_n), against the place before's, which a shuffle
+//       brings from the next lane down (a warp's first lane reads it from
+//       shared memory, the tile's first thread builds one window more); at
+//       a doubling level by the sorted key against the place before's,
+//       read coalesced (no read of the previous ids: the key holds both;
+//       the order and the key as streaming loads).
+//       The block scans its flags, looks back along its lane for its
+//       first id (a warp reads 32 predecessors at a time), publishes its
+//       sum and scatters each place's id to its position.  Grid B, a
+//       thread a place: the next key.  Places and spans are 32-bit inside
+//       a lane and every wrap a conditional subtract (the span taken mod
+//       max_n once a call); lane bases are 64-bit.
+//   K16 a thread a sorted place.
+//   K17 a block a tile of kThreads sorted places and the k places before
+//       it: it stages their keys, positions and the positions' ranks in
+//       shared memory (the rank read once a place, the random read a
+//       candidate needed), then a thread a place takes its candidates
+//       from the stage, stops at the first key that differs (the order
+//       is sorted) and reads two table entries a candidate in the window.
 
 #include <climits>
 #include <cstdint>
@@ -48,150 +67,171 @@
 
 namespace {
 
+using lazy_search::kMaxCandidates;
 using lazy_search::kMaxLevels;
-using lazy_search::kWindow;
+using lazy_search::kWords;
 
-constexpr int kTile = 1024;  // K15: places a tile, a thread each
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kTile = 512;   // K15: places a tile, a thread each
+constexpr int kWarps = kTile / 32;
 constexpr int kThreads = 256;
+constexpr unsigned long long kAggregate = 1, kPrefix = 2;
 
 __device__ __forceinline__ int64_t wrap(int64_t i, int64_t m) {
   i %= m;
   return i < 0 ? i + m : i;
 }
 
-// Exclusive sum of v over a block of kTile threads (32 warps); *total
-// gets the block's sum.  `sums`: 32 ints of shared memory.
+// Exclusive sum of v over a block of kTile threads; *total gets the
+// block's sum.  `sums`: kWarps ints of shared memory.
 __device__ int block_scan(int v, int* sums, int* total) {
   const int ln = threadIdx.x & 31, w = threadIdx.x >> 5;
   int x = v;
   for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    const int y = __shfl_up_sync(kFull, x, o);
     if (ln >= o) x += y;
   }
   if (ln == 31) sums[w] = x;
   __syncthreads();
   if (w == 0) {
-    int s = sums[ln];
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, s, o);
+    int s = ln < kWarps ? sums[ln] : 0;
+    for (int o = 1; o < kWarps; o <<= 1) {
+      const int y = __shfl_up_sync(kFull, s, o);
       if (ln >= o) s += y;
     }
-    sums[ln] = s;
+    if (ln < kWarps) sums[ln] = s;
   }
   __syncthreads();
   const int excl = x - v + (w > 0 ? sums[w - 1] : 0);
-  *total = sums[31];
+  *total = sums[kWarps - 1];
   __syncthreads();
   return excl;
 }
 
-// One lane group's doubling level.
+__device__ __forceinline__ void publish(unsigned long long* p, int sum,
+                                        unsigned long long flag) {
+  atomicExch(p, (static_cast<unsigned long long>(sum) << 2) | flag);
+}
+
+__device__ __forceinline__ unsigned long long peek(
+    const unsigned long long* p) {
+  return *reinterpret_cast<const volatile unsigned long long*>(p);
+}
+
+// One lane group's doubling level.  The 32-byte level reads data and n;
+// a doubling level sorted_key, the level's key in its order.  state: each
+// tile's published sum, (sum << 2) | kAggregate or kPrefix; ticket: the
+// tiles' order.
 struct Level {
   const int64_t* order;
-  const uint8_t* data;  // the 32-byte level: the lanes' bytes and n
+  const uint8_t* data;
   const int64_t* n;
-  const int64_t* g;     // else the previous level's ids and its span
-  int64_t span, next_span, max_n;
-  int n_tiles;
-  uint8_t* flags;
-  int* counts;
+  const int64_t* sorted_key;
+  int max_n, n_tiles;
+  unsigned long long* state;
+  unsigned* ticket;
   int64_t* ids;
-  int64_t* key;
 };
 
 // ----------------------------------------------------------------- K15
-// Grid 1: each place's flag (a new group) and the tile's count.
-__global__ void __launch_bounds__(kTile) flags_kernel(Level v) {
-  // each thread's keys for the next one: its window (the 32-byte level)
-  // or its pair of ids
-  __shared__ __align__(16) uint8_t stage[kTile * kWindow];
-  __shared__ int sums[32];
-  auto win = reinterpret_cast<uint8_t(*)[kWindow]>(stage);
-  auto pairs = reinterpret_cast<lazy_search::Pair*>(stage);
-  const int lane = blockIdx.x / v.n_tiles;
-  const int t = blockIdx.x % v.n_tiles;
-  const int64_t i = static_cast<int64_t>(t) * kTile + threadIdx.x;
+// Grid A: each place's flag, the tile's scan and look-back, the ids
+// scattered to their positions.  kWordLevel: the 32-byte level.
+template <bool kWordLevel>
+__global__ void __launch_bounds__(kTile) groups_kernel(Level v) {
+  __shared__ int sums[kWarps];
+  __shared__ uint32_t edge[kWarps][kWords];  // each warp's last words
+  __shared__ int shared_ticket, shared_base;
+  if (threadIdx.x == 0) shared_ticket = static_cast<int>(atomicAdd(v.ticket, 1u));
+  __syncthreads();
+  const int lane = shared_ticket / v.n_tiles;
+  const int t = shared_ticket % v.n_tiles;
+  const int i = t * kTile + static_cast<int>(threadIdx.x);
   const bool live = i < v.max_n;
-  const int64_t* ord = v.order + lane * v.max_n;
-  const int64_t o = live ? ord[i] : 0;
-  // the place before the tile's first, as the reference's roll by 1
-  const int64_t q = ord[wrap(static_cast<int64_t>(t) * kTile - 1, v.max_n)];
+  const int64_t at = static_cast<int64_t>(lane) * v.max_n;
+  const int64_t* ord = v.order + at;
+  // the order and the sorted key are read once: as streaming loads
+  // (evict first), which leave L2 to the ids' scatter
+  const int o = live ? static_cast<int>(__ldcs(
+                           reinterpret_cast<const long long*>(ord + i)))
+                     : 0;
+  const int ln = threadIdx.x & 31, wp = threadIdx.x >> 5;
   bool fresh = true;
-  if (v.g == nullptr) {
-    const uint8_t* row = v.data + lane * v.max_n;
+  if constexpr (kWordLevel) {
+    const uint8_t* row = v.data + at;
+    const int64_t nl = v.n[lane];
+    uint32_t w[kWords], pw[kWords];
     if (live) {
-      for (int b = 0; b < kWindow; ++b) win[threadIdx.x][b] = row[wrap(o + b, v.max_n)];
+      lazy_search::marked_words(row, v.max_n, nl, o, w);
+    } else {
+#pragma unroll
+      for (int k = 0; k < kWords; ++k) w[k] = 0;
     }
+    if (ln == 31) {
+#pragma unroll
+      for (int k = 0; k < kWords; ++k) edge[wp][k] = w[k];
+    }
+#pragma unroll
+    for (int k = 0; k < kWords; ++k) pw[k] = __shfl_up_sync(kFull, w[k], 1);
     __syncthreads();
-    if (live && i > 0) {
-      uint8_t own[kWindow];
-      const uint8_t* prev = win[threadIdx.x > 0 ? threadIdx.x - 1 : 0];
-      if (threadIdx.x == 0) {
-        for (int b = 0; b < kWindow; ++b) own[b] = row[wrap(q + b, v.max_n)];
-        prev = own;
-      }
-      fresh = lazy_search::words_differ(win[threadIdx.x], o, prev,
-                                        threadIdx.x > 0 ? ord[i - 1] : q,
-                                        v.n[lane]);
+    if (ln == 0 && wp > 0) {
+#pragma unroll
+      for (int k = 0; k < kWords; ++k) pw[k] = edge[wp - 1][k];
     }
+    if (threadIdx.x == 0 && i > 0 && live) {
+      lazy_search::marked_words(row, v.max_n, nl, static_cast<int>(ord[i - 1]), pw);
+    }
+    if (live && i > 0) fresh = lazy_search::words_differ(w, pw);
   } else {
-    const int64_t* g = v.g + lane * v.max_n;
-    if (live) pairs[threadIdx.x] = lazy_search::pair_at(g, v.max_n, v.span, o);
-    __syncthreads();
-    if (live && i > 0) {
-      const lazy_search::Pair prev =
-          threadIdx.x > 0 ? pairs[threadIdx.x - 1]
-                          : lazy_search::pair_at(g, v.max_n, v.span, q);
-      fresh = lazy_search::pairs_differ(pairs[threadIdx.x], prev);
-    }
+    const int64_t* sk = v.sorted_key + at;
+    const int64_t own =
+        live ? __ldcs(reinterpret_cast<const long long*>(sk + i)) : 0;
+    int64_t before = __shfl_up_sync(kFull, own, 1);
+    if (ln == 0 && live && i > 0) before = sk[i - 1];
+    if (live && i > 0) fresh = lazy_search::key_differs(own, before);
   }
-  if (live) v.flags[lane * v.max_n + i] = fresh;
-  int total;
-  block_scan(live && fresh, sums, &total);
-  if (threadIdx.x == 0) v.counts[lane * v.n_tiles + t] = total;
-}
-
-// Grid 2, a block a lane: the tiles' counts become their exclusive
-// offsets.
-__global__ void __launch_bounds__(kTile) offsets_kernel(Level v) {
-  __shared__ int sums[32];
-  int* c = v.counts + blockIdx.x * v.n_tiles;
-  int carry = 0;
-  for (int base = 0; base < v.n_tiles; base += kTile) {
-    const int i = base + threadIdx.x;
-    const int x = i < v.n_tiles ? c[i] : 0;
-    int total;
-    const int excl = block_scan(x, sums, &total);
-    if (i < v.n_tiles) c[i] = carry + excl;
-    carry += total;
-  }
-}
-
-// Grid 3: ids[order[i]] = (the flags at places 0..i) - 1.
-__global__ void __launch_bounds__(kTile) scatter_kernel(Level v) {
-  __shared__ int sums[32];
-  const int lane = blockIdx.x / v.n_tiles;
-  const int t = blockIdx.x % v.n_tiles;
-  const int64_t i = static_cast<int64_t>(t) * kTile + threadIdx.x;
-  const bool live = i < v.max_n;
-  const int64_t at = lane * v.max_n;
-  const int f = live ? v.flags[at + i] : 0;
+  const int f = live && fresh;
   int total;
   const int excl = block_scan(f, sums, &total);
-  if (live) {
-    v.ids[at + v.order[at + i]] =
-        static_cast<int64_t>(v.counts[lane * v.n_tiles + t]) + excl + f - 1;
+  if (threadIdx.x < 32) {  // the look-back, a warp
+    unsigned long long* st = v.state + static_cast<int64_t>(lane) * v.n_tiles;
+    int before = 0;
+    if (t == 0) {
+      if (ln == 0) publish(st, total, kPrefix);
+    } else {
+      if (ln == 0) publish(st + t, total, kAggregate);
+      for (int q = t - 1;; q -= 32) {
+        const int x = q - ln;
+        unsigned long long s = 0;
+        if (x >= 0) {
+          do {
+            s = peek(st + x);
+          } while ((s & 3) == 0);
+        }
+        const unsigned pre = __ballot_sync(kFull, x >= 0 && (s & 3) == kPrefix);
+        const int stop = pre ? __ffs(pre) - 1 : 31;
+        int add = x >= 0 && ln <= stop ? static_cast<int>(s >> 2) : 0;
+        for (int d = 16; d > 0; d >>= 1) add += __shfl_down_sync(kFull, add, d);
+        before += __shfl_sync(kFull, add, 0);
+        if (pre) break;
+      }
+      if (ln == 0) publish(st + t, before + total, kPrefix);
+    }
+    if (ln == 0) shared_base = before;
   }
+  __syncthreads();
+  if (live) v.ids[at + o] = static_cast<int64_t>(shared_base + excl + f - 1);
 }
 
-// Grid 4: the next sort's key, a thread a place.
-__global__ void __launch_bounds__(kThreads) key_kernel(Level v, int n_blocks) {
+// Grid B: the next sort's key, a thread a place; shift = next span mod
+// max_n.
+__global__ void __launch_bounds__(kThreads)
+key_kernel(const int64_t* __restrict__ ids, int max_n, int shift, int n_blocks,
+           int64_t* __restrict__ key) {
   const int lane = blockIdx.x / n_blocks;
-  const int64_t i = static_cast<int64_t>(blockIdx.x % n_blocks) * kThreads +
-                    threadIdx.x;
-  if (i >= v.max_n) return;
-  const int64_t at = lane * v.max_n;
-  v.key[at + i] = lazy_search::next_key(v.ids + at, v.max_n, v.next_span, i);
+  const int i = (blockIdx.x % n_blocks) * kThreads + static_cast<int>(threadIdx.x);
+  if (i >= max_n) return;
+  const int64_t at = static_cast<int64_t>(lane) * max_n;
+  key[at + i] = lazy_search::next_key(ids + at, max_n, shift, i);
 }
 
 // ----------------------------------------------------------------- K16
@@ -216,27 +256,38 @@ descent_kernel(const int64_t* __restrict__ order, Levels levels, int n_levels,
 }
 
 // ----------------------------------------------------------------- K17
+// A block a tile of kThreads places of the hash key's order and the
+// k places before it (the halo), staged, then a thread a place.
 __global__ void __launch_bounds__(kThreads)
 best_kernel(const int* __restrict__ sorted, const int64_t* __restrict__ order,
             const int64_t* __restrict__ rank, const int* __restrict__ T,
             int levels, const int64_t* __restrict__ n, int64_t dict_size,
-            int fb, int k, int64_t max_n, int n_blocks,
+            int fb, int k, int max_n, int n_blocks,
             int64_t* __restrict__ best_len, int64_t* __restrict__ best_dist) {
+  __shared__ int32_t key_s[kThreads + kMaxCandidates];
+  __shared__ int32_t pos_s[kThreads + kMaxCandidates];
+  __shared__ int32_t rank_s[kThreads + kMaxCandidates];
   const int lane = blockIdx.x / n_blocks;
-  const int64_t j = static_cast<int64_t>(blockIdx.x % n_blocks) * kThreads +
-                    threadIdx.x;
+  const int j0 = (blockIdx.x % n_blocks) * kThreads;
+  const int64_t at = static_cast<int64_t>(lane) * max_n;
+  const int first = j0 - k;
+  for (int x = threadIdx.x; x < kThreads + k; x += kThreads) {
+    const int r = first + x;
+    if (r >= 0 && r < max_n) {
+      const int p = static_cast<int>(order[at + r]);
+      key_s[x] = sorted[at + r];
+      pos_s[x] = p;
+      rank_s[x] = static_cast<int>(rank[at + p]);
+    }
+  }
+  __syncthreads();
+  const int j = j0 + static_cast<int>(threadIdx.x);
   if (j >= max_n) return;
-  const int64_t at = lane * max_n;
-  search_list::Lane ln{};
-  ln.rank = rank + at;
-  ln.T = T + lane * static_cast<int64_t>(levels) * max_n;
-  ln.max_n = max_n;
-  ln.n = n[lane];
-  ln.dict_size = dict_size;
-  const int64_t* ord = order + at;
+  const lazy_search::Staged st{key_s, pos_s, rank_s, first};
+  const lazy_search::Table tb{T + at * levels, max_n, n[lane], dict_size};
   int64_t bl, bd;
-  lazy_search::best_match(ln, sorted + at, ord, j, k, fb, &bl, &bd);
-  const int64_t p = ord[j];
+  lazy_search::best_staged(st, tb, j, k, fb, &bl, &bd);
+  const int p = pos_s[threadIdx.x + k];
   best_len[at + p] = bl;
   best_dist[at + p] = bd;
 }
@@ -250,49 +301,53 @@ int blocks_of(int64_t items, int per, int groups, int* n_tiles) {
 
 }  // namespace
 
-// Scratch bytes of lzt_doubling_groups: a flag a place (uint8), then the
-// tiles' counts (int32) from a 16-byte boundary.
+// Scratch bytes of lzt_doubling_groups: the tiles' look-back words
+// (uint64), then the ticket (uint32); zeroed by lzt_doubling_groups.
 extern "C" long long lzt_doubling_groups_scratch(int n_lanes,
                                                  long long max_n) {
-  const long long flags = (static_cast<long long>(n_lanes) * max_n + 15) / 16 * 16;
-  return flags + 4LL * n_lanes * ((max_n + kTile - 1) / kTile);
+  return 8LL * n_lanes * ((max_n + kTile - 1) / kTile) + 16;
 }
 
-// K15.  order: (n_lanes, max_n) int64, the level's stable sort; g null:
-// the 32-byte level from data (n_lanes, max_n) uint8 and n (n_lanes,)
-// int64; else g (n_lanes, max_n) int64, the previous level's ids, and
-// its span.  ids: (n_lanes, max_n) int64; next_span > 0: key (n_lanes,
-// max_n) int64, the next sort's.  Returns the first CUDA error of the
-// launches (0 on success).
+// K15.  order: (n_lanes, max_n) int64, the level's stable sort;
+// sorted_key null: the 32-byte level from data (n_lanes, max_n) uint8 and
+// n (n_lanes,) int64; else sorted_key (n_lanes, max_n) int64, the
+// level's key in its order (the previous call's key, sorted).  ids:
+// (n_lanes, max_n) int64; next_span > 0: key (n_lanes, max_n) int64, the
+// next sort's.  Returns the first CUDA error of the launches (0 on
+// success).
 extern "C" int lzt_doubling_groups(const int64_t* order, const uint8_t* data,
-                                   const int64_t* n, const int64_t* g,
-                                   long long span, long long next_span,
-                                   int n_lanes, long long max_n, void* scratch,
+                                   const int64_t* n, const int64_t* sorted_key,
+                                   long long next_span, int n_lanes,
+                                   long long max_n, void* scratch,
                                    int64_t* ids, int64_t* key, void* stream) {
   int n_tiles = 0, n_blocks = 0;
   const int tiles = blocks_of(max_n, kTile, n_lanes, &n_tiles);
   const int blocks = blocks_of(max_n, kThreads, n_lanes, &n_blocks);
-  if (n_lanes <= 0 || max_n <= 0 || tiles < 0 || blocks < 0 || span < 0 ||
-      next_span < 0 || (g == nullptr && (data == nullptr || n == nullptr)) ||
+  if (n_lanes <= 0 || max_n <= 0 || max_n > INT_MAX - kTile || tiles < 0 ||
+      blocks < 0 || next_span < 0 ||
+      (sorted_key == nullptr && (data == nullptr || n == nullptr)) ||
       (next_span > 0 && key == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  uint8_t* flags = static_cast<uint8_t*>(scratch);
-  int* counts = reinterpret_cast<int*>(
-      flags + (static_cast<long long>(n_lanes) * max_n + 15) / 16 * 16);
-  const Level v{order, data, n, g, span, next_span, max_n, n_tiles, flags,
-                counts, ids, key};
-  flags_kernel<<<tiles, kTile, 0, s>>>(v);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = cudaMemsetAsync(
+      scratch, 0, lzt_doubling_groups_scratch(n_lanes, max_n), s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  offsets_kernel<<<n_lanes, kTile, 0, s>>>(v);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  scatter_kernel<<<tiles, kTile, 0, s>>>(v);
+  auto* state = static_cast<unsigned long long*>(scratch);
+  const Level v{order, data, n, sorted_key, static_cast<int>(max_n), n_tiles,
+                state, reinterpret_cast<unsigned*>(
+                           state + static_cast<int64_t>(n_lanes) * n_tiles),
+                ids};
+  if (sorted_key == nullptr) {
+    groups_kernel<true><<<tiles, kTile, 0, s>>>(v);
+  } else {
+    groups_kernel<false><<<tiles, kTile, 0, s>>>(v);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess || next_span == 0) return static_cast<int>(err);
-  key_kernel<<<blocks, kThreads, 0, s>>>(v, n_blocks);
+  key_kernel<<<blocks, kThreads, 0, s>>>(ids, static_cast<int>(max_n),
+                                         static_cast<int>(next_span % max_n),
+                                         n_blocks, key);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -332,12 +387,12 @@ extern "C" int lzt_best_matches(const int* sorted, const int64_t* order,
                                 void* stream) {
   int n_blocks = 0;
   const int blocks = blocks_of(max_n, kThreads, n_lanes, &n_blocks);
-  if (n_lanes <= 0 || max_n <= 0 || blocks < 0 || levels < 1 || k < 1 ||
-      k > lazy_search::kMaxCandidates) {
+  if (n_lanes <= 0 || max_n <= 0 || max_n > INT_MAX - kThreads || blocks < 0 ||
+      levels < 1 || k < 1 || k > kMaxCandidates) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   best_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      sorted, order, rank, T, levels, n, dict_size, fb, k, max_n, n_blocks,
-      best_len, best_dist);
+      sorted, order, rank, T, levels, n, dict_size, fb, k,
+      static_cast<int>(max_n), n_blocks, best_len, best_dist);
   return static_cast<int>(cudaGetLastError());
 }

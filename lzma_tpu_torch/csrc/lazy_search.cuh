@@ -2,20 +2,23 @@
 // the order of lzma_tpu_torch/ops/device_matcher.py's plain versions:
 //   K15 whether a suffix starts a new group of the prefix doubling against
 //       the suffix before it in the level's order: by the 8 prefix words
-//       (word 0 marked past n) at the 32-byte level, else by the previous
-//       level's ids at i and i + span (_doubling_groups_plain);
+//       (word 0 marked past n) at the 32-byte level, read as 32-bit words
+//       (search_list::window_words), else by the level's sorted key,
+//       which holds the previous level's ids at i and i + span as one
+//       number; then the next sort's key (_doubling_groups_plain);
 //   K16 the consecutive LCP of two suffixes at full depth: the binary
 //       descent over the group levels, then the <=32-byte refinement by
 //       prefix words, each index wrapped once and clamped
 //       (_descent_lcp_plain);
-//   K17 a position's best match among its hash-sort neighbours
-//       (_best_matches_plain).
+//   K17 a position's best match among its hash-sort neighbours, from a
+//       tile's staged keys, positions and ranks (_best_matches_plain).
 //
 // Plain C++ under LZT_HD, as search_list.cuh is written (whose
-// suffix_word and lcp_query these reuse), so that a host compiler can
-// build it too (the CPU tests hold it to the plain versions through a g++
-// build).  Words are uint32_t, as the reference's; positions, group ids
-// and keys are int64_t.
+// window_words and clz32 these reuse), so that a host compiler can build
+// it too (the CPU tests hold it to the plain versions through a g++
+// build).  Words are uint32_t, as the reference's; group ids and keys are
+// int64_t; K15's and K17's places and positions inside a lane are int
+// (a lane holds fewer than 2^31 places), table offsets int64_t.
 
 #pragma once
 
@@ -33,38 +36,43 @@ constexpr int kMaxCandidates = 16; // hash neighbours a position takes
 constexpr int kWords = 8;          // the 32-byte level's prefix words
 
 // ----------------------------------------------------------------- K15
-// The 32-byte level: the 8 prefix words of suffixes pa and pb, word 0
-// marked 0x80000000 ^ pos past n, compared exactly (a data word may
-// equal a mark).  wa, wb: their kWindow-byte windows (wrapping at max_n).
-LZT_HD bool words_differ(const uint8_t* wa, int64_t pa, const uint8_t* wb,
-                         int64_t pb, int64_t n) {
+// i + s wrapped at max_n, for 0 <= i < max_n and 0 <= s < max_n (a span
+// taken mod max_n once a call): a conditional subtract.
+LZT_HD int wrap_add(int i, int s, int max_n) {
+  const int j = i + s;
+  return j >= max_n ? j - max_n : j;
+}
+
+// The 32-byte level's key of the suffix at o < max_n of a lane's row:
+// its 8 big-endian prefix words, wrapping at max_n, word 0 marked
+// 0x80000000 ^ o where o >= n.
+LZT_HD void marked_words(const uint8_t* row, int max_n, int64_t n, int o,
+                         uint32_t* w) {
+  search_list::window_words(row, max_n, o, kWords, w);
+  if (o >= n) w[0] = kMark ^ static_cast<uint32_t>(o);
+}
+
+// Whether two suffixes' marked words differ (compared exactly: a data
+// word may equal a mark).
+LZT_HD bool words_differ(const uint32_t* a, const uint32_t* b) {
   bool differ = false;
-  for (int k = 0; k < kWords; ++k) {
-    differ = differ || search_list::suffix_word(wa, k, pa, n) !=
-                           search_list::suffix_word(wb, k, pb, n);
-  }
+LZT_UNROLL
+  for (int k = 0; k < kWords; ++k) differ = differ || a[k] != b[k];
   return differ;
 }
 
-// A doubling level's key of suffix i: the previous level's ids at i and
-// at (i + span) mod max_n.
-struct Pair {
-  int64_t hi, lo;
-};
-
-LZT_HD Pair pair_at(const int64_t* g, int64_t max_n, int64_t span,
-                    int64_t i) {
-  return Pair{g[i], g[(i + span) % max_n]};
-}
-
-LZT_HD bool pairs_differ(Pair a, Pair b) { return a.hi != b.hi || a.lo != b.lo; }
+// A doubling level's flag at a place past the first of its order: its
+// key (the previous level's ids at i and at i + span, as ids[i] * max_n +
+// ids[i + span], which next_key built and the sort kept beside the order)
+// differs from the place before's.  Ids are below max_n, so two keys are
+// equal exactly where both ids are: the reference's two gathers a place.
+LZT_HD bool key_differs(int64_t key, int64_t before) { return key != before; }
 
 // The next sort's key of place i from this level's ids: ids[i] * max_n
-// + ids[(i + span) mod max_n] (ids < max_n, so the key is unique to the
-// pair and keeps its order).
-LZT_HD int64_t next_key(const int64_t* ids, int64_t max_n, int64_t span,
-                        int64_t i) {
-  return ids[i] * max_n + ids[(i + span) % max_n];
+// + ids[(i + span) mod max_n], s = span mod max_n (ids < max_n, so the
+// key is unique to the pair and keeps its order).
+LZT_HD int64_t next_key(const int64_t* ids, int max_n, int s, int i) {
+  return ids[i] * max_n + ids[wrap_add(i, s, max_n)];
 }
 
 // ----------------------------------------------------------------- K16
@@ -129,46 +137,84 @@ LZT_HD int64_t deep_lcp(const int64_t* const* g, int n_levels,
 }
 
 // ----------------------------------------------------------------- K17
+// A tile of the hash key's stable order as a block stages it: for each
+// staged place, its key, its position and that position's rank in the
+// suffix order (rank[order[r]], read once a place).  Place j of the lane
+// sits at stage index j - first.
+struct Staged {
+  const int32_t* key;
+  const int32_t* pos;
+  const int32_t* rank;
+  int first;
+};
+
+// The lane's table and what bounds a candidate (search_list::Lane's,
+// with 32-bit places).
+struct Table {
+  const int32_t* T;  // (levels, max_n) int32
+  int max_n;
+  int64_t n, dict_size;
+};
+
+// Exact LCP of the suffixes at ranks rp and rq by two reads of the sparse
+// min table (search_list::lcp_query); 0 where the ranks are equal.
+LZT_HD int lcp_ranks(const Table& tb, int rp, int rq) {
+  const int a = (rp < rq ? rp : rq) + 1;
+  const int b = rp < rq ? rq : rp;
+  const int w = b - a + 1;
+  if (w < 1) return 0;
+  const int k = 31 - search_list::clz32(static_cast<uint32_t>(w));
+  const int32_t* Tk = tb.T + static_cast<int64_t>(k) * tb.max_n;
+  int a2 = a + (1 << k) - 1;
+  if (a2 > tb.max_n - 1) a2 = tb.max_n - 1;
+  const int32_t v1 = Tk[b], v2 = Tk[a2];
+  return v1 < v2 ? v1 : v2;
+}
+
+// One candidate into the selection: the largest min(LCP, fb) (-1 for a
+// candidate out of the window), then the nearest, then the longest, as
+// the reference's three reductions over the k candidates rank them.
+LZT_HD void take(int sel, int dist, int len, int* top, int* bd, int* bl) {
+  if (sel > *top || (sel == *top && (dist < *bd || (dist == *bd && len > *bl)))) {
+    *top = sel;
+    *bd = dist;
+    *bl = len;
+  }
+}
+
 // The best match of the position at place j of the hash key's stable
-// order: its candidates are the positions at places j - 1 .. j - k where
-// the key there is its own (else none, -1).  A candidate in the window
-// (before the position, at most dict_size back) has the exact LCP (the
-// suffix table's, at most n - pos); selection is by min(LCP, fb), the
-// nearest on ties, and the chosen length is the uncapped LCP (0 below
-// kMinMatch).  With no candidate in the window the distance is the
-// smallest of all k (clamped at 0), as the reference's selection gives.
-// ln: the lane's rank and table (search_list::Lane's rank, T, max_n, n,
-// dict_size).
-LZT_HD void best_match(const search_list::Lane& ln, const int32_t* sorted,
-                       const int64_t* order, int64_t j, int k, int fb,
-                       int64_t* best_len, int64_t* best_dist) {
-  const int64_t p = order[j];
-  const int64_t rp = ln.rank[p];
-  const int64_t room = ln.n - p > 0 ? ln.n - p : 0;
-  int64_t sel[kMaxCandidates], dist[kMaxCandidates], lf[kMaxCandidates];
-  int64_t top = -1;
-  for (int c = 0; c < k; ++c) {
-    const int64_t r = j - (c + 1);
-    const int64_t q = r >= 0 && sorted[r] == sorted[j] ? order[r] : -1;
-    const bool in = q >= 0 && p - q <= ln.dict_size && q < p;
-    int64_t len = 0;
+// order: its candidates are the positions at places j - 1 .. j - k
+// where the key there is its own (else none, position -1).  The order is
+// sorted, so the candidates are a run of places just before j: the
+// loop stops at the first key that differs, and the k - m places past a
+// run of m < k stand for one candidate of position -1 (distance p, out
+// of the window).  A candidate in the window (before the position, at
+// most dict_size back) has the exact LCP (the table's, at most n - pos);
+// selection is by min(LCP, fb), the nearest on ties, and the chosen
+// length is the uncapped LCP (0 below kMinMatch).  With no candidate in
+// the window the distance is the smallest of all k (clamped at 0), as
+// the reference's selection gives.
+LZT_HD void best_staged(const Staged& st, const Table& tb, int j, int k,
+                        int fb, int64_t* best_len, int64_t* best_dist) {
+  const int s = j - st.first;
+  const int32_t own = st.key[s];
+  const int p = st.pos[s], rp = st.rank[s];
+  const int64_t room = tb.n - p > 0 ? tb.n - p : 0;
+  int top = -2, bd = 1 << 30, bl = 0;
+  int c = 1;
+  for (; c <= k && c <= j; ++c) {
+    if (st.key[s - c] != own) break;
+    const int q = st.pos[s - c];
+    const bool in = q < p && p - q <= tb.dict_size;
+    int len = 0;
     if (in) {
-      len = search_list::lcp_query(ln, rp, q);
-      if (len > room) len = room;
+      len = lcp_ranks(tb, rp, st.rank[s - c]);
+      if (len > room) len = static_cast<int>(room);
     }
-    lf[c] = len;
-    sel[c] = in ? (len < fb ? len : fb) : -1;
-    dist[c] = p - q - 1;
-    if (sel[c] > top) top = sel[c];
+    take(in ? (len < fb ? len : fb) : -1, p - q - 1, in ? len : 0, &top, &bd,
+         &bl);
   }
-  int64_t bd = int64_t{1} << 30;
-  for (int c = 0; c < k; ++c) {
-    if (sel[c] == top && dist[c] < bd) bd = dist[c];
-  }
-  int64_t bl = 0;
-  for (int c = 0; c < k; ++c) {
-    if (sel[c] == top && dist[c] == bd && lf[c] > bl) bl = lf[c];
-  }
+  if (c <= k) take(-1, p, 0, &top, &bd, &bl);
   *best_len = top >= search_list::kMinMatch ? bl : 0;
   *best_dist = bd > 0 ? bd : 0;
 }

@@ -14,11 +14,14 @@ preset's lanes, the trace dump) and ``_suffix_rank_lcp`` (also the
 optimal search's past fb 32) call these wrappers:
 
 - ``doubling_groups_cuda`` (K15) replaces ``_doubling_groups_plain``: a
-  level's ids from its sort's order, then the next sort's key;
+  level's ids from its sort's order (a doubling level's flags from its
+  sorted key, which ``_suffix_rank_lcp`` passes as ``sorted_key``), then
+  the next sort's key;
 - ``descent_lcp_cuda`` (K16) replaces ``_descent_lcp_plain``: the
   consecutive LCP that K10 turns into the sparse min table;
-- ``best_matches_cuda`` (K17) replaces ``_best_matches_plain``: a thread
-  a place of the hash key's sort, its neighbours' exact lengths and the
+- ``best_matches_cuda`` (K17) replaces ``_best_matches_plain``: a tile
+  of the hash key's sort staged with its neighbours' positions and ranks,
+  then a thread a place: its neighbours' exact lengths and the
   selection.
 
 A CUDA tensor launches the kernel (or the wrapper raises); a CPU tensor
@@ -50,6 +53,8 @@ BEST_LAUNCHES = 0
 #: at most (csrc/lazy_search.cuh kMaxLevels, kMaxCandidates)
 MAX_LEVELS = 8
 MAX_CANDIDATES = 16
+#: places a K15 tile, a block of grid A (csrc/lazy_search.cu kTile)
+TILE = 512
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -57,7 +62,7 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 @functools.cache
 def _lib():
     lib = build.load()
-    lib.lzt_doubling_groups.argtypes = [_P] * 4 + [_L, _L, _I, _L] + [_P] * 4
+    lib.lzt_doubling_groups.argtypes = [_P] * 4 + [_L, _I, _L] + [_P] * 4
     lib.lzt_doubling_groups_scratch.argtypes = [_I, _L]
     lib.lzt_descent_lcp.argtypes = [_P, _P, _I, _P, _P, _I, _I, _L, _P, _P]
     lib.lzt_best_matches.argtypes = [_P, _P, _P, _P, _I, _P, _L, _I, _I, _I,
@@ -91,16 +96,22 @@ def _lanes(name: str, data, n, dev):
 
 
 def doubling_groups_cuda(order, data, n, g=None, span: int = 0,
-                         next_span: int = 0):
+                         next_span: int = 0, sorted_key=None):
     """A prefix-doubling level's group ids (K15), as
     ``_doubling_groups_plain``: order (N, max_n) the level's stable sort;
     `g` None for the 32-byte level (the prefix words of data (N, max_n)
     uint8, marked past n (N,)), else the previous level's ids and its
-    `span`; `next_span` > 0 gives the next sort's key.  Returns (ids (N,
-    max_n) int64, key (N, max_n) int64 or None)."""
+    `span`; `next_span` > 0 gives the next sort's key.  On the card a
+    doubling level also takes `sorted_key` (N, max_n) int64, the values of
+    the sort that gave `order` (the previous call's key, g[i] * max_n +
+    g[(i + span) mod max_n], in its order): the kernel flags a new group
+    where it differs from the place before's, which is where the
+    reference's pair of gathered ids differs, and reads no id of `g`.
+    Returns (ids (N, max_n) int64, key (N, max_n) int64 or None)."""
     global GROUP_LAUNCHES
     if not _on_card("doubling_groups_cuda", order):
-        return _doubling_groups_plain(order, data, n, g, span, next_span)
+        return _doubling_groups_plain(order, data, n, g, span, next_span,
+                                      sorted_key)
     dev = order.device
     data, n = _lanes("doubling_groups_cuda", data, n, dev)
     N, max_n = data.shape
@@ -111,6 +122,13 @@ def doubling_groups_cuda(order, data, n, g=None, span: int = 0,
                        g=(g, torch.int64))
         if span < 1:
             raise ValueError(f"a doubling level's span must be >= 1, got {span}")
+        if sorted_key is None:
+            raise ValueError("doubling_groups_cuda: a doubling level takes "
+                             "sorted_key, the values of its order's sort")
+        (sorted_key,) = _planes("doubling_groups_cuda", (N, max_n), dev,
+                                sorted_key=(sorted_key, torch.int64))
+    else:
+        sorted_key = None
     if next_span < 0:
         raise ValueError(f"next_span must be >= 0, got {next_span}")
     ids = torch.empty((N, max_n), dtype=torch.int64, device=dev)
@@ -124,7 +142,7 @@ def doubling_groups_cuda(order, data, n, g=None, span: int = 0,
         with torch.cuda.device(dev):
             err = lib.lzt_doubling_groups(
                 order.data_ptr(), data.data_ptr(), n.data_ptr(),
-                None if g is None else g.data_ptr(), int(span),
+                None if sorted_key is None else sorted_key.data_ptr(),
                 int(next_span), N, max_n, scratch.data_ptr(), ids.data_ptr(),
                 None if key is None else key.data_ptr(), _stream(dev))
         _raise("doubling_groups", err)
@@ -170,9 +188,10 @@ def best_matches_cuda(sorted_key, order, rank, T, n, dict_size: int, fb: int,
                       num_candidates: int):
     """Each position's best (length, distance) (K17), as
     ``_best_matches_plain``: sorted_key, order (N, max_n) the hash key's
-    stable sort values (int32) and indices; rank (N, max_n), T (N, levels,
-    max_n) int32 the suffix table; n (N,).  Returns (best_len, best_dist)
-    (N, max_n) int64."""
+    stable sort values (int32) and indices (the kernel takes a
+    position's candidates as the run of equal keys just before its
+    place); rank (N, max_n), T (N, levels, max_n) int32 the suffix table;
+    n (N,).  Returns (best_len, best_dist) (N, max_n) int64."""
     global BEST_LAUNCHES
     if not _on_card("best_matches_cuda", order):
         return _best_matches_plain(sorted_key, order, rank, T, n, dict_size,

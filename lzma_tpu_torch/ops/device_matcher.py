@@ -287,7 +287,7 @@ def _suffix_table_plain(data, n, order, depth: int, cl=None):
 
 
 def _doubling_groups_plain(order, data, n, g=None, span: int = 0,
-                           next_span: int = 0):
+                           next_span: int = 0, sorted_key=None):
     """The plain version of ``cuda_lazy.doubling_groups_cuda`` (K15): one
     level of the prefix doubling (device_matcher._suffix_rank_lcp past
     depth 32).  The suffixes in `order`, the stable order of this level's
@@ -299,7 +299,9 @@ def _doubling_groups_plain(order, data, n, g=None, span: int = 0,
     previous level's ids, which doubles the prefix.  `next_span` > 0 also
     gives the next sort's key g' * max_n + g'[(i + next_span) mod max_n]
     (int64: up to 2**46 on an 8 MiB lane).  order (N, max_n) int64, data
-    (N, max_n) uint8, n (N,).  Returns (ids (N, max_n) int64, key or
+    (N, max_n) uint8, n (N,).  `sorted_key` (the sort's values, which
+    the kernel flags by) is taken and not read: the flags come from `g`
+    by the reference's gathers.  Returns (ids (N, max_n) int64, key or
     None)."""
     if g is None:
         max_n = data.shape[1]
@@ -378,7 +380,8 @@ def _suffix_rank_lcp(data, n, depth: int, keys):
     depth and run K10 themselves): the stable sort of K9's 32-byte keys
     (`keys`, ``search_keys_cuda``'s suffix keys at depth 32, a list
     emptied once sorted), the prefix doubling (K15 a level, a stable sort
-    of its key between levels), the consecutive LCP at full depth by the
+    of its key between levels, whose sorted values K15 flags by), the
+    consecutive LCP at full depth by the
     binary descent (K16), then K10 from that LCP, each piece in its stage
     of LAZY_STAGES.  data (N, max_n) uint8, n (N,).  Returns (rank (N,
     max_n) int64, T (N, levels, max_n) int32)."""
@@ -399,12 +402,15 @@ def _suffix_rank_lcp(data, n, depth: int, keys):
     while span < depth:
         # lexsort((pos, g_lo, g_hi)): group ids < max_n, one packed key
         with stage("lazy_sort", device):
-            order = torch.sort(key, dim=1, stable=True).indices
+            order_key = torch.sort(key, dim=1, stable=True)
+            order = order_key.indices
             del key
         with stage("lazy_groups", device):
             g, key = doubling_groups_cuda(
                 order, data, n, grps[-1], span,
-                2 * span if 2 * span < depth else 0)
+                2 * span if 2 * span < depth else 0,
+                sorted_key=order_key.values)
+            del order_key
         grps.append(g)
         span *= 2
     with stage("lazy_lcp", device):

@@ -2053,18 +2053,23 @@ def _lazy_launches():
 
 
 # max_n 1-3 and 33 (the descent's indices wrap and clamp), K15's tile
-# edges (1,024 places a tile), a lane of 1,537 tiles (its lane scan in two
-# passes of 1,024, the second partial), lanes of n below max_n and of 0
+# edges (512 places a tile) and K17's (256 places, a halo of up to 16),
+# where runs of one byte make hash groups that straddle them, lanes of
+# many tiles (3,073 K15 tiles a look-back reads 32 at a time), lanes of n
+# below max_n and of 0
 @pytest.mark.parametrize("widths", [[1, 1], [2, 1, 0], [3, 3, 2, 1],
-                                    [33, 20, 33, 0], [1023, 1024, 1025, 300],
+                                    [33, 20, 33, 0], [255, 256, 257, 100],
+                                    [511, 512, 513, 300],
+                                    [1023, 1024, 1025, 300],
                                     [4096, 4000, 4096, 100, 0],
                                     [20000, 19000, 20000, 40],
                                     [(3 << 19) + 1, 5000]],
                          ids=lambda w: f"max_n{max(w)}x{len(w)}")
 def test_lazy_kernels_match_plain(card, widths):
-    """K15 at every doubling level, K16 and K17 (fb 5, 32 and 273; 1, 4
-    and 16 candidates) against their plain versions on the same card
-    tensors, through the route's own chain of sorts."""
+    """K15 at every doubling level (a doubling level flagged by its sort's
+    values), K16 and K17 (fb 5, 32 and 273; 1, 4 and 16 candidates)
+    against their plain versions on the same card tensors, through the
+    route's own chain of sorts."""
     from lzma_tpu_torch.ops import cuda_lazy, cuda_search
     from lzma_tpu_torch.ops import device_matcher as dm
 
@@ -2078,9 +2083,11 @@ def test_lazy_kernels_match_plain(card, widths):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     grps, span = [got[0]], 32
     while span < 273:
-        order = torch.sort(got[1], dim=1, stable=True).indices
+        srt = torch.sort(got[1], dim=1, stable=True)
+        order = srt.indices
         nxt = 2 * span if 2 * span < 273 else 0
-        got = cuda_lazy.doubling_groups_cuda(order, d, k, grps[-1], span, nxt)
+        got = cuda_lazy.doubling_groups_cuda(order, d, k, grps[-1], span, nxt,
+                                             sorted_key=srt.values)
         want = dm._doubling_groups_plain(order, d, k, grps[-1], span, nxt)
         assert torch.equal(got[0], want[0]), span
         assert (got[1] is None) == (want[1] is None) == (nxt == 0)
@@ -2139,6 +2146,13 @@ def test_lazy_wrappers_check_their_inputs(card):
     g, key = cuda_lazy.doubling_groups_cuda(order, d, k, next_span=32)
     with pytest.raises(ValueError):
         cuda_lazy.doubling_groups_cuda(order, d, k, g, 0)
+    # a doubling level flags by its sort's values: none given raises, on
+    # the card there is no route by the ids' gathers
+    with pytest.raises(ValueError, match="sorted_key"):
+        cuda_lazy.doubling_groups_cuda(order, d, k, g, 32, 64)
+    with pytest.raises(ValueError):
+        cuda_lazy.doubling_groups_cuda(order, d, k, g, 32, 64,
+                                       sorted_key=key[:, :10])
     with pytest.raises(ValueError):
         cuda_lazy.descent_lcp_cuda(order, [g] * 10, d, k, 273)
     cl = cuda_lazy.descent_lcp_cuda(order, [g, g], d, k, 273)

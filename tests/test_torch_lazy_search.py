@@ -12,8 +12,10 @@ a position's mark, n below max_n, n = 0, and at max_n 1, 2, 3 and 33
 (where the descent's indices wrap and clamp).  Each doubling level's ids
 equal a numpy restatement (the dense rank of the level's keys).  Then
 ``csrc/lazy_search.cuh``, the kernels' closed forms, built by g++ into
-serial host loops, gives the plain versions' ids, keys, LCPs and matches
-on the same inputs (no g++ skips those).
+serial host loops (a doubling level flagged by its sorted key, the best
+matches from tiles of 1, 5 and 256 places staged with the places before
+them), gives the plain versions' ids, keys, LCPs and matches on the same
+inputs (no g++ skips those).
 """
 
 import ctypes
@@ -281,39 +283,36 @@ HOST_LOOPS = r"""
 
 using namespace lazy_search;
 
-static void window(const uint8_t* row, int64_t max_n, int64_t p, uint8_t* w) {
-  for (int b = 0; b < kWindow; ++b) w[b] = row[(p + b) % max_n];
-}
-
-// one doubling level, a lane at a time: flags, their running count, the
-// scatter, then the next key
+// one doubling level, a lane at a time: flags (the 32-byte level's marked
+// words, else the sorted key), their running count, the scatter, then
+// the next key
 extern "C" void groups_host(const int64_t* order, const uint8_t* data,
-                            const int64_t* n, const int64_t* g, int64_t span,
+                            const int64_t* n, const int64_t* sorted_key,
                             int64_t next_span, int lanes, int64_t max_n,
                             int64_t* ids, int64_t* key) {
+  const int m = static_cast<int>(max_n);
   for (int l = 0; l < lanes; ++l) {
     const int64_t at = l * max_n;
     const int64_t* o = order + at;
     int64_t id = -1;
-    for (int64_t i = 0; i < max_n; ++i) {
+    for (int i = 0; i < m; ++i) {
       bool fresh = true;
       if (i > 0) {
-        if (g == nullptr) {
-          uint8_t a[kWindow], b[kWindow];
-          window(data + at, max_n, o[i], a);
-          window(data + at, max_n, o[i - 1], b);
-          fresh = words_differ(a, o[i], b, o[i - 1], n[l]);
+        if (sorted_key == nullptr) {
+          uint32_t a[kWords], b[kWords];
+          marked_words(data + at, m, n[l], static_cast<int>(o[i]), a);
+          marked_words(data + at, m, n[l], static_cast<int>(o[i - 1]), b);
+          fresh = words_differ(a, b);
         } else {
-          fresh = pairs_differ(pair_at(g + at, max_n, span, o[i]),
-                               pair_at(g + at, max_n, span, o[i - 1]));
+          fresh = key_differs(sorted_key[at + i], sorted_key[at + i - 1]);
         }
       }
       id += fresh;
       ids[at + o[i]] = id;
     }
     if (next_span > 0) {
-      for (int64_t i = 0; i < max_n; ++i)
-        key[at + i] = next_key(ids + at, max_n, next_span, i);
+      const int s = static_cast<int>(next_span % max_n);
+      for (int i = 0; i < m; ++i) key[at + i] = next_key(ids + at, m, s, i);
     }
   }
 }
@@ -336,21 +335,32 @@ extern "C" void descent_host(const int64_t* order, const int64_t* const* levels,
 extern "C" void best_host(const int32_t* sorted, const int64_t* order,
                           const int64_t* rank, const int32_t* T, int levels,
                           const int64_t* n, int64_t dict_size, int fb, int k,
-                          int lanes, int64_t max_n, int64_t* best_len,
-                          int64_t* best_dist) {
+                          int lanes, int64_t max_n, int tile,
+                          int64_t* best_len, int64_t* best_dist) {
+  // a tile of places and the k before it staged at a time, as a block
+  const int m = static_cast<int>(max_n);
+  std::vector<int32_t> key(tile + k), pos(tile + k), rnk(tile + k);
   for (int l = 0; l < lanes; ++l) {
     const int64_t at = l * max_n;
-    search_list::Lane ln{};
-    ln.rank = rank + at;
-    ln.T = T + at * levels;
-    ln.max_n = max_n;
-    ln.n = n[l];
-    ln.dict_size = dict_size;
-    for (int64_t j = 0; j < max_n; ++j) {
-      int64_t bl, bd;
-      best_match(ln, sorted + at, order + at, j, k, fb, &bl, &bd);
-      best_len[at + order[at + j]] = bl;
-      best_dist[at + order[at + j]] = bd;
+    const Table tb{T + at * levels, m, n[l], dict_size};
+    for (int j0 = 0; j0 < m; j0 += tile) {
+      const int first = j0 - k;
+      for (int x = 0; x < tile + k; ++x) {
+        const int r = first + x;
+        key[x] = pos[x] = rnk[x] = -7;
+        if (r >= 0 && r < m) {
+          key[x] = sorted[at + r];
+          pos[x] = static_cast<int>(order[at + r]);
+          rnk[x] = static_cast<int>(rank[at + pos[x]]);
+        }
+      }
+      const Staged st{key.data(), pos.data(), rnk.data(), first};
+      for (int j = j0; j < j0 + tile && j < m; ++j) {
+        int64_t bl, bd;
+        best_staged(st, tb, j, k, fb, &bl, &bd);
+        best_len[at + pos[j - first]] = bl;
+        best_dist[at + pos[j - first]] = bd;
+      }
     }
   }
 }
@@ -385,24 +395,28 @@ def _L(x):
 
 @pytest.mark.parametrize("name", list(SHAPES))
 def test_host_groups_and_descent_equal_the_plain_pieces(host_lazy, name):
-    """groups_host gives every doubling level's ids and key, descent_host
-    the descent's LCP, on the plain orders and levels."""
+    """groups_host gives every doubling level's ids and key (the 32-byte
+    level by marked words, a doubling level by its sorted key, the
+    previous key in this level's order), descent_host the descent's LCP,
+    on the plain orders and levels."""
     data, lens = SHAPES[name]
     got = _pieces(data, lens)
     N, max_n = data.shape
     d, n = np.ascontiguousarray(data), lens.astype(np.int64)
-    prev, span = None, 0
+    prev_key = None
     for t, (order, g, key) in enumerate(got["levels"]):
         ids = np.full((N, max_n), -7, np.int64)
         k = np.full((N, max_n), -7, np.int64)
         nxt = 0 if key is None else (32 << t)
+        sk = (None if prev_key is None else
+              np.ascontiguousarray(np.take_along_axis(prev_key, _np(order), 1)))
         host_lazy.groups_host(_ptr(_np(order)), _ptr(d), _ptr(n),
-                              None if prev is None else _ptr(prev), _L(span),
-                              _L(nxt), N, _L(max_n), _ptr(ids), _ptr(k))
+                              None if sk is None else _ptr(sk), _L(nxt), N,
+                              _L(max_n), _ptr(ids), _ptr(k))
         np.testing.assert_array_equal(ids, g.numpy(), err_msg=f"level {t}")
         if key is not None:
             np.testing.assert_array_equal(k, key.numpy(), err_msg=f"key {t}")
-        prev, span = _np(g), 32 << t
+            prev_key = _np(key)
     levels = [_np(x[1]) for x in got["levels"][:-1]]
     ptrs = (ctypes.c_void_p * len(levels))(*(a.ctypes.data for a in levels))
     cl = np.full((N, max_n), -7, np.int64)
@@ -414,6 +428,8 @@ def test_host_groups_and_descent_equal_the_plain_pieces(host_lazy, name):
 @pytest.mark.parametrize("name", list(SHAPES))
 @pytest.mark.parametrize("fb,k", [(5, 4), (32, 4), (273, 1), (273, 16)])
 def test_host_best_matches_equal_the_plain_matches(host_lazy, name, fb, k):
+    """best_host, tiles of 1, 5 and 256 places staged with their k places
+    before, gives the plain matches."""
     data, lens = SHAPES[name]
     got = _pieces(data, lens)
     N, max_n = data.shape
@@ -423,12 +439,13 @@ def test_host_best_matches_equal_the_plain_matches(host_lazy, name, fb, k):
     s = torch.sort(h, dim=1, stable=True)
     want = tm._best_matches_plain(s.values, s.indices, got["rank"], got["T"],
                                   n, dict_size, fb, k)
-    bl = np.full((N, max_n), -7, np.int64)
-    bd = np.full((N, max_n), -7, np.int64)
     T = _np(got["T"])
-    host_lazy.best_host(_ptr(_np(s.values)), _ptr(_np(s.indices)),
-                        _ptr(_np(got["rank"])), _ptr(T), T.shape[1],
-                        _ptr(n.numpy()), _L(dict_size), fb, k, N, _L(max_n),
-                        _ptr(bl), _ptr(bd))
-    np.testing.assert_array_equal(bl, want[0].numpy())
-    np.testing.assert_array_equal(bd, want[1].numpy())
+    for tile in (1, 5, 256):
+        bl = np.full((N, max_n), -7, np.int64)
+        bd = np.full((N, max_n), -7, np.int64)
+        host_lazy.best_host(_ptr(_np(s.values)), _ptr(_np(s.indices)),
+                            _ptr(_np(got["rank"])), _ptr(T), T.shape[1],
+                            _ptr(n.numpy()), _L(dict_size), fb, k, N,
+                            _L(max_n), tile, _ptr(bl), _ptr(bd))
+        np.testing.assert_array_equal(bl, want[0].numpy(), err_msg=f"{tile}")
+        np.testing.assert_array_equal(bd, want[1].numpy(), err_msg=f"{tile}")

@@ -38,7 +38,9 @@ prints its seconds):
      same 8 lanes (one all zeros, two of 0 and 3 bytes) at fb 5, 32 and
      273 (K10 given the prefix doubling's LCP), DP_TIERS cut to 12 "rr"
      and "near" and DEFAULT_TIERS uncapped: each against its plain version
-     on the arguments the route gave it; the DP rows (K12,
+     on the arguments the route gave it; the rounds' price model (K18,
+     ops/cuda_model.py: the price planes, the distance tables and the DP
+     tables' row from the slot counts), the DP rows (K12,
      ops/cuda_inputs.py) and the path's marking and compaction (K13, K14,
      ops/cuda_path.py) through tokenize_optimal on the same lanes at fb
      5, 32 and 273 and at lc8 lp4 pb4 (K12's literal slots in device
@@ -70,7 +72,7 @@ prints its seconds):
      round trip, stdlib lzma, smaller than the lazy container; K3
      launched at least twice, K6 three times, K8 twice (the two rounds
      count their pairs), K7 once (the final tokens), K9, K10 and K11 once
-     (one lane group's search), K12 twice (a round each), K13 and K14
+     (one lane group's search), K18 and K12 twice (a round each), K13 and K14
      three times (the seed's lazy path and each round's DP path), K2 and
      K1 at least once; MB/s, ratio, peak
      device memory; then the same encode again inside probing(), which
@@ -93,11 +95,11 @@ prints its seconds):
      till then, so that phase 18's traces are the process's first; K10's
      levels past its tiles by their route at these lanes, column
      stripes, and again with a pass a level forced, timed and equal);
-     K12, K13 and K14 on the
-     probed encode's last calls (spied: the last round's rows and DP
-     path, the seed's lazy path; each call timed alone by CUDA events
-     beside its bound; K12's, K13's and K14's grids traced after phase
-     18, K13's and K14's blocks an SM), and the inputs
+     K18, K12, K13 and K14 on the
+     probed encode's last calls (spied: the last round's counts, rows
+     and DP path, the seed's lazy path; each call timed alone by CUDA
+     events beside its bound; K18's, K12's, K13's and K14's grids traced
+     after phase 18, K13's and K14's blocks an SM), and the inputs
      phases 8 and 9 take
   8. the K4 path: tokenize_optimal(scan="band2") on phase 5's 32 x 16 KiB
      gives the tokens of the default scan, K4 launched (its count); K4 on
@@ -112,8 +114,8 @@ prints its seconds):
      uncut, K7 against its plain lowering on the whole final
      lowering's arguments, uncut, K8 against its plain counts on the
      whole last round's arguments, uncut, K9, K10 and K11 against
-     their plain versions on phase 7's whole-lane search, uncut, K12,
-     K13 and K14 against theirs on phase 7's last calls, uncut, and
+     their plain versions on phase 7's whole-lane search, uncut, K18,
+     K12, K13 and K14 against theirs on phase 7's last calls, uncut, and
      K15, K16 and K17 against theirs on phase 6's whole-lane calls, uncut
  10. the K5 path: phase 5's 32 streams through decode_batch_resident
      equal the input and K1 (K5 launched, its count); K1's champion shape
@@ -141,7 +143,7 @@ prints its seconds):
      through ops.api.encode_alone, with a known size and with the EOS
      marker, and decode_alone: the stdlib and the port read both back,
      K6, K7, K9, K10, K13, K14, K16, K17, K2 and K1 launched once a
-     stream, K15 five times, and K3, K8, K11 and K12 not at all (counts
+     stream, K15 five times, and K3, K8, K11, K12 and K18 not at all (counts
      set to 0 just before each), MB/s and peak memory, the EOS encode
      again inside probing() for its stages (LAZY_STAGES summed as
      "tokenize") and K6's time on its rows and K7's on its
@@ -243,19 +245,21 @@ prints its seconds):
      the round trip hashes to the input's SHA-256; each batch's peak
      device memory (reset before it) is at or below the sizer's model plus
      10% and, with what was allocated before it, at or below 80% of the
-     card; K1, K2, K6, K7, K10, K13 and K14 (and K3, K8, K9, K11 and K12
-     under the optimal parse) launch;
+     card; K1, K2, K6, K7, K10, K13 and K14 (and K3, K8, K9, K11, K12
+     and K18 under the optimal parse) launch;
      batches, blocks a batch, peaks beside the model, seconds and MB/s
      are printed.
      Then an open("wb") writer fed 1 MiB writes over the first 16 MiB
      writes compress_file's container of those bytes, and open("rb")
      reads it back in 1 MiB reads
  27. no module of jax, jaxlib or lzma_tpu was loaded
-The last three lines are the card, the kernels' JSON record (K1-K17 and
-P1-P15, 32 records; K15-K17's launches are main8M-lazy's, their `ms`
+The last three lines are the card, the kernels' JSON record (K1-K18 and
+P1-P15, 33 records; K18's `ms` is the last round's call of main8M-opt by
+CUDA events and `stages_ms` the probed encode's empirical_probs and
+build_price_model stages, a call each; K15-K17's launches are main8M-lazy's, their `ms`
 the sum of their calls in its search and `calls_ms` each call's, beside
 main8M-opt's, the stream's, hybrid8M-lazy's, the mesh's, `b`'s and the
-file configurations' launches; K9-K17's `jax_ref` names the jitted JAX code each
+file configurations' launches; K9-K18's `jax_ref` names the jitted JAX code each
 restates, their `ms` is the whole-lane call's and `plain_ms` the plain
 version's on the same arguments, uncut, their launches are main8M-opt's
 and beside them main8M-lazy's, hybrid8M-opt's (K9-K11), the NCCL
@@ -920,10 +924,13 @@ def search_work(seen):
     return out
 
 
-#: the DP rows' and the path's kernels (ops/cuda_inputs.py, ops/cuda_path.py):
-#: K12 dp_inputs, K13 path_mark, K14 path_compact; each kernel's wrappers
-#: -> (the wrapper's module, its plain version's module and name)
+#: the price model's, the DP rows' and the path's kernels (ops/cuda_model.py,
+#: ops/cuda_inputs.py, ops/cuda_path.py): K18 price_model, K12 dp_inputs, K13
+#: path_mark, K14 path_compact; each kernel's wrappers -> (the wrapper's
+#: module, its plain version's module and name)
 ROW_KERNELS = {
+    "price_model": {"price_model_cuda": ("cuda_model", "device_parser",
+                                         "_price_model_plain")},
     "dp_inputs": {"dp_inputs_cuda": ("cuda_inputs", "device_parser",
                                      "_dp_inputs_plain")},
     "path_mark": {"extract_mark_cuda": ("cuda_path", "device_parser",
@@ -935,6 +942,9 @@ ROW_KERNELS = {
                      "greedy_compact_cuda": ("cuda_path", "device_matcher",
                                              "_compact_taken")},
 }
+#: each of them: its source under lzma_tpu_torch/csrc, without ".cu"
+ROW_SOURCES = {"price_model": "price_model", "dp_inputs": "dp_inputs",
+               "path_mark": "path", "path_compact": "path"}
 #: K13's and K14's wrappers: the DP path's, then the lazy path's
 PATH_WRAPPERS = ("extract_mark_cuda", "greedy_mark_cuda",
                  "extract_compact_cuda", "greedy_compact_cuda")
@@ -942,6 +952,20 @@ PATH_WRAPPERS = ("extract_mark_cuda", "greedy_mark_cuda",
 #: it restates, its design
 _JIT_OPT = "under jax.jit at lzma_tpu/ops/device_parser.py:1595 (tokenize_optimal)"
 ROW_REPLACES = {
+    "price_model": (
+        "lzma_tpu/ops/device_parser.py:154",
+        "no pallas_call: jitted empirical_probs/build_price_model, "
+        "lzma_tpu/ops/device_parser.py:88-108 (empirical_probs' arithmetic "
+        "after its scatter-adds), :154-269 (build_price_model: EP0, EP1, the "
+        "length tables, pos_slot, dfull, align, the flag tables, rep_sel), "
+        "called at :1671 and :1676, " + _JIT_OPT,
+        "one launch of two block ranges: a block a lane prices the slots "
+        "before its literal coders from n and n1 into shared memory, then a "
+        "thread a table entry walks its bit tree there (the fb - 1 length "
+        "columns the row keeps), the distance tables and the DP row written "
+        "coalesced; the other blocks walk the planes, four slots a thread "
+        "from 16-byte loads of n, n1 and 16-byte stores of EP0, EP1; each "
+        "block builds the 512-entry price table in shared memory"),
     "dp_inputs": (
         "lzma_tpu/ops/device_parser.py:774",
         "lzma_tpu/ops/device_parser.py:154 (build_price_model's lit_cost), "
@@ -991,7 +1015,7 @@ def _row_module(name):
 
 
 def spied_rows(fn):
-    """fn() with the wrappers of K12, K13 and K14 spied.  Returns (fn's
+    """fn() with the wrappers of K18, K12, K13 and K14 spied.  Returns (fn's
     result, {wrapper: (its arguments, its result)}), the last call of
     each."""
     seen = {}
@@ -1048,8 +1072,11 @@ def check_rows(seen):
 
 
 def row_work(wrapper, args, out):
-    """(bytes, operations) a K12-K14 call must move and do, from its
-    arguments and result.  K12: each row written (4C B), data, ld, dd,
+    """(bytes, operations) a K12-K14 or K18 call must move and do, from its
+    arguments and result.  K18: n and n1 read and the planes written once
+    (16 B a slot), the distance tables and the row written once (4 B an
+    entry); 12 operations a slot (the probability and its two prices),
+    24 a table entry (a walk of up to 8 levels at 3).  K12: each row written (4C B), data, ld, dd,
     r0pos and rank read once a position, two table entries and the
     source's rank a position whose rep0 source is in the block, both
     planes' literal slots and the distance tables once a lane; 16 steps
@@ -1064,6 +1091,10 @@ def row_work(wrapper, args, out):
     from lzma_tpu_torch.core.layout import ProbLayout
     from lzma_tpu_torch.ops.cuda_inputs import lit_slots
 
+    if wrapper == "price_model_cuda":
+        slots = args[0].numel()
+        entries = sum(t.numel() for t in out[2:])
+        return 16 * slots + 4 * entries, 12 * slots + 24 * entries
     if wrapper == "dp_inputs_cuda":
         data, ld, dd, r0pos, suffix, lens, planes, tables, lc, lp, pb, _ = args
         L, N, M = ld.shape
@@ -1111,8 +1142,13 @@ LAZY_REPLACES = {
         "lzma_tpu/ops/device_matcher.py:491",
         "lzma_tpu/ops/device_matcher.py:491-518 (the binary descent and the "
         "<=32-byte refinement), " + _JIT_LAZY,
-        "a thread a sorted place: two ids a level, then 8 words a pair, "
-        "each index wrapped once and clamped"),
+        "a thread a sorted place: in a lane past 508 places the two "
+        "suffixes' first 32-byte windows as words (16-byte loads and a "
+        "funnel shift) and, where they differ, their LCP with no id read; "
+        "else two ids a level, then the two windows at the descent's "
+        "length as words (byte by byte, each index wrapped once and "
+        "clamped, only where a word's index reaches 2 max_n); 32-bit "
+        "indices"),
     "best_matches": (
         "lzma_tpu/ops/device_matcher.py:171",
         "lzma_tpu/ops/device_matcher.py:171-213 (find_best_matches_rmq after "
@@ -1212,13 +1248,17 @@ def lazy_work(name, args, out):
     32-byte level (else the previous level's ids) read once, the ids and
     the next key written; 8 operations a word compare (8 words) or 12 a
     pair of ids, and 8 for the scan and the scatter, a place.  K16: the
-    order, the levels it descends and the lane's bytes read once, the LCP
-    written; 6 operations a level and 10 a refinement word, a place.
+    order and the lane's bytes read once, the LCP written, and of the
+    levels it descends the two ids a level only of the places whose
+    consecutive LCP is 32 or more (elsewhere the first 32-byte keys
+    differ, and with them every level's ids; lanes of at most 508 places
+    descend at every place), at most each level once; 80 operations a
+    place (its refinement's words) and 6 a level descended.
     K17: the sort's values and indices and rank read once, two table
     entries a candidate in the window, the pair written; 6 operations a
     candidate looked at and 20 a candidate in the window."""
     import torch
-    from lzma_tpu_torch.ops import device_matcher
+    from lzma_tpu_torch.ops import cuda_lazy, device_matcher
 
     if name == "doubling_groups":
         order, data, n, g = args[:4]
@@ -1231,8 +1271,11 @@ def lazy_work(name, args, out):
         order, grps, data, n, _ = args
         P = order.numel()
         levels = len(grps) - 1
-        return (P * 8 * (1 + levels) + data.numel() + n.numel() * 8
-                + out.numel() * 8, P * (6 * levels + 80))
+        need = (P if data.shape[1] <= cuda_lazy.WIDE_LANE
+                else int((out >= 32).sum()))
+        return (P * 8 + min(P, 2 * need) * 8 * levels + data.numel()
+                + n.numel() * 8 + out.numel() * 8,
+                P * 80 + need * 6 * levels)
     sorted_key, order, rank, T, n, dict_size, _, k = args
     P = order.numel()
     cand = torch.stack(device_matcher._neighbor_step(
@@ -1267,11 +1310,12 @@ def counters():
     dp_parse, K6 classify, K7 lower, K8 lower_counts, K2 rc_serialize, K1
     ring_decode, K9 search_keys, K10 suffix_table, K11 match_lists, K12
     dp_inputs, K13 path_mark, K14 path_compact, K15 doubling_groups, K16
-    descent_lcp, K17 best_matches; each the (module, attribute) of its
-    wrapper's count."""
+    descent_lcp, K17 best_matches, K18 price_model; each the (module,
+    attribute) of its wrapper's count."""
     from lzma_tpu_torch.ops import (cuda_classify, cuda_inputs, cuda_lazy,
-                                    cuda_lower, cuda_parser, cuda_path,
-                                    cuda_ring, cuda_search, cuda_serializer)
+                                    cuda_lower, cuda_model, cuda_parser,
+                                    cuda_path, cuda_ring, cuda_search,
+                                    cuda_serializer)
 
     return {"dp_parse": (cuda_parser, "LAUNCHES"),
             "classify": (cuda_classify, "LAUNCHES"),
@@ -1287,7 +1331,8 @@ def counters():
             "path_compact": (cuda_path, "COMPACT_LAUNCHES"),
             "doubling_groups": (cuda_lazy, "GROUP_LAUNCHES"),
             "descent_lcp": (cuda_lazy, "DESCENT_LAUNCHES"),
-            "best_matches": (cuda_lazy, "BEST_LAUNCHES")}
+            "best_matches": (cuda_lazy, "BEST_LAUNCHES"),
+            "price_model": (cuda_model, "LAUNCHES")}
 
 
 def zero_counts():
@@ -1703,7 +1748,7 @@ def alone_phase(dev, card, data):
                         "suffix_table": 1, "match_lists": 0,
                         "dp_inputs": 0, "path_mark": 1, "path_compact": 1,
                         "doubling_groups": 5, "descent_lcp": 1,
-                        "best_matches": 1}:
+                        "best_matches": 1, "price_model": 0}:
             raise AssertionError(f"the .lzma path's launches: {launches}")
         blobs[eos] = blob
         log(f"[lzma stream] {len(data)} B as one stream, "
@@ -2300,7 +2345,7 @@ def mesh_nccl_phase(dev, card, data, params, lazy_blob, opt_blob, hybrid_blob):
            enc["lower_counts"], enc["search_keys"], enc["suffix_table"],
            enc["match_lists"], enc["dp_inputs"], enc["path_mark"],
            enc["path_compact"], enc["doubling_groups"], enc["descent_lcp"],
-           enc["best_matches"], dec["ring_decode"]) < 1:
+           enc["best_matches"], enc["price_model"], dec["ring_decode"]) < 1:
         raise AssertionError(f"[mesh] a kernel did not run: encodes {enc}, "
                              f"decodes {dec}")
     log(f"[mesh NCCL world 1] {len(data)} B in {len(data) // MAIN_BLOCK} lanes "
@@ -2356,7 +2401,8 @@ def mesh_gloo_phase(card, data, lazy_blob, opt_blob, hybrid_blob, kept):
                        got["path_mark"], got["path_compact"]) < 1 or (
                         parse == "optimal" and min(
                             got["dp_parse"], got["lower_counts"],
-                            got["match_lists"], got["dp_inputs"]) < 1) or (
+                            got["match_lists"], got["dp_inputs"],
+                            got["price_model"]) < 1) or (
                         parse == "lazy" and min(
                             got["doubling_groups"], got["descent_lcp"],
                             got["best_matches"]) < 1):
@@ -2438,7 +2484,8 @@ def auto_phase(dev, card, data):
                    not want_kw and min(auto_launches["dp_parse"],
                                        auto_launches["search_keys"],
                                        auto_launches["match_lists"],
-                                       auto_launches["dp_inputs"]) < 1):
+                                       auto_launches["dp_inputs"],
+                                       auto_launches["price_model"]) < 1):
             raise AssertionError(f"[auto] a kernel did not run: {auto_launches}, "
                                  f"decode {dec_launches}")
         lines.append(
@@ -2679,7 +2726,7 @@ def file_phase(dev, card, data, lazy_blob, opt_blob):
         launches["ring_decode"] += dec_launches["ring_decode"]
         if min(v for k, v in launches.items()
                if k not in ("dp_parse", "lower_counts", "search_keys",
-                            "match_lists", "dp_inputs")) < 1:
+                            "match_lists", "dp_inputs", "price_model")) < 1:
             raise AssertionError(f"a kernel did not run: {launches}")
         found["file256M-lazy"] = launches
         for x in (src, enc, back):
@@ -2750,7 +2797,7 @@ def bench_phase(card):
                     path_compact=passes if tpu else 0,
                     doubling_groups=5 * passes if tpu else 0,
                     descent_lcp=passes if tpu else 0,
-                    best_matches=passes if tpu else 0)
+                    best_matches=passes if tpu else 0, price_model=0)
         if rc != 0 or launches != want or len(report) != passes + 1:
             raise AssertionError(f"[b -backend{backend}] rc {rc}, launches "
                                  f"{launches} (want {want})\n{out.getvalue()}")
@@ -3042,10 +3089,11 @@ def main():
         errs, _ = check_rows(seen)
         for k, v in errs.items():
             row_err[k] = max(row_err[k], v)
-        log(f"[K12, K13, K14 vs plain] {CMP_LANES}x{CMP_BYTES} (an all-zero "
-            f"lane, lanes of 0 and 3 bytes), fb {fb_s}, lc{r_params.lc} "
-            f"lp{r_params.lp} pb{r_params.pb}: the DP rows, the seed's and "
-            "the last round's marks and tokens equal")
+        log(f"[K18, K12, K13, K14 vs plain] {CMP_LANES}x{CMP_BYTES} (an "
+            f"all-zero lane, lanes of 0 and 3 bytes), fb {fb_s}, "
+            f"lc{r_params.lc} lp{r_params.lp} pb{r_params.pb}: the price "
+            "planes, distance tables and DP tables' row, the DP rows, the "
+            "seed's and the last round's marks and tokens equal")
     for start in (0, CMP_BYTES // 8):
         (_, seen), seen_l = spied_lazy(lambda: spied_rows(
             lambda: device_matcher.tokenize(
@@ -3122,7 +3170,8 @@ def main():
             or launches["dp_inputs"] != 0 or launches["path_mark"] != 1 \
             or launches["path_compact"] != 1 \
             or launches["doubling_groups"] != 5 \
-            or launches["descent_lcp"] != 1 or launches["best_matches"] != 1:
+            or launches["descent_lcp"] != 1 or launches["best_matches"] != 1 \
+            or launches["price_model"] != 0:
         raise AssertionError(f"a kernel did not run on the lazy path: {launches}")
     log(f"[lazy] {len(data)} B in {len(data) // MAIN_BLOCK} lanes of {MAIN_BLOCK} B "
         f"on {card}: encode {t_enc:.3f} s = {mb / t_enc:.3f} MB/s, decode "
@@ -3183,7 +3232,7 @@ def main():
             or launches["lower"] != 1 or launches["lower_counts"] != 2 \
             or any(launches[k] != 1 for k in SEARCH_KERNELS) \
             or launches["dp_inputs"] != 2 or launches["path_mark"] != 3 \
-            or launches["path_compact"] != 3 \
+            or launches["path_compact"] != 3 or launches["price_model"] != 2 \
             or any(launches[k] for k in LAZY_KERNELS):
         raise AssertionError(f"a kernel did not run on the main path: {launches}")
     if len(blob) >= len(lazy_blob):
@@ -3199,7 +3248,8 @@ def main():
         "lzma module")
     # the same encode inside probing(): the stage breakdown and the
     # tensors phase 8 cuts (its launches are not the main path's)
-    # (and K12-K14's last calls, spied: their whole-lane arguments)
+    # (and K18's and K12-K14's last calls, spied: their whole-lane
+    # arguments)
     with probing() as probe:
         t = time.perf_counter()
         again, seen_rows = spied_rows(lambda: api.encode_blocks(
@@ -3212,6 +3262,9 @@ def main():
     stage_peaks = probe["peak_bytes"]
     t_pos, t_len, t_valid, ctx, bits, totals = probe["lowered"]
     model_s = [sum(x) for x in zip(*(secs[k] for k in MODEL_STAGES))]
+    # the stages K18 replaced, ms a call (empirical_probs stays, empty)
+    model_stage_ms = {k: [x * 1e3 for x in secs[k]]
+                      for k in ("empirical_probs", "build_price_model")}
     search_s = sum(sum(secs[k]) for k in SEARCH_STAGES)
     log(f"[stages] probed optimal encode {t_probed:.3f} s (unprobed "
         f"{t_enc:.3f} s), max tokens/lane {int(t_valid.sum(1).max())}, "
@@ -3385,10 +3438,12 @@ def main():
     # the calls' arguments wait in host memory for their grids' traces
     grid_stash = _to("cpu", {"lower_counts": c_args, **{
         name: s_args for name, (s_args, _) in seen_main.items()},
-        "dp_inputs": seen_rows["dp_inputs_cuda"][0], **{
+        "dp_inputs": seen_rows["dp_inputs_cuda"][0],
+        "price_model": seen_rows["price_model_cuda"][0], **{
             w: seen_rows[w][0] for w in PATH_WRAPPERS}})
-    # K12 on the last round's rows, K13 and K14 on the last round's DP
-    # path and the seed's lazy path, each call timed alone by CUDA events
+    # K18 on the last round's counts, K12 on its rows, K13 and K14 on the
+    # last round's DP path and the seed's lazy path, each call timed alone
+    # by CUDA events
     row_whole, row_bounds = {}, {}
     for w, (r_args, r_out) in seen_rows.items():
         mod = _row_module(ROW_KERNELS[row_kernel(w)][w][0])
@@ -3398,7 +3453,8 @@ def main():
     path_blocks = cuda_path.occupancy()
     k12_blocks = cuda_inputs.occupancy(
         seen_rows["dp_inputs_cuda"][0][1].shape[2])
-    log(f"[K12, K13, K14 whole lanes] {L} lanes x {N} positions on {card}: "
+    log(f"[K18, K12, K13, K14 whole lanes] {L} lanes x {N} positions on "
+        f"{card}: "
         + "; ".join(f"{w} {row_whole[w]:.3f} ms a call (CUDA events, the "
                     f"wrapper{' with its status readback' if 'mark' in w else ''}"
                     f"), {b[0][0]} B read and written, {b[0][1]} operations, "
@@ -3540,15 +3596,15 @@ def main():
         f"matches equal; " + ", ".join(
             f"{k} kernel {lazy_whole[k]:.3f} ms vs plain {lazy_plain[k]:.1f} ms"
             for k in LAZY_KERNELS) + f" on {card}")
-    # K12, K13 and K14: the main path's last calls, uncut (one plain call
-    # each)
+    # K18, K12, K13 and K14: the main path's last calls, uncut (one plain
+    # call each)
     errs, row_plain = check_rows(seen_rows)
     for k, v in errs.items():
         row_err[k] = max(row_err[k], v)
     del seen_rows
-    log(f"[K12, K13, K14 vs plain] main path's whole lanes (the last round's "
-        f"rows, its DP path and the seed's lazy path): rows, marks and tokens "
-        f"equal; " + ", ".join(
+    log(f"[K18, K12, K13, K14 vs plain] main path's whole lanes (the last round's "
+        f"counts and rows, its DP path and the seed's lazy path): planes, "
+        f"tables, rows, marks and tokens equal; " + ", ".join(
             f"{w} kernel {row_whole[w]:.3f} ms vs plain {row_plain[w]:.1f} ms"
             for w in row_whole) + f" on {card}")
     log(f"[times] main path's shapes ({len(bsizes)} lanes x {MAIN_BLOCK} B) on "
@@ -3726,6 +3782,8 @@ def main():
     for name, g_args in _to(dev, grid_stash).items():
         fn = (cuda_lower.lower_counts_cuda if name == "lower_counts"
               else cuda_inputs.dp_inputs_cuda if name == "dp_inputs"
+              else _row_module("cuda_model").price_model_cuda
+              if name == "price_model"
               else getattr(_row_module("cuda_path"), name)
               if name in PATH_WRAPPERS
               else getattr(cuda_search, SEARCH_KERNELS[name][0]))
@@ -3733,12 +3791,16 @@ def main():
     del grid_stash
     k8_grids = grids.pop("lower_counts")
     k12_grids = grids.pop("dp_inputs")
+    k18_grids = grids.pop("price_model")
     path_grids = {w: grids.pop(w) for w in PATH_WRAPPERS}
     search_grids = grids
     log(k8_line + grid_text(k8_grids))
     log(f"[K12 grids] the last round's rows on {card}, its device operations "
         f"(torch.profiler, us a launch x launches a call): "
         + grid_text(k12_grids))
+    log(f"[K18 grids] the last round's price model on {card}, its device "
+        f"operations (torch.profiler, us a launch x launches a call): "
+        + grid_text(k18_grids))
     log(search_head + "; ".join(search_lines[k] + grid_text(search_grids[k])
                                 for k in SEARCH_KERNELS) + search_tail)
     log(f"[K13, K14 grids] the last round's DP path and the seed's lazy path "
@@ -3891,7 +3953,7 @@ def main():
                    "stream_plain_ms": stream_k10["plain_ms"],
                    "stream_max_abs_err": stream_k10["err"]}))
         for name in SEARCH_KERNELS] + [
-        record(name, f"lzma_tpu_torch/csrc/{'dp_inputs' if name == 'dp_inputs' else 'path'}.cu",
+        record(name, f"lzma_tpu_torch/csrc/{ROW_SOURCES[name]}.cu",
                ROW_REPLACES[name][0], launches[name], row_err[name],
                row_whole[main_w], row_plain[main_w], row_bounds[main_w][1],
                jax_ref=ROW_REPLACES[name][1], whole_ms=row_whole[main_w],
@@ -3904,6 +3966,10 @@ def main():
                design=ROW_REPLACES[name][2],
                **({"blocks_per_sm": k12_blocks, "grids": k12_grids}
                   if name == "dp_inputs" else {
+                   "grids": k18_grids,
+                   "stages_ms": model_stage_ms,
+                   "ms_of": "the last round's counts (main8M-opt)"}
+                  if name == "price_model" else {
                    "ms_of": f"{main_w} (the last round's DP path)",
                    "seed_ms": row_whole[seed_w],
                    "seed_plain_ms": row_plain[seed_w],
@@ -3917,6 +3983,7 @@ def main():
                    "stream_plain_ms": stream_path[name]["plain_ms"],
                    "stream_max_abs_err": stream_path[name]["err"]}))
         for name, main_w, seed_w in (
+            ("price_model", "price_model_cuda", None),
             ("dp_inputs", "dp_inputs_cuda", None),
             ("path_mark", "extract_mark_cuda", "greedy_mark_cuda"),
             ("path_compact", "extract_compact_cuda", "greedy_compact_cuda"))
@@ -3937,8 +4004,8 @@ def main():
                design=LAZY_REPLACES[name][2])
         for name in LAZY_KERNELS
     ] + probe_records
-    if len(kernels) != 32:
-        raise AssertionError(f"{len(kernels)} kernel records, not 32")
+    if len(kernels) != 33:
+        raise AssertionError(f"{len(kernels)} kernel records, not 33")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,8 @@ one card, in turns: the DP scans (K3, K4), the range encoder (K2), the
 decoders (K1, K5), the classify carry (K6), the bit lowering (K7), its
 slot counts (K8), the suffix table (K10), the optimal search's match
 lists (K11), the DP rows (K12), the parse path's marking and
-compaction (K13, K14) and the lazy search's doubling groups and best
-matches (K15, K17).
+compaction (K13, K14), the lazy search's doubling groups, descent and
+best matches (K15, K16, K17) and the optimal rounds' price model (K18).
 
     python -m lzma_tpu_torch.bench.kernel_ab OTHER_CHECKOUT [KERNEL ...]
 
@@ -14,8 +14,9 @@ lower_stream, ring_decode_champion, block_decode_champion and
 ring_input_champion, tokenize_lazy, tokenize_stream, match_lists,
 match_lists_hybrid, suffix_table, suffix_table_stream, dp_inputs,
 path_mark, path_compact, path_mark_stream, path_compact_stream,
-path_mark_tile, doubling_groups, best_matches, doubling_groups_stream
-and best_matches_stream (default: all).  The
+path_mark_tile, doubling_groups, best_matches, descent_lcp,
+doubling_groups_stream, best_matches_stream, descent_lcp_stream and
+price_model (default: all).  The
 inputs are chip_smoke.py's: the main path is text_part() +
 generate_bench_data(5 << 20), LzmaParams() defaults (lc3 lp0 pb2, fb
 32), parse="optimal", 32 lanes of 256 KiB; an encode inside
@@ -61,16 +62,24 @@ path_mark_stream and path_compact_stream on the calls of the lazy
 `.lzma` stream of the 8 MiB with the EOS marker (one lane of 8,388,609
 nodes); path_mark_tile is K13 on the first 4,097 nodes of one lane of
 that DP path (one tile: the call's fixed cost, its launches and
-readback).  doubling_groups is K15 (``ops.cuda_lazy.
-doubling_groups_cuda``) and best_matches K17 (``best_matches_cuda``) on
-every call one lazy search makes (spied in main8M-lazy's
+readback).  price_model is K18 (``ops.cuda_model.price_model_cuda``)
+on the main path's last round's slot counts (spied), against the other
+checkout's K18 or, where it has none, the op chain K18 replaced (its
+``probs_from_counts``, ``_price_planes`` in int32, ``price_tables``,
+``_dp_tables`` on the card); it also runs each checkout's probed
+main8M-opt encode in turns (other, this, this, other) for the stages
+``empirical_probs`` and ``build_price_model`` (seconds a call).
+doubling_groups is K15 (``ops.cuda_lazy.doubling_groups_cuda``),
+descent_lcp K16 (``descent_lcp_cuda``, and the share of places whose
+consecutive LCP is below 32, where K16 reads no id) and best_matches
+K17 (``best_matches_cuda``) on every call one lazy search makes (spied in main8M-lazy's
 ``api.encode_blocks(parse="lazy")``: 32 lanes of 262,144 places; K15's
 five calls, the 32-byte level and the doublings at spans 32-256, timed
-as one run and each alone), doubling_groups_stream and
-best_matches_stream on those of the 8 MiB as one lazy `.lzma` stream
+as one run and each alone), doubling_groups_stream, best_matches_stream
+and descent_lcp_stream on those of the 8 MiB as one lazy `.lzma` stream
 with the EOS marker (one lane of 8,388,608 places); a keyword the other
 checkout's wrapper does not take (``sorted_key``) is left out of its
-calls.  For K7, K8 and K10-K15, K17 it also splits this checkout's call
+calls.  For K7, K8, K10-K18 it also splits this checkout's call
 by its device operations.  OTHER_CHECKOUT's package
 is loaded under another name and its kernels are built by its own
 runtime/build.py and called through its own wrappers
@@ -132,22 +141,24 @@ KERNELS = ("dp_parse", "dp_parse2", "rc_serialize", "ring_decode",
            "suffix_table", "suffix_table_stream", "dp_inputs", "path_mark",
            "path_compact", "path_mark_stream", "path_compact_stream",
            "path_mark_tile", "doubling_groups", "best_matches",
-           "doubling_groups_stream", "best_matches_stream")
+           "descent_lcp", "doubling_groups_stream", "best_matches_stream",
+           "descent_lcp_stream", "price_model")
 MAIN_PATH = KERNELS[:8]
 STREAM = ("classify_stream", "lower_stream")
 TOKENIZE = ("tokenize_lazy", "tokenize_stream")
 LISTS = ("match_lists", "match_lists_hybrid")
-TABLE = ("suffix_table", "suffix_table_stream", "dp_inputs")
+TABLE = ("suffix_table", "suffix_table_stream", "dp_inputs", "price_model")
 PATH = ("path_mark", "path_compact", "path_mark_stream", "path_compact_stream",
         "path_mark_tile")
-LAZY = ("doubling_groups", "best_matches", "doubling_groups_stream",
-        "best_matches_stream")
+LAZY = ("doubling_groups", "best_matches", "descent_lcp",
+        "doubling_groups_stream", "best_matches_stream", "descent_lcp_stream")
 #: K13's and K14's wrappers (ops.cuda_path): the DP path's, the lazy path's
 MARK_WRAPPERS = ("extract_mark_cuda", "greedy_mark_cuda")
 COMPACT_WRAPPERS = ("extract_compact_cuda", "greedy_compact_cuda")
-#: K15's and K17's wrappers (ops.cuda_lazy), by kernel
+#: K15's, K17's and K16's wrappers (ops.cuda_lazy), by kernel
 LAZY_WRAPPERS = {"doubling_groups": "doubling_groups_cuda",
-                 "best_matches": "best_matches_cuda"}
+                 "best_matches": "best_matches_cuda",
+                 "descent_lcp": "descent_lcp_cuda"}
 #: the wrappers a split by device operations is printed for
 SPLIT = ("lower", "lower_counts", "lower_stream", *LISTS, *TABLE, *PATH,
          *LAZY)
@@ -279,6 +290,52 @@ def row_inputs(dev):
     return spied_args(cuda_inputs, "dp_inputs_cuda", lambda: api.encode_blocks(
         main_data(), LzmaParams(), block_size=BLOCK, parse="optimal",
         device=dev))
+
+
+def model_inputs(dev):
+    """price_model_cuda's arguments (K18) in the main path's last DP round:
+    main8M's optimal api.encode_blocks, spied."""
+    from ..ops import cuda_model
+
+    return spied_args(cuda_model, "price_model_cuda", lambda: (
+        api.encode_blocks(main_data(), LzmaParams(), block_size=BLOCK,
+                          parse="optimal", device=dev)))
+
+
+def model_stages(pkg: str, dev) -> list:
+    """The probed stages empirical_probs and build_price_model (seconds a
+    call, the two rounds) of main8M's optimal encode through package
+    `pkg`'s own api and probing()."""
+    o_api = importlib.import_module(f"{pkg}.ops.api")
+    o_enc = importlib.import_module(f"{pkg}.ops.device_encoder")
+    with o_enc.probing() as probe:
+        o_api.encode_blocks(main_data(), LzmaParams(), block_size=BLOCK,
+                            parse="optimal", device=dev)
+    return [probe["seconds"][k] for k in ("empirical_probs",
+                                          "build_price_model")]
+
+
+def model_route(pkg: str, args):
+    """Package `pkg`'s price model on K18's arguments and its name: its K18
+    where it has one, else the op chain K18 replaced (its
+    probs_from_counts, _price_planes in int32, price_tables,
+    _dp_tables)."""
+    try:
+        mod = importlib.import_module(f"{pkg}.ops.cuda_model")
+        return (lambda: mod.price_model_cuda(*args)), "K18"
+    except ModuleNotFoundError:
+        pass
+    o_parser = importlib.import_module(f"{pkg}.ops.device_parser")
+    n, n1, lc, lp, pb, fb = args
+
+    def route():
+        planes = o_parser._price_planes(o_parser.probs_from_counts(n, n1),
+                                        torch.int32)
+        model = o_parser.price_tables(*planes, lc, lp, pb)
+        return (*planes, *(model[k].to(torch.int32) for k in
+                           ("ps_price", "dfull", "align_price")),
+                o_parser._dp_tables(model, fb))
+    return route, "the op chain"
 
 
 def path_inputs(dev, stream: bool = False) -> dict:
@@ -521,7 +578,7 @@ def main(argv=None) -> None:
                 result[kernel + "_columns"] = sum(len(r) for _, r in args[2])
                 result[kernel + "_cap"] = args[7]
     if any(k in TABLE for k in chosen):
-        from ..ops import cuda_inputs, cuda_search
+        from ..ops import cuda_inputs, cuda_model, cuda_search
 
         for kernel in TABLE:
             if kernel not in chosen:
@@ -531,6 +588,20 @@ def main(argv=None) -> None:
                 kernels[kernel] = {
                     "other": lambda a=args: o_inputs.dp_inputs_cuda(*a),
                     "this": lambda a=args: cuda_inputs.dp_inputs_cuda(*a)}
+            elif kernel == "price_model":
+                args = model_inputs(dev)
+                other_fn, result["price_model_other"] = model_route(OTHER,
+                                                                    args)
+                kernels[kernel] = {
+                    "other": other_fn,
+                    "this": lambda a=args: cuda_model.price_model_cuda(*a)}
+                # the two stages it replaces, each checkout's whole encode
+                # probed, in turns
+                stages = {"other": [], "this": []}
+                for side in ("other", "this", "this", "other"):
+                    stages[side].append(model_stages(
+                        OTHER if side == "other" else "lzma_tpu_torch", dev))
+                result["price_model_stages"] = stages
             else:
                 args = table_inputs(dev, kernel == "suffix_table_stream")
                 kernels[kernel] = {
@@ -566,7 +637,7 @@ def main(argv=None) -> None:
         from ..ops import cuda_lazy
 
         o_lazy = other[10]
-        for stream, names in ((False, LAZY[:2]), (True, LAZY[2:])):
+        for stream, names in ((False, LAZY[:3]), (True, LAZY[3:])):
             if not any(k in chosen for k in names):
                 continue
             seen = lazy_inputs(dev, stream)
@@ -584,6 +655,13 @@ def main(argv=None) -> None:
                                           ("this", cuda_lazy))}
             result["lazy_stream_places" if stream else "lazy_places"] = list(
                 seen["best_matches_cuda"][0][0][1].shape)
+            if names[2] in chosen:
+                # K16 reads no id where a consecutive LCP is below 32 (the
+                # first 32-byte keys differ) in a lane past 508 places
+                cl = torch.cat([cuda_lazy.descent_lcp_cuda(*a, **kw).reshape(-1)
+                                for a, kw in seen["descent_lcp_cuda"]])
+                result[names[2] + "_short_share"] = float((cl < 32).double().mean())
+                del cl
             del seen
     for kernel in chosen:
         cases = kernels.pop(kernel)

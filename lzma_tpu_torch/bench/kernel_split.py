@@ -1,4 +1,4 @@
-"""K11's, K8's, K10's, K12's, K13's, K14's, K15's and K17's calls split on
+"""K11's, K8's, K10's, K12's, K13's, K14's, K15's, K16's and K17's calls split on
 the card: by grid (torch.profiler) and by bench-side variants of a
 checkout's own sources.
 
@@ -23,7 +23,14 @@ written and read back) and k17_no_rank (no rank read a candidate);
 k17_no_table (no table reads) and k17_no_scatter (the pair written at
 its sorted place, not its position) carry the anchors of the sources
 before and after the redesign, and k15_no_scatter (grid A's ids
-written at their places) applies to the redesign's.  Each copy's
+written at their places) applies to the redesign's.  K16's ablations
+k16_no_refine (no refinement: the descent's length alone) and
+k16_no_descent (no id read: the refinement at the suffixes
+themselves) carry the anchors of the sources before and after its
+redesign; k16_window_words (the refinement's windows read as words by
+search_list::window_words where no word reaches 2 max_n, the descent as
+it was) is the split that chose the redesign, on the sources before it
+(commit a04930c's).  Each copy's
 package is loaded under a name of its own and builds its kernels with
 its own runtime/build.py.  The inputs are kernel_ab's: K11
 (``match_lists``) on the arguments ``_rmq_search`` gives it on main8M's
@@ -34,8 +41,8 @@ arguments, K10 (``suffix_table``) on main8M-opt's suffix order (32
 lanes of 262,144 places, depth 32), K12 (``dp_inputs``) on main8M-opt's
 last DP round's arguments, K13 and K14 (``path_mark``,
 ``path_compact``) on main8M-opt's last DP path, its seed's lazy path
-and lzma8M-stream's lane, K15 and K17 (``doubling_groups``,
-``best_matches``) on every call of main8M-lazy's search (32 lanes of
+and lzma8M-stream's lane, K15, K16 and K17 (``doubling_groups``,
+``descent_lcp``, ``best_matches``) on every call of main8M-lazy's search (32 lanes of
 262,144 places; K15's five calls as one run, and each alone) and of
 lzma8M-stream's (one lane of 8,388,608 places).  Each variant is timed
 on each of its kernel's inputs by
@@ -342,6 +349,52 @@ VARIANTS = {
           " + (o < 0);  // variant: at the place")],
         False, "grid A's scatter of the ids to their positions (each written "
         "at its place, coalesced)"),
+    "k16_no_refine": (
+        "descent_lcp", "lazy_search.cuh", "any",
+        [[("  const int64_t cl = l + refine(row, max_n, n, a, b, l);",
+           "  const int64_t cl = l + (row == nullptr);  // variant: no refinement")],
+         [("  const int head = max_n > kWideLane ? refine_words(row, max_n, n, a, b, 0)\n"
+           "                                     : kWindow;",
+           "  const int head = kWindow;  // variant: no refinement"),
+          ("  const int r = words_inside(max_n, a, b, l)\n"
+           "                    ? refine_words(row, max_n, n, a, b, l)\n"
+           "                    : refine(row, max_n, n, a, b, l);",
+           "  const int r = row == nullptr;  // variant: no refinement")]],
+        False, "the <=32-byte refinement (no byte or window read: the "
+        "descent's length alone)"),
+    "k16_no_descent": (
+        "descent_lcp", "lazy_search.cuh", "any",
+        [[("  const int64_t l = descend(g, n_levels, max_n, a, b);",
+           "  const int64_t l = 0 * n_levels;  // variant: no descent")],
+         [("  const int l = descend(g, n_levels, max_n, a, b);",
+           "  const int l = 0 * n_levels;  // variant: no descent")]],
+        False, "the descent's reads, 4 levels x 2 random int64 ids (l = 0: "
+        "the refinement at the suffixes themselves)"),
+    "k16_window_words": (
+        "descent_lcp", "lazy_search.cuh", "replace",
+        [("// The consecutive LCP at place i of the final order",
+          "// variant: the refinement's windows as words where no word\n"
+          "// reaches 2 max_n\n"
+          "LZT_HD int refine_words_v(const uint8_t* row, int64_t max_n, int64_t n,\n"
+          "                          int64_t a, int64_t b, int64_t l) {\n"
+          "  if (a + l + 28 >= 2 * max_n || b + l + 28 >= 2 * max_n)\n"
+          "    return refine(row, max_n, n, a, b, l);\n"
+          "  int64_t ia = a + l, ib = b + l;\n"
+          "  if (ia >= max_n) ia -= max_n;\n"
+          "  if (ib >= max_n) ib -= max_n;\n"
+          "  uint32_t wa[kWords], wb[kWords];\n"
+          "  search_list::window_words(row, max_n, ia, kWords, wa);\n"
+          "  search_list::window_words(row, max_n, ib, kWords, wb);\n"
+          "  return search_list::consecutive_lcp_words(wa, ia, wb, ib, n, kWords,\n"
+          "                                            kWindow);\n"
+          "}\n\n"
+          "// The consecutive LCP at place i of the final order"),
+         ("  const int64_t cl = l + refine(row, max_n, n, a, b, l);",
+          "  const int64_t cl = l + refine_words_v(row, max_n, n, a, b, l);")],
+        True, "nothing: the refinement's two 32-byte windows read by "
+        "search_list::window_words and compared as words (the byte path "
+        "where a word reaches 2 max_n), in place of a byte and a 64-bit "
+        "remainder at a time; the descent as it is"),
 }
 #: the kernels whose ptxas report and (K12) blocks an SM are recorded,
 #: their source and the names of their grids
@@ -350,6 +403,7 @@ PTXAS = {"suffix_table": ("search.cu", ("table_",)),
          "path_mark": ("path.cu", ("kernel",)),
          "path_compact": ("path.cu", ("kernel",)),
          "doubling_groups": ("lazy_search.cu", ("kernel",)),
+         "descent_lcp": ("lazy_search.cu", ("kernel",)),
          "best_matches": ("lazy_search.cu", ("kernel",))}
 #: K13's and K14's workloads: name -> (the wrappers' index in
 #: kernel_ab.MARK_WRAPPERS / COMPACT_WRAPPERS, stream or main8M-opt)

@@ -28,10 +28,11 @@
 // reads the order and, at the 32-byte level, each suffix's 32-byte
 // window (the lane's bytes stay in L2), else the level's sorted key; it
 // writes the ids (scattered to the positions) and the next key.  K16
-// reads two ids a level and 8 words a suffix pair at indices the order
-// gives.  K17 reads k neighbours' keys and positions beside its own,
-// their ranks and two table entries a candidate, and writes two values a
-// position.  What the designs do:
+// reads the first 32-byte windows of each suffix pair the order gives,
+// and two ids a level and 8 more words only where those agree.  K17
+// reads k neighbours' keys and positions beside its own, their ranks and
+// two table entries a candidate, and writes two values a position.  What
+// the designs do:
 //   K15 two grids a level.  Grid A, decoupled look-back (Merrill and
 //       Garland, 2016; K14's in path.cu): a block takes a ticket in
 //       lane-major order, so a tile's predecessors have always started,
@@ -51,7 +52,17 @@
 //       thread a place: the next key.  Places and spans are 32-bit inside
 //       a lane and every wrap a conditional subtract (the span taken mod
 //       max_n once a call); lane bases are 64-bit.
-//   K16 a thread a sorted place.
+//   K16 a thread a sorted place: the two suffixes from the order
+//       (streaming loads); in a lane past 508 places their first 32-byte
+//       windows, read as words (window_words: up to three 16-byte loads
+//       a window and a funnel shift, no remainder), and where those
+//       differ (most places of the main path's lanes) the LCP is
+//       theirs and no id is read, since every level's ids differ there
+//       too; else the descent's two ids a level, then the refinement's
+//       two windows at its length (byte by byte only where a word's
+//       index reaches 2 max_n, lanes of at most 508 places), all in
+//       32-bit ints.  The random id reads were most of it once the
+//       remainders went (kernel_split k16_no_descent, PERF.md).
 //   K17 a block a tile of kThreads sorted places and the k places before
 //       it: it stages their keys, positions and the positions' ranks in
 //       shared memory (the rank read once a place, the random read a
@@ -75,12 +86,8 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kTile = 512;   // K15: places a tile, a thread each
 constexpr int kWarps = kTile / 32;
 constexpr int kThreads = 256;
+constexpr long long kMaxPlaces = 1LL << 30;  // K16: a lane's places, 32-bit
 constexpr unsigned long long kAggregate = 1, kPrefix = 2;
-
-__device__ __forceinline__ int64_t wrap(int64_t i, int64_t m) {
-  i %= m;
-  return i < 0 ? i + m : i;
-}
 
 // Exclusive sum of v over a block of kTile threads; *total gets the
 // block's sum.  `sums`: kWarps ints of shared memory.
@@ -242,17 +249,19 @@ struct Levels {
 __global__ void __launch_bounds__(kThreads)
 descent_kernel(const int64_t* __restrict__ order, Levels levels, int n_levels,
                const uint8_t* __restrict__ data, const int64_t* __restrict__ n,
-               int depth, int64_t max_n, int n_blocks, int64_t* __restrict__ cl) {
+               int depth, int max_n, int n_blocks, int64_t* __restrict__ cl) {
   const int lane = blockIdx.x / n_blocks;
-  const int64_t i = static_cast<int64_t>(blockIdx.x % n_blocks) * kThreads +
-                    threadIdx.x;
+  const int i = (blockIdx.x % n_blocks) * kThreads + static_cast<int>(threadIdx.x);
   if (i >= max_n) return;
-  const int64_t at = lane * max_n;
+  const int64_t at = static_cast<int64_t>(lane) * max_n;
   const int64_t* g[kMaxLevels];
   for (int t = 0; t < n_levels; ++t) g[t] = levels.g[t] + at;
   const int64_t* ord = order + at;
-  cl[at + i] = lazy_search::deep_lcp(g, n_levels, data + at, max_n, n[lane], i,
-                                     ord[i], ord[wrap(i - 1, max_n)], depth);
+  const int a = static_cast<int>(__ldcs(ord + i));
+  const int b = static_cast<int>(ord[i == 0 ? max_n - 1 : i - 1]);
+  __stcs(cl + at + i, static_cast<int64_t>(lazy_search::deep_lcp(
+                          g, n_levels, data + at, max_n, __ldg(n + lane), i,
+                          a, b, depth)));
 }
 
 // ----------------------------------------------------------------- K17
@@ -362,14 +371,15 @@ extern "C" int lzt_descent_lcp(const int64_t* order, const void* const* levels,
                                long long max_n, int64_t* cl, void* stream) {
   int n_blocks = 0;
   const int blocks = blocks_of(max_n, kThreads, n_lanes, &n_blocks);
-  if (n_lanes <= 0 || max_n <= 0 || blocks < 0 || n_levels < 0 ||
-      n_levels > kMaxLevels || depth < 1) {
+  if (n_lanes <= 0 || max_n <= 0 || max_n > kMaxPlaces || blocks < 0 ||
+      n_levels < 0 || n_levels > kMaxLevels || depth < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Levels g{};
   for (int t = 0; t < n_levels; ++t) g.g[t] = static_cast<const int64_t*>(levels[t]);
   descent_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      order, g, n_levels, data, n, depth, max_n, n_blocks, cl);
+      order, g, n_levels, data, n, depth, static_cast<int>(max_n), n_blocks,
+      cl);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -9,7 +9,11 @@
 //   K16 the consecutive LCP of two suffixes at full depth: the binary
 //       descent over the group levels, then the <=32-byte refinement by
 //       prefix words, each index wrapped once and clamped
-//       (_descent_lcp_plain);
+//       (_descent_lcp_plain): where no word reaches 2 max_n (every lane
+//       past 508 places) two 32-byte windows read as words, else a byte
+//       at a time; in a lane past 508 places the first 32-byte keys
+//       first, and no id read where they differ (the levels are the
+//       doubling's: equal ids exactly where the keys are equal);
 //   K17 a position's best match among its hash-sort neighbours, from a
 //       tile's staged keys, positions and ranks (_best_matches_plain).
 //
@@ -83,6 +87,11 @@ LZT_HD int64_t wrap_once(int64_t i, int64_t max_n) {
   return i < max_n ? i : max_n - 1;
 }
 
+LZT_HD int wrap_once(int i, int max_n) {
+  if (i >= max_n) i -= max_n;
+  return i < max_n ? i : max_n - 1;
+}
+
 // The big-endian word of the bytes q, q + 1, q + 2, q + 3 of a lane,
 // wrapping at max_n (a word of the rolled byte planes).
 LZT_HD uint32_t word_at(const uint8_t* row, int64_t max_n, int64_t q) {
@@ -93,20 +102,23 @@ LZT_HD uint32_t word_at(const uint8_t* row, int64_t max_n, int64_t q) {
 
 // The descent over the group levels g[0..n_levels) (level t: the
 // (32 << t)-byte groups), the widest first: where suffixes a + l and
-// b + l share a level's group, l advances by its bytes.
-LZT_HD int64_t descend(const int64_t* const* g, int n_levels, int64_t max_n,
-                       int64_t a, int64_t b) {
-  int64_t l = 0;
+// b + l share a level's group, l advances by its bytes.  Places are
+// below max_n < 2^30 and l below 2^9, so every index is a 32-bit int.
+LZT_HD int descend(const int64_t* const* g, int n_levels, int max_n, int a,
+                   int b) {
+  int l = 0;
   for (int t = n_levels - 1; t >= 0; --t) {
-    const int64_t ia = wrap_once(a + l, max_n), ib = wrap_once(b + l, max_n);
-    if (g[t][ia] == g[t][ib]) l += int64_t{32} << t;
+    const int ia = wrap_once(a + l, max_n), ib = wrap_once(b + l, max_n);
+    if (g[t][ia] == g[t][ib]) l += 32 << t;
   }
   return l;
 }
 
 // The <=32-byte refinement after the descent: the equal leading bytes of
 // 8 words, word w at index a + l + 4w (and b's), each wrapped once and
-// clamped on its own; word 0 is the marked one at its index.
+// clamped on its own; word 0 is the marked one at its index.  The path
+// for words that reach 2 max_n (then a clamped index breaks the window),
+// a byte and a remainder at a time.
 LZT_HD int refine(const uint8_t* row, int64_t max_n, int64_t n, int64_t a,
                   int64_t b, int64_t l) {
   int rem = 0;
@@ -125,15 +137,56 @@ LZT_HD int refine(const uint8_t* row, int64_t max_n, int64_t n, int64_t a,
   return rem;
 }
 
+// Whether the refinement's last word of both suffixes starts below
+// 2 max_n: then each word's index, wrapped once, is its index mod max_n
+// and no clamp applies, so the 8 words are the continuous 32-byte window
+// (wrapping at max_n) at a + l wrapped once.
+LZT_HD bool words_inside(int max_n, int a, int b, int l) {
+  const int last = l + 4 * (kWords - 1);
+  return a + last < 2 * max_n && b + last < 2 * max_n;
+}
+
+// refine where words_inside holds: the two windows read as words
+// (search_list::window_words: 16-byte loads joined by a funnel shift; a
+// window that crosses max_n byte by byte) and compared a word at a time
+// (consecutive_lcp_words, word 0 marked past n), 32-bit indices.
+LZT_HD int refine_words(const uint8_t* row, int max_n, int64_t n, int a,
+                        int b, int l) {
+  int ia = a + l, ib = b + l;
+  if (ia >= max_n) ia -= max_n;
+  if (ib >= max_n) ib -= max_n;
+  uint32_t wa[kWords], wb[kWords];
+  search_list::window_words(row, max_n, ia, kWords, wa);
+  search_list::window_words(row, max_n, ib, kWords, wb);
+  return search_list::consecutive_lcp_words(wa, ia, wb, ib, n, kWords,
+                                            kWindow);
+}
+
+// A lane wider than this many places keeps every index of the descent
+// and the refinement below 2 max_n (a + 480 + 28 < 2 max_n): none is
+// clamped, each word's index is its index mod max_n.
+constexpr int kWideLane = 508;
+
 // The consecutive LCP at place i of the final order (its suffix a, the
-// one before it b), clamped to depth; 0 at place 0.
-LZT_HD int64_t deep_lcp(const int64_t* const* g, int n_levels,
-                        const uint8_t* row, int64_t max_n, int64_t n,
-                        int64_t i, int64_t a, int64_t b, int depth) {
+// one before it b), clamped to depth; 0 at place 0.  A lane's places are
+// below 2^30 (max_n), so the descent and the usual refinement run on
+// 32-bit ints.  In a wide lane the first 32 bytes come first: where the
+// two suffixes' 32-byte marked keys differ, every level's ids differ at
+// a and b (the levels are the doubling's, whose ids are equal exactly
+// where their keys are, and each level's key starts with that one), so
+// the descent would stay at 0 and the LCP is those words' alone; no id
+// is read.  Else the descent, then the refinement at its length.
+LZT_HD int deep_lcp(const int64_t* const* g, int n_levels, const uint8_t* row,
+                    int max_n, int64_t n, int i, int a, int b, int depth) {
   if (i == 0) return 0;
-  const int64_t l = descend(g, n_levels, max_n, a, b);
-  const int64_t cl = l + refine(row, max_n, n, a, b, l);
-  return cl < depth ? cl : depth;
+  const int head = max_n > kWideLane ? refine_words(row, max_n, n, a, b, 0)
+                                     : kWindow;
+  if (head < kWindow) return head < depth ? head : depth;
+  const int l = descend(g, n_levels, max_n, a, b);
+  const int r = words_inside(max_n, a, b, l)
+                    ? refine_words(row, max_n, n, a, b, l)
+                    : refine(row, max_n, n, a, b, l);
+  return l + r < depth ? l + r : depth;
 }
 
 // ----------------------------------------------------------------- K17

@@ -55,6 +55,12 @@ MAX_LEVELS = 8
 MAX_CANDIDATES = 16
 #: places a K15 tile, a block of grid A (csrc/lazy_search.cu kTile)
 TILE = 512
+#: places a lane K16 takes (csrc/lazy_search.cu kMaxPlaces: its indices
+#: are 32-bit ints)
+MAX_PLACES = 1 << 30
+#: K16 in a lane wider than this (csrc/lazy_search.cuh kWideLane) compares
+#: the first 32-byte keys first and reads no id where they differ
+WIDE_LANE = 508
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -153,8 +159,11 @@ def doubling_groups_cuda(order, data, n, g=None, span: int = 0,
 def descent_lcp_cuda(order, grps, data, n, depth: int):
     """The consecutive LCP at full depth in the final order (K16), as
     ``_descent_lcp_plain``: order (N, max_n); grps the doubling's levels
-    (each (N, max_n), all but the last read); data (N, max_n) uint8, n
-    (N,).  Returns cl (N, max_n) int64."""
+    (each (N, max_n), all but the last read; in a lane past WIDE_LANE
+    places the kernel relies on their ids being equal exactly where the
+    suffixes' marked keys are, and reads none where the first 32 bytes
+    differ); data (N, max_n) uint8, n (N,).  Returns cl (N, max_n)
+    int64."""
     global DESCENT_LAUNCHES
     if not _on_card("descent_lcp_cuda", order):
         return _descent_lcp_plain(order, grps, data, n, depth)
@@ -167,6 +176,9 @@ def descent_lcp_cuda(order, grps, data, n, depth: int):
                          f"got {len(read)}")
     if depth < 1:
         raise ValueError(f"depth must be >= 1, got {depth}")
+    if max_n > MAX_PLACES:
+        raise ValueError(f"descent_lcp_cuda takes lanes of at most "
+                         f"{MAX_PLACES} places, got {max_n}")
     order, *levels = _planes(
         "descent_lcp_cuda", (N, max_n), dev, order=(order, torch.int64),
         **{f"grps[{t}]": (x, torch.int64) for t, x in enumerate(read)})

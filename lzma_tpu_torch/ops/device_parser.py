@@ -13,7 +13,9 @@ Port of the ``parse="optimal"`` route of ``lzma_tpu/ops/device_parser.py``:
            counts of the current token stream's lowering, lower_counts:
            K8 on the card) -> empirical probabilities -> the price planes
            and the tables that do not depend on the position
-           (price_tables), the rep0-by-position trace, then each
+           (price_tables, _dp_tables; all four K18 on the card,
+           cuda_model.price_model_cuda, whose plain version is
+           _price_model_plain), the rep0-by-position trace, then each
            position's row (K12 on the card, cuda_inputs.dp_inputs_cuda,
            whose plain version _dp_inputs_plain is lit_cost,
            matched_lit_cost, _pair_dist_cost, rep_match_lens_rmq and the
@@ -331,6 +333,22 @@ def _dp_tables(model, fb: int):
     parts += [model[k].transpose(1, 2) for k in ("im0", "im1", "r0l0", "r0l1")]
     parts += [model["ir0"], model["ir1"], model["rep_sel"]]
     return torch.cat([p.reshape(L, -1) for p in parts], dim=1).to(torch.int32)
+
+
+def _price_model_plain(n, n1, lc: int, lp: int, pb: int, fb: int):
+    """K18's plain version (``cuda_model.price_model_cuda``): the price
+    model of one optimal round from its slot counts n, n1 (L, S) (K8's,
+    ``lower_counts``), the chain ``probs_from_counts`` ->
+    ``_price_planes`` -> ``price_tables`` -> ``_dp_tables``.  Returns
+    (EP0, EP1 (L, S), ps_price (L, 4, 64), dfull (L, 4, 128), align_price
+    (L, 16), the DP row (L, table_size(pb, fb)) int32): int32 on the card,
+    the planes and the distance tables int64 on the CPU (the plain
+    encode's peak, which the sizer's memory model was fitted to)."""
+    dtype = torch.int32 if n.device.type == "cuda" else torch.int64
+    planes = _price_planes(probs_from_counts(n, n1), dtype)
+    model = price_tables(*planes, lc, lp, pb)
+    dist = (model[k].to(dtype) for k in ("ps_price", "dfull", "align_price"))
+    return (*planes, *dist, _dp_tables(model, fb))
 
 
 def _split_tables(tables, n_ps: int, W: int):
@@ -728,11 +746,13 @@ def _lists_and_seed(data, lens, dict_size: int, fb: int):
 def _round_inputs(data, lens, tokens, ld, dd, suffix, lc: int, lp: int,
                   pb: int, fb: int):
     """One round's DP inputs from the current tokens: classify + the
-    lowering's slot counts -> empirical probabilities; the rep0 trace; the
-    price planes and tables; the rows (K12, dp_inputs_cuda: the rep0
-    lengths, the per-position literal prices and the pairs' distance
-    prices).  Returns (packed, tables)."""
+    lowering's slot counts (K8); the rep0 trace; the price model from the
+    counts (K18, price_model_cuda: the empirical probabilities, the price
+    planes, the distance tables and the DP tables' row); the rows (K12,
+    dp_inputs_cuda: the rep0 lengths, the per-position literal prices and
+    the pairs' distance prices).  Returns (packed, tables)."""
     from .cuda_inputs import dp_inputs_cuda
+    from .cuda_model import price_model_cuda
 
     N = data.shape[1]
     device = data.device
@@ -747,29 +767,23 @@ def _round_inputs(data, lens, tokens, ld, dd, suffix, lc: int, lp: int,
         n, n1, _ = lower_counts(*count_args)
     del count_args
     # the price model's parts, each its own stage (MODEL_STAGES; not
-    # nested: a stage resets the card's peak statistics)
+    # nested: a stage resets the card's peak statistics).  The empirical
+    # probabilities are K18's, in stage "build_price_model", and the rep0
+    # lengths K12's, in stage "dp_inputs": both stages keep their places,
+    # empty
     with stage("empirical_probs", device):
-        probs = probs_from_counts(n, n1)
-        del n, n1
+        pass
     with stage("rep0_trace", device):
         r0pos = rep0_trace(tp, td, tv, N)
-    # the rep0 lengths are K12's (dp_inputs_cuda), in stage "dp_inputs";
-    # the stage keeps its place in MODEL_STAGES, empty
     with stage("rep_match_lens_rmq", device):
         pass
     with stage("build_price_model", device):
-        # int32 planes on the card (no int64 plane there); the CPU keeps
-        # the int64 ones the sizer's memory model was fitted to
-        planes = _price_planes(probs, torch.int32 if device.type == "cuda"
-                               else torch.int64)
-        del probs
-        model = price_tables(*planes, lc, lp, pb)
-        tables = _dp_tables(model, fb)
+        ep0, ep1, *dist_tables, tables = price_model_cuda(n, n1, lc, lp, pb,
+                                                          fb)
+        del n, n1
     with stage("dp_inputs", device):
-        packed = dp_inputs_cuda(
-            data, ld, dd, r0pos, suffix, lens, planes,
-            (model["ps_price"], model["dfull"], model["align_price"]),
-            lc, lp, pb, fb)
+        packed = dp_inputs_cuda(data, ld, dd, r0pos, suffix, lens, (ep0, ep1),
+                                tuple(dist_tables), lc, lp, pb, fb)
     return packed, tables
 
 

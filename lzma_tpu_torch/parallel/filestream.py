@@ -194,10 +194,10 @@ def _launches() -> dict:
     dp_parse, K6 classify, K7 lower, K8 lower_counts, K9 search_keys, K10
     suffix_table, K11 match_lists, K12 dp_inputs, K13 path_mark, K14
     path_compact, K15 doubling_groups, K16 descent_lcp, K17
-    best_matches)."""
+    best_matches, K18 price_model)."""
     from ..ops import (cuda_classify, cuda_inputs, cuda_lazy, cuda_lower,
-                       cuda_parser, cuda_path, cuda_ring, cuda_search,
-                       cuda_serializer)
+                       cuda_model, cuda_parser, cuda_path, cuda_ring,
+                       cuda_search, cuda_serializer)
 
     return {"ring_decode": cuda_ring.LAUNCHES,
             "rc_serialize": cuda_serializer.LAUNCHES,
@@ -213,7 +213,8 @@ def _launches() -> dict:
             "path_compact": cuda_path.COMPACT_LAUNCHES,
             "doubling_groups": cuda_lazy.GROUP_LAUNCHES,
             "descent_lcp": cuda_lazy.DESCENT_LAUNCHES,
-            "best_matches": cuda_lazy.BEST_LAUNCHES}
+            "best_matches": cuda_lazy.BEST_LAUNCHES,
+            "price_model": cuda_model.LAUNCHES}
 
 
 class _BatchLog:

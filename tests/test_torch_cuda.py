@@ -2169,3 +2169,155 @@ def test_lazy_wrappers_check_their_inputs(card):
     empty = cuda_lazy.doubling_groups_cuda(order[:0], d[:0], k[:0],
                                            next_span=32)
     assert [tuple(x.shape) for x in empty] == [(0, 64)] * 2
+
+
+# ------------------------------------------------------ K16 word windows
+def _doubling_levels(data, n, depth=273):
+    """The plain doubling's levels of CPU lanes (_suffix_rank_lcp's)."""
+    from lzma_tpu_torch.ops import device_matcher as dm
+
+    keys = dm._search_keys_plain(data, n, 32, [])[0]
+    order = dm._sort_packed(keys)
+    g, key = dm._doubling_groups_plain(order, data, n, next_span=32)
+    grps, span = [g], 32
+    while span < depth:
+        order = torch.sort(key, dim=1, stable=True).indices
+        g, key = dm._doubling_groups_plain(order, data, n, g, span,
+                                           2 * span if 2 * span < depth else 0)
+        grps.append(g)
+        span *= 2
+    return grps
+
+
+@pytest.mark.parametrize("max_n", [17, 33, 508, 509, 600, 4099])
+def test_descent_words_match_plain(card, max_n):
+    """K16 on random orders: at most 508 places on random group levels
+    (equal ids common: descents to 480; a + l past 2 max_n clamps), wider
+    lanes on the doubling's own levels (where the first 32-byte keys
+    differ K16 reads no id); lanes of n = max_n, below it and 0; depths
+    5, 32 and 273."""
+    from lzma_tpu_torch.ops import cuda_lazy
+    from lzma_tpu_torch.ops import device_matcher as dm
+
+    rng = np.random.default_rng(max_n)
+    data = torch.from_numpy(np.stack([
+        rng.integers(0, 2, max_n), np.zeros(max_n, np.int64),
+        np.tile(rng.integers(0, 256, 7), max_n // 7 + 1)[:max_n],
+        rng.integers(0, 256, max_n)]).astype(np.uint8))
+    n = torch.tensor([max_n, max_n - max_n // 3, 0, max_n])
+    real = _doubling_levels(data, n) if max_n > 508 else None
+    order = torch.from_numpy(np.stack([rng.permutation(max_n)
+                                       for _ in range(4)])).to(card)
+    d, k = data.to(card), n.to(card)
+    for depth, levels in ((5, 0), (32, 0), (273, 4)):
+        grps = ([g.to(card) for g in real[:levels + 1]] if real else
+                [torch.from_numpy(rng.integers(0, 2 + t % 2, (4, max_n))).to(card)
+                 for t in range(levels + 1)])
+        got = cuda_lazy.descent_lcp_cuda(order, grps, d, k, depth)
+        want = dm._descent_lcp_plain(order, grps, d, k, depth)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), depth
+
+
+# ------------------------------------------------------- K18 price model
+def _model_counts(lc, lp, pb, lanes, seed, dev, wrap=False):
+    """Slot counts (n, n1) int32 of `lanes` lanes: most pairs on the slots
+    before the literal coders; with `wrap`, lane 0's slots 3 and 4 counted
+    past the int32 numerator's range (600,000 and 1,100,000 zeros)."""
+    rng = np.random.default_rng(seed)
+    layout = ProbLayout(lc, lp, pb, pos_bits=pb)
+    S = layout.size
+    n = np.zeros((lanes, S), np.int64)
+    n1 = np.zeros((lanes, S), np.int64)
+    for i in range(lanes):
+        ctx = np.where(rng.random(20000) < 0.7,
+                       rng.integers(0, layout.literal, 20000),
+                       rng.integers(0, S, 20000))
+        bits = rng.random(20000) < rng.random(S)[ctx]
+        np.add.at(n[i], ctx, 1)
+        np.add.at(n1[i], ctx, bits)
+    if wrap:
+        n[0, 3], n1[0, 3] = 600_000, 0
+        n[0, 4], n1[0, 4] = 1_100_000, 100
+    return (torch.from_numpy(n).int().to(dev), torch.from_numpy(n1).int().to(dev))
+
+
+@pytest.mark.parametrize("fb", [5, 32, 273])
+@pytest.mark.parametrize("lc,lp,pb", [(3, 0, 2), (0, 2, 0), (8, 4, 4),
+                                      (4, 0, 4)])
+def test_price_model_matches_plain(card, lc, lp, pb, fb):
+    """K18 = _price_model_plain on the same card tensors: the planes (the
+    16-byte path), the distance tables and the row, int32, exactly; a
+    lane whose numerator wraps; one lane and 33."""
+    from lzma_tpu_torch.ops import cuda_model
+    from lzma_tpu_torch.ops.device_parser import _price_model_plain
+
+    for lanes, wrap in ((3, True), (1, False), (33, False)):
+        if lc == 8 and lanes == 33:
+            continue
+        n, n1 = _model_counts(lc, lp, pb, lanes, lc + pb + fb + lanes, card,
+                              wrap)
+        before = cuda_model.LAUNCHES
+        got = cuda_model.price_model_cuda(n, n1, lc, lp, pb, fb)
+        want = _price_model_plain(n, n1, lc, lp, pb, fb)
+        torch.cuda.synchronize()
+        assert cuda_model.LAUNCHES == before + 1
+        assert [(t.dtype, t.shape) for t in got] == \
+            [(t.dtype, t.shape) for t in want]
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), lanes
+
+
+def test_price_model_unaligned_and_strided_counts(card):
+    """Counts that are views (a column slice, an odd offset: no 16-byte
+    path) give the plain version's outputs."""
+    from lzma_tpu_torch.ops import cuda_model
+    from lzma_tpu_torch.ops.device_parser import _price_model_plain
+
+    S = ProbLayout(0, 0, 1, pos_bits=1).size
+    n, n1 = _model_counts(0, 0, 1, 5, 9, card)
+    wide = torch.zeros((5, S + 3), dtype=torch.int32, device=card)
+    wide[:, 1:S + 1] = n
+    wide1 = torch.zeros_like(wide)
+    wide1[:, 1:S + 1] = n1
+    flat = torch.zeros(5 * S + 1, dtype=torch.int32, device=card)
+    flat[1:] = n.reshape(-1)
+    flat1 = torch.zeros_like(flat)
+    flat1[1:] = n1.reshape(-1)
+    want = _price_model_plain(n, n1, 0, 0, 1, 32)
+    for a, b in ((wide[:, 1:S + 1], wide1[:, 1:S + 1]),
+                 (flat[1:].view(5, S), flat1[1:].view(5, S))):
+        got = cuda_model.price_model_cuda(a, b, 0, 0, 1, 32)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+def test_price_model_launches_in_each_round_and_checks_inputs(card):
+    """An optimal encode launches K18 once a round (two), a lazy one never;
+    the wrapper refuses other shapes, dtypes and parameters; no lanes
+    launch nothing."""
+    from lzma_tpu_torch.format.properties import LzmaParams as TParams
+    from lzma_tpu_torch.ops import cuda_model
+
+    data = b"".join(_blocks(4, 4096, 5))
+    for parse, want in (("optimal", 2), ("lazy", 0)):
+        before = cuda_model.LAUNCHES
+        blob = api.encode_blocks(data, TParams(dict_size=1 << 13),
+                                 block_size=4096, parse=parse, device=card)
+        assert cuda_model.LAUNCHES - before == want, parse
+        assert blob == api.encode_blocks(data, TParams(dict_size=1 << 13),
+                                         block_size=4096, parse=parse,
+                                         device="cpu")
+    n, n1 = _model_counts(3, 0, 2, 2, 1, card)
+    with pytest.raises(ValueError):
+        cuda_model.price_model_cuda(n[:, :-1], n1[:, :-1], 3, 0, 2, 32)
+    with pytest.raises(ValueError):
+        cuda_model.price_model_cuda(n, n1, 3, 1, 2, 32)
+    with pytest.raises(ValueError):
+        cuda_model.price_model_cuda(n, n1, 3, 0, 2, 274)
+    with pytest.raises(TypeError):
+        cuda_model.price_model_cuda(n.long(), n1.long(), 3, 0, 2, 32)
+    with pytest.raises(ValueError):
+        cuda_model.price_model_cuda(n, n1.cpu(), 3, 0, 2, 32)
+    before = cuda_model.LAUNCHES
+    out = cuda_model.price_model_cuda(n[:0], n1[:0], 3, 0, 2, 32)
+    assert cuda_model.LAUNCHES == before and [t.shape[0] for t in out] == [0] * 6

@@ -19,8 +19,10 @@ prints its seconds):
      (K6, a scan over each lane's token rows in five grids), the bit
      lowering (K7, tile sums, a lane scan, a fill, each round's pairs
      staged in shared memory and written out) and its slot counts
-     (K8, a histogram a block), K6, K7 and K8 on the lazy and the optimal
-     parse's tokens with the EOS marker appended, on 8 lanes x 2 KiB, K7
+     (K8, a histogram a block), K6, K19 (classify_tokens whole: K6's
+     grids on the (N, T) planes and a finish grid), K7 and K8 on the lazy
+     and the optimal parse's tokens with the EOS marker appended, on 8
+     lanes x 2 KiB, K7
      and K8 also on a preset-primed lc8 lp4 pb4 batch (pos_base; K8's
      3,147,574 slots a lane in device memory, lc3 lp0 pb2's in shared
      memory), K8 on one 256 KiB lane of literals only (the hot slots); K2
@@ -41,8 +43,10 @@ prints its seconds):
      on the arguments the route gave it; the rounds' price model (K18,
      ops/cuda_model.py: the price planes, the distance tables and the DP
      tables' row from the slot counts), the DP rows (K12,
-     ops/cuda_inputs.py) and the path's marking and compaction (K13, K14,
-     ops/cuda_path.py) through tokenize_optimal on the same lanes at fb
+     ops/cuda_inputs.py), the path's marking and compaction (K13, K14,
+     ops/cuda_path.py), classify_tokens (K19), the rep0 trace (K20,
+     ops/cuda_inputs.py) and the DP and seed pairs (K21,
+     ops/cuda_search.py) through tokenize_optimal on the same lanes at fb
      5, 32 and 273 and at lc8 lp4 pb4 (K12's literal slots in device
      memory, as at every lc and lp), K13 and K14 also through the
      lazy tokenize from position 0 and from 256: each against its plain
@@ -61,16 +65,17 @@ prints its seconds):
      block decoded by the stdlib lzma module
   6. the lazy path at 8 MiB (text corpus + bench data, LzmaParams()
      defaults, 256 KiB blocks = 32 lanes): encode, decode, round trip,
-     stdlib lzma, K6, K7, K9 (the 32-byte suffix keys and the hash key),
+     stdlib lzma, K19, K7, K9 (the 32-byte suffix keys and the hash key),
      K10 (the 273-deep suffix table), K13, K14, K16 and K17 launched
-     once, K15 five times (the 32-byte level and each doubling), K8, K11
-     and K12 not at all, K1 and K2; the same encode again inside
+     once, K15 five times (the 32-byte level and each doubling), K6, K8,
+     K11, K12, K20 and K21 not at all, K1 and K2; the same encode again inside
      probing(): its tokenize split by device_matcher.LAZY_STAGES (summed
      as "tokenize"), and K15-K17's calls (spied, whole lanes) timed by
      CUDA events beside lazy_work's bounds
   7. the main path: the same 8 MiB with parse="optimal": encode, decode,
      round trip, stdlib lzma, smaller than the lazy container; K3
-     launched at least twice, K6 three times, K8 twice (the two rounds
+     launched at least twice, K19 three times (K6 not at all), K20 twice,
+     K21 once, K8 twice (the two rounds
      count their pairs), K7 once (the final tokens), K9, K10 and K11 once
      (one lane group's search), K18 and K12 twice (a round each), K13 and K14
      three times (the seed's lazy path and each round's DP path), K2 and
@@ -95,9 +100,10 @@ prints its seconds):
      till then, so that phase 18's traces are the process's first; K10's
      levels past its tiles by their route at these lanes, column
      stripes, and again with a pass a level forced, timed and equal);
-     K18, K12, K13 and K14 on the
+     K18, K12, K13, K14, K19, K20 and K21 on the
      probed encode's last calls (spied: the last round's counts, rows
-     and DP path, the seed's lazy path; each call timed alone by CUDA
+     and DP path, the seed's lazy path, the final classify, the last
+     round's rep0 trace, the lists' pairs; each call timed alone by CUDA
      events beside its bound; K18's, K12's, K13's and K14's grids traced
      after phase 18, K13's and K14's blocks an SM), and the inputs
      phases 8 and 9 take
@@ -111,11 +117,13 @@ prints its seconds):
      codes the first CMP_BITS pairs, K1 decodes each lane up to the first
      token boundary at or past CMP_OUT bytes), all timed on those inputs;
      K6 (the scan) against its plain carry on the whole final tokens,
-     uncut, K7 against its plain lowering on the whole final
+     uncut, K19 against the plain finish on that plain carry (the carry
+     runs once), K7 against its plain lowering on the whole final
      lowering's arguments, uncut, K8 against its plain counts on the
      whole last round's arguments, uncut, K9, K10 and K11 against
      their plain versions on phase 7's whole-lane search, uncut, K18,
-     K12, K13 and K14 against theirs on phase 7's last calls, uncut, and
+     K12, K13, K14, K20 and K21 against theirs on phase 7's last calls,
+     uncut, and
      K15, K16 and K17 against theirs on phase 6's whole-lane calls, uncut
  10. the K5 path: phase 5's 32 streams through decode_batch_resident
      equal the input and K1 (K5 launched, its count); K1's champion shape
@@ -142,15 +150,17 @@ prints its seconds):
  14. the `.lzma` path at full size: the 8 MiB of phase 6 as ONE stream
      through ops.api.encode_alone, with a known size and with the EOS
      marker, and decode_alone: the stdlib and the port read both back,
-     K6, K7, K9, K10, K13, K14, K16, K17, K2 and K1 launched once a
-     stream, K15 five times, and K3, K8, K11, K12 and K18 not at all (counts
+     K19, K7, K9, K10, K13, K14, K16, K17, K2 and K1 launched once a
+     stream, K15 five times, and K3, K6, K8, K11, K12, K18, K20 and K21
+     not at all (counts
      set to 0 just before each), MB/s and peak memory, the EOS encode
      again inside probing() for its stages (LAZY_STAGES summed as
-     "tokenize") and K6's time on its rows and K7's on its
+     "tokenize") and K6's time on its rows, K19's and K7's on its
      tokens (one lane: the scan spreads its 8,388,609 rows over 2,049
-     tiles, K7 its tokens over 8,193); K6, K7, K2 and K1 against their
-     plain versions on that stream's tensors, cut as in phase 9 (K6 and
-     K7 on the first CMP_POS token rows, K7's doubled by invalid ones,
+     tiles, K7 its tokens over 8,193); K6, K19, K7, K2 and K1 against
+     their plain versions on that stream's tensors, cut as in phase 9
+     (K6, K19 and K7 on the first CMP_POS token rows, K7's doubled by
+     invalid ones,
      and on the rows from CMP_POS before the EOS token to the end, the
      whole tail), and K15, K16 and K17 (spied in the probed encode)
      against theirs on that stream's own calls, uncut, each kernel's
@@ -188,7 +198,7 @@ prints its seconds):
      operations; the probed encode's peak memory by stage (the peak within
      the stage above what was allocated as it began)
  19. the trace dump: encode_batch(trace=) on TRACE_LANES x TRACE_BYTES of
-     that input, lazy and optimal, on the card (K6 launched) gives the
+     that input, lazy and optimal, on the card (K19 launched) gives the
      lines of the same call on the CPU
  20. the block mesh (parallel.mesh, multihost) over an NCCL group of one
      rank in this process, phase 6's 8 MiB in 32 lanes of 256 KiB,
@@ -197,8 +207,9 @@ prints its seconds):
      the same bytes, v2 (preset_len=MESH_PRESET) and v3 (a MESH_DICT-byte
      dictionary from utils.dicttrain.train_dictionary) api.encode_blocks'
      with the same arguments, encode_blocks_mesh_hybrid phase 16's
-     container; every one round-trips through decode_blocks_mesh; K2, K3
-     and K6 launch in the mesh's encodes and K1 in its decodes (counted
+     container; every one round-trips through decode_blocks_mesh; K2, K3,
+     K19-K21 and the rest launch in the mesh's encodes and K1 in its
+     decodes (counted
      from 0 around each call); wall times and MB/s beside
      api.encode_blocks' in the same phase
  21. MESH_RANKS spawned Gloo ranks whose kernels share the card (the
@@ -223,9 +234,9 @@ prints its seconds):
      lzma_tpu_torch/_build): the "tuned:" line, the file equal to
      api.encode_blocks (the lazy parse) with phase 22's choices, read back
  24. the benchmark `b` in this process through cli.main: `b 2`
-     (-backendtpu: dict 2 MiB, 4 MiB a pass, one lane; K6, K7, K10, K13,
+     (-backendtpu: dict 2 MiB, 4 MiB a pass, one lane; K19, K7, K10, K13,
      K14 and K2 launch once a pass, K1 twice) and `b 1 -backendhybrid`
-     (K9, K10 and K11 once a pass, K1 twice, no K6, K7, K13, K14 or K2);
+     (K9, K10 and K11 once a pass, K1 twice, no K19, K7, K13, K14 or K2);
      the harness CRC-checks
      every decode; the
      report lines (KB/s, MIPS) and the wall time
@@ -245,16 +256,21 @@ prints its seconds):
      the round trip hashes to the input's SHA-256; each batch's peak
      device memory (reset before it) is at or below the sizer's model plus
      10% and, with what was allocated before it, at or below 80% of the
-     card; K1, K2, K6, K7, K10, K13 and K14 (and K3, K8, K9, K11, K12
-     and K18 under the optimal parse) launch;
+     card; K1, K2, K19, K7, K10, K13 and K14 (and K3, K8, K9, K11, K12,
+     K18, K20 and K21 under the optimal parse) launch;
      batches, blocks a batch, peaks beside the model, seconds and MB/s
      are printed.
      Then an open("wb") writer fed 1 MiB writes over the first 16 MiB
      writes compress_file's container of those bytes, and open("rb")
      reads it back in 1 MiB reads
  27. no module of jax, jaxlib or lzma_tpu was loaded
-The last three lines are the card, the kernels' JSON record (K1-K18 and
-P1-P15, 33 records; K18's `ms` is the last round's call of main8M-opt by
+The last three lines are the card, the kernels' JSON record (K1-K21 and
+P1-P15, 36 records; K6's launches are the main path's, 0: no path calls
+it since K19 classifies the tokens, and its record holds it to the plain
+carry on the main path's final tokens' rows; K19-K21's `ms` is main8M-opt's last
+call by CUDA events and `stage_ms` its stage's probed seconds a call
+(classify, rep0_trace, select_pairs), K19's `stream_ms` the stream's call
+and `trace_launches` phase 19's; K18's `ms` is the last round's call of main8M-opt by
 CUDA events and `stages_ms` the probed encode's empirical_probs and
 build_price_model stages, a call each; K15-K17's launches are main8M-lazy's, their `ms`
 the sum of their calls in its search and `calls_ms` each call's, beside
@@ -268,10 +284,10 @@ last round's DP path's call and `seed_ms` the seed's lazy path's, their
 `stream_ms` the `.lzma` stream's call (phase 14, beside its bound and
 plain version), `grids` each main-path call's device operations (after
 phase 18) and `blocks_per_sm` their grids'; K1's
-carries its launches in phase 16's decode, K6's
-in phase 19's dumps, K1, K2, K3, K6, K7 and K8 theirs in phase 20's mesh
-calls, K1, K2, K6, K7 and K8 theirs in phase 24's `b -backendtpu` and K1
-in `b -backendhybrid`, and K1, K2, K3, K6, K7 and K8 theirs in phase
+carries its launches in phase 16's decode, K1, K2, K3, K7 and K8 theirs
+in phase 20's mesh calls, K1, K2, K7 and K8 theirs in phase 24's `b
+-backendtpu` and K1 in `b -backendhybrid`, and K1, K2, K3, K7 and K8
+theirs in phase
 26's file configurations, `file_launches`; K7's and K8's their lazy
 launches too, K7's its stream launches, K8's the route it replaced,
 `route_ms`) and the result JSON.
@@ -655,9 +671,11 @@ def lane_steps(valid):
     return (valid * pos).amax(dim=0)
 
 
-def check_classify(rows):
+def check_classify(rows, kept=None):
     """K6 against _classify_carry on the same card rows (tolerance zero).
-    Returns (max |diff| over case, state and r0, plain version's ms)."""
+    Returns (max |diff| over case, state and r0, plain version's ms); the
+    plain carry goes into `kept` (a dict, under "carry") where one is
+    given, for K19's check on the same tokens."""
     from lzma_tpu_torch.ops.cuda_classify import classify_carry_cuda
     from lzma_tpu_torch.ops.device_encoder import _classify_carry
 
@@ -667,6 +685,39 @@ def check_classify(rows):
               for k, p in zip(classify_carry_cuda(*rows), box["p"]))
     if err:
         raise AssertionError(f"classify carry differs from the plain version "
+                             f"by {err}")
+    if kept is not None:
+        kept["carry"] = box["p"]
+    return err, plain_ms
+
+
+def check_classify_tokens(args, got=None, carry=None):
+    """K19 against its plain version on the same card tensors (tolerance
+    zero; dtypes and shapes equal): classify_tokens_cuda(*args), or `got`
+    where its output is given, against _classify_tokens_plain(*args) or,
+    where `carry` (the plain carry of these tokens' rows, check_classify's)
+    is given, against _classify_finish on it, so that the plain carry runs
+    once.  Returns (max |diff| over the seven planes, the plain version's
+    ms: the finish's alone where the carry was given)."""
+    from lzma_tpu_torch.ops.cuda_classify import classify_tokens_cuda
+    from lzma_tpu_torch.ops.device_encoder import (_classify_finish,
+                                                   _classify_tokens_plain)
+
+    box = {}
+    if carry is None:
+        plain_ms = wall_ms(lambda: box.update(p=_classify_tokens_plain(*args)))
+    else:
+        plain_ms = wall_ms(lambda: box.update(p=_classify_finish(
+            args[0], args[1], args[3], carry)))
+    got = classify_tokens_cuda(*args) if got is None else got
+    if [(g.dtype, g.shape) for g in got] != [(p.dtype, p.shape)
+                                             for p in box["p"]]:
+        raise AssertionError("classify_tokens: the kernel's planes' dtypes or "
+                             "shapes differ from the plain version's")
+    err = max(int((g - p).abs().max()) if g.numel() else 0
+              for g, p in zip(got, box["p"]))
+    if err:
+        raise AssertionError(f"classify_tokens differs from the plain version "
                              f"by {err}")
     return err, plain_ms
 
@@ -926,8 +977,11 @@ def search_work(seen):
 
 #: the price model's, the DP rows' and the path's kernels (ops/cuda_model.py,
 #: ops/cuda_inputs.py, ops/cuda_path.py): K18 price_model, K12 dp_inputs, K13
-#: path_mark, K14 path_compact; each kernel's wrappers -> (the wrapper's
-#: module, its plain version's module and name)
+#: path_mark, K14 path_compact; and the optimal round's last op chains:
+#: K19 classify_tokens (ops/cuda_classify.py), K20 rep0_trace
+#: (ops/cuda_inputs.py), K21 list_pairs (ops/cuda_search.py); each
+#: kernel's wrappers -> (the wrapper's module, its plain version's module
+#: and name)
 ROW_KERNELS = {
     "price_model": {"price_model_cuda": ("cuda_model", "device_parser",
                                          "_price_model_plain")},
@@ -941,10 +995,30 @@ ROW_KERNELS = {
                                               "_extract_compact"),
                      "greedy_compact_cuda": ("cuda_path", "device_matcher",
                                              "_compact_taken")},
+    "classify_tokens": {"classify_tokens_cuda": ("cuda_classify",
+                                                 "device_encoder",
+                                                 "_classify_tokens_plain")},
+    "rep0_trace": {"rep0_trace_cuda": ("cuda_inputs", "device_parser",
+                                       "rep0_trace")},
+    "list_pairs": {"list_pairs_cuda": ("cuda_search", "device_parser",
+                                       "_list_pairs_plain")},
 }
 #: each of them: its source under lzma_tpu_torch/csrc, without ".cu"
 ROW_SOURCES = {"price_model": "price_model", "dp_inputs": "dp_inputs",
-               "path_mark": "path", "path_compact": "path"}
+               "path_mark": "path", "path_compact": "path",
+               "classify_tokens": "classify", "rep0_trace": "rep0",
+               "list_pairs": "search"}
+#: K19-K21: each kernel's wrapper, the call its record's ms times and the
+#: main8M-opt stage it runs in
+ROUND_WRAPPERS = {"classify_tokens": "classify_tokens_cuda",
+                  "rep0_trace": "rep0_trace_cuda",
+                  "list_pairs": "list_pairs_cuda"}
+ROUND_MS_OF = {
+    "classify_tokens": "main8M-opt's last call (the final tokens)",
+    "rep0_trace": "main8M-opt's last round",
+    "list_pairs": "main8M-opt's one call (the search's lists)"}
+ROUND_STAGES = {"classify_tokens": "classify", "rep0_trace": "rep0_trace",
+                "list_pairs": "select_pairs"}
 #: K13's and K14's wrappers: the DP path's, then the lazy path's
 PATH_WRAPPERS = ("extract_mark_cuda", "greedy_mark_cuda",
                  "extract_compact_cuda", "greedy_compact_cuda")
@@ -1005,6 +1079,34 @@ ROW_REPLACES = {
         "run as 16-byte stores; each block then fills the previous lane's "
         "slots of its range (t_valid, and (0, 1, -1) past that lane's "
         "count) as 16-byte stores, extra blocks the last lane's"),
+    "classify_tokens": (
+        "lzma_tpu/ops/device_encoder.py:85",
+        "no pallas_call: jitted classify_tokens (its lax.scan and the "
+        "gathers around it), lzma_tpu/ops/device_encoder.py:85 (@jax.jit "
+        "at :84), called under jax.jit at lzma_tpu/ops/device_parser.py:1595 "
+        "(tokenize_optimal's rounds) and at device_encoder.py:684",
+        "K6's five grids in one call, the scans reading the (N, T) token "
+        "planes through their strides (a lane's run of rows staged "
+        "coalesced), the last grid's rescan writing the seven int64 planes "
+        "from shared memory, a thread a token, consecutive rows a warp"),
+    "rep0_trace": (
+        "lzma_tpu/ops/device_parser.py:1458",
+        "no pallas_call: jitted rep0_trace, lzma_tpu/ops/device_parser.py:"
+        "1458, called at :1672, " + _JIT_OPT,
+        "a fill from the token side, three grids: each tile of 2,048 token "
+        "slots summed (rep0.cuh's Agg: first and last valid place, last "
+        "match), a lane scan of the tiles, then each tile's slots' places "
+        "and rep0s in shared memory and the positions between the prefix's "
+        "place and the tile's filled by a binary search, 8-byte coalesced "
+        "stores; a status word for valid tokens out of order"),
+    "list_pairs": (
+        "lzma_tpu/ops/device_parser.py:1529",
+        "no pallas_call: jitted _select_dp_pairs, lzma_tpu/ops/"
+        "device_parser.py:1529 (called at :1639), and the head of "
+        "_seed_from_lists, :1551 (called at :1658), " + _JIT_OPT,
+        "a thread a position: its count, its lists' first M_DP entries and "
+        "their last read once, the DP pairs written as 16-byte words and "
+        "the seed's pair as 8-byte ones"),
 }
 
 
@@ -1072,8 +1174,17 @@ def check_rows(seen):
 
 
 def row_work(wrapper, args, out):
-    """(bytes, operations) a K12-K14 or K18 call must move and do, from its
-    arguments and result.  K18: n and n1 read and the planes written once
+    """(bytes, operations) a K12-K14 or K18-K21 call must move and do, from
+    its arguments and result.  K19: t_pos, t_dist and t_valid read over
+    every slot (17 B; an invalid token has its case and bytes too), t_len
+    over each valid token (the only ones whose state it moves), a
+    token's three bytes of data (at most the data's size) and the seven
+    int64 planes written (56 B a slot); K20: t_valid read over every slot,
+    t_pos and t_dist over each valid token (16 B; an invalid one moves
+    nothing), r0pos written (8 B a position); K21: a position's count and its lists' first M_DP entries
+    read (8 + 64 B), the last entries past them where the list is deeper
+    (16 B), the DP pairs and the seed's pair written (80 B).  No
+    operations are counted for K19-K21: their bytes bound them.  K18: n and n1 read and the planes written once
     (16 B a slot), the distance tables and the row written once (4 B an
     entry); 12 operations a slot (the probability and its two prices),
     24 a table entry (a walk of up to 8 levels at 3).  K12: each row written (4C B), data, ld, dd,
@@ -1091,6 +1202,19 @@ def row_work(wrapper, args, out):
     from lzma_tpu_torch.core.layout import ProbLayout
     from lzma_tpu_torch.ops.cuda_inputs import lit_slots
 
+    if wrapper == "classify_tokens_cuda":
+        data, t_pos, t_valid = args[0], args[1], args[4]
+        slots = t_pos.numel()
+        return (17 * slots + 8 * int(t_valid.sum())
+                + min(3 * slots, data.numel()) + 56 * slots, 0)
+    if wrapper == "rep0_trace_cuda":
+        t_pos, _, t_valid, n_pos = args
+        return (t_pos.numel() + 16 * int(t_valid.sum())
+                + 8 * t_pos.shape[0] * n_pos, 0)
+    if wrapper == "list_pairs_cuda":
+        counts = args[2]
+        deeper = int((counts > out[0].shape[2]).sum())
+        return 152 * counts.numel() + 16 * deeper, 0
     if wrapper == "price_model_cuda":
         slots = args[0].numel()
         entries = sum(t.numel() for t in out[2:])
@@ -1310,8 +1434,9 @@ def counters():
     dp_parse, K6 classify, K7 lower, K8 lower_counts, K2 rc_serialize, K1
     ring_decode, K9 search_keys, K10 suffix_table, K11 match_lists, K12
     dp_inputs, K13 path_mark, K14 path_compact, K15 doubling_groups, K16
-    descent_lcp, K17 best_matches, K18 price_model; each the (module,
-    attribute) of its wrapper's count."""
+    descent_lcp, K17 best_matches, K18 price_model, K19 classify_tokens,
+    K20 rep0_trace, K21 list_pairs; each the (module, attribute) of its
+    wrapper's count."""
     from lzma_tpu_torch.ops import (cuda_classify, cuda_inputs, cuda_lazy,
                                     cuda_lower, cuda_model, cuda_parser,
                                     cuda_path, cuda_ring, cuda_search,
@@ -1332,7 +1457,10 @@ def counters():
             "doubling_groups": (cuda_lazy, "GROUP_LAUNCHES"),
             "descent_lcp": (cuda_lazy, "DESCENT_LAUNCHES"),
             "best_matches": (cuda_lazy, "BEST_LAUNCHES"),
-            "price_model": (cuda_model, "LAUNCHES")}
+            "price_model": (cuda_model, "LAUNCHES"),
+            "classify_tokens": (cuda_classify, "TOKEN_LAUNCHES"),
+            "rep0_trace": (cuda_inputs, "REP0_LAUNCHES"),
+            "list_pairs": (cuda_search, "PAIR_LAUNCHES")}
 
 
 def zero_counts():
@@ -1692,9 +1820,10 @@ def alone_phase(dev, card, data):
     ops.api.encode_alone/decode_alone with the counts of K6, K7, K2 and K1
     set to 0 before each; the stage breakdown of the EOS encode; the
     `.lzma` pins; the front door; the command line; the lane entry.
-    Returns K6's ms on the stream's token rows and K7's on its tokens
-    ({"classify": ms, "lower": ms}), their bounds (likewise), the max
-    |diff| of K6, K7, K2 and K1 against their plain versions on the
+    Returns K6's ms on the stream's token rows and K19's and K7's on its
+    tokens ({"classify": ms, "classify_tokens": ms, "lower": ms}), their
+    bounds (likewise), the max |diff| of K6, K19, K7, K2 and K1 against
+    their plain versions on the
     stream's tensors, cut, and of K15, K16 and K17 on its calls, uncut
     (by kernel name), the EOS encode's launches by kernel, K10 on the
     stream's call ({"places", "route", "ms", "bound", "err",
@@ -1712,7 +1841,7 @@ def alone_phase(dev, card, data):
     from lzma_tpu_torch.ops import (api, cuda_classify, cuda_lazy, cuda_lower,
                                     cuda_search)
     from lzma_tpu_torch.ops.device_decoder import _pow2_at_least, pad_rows
-    from lzma_tpu_torch.ops.device_encoder import probing
+    from lzma_tpu_torch.ops.device_encoder import _classify_rows, probing
     from lzma_tpu_torch.ops.device_matcher import LAZY_STAGES
     from lzma_tpu_torch.probes._cuda import event_ms
     from lzma_tpu_torch.runtime.card import smem_limit
@@ -1742,13 +1871,15 @@ def alone_phase(dev, card, data):
                                  f"(eos {eos})")
         # the lazy stream's search: K9, K15 a doubling level, K16, K10,
         # K17
-        if launches != {"dp_parse": 0, "classify": 1, "lower": 1,
+        if launches != {"dp_parse": 0, "classify": 0, "lower": 1,
                         "lower_counts": 0, "rc_serialize": 1,
                         "ring_decode": 1, "search_keys": 1,
                         "suffix_table": 1, "match_lists": 0,
                         "dp_inputs": 0, "path_mark": 1, "path_compact": 1,
                         "doubling_groups": 5, "descent_lcp": 1,
-                        "best_matches": 1, "price_model": 0}:
+                        "best_matches": 1, "price_model": 0,
+                        "classify_tokens": 1, "rep0_trace": 0,
+                        "list_pairs": 0}:
             raise AssertionError(f"the .lzma path's launches: {launches}")
         blobs[eos] = blob
         log(f"[lzma stream] {len(data)} B as one stream, "
@@ -1790,6 +1921,9 @@ def alone_phase(dev, card, data):
     k10_errs, k10_plain = check_search({"suffix_table": (k10_args, k10_out)})
     k10["err"], k10["plain_ms"] = k10_errs["suffix_table"], k10_plain["suffix_table"]
     del k10_args, k10_out
+    # K19's call on the stream (its one lane's tokens), timed below beside
+    # K6 on the same tokens' rows
+    k19_args, _ = seen_path.pop("classify_tokens_cuda")
     # K13 and K14 on the stream's one lane (2,049 tiles of 4,096 nodes:
     # the door maps composed in groups of 128 tiles), each call timed
     # alone by CUDA events beside row_work's bounds and held to its plain
@@ -1825,12 +1959,16 @@ def alone_phase(dev, card, data):
         f"wrapper), bound {k10['bound'][0]:.4f} ms by {k10['bound'][1]} "
         f"({k10['ms'] / k10['bound'][0]:.1f}x); rank and T equal to the plain "
         f"version's, uncut (plain {k10['plain_ms']:.1f} ms)")
-    rows = probe["classify_rows"]
+    rows = _classify_rows(*k19_args[2:])
     l_args = probe["lower_args"]
     ms = {"classify": event_ms(
         lambda: cuda_classify.classify_carry_cuda(*rows), 3),
+          "classify_tokens": event_ms(
+        lambda: cuda_classify.classify_tokens_cuda(*k19_args), 3),
           "lower": event_ms(lambda: cuda_lower.lower_tokens_cuda(*l_args), 3)}
     bounds = {"classify": bound(*classify_work(rows)),
+              "classify_tokens": bound(*row_work(
+                  "classify_tokens_cuda", k19_args, None)),
               "lower": bound(*lower_work(l_args, probe["lowered"][5]))}
     moved = classify_moved(rows)
     n_tok = int(probe["lowered"][2].sum())
@@ -1843,7 +1981,11 @@ def alone_phase(dev, card, data):
         f"{ms['classify'] * 1e6 / n_tok:.1f} ns a token), bound "
         f"{bounds['classify'][0]:.4f} ms by {bounds['classify'][1]}; the "
         f"design moves about {moved} B by classify_moved's model ("
-        f"{moved / HBM_BYTES_PER_S * 1e3:.4f} ms at the HBM rate); K7 on its "
+        f"{moved / HBM_BYTES_PER_S * 1e3:.4f} ms at the HBM rate); K19 on "
+        f"its tokens {ms['classify_tokens']:.3f} ms (CUDA events, "
+        f"{ms['classify_tokens'] * 1e6 / n_tok:.1f} ns a token), bound "
+        f"{bounds['classify_tokens'][0]:.4f} ms by "
+        f"{bounds['classify_tokens'][1]}; K7 on its "
         f"tokens {ms['lower']:.3f} ms (CUDA events, "
         f"{ms['lower'] * 1e6 / n_tok:.2f} ns a token), bound "
         f"{bounds['lower'][0]:.4f} ms by {bounds['lower'][1]}")
@@ -1860,6 +2002,10 @@ def alone_phase(dev, card, data):
                     ("edge", slice(max(0, last - CMP_POS), None))):
         err, _ = check_classify(tuple(r[at].contiguous() for r in rows))
         errs["classify"] = max(errs.get("classify", 0), err)
+        # K19 on the same token columns of the lane
+        err, _ = check_classify_tokens((k19_args[0], *(a[:, at] for a in
+                                                       k19_args[1:])))
+        errs["classify_tokens"] = max(errs.get("classify_tokens", 0), err)
         # K7 on the same token columns (the head's width doubled by
         # invalid ones: its tokens are all valid)
         err, _ = check_lower(lower_cut(l_args, at, pad=cut == "head"))
@@ -1881,13 +2027,16 @@ def alone_phase(dev, card, data):
     log(f"[lzma stream vs plain] on {card}, tolerance 0: classify carry on "
         f"token rows [0, {CMP_POS}) and [{max(0, last - CMP_POS)}, "
         f"{rows[0].shape[0]}) (the EOS token is row {last - 1}) max |diff| "
-        f"{errs['classify']}; lower on the same token columns max |diff| "
+        f"{errs['classify']}; classify_tokens on the same token columns "
+        f"max |diff| {errs['classify_tokens']}; lower on the same token "
+        f"columns max |diff| "
         f"{errs['lower']}; rc_serialize on the first "
         f"{int(torch.clamp(totals, max=CMP_BITS)[0])} of {int(totals[0])} "
         f"pairs max |diff| {errs['rc_serialize']}; ring_decode to byte {n_cut} "
         f"in a {_pow2_at_least(cap, 16)}-byte bucket max |diff| "
         f"{errs['ring_decode']}")
     del probe, rows, l_args, t_pos, t_len, t_valid, ctx, bits, totals, d_out
+    del k19_args
     # K15, K16 and K17 on the stream's own calls, uncut: each call timed
     # by CUDA events beside lazy_work's bounds, then against its plain
     # version (one plain call a kernel call)
@@ -2131,8 +2280,8 @@ def profile_phase(dev, card, data, params, blob, stage_peaks):
 
 def trace_phase(dev, card, data, params):
     """Phase 19: encode_batch(trace=) on TRACE_LANES x TRACE_BYTES, lazy and
-    optimal: the card's lines (K6 classifies the dump's tokens) equal the
-    same call's on the CPU.  Returns K6's launches in the card's calls."""
+    optimal: the card's lines (K19 classifies the dump's tokens) equal the
+    same call's on the CPU.  Returns K19's launches in the card's calls."""
     import io
     import logging
 
@@ -2158,9 +2307,9 @@ def trace_phase(dev, card, data, params):
             log_.removeHandler(h)
         return stream.getvalue().splitlines()
 
-    cuda_classify.LAUNCHES = 0
+    cuda_classify.TOKEN_LAUNCHES = 0
     got = {parse: lines(parse, dev) for parse in ("lazy", "optimal")}
-    k6 = cuda_classify.LAUNCHES
+    k19 = cuda_classify.TOKEN_LAUNCHES
     for parse, card_lines in got.items():
         cpu_lines = lines(parse, "cpu")
         n_match = sum("matches=" in ln for ln in card_lines)
@@ -2168,9 +2317,9 @@ def trace_phase(dev, card, data, params):
             raise AssertionError(f"the {parse} trace dump differs on the card")
         log(f"[trace dump] {parse}, {TRACE_LANES} x {TRACE_BYTES} B on {card}: "
             f"{len(card_lines)} lines ({n_match} candidate lists) = the CPU's")
-    if k6 < 4:
-        raise AssertionError(f"K6 ran {k6} times in the card's trace dumps")
-    return k6
+    if k19 < 4:
+        raise AssertionError(f"K19 ran {k19} times in the card's trace dumps")
+    return k19
 
 
 
@@ -2341,11 +2490,12 @@ def mesh_nccl_phase(dev, card, data, params, lazy_blob, opt_blob, hybrid_blob):
                          "= phase 16's container")
         finally:
             dist.destroy_process_group()
-    if min(enc["rc_serialize"], enc["dp_parse"], enc["classify"], enc["lower"],
-           enc["lower_counts"], enc["search_keys"], enc["suffix_table"],
-           enc["match_lists"], enc["dp_inputs"], enc["path_mark"],
-           enc["path_compact"], enc["doubling_groups"], enc["descent_lcp"],
-           enc["best_matches"], enc["price_model"], dec["ring_decode"]) < 1:
+    if min(enc["rc_serialize"], enc["dp_parse"], enc["classify_tokens"],
+           enc["lower"], enc["lower_counts"], enc["search_keys"],
+           enc["suffix_table"], enc["match_lists"], enc["dp_inputs"],
+           enc["path_mark"], enc["path_compact"], enc["doubling_groups"],
+           enc["descent_lcp"], enc["best_matches"], enc["price_model"],
+           enc["rep0_trace"], enc["list_pairs"], dec["ring_decode"]) < 1:
         raise AssertionError(f"[mesh] a kernel did not run: encodes {enc}, "
                              f"decodes {dec}")
     log(f"[mesh NCCL world 1] {len(data)} B in {len(data) // MAIN_BLOCK} lanes "
@@ -2396,13 +2546,14 @@ def mesh_gloo_phase(card, data, lazy_blob, opt_blob, hybrid_blob, kept):
         for r, rec in enumerate(recs):
             for parse in ("lazy", "optimal"):
                 got = rec[parse]["launches"]
-                if min(got["rc_serialize"], got["classify"],
+                if min(got["rc_serialize"], got["classify_tokens"],
                        got["search_keys"], got["suffix_table"],
                        got["path_mark"], got["path_compact"]) < 1 or (
                         parse == "optimal" and min(
                             got["dp_parse"], got["lower_counts"],
                             got["match_lists"], got["dp_inputs"],
-                            got["price_model"]) < 1) or (
+                            got["price_model"], got["rep0_trace"],
+                            got["list_pairs"]) < 1) or (
                         parse == "lazy" and min(
                             got["doubling_groups"], got["descent_lcp"],
                             got["best_matches"]) < 1):
@@ -2477,7 +2628,7 @@ def auto_phase(dev, card, data):
             lambda: lzma_tpu_torch.decompress(blob, device=dev))
         if back != part:
             raise AssertionError(f"[auto] compress({what}) does not round-trip")
-        if min(auto_launches["rc_serialize"], auto_launches["classify"],
+        if min(auto_launches["rc_serialize"], auto_launches["classify_tokens"],
                auto_launches["suffix_table"], auto_launches["path_mark"],
                auto_launches["path_compact"],
                dec_launches["ring_decode"]) < 1 or (
@@ -2485,7 +2636,9 @@ def auto_phase(dev, card, data):
                                        auto_launches["search_keys"],
                                        auto_launches["match_lists"],
                                        auto_launches["dp_inputs"],
-                                       auto_launches["price_model"]) < 1):
+                                       auto_launches["price_model"],
+                                       auto_launches["rep0_trace"],
+                                       auto_launches["list_pairs"]) < 1):
             raise AssertionError(f"[auto] a kernel did not run: {auto_launches}, "
                                  f"decode {dec_launches}")
         lines.append(
@@ -2691,8 +2844,10 @@ def file_phase(dev, card, data, lazy_blob, opt_blob):
         dec_launches = report("file128M-opt", batches(log_path, "decode"),
                               t_dec, size)
         launches["ring_decode"] += dec_launches["ring_decode"]
-        # the optimal parse at fb 32 runs no prefix doubling (K15-K17)
-        if min(v for k, v in launches.items() if k not in LAZY_KERNELS) < 1:
+        # the optimal parse at fb 32 runs no prefix doubling (K15-K17);
+        # no path calls K6 since K19 classifies the tokens
+        if min(v for k, v in launches.items()
+               if k not in LAZY_KERNELS and k != "classify") < 1:
             raise AssertionError(f"a kernel did not run: {launches}")
         found["file128M-opt"] = launches
         for x in (src, enc, back, log_path):
@@ -2726,7 +2881,8 @@ def file_phase(dev, card, data, lazy_blob, opt_blob):
         launches["ring_decode"] += dec_launches["ring_decode"]
         if min(v for k, v in launches.items()
                if k not in ("dp_parse", "lower_counts", "search_keys",
-                            "match_lists", "dp_inputs", "price_model")) < 1:
+                            "match_lists", "dp_inputs", "price_model",
+                            "classify", "rep0_trace", "list_pairs")) < 1:
             raise AssertionError(f"a kernel did not run: {launches}")
         found["file256M-lazy"] = launches
         for x in (src, enc, back):
@@ -2787,8 +2943,9 @@ def bench_phase(card):
         # the lazy stream's search K9, K15 five times, K16, K10 and K17 a
         # pass; the hybrid's list search (fb 32) K9, K10 and K11 once a
         # pass
-        want = dict(ring_decode=2 * passes, dp_parse=0,
-                    classify=passes if tpu else 0,
+        want = dict(ring_decode=2 * passes, dp_parse=0, classify=0,
+                    classify_tokens=passes if tpu else 0, rep0_trace=0,
+                    list_pairs=0,
                     lower=passes if tpu else 0, lower_counts=0,
                     rc_serialize=passes if tpu else 0,
                     search_keys=passes, suffix_table=passes,
@@ -2986,9 +3143,10 @@ def main():
             f"K4 {k4_plan[0]} threads, band {k4_plan[1]}): from and choice "
             "equal")
 
-    # K6, K7 and K8 on both parses' tokens of the same lanes, the EOS
+    # K6, K19, K7 and K8 on both parses' tokens of the same lanes, the EOS
     # marker appended
     k6_err = k7_err = k8_err = 0
+    row_err = dict.fromkeys(ROW_KERNELS, 0)
     c_data, c_lens = pad_rows(blocks, dev)
     for parse in ("lazy", "optimal"):
         if parse == "lazy":
@@ -3000,6 +3158,8 @@ def main():
         eos_tok = _append_eos_tokens(*tok[:4], tok[4], c_lens)
         err, _ = check_classify(_classify_rows(*eos_tok[1:]))
         k6_err = max(k6_err, err)
+        err, _ = check_classify_tokens((c_data, *eos_tok))
+        row_err["classify_tokens"] = max(row_err["classify_tokens"], err)
         meta = classify_tokens(c_data, *eos_tok)
         c_args = (tuple(m.long() for m in meta), *eos_tok, params.lc,
                   params.lp, params.pb, 10 * c_data.shape[1] + 128, 0)
@@ -3007,11 +3167,11 @@ def main():
         k7_err = max(k7_err, err)
         err, _ = check_counts(c_args)
         k8_err = max(k8_err, err)
-        log(f"[K6, K7, K8 vs plain] {CMP_LANES}x{CMP_BYTES}, {parse} parse "
-            f"with the EOS marker ({eos_tok[0].shape[1]} token rows, "
+        log(f"[K6, K19, K7, K8 vs plain] {CMP_LANES}x{CMP_BYTES}, {parse} "
+            f"parse with the EOS marker ({eos_tok[0].shape[1]} token rows, "
             f"{int(eos_tok[3].sum(1).max())} valid in the longest lane): case, "
-            "state and r0 equal; ctx, bits and total equal; n, n1 and total "
-            "equal")
+            "state and r0 equal; the seven classify planes equal; ctx, bits "
+            "and total equal; n, n1 and total equal")
     # K7 and K8 at lc8 lp4 pb4 on a preset-primed batch (coded positions
     # from pos_base), as the port's own encoder lowers it: K8 counts its
     # 3,147,574 slots a lane in device memory, lc3 lp0's in shared memory
@@ -3076,7 +3236,6 @@ def main():
     # the lazy tokenize, from position 0 and from a preset's end) on the
     # same lanes at fb 5, 32 and 273 and at lc8 lp4 pb4, K12's literal
     # slots read from device memory (as at every lc and lp)
-    row_err = dict.fromkeys(ROW_KERNELS, 0)
     row_cases = [(fb_s, params) for fb_s in (5, 32, 273)] + [
         (32, LzmaParams(lc=8, lp=4, pb=4))]
     for fb_s, r_params in row_cases:
@@ -3089,11 +3248,13 @@ def main():
         errs, _ = check_rows(seen)
         for k, v in errs.items():
             row_err[k] = max(row_err[k], v)
-        log(f"[K18, K12, K13, K14 vs plain] {CMP_LANES}x{CMP_BYTES} (an "
-            f"all-zero lane, lanes of 0 and 3 bytes), fb {fb_s}, "
-            f"lc{r_params.lc} lp{r_params.lp} pb{r_params.pb}: the price "
-            "planes, distance tables and DP tables' row, the DP rows, the "
-            "seed's and the last round's marks and tokens equal")
+        log(f"[K18, K12, K13, K14, K19, K20, K21 vs plain] "
+            f"{CMP_LANES}x{CMP_BYTES} (an all-zero lane, lanes of 0 and 3 "
+            f"bytes), fb {fb_s}, lc{r_params.lc} lp{r_params.lp} "
+            f"pb{r_params.pb}: the price planes, distance tables and DP "
+            "tables' row, the DP rows, the seed's and the last round's marks "
+            "and tokens, the last round's classify planes and rep0 trace, "
+            "the DP pairs and the seed's pairs equal")
     for start in (0, CMP_BYTES // 8):
         (_, seen), seen_l = spied_lazy(lambda: spied_rows(
             lambda: device_matcher.tokenize(
@@ -3164,7 +3325,9 @@ def main():
     # the lazy search: K9 its keys, K15 its five doubling levels, K16 the
     # descent, K10 the table, K17 the best matches; its path K13, K14
     if launches["rc_serialize"] < 1 or launches["ring_decode"] < 1 \
-            or launches["classify"] != 1 or launches["lower"] != 1 \
+            or launches["classify_tokens"] != 1 or launches["classify"] \
+            or launches["rep0_trace"] or launches["list_pairs"] \
+            or launches["lower"] != 1 \
             or launches["lower_counts"] != 0 or launches["search_keys"] != 1 \
             or launches["suffix_table"] != 1 or launches["match_lists"] != 0 \
             or launches["dp_inputs"] != 0 or launches["path_mark"] != 1 \
@@ -3228,7 +3391,9 @@ def main():
     # (K7)
     # the search (K9, K10, K11) once: one lane group
     if launches["dp_parse"] < 2 or launches["rc_serialize"] < 1 \
-            or launches["ring_decode"] < 1 or launches["classify"] != 3 \
+            or launches["ring_decode"] < 1 or launches["classify_tokens"] != 3 \
+            or launches["classify"] or launches["rep0_trace"] != 2 \
+            or launches["list_pairs"] != 1 \
             or launches["lower"] != 1 or launches["lower_counts"] != 2 \
             or any(launches[k] != 1 for k in SEARCH_KERNELS) \
             or launches["dp_inputs"] != 2 or launches["path_mark"] != 3 \
@@ -3260,6 +3425,8 @@ def main():
         raise AssertionError("the probed optimal encode wrote another container")
     secs = probe["seconds"]
     stage_peaks = probe["peak_bytes"]
+    round_stage_ms = {k: [x * 1e3 for x in secs[v]]
+                      for k, v in ROUND_STAGES.items()}
     t_pos, t_len, t_valid, ctx, bits, totals = probe["lowered"]
     model_s = [sum(x) for x in zip(*(secs[k] for k in MODEL_STAGES))]
     # the stages K18 replaced, ms a call (empirical_probs stays, empty)
@@ -3323,8 +3490,9 @@ def main():
         raise AssertionError("K1 on the whole container differs from the input")
     del k1_out, k1_rows
     k1_whole = event_ms(lambda: cuda_ring.decode_cuda(*wargs), 3)
-    # K6 on the final tokens' rows (the last classify call's)
-    c_rows = probe.pop("classify_rows")
+    # K6 on the final tokens' rows (the last classify call's, K19's
+    # arguments)
+    c_rows = _classify_rows(*probe.pop("classify_args")[2:])
     k6_whole = event_ms(lambda: cuda_classify.classify_carry_cuda(*c_rows), 3)
     k6_work = classify_work(c_rows)
     k6_whole_bound = bound(*k6_work)
@@ -3453,10 +3621,10 @@ def main():
     path_blocks = cuda_path.occupancy()
     k12_blocks = cuda_inputs.occupancy(
         seen_rows["dp_inputs_cuda"][0][1].shape[2])
-    log(f"[K18, K12, K13, K14 whole lanes] {L} lanes x {N} positions on "
-        f"{card}: "
+    log(f"[K18, K12, K13, K14, K19, K20, K21 whole lanes] {L} lanes x {N} "
+        f"positions on {card}: "
         + "; ".join(f"{w} {row_whole[w]:.3f} ms a call (CUDA events, the "
-                    f"wrapper{' with its status readback' if 'mark' in w else ''}"
+                    f"wrapper{' with its status readback' if 'mark' in w or 'rep0' in w else ''}"
                     f"), {b[0][0]} B read and written, {b[0][1]} operations, "
                     f"bound {b[1][0]:.4f} ms by {b[1][1]} "
                     f"({row_whole[w] / b[1][0]:.1f}x)"
@@ -3555,12 +3723,24 @@ def main():
         if d_out[i, :n].cpu().numpy().tobytes() != data[i * MAIN_BLOCK:i * MAIN_BLOCK + n]:
             raise AssertionError(f"lane {i} decodes wrong up to byte {n}")
     k1_bound = bound(decode_bytes(streams, cuts, bsizes), 0)
-    # K6: the final tokens' whole rows, uncut (one plain call)
-    err, k6_plain = check_classify(c_rows)
+    # K6: the final tokens' whole rows, uncut (one plain call); K19 on the
+    # same tokens, its plain version the finish on that plain carry (the
+    # carry runs once)
+    kept = {}
+    err, k6_plain = check_classify(c_rows, kept)
     k6_err = max(k6_err, err)
     del c_rows
-    log(f"[K6 vs plain] main path's final tokens, whole: equal; kernel "
-        f"{k6_whole:.3f} ms vs plain {k6_plain:.1f} ms on {card}")
+    k19_args, k19_out = seen_rows.pop("classify_tokens_cuda")
+    err, k19_finish = check_classify_tokens(k19_args, k19_out, kept.pop("carry"))
+    row_err["classify_tokens"] = max(row_err["classify_tokens"], err)
+    row_plain_k19 = k6_plain + k19_finish
+    del k19_args, k19_out, kept
+    log(f"[K6, K19 vs plain] main path's final tokens, whole: case, state and "
+        f"r0 equal, the seven classify planes equal; K6 kernel "
+        f"{k6_whole:.3f} ms vs plain {k6_plain:.1f} ms, K19 kernel "
+        f"{row_whole['classify_tokens_cuda']:.3f} ms vs plain "
+        f"{row_plain_k19:.1f} ms (the carry's, then the finish's "
+        f"{k19_finish:.1f} ms) on {card}")
     # K7: the final lowering's whole arguments, uncut (one plain call)
     err, k7_plain = check_lower(l_args)
     k7_err = max(k7_err, err)
@@ -3601,10 +3781,12 @@ def main():
     errs, row_plain = check_rows(seen_rows)
     for k, v in errs.items():
         row_err[k] = max(row_err[k], v)
+    row_plain["classify_tokens_cuda"] = row_plain_k19
     del seen_rows
-    log(f"[K18, K12, K13, K14 vs plain] main path's whole lanes (the last round's "
-        f"counts and rows, its DP path and the seed's lazy path): planes, "
-        f"tables, rows, marks and tokens equal; " + ", ".join(
+    log(f"[K18, K12, K13, K14, K20, K21 vs plain] main path's whole lanes (the "
+        f"last round's counts, rows and rep0 trace, its DP path, the seed's "
+        f"lazy path, the lists' pairs): planes, tables, rows, marks, tokens, "
+        f"traces and pairs equal; " + ", ".join(
             f"{w} kernel {row_whole[w]:.3f} ms vs plain {row_plain[w]:.1f} ms"
             for w in row_whole) + f" on {card}")
     log(f"[times] main path's shapes ({len(bsizes)} lanes x {MAIN_BLOCK} B) on "
@@ -3763,6 +3945,8 @@ def main():
     search_err["suffix_table"] = max(search_err["suffix_table"],
                                      stream_k10["err"])
     k6_err = max(k6_err, stream_errs["classify"])
+    row_err["classify_tokens"] = max(row_err["classify_tokens"],
+                                     stream_errs["classify_tokens"])
     k7_err = max(k7_err, stream_errs["lower"])
     k2_err = max(k2_err, stream_errs["rc_serialize"])
     k1_err = max(k1_err, stream_errs["ring_decode"])
@@ -3812,7 +3996,7 @@ def main():
     done("profile")
 
     # ---- 19. the trace dump on the card ----
-    trace_k6 = trace_phase(dev, card, data, params)
+    trace_k19 = trace_phase(dev, card, data, params)
     done("trace dump")
 
     # ---- 20-21. the block mesh: NCCL at world size 1, Gloo ranks on the card ----
@@ -3892,11 +4076,10 @@ def main():
                k6_err, k6_whole, k6_plain, k6_whole_bound, whole_ms=k6_whole,
                whole_bound_ms=k6_whole_bound[0], stream_ms=stream_ms["classify"],
                stream_bound_ms=stream_bounds["classify"][0],
-               trace_launches=trace_k6,
-               mesh_launches=mesh_enc["classify"],
-               bench_launches=bench_launches["tpu"]["classify"],
-               file_launches={k: v["classify"]
-                              for k, v in file_launches.items()},
+               launches_of="the main path's: no path calls K6 since K19 "
+                           "classifies the tokens around K6's scan grids; "
+                           "this record holds K6's wrapper to the plain carry",
+               ms_of="the main path's final tokens' rows",
                design="scan over each lane's token rows, five grids"),
         record("lower", "lzma_tpu_torch/csrc/lower.cu",
                "lzma_tpu/ops/device_encoder.py:163", launches["lower"],
@@ -3970,6 +4153,13 @@ def main():
                    "stages_ms": model_stage_ms,
                    "ms_of": "the last round's counts (main8M-opt)"}
                   if name == "price_model" else {
+                   "ms_of": ROUND_MS_OF[name],
+                   "stage_ms": round_stage_ms[name],
+                   **({"stream_ms": stream_ms[name],
+                       "stream_bound_ms": stream_bounds[name][0],
+                       "trace_launches": trace_k19}
+                      if name == "classify_tokens" else {})}
+                  if name in ROUND_WRAPPERS else {
                    "ms_of": f"{main_w} (the last round's DP path)",
                    "seed_ms": row_whole[seed_w],
                    "seed_plain_ms": row_plain[seed_w],
@@ -3986,7 +4176,8 @@ def main():
             ("price_model", "price_model_cuda", None),
             ("dp_inputs", "dp_inputs_cuda", None),
             ("path_mark", "extract_mark_cuda", "greedy_mark_cuda"),
-            ("path_compact", "extract_compact_cuda", "greedy_compact_cuda"))
+            ("path_compact", "extract_compact_cuda", "greedy_compact_cuda"),
+            *((k, w, None) for k, w in ROUND_WRAPPERS.items()))
     ] + [
         record(name, "lzma_tpu_torch/csrc/lazy_search.cu",
                LAZY_REPLACES[name][0], lazy_launches[name], lazy_err[name],
@@ -4004,8 +4195,8 @@ def main():
                design=LAZY_REPLACES[name][2])
         for name in LAZY_KERNELS
     ] + probe_records
-    if len(kernels) != 33:
-        raise AssertionError(f"{len(kernels)} kernel records, not 33")
+    if len(kernels) != 36:
+        raise AssertionError(f"{len(kernels)} kernel records, not 36")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,9 @@ decoders (K1, K5), the classify carry (K6), the bit lowering (K7), its
 slot counts (K8), the suffix table (K10), the optimal search's match
 lists (K11), the DP rows (K12), the parse path's marking and
 compaction (K13, K14), the lazy search's doubling groups, descent and
-best matches (K15, K16, K17) and the optimal rounds' price model (K18).
+best matches (K15, K16, K17), the optimal rounds' price model (K18),
+classify_tokens whole (K19), the rep0 trace (K20) and the DP pairs with
+the seed's pairs (K21).
 
     python -m lzma_tpu_torch.bench.kernel_ab OTHER_CHECKOUT [KERNEL ...]
 
@@ -15,8 +17,9 @@ ring_input_champion, tokenize_lazy, tokenize_stream, match_lists,
 match_lists_hybrid, suffix_table, suffix_table_stream, dp_inputs,
 path_mark, path_compact, path_mark_stream, path_compact_stream,
 path_mark_tile, doubling_groups, best_matches, descent_lcp,
-doubling_groups_stream, best_matches_stream, descent_lcp_stream and
-price_model (default: all).  The
+doubling_groups_stream, best_matches_stream, descent_lcp_stream,
+price_model, classify_tokens, rep0_trace, list_pairs and round_stages
+(default: all).  The
 inputs are chip_smoke.py's: the main path is text_part() +
 generate_bench_data(5 << 20), LzmaParams() defaults (lc3 lp0 pb2, fb
 32), parse="optimal", 32 lanes of 256 KiB; an encode inside
@@ -79,7 +82,19 @@ as one run and each alone), doubling_groups_stream, best_matches_stream
 and descent_lcp_stream on those of the 8 MiB as one lazy `.lzma` stream
 with the EOS marker (one lane of 8,388,608 places); a keyword the other
 checkout's wrapper does not take (``sorted_key``) is left out of its
-calls.  For K7, K8, K10-K18 it also splits this checkout's call
+calls.  classify_tokens is K19 (``ops.cuda_classify.classify_tokens_cuda``)
+on main8M-opt's last call (the final tokens), rep0_trace K20
+(``ops.cuda_inputs.rep0_trace_cuda``) on its last round's and
+list_pairs K21 (``ops.cuda_search.list_pairs_cuda``) on its one call
+(all spied in one optimal ``api.encode_blocks``), each against the
+other checkout's kernel where it has one, else the op chain the kernel
+replaced there (its ``device_encoder.classify_tokens``: the rows, K6 and
+the finish; its ``device_parser.rep0_trace``; its ``_select_dp_pairs``
+and this checkout's ``_seed_pair``, the head of its
+``_seed_from_lists``).  round_stages runs each checkout's main8M-opt
+encode in turns (other, this, this, other), unprobed (seconds) and then
+probed, for the stages classify, rep0_trace, select_pairs and seed
+(seconds a call).  For K7, K8, K10-K18 it also splits this checkout's call
 by its device operations.  OTHER_CHECKOUT's package
 is loaded under another name and its kernels are built by its own
 runtime/build.py and called through its own wrappers
@@ -113,6 +128,7 @@ import inspect
 import json
 import os
 import sys
+import time
 
 import torch
 
@@ -121,7 +137,8 @@ from ..format.properties import LzmaParams
 from ..ops import (api, cuda_classify, cuda_decoder, cuda_lower, cuda_parser,
                    cuda_ring, cuda_serializer)
 from ..ops.device_decoder import pad_rows
-from ..ops.device_encoder import encode_batch, pair_counts, probing
+from ..ops.device_encoder import (_classify_rows, encode_batch, pair_counts,
+                                  probing)
 from ..parallel import blocks as blk
 from ..probes import probe_ring_ablate
 from ..probes._cuda import card, event_ms
@@ -142,7 +159,8 @@ KERNELS = ("dp_parse", "dp_parse2", "rc_serialize", "ring_decode",
            "path_compact", "path_mark_stream", "path_compact_stream",
            "path_mark_tile", "doubling_groups", "best_matches",
            "descent_lcp", "doubling_groups_stream", "best_matches_stream",
-           "descent_lcp_stream", "price_model")
+           "descent_lcp_stream", "price_model", "classify_tokens",
+           "rep0_trace", "list_pairs", "round_stages")
 MAIN_PATH = KERNELS[:8]
 STREAM = ("classify_stream", "lower_stream")
 TOKENIZE = ("tokenize_lazy", "tokenize_stream")
@@ -159,9 +177,15 @@ COMPACT_WRAPPERS = ("extract_compact_cuda", "greedy_compact_cuda")
 LAZY_WRAPPERS = {"doubling_groups": "doubling_groups_cuda",
                  "best_matches": "best_matches_cuda",
                  "descent_lcp": "descent_lcp_cuda"}
+#: K19-K21: kernel -> (its wrapper's module, its wrapper)
+ROUND = {"classify_tokens": ("cuda_classify", "classify_tokens_cuda"),
+         "rep0_trace": ("cuda_inputs", "rep0_trace_cuda"),
+         "list_pairs": ("cuda_search", "list_pairs_cuda")}
+#: the main8M-opt stages round_stages reads
+ROUND_STAGES = ("classify", "rep0_trace", "select_pairs", "seed")
 #: the wrappers a split by device operations is printed for
 SPLIT = ("lower", "lower_counts", "lower_stream", *LISTS, *TABLE, *PATH,
-         *LAZY)
+         *LAZY, *ROUND)
 
 
 def other_wrappers(root: str, name: str = OTHER):
@@ -205,7 +229,8 @@ def main_path_inputs(dev):
     decode = (comp, comp_lens, sizes, params.dict_size, params.lc, params.lp,
               params.pb, BLOCK)
     return probe["dp_inputs"], (ctx, bits, totals), decode, \
-        probe["classify_rows"], probe["lower_args"], probe["count_args"]
+        _classify_rows(*probe["classify_args"][2:]), probe["lower_args"], \
+        probe["count_args"]
 
 
 def stream_inputs(dev):
@@ -213,7 +238,7 @@ def stream_inputs(dev):
     `.lzma` stream with the EOS marker (one lane)."""
     with probing() as probe:
         api.encode_alone(main_data(), LzmaParams(write_eos=True), device=dev)
-    return probe["classify_rows"], probe["lower_args"]
+    return _classify_rows(*probe["classify_args"][2:]), probe["lower_args"]
 
 
 def spied_calls(module, wrappers, fn) -> dict:
@@ -336,6 +361,70 @@ def model_route(pkg: str, args):
                            ("ps_price", "dfull", "align_price")),
                 o_parser._dp_tables(model, fb))
     return route, "the op chain"
+
+
+def round_inputs(dev) -> dict:
+    """{kernel: its wrapper's last call's arguments} of K19, K20 and K21 in
+    one optimal api.encode_blocks of main8M (spied)."""
+    mods = {k: importlib.import_module(f"..ops.{m}", __package__)
+            for k, (m, _) in ROUND.items()}
+    seen = {}
+    kept = {k: getattr(mods[k], w) for k, (_, w) in ROUND.items()}
+
+    def spy(k):
+        def call(*args):
+            seen[k] = args
+            return kept[k](*args)
+        return call
+
+    for k, (_, w) in ROUND.items():
+        setattr(mods[k], w, spy(k))
+    try:
+        api.encode_blocks(main_data(), LzmaParams(), block_size=BLOCK,
+                          parse="optimal", device=dev)
+    finally:
+        for k, (_, w) in ROUND.items():
+            setattr(mods[k], w, kept[k])
+    return seen
+
+
+def round_route(pkg: str, kernel: str, args):
+    """Package `pkg`'s K19, K20 or K21 on `args` and its name: its kernel
+    where it has one, else the op chain the kernel replaced there."""
+    mod_name, wrapper = ROUND[kernel]
+    mod = importlib.import_module(f"{pkg}.ops.{mod_name}")
+    if hasattr(mod, wrapper):
+        return (lambda: getattr(mod, wrapper)(*args)), "kernel"
+    if kernel == "classify_tokens":
+        enc = importlib.import_module(f"{pkg}.ops.device_encoder")
+        return (lambda: enc.classify_tokens(*args)), "the op chain"
+    parser = importlib.import_module(f"{pkg}.ops.device_parser")
+    if kernel == "rep0_trace":
+        return (lambda: parser.rep0_trace(*args)), "the op chain"
+    from ..ops.device_parser import _seed_pair
+
+    return (lambda: (*parser._select_dp_pairs(*args), *_seed_pair(*args))), \
+        "the op chain"
+
+
+def encode_stages(pkg: str, dev, stages=ROUND_STAGES) -> dict:
+    """main8M's optimal encode through package `pkg`'s own api, unprobed
+    ("encode_s", the host clock around a synchronised call) then inside
+    its probing() (each of `stages`, seconds a call)."""
+    o_api = importlib.import_module(f"{pkg}.ops.api")
+    o_enc = importlib.import_module(f"{pkg}.ops.device_encoder")
+    data = main_data()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    o_api.encode_blocks(data, LzmaParams(), block_size=BLOCK, parse="optimal",
+                        device=dev)
+    torch.cuda.synchronize()
+    out = {"encode_s": time.perf_counter() - t}
+    with o_enc.probing() as probe:
+        o_api.encode_blocks(data, LzmaParams(), block_size=BLOCK,
+                            parse="optimal", device=dev)
+    out.update({k: probe["seconds"][k] for k in stages})
+    return out
 
 
 def path_inputs(dev, stream: bool = False) -> dict:
@@ -663,6 +752,27 @@ def main(argv=None) -> None:
                 result[names[2] + "_short_share"] = float((cl < 32).double().mean())
                 del cl
             del seen
+    if any(k in ROUND for k in chosen):
+        seen = round_inputs(dev)
+        for kernel in ROUND:
+            if kernel not in chosen:
+                continue
+            args = seen[kernel]
+            other_fn, result[kernel + "_other"] = round_route(OTHER, kernel,
+                                                              args)
+            this_fn, _ = round_route("lzma_tpu_torch", kernel, args)
+            kernels[kernel] = {"other": other_fn, "this": this_fn}
+            result[kernel + "_shape"] = list(args[1 if kernel ==
+                                                "classify_tokens" else 0].shape)
+        del seen
+    if "round_stages" in chosen:
+        # each checkout's whole encode, in turns; no kernel to time after
+        stages = {"other": [], "this": []}
+        for side in ("other", "this", "this", "other"):
+            stages[side].append(encode_stages(
+                OTHER if side == "other" else "lzma_tpu_torch", dev))
+        result["round_stages"] = stages
+        chosen = [k for k in chosen if k != "round_stages"]
     for kernel in chosen:
         cases = kernels.pop(kernel)
         if "this" in cases:
@@ -671,7 +781,8 @@ def main(argv=None) -> None:
         if kernel.endswith("champion") or kernel.startswith(("classify",
                                                              "lower",
                                                              "match")) \
-                or kernel in TABLE or kernel in PATH or kernel in LAZY:
+                or kernel in TABLE or kernel in PATH or kernel in LAZY \
+                or kernel in ROUND:
             reps = 5
         if kernel in TOKENIZE:
             reps = 3

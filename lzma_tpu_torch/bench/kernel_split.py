@@ -1,6 +1,6 @@
 """K11's, K8's, K10's, K12's, K13's, K14's, K15's, K16's and K17's calls split on
 the card: by grid (torch.profiler) and by bench-side variants of a
-checkout's own sources.
+checkout's own sources; K18's and K20's calls by their wrappers' parts.
 
     python -m lzma_tpu_torch.bench.kernel_split [CHECKOUT] [VARIANT ...]
 
@@ -30,7 +30,17 @@ themselves) carry the anchors of the sources before and after its
 redesign; k16_window_words (the refinement's windows read as words by
 search_list::window_words where no word reaches 2 max_n, the descent as
 it was) is the split that chose the redesign, on the sources before it
-(commit a04930c's).  Each copy's
+(commit a04930c's).  The small kernels' calls, K18 (``price_model``,
+on main8M-opt's last round's counts) and K20 (``rep0_trace``, on its
+last round's tokens), are split by variants that take one part out of
+the call each: k18_empty_grid and k20_empty_grid (the grids' work: an
+empty launch stays), k18_no_launch and k20_no_launch (the launches),
+k18_no_ctypes and k20_no_ctypes (the C call; K20's status readback with
+it), k18_no_guard and k20_no_guard (the ``torch.cuda.device`` guard),
+k18_no_alloc and k20_no_alloc (the ``torch.empty`` allocations, kept
+a shape), k20_no_readback (the status word's synchronise and copy); their
+edits are of the wrappers (``ops/cuda_model.py``, ``ops/cuda_inputs.py``)
+where the name holds a "/".  Each copy's
 package is loaded under a name of its own and builds its kernels with
 its own runtime/build.py.  The inputs are kernel_ab's: K11
 (``match_lists``) on the arguments ``_rmq_search`` gives it on main8M's
@@ -65,6 +75,7 @@ limit), then one JSON line.
 
 from __future__ import annotations
 
+import importlib
 import json
 import os
 import shutil
@@ -395,6 +406,106 @@ VARIANTS = {
         "search_list::window_words and compared as words (the byte path "
         "where a word reaches 2 max_n), in place of a byte and a 64-bit "
         "remainder at a time; the descent as it is"),
+    # a small kernel's call split into its parts (K18, K20): each variant
+    # takes one part out of the wrapper's path; a file name with a "/" is
+    # the package's, not csrc's
+    "k18_empty_grid": (
+        "price_model", "price_model.cu",
+        "__global__ void __launch_bounds__(kThreads) model_kernel(Args a) {",
+        "  if (a.n_lanes >= 0) return;  // variant: an empty grid",
+        False, "the grid's work (the launch of an empty grid stays)"),
+    "k18_no_launch": (
+        "price_model", "price_model.cu", "replace",
+        [("  model_kernel<<<static_cast<int>(n_lanes + plane_blocks), kThreads, smem,",
+          "  if (n_lanes > 0) return 0;  // variant: no launch\n"
+          "  model_kernel<<<static_cast<int>(n_lanes + plane_blocks), kThreads, smem,")],
+        False, "the launch (the C entry's checks and device queries stay)"),
+    "k18_no_ctypes": (
+        "price_model", "ops/cuda_model.py", "replace",
+        [("            err = _lib().lzt_price_model(",
+          "            err = 0 if True else _lib().lzt_price_model(")],
+        False, "the ctypes call (the wrapper's checks, allocations, views "
+        "and device guard stay)"),
+    "k18_no_guard": (
+        "price_model", "ops/cuda_model.py", "replace",
+        [("        with torch.cuda.device(dev):\n"
+          "            err = _lib().lzt_price_model(",
+          "        if True:  # variant: no device guard\n"
+          "            err = _lib().lzt_price_model(")],
+        True, "the torch.cuda.device guard around the call"),
+    "k18_no_alloc": (
+        "price_model", "ops/cuda_model.py", "replace",
+        [("    buf = torch.empty(2 * plane + L * DIST_ENTRIES, dtype=torch.int32,\n"
+          "                      device=dev)",
+          "    cache = globals().setdefault('_VARIANT_CACHE', {})  # variant\n"
+          "    if (L, S, fb) not in cache:\n"
+          "        cache[L, S, fb] = (torch.empty(2 * plane + L * DIST_ENTRIES,\n"
+          "                                       dtype=torch.int32, device=dev),\n"
+          "                           torch.empty((L, table_size(pb, fb)),\n"
+          "                                       dtype=torch.int32, device=dev))\n"
+          "    buf = cache[L, S, fb][0]"),
+         ("    rows = torch.empty((L, table_size(pb, fb)), dtype=torch.int32, device=dev)",
+          "    rows = cache[L, S, fb][1]")],
+        True, "the two torch.empty allocations (outputs kept a shape)"),
+    "k20_empty_grid": (
+        "rep0_trace", "rep0.cu", "replace",
+        [("    tiles_kernel(Tokens tk, int n_tok, int n_tiles, rep0::Agg* tile_agg) {",
+          "    tiles_kernel(Tokens tk, int n_tok, int n_tiles, rep0::Agg* tile_agg) {\n"
+          "  if (n_tok >= 0) return;  // variant: an empty grid"),
+         ("  const long long at = static_cast<long long>(blockIdx.x) * n_tiles;\n"
+          "  const int per",
+          "  if (n_tiles >= 0) return;  // variant: an empty grid\n"
+          "  const long long at = static_cast<long long>(blockIdx.x) * n_tiles;\n"
+          "  const int per"),
+         ("  const rep0::Agg pre = tile_pre[at];",
+          "  if (n_tok >= 0) return;  // variant: an empty grid\n"
+          "  const rep0::Agg pre = tile_pre[at];")],
+        False, "the three grids' work (their launches and the memset stay)"),
+    "k20_no_launch": (
+        "rep0_trace", "rep0.cu", "replace",
+        [("  if (n_tok <= 0) {\n"
+          "    return static_cast<int>(cudaMemsetAsync(",
+          "  if (n_lanes > 0) return 0;  // variant: no launch\n"
+          "  if (n_tok <= 0) {\n"
+          "    return static_cast<int>(cudaMemsetAsync(")],
+        False, "the three launches (the status word's memset and readback "
+        "stay)"),
+    "k20_no_readback": (
+        "rep0_trace", "ops/cuda_inputs.py", "replace",
+        [("    if int(scratch[:4].view(torch.int32).item()):",
+          "    if False:  # variant: no status readback")],
+        True, "the status word's readback (a synchronise and a copy)"),
+    "k20_no_ctypes": (
+        "rep0_trace", "ops/cuda_inputs.py", "replace",
+        [("        err = lib.lzt_rep0_trace(*(p.data_ptr() for p in planes), strides, L,",
+          "        err = 0 if True else lib.lzt_rep0_trace(*(p.data_ptr() for p in planes), strides, L,"),
+         ("    if int(scratch[:4].view(torch.int32).item()):",
+          "    if False:  # variant: no status readback")],
+        False, "the ctypes call and the readback (the checks, the planes' "
+        "views, the allocations and the device guard stay)"),
+    "k20_no_guard": (
+        "rep0_trace", "ops/cuda_inputs.py", "replace",
+        [("    with torch.cuda.device(dev):\n"
+          "        err = lib.lzt_rep0_trace(",
+          "    if True:  # variant: no device guard\n"
+          "        err = lib.lzt_rep0_trace(")],
+        True, "the torch.cuda.device guard around the call"),
+    "k20_no_alloc": (
+        "rep0_trace", "ops/cuda_inputs.py", "replace",
+        [("    out = torch.empty((L, N), dtype=torch.int64, device=dev)\n"
+          "    if L == 0 or N == 0:\n"
+          "        return out",
+          "    cache = globals().setdefault('_VARIANT_CACHE', {})  # variant\n"
+          "    if (L, T, N) not in cache:\n"
+          "        cache[L, T, N] = (torch.empty((L, N), dtype=torch.int64, device=dev),\n"
+          "                          torch.empty((int(_lib().lzt_rep0_scratch(L, T)),),\n"
+          "                                      dtype=torch.uint8, device=dev))\n"
+          "    out = cache[L, T, N][0]"),
+         ("    scratch = torch.empty((int(lib.lzt_rep0_scratch(L, T)),),\n"
+          "                          dtype=torch.uint8, device=dev)",
+          "    scratch = cache[L, T, N][1]")],
+        True, "the two torch.empty allocations (output and scratch kept a "
+        "shape)"),
 }
 #: the kernels whose ptxas report and (K12) blocks an SM are recorded,
 #: their source and the names of their grids
@@ -436,6 +547,13 @@ def edit(src: str, anchor: str, text) -> str | None:
     return src[:at] + "\n" + text + src[at:]
 
 
+def source_path(root: str, f_name: str) -> str:
+    """A variant's file in the copy at root: csrc/f_name, or the package's
+    own f_name where it holds a "/"."""
+    sub = f_name if "/" in f_name else os.path.join("csrc", f_name)
+    return os.path.join(root, "lzma_tpu_torch", sub)
+
+
 def copy(checkout: str, name: str, variant=None):
     """The checkout's package copied to WORK/name, edited by `variant`;
     None where the variant's anchor is missing."""
@@ -446,9 +564,16 @@ def copy(checkout: str, name: str, variant=None):
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
     if variant is not None:
         _, fname, anchor, text = variant[:4]
+        files = ([f for f, _ in text] if anchor == "files" else
+                 [pairs[0] if isinstance(pairs, tuple) else fname
+                  for pairs in text] if anchor == "any" else [fname])
+        if all("/" in f for f in files):
+            # the kernels' sources are the base copy's: its library serves
+            os.symlink(os.path.join(WORK, "base", "lzma_tpu_torch", "_build"),
+                       os.path.join(dst, "lzma_tpu_torch", "_build"))
         if anchor == "files":
             for f_name, pairs in text:
-                path = os.path.join(dst, "lzma_tpu_torch", "csrc", f_name)
+                path = source_path(dst, f_name)
                 with open(path) as f:
                     out = edit(f.read(), "replace", pairs)
                 if out is None:
@@ -461,7 +586,7 @@ def copy(checkout: str, name: str, variant=None):
                   (pairs[0], [pairs[1]]) for pairs in text]
                  if anchor == "any" else [(fname, text)])
         for f_name, f_text in tries:
-            path = os.path.join(dst, "lzma_tpu_torch", "csrc", f_name)
+            path = source_path(dst, f_name)
             with open(path) as f:
                 out = edit(f.read(), anchor, f_text)
             if out is not None:
@@ -549,8 +674,9 @@ def main(argv=None) -> None:
     from ..probes._cuda import card, event_ms
     from .kernel_ab import (COMPACT_WRAPPERS, LAZY_WRAPPERS, MARK_WRAPPERS,
                             grid_split, lazy_call, lazy_inputs, lists_call,
-                            list_inputs, main_path_inputs, other_wrappers,
-                            outputs, path_inputs, row_inputs, table_inputs)
+                            list_inputs, main_path_inputs, model_inputs,
+                            other_wrappers, outputs, path_inputs,
+                            round_inputs, row_inputs, table_inputs)
 
     argv = sys.argv[1:] if argv is None else argv
     checkout = ROOT
@@ -575,6 +701,10 @@ def main(argv=None) -> None:
         inputs["suffix_table"] = {"main8M-opt": table_inputs(dev)}
     if "dp_inputs" in kernels:
         inputs["dp_inputs"] = {"main8M-opt": row_inputs(dev)}
+    if "price_model" in kernels:
+        inputs["price_model"] = {"main8M-opt": model_inputs(dev)}
+    if "rep0_trace" in kernels:
+        inputs["rep0_trace"] = {"main8M-opt": round_inputs(dev)["rep0_trace"]}
     if kernels & {"path_mark", "path_compact"}:
         seen = {s: path_inputs(dev, s) for s in (False, True)}
         for kernel, ws in (("path_mark", MARK_WRAPPERS),
@@ -602,6 +732,12 @@ def main(argv=None) -> None:
             return lambda: mods[7].suffix_table_cuda(*args)
         if kernel == "dp_inputs":
             return lambda: mods[8].dp_inputs_cuda(*args)
+        if kernel == "price_model":
+            model = importlib.import_module(
+                mods[0].__name__.split(".")[0] + ".ops.cuda_model")
+            return lambda: model.price_model_cuda(*args)
+        if kernel == "rep0_trace":
+            return lambda: mods[8].rep0_trace_cuda(*args)
         return lambda: mods[5].lower_counts_cuda(*args)
 
     copies = {v: copy(checkout, v, VARIANTS[v]) for v in chosen}
@@ -610,6 +746,8 @@ def main(argv=None) -> None:
         raise SystemExit(f"kernel_split: {checkout}'s sources lack the "
                          f"anchors of {missing}")
     base_dir = copy(checkout, "base")
+    os.makedirs(os.path.join(base_dir, "lzma_tpu_torch", "_build"),
+                exist_ok=True)
     base = other_wrappers(base_dir, "_split_base")
     result = {"card": name, "checkout": checkout}
     reported = set()

@@ -1,14 +1,23 @@
 // The LZMA state machine and rep-distance MTF over per-lane token streams
-// (K6), as a parallel scan over each lane's tokens.
+// (K6), as a parallel scan over each lane's tokens, and the whole of
+// classify_tokens around it (K19).
 //
-// Replaces the carry of lzma_tpu/ops/device_encoder.py classify_tokens, a
-// lax.scan that JAX compiles for the device (it has no pallas_call): the
+// K6 replaces the carry of lzma_tpu/ops/device_encoder.py classify_tokens,
+// a lax.scan that JAX compiles for the device (it has no pallas_call): the
 // same contract as the plain version lzma_tpu_torch/ops/device_encoder.py
 // _classify_carry -- for every token row of every lane its scan case (0
 // fresh match, 1..4 rep0..rep3, 5 literal), the state before it and rep0
-// before it, in the (T, N) layout of the token rows.  The gathers around
-// the carry (prev, literal and match bytes) stay vectorized in PyTorch
-// (_classify_finish).
+// before it, in the (T, N) layout of the token rows (lzt_classify).
+//
+// K19 (lzt_classify_tokens) is classify_tokens whole, the plain version
+// _classify_tokens_plain (_classify_rows, _classify_carry and
+// _classify_finish): the same scan grids read t_dist, t_len and t_valid in
+// their (N, T) layout through their strides (no transposed rows), and the
+// last grid, after its rescan, writes the seven (N, T) int64 planes
+// (kind, rep_idx, state_before, match_mode, match_byte, prev_byte,
+// lit_byte; classify_meta.cuh's closed forms), a thread a token, the
+// lane's bytes read through L1/L2.  Its bound is its bytes: 25 B of token
+// planes read, 3 data bytes and 56 B written a token slot.
 //
 // What bounds it on this card: the bytes -- dist, len and valid read,
 // case, state and r0 written, ~21 B a row -- once the carry is no longer
@@ -51,6 +60,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "classify_meta.cuh"
+
 namespace {
 
 constexpr int kEosDist = -2;     // device_encoder.EOS_DIST: a match
@@ -77,6 +88,19 @@ Tiles tiles_of(int n_tok, int n_lanes) {
 }
 
 __device__ __forceinline__ int padded(int f) { return f + (f >> 5); }
+
+// The token planes a scan reads, each through its element strides (row,
+// lane): K6's contiguous (T, N) rows, K19's (N, T) planes as given.
+template <typename TI>
+struct Src {
+  const TI* dist;
+  const TI* len;
+  const uint8_t* valid;
+  long long dr, dl;  // dist's strides
+  long long lr, ll;  // len's
+  long long vr, vl;  // valid's
+  bool rows_fast;    // rows are dist's unit stride: stage a lane's run
+};
 
 __device__ __forceinline__ int case_of(int d, int4 r) {
   const bool lit = d < 0 && d != kEosDist;
@@ -188,28 +212,35 @@ __device__ __forceinline__ Tile tile_here(Tiles g) {
   return t;
 }
 
-// Rows of the tile into shared memory: dist and a flag byte (bit 0
-// valid, bit 1 len < 2; 0 outside the arrays, an invalid row).
-template <bool kLen>
-__device__ __forceinline__ void stage(Tiles g, const Tile& t,
-                                      const int* __restrict__ dist,
-                                      const int* __restrict__ len,
-                                      const uint8_t* __restrict__ valid,
+// Rows of the tile into shared memory: dist (its low 32 bits, as the rows
+// K6 takes hold it) and a flag byte (bit 0 valid, bit 1 len < 2, bit 2 a
+// literal's distance at its full width; 0 outside the arrays, an invalid
+// row).  Where rows are the unit stride a thread's consecutive f walk a
+// lane's run of rows, else the lanes of a row.
+template <bool kLen, typename TI>
+__device__ __forceinline__ void stage(Tiles g, const Tile& t, const Src<TI>& src,
                                       int* sd, uint8_t* sf, int n_tok,
                                       int n_lanes) {
   const int w_mask = (1 << g.lw) - 1;
+  const int lr = 12 - g.lw;  // log2 of the tile's rows (kTileElems = 4096)
   for (int f = threadIdx.x; f < kTileElems; f += kThreads) {
-    const long long row = t.t0 + (f >> g.lw);
-    const int lane = t.n0 + (f & w_mask);
+    const int at = src.rows_fast ? (((f & ((1 << lr) - 1)) << g.lw) | (f >> lr))
+                                 : f;
+    const long long row = t.t0 + (at >> g.lw);
+    const int lane = t.n0 + (at & w_mask);
     int d = 0, fl = 0;
     if (row < n_tok && lane < n_lanes) {
-      const long long e = row * n_lanes + lane;
-      d = __ldg(dist + e);
-      fl = __ldg(valid + e) ? 1 : 0;
-      if (kLen) fl |= __ldg(len + e) < 2 ? 2 : 0;
+      const TI dw = __ldg(src.dist + row * src.dr + lane * src.dl);
+      d = static_cast<int>(dw);
+      fl = __ldg(src.valid + row * src.vr + lane * src.vl) ? 1 : 0;
+      if (kLen) {
+        fl |= static_cast<int>(__ldg(src.len + row * src.lr + lane * src.ll)) < 2
+                  ? 2 : 0;
+        fl |= classify_meta::is_literal(static_cast<int64_t>(dw)) ? 4 : 0;
+      }
     }
-    sd[padded(f)] = d;
-    sf[padded(f)] = static_cast<uint8_t>(fl);
+    sd[padded(at)] = d;
+    sf[padded(at)] = static_cast<uint8_t>(fl);
   }
   __syncthreads();
 }
@@ -234,15 +265,15 @@ __device__ __forceinline__ int4 pad_reps(int4 r) {
 }
 
 // ---------------------------------------------------------------- grid 1
+template <typename TI>
 __global__ void __launch_bounds__(kThreads)
-    tile_lists_kernel(Tiles g, const int* __restrict__ dist,
-                      const uint8_t* __restrict__ valid,
-                      int4* __restrict__ tile_list, int n_tok, int n_lanes) {
+    tile_lists_kernel(Tiles g, Src<TI> src, int4* __restrict__ tile_list,
+                      int n_tok, int n_lanes) {
   __shared__ int sd[kTilePad];
   __shared__ uint8_t sf[kTilePad];
   __shared__ int4 buf[kThreads];
   const Tile t = tile_here(g);
-  stage<false>(g, t, dist, nullptr, valid, sd, sf, n_tok, n_lanes);
+  stage<false>(g, t, src, sd, sf, n_tok, n_lanes);
   const int4 r = block_scan<ListOp>(chunk_list(g, t, sd, sf), buf, t.c,
                                     t.per, 1 << g.lw);
   if (t.c == t.per - 1 && t.lane < n_lanes) {
@@ -289,10 +320,9 @@ __device__ __forceinline__ uint32_t step4(uint32_t x, bool lit, uint32_t lo,
   return lit ? l : n;
 }
 
+template <typename TI>
 __global__ void __launch_bounds__(kThreads)
-    tile_maps_kernel(Tiles g, const int* __restrict__ dist,
-                     const int* __restrict__ len,
-                     const uint8_t* __restrict__ valid,
+    tile_maps_kernel(Tiles g, Src<TI> src,
                      const int4* __restrict__ tile_list,
                      uint64_t* __restrict__ tile_map,
                      int4* __restrict__ chunk_reps,
@@ -304,7 +334,7 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ uint64_t mbuf[kThreads];
   const Tile t = tile_here(g);
   const int stride = 1 << g.lw;
-  stage<true>(g, t, dist, len, valid, sd, sf, n_tok, n_lanes);
+  stage<true>(g, t, src, sd, sf, n_tok, n_lanes);
   block_scan<ListOp>(chunk_list(g, t, sd, sf), lbuf, t.c, t.per, stride);
   const int4 before = t.c > 0 ? lbuf[threadIdx.x - stride] : ListOp::identity();
   const int4 prefix = t.lane < n_lanes ? tile_list[t.tr * n_lanes + t.lane]
@@ -347,20 +377,18 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------- grid 5
-__global__ void __launch_bounds__(kThreads)
-    tile_rows_kernel(Tiles g, const int* __restrict__ dist,
-                     const int* __restrict__ len,
-                     const uint8_t* __restrict__ valid,
-                     const uint64_t* __restrict__ tile_map,
-                     const int4* __restrict__ chunk_reps,
-                     const uint64_t* __restrict__ chunk_map,
-                     int* __restrict__ case_r, int* __restrict__ state_r,
-                     int* __restrict__ r0_r, int n_tok, int n_lanes) {
-  __shared__ int sd[kTilePad];     // dist, then r0
-  __shared__ uint8_t sf[kTilePad]; // flags, then case
-  __shared__ uint8_t ss[kTilePad]; // state
-  const Tile t = tile_here(g);
-  stage<true>(g, t, dist, len, valid, sd, sf, n_tok, n_lanes);
+// The tile staged and each chunk rescanned from its reps and state: sd
+// takes each row's r0, sf its case (bits 0-2) and whether its distance is
+// a literal's (bit 3), ss its state.
+template <typename TI>
+__device__ __forceinline__ void rescan(Tiles g, const Tile& t,
+                                       const Src<TI>& src,
+                                       const uint64_t* __restrict__ tile_map,
+                                       const int4* __restrict__ chunk_reps,
+                                       const uint64_t* __restrict__ chunk_map,
+                                       int* sd, uint8_t* sf, uint8_t* ss,
+                                       int n_tok, int n_lanes) {
+  stage<true>(g, t, src, sd, sf, n_tok, n_lanes);
   const long long slot = t.blk * kThreads + threadIdx.x;
   int4 r = chunk_reps[slot];
   const int s_tile = t.lane < n_lanes
@@ -375,7 +403,7 @@ __global__ void __launch_bounds__(kThreads)
     const int fl = sf[p];
     const int c = case_of(d, r);
     sd[p] = r.x;
-    sf[p] = static_cast<uint8_t>(c);
+    sf[p] = static_cast<uint8_t>(c | ((fl & 4) << 1));
     ss[p] = static_cast<uint8_t>(state);
     const bool high = state >= 7;
     const int lit_state = state < 4 ? 0 : state < 10 ? state - 3 : state - 6;
@@ -387,6 +415,21 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   __syncthreads();
+}
+
+__global__ void __launch_bounds__(kThreads)
+    tile_rows_kernel(Tiles g, Src<int> src,
+                     const uint64_t* __restrict__ tile_map,
+                     const int4* __restrict__ chunk_reps,
+                     const uint64_t* __restrict__ chunk_map,
+                     int* __restrict__ case_r, int* __restrict__ state_r,
+                     int* __restrict__ r0_r, int n_tok, int n_lanes) {
+  __shared__ int sd[kTilePad];     // dist, then r0
+  __shared__ uint8_t sf[kTilePad]; // flags, then case
+  __shared__ uint8_t ss[kTilePad]; // state
+  const Tile t = tile_here(g);
+  rescan(g, t, src, tile_map, chunk_reps, chunk_map, sd, sf, ss, n_tok,
+         n_lanes);
   const int w_mask = (1 << g.lw) - 1;
   for (int f = threadIdx.x; f < kTileElems; f += kThreads) {
     const long long row = t.t0 + (f >> g.lw);
@@ -394,9 +437,50 @@ __global__ void __launch_bounds__(kThreads)
     if (row < n_tok && lane < n_lanes) {
       const long long e = row * n_lanes + lane;
       const int p = padded(f);
-      case_r[e] = sf[p];
+      case_r[e] = sf[p] & 7;
       state_r[e] = ss[p];
       r0_r[e] = sd[p];
+    }
+  }
+}
+
+// K19's last grid: the rescan, then each token's seven values
+// (classify_meta::finish) into the (N, T) planes of out, plane after
+// plane, a warp's threads on consecutive rows of a lane.  pos: t_pos
+// through its strides (row, lane); data: the lanes' bytes, a lane every
+// data_stride.
+__global__ void __launch_bounds__(kThreads)
+    tile_finish_kernel(Tiles g, Src<long long> src,
+                       const long long* __restrict__ pos, long long pr,
+                       long long pl, const uint8_t* __restrict__ data,
+                       long long data_stride, long long max_n,
+                       const uint64_t* __restrict__ tile_map,
+                       const int4* __restrict__ chunk_reps,
+                       const uint64_t* __restrict__ chunk_map,
+                       long long* __restrict__ out, int n_tok, int n_lanes) {
+  __shared__ int sd[kTilePad];     // dist, then r0
+  __shared__ uint8_t sf[kTilePad]; // flags, then case and literal
+  __shared__ uint8_t ss[kTilePad]; // state
+  const Tile t = tile_here(g);
+  rescan(g, t, src, tile_map, chunk_reps, chunk_map, sd, sf, ss, n_tok,
+         n_lanes);
+  const long long plane = static_cast<long long>(n_lanes) * n_tok;
+  const int lr = 12 - g.lw;
+  for (int f = threadIdx.x; f < kTileElems; f += kThreads) {
+    const int rl = f & ((1 << lr) - 1);
+    const int w = f >> lr;
+    const long long row = t.t0 + rl;
+    const int lane = t.n0 + w;
+    if (row < n_tok && lane < n_lanes) {
+      const int p = padded((rl << g.lw) | w);
+      const int cs = sf[p];
+      int64_t v[classify_meta::kPlanes];
+      classify_meta::finish(cs & 7, (cs & 8) != 0, ss[p], sd[p],
+                            __ldg(pos + row * pr + lane * pl),
+                            data + lane * data_stride, max_n, v);
+      long long* o = out + static_cast<long long>(lane) * n_tok + row;
+#pragma unroll
+      for (int k = 0; k < classify_meta::kPlanes; ++k) o[k * plane] = v[k];
     }
   }
 }
@@ -431,6 +515,42 @@ extern "C" long long lzt_classify_scratch(int n_tok, int n_lanes) {
   return scratch_layout(tiles_of(n_tok, n_lanes), n_lanes, nullptr, nullptr);
 }
 
+namespace {
+
+// The four scan grids K6 and K19 share: the tiles' lists, their lane
+// scan, the chunks' reps and maps, their lane scan.
+template <typename TI>
+int scan_grids(Tiles g, const Src<TI>& src, const Scratch& w, int nb,
+               int n_tok, int n_lanes, cudaStream_t s) {
+  tile_lists_kernel<TI><<<nb, kThreads, 0, s>>>(g, src, w.tile_list, n_tok,
+                                                n_lanes);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  lane_scan_kernel<ListOp><<<n_lanes, kThreads, 0, s>>>(w.tile_list, g.n_tr,
+                                                        n_lanes);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  tile_maps_kernel<TI><<<nb, kThreads, 0, s>>>(g, src, w.tile_list,
+                                               w.tile_map, w.chunk_reps,
+                                               w.chunk_map, n_tok, n_lanes);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  lane_scan_kernel<MapOp><<<n_lanes, kThreads, 0, s>>>(w.tile_map, g.n_tr,
+                                                       n_lanes);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The grid of (n_tok, n_lanes) rows: its tiles, its scratch laid out, its
+// blocks (0 where the grid would be too large).
+int grid_of(int n_tok, int n_lanes, void* scratch, Tiles* g, Scratch* w) {
+  *g = tiles_of(n_tok, n_lanes);
+  scratch_layout(*g, n_lanes, scratch, w);
+  const long long blocks = static_cast<long long>(g->n_tr) * g->n_lt;
+  return blocks > 0x7FFFFFFFLL ? 0 : static_cast<int>(blocks);
+}
+
+}  // namespace
+
 // dist, len: (n_tok, n_lanes) int32; valid: (n_tok, n_lanes) bytes 0/1;
 // scratch: lzt_classify_scratch(n_tok, n_lanes) bytes, 16-byte aligned;
 // case_r, state_r, r0_r: (n_tok, n_lanes) int32 outputs.  Returns the
@@ -441,31 +561,46 @@ extern "C" int lzt_classify(const int* dist, const int* len,
                             void* stream) {
   if (n_tok <= 0 || n_lanes <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Tiles g = tiles_of(n_tok, n_lanes);
+  Tiles g;
   Scratch w;
-  scratch_layout(g, n_lanes, scratch, &w);
-  const long long blocks = static_cast<long long>(g.n_tr) * g.n_lt;
-  if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
-  const int nb = static_cast<int>(blocks);
-  tile_lists_kernel<<<nb, kThreads, 0, s>>>(g, dist, valid, w.tile_list,
-                                            n_tok, n_lanes);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  lane_scan_kernel<ListOp><<<n_lanes, kThreads, 0, s>>>(w.tile_list, g.n_tr,
-                                                        n_lanes);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  tile_maps_kernel<<<nb, kThreads, 0, s>>>(g, dist, len, valid, w.tile_list,
-                                           w.tile_map, w.chunk_reps,
-                                           w.chunk_map, n_tok, n_lanes);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  lane_scan_kernel<MapOp><<<n_lanes, kThreads, 0, s>>>(w.tile_map, g.n_tr,
-                                                       n_lanes);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  tile_rows_kernel<<<nb, kThreads, 0, s>>>(g, dist, len, valid, w.tile_map,
-                                           w.chunk_reps, w.chunk_map, case_r,
-                                           state_r, r0_r, n_tok, n_lanes);
+  const int nb = grid_of(n_tok, n_lanes, scratch, &g, &w);
+  if (nb == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const Src<int> src{dist, len, valid, n_lanes, 1, n_lanes, 1, n_lanes, 1,
+                     false};
+  const int err = scan_grids(g, src, w, nb, n_tok, n_lanes, s);
+  if (err) return err;
+  tile_rows_kernel<<<nb, kThreads, 0, s>>>(g, src, w.tile_map, w.chunk_reps,
+                                           w.chunk_map, case_r, state_r, r0_r,
+                                           n_tok, n_lanes);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K19.  data: (n_lanes, max_n) bytes, a lane every data_stride; pos, len,
+// dist: int64 and valid: bytes 0/1, (n_lanes, n_tok) through strides[8]
+// (elements: pos's row and lane strides, then len's, dist's, valid's);
+// scratch: lzt_classify_scratch(n_tok, n_lanes) bytes, 16-byte aligned;
+// out: (7, n_lanes, n_tok) int64, contiguous.  Returns the first CUDA
+// error of the five launches (0 on success).
+extern "C" int lzt_classify_tokens(const uint8_t* data, long long data_stride,
+                                   long long max_n, const long long* pos,
+                                   const long long* len, const long long* dist,
+                                   const uint8_t* valid,
+                                   const long long* strides, void* scratch,
+                                   long long* out, int n_tok, int n_lanes,
+                                   void* stream) {
+  if (n_tok <= 0 || n_lanes <= 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Tiles g;
+  Scratch w;
+  const int nb = grid_of(n_tok, n_lanes, scratch, &g, &w);
+  if (nb == 0 || max_n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const Src<long long> src{dist, len, valid, strides[4], strides[5],
+                           strides[2], strides[3], strides[6], strides[7],
+                           strides[4] == 1};
+  const int err = scan_grids(g, src, w, nb, n_tok, n_lanes, s);
+  if (err) return err;
+  tile_finish_kernel<<<nb, kThreads, 0, s>>>(
+      g, src, pos, strides[0], strides[1], data, data_stride, max_n,
+      w.tile_map, w.chunk_reps, w.chunk_map, out, n_tok, n_lanes);
   return static_cast<int>(cudaGetLastError());
 }

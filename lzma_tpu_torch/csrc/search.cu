@@ -530,3 +530,67 @@ extern "C" int lzt_match_lists(const void* const* sorted,
                 dict_size, n_lanes, max_n, n_list, list_blocks, lens, dists,
                 counts, s);
 }
+
+// ----------------------------------------------------------------- K21
+// The optimal round's DP pairs and the seed's longest pair from K11's
+// lists in one pass (replaces lzma_tpu/ops/device_parser.py
+// _select_dp_pairs :1529 and the head of _seed_from_lists :1551, jitted
+// under jax.jit at device_parser.py:1595; no pallas_call).  Its bytes
+// bound it: a position's count, the sectors of its lists' first kDpMax
+// entries and of their last, read once, and 2 m_dp + 2 int64 written.  A
+// thread a position, its outputs written as 16-byte words.
+
+namespace {
+
+constexpr int kPairThreads = 256;
+constexpr int kDpMax = 4;  // device_parser.M_DP: the pairs a position
+
+__global__ void __launch_bounds__(kPairThreads)
+    pairs_kernel(const int64_t* __restrict__ cl, const int64_t* __restrict__ cd,
+                 const int64_t* __restrict__ counts, int width, int64_t n_pos,
+                 int64_t* __restrict__ ld, int64_t* __restrict__ dd,
+                 int64_t* __restrict__ bl, int64_t* __restrict__ bd) {
+  const int64_t p = static_cast<int64_t>(blockIdx.x) * kPairThreads +
+                    threadIdx.x;
+  if (p >= n_pos) return;
+  const int64_t count = __ldg(counts + p);
+  const int64_t* row_l = cl + p * width;
+  const int64_t* row_d = cd + p * width;
+  int64_t hl[kDpMax], hd[kDpMax];
+#pragma unroll
+  for (int k = 0; k < kDpMax; ++k) {
+    hl[k] = __ldg(row_l + k);
+    hd[k] = __ldg(row_d + k);
+  }
+  const int last = search_list::last_entry(count, width);
+  int64_t ol[kDpMax], od[kDpMax];
+  search_list::list_pairs(hl, hd, __ldg(row_l + last), __ldg(row_d + last),
+                          count, kDpMax, ol, od, bl + p, bd + p);
+  longlong2* wl = reinterpret_cast<longlong2*>(ld + p * kDpMax);
+  longlong2* wd = reinterpret_cast<longlong2*>(dd + p * kDpMax);
+  wl[0] = make_longlong2(ol[0], ol[1]);
+  wl[1] = make_longlong2(ol[2], ol[3]);
+  wd[0] = make_longlong2(od[0], od[1]);
+  wd[1] = make_longlong2(od[2], od[3]);
+}
+
+}  // namespace
+
+// cl, cd: (n_pos, width) int64 lists, contiguous, width > m_dp; counts:
+// (n_pos,) int64; ld, dd: (n_pos, m_dp) int64 outputs and bl, bd:
+// (n_pos,) int64, contiguous and 16-byte aligned.  m_dp must be kDpMax.
+// Returns the launch's CUDA error (0 on success).
+extern "C" int lzt_list_pairs(const int64_t* cl, const int64_t* cd,
+                              const int64_t* counts, int width, int m_dp,
+                              int64_t n_pos, int64_t* ld, int64_t* dd,
+                              int64_t* bl, int64_t* bd, void* stream) {
+  if (n_pos <= 0) return 0;
+  const int64_t blocks = (n_pos + kPairThreads - 1) / kPairThreads;
+  if (m_dp != kDpMax || width <= m_dp || blocks > 0x7FFFFFFFLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  pairs_kernel<<<static_cast<int>(blocks), kPairThreads, 0,
+                 static_cast<cudaStream_t>(stream)>>>(cl, cd, counts, width,
+                                                      n_pos, ld, dd, bl, bd);
+  return static_cast<int>(cudaGetLastError());
+}

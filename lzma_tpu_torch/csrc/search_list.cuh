@@ -18,7 +18,10 @@
 //       keep-first in round-robin tier order, else the nearest), the
 //       exact lengths by two reads of the sparse min table (_lcp_query),
 //       and the merge that keeps strictly increasing lengths at ascending
-//       distance (_match_lists_plain).
+//       distance (_match_lists_plain);
+//   K21 a position's DP pairs and the seed's longest pair from its list
+//       (device_parser._list_pairs_plain: _select_dp_pairs and the head
+//       of _seed_from_lists).
 //
 // Plain C++ under LZT_HD, so that a host compiler can build it too (the
 // CPU tests hold it to the plain versions through a g++ build).  Hash
@@ -545,6 +548,37 @@ LZT_HD int list_position(const Lane& ln, int64_t p, const int32_t* row,
     const int len = gather_row(row, m, rr, cap, list);
     return merge(ln, p, list, len, width, lens, dists);
   }
+}
+
+// ----------------------------------------------------------------- K21
+constexpr int kSeedMinLen = 4;  // device_parser.SEED_MIN_LEN
+
+// The list entry a position's longest pair is at: count - 1, 0 for an
+// empty list (kept inside the width: the lists never count past it).
+LZT_HD int last_entry(int64_t count, int width) {
+  return count < 1 ? 0 : count > width ? width - 1 : static_cast<int>(count - 1);
+}
+
+// A position's m_dp DP pairs (ld, dd) from its list's first m_dp entries
+// (head_l, head_d) and its last (last_l, last_d): dd = -1 where the
+// length is below 2, and the last entry in slot m_dp - 1 where the list
+// is deeper than m_dp; and the seed's pair (bl, bd), the last entry where
+// the list is not empty and its length is at least kSeedMinLen, else 0.
+LZT_HD void list_pairs(const int64_t* head_l, const int64_t* head_d,
+                       int64_t last_l, int64_t last_d, int64_t count,
+                       int m_dp, int64_t* ld, int64_t* dd, int64_t* bl,
+                       int64_t* bd) {
+  for (int k = 0; k < m_dp; ++k) {
+    ld[k] = head_l[k];
+    dd[k] = head_l[k] >= 2 ? head_d[k] : -1;
+  }
+  if (count > m_dp) {
+    ld[m_dp - 1] = last_l;
+    dd[m_dp - 1] = last_d;
+  }
+  const bool has = count > 0 && last_l >= kSeedMinLen;
+  *bl = has ? last_l : 0;
+  *bd = has ? last_d : 0;
 }
 
 }  // namespace search_list

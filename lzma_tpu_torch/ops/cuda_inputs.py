@@ -1,5 +1,6 @@
 """The optimal parse's DP rows as a CUDA kernel (K12, ``csrc/dp_inputs.cu``,
-on the per-position closed form of ``csrc/dp_input_row.cuh``).
+on the per-position closed form of ``csrc/dp_input_row.cuh``), and the
+rep0 trace those rows read (K20, ``csrc/rep0.cu`` on ``csrc/rep0.cuh``).
 
 K12 is the counterpart of the per-position half of the price model in
 ``lzma_tpu/ops/device_parser.py``'s ``tokenize_optimal``, jitted JAX
@@ -14,8 +15,17 @@ price slots of the two planes through L1 (staged in shared memory as
 well, they were no faster: a block's shared bytes come out of the SM's
 L1, which holds the rows' other reads; PERF.md, section 6).
 
+K20 is the counterpart of ``device_parser.py``'s ``rep0_trace``, jitted
+JAX device code (no ``pallas_call``): ``rep0_trace_cuda`` replaces the
+plain ``device_parser.rep0_trace`` (two (L, N + 1) int64 scatters, a
+cummax and a gather) by a fill from the token side in three grids, one
+call; it takes the valid tokens at strictly ascending t_pos >= 0 (each
+round's tokens are K14's compaction) and raises ValueError where they
+are not (``device_parser.check_rep0_order``'s error).
+
 A CUDA tensor launches the kernel (or the wrapper raises); a CPU tensor
-takes the plain version.  The rows are the plain version's, bit for bit.
+takes the plain version.  The rows are the plain version's, bit for bit,
+and so is the trace.
 """
 
 from __future__ import annotations
@@ -27,11 +37,13 @@ import torch
 
 from ..core.layout import LITERAL_CODER_SIZE, ProbLayout
 from ..runtime import build
-from .device_parser import _dp_inputs_plain
+from .device_parser import REP0_ORDER, _dp_inputs_plain, rep0_trace
 
 #: kernel launches made through dp_inputs_cuda (K12) since the count was
 #: last set
 LAUNCHES = 0
+#: kernel launches made through rep0_trace_cuda (K20)
+REP0_LAUNCHES = 0
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: a lane's distance tables as the kernel reads them: ps_price (4, 64),
@@ -49,6 +61,10 @@ def _lib():
     lib.lzt_dp_inputs_smem.restype = ctypes.c_longlong
     lib.lzt_dp_inputs_occupancy.argtypes = [_I]
     lib.lzt_dp_inputs_occupancy.restype = ctypes.c_int
+    lib.lzt_rep0_trace.argtypes = [_P] * 4 + [_I, _I, _L, _P, _P, _P]
+    lib.lzt_rep0_trace.restype = ctypes.c_int
+    lib.lzt_rep0_scratch.argtypes = [_I, _I]
+    lib.lzt_rep0_scratch.restype = ctypes.c_longlong
     return lib
 
 
@@ -153,4 +169,51 @@ def dp_inputs_cuda(data, ld, dd, r0pos, suffix, lens, planes, dist_tables,
     if err:
         raise RuntimeError(f"dp_inputs launch failed: CUDA error {err}")
     LAUNCHES += 1
+    return out
+
+
+def rep0_trace_cuda(t_pos, t_dist, t_valid, N: int):
+    """The rep0 in effect at every position (K20): t_pos, t_dist, t_valid
+    (L, T) a round's tokens.  Returns r0pos (L, N) int64, as
+    ``device_parser.rep0_trace``; raises ValueError where a lane's valid
+    tokens do not lie at strictly ascending t_pos >= 0."""
+    global REP0_LAUNCHES
+    if t_pos.device.type == "cpu":
+        return rep0_trace(t_pos, t_dist, t_valid, N)
+    if t_pos.device.type != "cuda":
+        raise ValueError(f"rep0_trace_cuda takes CPU or CUDA tensors, got "
+                         f"{t_pos.device}")
+    if t_pos.dim() != 2:
+        raise ValueError(f"t_pos must be (L, T), got {tuple(t_pos.shape)}")
+    for name, t in (("t_dist", t_dist), ("t_valid", t_valid)):
+        if t.shape != t_pos.shape or t.device != t_pos.device:
+            raise ValueError(f"{name} must be {tuple(t_pos.shape)} on "
+                             f"{t_pos.device}, got {tuple(t.shape)} on "
+                             f"{t.device}")
+    for name, t in (("t_pos", t_pos), ("t_dist", t_dist)):
+        if t.is_floating_point() or t.dtype == torch.bool:
+            raise TypeError(f"{name} must be an integer tensor, got {t.dtype}")
+    if not 0 <= N < 1 << 31:
+        raise ValueError(f"N must be in [0, 2**31), got {N}")
+    L, T = t_pos.shape
+    dev = t_pos.device
+    out = torch.empty((L, N), dtype=torch.int64, device=dev)
+    if L == 0 or N == 0:
+        return out
+    planes = (t_pos.long(), t_dist.long(), t_valid.bool())
+    # each plane's (slot, lane) strides: its T axis's, then its L axis's
+    strides = (ctypes.c_longlong * 6)(*(s for p in planes
+                                        for s in reversed(p.stride())))
+    lib = _lib()
+    scratch = torch.empty((int(lib.lzt_rep0_scratch(L, T)),),
+                          dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.lzt_rep0_trace(*(p.data_ptr() for p in planes), strides, L,
+                                 T, N, scratch.data_ptr(), out.data_ptr(),
+                                 torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"rep0_trace launch failed: CUDA error {err}")
+    REP0_LAUNCHES += 1
+    if int(scratch[:4].view(torch.int32).item()):
+        raise ValueError(REP0_ORDER)
     return out

@@ -20,7 +20,12 @@ call these wrappers:
 - ``match_lists_cuda`` (K11) replaces ``_match_lists_plain``: the tiers'
   inverse orders, then a thread a position gathers its candidates tier
   by tier into a row in shared memory, then takes their dedup and cap,
-  exact lengths and merge.
+  exact lengths and merge;
+- ``list_pairs_cuda`` (K21) replaces ``device_parser._list_pairs_plain``
+  (``_select_dp_pairs``' clone and gathers and the head of
+  ``_seed_from_lists``, its gathers of the lists' last entries again):
+  a thread a position reads its count, its lists' first M_DP entries and
+  their last once and writes the DP pairs and the seed's pair.
 
 A CUDA tensor launches the kernel (or the wrapper raises); a CPU tensor
 takes the plain version.  Every output is the plain version's, bit for
@@ -46,6 +51,8 @@ KEYS_LAUNCHES = 0
 TABLE_LAUNCHES = 0
 #: kernel launches made through match_lists_cuda (K11)
 LIST_LAUNCHES = 0
+#: kernel launches made through list_pairs_cuda (K21)
+PAIR_LAUNCHES = 0
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -59,7 +66,9 @@ def _lib():
     lib.lzt_match_lists.argtypes = [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I,
                                     _P, _P, _I, _P, _L, _I, _L, _P, _P, _P,
                                     _P]
-    for fn in (lib.lzt_search_keys, lib.lzt_suffix_table, lib.lzt_match_lists):
+    lib.lzt_list_pairs.argtypes = [_P, _P, _P, _I, _I, _L] + [_P] * 5
+    for fn in (lib.lzt_search_keys, lib.lzt_suffix_table, lib.lzt_match_lists,
+               lib.lzt_list_pairs):
         fn.restype = ctypes.c_int
     return lib
 
@@ -286,3 +295,39 @@ def match_lists_cuda(sorted_keys, orders, ranks, rank, T, n, dict_size: int,
         _raise("match_lists", err)
         LIST_LAUNCHES += 1
     return lens, dists, counts
+
+
+def list_pairs_cuda(cl, cd, counts):
+    """The optimal round's DP pairs and the seed's pairs from K11's lists
+    (K21): cl, cd (L, N, width) int64, width > M_DP; counts (L, N) int64.
+    Returns (ld, dd) (L, N, M_DP) and (bl, bd) (L, N), int64, as
+    ``device_parser._list_pairs_plain``."""
+    global PAIR_LAUNCHES
+    from .device_parser import M_DP, _list_pairs_plain
+
+    if not _on_card("list_pairs_cuda", cl):
+        return _list_pairs_plain(cl, cd, counts)
+    if cl.dim() != 3 or cl.shape[2] <= M_DP:
+        raise ValueError(f"the lists must be (L, N, width), width > {M_DP}, "
+                         f"got {tuple(cl.shape)}")
+    L, N, width = cl.shape
+    dev = cl.device
+    for name, t, shape in (("cl", cl, (L, N, width)), ("cd", cd, (L, N, width)),
+                           ("counts", counts, (L, N))):
+        if tuple(t.shape) != shape or t.device != dev:
+            raise ValueError(f"{name} must be {shape} on {dev}, got "
+                             f"{tuple(t.shape)} on {t.device}")
+        if t.dtype != torch.int64:
+            raise TypeError(f"{name} must be int64 (K11's), got {t.dtype}")
+    pairs = torch.empty((2, L, N, M_DP), dtype=torch.int64, device=dev)
+    seed = torch.empty((2, L, N), dtype=torch.int64, device=dev)
+    if L and N:
+        cl, cd, counts = cl.contiguous(), cd.contiguous(), counts.contiguous()
+        with torch.cuda.device(dev):
+            err = _lib().lzt_list_pairs(
+                cl.data_ptr(), cd.data_ptr(), counts.data_ptr(), width, M_DP,
+                L * N, pairs[0].data_ptr(), pairs[1].data_ptr(),
+                seed[0].data_ptr(), seed[1].data_ptr(), _stream(dev))
+        _raise("list_pairs", err)
+        PAIR_LAUNCHES += 1
+    return (*pairs.unbind(0), *seed.unbind(0))

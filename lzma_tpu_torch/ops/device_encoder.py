@@ -9,9 +9,9 @@ range coder is fully determined, so the encoder splits into
                                        lazy parse, or
                                        ops/device_parser.tokenize_optimal)
   B. token classification scan        (classify_tokens: state machine and
-                                       rep-distance MTF per token; the
-                                       serial carry is the CUDA kernel of
-                                       cuda_classify)
+                                       rep-distance MTF per token; on the
+                                       card the CUDA kernel K19 of
+                                       cuda_classify, around K6's carry)
   C. bit lowering                     (lower_tokens: every token's
                                        (ctx, bit) pairs from closed forms,
                                        scattered into a flat stream; the
@@ -172,21 +172,29 @@ def _classify_finish(data, t_pos, t_dist, carry):
     return kind, rep_idx, state_b, match_mode, match_byte, prev_byte, lit_byte
 
 
+def _classify_tokens_plain(data, t_pos, t_len, t_dist, t_valid):
+    """The plain version of ``cuda_classify.classify_tokens_cuda`` (K19):
+    the carry over the token rows (``_classify_rows``, ``_classify_carry``)
+    and the vectorized finish (arguments and result as
+    ``classify_tokens``)."""
+    rows = _classify_rows(t_len, t_dist, t_valid)
+    return _classify_finish(data, t_pos, t_dist, _classify_carry(*rows))
+
+
 def classify_tokens(data, t_pos, t_len, t_dist, t_valid):
     """LZMA state machine and rep MTF over the token stream
     (device_encoder.classify_tokens).
 
     data: (N, max_n) uint8; token arrays (N, T).  Returns per-token int64
     tensors: kind, rep_idx, state_before, match_mode, match_byte,
-    prev_byte, lit_byte.  The reference's lax.scan is the carry
-    (``cuda_classify.classify_carry_cuda``: the CUDA kernel for CUDA
-    tensors, the plain ``_classify_carry`` for CPU ones) and a
-    vectorized finish."""
-    from .cuda_classify import classify_carry_cuda
+    prev_byte, lit_byte.  ``cuda_classify.classify_tokens_cuda``: the CUDA
+    kernel K19 for CUDA tensors (the reference's lax.scan and the gathers
+    around it in one call), the plain ``_classify_tokens_plain`` for CPU
+    ones."""
+    from .cuda_classify import classify_tokens_cuda
 
-    rows = _classify_rows(t_len, t_dist, t_valid)
-    keep("classify_rows", rows)
-    return _classify_finish(data, t_pos, t_dist, classify_carry_cuda(*rows))
+    keep("classify_args", (data, t_pos, t_len, t_dist, t_valid))
+    return classify_tokens_cuda(data, t_pos, t_len, t_dist, t_valid)
 
 
 # ---------------------------------------------------------------- phase C
@@ -606,7 +614,7 @@ def probing():
     began under "peak_bytes" (the same lists; the card's peak statistics
     are reset at each stage's start), the
     last DP round's inputs under "dp_inputs", the last classify call's
-    token rows under "classify_rows", the final tokens and (ctx, bit)
+    arguments under "classify_args", the final tokens and (ctx, bit)
     streams under "lowered", the final lowering's arguments
     (``cuda_lower.lower_tokens_cuda``'s) under "lower_args" and the last
     optimal round's slot counts' arguments (``cuda_lower.

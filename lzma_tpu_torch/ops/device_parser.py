@@ -6,16 +6,22 @@ Port of the ``parse="optimal"`` route of ``lzma_tpu/ops/device_parser.py``:
            (device_matcher._rmq_search: K9's keys, their sorts, K10's
            suffix table and K11's lists on the card), the first M_DP
            ascending pairs per position kept for the DP
-           (_select_dp_pairs); stages SEARCH_STAGES
-  seed     a lazy parse over the lists' longest entries (_seed_from_lists;
+           (_select_dp_pairs) and each list's longest pair for the seed
+           (_seed_pair), both K21 on the card (cuda_search.
+           list_pairs_cuda, whose plain version is _list_pairs_plain);
+           stages SEARCH_STAGES
+  seed     a lazy parse over the lists' longest entries (_seed_tokens;
            its path and tokens K13 and K14 on the card, cuda_path)
-  model    the block's own (ctx, bit) statistics (classify + the slot
-           counts of the current token stream's lowering, lower_counts:
-           K8 on the card) -> empirical probabilities -> the price planes
+  model    the block's own (ctx, bit) statistics (classify, K19 on the
+           card, + the slot counts of the current token stream's
+           lowering, lower_counts: K8 on the card) -> empirical
+           probabilities -> the price planes
            and the tables that do not depend on the position
            (price_tables, _dp_tables; all four K18 on the card,
            cuda_model.price_model_cuda, whose plain version is
-           _price_model_plain), the rep0-by-position trace, then each
+           _price_model_plain), the rep0-by-position trace (K20 on the
+           card, cuda_inputs.rep0_trace_cuda, whose plain version is
+           rep0_trace), then each
            position's row (K12 on the card, cuda_inputs.dp_inputs_cuda,
            whose plain version _dp_inputs_plain is lit_cost,
            matched_lit_cost, _pair_dist_cost, rep_match_lens_rmq and the
@@ -320,6 +326,29 @@ def rep0_trace(t_pos, t_dist, t_valid, N: int):
     last = torch.cummax(_w(marked > 0, pos, -1), dim=1).values
     r0 = dist_at.gather(1, torch.clamp(last, min=0))
     return _w(last >= 0, r0, 0)
+
+
+#: why rep0_trace_cuda (K20) refuses a token stream: its fill from the
+#: token side holds where each lane's valid tokens ascend
+REP0_ORDER = ("rep0_trace_cuda takes each lane's valid tokens at strictly "
+              "ascending t_pos >= 0")
+
+
+def check_rep0_order(t_pos, t_valid):
+    """Raise ValueError(REP0_ORDER) where K20 (``cuda_inputs.
+    rep0_trace_cuda``) would: a valid token's t_pos below 0, or not above
+    the valid token's before it in its lane.  K14's compactions (each
+    round's tokens) never do."""
+    pos = t_pos.long()
+    valid = t_valid.bool()
+    T = pos.shape[1]
+    idx = torch.arange(T, device=pos.device).expand_as(pos)
+    # each slot's last valid slot before it, -1 where none
+    seen = torch.cummax(_w(valid, idx, -1), dim=1).values
+    before = torch.cat([torch.full_like(seen[:, :1], -1), seen[:, :-1]], dim=1)
+    prev = pos.gather(1, torch.clamp(before, min=0))
+    if bool((valid & ((pos < 0) | ((before >= 0) & (pos <= prev)))).any()):
+        raise ValueError(REP0_ORDER)
 
 
 # ------------------------------------------------------------- DP scan
@@ -712,46 +741,71 @@ def _select_dp_pairs(cl, cd, counts):
     return ld, dd
 
 
+def _seed_pair(cl, cd, counts):
+    """Each position's seed pair (bl, bd) (L, N): the last (longest) pair
+    of its list, kept at SEED_MIN_LEN and above, else 0 (the head of
+    device_parser._seed_from_lists)."""
+    last = torch.clamp(counts - 1, min=0)[:, :, None]
+    bl = cl.gather(2, last)[:, :, 0]
+    bd = cd.gather(2, last)[:, :, 0]
+    has = (counts > 0) & (bl >= SEED_MIN_LEN)
+    return _w(has, bl, 0), _w(has, bd, 0)
+
+
+def _list_pairs_plain(cl, cd, counts):
+    """The plain version of ``cuda_search.list_pairs_cuda`` (K21): the DP
+    pairs (ld, dd) (L, N, M_DP) of ``_select_dp_pairs`` and the seed pair
+    (bl, bd) (L, N) of ``_seed_pair``, from the lists (L, N, width) and
+    their counts."""
+    return (*_select_dp_pairs(cl, cd, counts), *_seed_pair(cl, cd, counts))
+
+
 def _seed_from_lists(cl, cd, counts, n):
     """The statistics seed from the candidate lists, no second search
     (device_parser._seed_from_lists with min_len SEED_MIN_LEN and no
     extension past the list depth): the last (longest) pair of each
     list, kept at SEED_MIN_LEN and above, through the lazy parse path and
     compaction."""
-    max_n = cl.shape[1]
-    last = torch.clamp(counts - 1, min=0)[:, :, None]
-    bl = cl.gather(2, last)[:, :, 0]
-    bd = cd.gather(2, last)[:, :, 0]
-    has = (counts > 0) & (bl >= SEED_MIN_LEN)
-    bl = _w(has, bl, 0)
-    bd = _w(has, bd, 0)
-    on_path = greedy_path(bl, bd, n, max_n, 0, True)
+    return _seed_tokens(*_seed_pair(cl, cd, counts), n)
+
+
+def _seed_tokens(bl, bd, n):
+    """The seed's lazy parse path and compaction over its pairs (bl, bd)
+    (the tail of device_parser._seed_from_lists)."""
+    on_path = greedy_path(bl, bd, n, bl.shape[1], 0, True)
     return _compact(bl, bd, on_path, n, True)
 
 
 def _lists_and_seed(data, lens, dict_size: int, fb: int):
     """The search and seed stages of tokenize_optimal: the (ld, dd) DP
     pairs, the seed tokens (t_pos, t_len, t_dist, t_valid) and the
-    suffix (rank, T) kept for the rep0 length queries."""
+    suffix (rank, T) kept for the rep0 length queries.  The DP pairs and
+    the seed's pairs come from the lists in one call,
+    ``cuda_search.list_pairs_cuda`` (K21 on the card, ``_list_pairs_plain``
+    on the CPU), in stage "select_pairs"."""
+    from .cuda_search import list_pairs_cuda
+
     # the search's stages (SEARCH_STAGES; the first four inside
     # _rmq_search, not nested: a stage resets the card's peak statistics)
     cl, cd, counts, s_rank, s_T = _rmq_search(data, lens, dict_size, fb)
     with stage("select_pairs", data.device):
-        ld, dd = _select_dp_pairs(cl, cd, counts)
+        ld, dd, bl, bd = list_pairs_cuda(cl, cd, counts)
+        del cl, cd, counts
     with stage("seed", data.device):
-        tok = _seed_from_lists(cl, cd, counts, lens)
+        tok = _seed_tokens(bl, bd, lens)
     return ld, dd, tok[:4], (s_rank, s_T)
 
 
 def _round_inputs(data, lens, tokens, ld, dd, suffix, lc: int, lp: int,
                   pb: int, fb: int):
-    """One round's DP inputs from the current tokens: classify + the
-    lowering's slot counts (K8); the rep0 trace; the price model from the
+    """One round's DP inputs from the current tokens: classify (K19) + the
+    lowering's slot counts (K8); the rep0 trace (K20, rep0_trace_cuda);
+    the price model from the
     counts (K18, price_model_cuda: the empirical probabilities, the price
     planes, the distance tables and the DP tables' row); the rows (K12,
     dp_inputs_cuda: the rep0 lengths, the per-position literal prices and
     the pairs' distance prices).  Returns (packed, tables)."""
-    from .cuda_inputs import dp_inputs_cuda
+    from .cuda_inputs import dp_inputs_cuda, rep0_trace_cuda
     from .cuda_model import price_model_cuda
 
     N = data.shape[1]
@@ -774,7 +828,7 @@ def _round_inputs(data, lens, tokens, ld, dd, suffix, lc: int, lp: int,
     with stage("empirical_probs", device):
         pass
     with stage("rep0_trace", device):
-        r0pos = rep0_trace(tp, td, tv, N)
+        r0pos = rep0_trace_cuda(tp, td, tv, N)
     with stage("rep_match_lens_rmq", device):
         pass
     with stage("build_price_model", device):

@@ -194,7 +194,8 @@ def _launches() -> dict:
     dp_parse, K6 classify, K7 lower, K8 lower_counts, K9 search_keys, K10
     suffix_table, K11 match_lists, K12 dp_inputs, K13 path_mark, K14
     path_compact, K15 doubling_groups, K16 descent_lcp, K17
-    best_matches, K18 price_model)."""
+    best_matches, K18 price_model, K19 classify_tokens, K20 rep0_trace,
+    K21 list_pairs)."""
     from ..ops import (cuda_classify, cuda_inputs, cuda_lazy, cuda_lower,
                        cuda_model, cuda_parser, cuda_path, cuda_ring,
                        cuda_search, cuda_serializer)
@@ -214,7 +215,10 @@ def _launches() -> dict:
             "doubling_groups": cuda_lazy.GROUP_LAUNCHES,
             "descent_lcp": cuda_lazy.DESCENT_LAUNCHES,
             "best_matches": cuda_lazy.BEST_LAUNCHES,
-            "price_model": cuda_model.LAUNCHES}
+            "price_model": cuda_model.LAUNCHES,
+            "classify_tokens": cuda_classify.TOKEN_LAUNCHES,
+            "rep0_trace": cuda_inputs.REP0_LAUNCHES,
+            "list_pairs": cuda_search.PAIR_LAUNCHES}
 
 
 class _BatchLog:

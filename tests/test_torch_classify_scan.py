@@ -25,7 +25,6 @@ import torch  # noqa: E402
 
 from lzma_tpu.ops import device_encoder as jde  # noqa: E402
 from lzma_tpu_torch.bench.datagen import generate_bench_data  # noqa: E402
-from lzma_tpu_torch.ops import cuda_classify  # noqa: E402
 from lzma_tpu_torch.ops import device_encoder as tde  # noqa: E402
 from lzma_tpu_torch.ops.device_decoder import pad_rows  # noqa: E402
 from lzma_tpu_torch.ops.device_encoder import EOS_DIST  # noqa: E402
@@ -234,7 +233,7 @@ def test_chunked_model_through_classify_tokens_equals_jax(monkeypatch, K):
     holes[::3, 5::7] = False
     T = t_pos.shape[1]
     k = T if K == "T" else K
-    monkeypatch.setattr(cuda_classify, "classify_carry_cuda",
+    monkeypatch.setattr(tde, "_classify_carry",
                         lambda *rows: chunked_carry(*rows, k))
     for valid in (t_valid, holes):
         got = tde.classify_tokens(d, t_pos, t_len, t_dist, valid)

@@ -469,9 +469,10 @@ def test_classify_on_the_card_equals_the_cpu_with_eos_tokens(card, parse):
         tok = tokenize_optimal(data, lens, 2048, lc=3, lp=0, pb=2, fb=32)
     toks = _append_eos_tokens(*tok[:4], tok[4], lens)
     want = classify_tokens(data, *toks)
-    before = cuda_classify.LAUNCHES
+    before = cuda_classify.LAUNCHES, cuda_classify.TOKEN_LAUNCHES
     got = classify_tokens(data.to(card), *(t.to(card) for t in toks))
-    assert cuda_classify.LAUNCHES == before + 1
+    assert (cuda_classify.LAUNCHES, cuda_classify.TOKEN_LAUNCHES) == \
+        (before[0], before[1] + 1)
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
 
@@ -1423,16 +1424,17 @@ def test_encode_file_on_the_card_equals_encode_blocks(card, parse, tmp_path,
 
 
 def test_cli_benchmark_runs_on_the_card(card, capsys):
-    """`b 1 -d18`: one pass of 2.25 MiB, K6 and K2 once, K1 twice (the
-    harness CRC-checks both decodes)."""
+    """`b 1 -d18`: one pass of 2.25 MiB, K19 (classify_tokens, no K6)
+    and K2 once, K1 twice (the harness CRC-checks both decodes)."""
     from lzma_tpu_torch import cli
 
     for mod in (cuda_classify, cuda_serializer, cuda_ring):
         mod.LAUNCHES = 0
+    cuda_classify.TOKEN_LAUNCHES = 0
     assert cli.main(["b", "1", "-d18"]) == 0
     assert capsys.readouterr().out.count(" KB/s ") == 4
-    assert (cuda_classify.LAUNCHES, cuda_serializer.LAUNCHES,
-            cuda_ring.LAUNCHES) == (1, 1, 2)
+    assert (cuda_classify.LAUNCHES, cuda_classify.TOKEN_LAUNCHES,
+            cuda_serializer.LAUNCHES, cuda_ring.LAUNCHES) == (0, 1, 1, 2)
 
 
 def test_phase_timer_covers_an_async_kernel(card):
@@ -2321,3 +2323,200 @@ def test_price_model_launches_in_each_round_and_checks_inputs(card):
     before = cuda_model.LAUNCHES
     out = cuda_model.price_model_cuda(n[:0], n1[:0], 3, 0, 2, 32)
     assert cuda_model.LAUNCHES == before and [t.shape[0] for t in out] == [0] * 6
+
+
+# -------------------------------- K19: classify_tokens whole on the card
+def _token_planes(T, N, seed, gaps, max_n=300):
+    """classify_tokens' arguments on the CPU: data (N, max_n) and the
+    (N, T) planes of ``_token_rows`` (t_pos drawn over [0, max_n])."""
+    rng = np.random.default_rng(seed + 1)
+    dist_r, len_r, valid_r = _token_rows(T, N, seed, gaps)
+    data = torch.from_numpy(rng.integers(0, 256, (N, max_n)).astype(np.uint8))
+    t_pos = torch.from_numpy(rng.integers(0, max_n + 1, (N, T)))
+    return data, t_pos, len_r.T.long(), dist_r.T.long(), valid_r.T.contiguous()
+
+
+def _classify_on_card(args, dev):
+    from lzma_tpu_torch.ops.device_encoder import _classify_tokens_plain
+
+    before = cuda_classify.TOKEN_LAUNCHES
+    got = cuda_classify.classify_tokens_cuda(*(a.to(dev) for a in args))
+    torch.cuda.synchronize()
+    assert cuda_classify.TOKEN_LAUNCHES == before + (args[1].numel() > 0)
+    want = _classify_tokens_plain(*args)
+    assert [(g.dtype, g.shape) for g in got] == [(w.dtype, w.shape) for w in want]
+    for k, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(g.cpu(), w), k
+
+
+# K6's chunk and tile edges, in the (N, T) layout
+@pytest.mark.parametrize("T,N", [(0, 3), (1, 1), (2, 2), (37, 33), (300, 64),
+                                 (129, 65), (4097, 1), (1025, 3), (129, 32)])
+@pytest.mark.parametrize("gaps", [False, True])
+def test_classify_tokens_kernel_matches_plain(card, T, N, gaps):
+    _classify_on_card(_token_planes(T, N, T * 3 + N, gaps), card)
+
+
+def test_classify_tokens_kernel_on_strided_planes_and_both_parses(card):
+    """The rounds' sliced planes (a row stride past T), int32 lengths, and
+    both parses' tokens of 8 x 2 KiB with the EOS marker, t_pos at
+    max_n."""
+    from lzma_tpu_torch.ops.device_parser import tokenize_optimal
+
+    data, t_pos, t_len, t_dist, t_valid = _token_planes(700, 8, 5, True)
+    wide = [torch.cat([a, a[:, :9]], dim=1) for a in (t_pos, t_len, t_dist,
+                                                    t_valid)]
+    _classify_on_card((data, wide[0][:, :700], wide[1][:, :700].int(),
+                       wide[2][:, :700], wide[3][:, :700]), card)
+    d, n = pad_rows(_blocks(8, 2048, 3), "cpu")
+    for tok in (tokenize(d, n, d.shape[1], 32),
+                tokenize_optimal(d, n, d.shape[1], lc=3, lp=0, pb=2, fb=32)):
+        eos = _append_eos_tokens(*tok[:4], tok[4], n)
+        _classify_on_card((d, *eos), card)
+
+
+def test_classify_tokens_wrapper_checks_its_inputs(card):
+    data, *planes = (a.to(card) for a in _token_planes(40, 4, 1, False))
+    with pytest.raises(ValueError):
+        cuda_classify.classify_tokens_cuda(data, planes[0][:, :5], *planes[1:])
+    with pytest.raises(ValueError):
+        cuda_classify.classify_tokens_cuda(data, planes[0].cpu(), *planes[1:])
+    with pytest.raises(TypeError):
+        cuda_classify.classify_tokens_cuda(data, planes[0].float(), *planes[1:])
+    with pytest.raises(ValueError):
+        cuda_classify.classify_tokens_cuda(data[:, :0], *planes)
+
+
+# ---------------------------------------- K20: the rounds' rep0 trace
+def _rep0_lanes(T, N, L, seed, gaps=True):
+    """(t_pos, t_dist, t_valid) (L, T) on the CPU: each lane's valid tokens
+    at strictly ascending positions from a drawn start (some past N - 1),
+    literals and matches, invalid slots among them where `gaps`, drawn
+    garbage past each lane's last token."""
+    rng = np.random.default_rng(seed)
+    steps = rng.integers(1, 8, (L, T))
+    pos = np.cumsum(steps, axis=1) + rng.integers(0, 5, (L, 1))
+    dist = np.where(rng.random((L, T)) < 0.4, -1, rng.integers(0, 1 << 20, (L, T)))
+    valid = np.arange(T)[None, :] < rng.integers(0, T + 1, (L, 1))
+    if gaps:
+        valid &= rng.random((L, T)) > 0.1
+    pos = np.where(valid, pos, rng.integers(-3, N + 9, (L, T)))
+    return (torch.from_numpy(pos), torch.from_numpy(dist),
+            torch.from_numpy(valid))
+
+
+@pytest.mark.parametrize("T,N,L", [(1, 7, 2), (2047, 4096, 3), (2048, 9000, 2),
+                                   (2049, 16000, 2), (3 * 2048 + 5, 30000, 4),
+                                   (600, 700, 33), (50, 10, 3)])
+def test_rep0_trace_kernel_matches_plain(card, T, N, L):
+    from lzma_tpu_torch.ops import cuda_inputs
+    from lzma_tpu_torch.ops.device_parser import rep0_trace
+
+    for gaps in (False, True):
+        args = _rep0_lanes(T, N, L, T + N + L, gaps)
+        before = cuda_inputs.REP0_LAUNCHES
+        got = cuda_inputs.rep0_trace_cuda(*(a.to(card) for a in args), N)
+        torch.cuda.synchronize()
+        assert cuda_inputs.REP0_LAUNCHES == before + 1
+        assert got.dtype == torch.int64 and got.shape == (L, N)
+        assert torch.equal(got.cpu(), rep0_trace(*args, N))
+
+
+def test_rep0_trace_kernel_raises_where_the_order_breaks(card):
+    """K20 raises the plain precondition's ValueError on equal, descending
+    and negative valid positions; an invalid token out of order does not
+    count; no tokens give zeros; the sliced planes of a round go through
+    their strides."""
+    from lzma_tpu_torch.ops import cuda_inputs
+    from lzma_tpu_torch.ops.device_parser import check_rep0_order, rep0_trace
+
+    rng = np.random.default_rng(9)
+    t_pos = torch.from_numpy(np.cumsum(rng.integers(1, 8, (3, 3000)), axis=1))
+    t_dist = torch.from_numpy(rng.integers(-1, 1000, (3, 3000)))
+    t_valid = torch.arange(3000).expand(3, 3000) < 2500
+    for at, p, v in ((2100, None, True), (2100, 0, True), (5, -1, True),
+                     (2100, 0, False)):
+        pos, valid = t_pos.clone(), t_valid.clone()
+        pos[1, at] = pos[1, at - 1] if p is None else p
+        valid[1, at] = v
+        args = (pos.to(card), t_dist.to(card), valid.to(card))
+        if v:
+            with pytest.raises(ValueError, match="strictly ascending"):
+                check_rep0_order(pos, valid)
+            with pytest.raises(ValueError, match="strictly ascending"):
+                cuda_inputs.rep0_trace_cuda(*args, 20000)
+        else:
+            got = cuda_inputs.rep0_trace_cuda(*args, 20000)
+            assert torch.equal(got.cpu(), rep0_trace(pos, t_dist, valid, 20000))
+    got = cuda_inputs.rep0_trace_cuda(*(a[:, :0].to(card) for a in
+                                        (t_pos, t_dist, t_valid)), 100)
+    assert got.shape == (3, 100) and not bool(got.any())
+    wide = [torch.cat([a, a[:, :7]], dim=1).to(card) for a in
+            (t_pos, t_dist, t_valid)]
+    got = cuda_inputs.rep0_trace_cuda(*(w[:, :3000] for w in wide), 20000)
+    assert torch.equal(got.cpu(), rep0_trace(t_pos, t_dist, t_valid, 20000))
+
+
+# ------------------------- K21: the DP pairs and the seed's longest pair
+def _lists_drawn(L, N, W, seed):
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, W + 1, (L, N))
+    counts[:, :4] = [0, 1, 4, 5][:N]
+    cl = np.sort(rng.integers(0, 274, (L, N, W)), axis=2)
+    cl = np.where(np.arange(W)[None, None, :] < counts[:, :, None], cl, 0)
+    cd = np.where(cl > 0, rng.integers(0, 1 << 22, (L, N, W)), 0)
+    return (torch.from_numpy(cl), torch.from_numpy(cd),
+            torch.from_numpy(counts))
+
+
+@pytest.mark.parametrize("L,N,W", [(1, 1, 5), (3, 255, 12), (4, 257, 12),
+                                   (2, 5000, 29), (32, 300, 12)])
+def test_list_pairs_kernel_matches_plain(card, L, N, W):
+    from lzma_tpu_torch.ops import cuda_search
+    from lzma_tpu_torch.ops.device_parser import _list_pairs_plain
+
+    args = _lists_drawn(L, N, W, L * N + W)
+    before = cuda_search.PAIR_LAUNCHES
+    got = cuda_search.list_pairs_cuda(*(a.to(card) for a in args))
+    torch.cuda.synchronize()
+    assert cuda_search.PAIR_LAUNCHES == before + 1
+    want = _list_pairs_plain(*args)
+    assert [(g.dtype, g.shape) for g in got] == [(w.dtype, w.shape) for w in want]
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_list_pairs_wrapper_checks_its_inputs(card):
+    from lzma_tpu_torch.ops import cuda_search
+
+    cl, cd, counts = (a.to(card) for a in _lists_drawn(2, 30, 12, 1))
+    with pytest.raises(ValueError):
+        cuda_search.list_pairs_cuda(cl[:, :, :4], cd[:, :, :4], counts)
+    with pytest.raises(TypeError):
+        cuda_search.list_pairs_cuda(cl.int(), cd, counts)
+    with pytest.raises(ValueError):
+        cuda_search.list_pairs_cuda(cl, cd[:1], counts)
+    before = cuda_search.PAIR_LAUNCHES
+    out = cuda_search.list_pairs_cuda(cl[:0], cd[:0], counts[:0])
+    assert cuda_search.PAIR_LAUNCHES == before and out[0].shape == (0, 30, 4)
+
+
+def test_round_kernels_launch_on_each_encode(card):
+    """An optimal encode launches K19 3 times (2 rounds and the final
+    tokens), K20 twice and K21 once; a lazy one K19 once; the containers
+    equal the CPU's."""
+    from lzma_tpu_torch.format.properties import LzmaParams as TParams
+    from lzma_tpu_torch.ops import cuda_inputs, cuda_search
+
+    data = b"".join(_blocks(4, 4096, 7))
+    for parse, want in (("optimal", (3, 2, 1)), ("lazy", (1, 0, 0))):
+        before = (cuda_classify.TOKEN_LAUNCHES, cuda_inputs.REP0_LAUNCHES,
+                  cuda_search.PAIR_LAUNCHES)
+        blob = api.encode_blocks(data, TParams(dict_size=1 << 13),
+                                 block_size=4096, parse=parse, device=card)
+        after = (cuda_classify.TOKEN_LAUNCHES, cuda_inputs.REP0_LAUNCHES,
+                 cuda_search.PAIR_LAUNCHES)
+        assert tuple(a - b for a, b in zip(after, before)) == want, parse
+        assert blob == api.encode_blocks(data, TParams(dict_size=1 << 13),
+                                         block_size=4096, parse=parse,
+                                         device="cpu")
